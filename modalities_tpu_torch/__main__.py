@@ -1,0 +1,31 @@
+"""CLI of the port: `python -m modalities_tpu_torch serve --config_file_path
+<yaml> --requests_file_path <jsonl> [--output_file_path <jsonl>]
+[--device cuda|cpu]`. Serving runs on the CUDA card unless `--device cpu`."""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from pathlib import Path
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m modalities_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    serve_p = sub.add_parser("serve", help="continuous-batching text serving from the ring KV cache")
+    serve_p.add_argument("--config_file_path", type=Path, required=True)
+    serve_p.add_argument("--requests_file_path", type=Path, required=True, help="JSONL of requests to replay")
+    serve_p.add_argument("--output_file_path", type=Path, default=None)
+    serve_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+
+    from modalities_tpu_torch.serving.serve import serve
+
+    serve(args.config_file_path, args.requests_file_path, args.output_file_path, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,602 @@
+"""GPT2-family decoder LLM for serving on Hopper: the port of
+modalities_tpu/models/gpt2/gpt2_model.py, restricted to what the serving
+engine's ring KV cache needs.
+
+Kept from the JAX model: the config surface and its validation
+(`GPT2LLMConfig`), GQA attention with RoPE, SwiGLU or GELU MLPs, pre-norm
+blocks, NOPE/ABSOLUTE positions, tied or untied fp32 heads, weight-only
+quantized dense layers, and the slot-cache API (`init_slot_cache`,
+`prefill_slot`, `decode_slots`) with the same numerics at every cast point.
+Not here yet: the full-sequence training forward, the paged cache,
+speculative verify, pipeline and context parallelism, remat and dropout.
+
+Layout: parameters follow the flax tree with the scan axis unrolled — the
+state dict key `blocks.3.attn.q_attn.kernel` is `params/blocks/block/attn/
+q_attn/kernel[3]` — and every dense kernel is stored 2-D as [in, out]
+(flax's DenseGeneral kernel with its input and output dims flattened), so the
+JAX weights convert by reshaping (conversion/from_jax.py).
+
+`GPT2LLM` is the framework-level model (what the registry builds from a config
+node): it holds the static spec, makes fp32 parameters from a
+`torch.Generator`, and builds the `GPT2Module` (an `nn.Module`) that serves
+them. Building casts the blocks' dense kernels to the compute dtype once, which
+is bitwise what flax's per-call cast does; norm scales, the embedding and the
+head stay fp32, as the JAX model computes them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from enum import Enum
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from modalities_tpu_torch.config.config import (
+    check_bool,
+    check_choice,
+    check_dict,
+    check_float,
+    check_int,
+    check_str,
+    validate_config,
+)
+from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_norm
+from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+from modalities_tpu_torch.quant.weights import quant_storage_dtype
+
+
+class PositionTypes(str, Enum):
+    ABSOLUTE = "ABSOLUTE"
+    NOPE = "NOPE"
+
+
+class ActivationType(str, Enum):
+    GELU = "gelu"
+    SWIGLU = "swiglu"
+    FUSED_SWIGLU = "fused_swiglu"  # config-compat alias of swiglu
+
+
+class AttentionImplementation(str, Enum):
+    # config-compat: every tier serves through the same masked attention on
+    # the ring cache, as in the JAX model's slot path
+    MANUAL = "manual"
+    PYTORCH_FLASH = "pytorch_flash"
+    DAO_FLASH = "dao_flash"
+
+
+class QueryKeyValueTransformType(Enum):
+    IdentityTransform = "IdentityTransform"
+    RotaryTransform = "RotaryTransform"
+
+
+@dataclasses.dataclass
+class RotaryTransformConfig:
+    n_embd: int
+    n_head: int
+    seq_length_dim: int = -2
+    base_freq: int = 10000
+
+    def __post_init__(self):
+        check_int("n_embd", self.n_embd, ge=0)
+        check_int("n_head", self.n_head, ge=0)
+        check_int("seq_length_dim", self.seq_length_dim)
+        check_int("base_freq", self.base_freq, ge=10000)
+
+
+@dataclasses.dataclass
+class QueryKeyValueTransformConfig:
+    type_hint: str
+    config: dict
+
+    def __post_init__(self):
+        self.type_hint = check_choice("type_hint", self.type_hint, QueryKeyValueTransformType)
+        check_dict("config", self.config)
+        if self.type_hint == QueryKeyValueTransformType.RotaryTransform.value:
+            self.config = validate_config(RotaryTransformConfig, self.config)
+        elif self.config:
+            raise ValueError(f"IdentityTransform takes no config, got {self.config}")
+
+
+@dataclasses.dataclass
+class AttentionConfig:
+    qkv_transforms: list = dataclasses.field(default_factory=list)
+    qk_norm_config: Optional[dict] = None
+
+    def __post_init__(self):
+        if not isinstance(self.qkv_transforms, list):
+            raise ValueError(f"qkv_transforms: expected a list, got {self.qkv_transforms!r}")
+        self.qkv_transforms = [
+            t if isinstance(t, QueryKeyValueTransformConfig) else validate_config(QueryKeyValueTransformConfig, t)
+            for t in self.qkv_transforms
+        ]
+        check_dict("qk_norm_config", self.qk_norm_config, optional=True)
+
+
+@dataclasses.dataclass
+class GPT2LLMConfig:
+    """The JAX GPT2LLMConfig's fields and checks (gpt2_model.py:94-156)."""
+
+    sample_key: str
+    prediction_key: str
+    poe_type: str
+    sequence_length: int
+    vocab_size: int
+    n_layer: int
+    n_head_q: int
+    n_head_kv: int
+    n_embd: int
+    ffn_hidden: int
+    dropout: float
+    bias: bool
+    attention_config: dict
+    attention_implementation: str
+    activation_type: str
+    attention_norm_config: dict
+    ffn_norm_config: dict
+    lm_head_norm_config: dict
+    use_weight_tying: bool
+    use_meta_device: Optional[bool] = False
+    seed: Optional[int] = None
+    enforce_swiglu_hidden_dim_multiple_of: int = 256
+    lm_head_chunk_size: Optional[int] = None  # training-side knob, accepted for config compatibility
+    lm_head_fused_ce: str = "auto"  # training-side knob, accepted for config compatibility
+
+    def __post_init__(self):
+        check_str("sample_key", self.sample_key)
+        check_str("prediction_key", self.prediction_key)
+        self.poe_type = check_choice("poe_type", self.poe_type, PositionTypes)
+        for name in ("sequence_length", "vocab_size", "n_layer", "n_head_q", "n_head_kv", "n_embd", "ffn_hidden"):
+            check_int(name, getattr(self, name), ge=1)
+        self.dropout = check_float("dropout", self.dropout, ge=0.0)
+        check_bool("bias", self.bias)
+        if not isinstance(self.attention_config, AttentionConfig):
+            self.attention_config = validate_config(AttentionConfig, check_dict("attention_config", self.attention_config))
+        self.attention_implementation = check_choice(
+            "attention_implementation", self.attention_implementation, AttentionImplementation
+        )
+        self.activation_type = check_choice("activation_type", self.activation_type, ActivationType)
+        for name in ("attention_norm_config", "ffn_norm_config", "lm_head_norm_config"):
+            check_dict(name, getattr(self, name))
+        check_bool("use_weight_tying", self.use_weight_tying)
+        check_bool("use_meta_device", self.use_meta_device, optional=True)
+        check_int("seed", self.seed, optional=True)
+        check_int("enforce_swiglu_hidden_dim_multiple_of", self.enforce_swiglu_hidden_dim_multiple_of)
+        check_int("lm_head_chunk_size", self.lm_head_chunk_size, ge=1, optional=True)
+        if self.lm_head_fused_ce not in ("auto", "on", "off"):
+            raise ValueError(f"lm_head_fused_ce: expected auto/on/off, got {self.lm_head_fused_ce!r}")
+        if self.n_head_q % self.n_head_kv != 0:
+            raise ValueError("n_head_q must be divisible by n_head_kv")
+        if self.dropout > 0.0 and self.attention_implementation == AttentionImplementation.DAO_FLASH.value:
+            raise ValueError(
+                "dropout > 0 is not supported with attention_implementation: dao_flash; "
+                "use manual or pytorch_flash, or set dropout: 0.0"
+            )
+        for value, name in ((self.ffn_hidden, "ffn_hidden"), (self.vocab_size, "vocab_size"), (self.n_embd, "n_embd")):
+            if value % 128 != 0:
+                raise ValueError(f"{name} with value {value} should be divisible by 128 for efficient training.")
+
+
+def swiglu_hidden_dim(ffn_hidden: int, multiple_of: int = 256) -> int:
+    """2/3 scale-down rounded up to a multiple (JAX gpt2_model.py:159)."""
+    adjusted = int(2 * ffn_hidden / 3)
+    return ((adjusted + multiple_of - 1) // multiple_of) * multiple_of
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2ModelSpec:
+    """Static hyperparameters of the model (the serving subset of the JAX spec)."""
+
+    vocab_size: int
+    sequence_length: int
+    n_layer: int
+    n_head_q: int
+    n_head_kv: int
+    n_embd: int
+    ffn_hidden: int
+    bias: bool
+    poe_type: str
+    activation: str
+    use_rope: bool
+    rope_base_freq: int
+    use_weight_tying: bool
+    swiglu_hidden: int
+    attn_norm: NormSpec
+    ffn_norm: NormSpec
+    lm_head_norm: NormSpec
+    qk_norm: Optional[NormSpec]
+    compute_dtype: str = "bfloat16"  # block compute dtype
+    # weight-only quantized serving: "none" | "int8" | "fp8" (quant/weights.py)
+    quant_weights: str = "none"
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head_q
+
+
+# ------------------------------------------------------------------ numerics
+
+
+def rope_tables(head_dim: int, seq_len: int, base_freq: int, dtype=torch.float32):
+    """cos/sin tables [seq_len, head_dim], rotate-half convention. Computed in
+    fp32 on the CPU and cast to `dtype` — the cast point the JAX model uses
+    (gpt2_model.py:301-305), which greedy tokens in bf16 depend on."""
+    inv_freq = 1.0 / (base_freq ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
+    t = torch.arange(seq_len, dtype=torch.float32)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rope(x, cos, sin):
+    """x: [B, S, H, D]; cos/sin: [S, D] shared across the batch, or [B, S, D]
+    per batch row (decode: each slot at its own position)."""
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return x * cos + _rotate_half(x) * sin
+
+
+def masked_attention(q, k, v, mask):
+    """Attention with an explicit boolean mask, [Sq, Sk] or per row [B, Sq, Sk].
+    q: [B, Sq, Hq, D], k/v: [B, Sk, Hkv, D]; q head h reads kv head h // group.
+
+    Numerics as the JAX function (gpt2_model.py:344-371): q.k in the compute
+    dtype, then fp32 divided by sqrt(D); masked logits filled with the fp32
+    minimum; softmax in fp32; probabilities cast to v's dtype before P.V."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, k).float() / math.sqrt(d)
+    mask_b = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+    logits = logits.masked_fill(~mask_b, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, v)
+    return out.reshape(b, sq, hq, d)
+
+
+# -------------------------------------------------------------------- layers
+
+
+class Linear(nn.Module):
+    """Dense layer over a 2-D [in, out] kernel (flax DenseGeneral, flattened)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
+
+    def forward(self, x):
+        y = torch.matmul(x, self.kernel)
+        return y + self.bias if self.bias is not None else y
+
+    def cast_(self, dtype):
+        self.kernel.data = self.kernel.data.to(dtype)
+        if self.bias is not None:
+            self.bias.data = self.bias.data.to(dtype)
+
+
+class QuantLinear(nn.Module):
+    """Dense layer over a weight-only quantized [in, out] kernel (int8 or
+    float8_e4m3fn) and its fp32 per-output-channel `scale` — the port of
+    QuantDenseGeneral (gpt2_model.py:395-455). The matmul runs through
+    ops/quant_matmul.py: the fused dequant kernel on the card."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool, storage: torch.dtype, device=None):
+        super().__init__()
+        self.register_buffer("kernel", torch.empty(in_features, out_features, dtype=storage, device=device))
+        self.register_buffer("scale", torch.ones(out_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
+
+    def forward(self, x):
+        y = quant_matmul(x.reshape(-1, x.shape[-1]), self.kernel, self.scale)
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+        return y + self.bias if self.bias is not None else y
+
+    def cast_(self, dtype):
+        if self.bias is not None:
+            self.bias.data = self.bias.data.to(dtype)
+
+
+def _dense(spec: GPT2ModelSpec, in_f: int, out_f: int, bias: bool, device):
+    if spec.quant_weights != "none":
+        return QuantLinear(in_f, out_f, bias, quant_storage_dtype(spec.quant_weights), device=device)
+    return Linear(in_f, out_f, bias, device=device)
+
+
+class CausalSelfAttention(nn.Module):
+    """GQA attention over the ring KV cache (JAX `_slot_attention`,
+    gpt2_model.py:724-787)."""
+
+    def __init__(self, spec: GPT2ModelSpec, device=None):
+        super().__init__()
+        self.spec = spec
+        hd = spec.head_dim
+        self.q_attn = _dense(spec, spec.n_embd, spec.n_head_q * hd, spec.bias, device)
+        self.k_attn = _dense(spec, spec.n_embd, spec.n_head_kv * hd, spec.bias, device)
+        self.v_attn = _dense(spec, spec.n_embd, spec.n_head_kv * hd, spec.bias, device)
+        self.c_proj = _dense(spec, spec.n_head_q * hd, spec.n_embd, spec.bias, device)
+        if spec.qk_norm is not None:
+            cd = getattr(torch, spec.compute_dtype)
+            self.q_norm = build_norm(spec.qk_norm, dtype=cd, device=device)
+            self.k_norm = build_norm(spec.qk_norm, dtype=cd, device=device)
+
+    def forward(self, x, cache_k, cache_v, step):
+        """x: [B, S, E]; cache_k/cache_v: this layer's [slots, capacity, Hkv, D]
+        ring, written IN PLACE at the step's positions before it is read."""
+        spec = self.spec
+        b, s, _ = x.shape
+        hd = spec.head_dim
+        q = self.q_attn(x).reshape(b, s, spec.n_head_q, hd)
+        k = self.k_attn(x).reshape(b, s, spec.n_head_kv, hd)
+        v = self.v_attn(x).reshape(b, s, spec.n_head_kv, hd)
+        if spec.qk_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if step.cos is not None:
+            q = apply_rope(q, step.cos, step.sin)
+            k = apply_rope(k, step.cos, step.sin)
+        if step.slot is not None:  # prefill: one chunk into row `slot` at step.start
+            cache_k[step.slot, step.start : step.start + s] = k[0]
+            cache_v[step.slot, step.start : step.start + s] = v[0]
+            k_all = cache_k[step.slot : step.slot + 1]
+            v_all = cache_v[step.slot : step.slot + 1]
+        else:  # decode: one token per slot at its own position
+            rows = torch.arange(b, device=x.device)
+            cache_k[rows, step.positions] = k[:, 0]
+            cache_v[rows, step.positions] = v[:, 0]
+            k_all, v_all = cache_k, cache_v
+        y = masked_attention(q, k_all, v_all, step.mask)
+        return self.c_proj(y.reshape(b, s, spec.n_head_q * hd))
+
+
+class MLP(nn.Module):
+    """GELU MLP or SwiGLU (JAX gpt2_model.py:820)."""
+
+    def __init__(self, spec: GPT2ModelSpec, device=None):
+        super().__init__()
+        self.gelu = spec.activation == ActivationType.GELU.value
+        if self.gelu:
+            self.c_fc = _dense(spec, spec.n_embd, spec.ffn_hidden, spec.bias, device)
+            self.c_proj = _dense(spec, spec.ffn_hidden, spec.n_embd, spec.bias, device)
+        else:
+            self.W = _dense(spec, spec.n_embd, spec.swiglu_hidden, spec.bias, device)
+            self.V = _dense(spec, spec.n_embd, spec.swiglu_hidden, spec.bias, device)
+            self.W_2 = _dense(spec, spec.swiglu_hidden, spec.n_embd, spec.bias, device)
+
+    def forward(self, x):
+        if self.gelu:  # flax nn.gelu defaults to the tanh approximation
+            return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        return self.W_2(F.silu(self.W(x)) * self.V(x))
+
+
+class GPT2Block(nn.Module):
+    """Pre-norm residual block (JAX gpt2_model.py:843)."""
+
+    def __init__(self, spec: GPT2ModelSpec, device=None):
+        super().__init__()
+        cd = getattr(torch, spec.compute_dtype)
+        self.attention_norm = build_norm(spec.attn_norm, dtype=cd, device=device)
+        self.attn = CausalSelfAttention(spec, device=device)
+        self.ffn_norm = build_norm(spec.ffn_norm, dtype=cd, device=device)
+        self.mlp = MLP(spec, device=device)
+
+    def forward(self, x, cache_k, cache_v, step):
+        x = x + self.attn(self.attention_norm(x), cache_k, cache_v, step)
+        return x + self.mlp(self.ffn_norm(x))
+
+
+@dataclasses.dataclass
+class SlotCache:
+    """The serving engine's ring KV cache: two preallocated tensors
+    [layers, slots, capacity, kv_heads, head_dim] in the compute dtype, updated
+    in place by `prefill_slot` and `decode_slots`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return int(self.k.shape[2])
+
+    @property
+    def nbytes(self) -> int:
+        return self.k.numel() * self.k.element_size() + self.v.numel() * self.v.element_size()
+
+
+@dataclasses.dataclass
+class _Step:
+    """What every layer of one forward shares: RoPE rows, the attention mask,
+    and where the new K/V land (slot+start for prefill, positions for decode)."""
+
+    mask: torch.Tensor
+    cos: Optional[torch.Tensor]
+    sin: Optional[torch.Tensor]
+    slot: Optional[int] = None
+    start: int = 0
+    positions: Optional[torch.Tensor] = None
+
+
+class GPT2Module(nn.Module):
+    """wte (+wpe) -> blocks -> lm_head_norm -> fp32 head, over the ring cache."""
+
+    def __init__(self, spec: GPT2ModelSpec, device=None):
+        super().__init__()
+        self.spec = spec
+        self.wte = nn.Parameter(torch.empty(spec.vocab_size, spec.n_embd, device=device))
+        if spec.poe_type == PositionTypes.ABSOLUTE.value:
+            self.wpe = nn.Parameter(torch.empty(spec.sequence_length, spec.n_embd, device=device))
+        self.blocks = nn.ModuleList(GPT2Block(spec, device=device) for _ in range(spec.n_layer))
+        self.lm_head_norm = build_norm(spec.lm_head_norm, device=device)
+        if not spec.use_weight_tying:
+            self.lm_head = _dense(spec, spec.n_embd, spec.vocab_size, False, device)
+        self._rope: dict = {}
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.spec.compute_dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.device
+
+    def cast_dense_(self) -> "GPT2Module":
+        """Cast the blocks' dense kernels (and biases) to the compute dtype once;
+        the head keeps fp32 (the JAX head computes in fp32)."""
+        for block in self.blocks:
+            for m in block.modules():
+                if isinstance(m, (Linear, QuantLinear)):
+                    m.cast_(self.compute_dtype)
+        return self
+
+    def _rope_tables(self, capacity: int):
+        key = (capacity, self.device)
+        if key not in self._rope:
+            hd = self.spec.head_dim
+            cos, sin = rope_tables(hd, capacity, self.spec.rope_base_freq, dtype=self.compute_dtype)
+            self._rope[key] = (cos.to(self.device), sin.to(self.device))
+        return self._rope[key]
+
+    # ----------------------------------------------------------- slot cache API
+    def init_slot_cache(self, max_batch_slots: int, cache_capacity: Optional[int] = None) -> SlotCache:
+        """Zeroed ring KV cache of `max_batch_slots` rows of `cache_capacity`."""
+        spec = self.spec
+        cap = spec.sequence_length if cache_capacity is None else int(cache_capacity)
+        if cap > spec.sequence_length and spec.poe_type == PositionTypes.ABSOLUTE.value:
+            raise ValueError(
+                f"cache_capacity {cap} exceeds sequence_length {spec.sequence_length}: ABSOLUTE "
+                "position embeddings have no rows past the trained sequence length"
+            )
+        shape = (spec.n_layer, int(max_batch_slots), cap, spec.n_head_kv, spec.head_dim)
+        return SlotCache(
+            k=torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+            v=torch.zeros(shape, dtype=self.compute_dtype, device=self.device),
+        )
+
+    def prefill_slot(self, cache: SlotCache, tokens, slot: int, start_pos: int):
+        """Forward a [1, C] prompt chunk, writing its K/V into cache row `slot`
+        at positions start_pos..start_pos+C-1 (in place). Returns logits
+        [1, C, V] in fp32."""
+        c = tokens.shape[1]
+        cap = cache.capacity
+        if not (0 <= start_pos and start_pos + c <= cap):
+            raise ValueError(f"prefill chunk [{start_pos}, {start_pos + c}) outside the ring of {cap}")
+        key_pos = torch.arange(cap, device=self.device)
+        mask = key_pos[None, :] <= (start_pos + torch.arange(c, device=self.device))[:, None]
+        cos = sin = None
+        if self.spec.use_rope:
+            cos_t, sin_t = self._rope_tables(cap)
+            cos, sin = cos_t[start_pos : start_pos + c], sin_t[start_pos : start_pos + c]
+        step = _Step(mask=mask, cos=cos, sin=sin, slot=int(slot), start=int(start_pos))
+        x = self._embed(tokens, torch.arange(start_pos, start_pos + c, device=self.device)[None])
+        return self._forward(x, cache, step)
+
+    def decode_slots(self, cache: SlotCache, tokens, positions):
+        """ONE batched decode step: tokens [slots, 1] written at per-slot
+        `positions` [slots] (an int64 tensor on the module's device, each in
+        [0, capacity)). Returns logits [slots, 1, V] in fp32."""
+        cap = cache.capacity
+        mask = torch.arange(cap, device=self.device)[None, None, :] <= positions[:, None, None]
+        cos = sin = None
+        if self.spec.use_rope:
+            cos_t, sin_t = self._rope_tables(cap)
+            cos, sin = cos_t[positions][:, None, :], sin_t[positions][:, None, :]
+        step = _Step(mask=mask, cos=cos, sin=sin, positions=positions)
+        x = self._embed(tokens, positions[:, None])
+        return self._forward(x, cache, step)
+
+    def _embed(self, tokens, pos):
+        x = self.wte[tokens].to(self.compute_dtype)
+        if self.spec.poe_type == PositionTypes.ABSOLUTE.value:
+            x = x + self.wpe[pos].to(self.compute_dtype)
+        return x
+
+    def _forward(self, x, cache: SlotCache, step: _Step):
+        for i, block in enumerate(self.blocks):
+            x = block(x, cache.k[i], cache.v[i], step)
+        h = self.lm_head_norm(x).float()
+        if self.spec.use_weight_tying:
+            return torch.matmul(h, self.wte.float().t())
+        return self.lm_head(h)
+
+
+# ------------------------------------------------------------- the model
+
+
+class GPT2LLM:
+    """Framework-level GPT2 (the registry's `model.gpt2`): the static spec plus
+    parameter creation and module building. Holds no tensors itself."""
+
+    def __init__(self, **config):
+        cfg = validate_config(GPT2LLMConfig, config)
+        if cfg.n_embd % cfg.n_head_q != 0:
+            raise ValueError("n_embd must be divisible by n_head_q")
+        rope = [
+            t for t in cfg.attention_config.qkv_transforms
+            if t.type_hint == QueryKeyValueTransformType.RotaryTransform.value
+        ]
+        qk_norm_cfg = cfg.attention_config.qk_norm_config
+        self.config_spec = GPT2ModelSpec(
+            vocab_size=cfg.vocab_size,
+            sequence_length=cfg.sequence_length,
+            n_layer=cfg.n_layer,
+            n_head_q=cfg.n_head_q,
+            n_head_kv=cfg.n_head_kv,
+            n_embd=cfg.n_embd,
+            ffn_hidden=cfg.ffn_hidden,
+            bias=cfg.bias,
+            poe_type=cfg.poe_type,
+            activation=cfg.activation_type,
+            use_rope=bool(rope),
+            rope_base_freq=rope[-1].config.base_freq if rope else 10000,
+            use_weight_tying=cfg.use_weight_tying,
+            swiglu_hidden=swiglu_hidden_dim(cfg.ffn_hidden, cfg.enforce_swiglu_hidden_dim_multiple_of),
+            attn_norm=NormSpec.from_wrapper_config(cfg.attention_norm_config, cfg.n_embd),
+            ffn_norm=NormSpec.from_wrapper_config(cfg.ffn_norm_config, cfg.n_embd),
+            lm_head_norm=NormSpec.from_wrapper_config(cfg.lm_head_norm_config, cfg.n_embd),
+            qk_norm=(
+                NormSpec.from_wrapper_config(qk_norm_cfg, cfg.n_embd // cfg.n_head_q)
+                if qk_norm_cfg is not None
+                else None
+            ),
+        )
+
+    def with_spec_updates(self, **changes) -> "GPT2LLM":
+        """Rebuild with updated static spec fields (compute dtype, quant mode)."""
+        self.config_spec = dataclasses.replace(self.config_spec, **changes)
+        return self
+
+    def init_params(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """Fresh fp32 parameters drawn from `generator`, on its device: normal(0.02)
+        embeddings and dense kernels, ones for norm scales, zeros for biases (the
+        JAX initializers). Keys are `GPT2Module.state_dict()`'s."""
+        device = generator.device
+        spec = dataclasses.replace(self.config_spec, quant_weights="none")
+        shapes = {k: v.shape for k, v in GPT2Module(spec, device="meta").state_dict().items()}
+        params = {}
+        for name, shape in shapes.items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                params[name] = torch.ones(shape, device=device)
+            elif leaf == "bias":
+                params[name] = torch.zeros(shape, device=device)
+            else:
+                params[name] = torch.empty(shape, device=device).normal_(0.0, 0.02, generator=generator)
+        return params
+
+    def build_module(self, params: dict[str, torch.Tensor]) -> GPT2Module:
+        """The serving module over `params` (fp32, or a quantize_params tree for
+        a quantized spec), on the params' device, dense kernels in the compute
+        dtype. The params' tensors are adopted, not copied, where no cast is
+        needed."""
+        module = GPT2Module(self.config_spec, device="meta")
+        module.load_state_dict(params, strict=True, assign=True)
+        return module.cast_dense_().eval()

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels (route b of a hand-written kernel:
+`nvcc` into a shared library with a plain C interface, bound with `ctypes`).
+
+All `.cu` sources under `modalities_tpu_torch/csrc/` are compiled by ONE nvcc
+call for `sm_90a` into `build/modalities_tpu_torch/` at the repository root. The
+library's file name carries a hash of the sources and flags, so an edited
+source builds anew and an unchanged one loads the existing library. The build
+happens on first use, inside the call that launches a kernel, never at import:
+a process without CUDA can import every module.
+
+Each C entry point returns `cudaGetLastError()` right after its launch;
+`check(status, what)` turns a non-zero status into an exception. A failed
+build raises with nvcc's output: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "modalities_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+# C signatures of the entry points (see the .cu sources)
+_SIGNATURES = {
+    "mt_rms_norm_fwd": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, ctypes.c_float, _INT, _VP),
+    "mt_quant_matmul": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the nvcc call in this process (None: loaded)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build the port's kernels")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libmt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    global build_seconds
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources()]]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    build_seconds = time.perf_counter() - start
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")
+
+
+def require_hopper(t) -> None:
+    """Raise unless `t` lies on an sm_90 card: the library holds sm_90a code only."""
+    import torch
+
+    cap = torch.cuda.get_device_capability(t.device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the port's kernels are built for sm_90a (Hopper); {t.device} has capability {cap}"
+        )
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

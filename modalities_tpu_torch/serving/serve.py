@@ -1,0 +1,244 @@
+"""`serve` entry: the DI component and config surface for the ring-cache
+engine, the port of modalities_tpu/serving/serve.py.
+
+`configs/config_serve.yaml` loads unchanged. Knobs of engine features that
+this package does not have yet are refused when set to anything that would
+change the served tokens (paged cache, speculative decoding, int8 KV,
+deadlines, brownout, tenants, a device mesh, the HTTP front end). Knobs with no
+effect on the result rows (`slo`, `max_queue_depth`) are accepted and logged
+as not applied; `prefix_sharing` and the `paged_*` sizes are ignored on the
+ring cache, as in the JAX engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+from modalities_tpu_torch.config.config import (
+    check_bool,
+    check_dict,
+    check_float,
+    check_int,
+    check_str,
+)
+from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
+from modalities_tpu_torch.device import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class ServingComponentConfig:
+    """Schema of the `serving_component` node (the JAX ServingComponentConfig's
+    keys, so the same YAML loads)."""
+
+    model: Any
+    tokenizer: Any
+    device_mesh: Any = None
+    max_batch_slots: int = 8
+    cache_capacity: Optional[int] = None
+    max_new_tokens: int = 64
+    temperature: Optional[float] = None  # None = greedy
+    seed: int = 0
+    prompt_template: str = "{prompt}"
+    eod_token: Optional[str] = "<eod>"
+    kv_cache: Optional[str] = None  # only the ring cache here
+    paged_block_size: int = 16
+    paged_num_blocks: Optional[int] = None
+    paged_max_len: Optional[int] = None
+    prefix_sharing: Optional[bool] = None
+    spec_decode: Optional[dict] = None
+    quant: Optional[dict] = None  # {"weights": none|int8|fp8}
+    http_host: str = "127.0.0.1"
+    http_port: Optional[int] = None
+    slo: Optional[dict] = None
+    max_queue_depth: Optional[int] = None
+    deadline_default_ms: Optional[float] = None
+    brownout_queue_high: Optional[int] = None
+    tenants: Optional[dict] = None
+
+    def __post_init__(self):
+        check_int("max_batch_slots", self.max_batch_slots, ge=1)
+        check_int("cache_capacity", self.cache_capacity, optional=True)
+        check_int("max_new_tokens", self.max_new_tokens)
+        self.temperature = check_float("temperature", self.temperature, optional=True)
+        check_int("seed", self.seed)
+        check_str("prompt_template", self.prompt_template)
+        check_str("eod_token", self.eod_token, optional=True)
+        check_str("kv_cache", self.kv_cache, optional=True)
+        check_int("paged_block_size", self.paged_block_size)
+        check_int("paged_num_blocks", self.paged_num_blocks, optional=True)
+        check_int("paged_max_len", self.paged_max_len, optional=True)
+        check_bool("prefix_sharing", self.prefix_sharing, optional=True)
+        check_dict("spec_decode", self.spec_decode, optional=True)
+        check_dict("quant", self.quant, optional=True)
+        check_str("http_host", self.http_host)
+        check_int("http_port", self.http_port, optional=True)
+        check_dict("slo", self.slo, optional=True)
+        check_int("max_queue_depth", self.max_queue_depth, optional=True)
+        self.deadline_default_ms = check_float("deadline_default_ms", self.deadline_default_ms, optional=True)
+        check_int("brownout_queue_high", self.brownout_queue_high, optional=True)
+        check_dict("tenants", self.tenants, optional=True)
+
+
+class ServingComponent:
+    """Serving as a DI component: holds the engine knobs and builds the
+    `ServingEngine` once parameters and the device are resolved."""
+
+    def __init__(self, model, tokenizer, **knobs):
+        cfg = ServingComponentConfig(model=model, tokenizer=tokenizer, **knobs)  # names and types checked
+        unported = {
+            "device_mesh": cfg.device_mesh is not None,
+            "kv_cache": cfg.kv_cache not in (None, "ring"),
+            "spec_decode": bool(cfg.spec_decode),
+            "quant.kv": str((cfg.quant or {}).get("kv") or "none").lower() not in ("none", "off"),
+            "http_port": cfg.http_port is not None,
+            "deadline_default_ms": cfg.deadline_default_ms is not None,
+            "brownout_queue_high": cfg.brownout_queue_high is not None,
+            "tenants": bool(cfg.tenants),
+        }
+        refused = [k for k, v in unported.items() if v]
+        if refused:
+            raise NotImplementedError(
+                f"serving_component knobs {refused} need engine features the port does not have yet "
+                "(it serves the ring KV cache only)"
+            )
+        inert = [k for k in ("slo", "max_queue_depth") if getattr(cfg, k) is not None]
+        if inert:
+            logger.warning("serve: %s accepted but not applied (no SLO judge or HTTP queue in the port yet)", inert)
+        self.model = model
+        self.tokenizer = tokenizer
+        self.max_batch_slots = cfg.max_batch_slots
+        self.cache_capacity = cfg.cache_capacity
+        self.max_new_tokens = cfg.max_new_tokens
+        self.temperature = cfg.temperature
+        self.seed = cfg.seed
+        self.prompt_template = cfg.prompt_template
+        self.eod_token = cfg.eod_token
+        self.quant_weights_setting = (cfg.quant or {}).get("weights")
+        self.params: Optional[dict] = None
+        self.device: Optional[torch.device] = None
+        self._engine = None
+
+    def _eod_id(self) -> int:
+        if self.eod_token is None:
+            return -1
+        try:
+            return self.tokenizer.get_token_id(self.eod_token)
+        except (ValueError, KeyError):
+            return -1
+
+    def build_engine(self):
+        from modalities_tpu_torch.serving.engine import ServingEngine
+
+        if self._engine is None:
+            if self.params is None:
+                raise ValueError("params not resolved — serve() initializes or loads them first")
+            self._engine = ServingEngine(
+                self.model,
+                self.params,
+                device=self.device,
+                max_batch_slots=self.max_batch_slots,
+                cache_capacity=self.cache_capacity,
+                eod_token_id=self._eod_id(),
+                default_temperature=self.temperature,
+                quant_weights=self.quant_weights_setting,
+            )
+        return self._engine
+
+    def run_requests(self, requests: list[dict]) -> list[dict]:
+        """Replay parsed requests ({"prompt", "max_new_tokens"?, "temperature"?,
+        "seed"?, "arrival_offset_s"?}); returns the JSONL rows of the JAX serve
+        path."""
+        engine = self.build_engine()
+        rid_to_req = {}
+        for req in requests:
+            text = self.prompt_template.format(prompt=req["prompt"])
+            rid = engine.submit(
+                list(self.tokenizer.tokenize(text)),
+                int(req.get("max_new_tokens", self.max_new_tokens)),
+                temperature=req.get("temperature", self.temperature),
+                seed=int(req.get("seed", self.seed)),
+                arrival_offset_s=float(req.get("arrival_offset_s", 0.0)),
+            )
+            rid_to_req[rid] = req
+        results = engine.run()
+        rows = []
+        for rid, req in rid_to_req.items():
+            res = results[rid]
+            rows.append(
+                {
+                    "rid": rid,
+                    "prompt": req["prompt"],
+                    "completion": self.tokenizer.decode(res.tokens),
+                    "tokens": res.tokens,
+                    "finish_reason": res.finish_reason,
+                    "truncated": res.truncated,
+                    "ttft_s": res.ttft_s,
+                    "latency_s": res.finish_s - res.arrival_s,
+                }
+            )
+        return rows
+
+
+def build_serving_components(config_dict: dict):
+    from modalities_tpu_torch.config.component_factory import ComponentFactory
+    from modalities_tpu_torch.config.instantiation_models import ServeInstantiationModel
+    from modalities_tpu_torch.registry.components import COMPONENTS
+    from modalities_tpu_torch.registry.registry import ComponentEntity, Registry
+
+    registry = Registry(COMPONENTS)
+    registry.add_entity(
+        ComponentEntity("inference_component", "serve", ServingComponent, ServingComponentConfig)
+    )
+    return ComponentFactory(registry).build_components(config_dict, ServeInstantiationModel)
+
+
+def resolve_params(component: ServingComponent, checkpoint_folder_path, seed: int = 0) -> None:
+    """Startup parameter resolution: explicit params win; no checkpoint serves
+    fresh-init parameters drawn from a generator seeded with `seed`."""
+    if component.params is not None:
+        return
+    if checkpoint_folder_path:
+        raise NotImplementedError(
+            "loading a sealed checkpoint is not ported yet; convert JAX params with "
+            "modalities_tpu_torch.conversion.from_jax.params_from_jax and set component.params"
+        )
+    logger.warning("serve: no checkpoint_folder_path — serving fresh-init params")
+    generator = torch.Generator(device=component.device).manual_seed(seed)
+    component.params = component.model.init_params(generator)
+
+
+def serve(
+    config_file_path: Path,
+    requests_file_path: Path,
+    output_file_path: Optional[Path] = None,
+    device: Optional[str] = None,
+) -> dict:
+    """Entry point behind `python -m modalities_tpu_torch serve`: replay a
+    JSONL requests file and write result rows (to `output_file_path`, or
+    stdout). Runs on the CUDA card unless `device="cpu"`. Returns the engine's
+    stats. (The JAX CLI's interactive loop is not ported.)"""
+    config_dict = load_app_config_dict(config_file_path)
+    components = build_serving_components(config_dict)
+    component = components.serving_component
+    component.device = resolve_device(device)
+    resolve_params(component, components.settings.checkpoint_folder_path)
+    with open(requests_file_path) as f:
+        requests = [json.loads(line) for line in f if line.strip()]
+    rows = component.run_requests(requests)
+    out_lines = [json.dumps(row) for row in rows]
+    if output_file_path is not None:
+        Path(output_file_path).write_text("\n".join(out_lines) + "\n")
+    else:
+        for line in out_lines:
+            print(line)
+    stats = component.build_engine().stats()
+    logger.info("serve stats: %s", json.dumps(stats))
+    return stats

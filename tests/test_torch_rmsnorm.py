@@ -1,0 +1,105 @@
+"""Port parity for the fused RMSNorm (modalities_tpu_torch/ops/rmsnorm.py) and
+the norm modules (models/components/layer_norms.py) against the JAX package:
+the Pallas kernel in interpret mode, its reference, and flax's modules, on the
+same numpy inputs.
+
+Tolerances: f32 atol 1e-6 (same expression, fp32 throughout); bf16 one bf16
+ulp (rtol 2^-7, bf16 keeps 7 mantissa bits), since the two frameworks may round
+the final cast differently where fp32 sums of different order straddle a
+rounding boundary.
+
+The checks that need no JAX — a CPU tensor takes the plain version, the
+default device raises without a card, the kernel on a card — are in
+tests/test_torch_kernels.py."""
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modalities_tpu.models.components.layer_norms import NormSpec as JaxNormSpec
+from modalities_tpu.ops.pallas.fused_rmsnorm import _fused_rms_fwd, fused_rms_norm
+from modalities_tpu.ops.rmsnorm import reference_rms_norm as jax_reference_rms_norm
+from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_norm
+from modalities_tpu_torch.ops.rmsnorm import rms_norm
+
+EPS = 1e-5
+TOL = {"float32": dict(atol=1e-6, rtol=0), "bfloat16": dict(atol=1e-6, rtol=2**-7)}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(n, e, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, e)).astype(np.float32)
+    scale = rng.standard_normal(e).astype(np.float32)
+    bias = rng.standard_normal(e).astype(np.float32)
+    xj = jnp.asarray(x).astype(dtype)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(TORCH_DTYPES[dtype])  # same bf16 values
+    return xj, xt, scale, bias
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(jnp.asarray(t).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("affine", [False, True], ids=["identity", "scale+bias"])
+@pytest.mark.parametrize("n", [1, 7, 33])
+def test_plain_rms_norm_matches_jax_interpret_kernel_and_reference(dtype, affine, n):
+    e = 256
+    xj, xt, scale, bias = _inputs(n, e, dtype, seed=n)
+    sj, bj = (jnp.asarray(scale), jnp.asarray(bias)) if affine else (None, None)
+    st, bt = (torch.from_numpy(scale), torch.from_numpy(bias)) if affine else (None, None)
+    got = rms_norm(xt, st, bt, eps=EPS)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    kernel = fused_rms_norm(xj, sj, bj, eps=EPS, block_rows=8, interpret=True)
+    reference = jax_reference_rms_norm(xj, sj, bj, eps=EPS)
+    np.testing.assert_allclose(_np(got), _np(kernel), **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(reference), **TOL[dtype])
+
+
+def test_residual_matches_the_jax_kernels_saved_statistic():
+    xj, xt, scale, bias = _inputs(16, 128, "float32")
+    _, (_, _, _, r_jax) = _fused_rms_fwd(
+        xj, jnp.asarray(scale)[None], jnp.asarray(bias)[None], EPS, 8, True
+    )
+    y, r = rms_norm(xt, torch.from_numpy(scale), torch.from_numpy(bias), eps=EPS, residual=True)
+    assert r.shape == (16, 1) and r.dtype == torch.float32
+    np.testing.assert_allclose(r.numpy(), np.asarray(r_jax), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "wrapper",
+    [
+        {"norm_type": "rms_norm", "config": {"ndim": 64, "bias": True, "epsilon": 1e-5}},
+        {"norm_type": "rms_norm", "config": {"ndim": 64, "bias": False}},
+        {"norm_type": "pytorch_rms_norm", "config": {"normalized_shape": 64, "eps": 1e-6}},
+        {"norm_type": "layer_norm", "config": {"normalized_shape": 64, "eps": 1e-5, "bias": True}},
+        {"norm_type": "layer_norm", "config": {"normalized_shape": 64, "elementwise_affine": False}},
+        None,
+    ],
+    ids=["rms-bias", "rms", "pytorch-rms", "layer", "layer-noaffine", "default"],
+)
+def test_norm_modules_match_flax(wrapper):
+    """NormSpec resolves as the JAX NormSpec does, and the module computes what
+    the JAX package's reference module computes, with the same parameters."""
+    from modalities_tpu.models.components.layer_norms import build_norm as jax_build_norm
+
+    spec = NormSpec.from_wrapper_config(wrapper, 64)
+    jspec = JaxNormSpec.from_wrapper_config(wrapper, 64)
+    assert (spec.kind, spec.dim, spec.eps, spec.use_bias, spec.use_scale) == (
+        jspec.kind.value, jspec.dim, jspec.eps, jspec.use_bias, jspec.use_scale
+    )
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((5, 64)).astype(np.float32)
+    jmod = jax_build_norm(jspec, "norm")
+    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = {k: np.asarray(v) + rng.standard_normal(v.shape).astype(np.float32) * 0.1
+              for k, v in nn.meta.unbox(variables).get("params", {}).items()}
+    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
+    module = build_norm(spec)
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    got = module(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5, rtol=1e-5)
