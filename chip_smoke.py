@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (modalities_tpu_torch) on one
-NVIDIA H100: the quickest proof that the port builds and serves on the card.
+NVIDIA H100: the quickest proof that the port builds, serves and trains on the
+card.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failed phase exits non-zero):
   0. the card's name and power limit; sm_90 required; build the kernels from
-     modalities_tpu_torch/csrc with nvcc and report the build time.
+     modalities_tpu_torch/csrc (one nvcc per source, in parallel) and report
+     the build time.
   1. every kernel against its plain PyTorch version on the card, at the shapes
-     the serving path gives it, with stated tolerances; per-kernel times
-     (kernel, plain version, one library call as a yardstick, least possible).
-     A small GPT2 then runs prefill + decode on the card and on the CPU with the
-     same weights: logits must agree (the end-to-end reference check).
+     the serving and training paths give it, with stated tolerances, and each
+     backward kernel called twice for bitwise-identical gradients; per-kernel
+     times (kernel, plain version, one library call as a yardstick, least
+     possible). Flash outputs are held row by row to each row's own norm, and
+     that check must reject a forward that drops one key tile. A small GPT2
+     then runs prefill + decode on the card and on the CPU with the same
+     weights (logits agree), and takes 3 optimizer steps on the card and on
+     the CPU from the same parameters (losses and parameters agree); a tiny
+     bf16 GPT2 takes 3 steps through the kernels and through the plain path on
+     the card (gradients, losses and parameter moves agree).
   2. serve the 2.7B GPT2 of configs/config_2p7b_dp.yaml (full width and depth,
      random weights from a seed) with bf16 weights: 9 requests through 8 slots
      of a 2048-token ring cache. Every request finishes; the RMSNorm kernel ran
@@ -19,7 +27,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      batched tokens.
   3. the same weights quantized to int8 and to fp8: every request finishes and
      the dequant-matmul kernel ran 225 times per forward.
-  4. one JSON line naming the kernels, then the device line (last line).
+  4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
+     `python -m modalities_tpu_torch run` calls) from a copy of
+     configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
+     corpus: 3 optimizer steps of 2 x 2 sequences of 4096 tokens. Losses and
+     grad norms finite, step 0's loss within 0.5 of ln(50304) + 2560 * 0.02^2 / 2
+     (the expected loss of the initial random logits), every kernel of the path
+     launched the expected number of times per step; a profiled step. Then 5
+     steps on one repeated batch at lr 1.6e-5 with no warmup: the loss falls at
+     every step. Then the config's lr 1.6e-4 on one repeated batch, at full
+     width and cut depth or length, through the kernels and through the plain
+     path on the card: the two loss curves agree at every step.
+  5. one JSON line naming the kernels, then the device line (last line).
 
 Exits non-zero, printing no result, without a CUDA device or without the rest
 of the repository beside it.
@@ -27,17 +46,23 @@ of the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
-PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16
+PEAK_BF16_FLOPS = 989.4e12  # dense tensor-core bf16, the peak of the port's MFU table (utils/mfu.py)
 PEAK_F32_FLOPS = 67e12  # fp32 outside the tensor cores
 L2_FLUSH_BYTES = 128 * 2**20  # > the 50 MB L2: every timed call starts cold, as in a decode step
 SPIN_CYCLES = 2_000_000  # ~1 ms at 1.98 GHz: covers the host's enqueue of one timed call
@@ -68,6 +93,25 @@ MODEL_2P7B = {  # config_serve.yaml's model node at configs/config_2p7b_dp.yaml'
     "use_weight_tying": False,
 }
 SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 64
+TRAIN_SHAPE = (2, 4096, 32, 8, 80)  # (B, S, Hq, Hkv, D) of one 2.7B training microbatch
+FLASH_SHAPES = [TRAIN_SHAPE, (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80)]
+# Flash attention against the plain version, per output row relative to the
+# row's own norm (_row_check). bf16: the kernels round P and dS to bf16 before
+# their tensor-core products and round each output to bf16, while the plain
+# version stays fp32 on the same bf16 inputs; the worst row measured 5.2e-3
+# on the H100, a kernel that drops one key tile 0.53.
+FLASH_ROW_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The tiny bf16 GPT2 through the kernels against the plain path on the card:
+# relative differences of the first gradients (per tensor), each step's loss
+# and grad norm, and each parameter's move over 3 steps; 3-4x what the
+# H100 showed (0.013, 6.9e-6, 2.9e-4, 0.032).
+TINY_BF16_TOL = {"grads": 4e-2, "loss": 3e-5, "grad_norm": 1e-3, "params": 0.1}
+# (layers, sequence length) of the lr-1.6e-4 witness runs, kernels vs plain
+# path, and the largest loss difference allowed between them at any step
+# (the H100 showed 0.031 at 32 x 1024)
+LR_WITNESS = [(32, 1024), (4, 4096)]
+LR_WITNESS_TOL = 0.1
+RMS_ROWS = (1, 4, 8, 16, 64, 1000, 8192)  # 8192 = 2 x 4096 rows of a training microbatch
 QMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 7680), (7680, 2560), (2560, 50304)]  # (K, N) per decode step
 
 
@@ -107,6 +151,17 @@ def time_ms(torch, fn, reps: int = 20) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def warm_up(torch, seconds: float = 1.0) -> None:
+    """Keep the card busy for `seconds` before the first timing: after the
+    kernel build the card has idled for minutes, and the first timed call
+    read 8x slower in one run."""
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        torch.matmul(a, a)
+        torch.cuda.synchronize()
 
 
 def host_us(torch, fn, reps: int = 200) -> float:
@@ -297,6 +352,612 @@ def phase_small_model_reference(torch) -> None:
     log("[phase 1] small GPT2 (f32, plain and int8): card logits agree with the CPU reference (atol 1e-4)")
 
 
+# ---------------------------------------------------------------- phase 1: training kernels
+def _rel_check(torch, got, want, rel, atol, what: str) -> float:
+    """Raise unless max|got - want| <= rel * max|want| + atol; returns the max abs error."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > rel * float(want.abs().max()) + atol:
+        raise AssertionError(f"{what}: max abs err {err:g} above {rel:g} x max|ref| {float(want.abs().max()):g} "
+                             f"+ {atol:g}")
+    return err
+
+
+def _row_check(torch, got, want, rel: float, what: str) -> tuple[float, float, float]:
+    """Hold every row (the last axis: one query's output or dq, one key's dk or
+    dv) to its own size, not to the tensor's largest value:
+        ||got_r - want_r|| <= rel * max(||want_r||, floor) + 1e-5 * sqrt(D),
+    floor = 1e-3 x the RMS row norm (rows that nearly cancel), 1e-5 * sqrt(D)
+    for rows that are 0 in exact arithmetic (one key: p = 1, dp = delta).
+    Raises otherwise. Returns (the worst relative error among the rows where the
+    relative term dominates, the largest share of its allowance any row used,
+    the max abs error)."""
+    got, want = got.detach().float(), want.detach().float()
+    diff = got - want
+    err, size = diff.norm(dim=-1), want.norm(dim=-1)
+    size = size.clamp_min(1e-3 * float(size.square().mean().sqrt()))
+    atol = 1e-5 * math.sqrt(want.shape[-1])
+    allowed = rel * size + atol
+    used = float((err / allowed).max())
+    sized = rel * size >= atol
+    worst = float((err[sized] / size[sized]).max()) if bool(sized.any()) else 0.0
+    if not bool(torch.isfinite(got).all()) or used > 1.0:
+        raise AssertionError(f"{what}: {int((err > allowed).sum())} of {err.numel()} rows outside rel {rel:g} of "
+                             f"their own norm; worst row rel err {worst:g}, allowance used {used:g}")
+    return worst, used, float(diff.abs().max())
+
+
+def _plain_probs(torch, q, k, causal: bool, drop_from=None):
+    """fp32 softmax probabilities [B, Hq, Sq, Sk] of the plain attention
+    ([B, H, S, D] inputs, scale 1/sqrt(D)); with `drop_from`, keys
+    [drop_from, drop_from + 64) are hidden from every query past them."""
+    group = q.shape[1] // k.shape[1]
+    s = torch.matmul(q.float() / math.sqrt(q.shape[-1]), k.float().repeat_interleave(group, 1).transpose(-1, -2))
+    if causal:
+        n, m = s.shape[-2:]
+        keep = torch.arange(m, device=q.device)[None, :] <= torch.arange(n, device=q.device)[:, None]
+        if drop_from is not None:
+            keep[drop_from + 64:, drop_from:drop_from + 64] = False
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.softmax(s, dim=-1)
+
+
+def _tile_dropped_attention(torch, q, k, v, start: int):
+    """The plain causal forward ([B, H, S, D]) with keys [start, start + 64)
+    hidden from every query past them: what a kernel that skips one key tile
+    of those rows would return."""
+    p = _plain_probs(torch, q, k, True, drop_from=start)
+    return torch.matmul(p, v.float().repeat_interleave(q.shape[1] // k.shape[1], 1)).to(q.dtype)
+
+
+def _with_kernel_delta(torch, q, k, do, out_ref, out_kernel, dq, dk, causal: bool):
+    """Autograd's dq and dk of the fp32 plain attention ([B, H, S, D]), moved
+    to the delta that the kernels' backward reads: delta = sum_D dO * out from
+    the out the forward kernel returned (bf16 in bf16, as in the JAX kernels),
+    not from the exact out. dq and dk are linear in delta (dS_ij =
+    P_ij (dP_ij - delta_i)), so with e = delta_kernel - delta_exact they move
+    exactly by -scale * e_i * sum_j P_ij k_j and -scale * sum_i P_ij e_i q_i.
+    Where a row of dq nearly cancels, that move is far larger than the row's
+    own rounding."""
+    group = q.shape[1] // k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _plain_probs(torch, q, k, causal)
+    e = (do.float() * (out_kernel.float() - out_ref.float())).sum(-1, keepdim=True)  # [B, Hq, Sq, 1]
+    dq = dq.float() - scale * e * torch.matmul(p, k.float().repeat_interleave(group, 1))
+    per_head = torch.matmul(p.transpose(-1, -2), e * q.float())  # [B, Hq, Sk, D]
+    b, hq, sk, d = per_head.shape
+    return dq, dk.float() - scale * per_head.reshape(b, hq // group, group, sk, d).sum(2)
+
+
+def phase_train_kernels(torch) -> dict:
+    """RMSNorm backward and the three flash kernels against autograd of their
+    plain versions (fp32, on the same inputs), twice-called backward kernels
+    bitwise equal, and their times at the 2.7B training shapes."""
+    import torch.nn.functional as F
+
+    from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.ops.rmsnorm import (
+        fused_rms_norm,
+        reference_rms_norm,
+        reference_rms_norm_backward,
+        rms_norm,
+        rms_norm_backward,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    out: dict[str, Any] = {}
+
+    # RMSNorm backward. Tolerances (relative to the largest reference value,
+    # plus 1e-5 absolute): f32 1e-5 (fp32 sums in another order); bf16 dx 2^-6
+    # (two bf16 ulps of the rounded gradient); dscale/dbias are fp32 column
+    # sums (1e-5), 2^-7 when returned in a bf16 parameter's dtype.
+    e, eps, err_max, cases = 2560, 1e-5, 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in RMS_ROWS:
+            x = torch.randn(n, e, generator=g, device=dev).to(dtype)
+            dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
+            for pdtype in (None, torch.float32, torch.bfloat16):
+                params = [None, None] if pdtype is None else [
+                    torch.randn(e, generator=g, device=dev).to(pdtype) for _ in range(2)]
+                leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (x, *params)]
+                fused_rms_norm(*leaves, eps=eps).backward(dy)
+                plain = [t.float().clone().requires_grad_(True) if t is not None else None for t in (x, *params)]
+                reference_rms_norm(*plain, eps=eps).backward(dy.float())
+                torch.cuda.synchronize()
+                for i, (got, want) in enumerate(zip(leaves, plain)):
+                    if got is None:
+                        continue
+                    low = got.dtype == torch.bfloat16
+                    rel = (2**-6 if low else 1e-5) if i == 0 else (2**-7 if low else 1e-5)
+                    err_max = max(err_max, _rel_check(torch, got.grad, want.grad, rel, 1e-5,
+                                                      f"rms_norm backward d{'x sb'[i]} {dtype} N={n} params {pdtype}"))
+                cases += 1
+            _, r = rms_norm(x, None, None, eps=eps, residual=True)
+            s32 = torch.randn(e, generator=g, device=dev)
+            first = rms_norm_backward(dy, x, s32, r)
+            second = rms_norm_backward(dy, x, s32, r)
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"rms_norm backward N={n} {dtype}: two calls differ")
+    log(f"[phase 1] rms_norm backward: {cases} cases agree with autograd of the plain version (f32 rel 1e-5; "
+        f"bf16 dx rel 2^-6, bf16 dscale/dbias rel 2^-7; + atol 1e-5), max abs err {err_max:g}; "
+        f"a second call is bitwise identical")
+    n = 8192
+    x = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    s32 = torch.randn(e, generator=g, device=dev)
+    _, r = rms_norm(x, s32, None, eps=eps, residual=True)
+    xl = x.clone().requires_grad_(True)
+    wl = s32.to(torch.bfloat16).requires_grad_(True)
+    y_lib = F.rms_norm(xl, (e,), wl, eps)
+    nbytes = 3 * n * e * 2 + 4 * n + 2 * 4 * e  # x, dy in; dx out; r, scale in; dscale out
+    out["rmsnorm_bwd"] = {"max_abs_err": err_max, "timings": [{
+        "shape": f"x[{n},{e}] bf16, scale f32",
+        "ms": time_ms(torch, lambda: rms_norm_backward(dy, x, s32, r, want_dbias=False), reps=10),
+        "plain_ms": time_ms(torch, lambda: reference_rms_norm_backward(dy, x, s32, r), reps=10),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(y_lib, (xl, wl), dy, retain_graph=True), reps=10),
+        "bound_ms": 1e3 * nbytes / PEAK_BYTES_S,
+        "bound_by": "bytes",
+    }]}
+    t = out["rmsnorm_bwd"]["timings"][0]
+    log(f"[phase 1] rms_norm backward {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"autograd of F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
+    del x, dy, xl, wl, y_lib
+
+    # Flash attention, every output row held to its own norm (_row_check) at
+    # FLASH_ROW_REL: against autograd of the fp32 plain attention, dq and dk
+    # taken at the delta the kernels read (_with_kernel_delta), and the
+    # backward kernels against their plain versions given the same global
+    # (lse, delta). lse 1e-4 absolute (fp32 in both).
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    seen: dict[tuple[str, str, str], list[float]] = {}  # (dtype, check, output) -> [worst row rel err, share used]
+    cases = 0
+    for b, s, hq, hkv, d in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            rel = FLASH_ROW_REL[dname]
+            q, k, v, w = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for h in (hq, hkv, hkv, hq))
+            for causal in (True, False):
+                what = f"flash {dname} causal={causal} (B,S,Hq,Hkv,D)=({b},{s},{hq},{hkv},{d})"
+
+                def held(got, want, check, name):
+                    row_rel, used, abs_err = _row_check(torch, got, want, rel, f"{what} {check} {name}")
+                    slot = seen.setdefault((dname, check, name), [0.0, 0.0])
+                    slot[0], slot[1] = max(slot[0], row_rel), max(slot[1], used)
+                    key = {"out": "fwd", "dq": "dq"}.get(name, "dkv")
+                    errs[key] = max(errs[key], abs_err)
+
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                o = fa.FlashAttentionFn.apply(*leaves, causal, 1.0 / math.sqrt(d))
+                o.backward(w)
+                plain = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+                ref = fa.reference_attention(*plain, causal=causal)
+                ref.backward(w.float())
+                torch.cuda.synchronize()
+                bhsd = lambda t: t.detach().transpose(1, 2)  # noqa: E731
+                want_dq, want_dk = _with_kernel_delta(torch, bhsd(q), bhsd(k), bhsd(w), bhsd(ref), bhsd(o),
+                                                      bhsd(plain[0].grad), bhsd(plain[1].grad), causal)
+                held(o, ref, "autograd", "out")
+                held(bhsd(leaves[0].grad), want_dq, "autograd", "dq")
+                held(bhsd(leaves[1].grad), want_dk, "autograd", "dk")
+                held(leaves[2].grad, plain[2].grad, "autograd", "dv")
+                del o, ref, leaves, plain, want_dq, want_dk
+                # the [B, H, S, D] entries with an explicit global (lse, delta); two calls bitwise equal
+                qt, kt, vt, wt = (t.transpose(1, 2) for t in (q, k, v, w))
+                o1, lse = fa.flash_fwd_out_lse(qt, kt, vt, causal=causal)
+                o_ref, lse_ref = fa.reference_flash_fwd_out_lse(qt, kt, vt, causal=causal)
+                held(o1, o_ref, "given", "out")
+                lse_err = _rel_check(torch, lse, lse_ref, 0.0, 1e-4, f"{what} lse")
+                slot = seen.setdefault((dname, "given", "lse"), [0.0, 0.0])
+                slot[0], slot[1] = max(slot[0], lse_err), max(slot[1], lse_err / 1e-4)
+                delta = (wt.float() * o1.float()).sum(-1, keepdim=True)
+                grads = [fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
+                         *fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
+                again = [fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
+                         *fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
+                if not all(torch.equal(a, b2) for a, b2 in zip(grads, again)):
+                    raise AssertionError(f"{what}: two backward calls differ")
+                want = [fa.reference_flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
+                        *fa.reference_flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
+                for got, ref_g, name in zip(grads, want, ("dq", "dk", "dv")):
+                    held(got, ref_g, "given", name)
+                cases += 1
+                del grads, again, want, o1, o_ref, lse, lse_ref, delta
+            del q, k, v, w
+            torch.cuda.empty_cache()
+    log(f"[phase 1] flash attention: {cases} cases (shapes {FLASH_SHAPES}, causal and not, f32 and bf16) agree "
+        f"with autograd of the plain attention and, for the backward kernels, with their plain versions given a "
+        f"global (lse, delta); two backward calls bitwise identical; max abs err out {errs['fwd']:g}, "
+        f"dq {errs['dq']:g}, dk/dv {errs['dkv']:g}")
+    checks = {"autograd": "FlashAttentionFn vs autograd of the fp32 plain attention",
+              "given": "flash_fwd_out_lse / flash_bwd_dq / flash_bwd_dkv vs their plain versions, same (lse, delta)"}
+    for dname in ("float32", "bfloat16"):
+        for check, text in checks.items():
+            parts = [f"{name} {seen[(dname, check, name)][0]:.3g} ({seen[(dname, check, name)][1]:.2f})"
+                     for name in ("out", "dq", "dk", "dv", "lse") if (dname, check, name) in seen]
+            log(f"[phase 1] flash {dname}, {text}: worst row rel err (share of allowance used) "
+                f"{', '.join(parts)}; bound rel {FLASH_ROW_REL[dname]:g} of the row's own norm"
+                f"{'; lse: max abs err, bound 1e-4' if check == 'given' else ''}")
+
+    b, s, hq, hkv, d = TRAIN_SHAPE
+    q, k, v, w = (torch.randn(b, hh, s, d, generator=g, device=dev).to(torch.bfloat16) for hh in (hq, hkv, hkv, hq))
+    o, lse = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    # the check can see a kernel that skips one key tile near the end of the sequence
+    o_ref = fa.reference_flash_fwd_out_lse(q, k, v, causal=True)[0]
+    _row_check(torch, o, o_ref, FLASH_ROW_REL["bfloat16"], "flash bf16 out at the 2.7B shape")
+    mutant = _tile_dropped_attention(torch, q, k, v, start=s - 192)
+    old_err = float((mutant.float() - o_ref.float()).abs().max())
+    old_allowed = 2e-2 * float(o_ref.float().abs().max()) + 1e-5
+    try:
+        _row_check(torch, mutant, o_ref, FLASH_ROW_REL["bfloat16"], "mutant")
+    except AssertionError as e:
+        log(f"[phase 1] flash bf16 check against a forward with keys [{s - 192}, {s - 128}) dropped for queries "
+            f"past them: rejected ({e}); the global check 2e-2 x max|ref| would "
+            f"{'pass' if old_err <= old_allowed else 'reject'} it (max abs err {old_err:.4g} vs {old_allowed:.4g})")
+    else:
+        raise AssertionError("flash bf16 row check passes a forward with one key tile dropped")
+    del mutant, o_ref
+    torch.cuda.empty_cache()
+    delta = (w.float() * o.float()).sum(-1, keepdim=True)
+    pairs = s * (s + 1) / 2  # causal (query, key) pairs
+    mm = 2.0 * b * hq * pairs * d  # one of the kernels' matmuls
+    qb, kvb, st = b * hq * s * d * 2, b * hkv * s * d * 2, b * hq * s * 4
+    work = {"fwd": (2 * mm, 2 * qb + 2 * kvb + st), "dq": (3 * mm, 3 * qb + 2 * kvb + 2 * st),
+            "dkv": (4 * mm, 2 * qb + 4 * kvb + 2 * st)}
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    y_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(y_lib, (ql, kl, vl), w, retain_graph=True), reps=5)
+    calls = {
+        "fwd": (lambda: fa.flash_fwd_out_lse(q, k, v, causal=True),
+                lambda: fa.reference_flash_fwd_out_lse(q, k, v, causal=True),
+                time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), reps=5)),
+        "dq": (lambda: fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True),
+               lambda: fa.reference_flash_bwd_dq(q, k, v, w, lse, delta, causal=True), lib_bwd),
+        "dkv": (lambda: fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=True),
+                lambda: fa.reference_flash_bwd_dkv(q, k, v, w, lse, delta, causal=True), lib_bwd),
+    }
+    for name, (kernel, plain, lib) in calls.items():
+        flops, nbytes = work[name]
+        t = {"shape": f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{s},{d}] bf16 causal", "ms": time_ms(torch, kernel, reps=5),
+             "plain_ms": time_ms(torch, plain, reps=3), "library_ms": lib,
+             "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S),
+             "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES_S else "bytes"}
+        out[f"flash_{name}"] = {"max_abs_err": errs[name], "timings": [t]}
+        lib_name = "F.scaled_dot_product_attention" if name == "fwd" else "its backward (dq, dk, dv in one call)"
+        log(f"[phase 1] flash {name} {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"{lib_name} {lib:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+    del q, k, v, w, o, lse, delta, ql, kl, vl, y_lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tiny_train_parts(dtype: str = "float32", attention: str = "dao_flash", width: int = 128, heads=(4, 2),
+                      seq: int = 64):
+    """A tiny GPT2 (2 layers) with the 2.7B config's kind of optimizer,
+    schedule and clipper: params and compute in `dtype`, fp32 accumulation."""
+    from modalities_tpu_torch.loss_functions import CLMCrossEntropyLoss
+    from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM, MixedPrecisionSpec
+    from modalities_tpu_torch.optimizers.optimizer_factory import OptimizerFactory
+    from modalities_tpu_torch.optimizers.scheduler_factory import LinearWarmupCosineAnnealingLRScheduler
+    from modalities_tpu_torch.training.gradient_clipping import GradientClipper
+
+    cfg = dict(MODEL_2P7B, vocab_size=256, n_layer=2, n_head_q=heads[0], n_head_kv=heads[1], n_embd=width,
+               ffn_hidden=2 * width, sequence_length=seq, attention_implementation=attention)
+    for key in ("attention_norm_config", "ffn_norm_config", "lm_head_norm_config"):
+        cfg[key] = {"norm_type": "rms_norm", "config": {"ndim": width, "bias": False, "epsilon": 1e-5}}
+    cfg["attention_config"] = {"qkv_transforms": [{"type_hint": "RotaryTransform",
+                                                   "config": {"n_embd": width, "n_head": heads[0]}}]}
+    model = GPT2LLM(**cfg).update_train_spec(mixed_precision=MixedPrecisionSpec(dtype, dtype, "float32"))
+    opt = OptimizerFactory.get_adam_w(1e-3, (0.9, 0.95), 1e-8, 0.1, ["embedding", "norm"], model)
+    sched = LinearWarmupCosineAnnealingLRScheduler(opt, warmup_steps=2, total_steps=10, initial_lr=0.0,
+                                                   final_lr=1e-4, max_lr=1e-3)
+    return model, CLMCrossEntropyLoss("target_ids", "logits"), opt, sched, GradientClipper(max_norm=1.0)
+
+
+def phase_small_model_training(torch) -> None:
+    """3 optimizer steps (2 microbatches each) of a tiny f32 GPT2 on the card
+    (flash and RMSNorm kernels) and on the CPU (plain versions) from the same
+    parameters: per-step losses, grad norms and the final parameters agree."""
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    params = _tiny_train_parts()[0].init_train_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 256, size=(3, 2, 2, 65))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model, loss_fn, opt, sched, clip = _tiny_train_parts()
+        step = TrainStep(model, loss_fn, opt, sched, device=dev, gradient_acc_steps=2, grad_clipper=clip,
+                         params={k: v.clone() for k, v in params.items()})
+        metrics = []
+        for t in tokens:
+            t = torch.as_tensor(t, device=dev)
+            m = step({"samples": {"input_ids": t[..., :-1]}, "targets": {"target_ids": t[..., 1:]}})
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        runs[dev] = (np.asarray(metrics), {k: v.detach().cpu() for k, v in step.state_dict().items()})
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    if not np.allclose(m_gpu, m_cpu, rtol=0, atol=1e-4):
+        raise AssertionError(f"small GPT2 training: card metrics {m_gpu.tolist()} vs CPU {m_cpu.tolist()}")
+    err = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    if err > 1e-4:
+        raise AssertionError(f"small GPT2 training: parameters differ by {err:g} after 3 steps")
+    log(f"[phase 1] small GPT2 training (f32, dao_flash, 2 layers, D 32; 3 steps x 2 microbatches, AdamW, "
+        f"warmup-cosine, clip 1.0): card and CPU agree, losses {m_gpu[:, 0].round(6).tolist()}, "
+        f"max |metric diff| {float(np.abs(m_gpu - m_cpu).max()):g}, max |param diff| {err:g} (atol 1e-4)")
+
+
+@contextlib.contextmanager
+def plain_norms():
+    """RMSNorm layers take autograd of the plain `reference_rms_norm` on the
+    card while the context lasts: the plain path that the kernels are held
+    to, for comparisons only (the port itself has no such switch)."""
+    from modalities_tpu_torch.models.components import layer_norms
+    from modalities_tpu_torch.ops.rmsnorm import reference_rms_norm
+
+    saved, layer_norms.fused_rms_norm = layer_norms.fused_rms_norm, reference_rms_norm
+    try:
+        yield
+    finally:
+        layer_norms.fused_rms_norm = saved
+
+
+def _rel_norm(torch, a, b) -> float:
+    """||a - b|| / ||b||."""
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def phase_small_model_training_bf16(torch) -> None:
+    """The bf16 training path against the plain path on the same card: a tiny
+    bf16 GPT2 (2 layers, width 640, head dim 80 and GQA 8/2 as in the 2.7B, 256 tokens: four
+    key tiles and causal tile skipping) from the same parameters, once through
+    the kernels (dao_flash, fused RMSNorm) and once through the plain path
+    (manual attention, autograd of the plain RMSNorm). The first microbatch's
+    gradients, each of 3 steps' loss and grad norm (2 microbatches each) and
+    how far the steps moved each parameter agree within TINY_BF16_TOL."""
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    shape = {"width": 640, "heads": (8, 2), "seq": 256}
+    params = _tiny_train_parts("bfloat16", **shape)[0].init_train_params(torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(0, 256, size=(3, 2, 2, 257)), device="cuda")
+    runs = {}
+    for arm, attention in (("kernels", "dao_flash"), ("plain", "manual")):
+        model, loss_fn, opt, sched, clip = _tiny_train_parts("bfloat16", attention, **shape)
+        with plain_norms() if arm == "plain" else contextlib.nullcontext():
+            _reset_counts()
+            step = TrainStep(model, loss_fn, opt, sched, device="cuda", gradient_acc_steps=2, grad_clipper=clip,
+                             params={k: v.clone() for k, v in params.items()})
+            first = tokens[0, 0]
+            loss = loss_fn({"logits": step.module(first[:, :-1])}, {"target_ids": first[:, 1:]})
+            grads = [g.float() for g in torch.autograd.grad(loss, step.params)]
+            metrics = []
+            for t in tokens:
+                m = step({"samples": {"input_ids": t[..., :-1]}, "targets": {"target_ids": t[..., 1:]}})
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            torch.cuda.synchronize()
+            launched = _launch_counts()
+        runs[arm] = (grads, np.asarray(metrics), {k: v.detach().float() for k, v in step.state_dict().items()},
+                     launched)
+    (g_k, m_k, p_k, n_k), (g_p, m_p, p_p, n_p) = runs["kernels"], runs["plain"]
+    if any(v for v in n_p.values()) or not all(n_k.values()):
+        raise AssertionError(f"tiny bf16 training: launches with the kernels {n_k}, on the plain path {n_p}")
+    p0 = {k: v.to("cuda").float() for k, v in params.items()}
+    seen = {
+        "grads": max(_rel_norm(torch, a, b) for a, b in zip(g_k, g_p)),
+        "loss": float(np.abs(m_k[:, 0] / m_p[:, 0] - 1).max()),
+        "grad_norm": float(np.abs(m_k[:, 1] / m_p[:, 1] - 1).max()),
+        "params": max(_rel_norm(torch, p_k[k] - p0[k], p_p[k] - p0[k]) for k in p0),
+    }
+    log(f"[phase 1] tiny bf16 GPT2 training, kernels vs the plain path on the card (3 steps x 2 microbatches): "
+        f"losses {m_k[:, 0].round(5).tolist()} vs {m_p[:, 0].round(5).tolist()}, grad norms "
+        f"{m_k[:, 1].round(5).tolist()} vs {m_p[:, 1].round(5).tolist()}; worst per-tensor ||g_k - g_p|| / ||g_p|| "
+        f"of the first microbatch {seen['grads']:.4g}, worst loss rel diff {seen['loss']:.4g}, grad norm "
+        f"{seen['grad_norm']:.4g}, worst per-tensor ||move_k - move_p|| / ||move_p|| {seen['params']:.4g}; "
+        f"bounds {TINY_BF16_TOL}")
+    for key, bound in TINY_BF16_TOL.items():
+        if not seen[key] <= bound:
+            raise AssertionError(f"tiny bf16 training: {key} differ by {seen[key]:g}, bound {bound:g}")
+
+
+# ---------------------------------------------------------------- phase 4
+def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: dict, seq: int = 4096) -> Path:
+    """A copy of configs/config_2p7b_dp.yaml cut to one card; prints every override."""
+    import yaml
+
+    repo = Path(__file__).resolve().parent
+    cfg = yaml.safe_load((repo / "configs" / "config_2p7b_dp.yaml").read_text())
+    from modalities_tpu_torch.dataloader.packed_data import write_pbin_file
+
+    data = tmp / f"{name}.pbin"
+    write_pbin_file(data, [corpus], 2)
+    per_step = 2 * 2 * seq
+    overrides = {
+        "settings.step_profile.sequence_length": seq,
+        "device_mesh.config.data_parallel_shard_degree": 1,
+        "device_mesh.config.world_size": 1,
+        "settings.step_profile.local_train_micro_batch_size": 2,
+        "settings.step_profile.gradient_accumulation_steps": 2,
+        "settings.training_target.num_target_steps": steps,
+        "settings.training_target.num_target_tokens": steps * per_step,
+        "settings.intervals.training_log_interval_in_steps": 1,
+        "settings.intervals.evaluation_interval_in_steps": steps,
+        "settings.intervals.checkpointing_interval_in_steps": 1_000_000,
+        "settings.consistency_enforcement.enforce_last_step_checkpointed": False,
+        "settings.paths.train_dataset_path": str(data),
+        "settings.paths.checkpoint_saving_path": str(tmp / "checkpoints"),
+        "settings.paths.experiments_root_path": str(tmp / "experiments"),
+        **extra,
+    }
+    for dotted, value in overrides.items():
+        node = cfg
+        *parents, leaf = dotted.split(".")
+        for key in parents:
+            node = node[key]
+        node[leaf] = value
+        log(f"[phase 4] {name}: {dotted} = {value}")
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def _launch_counts() -> dict[str, int]:
+    from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_backward
+
+    return {"flash_fwd": fa.flash_fwd_out_lse.launches, "flash_dq": fa.flash_bwd_dq.launches,
+            "flash_dkv": fa.flash_bwd_dkv.launches, "rms_fwd": rms_norm.launches,
+            "rms_bwd": rms_norm_backward.launches}
+
+
+def _reset_counts() -> None:
+    from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_backward
+
+    fa.flash_fwd_out_lse.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    rms_norm.launches = rms_norm_backward.launches = 0
+
+
+def profile_train_step(torch, main, smi: str) -> None:
+    """One warm train step under torch.profiler: device busy share and the top
+    device ops (informational)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from modalities_tpu_torch.trainer import stack_microbatches
+
+    loader = iter(main.components.train_dataloader)
+    batch = stack_microbatches([next(loader), next(loader)], torch.device("cuda"))
+    main.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        main.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+    rows = []  # kernels only: user annotations (Optimizer.step#...) also carry device time
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        annotation = getattr(ev, "is_user_annotation", False) or "#" in ev.key
+        if ev.device_type == DeviceType.CUDA and dev_us > 0 and not annotation:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    log(f"[phase 4] profiled step ({smi}): {device_ms:.1f} ms of kernels ({sum(r[1] for r in rows)} launches) "
+        f"in a {wall_ms:.1f} ms step under the profiler -> device busy {device_ms / wall_ms:.3f} (informational)")
+    for ms, count, key in rows[:10]:
+        log(f"[phase 4]   {ms:.2f} ms in {count} x {key[:100]}")
+
+
+def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int) -> None:
+    """The config's lr 1.6e-4 with no warmup (warmup_steps 1, cosine to
+    1.6e-5) on one repeated batch of 2 x 2 sequences, at full width and
+    `n_layer` layers, through Main twice from the same seed: with the kernels
+    (dao_flash, fused RMSNorm) and with the plain path on the card (manual
+    attention, autograd of the plain RMSNorm). The two loss curves agree
+    within LR_WITNESS_TOL at every step, whether or not they fall."""
+    from modalities_tpu_torch.main import Main
+
+    repeat = np.tile(rng.integers(0, MODEL_2P7B["vocab_size"], size=seq), 24)[: seq + 1 + 19 * seq]
+    extra = {"model_raw.config.n_layer": n_layer, "scheduler.config.warmup_steps": 1,
+             "scheduler.config.initial_lr": 0.00016}
+    curves, launched = {}, {}
+    for arm, attention in (("kernels", "dao_flash"), ("plain", "manual")):
+        name = f"witness_{n_layer}x{seq}_{arm}"
+        cfg = _train_config(tmp, name, repeat, 5, {**extra, "model_raw.config.attention_implementation": attention},
+                            seq=seq)
+        with plain_norms() if arm == "plain" else contextlib.nullcontext():
+            _reset_counts()
+            main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+            curves[arm] = [r["losses"]["train loss last"] for r in main.run()]
+            launched[arm] = _launch_counts()
+        del main
+        gc.collect()
+        torch.cuda.empty_cache()
+    if any(launched["plain"].values()) or not all(launched["kernels"].values()):
+        raise AssertionError(f"lr witness: launches with the kernels {launched['kernels']}, plain {launched['plain']}")
+    k, p = curves["kernels"], curves["plain"]
+    diff = max(abs(a - b) for a, b in zip(k, p))
+    falls = {arm: all(b < a for a, b in zip(c, c[1:])) for arm, c in curves.items()}
+    log(f"[phase 4] lr witness, {n_layer} layers x seq {seq}, lr 1.6e-4 with no warmup on one repeated batch: "
+        f"kernels {[round(x, 5) for x in k]}, plain path {[round(x, 5) for x in p]}; falls at every step: {falls}; "
+        f"max |loss diff| {diff:.4g} (bound {LR_WITNESS_TOL:g})")
+    if not diff <= LR_WITNESS_TOL:
+        raise AssertionError(f"lr witness: kernels {k} and plain path {p} differ by {diff:g}")
+
+
+def phase_train(torch, smi: str) -> dict[str, int]:
+    """The 2.7B training path through Main; returns its kernel launch counts."""
+    from modalities_tpu_torch.main import Main
+
+    rng = np.random.default_rng(2027)
+    seq = 4096
+    steps = 3
+    scratch = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        corpus = rng.integers(0, MODEL_2P7B["vocab_size"], size=seq + 1 + (4 * steps + 3) * seq)
+        cfg = _train_config(tmp, "train", corpus, steps, {})
+        torch.cuda.reset_peak_memory_stats()
+        main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+        main.components = main.build_components()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = main.run(main.components)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        losses = [r["losses"]["train loss last"] for r in results]
+        norms = [r["metrics"]["grad norm last"] for r in results]
+        if len(results) != steps or not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"training: {len(results)} steps, losses {losses}, grad norms {norms}")
+        # random logits of std sigma give an expected loss of ln V + sigma^2 / 2; the head's N(0, 0.02) kernel
+        # over RMS-normalized hidden states of width 2560 gives sigma^2 = 2560 * 0.02^2 (the JAX init, too)
+        expected = math.log(MODEL_2P7B["vocab_size"]) + MODEL_2P7B["n_embd"] * 0.02**2 / 2
+        if abs(losses[0] - expected) > 0.5:
+            raise AssertionError(f"training: step 0 loss {losses[0]} not within 0.5 of ln(50304) + "
+                                 f"2560 * 0.02^2 / 2 = {expected:.3f}")
+        per_step = {"flash_fwd": 64, "flash_dq": 64, "flash_dkv": 64, "rms_fwd": 130, "rms_bwd": 130}
+        for key, want in per_step.items():
+            if counts[key] != want * steps:
+                raise AssertionError(f"training: {key} launched {counts[key]} times in {steps} steps, expected "
+                                     f"{want} per step")
+        log(f"[phase 4] step 0 loss {losses[0]:.5f}: expected {expected:.5f} = ln(50304) + 2560 * 0.02^2 / 2 "
+            f"(ln(50304) = {math.log(MODEL_2P7B['vocab_size']):.5f}), within 0.5")
+        log(f"[phase 4] 2.7B training through Main: {steps} steps in {wall:.1f} s (build included); losses "
+            f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 5) for x in norms]}; launches per step "
+            f"{ {k: v // steps for k, v in counts.items()} }; peak memory {peak_gb:.1f} GB "
+            f"(torch.cuda.max_memory_allocated), {reserved_gb:.1f} GB reserved (max_memory_reserved)")
+        for r in results[1:]:
+            th = r["throughput_metrics"]
+            log(f"[phase 4] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
+                f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
+        profile_train_step(torch, main, smi)
+        del main, results
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one batch repeated: no warmup (fn(0) = initial_lr, not 0), and an lr of 1.6e-5. At the config's
+        # 1.6e-4 the loss does not fall at every step; lr_witness shows the plain path doing the same
+        repeat = np.tile(rng.integers(0, MODEL_2P7B["vocab_size"], size=seq), 24)[: seq + 1 + 19 * seq]
+        lrs = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": 0.000016,
+               "scheduler.config.max_lr": 0.000016, "scheduler.config.final_lr": 0.0000016}
+        cfg = _train_config(tmp, "repeat", repeat, 5, lrs)
+        main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+        losses = [r["losses"]["train loss last"] for r in main.run()]
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"training on one repeated batch: the loss did not fall at every step: {losses}")
+        log(f"[phase 4] 5 steps on one repeated batch (warmup_steps 1, lr 1.6e-5 cosine to 1.6e-6): losses "
+            f"{[round(x, 5) for x in losses]} fall at every step")
+        del main
+        gc.collect()
+        torch.cuda.empty_cache()
+        for n_layer, wseq in LR_WITNESS:
+            lr_witness(torch, tmp, rng, n_layer, wseq)
+    return counts
+
+
 # ---------------------------------------------------------------- phases 2-3
 def build_model():
     from modalities_tpu_torch.config.component_factory import ComponentFactory
@@ -440,6 +1101,8 @@ def greedy_agreement(reqs, base, other) -> float:
 
 # ---------------------------------------------------------------- main
 def main() -> int:
+    # what `python -m modalities_tpu_torch run` sets, before the first allocation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -466,8 +1129,12 @@ def main() -> int:
         f"({time.perf_counter() - t:.1f} s) -> {_build.library_path()}")
 
     # phase 1
+    warm_up(torch)
     kernels = phase_kernels(torch)
+    kernels.update(phase_train_kernels(torch))
     phase_small_model_reference(torch)
+    phase_small_model_training(torch)
+    phase_small_model_training_bf16(torch)
 
     # phases 2-3: the main path. Counts start from 0 here; launches above were comparisons.
     from modalities_tpu_torch.ops.quant_matmul import quant_matmul
@@ -504,18 +1171,36 @@ def main() -> int:
     rms_total, qmm_total = rms_norm.launches, quant_matmul.launches
     if rms_total == 0 or qmm_total == 0:
         raise AssertionError("a kernel of the serving path was never launched")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 4
-    def entry(name, source, replaces, launches, k, pick):
+    # phase 4: the training path. Counts start from 0 inside phase_train.
+    smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    train_counts = phase_train(torch, smi_now)
+    if any(v == 0 for v in train_counts.values()):
+        raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
+    log(f"[phase 4] launches in the 3-step run: {train_counts}; rms_norm forward also {rms_total} in serving")
+
+    # phase 5
+    def entry(name, source, replaces, launches, k, pick=lambda ts: ts[0]):
         t = pick(kernels[k]["timings"])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                 "max_abs_err": kernels[k]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"), "library_ms": t["library_ms"],
                 "shape": t["shape"]}
 
+    flash_src = "modalities_tpu_torch/csrc/flash_attention.cu"
+    flash_tpu = "modalities_tpu/ops/pallas/flash_attention.py"
     print(json.dumps({"kernels": [
         entry("fused_rmsnorm_fwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
-              "modalities_tpu/ops/pallas/fused_rmsnorm.py:34", rms_total, "rmsnorm", lambda ts: ts[0]),
+              "modalities_tpu/ops/pallas/fused_rmsnorm.py:34", rms_total + train_counts["rms_fwd"], "rmsnorm"),
+        entry("fused_rmsnorm_bwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
+              "modalities_tpu/ops/pallas/fused_rmsnorm.py:43", train_counts["rms_bwd"], "rmsnorm_bwd"),
+        entry("flash_attention_fwd", flash_src, f"{flash_tpu}:43", train_counts["flash_fwd"], "flash_fwd"),
+        entry("flash_attention_bwd_dq", flash_src, f"{flash_tpu}:88", train_counts["flash_dq"], "flash_dq"),
+        entry("flash_attention_bwd_dkv", flash_src, f"{flash_tpu}:130", train_counts["flash_dkv"], "flash_dkv"),
         entry("quant_matmul", "modalities_tpu_torch/csrc/quant_matmul.cu",
               "modalities_tpu/ops/pallas/quant_matmul.py:31", qmm_total, "quant_matmul",
               lambda ts: next(t for t in ts if t["m"] == 8 and (t["k"], t["n"]) == (2560, 7680))),

@@ -89,4 +89,6 @@ class ComponentFactory:
                 raise ValueError(f"Component `{component_key}.{variant_key}` takes no config, got: {config}")
             return component_type()
         validated = validate_config(config_type, config)
+        if config_type is component_type:  # a dataclass component is its own config
+            return validated
         return component_type(**{f.name: getattr(validated, f.name) for f in dataclasses.fields(config_type)})

@@ -1,0 +1,685 @@
+// Flash attention for Hopper (sm_90a): forward, backward-dq and backward-dkv.
+//
+// Replaces: modalities_tpu/ops/pallas/flash_attention.py:_fwd_kernel,
+// _bwd_dq_kernel and _bwd_dkv_kernel (the Pallas TPU kernels behind the
+// `dao_flash` attention tier, ops/attention.py:flash_attention_or_fallback).
+//
+// Computes what those kernels compute, per (batch, q head h), with q head h
+// reading kv head h / (Hq / Hkv) (GQA):
+//   forward:  s = (q . k) * sm_scale, masked to -1e30 where key > query
+//             (causal, positions aligned at 0) or key >= Sk; online softmax
+//             with fp32 running max m and sum l; out = acc / max(l, 1e-30),
+//             lse = m + log(max(l, 1e-30)) in fp32.
+//   dq:       p = exp(s - lse), dp = do . v, ds = p * (dp - delta) * sm_scale,
+//             dq = sum_keys ds * k.
+//   dkv:      dv = sum_q p * do, dk = sum_q ds * q, summed over the GQA group's
+//             q heads inside the kv head's CTA (a fixed loop, no atomics).
+// delta = sum_D do * out is computed outside (as in the JAX package).
+//
+// What bounds them on an H100: operations. At the 2.7B shape (B 2, S 4096,
+// Hq 32, D 80, causal) the forward does 2 matmuls of 2*B*Hq*S^2*D/2 FLOPs
+// each (1.7e11 in all), dq 3 and dkv 4, against ~0.1 GB of q/k/v/out
+// traffic: over a thousand operations per byte, far above the ~295 where the
+// bf16 tensor cores, not memory, become the limit.
+//
+// Design (right first; wgmma, TMA and warp specialisation are later work):
+// - bf16: FlashAttention-2 structure on mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate). Forward and dq: a CTA of 4 warps owns 64 query rows (16 a
+//   warp) and loops over key tiles; dkv: a CTA owns 64 key rows and loops
+//   over the group's q heads and their query tiles. So each output tile is
+//   written by one CTA and summed in a fixed order: no atomics, and two calls
+//   give identical bits. Causal tiles above the diagonal are skipped; ragged
+//   tails (S not a multiple of the tile) are zero-filled and masked.
+//   Operand tiles live in shared memory; a tile the mma reads as a B operand
+//   along its rows is stored transposed, so each fragment is one 32-bit read.
+//   P (and dS) are rounded to bf16 before their matmul on the tensor cores;
+//   the TPU kernel multiplies them in fp32.
+// - fp32: the same loops on the CUDA cores, one query row (or key row) per
+//   thread, plain FMA, no TF32: the version the plain PyTorch code is held to
+//   in f32.
+// Head dims 16, 32, 64, 80 and 128 are compiled; the wrapper refuses others.
+// Every tensor is addressed through (batch, head, row) strides with a unit
+// stride along D, so the model's [B, S, H, D] layout needs no transpose.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+struct FlashParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;     // backward: dO, laid out like q
+  const float* lse_in;  // backward: [B, Hq, Sq] fp32
+  const float* delta;   // backward: [B, Hq, Sq] fp32
+  void* out;            // forward output, laid out like q
+  float* lse_out;       // forward: [B, Hq, Sq] fp32
+  void* dq;
+  void* dk;             // [B, Hkv, Sk, D] like k
+  void* dv;
+  long long q_s[3];  // element strides over (batch, head, row); stride 1 along D
+  long long k_s[3];
+  long long v_s[3];
+  long long o_s[3];  // out (forward) or dO (backward)
+  long long dq_s[3];
+  long long dk_s[3];
+  long long dv_s[3];
+  int b, hq, hkv, sq, sk;
+  float sm_scale;
+  int causal;
+};
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// Rows [r0, r0 + ROWS) of a [rows, D] bf16 matrix (row stride rs elements)
+// into smem[ROWS][DP]; rows >= n are zero-filled (0 * anything stays finite).
+template <int D, int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long rs, int r0, int n, int tid) {
+  constexpr int VPR = D / 8;  // 16-byte vectors a row
+  for (int i = tid; i < ROWS * VPR; i += THREADS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(g + (r0 + r) * rs + c);
+    *reinterpret_cast<uint4*>(smem + r * DP + c) = v;
+  }
+}
+
+// The same rows stored transposed, smem[D][RP] (column r holds row r0 + r).
+// Consecutive threads take consecutive rows so the 2-byte stores of a warp
+// land in consecutive shared-memory words.
+template <int D, int ROWS, int RP, int THREADS>
+__device__ __forceinline__ void load_rows_t(bf16* smem, const bf16* g, long long rs, int r0, int n, int tid) {
+  constexpr int VPR = D / 8;
+  for (int i = tid; i < ROWS * VPR; i += THREADS) {
+    const int r = i % ROWS, c = (i / ROWS) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(g + (r0 + r) * rs + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) smem[(c + j) * RP + r] = e[j];
+  }
+}
+
+// A fragments (m16 x k16 per k step) of the 16 rows a warp owns in smem[.][DP].
+template <int D, int DP>
+__device__ __forceinline__ void load_a_frags(uint32_t (*f)[4], const bf16* smem, int row, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* p0 = smem + row * DP + kk * 16 + 2 * t4;
+    const bf16* p1 = p0 + 8 * DP;
+    f[kk][0] = ld32(p0);
+    f[kk][1] = ld32(p1);
+    f[kk][2] = ld32(p0 + 8);
+    f[kk][3] = ld32(p1 + 8);
+  }
+}
+
+// c[NT][4] += A (warp's 16 rows x D, fragments) . B^T, where B is smem[NT*8][DP]
+// (the n index along rows, the contraction along D).
+template <int D, int DP, int NT>
+__device__ __forceinline__ void mma_abt(float (*c)[4], uint32_t (*a)[4], const bf16* b, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* p = b + (j * 8 + g) * DP + kk * 16 + 2 * t4;
+      uint32_t bf[2] = {ld32(p), ld32(p + 8)};
+      mma_16816(c[j], a[kk], bf);
+    }
+  }
+}
+
+// c[D/8][4] += A (16 x K, fragments) . B, where B^T is stored as smem[D][KP]
+// (the output column along rows, the contraction along KP).
+template <int D, int K, int KP>
+__device__ __forceinline__ void mma_ab_t(float (*c)[4], uint32_t (*a)[4], const bf16* bt, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const bf16* p = bt + (n * 8 + g) * KP + kk * 16 + 2 * t4;
+      uint32_t bf[2] = {ld32(p), ld32(p + 8)};
+      mma_16816(c[n], a[kk], bf);
+    }
+  }
+}
+
+// The C fragments of a 16 x (2*KT*8) fp32 tile as bf16 A fragments.
+template <int KT>
+__device__ __forceinline__ void c_to_a(uint32_t (*a)[4], float (*c)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// Writes a warp's 16 x D fp32 accumulator (scaled per row) as bf16 rows.
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(bf16* g, long long rs, float (*acc)[4], int row, int n,
+                                                float mul0, float mul1, int t4) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t4;
+    if (row < n)
+      *reinterpret_cast<__nv_bfloat162*>(g + row * rs + col) =
+          __floats2bfloat162_rn(acc[j][0] * mul0, acc[j][1] * mul0);
+    if (row + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(g + (row + 8) * rs + col) =
+          __floats2bfloat162_rn(acc[j][2] * mul1, acc[j][3] * mul1);
+  }
+}
+
+__device__ __forceinline__ int key_tiles(const FlashParams& p, int q_end, int bk) {
+  int n = (p.sk + bk - 1) / bk;
+  if (p.causal) n = min(n, (min(q_end, p.sq) - 1) / bk + 1);
+  return n;
+}
+
+// ------------------------------------------------------------------ bf16 fwd
+template <int D>
+__global__ void __launch_bounds__(128) flash_fwd_bf16(const FlashParams p) {
+  constexpr int BQ = 64, BK = 64, DP = D + 8, BKP = BK + 8;
+  __shared__ __align__(16) bf16 ks[BK * DP];   // also stages the Q tile
+  __shared__ __align__(16) bf16 vt[D * BKP];   // V^T
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
+  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / (p.hq / p.hkv);
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+
+  uint32_t qf[D / 16][4];
+  load_rows<D, BQ, DP, 128>(ks, qg, p.q_s[2], q0, p.sq, tid);
+  __syncthreads();
+  load_a_frags<D, DP>(qf, ks, warp * 16 + g, t4);
+  __syncthreads();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int row = q0 + warp * 16 + g;  // and row + 8
+  const int n_kt = key_tiles(p, q0 + BQ, BK);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    load_rows<D, BK, DP, 128>(ks, kg, p.k_s[2], k0, p.sk, tid);
+    load_rows_t<D, BK, BKP, 128>(vt, vg, p.v_s[2], k0, p.sk, tid);
+    __syncthreads();
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_abt<D, DP, BK / 8>(s, qf, ks, g, t4);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t4 + (e & 1), r = row + 8 * (e >> 1);
+        const bool ok = col < p.sk && (!p.causal || r >= col);
+        s[j][e] = ok ? s[j][e] * p.sm_scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+    const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
+    m[0] = mx[0];
+    m[1] = mx[1];
+    l[0] *= alpha[0];
+    l[1] *= alpha[1];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+    uint32_t pf[BK / 16][4];
+    c_to_a<BK / 16>(pf, s);
+    mma_ab_t<D, BK, BKP>(acc, pf, vt, g, t4);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const float ls0 = fmaxf(l[0], 1e-30f), ls1 = fmaxf(l[1], 1e-30f);
+  bf16* og = static_cast<bf16*>(p.out) + b * p.o_s[0] + h * p.o_s[1];
+  store_rows_bf16<D>(og, p.o_s[2], acc, row, p.sq, 1.f / ls0, 1.f / ls1, t4);
+  if (t4 == 0) {
+    float* lse = p.lse_out + static_cast<long long>(blockIdx.y) * p.sq;
+    if (row < p.sq) lse[row] = m[0] + logf(ls0);
+    if (row + 8 < p.sq) lse[row + 8] = m[1] + logf(ls1);
+  }
+}
+
+// ------------------------------------------------------------------- bf16 dq
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const FlashParams p) {
+  constexpr int BQ = 64, BK = 32, DP = D + 8, BKP = BK + 8;
+  __shared__ __align__(16) bf16 stage[BQ * DP];  // Q, then dO
+  __shared__ __align__(16) bf16 ks[BK * DP];
+  __shared__ __align__(16) bf16 vs[BK * DP];
+  __shared__ __align__(16) bf16 kt_s[D * BKP];  // K^T
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / (p.hq / p.hkv);
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
+  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.o_s[0] + h * p.o_s[1];
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+  const int row = q0 + warp * 16 + g;
+
+  uint32_t qf[D / 16][4], dof[D / 16][4];
+  load_rows<D, BQ, DP, 128>(stage, qg, p.q_s[2], q0, p.sq, tid);
+  __syncthreads();
+  load_a_frags<D, DP>(qf, stage, warp * 16 + g, t4);
+  __syncthreads();
+  load_rows<D, BQ, DP, 128>(stage, dog, p.o_s[2], q0, p.sq, tid);
+  __syncthreads();
+  load_a_frags<D, DP>(dof, stage, warp * 16 + g, t4);
+
+  const long long rb = static_cast<long long>(blockIdx.y) * p.sq;
+  float lse[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row + 8 * i;
+    lse[i] = r < p.sq ? p.lse_in[rb + r] : 0.f;
+    dl[i] = r < p.sq ? p.delta[rb + r] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int n_kt = key_tiles(p, q0 + BQ, BK);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    load_rows<D, BK, DP, 128>(ks, kg, p.k_s[2], k0, p.sk, tid);
+    load_rows<D, BK, DP, 128>(vs, vg, p.v_s[2], k0, p.sk, tid);
+    load_rows_t<D, BK, BKP, 128>(kt_s, kg, p.k_s[2], k0, p.sk, tid);
+    __syncthreads();
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<D, DP, BK / 8>(s, qf, ks, g, t4);
+    mma_abt<D, DP, BK / 8>(dp, dof, vs, g, t4);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t4 + (e & 1), i = e >> 1, r = row + 8 * i;
+        const bool ok = col < p.sk && (!p.causal || r >= col);
+        const float pr = ok ? expf(s[j][e] * p.sm_scale - lse[i]) : 0.f;
+        s[j][e] = pr * (dp[j][e] - dl[i]) * p.sm_scale;  // dS
+      }
+    uint32_t dsf[BK / 16][4];
+    c_to_a<BK / 16>(dsf, s);
+    mma_ab_t<D, BK, BKP>(acc, dsf, kt_s, g, t4);
+    __syncthreads();
+  }
+  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_s[0] + h * p.dq_s[1];
+  store_rows_bf16<D>(dqg, p.dq_s[2], acc, row, p.sq, 1.f, 1.f, t4);
+}
+
+// ------------------------------------------------------------------ bf16 dkv
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(const FlashParams p) {
+  constexpr int BKV = 64, BQ = 32, DP = D + 8, BQP = BQ + 8;
+  __shared__ __align__(16) bf16 tiles[BKV * DP];  // stages K and V; then Q rows | dO rows
+  __shared__ __align__(16) bf16 qt_s[D * BQP];    // Q^T
+  __shared__ __align__(16) bf16 dot_s[D * BQP];   // dO^T
+  __shared__ float lse_s[BQ], dl_s[BQ];
+  bf16* qs = tiles;
+  bf16* dos = tiles + BQ * DP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * BKV;
+  const int b = blockIdx.y / p.hkv, hk = blockIdx.y % p.hkv, group = p.hq / p.hkv;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+  const int key = k0 + warp * 16 + g;  // and key + 8
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_rows<D, BKV, DP, 128>(tiles, kg, p.k_s[2], k0, p.sk, tid);
+  __syncthreads();
+  load_a_frags<D, DP>(kf, tiles, warp * 16 + g, t4);
+  __syncthreads();
+  load_rows<D, BKV, DP, 128>(tiles, vg, p.v_s[2], k0, p.sk, tid);
+  __syncthreads();
+  load_a_frags<D, DP>(vf, tiles, warp * 16 + g, t4);
+  __syncthreads();
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  const int n_qt = (p.sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? k0 / BQ : 0;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
+    const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.o_s[0] + h * p.o_s[1];
+    const long long rb = (static_cast<long long>(b) * p.hq + h) * p.sq;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * BQ;
+      load_rows<D, BQ, DP, 128>(qs, qg, p.q_s[2], q0, p.sq, tid);
+      load_rows<D, BQ, DP, 128>(dos, dog, p.o_s[2], q0, p.sq, tid);
+      load_rows_t<D, BQ, BQP, 128>(qt_s, qg, p.q_s[2], q0, p.sq, tid);
+      load_rows_t<D, BQ, BQP, 128>(dot_s, dog, p.o_s[2], q0, p.sq, tid);
+      if (tid < BQ) {
+        const bool in = q0 + tid < p.sq;
+        lse_s[tid] = in ? p.lse_in[rb + q0 + tid] : 0.f;
+        dl_s[tid] = in ? p.delta[rb + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float st[BQ / 8][4], dpt[BQ / 8][4];  // S^T and dP^T: keys x queries
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      mma_abt<D, DP, BQ / 8>(st, kf, qs, g, t4);
+      mma_abt<D, DP, BQ / 8>(dpt, vf, dos, g, t4);
+      float pt[BQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t4 + (e & 1), qpos = q0 + qc, kpos = key + 8 * (e >> 1);
+          const bool ok = qpos < p.sq && (!p.causal || qpos >= kpos);
+          const float pr = ok ? expf(st[j][e] * p.sm_scale - lse_s[qc]) : 0.f;
+          pt[j][e] = pr;
+          st[j][e] = pr * (dpt[j][e] - dl_s[qc]) * p.sm_scale;  // dS^T
+        }
+      uint32_t af[BQ / 16][4];
+      c_to_a<BQ / 16>(af, pt);
+      mma_ab_t<D, BQ, BQP>(dv, af, dot_s, g, t4);
+      c_to_a<BQ / 16>(af, st);
+      mma_ab_t<D, BQ, BQP>(dk, af, qt_s, g, t4);
+      __syncthreads();
+    }
+  }
+  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_s[0] + hk * p.dk_s[1];
+  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_s[0] + hk * p.dv_s[1];
+  store_rows_bf16<D>(dkg, p.dk_s[2], dk, key, p.sk, 1.f, 1.f, t4);
+  store_rows_bf16<D>(dvg, p.dv_s[2], dv, key, p.sk, 1.f, 1.f, t4);
+}
+
+// ------------------------------------------------------------------ fp32 path
+// One row per thread on the CUDA cores; key (or query) tiles of 32 rows are
+// staged in shared memory and read as broadcasts.
+constexpr int kRowsF = 64;  // rows (threads) per CTA
+constexpr int kTileF = 32;  // staged rows per tile
+
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* smem, const float* g, long long rs, int r0, int n, int tid) {
+  for (int i = tid; i < kTileF * (D / 4); i += kRowsF) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) v = *reinterpret_cast<const float4*>(g + (r0 + r) * rs + c);
+    *reinterpret_cast<float4*>(smem + r * D + c) = v;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void load_row_f32(float* dst, const float* g, long long rs, int r, int n) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) dst[d] = r < n ? g[r * rs + d] : 0.f;
+}
+
+template <int D>
+__device__ __forceinline__ float dot_f32(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
+  return s;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRowsF) flash_fwd_f32(const FlashParams p) {
+  __shared__ __align__(16) float ks[kTileF * D];
+  __shared__ __align__(16) float vs[kTileF * D];
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRowsF, row = q0 + tid;
+  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / (p.hq / p.hkv);
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+  float q[D], acc[D];
+  load_row_f32<D>(q, static_cast<const float*>(p.q) + b * p.q_s[0] + h * p.q_s[1], p.q_s[2], row, p.sq);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    q[d] *= p.sm_scale;
+    acc[d] = 0.f;
+  }
+  float m = kNegInf, l = 0.f;
+  const int n_kt = key_tiles(p, q0 + kRowsF, kTileF);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTileF;
+    load_rows_f32<D>(ks, kg, p.k_s[2], k0, p.sk, tid);
+    load_rows_f32<D>(vs, vg, p.v_s[2], k0, p.sk, tid);
+    __syncthreads();
+    float s[kTileF];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kTileF; ++j) {
+      const int col = k0 + j;
+      const bool ok = col < p.sk && (!p.causal || row >= col);
+      s[j] = ok ? dot_f32<D>(q, ks + j * D) : kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float alpha = expf(m - mx);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kTileF; ++j) {
+      const float pj = expf(s[j] - m);
+      l += pj;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, vs[j * D + d], acc[d]);
+    }
+    __syncthreads();
+  }
+  if (row < p.sq) {
+    const float ls = fmaxf(l, 1e-30f);
+    float* og = static_cast<float*>(p.out) + b * p.o_s[0] + h * p.o_s[1] + row * p.o_s[2];
+#pragma unroll
+    for (int d = 0; d < D; ++d) og[d] = acc[d] / ls;
+    p.lse_out[static_cast<long long>(blockIdx.y) * p.sq + row] = m + logf(ls);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRowsF) flash_bwd_dq_f32(const FlashParams p) {
+  __shared__ __align__(16) float ks[kTileF * D];
+  __shared__ __align__(16) float vs[kTileF * D];
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRowsF, row = q0 + tid;
+  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / (p.hq / p.hkv);
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+  float q[D], dout[D], dq[D];
+  load_row_f32<D>(q, static_cast<const float*>(p.q) + b * p.q_s[0] + h * p.q_s[1], p.q_s[2], row, p.sq);
+  load_row_f32<D>(dout, static_cast<const float*>(p.dout) + b * p.o_s[0] + h * p.o_s[1], p.o_s[2], row, p.sq);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    q[d] *= p.sm_scale;
+    dq[d] = 0.f;
+  }
+  const long long ri = static_cast<long long>(blockIdx.y) * p.sq + row;
+  const float lse = row < p.sq ? p.lse_in[ri] : 0.f, dl = row < p.sq ? p.delta[ri] : 0.f;
+  const int n_kt = key_tiles(p, q0 + kRowsF, kTileF);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTileF;
+    load_rows_f32<D>(ks, kg, p.k_s[2], k0, p.sk, tid);
+    load_rows_f32<D>(vs, vg, p.v_s[2], k0, p.sk, tid);
+    __syncthreads();
+    for (int j = 0; j < kTileF; ++j) {
+      const int col = k0 + j;
+      if (!(col < p.sk && (!p.causal || row >= col))) continue;
+      const float pj = expf(dot_f32<D>(q, ks + j * D) - lse);
+      const float ds = pj * (dot_f32<D>(dout, vs + j * D) - dl) * p.sm_scale;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, ks[j * D + d], dq[d]);
+    }
+    __syncthreads();
+  }
+  if (row < p.sq) {
+    float* g = static_cast<float*>(p.dq) + b * p.dq_s[0] + h * p.dq_s[1] + row * p.dq_s[2];
+#pragma unroll
+    for (int d = 0; d < D; ++d) g[d] = dq[d];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kRowsF) flash_bwd_dkv_f32(const FlashParams p) {
+  __shared__ __align__(16) float qs[kTileF * D];
+  __shared__ __align__(16) float dos[kTileF * D];
+  __shared__ float lse_s[kTileF], dl_s[kTileF];
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * kRowsF, key = k0 + tid;
+  const int b = blockIdx.y / p.hkv, hk = blockIdx.y % p.hkv, group = p.hq / p.hkv;
+  float k[D], v[D], dk[D], dv[D];
+  load_row_f32<D>(k, static_cast<const float*>(p.k) + b * p.k_s[0] + hk * p.k_s[1], p.k_s[2], key, p.sk);
+  load_row_f32<D>(v, static_cast<const float*>(p.v) + b * p.v_s[0] + hk * p.v_s[1], p.v_s[2], key, p.sk);
+#pragma unroll
+  for (int d = 0; d < D; ++d) dk[d] = dv[d] = 0.f;
+  const int n_qt = (p.sq + kTileF - 1) / kTileF;
+  const int qt0 = p.causal ? k0 / kTileF : 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const float* qg = static_cast<const float*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
+    const float* dog = static_cast<const float*>(p.dout) + b * p.o_s[0] + h * p.o_s[1];
+    const long long rb = (static_cast<long long>(b) * p.hq + h) * p.sq;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kTileF;
+      load_rows_f32<D>(qs, qg, p.q_s[2], q0, p.sq, tid);
+      load_rows_f32<D>(dos, dog, p.o_s[2], q0, p.sq, tid);
+      if (tid < kTileF) {
+        const bool in = q0 + tid < p.sq;
+        lse_s[tid] = in ? p.lse_in[rb + q0 + tid] : 0.f;
+        dl_s[tid] = in ? p.delta[rb + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      for (int j = 0; j < kTileF; ++j) {
+        const int qpos = q0 + j;
+        if (!(qpos < p.sq && (!p.causal || qpos >= key))) continue;
+        const float* qj = qs + j * D;
+        float s = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) s = fmaf(qj[d] * p.sm_scale, k[d], s);
+        const float pj = expf(s - lse_s[j]);
+        const float ds = pj * (dot_f32<D>(dos + j * D, v) - dl_s[j]) * p.sm_scale;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          dv[d] = fmaf(pj, dos[j * D + d], dv[d]);
+          dk[d] = fmaf(ds, qj[d], dk[d]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (key < p.sk) {
+    float* kgo = static_cast<float*>(p.dk) + b * p.dk_s[0] + hk * p.dk_s[1] + key * p.dk_s[2];
+    float* vgo = static_cast<float*>(p.dv) + b * p.dv_s[0] + hk * p.dv_s[1] + key * p.dv_s[2];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      kgo[d] = dk[d];
+      vgo[d] = dv[d];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
+template <int D>
+int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
+  const int bh_q = p.b * p.hq, bh_kv = p.b * p.hkv;
+  if (dtype == 1) {
+    if (which == kFwd) {
+      flash_fwd_bf16<D><<<dim3((p.sq + 63) / 64, bh_q), 128, 0, s>>>(p);
+    } else if (which == kDq) {
+      flash_bwd_dq_bf16<D><<<dim3((p.sq + 63) / 64, bh_q), 128, 0, s>>>(p);
+    } else {
+      flash_bwd_dkv_bf16<D><<<dim3((p.sk + 63) / 64, bh_kv), 128, 0, s>>>(p);
+    }
+  } else if (dtype == 0) {
+    if (which == kFwd) {
+      flash_fwd_f32<D><<<dim3((p.sq + kRowsF - 1) / kRowsF, bh_q), kRowsF, 0, s>>>(p);
+    } else if (which == kDq) {
+      flash_bwd_dq_f32<D><<<dim3((p.sq + kRowsF - 1) / kRowsF, bh_q), kRowsF, 0, s>>>(p);
+    } else {
+      flash_bwd_dkv_f32<D><<<dim3((p.sk + kRowsF - 1) / kRowsF, bh_kv), kRowsF, 0, s>>>(p);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const FlashParams* p, int d, int which, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p->b <= 0 || p->sq <= 0 || p->sk <= 0 || p->hkv <= 0 || p->hq % p->hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return launch_d<16>(*p, which, dtype, s);
+    case 32: return launch_d<32>(*p, which, dtype, s);
+    case 64: return launch_d<64>(*p, which, dtype, s);
+    case 80: return launch_d<80>(*p, which, dtype, s);
+    case 128: return launch_d<128>(*p, which, dtype, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (every tensor but lse/delta). d: head dim,
+// one of 16, 32, 64, 80, 128. Pointers and strides must give 16-byte aligned
+// rows (the wrapper checks). Each returns cudaGetLastError() after its launch.
+extern "C" int mt_flash_fwd(const FlashParams* p, int d, int dtype, void* stream) {
+  return launch(p, d, kFwd, dtype, stream);
+}
+
+extern "C" int mt_flash_bwd_dq(const FlashParams* p, int d, int dtype, void* stream) {
+  return launch(p, d, kDq, dtype, stream);
+}
+
+extern "C" int mt_flash_bwd_dkv(const FlashParams* p, int d, int dtype, void* stream) {
+  return launch(p, d, kDkv, dtype, stream);
+}

@@ -1,0 +1,114 @@
+"""Main: YAML config -> component graph -> train step -> Gym.run, the port of
+modalities_tpu/main.py for one device.
+
+`Main(config_path).run()` loads the config with the port's `${...}`
+interpolation (`cuda_env` resolves to rank 0 of a world of 1 without a
+launcher), builds every node with the training catalog, builds the
+`TrainStep` from the app state's model / optimizer / scheduler, the loss, the
+clipper and the step profile, and runs the trainer. It runs on the CUDA card
+unless `device="cpu"`.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import shutil
+import time
+from pathlib import Path
+from typing import Optional
+
+from modalities_tpu_torch.config.component_factory import ComponentFactory
+from modalities_tpu_torch.config.instantiation_models import (
+    UNPORTED_TRAINING_COMPONENTS,
+    TrainingComponentsInstantiationModel,
+)
+from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
+from modalities_tpu_torch.device import resolve_device
+from modalities_tpu_torch.registry.components import TRAINING_COMPONENTS
+from modalities_tpu_torch.registry.registry import Registry
+
+logger = logging.getLogger(__name__)
+
+
+def experiment_id_of_run(config_path: Path) -> str:
+    """<UTC time>_<first 8 hex digits of the config's sha256>."""
+    digest = hashlib.sha256(Path(config_path).read_bytes()).hexdigest()[:8]
+    return f"{time.strftime('%Y-%m-%d__%H-%M-%S', time.gmtime())}_{digest}"
+
+
+class Main:
+    def __init__(self, config_path: Path, experiments_root_path: Optional[Path] = None,
+                 experiment_id: Optional[str] = None, device: Optional[str] = None):
+        if os.environ.get("MODALITIES_TPU_FAULTS"):
+            raise NotImplementedError(
+                "fault injection (MODALITIES_TPU_FAULTS) is not ported (ROADMAP.md, Queue 1 item 7)"
+            )
+        self.config_path = Path(config_path)
+        self.experiment_id = experiment_id or experiment_id_of_run(self.config_path)
+        self.experiments_root_path = Path(experiments_root_path) if experiments_root_path else None
+        self.config_dict = load_app_config_dict(self.config_path, experiments_root_path=self.experiments_root_path,
+                                                experiment_id=self.experiment_id)
+        self.device = resolve_device(device)
+        self.registry = Registry(TRAINING_COMPONENTS)
+
+    def build_components(self) -> TrainingComponentsInstantiationModel:
+        for key, what in UNPORTED_TRAINING_COMPONENTS.items():
+            if self.config_dict.get(key) is not None:
+                raise NotImplementedError(f"config node {key!r}: {what} is not ported yet")
+        return ComponentFactory(self.registry).build_components(self.config_dict, TrainingComponentsInstantiationModel)
+
+    def build_train_step(self, components: TrainingComponentsInstantiationModel):
+        from modalities_tpu_torch.training.train_step import TrainStep
+
+        app_state = components.app_state
+        return TrainStep(
+            app_state.model, components.loss_fn, app_state.optimizer, app_state.lr_scheduler,
+            device=self.device,
+            gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
+            grad_clipper=components.gradient_clipper,
+        )
+
+    def run(self, components: Optional[TrainingComponentsInstantiationModel] = None) -> list[dict]:
+        """Train; returns the published interval results."""
+        from modalities_tpu_torch.gym import Gym
+        from modalities_tpu_torch.trainer import Trainer
+        from modalities_tpu_torch.training.training_progress import TrainingProgress
+
+        components = components or self.build_components()
+        settings = components.settings
+        if self.experiments_root_path is not None:
+            folder = self.experiments_root_path / self.experiment_id
+            folder.mkdir(parents=True, exist_ok=True)
+            shutil.copy(self.config_path, folder / self.config_path.name)
+        train_step = self.build_train_step(components)
+        print(f"experiment {self.experiment_id}: {train_step.num_parameters:,} trainable parameters on {self.device}",
+              flush=True)
+        mfu = components.mfu_calculator.bind(self.device) if components.mfu_calculator is not None else None
+        progress = settings.training_progress
+        trainer = Trainer(
+            components.progress_subscriber, components.evaluation_subscriber, self.device,
+            gradient_acc_steps=settings.step_profile.gradient_accumulation_steps,
+            global_num_tokens_per_train_step=settings.tokens_per_step,
+            num_seen_train_steps=progress.num_seen_steps,
+            training_log_interval_in_steps=settings.intervals.training_log_interval_in_steps,
+            mfu_calculator=mfu,
+            error_if_nonfinite=bool(getattr(components.gradient_clipper, "error_if_nonfinite", False)),
+        )
+        training_progress = TrainingProgress(
+            num_seen_steps_current_run=0,
+            num_seen_tokens_current_run=0,
+            num_target_steps=settings.training_target.num_target_steps,
+            num_target_tokens=settings.training_target.num_target_tokens,
+            num_seen_steps_previous_run=progress.num_seen_steps,
+            num_seen_tokens_previous_run=progress.global_num_seen_tokens,
+        )
+        self.train_step = train_step
+        return Gym(trainer).run(
+            train_step, components.train_dataloader, components.eval_dataloaders,
+            checkpoint_saving=components.checkpoint_saving,
+            training_progress=training_progress,
+            evaluation_interval_in_steps=settings.intervals.evaluation_interval_in_steps,
+            checkpointing_interval_in_steps=settings.intervals.checkpointing_interval_in_steps,
+        )

@@ -2,8 +2,9 @@
 modalities_tpu/models/components/layer_norms.py.
 
 `NormSpec` resolves a `{norm_type, config}` wrapper node exactly as the JAX
-package does. `RMSNorm` runs through ops/rmsnorm.py, the fused kernel on the
-card and its plain version on the CPU. `LayerNorm` follows flax's
+package does. `RMSNorm` runs through ops/rmsnorm.py:fused_rms_norm, the fused
+forward and backward kernels on the card (`FusedRMSNormFn`) and autograd
+through the plain version on the CPU. `LayerNorm` follows flax's
 `nn.LayerNorm` (fp32 statistics, fast variance E[x^2] - E[x]^2).
 
 Output dtype: the JAX package's two RMSNorm tiers disagree when bf16 x meets
@@ -31,7 +32,7 @@ from modalities_tpu_torch.config.config import (
     check_int,
     validate_config,
 )
-from modalities_tpu_torch.ops.rmsnorm import rms_norm
+from modalities_tpu_torch.ops.rmsnorm import fused_rms_norm
 
 
 class LayerNorms(Enum):
@@ -133,7 +134,7 @@ class _Norm(nn.Module):
 
 class RMSNorm(_Norm):
     def forward(self, x):
-        y = rms_norm(x, self.scale, self.bias, eps=self.eps)
+        y = fused_rms_norm(x, self.scale, self.bias, eps=self.eps)
         return y.to(self.dtype) if self.dtype is not None else y
 
 

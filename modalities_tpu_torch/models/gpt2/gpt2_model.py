@@ -1,14 +1,18 @@
-"""GPT2-family decoder LLM for serving on Hopper: the port of
-modalities_tpu/models/gpt2/gpt2_model.py, restricted to what the serving
-engine's ring KV cache needs.
+"""GPT2-family decoder LLM on Hopper: the port of
+modalities_tpu/models/gpt2/gpt2_model.py for the serving engine's ring KV
+cache and for training.
 
 Kept from the JAX model: the config surface and its validation
 (`GPT2LLMConfig`), GQA attention with RoPE, SwiGLU or GELU MLPs, pre-norm
 blocks, NOPE/ABSOLUTE positions, tied or untied fp32 heads, weight-only
-quantized dense layers, and the slot-cache API (`init_slot_cache`,
-`prefill_slot`, `decode_slots`) with the same numerics at every cast point.
-Not here yet: the full-sequence training forward, the paged cache,
-speculative verify, pipeline and context parallelism, remat and dropout.
+quantized dense layers, the slot-cache API (`init_slot_cache`,
+`prefill_slot`, `decode_slots`) and the full-sequence training forward
+(`GPT2Module.forward`, logits [B, S, V] fp32), with the same numerics at every
+cast point. Attention in training follows `attention_implementation`:
+`manual` runs the plain oracle; `dao_flash` and `pytorch_flash` (the JAX
+package's Pallas and XLA-SDPA tiers, both fused exact attention) run the
+port's flash kernels (ops/flash_attention.py). Not here yet: the paged cache, speculative verify, pipeline and context
+parallelism, remat and dropout.
 
 Layout: parameters follow the flax tree with the scan axis unrolled — the
 state dict key `blocks.3.attn.q_attn.kernel` is `params/blocks/block/attn/
@@ -21,13 +25,16 @@ node): it holds the static spec, makes fp32 parameters from a
 `torch.Generator`, and builds the `GPT2Module` (an `nn.Module`) that serves
 them. Building casts the blocks' dense kernels to the compute dtype once, which
 is bitwise what flax's per-call cast does; norm scales, the embedding and the
-head stay fp32, as the JAX model computes them.
+head stay fp32, as the JAX model computes them. For training it builds the
+module over parameters in `param_dtype` (norm parameters stay fp32, as flax's
+default param dtype leaves them) and casts to the compute dtype per call.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from enum import Enum
 from typing import Optional
 
@@ -45,6 +52,7 @@ from modalities_tpu_torch.config.config import (
     validate_config,
 )
 from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_norm
+from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from modalities_tpu_torch.ops.quant_matmul import quant_matmul
 from modalities_tpu_torch.quant.weights import quant_storage_dtype
 
@@ -61,8 +69,8 @@ class ActivationType(str, Enum):
 
 
 class AttentionImplementation(str, Enum):
-    # config-compat: every tier serves through the same masked attention on
-    # the ring cache, as in the JAX model's slot path
+    # serving: every tier goes through the same masked attention on the ring
+    # cache, as in the JAX model's slot path; training dispatches on the tier
     MANUAL = "manual"
     PYTORCH_FLASH = "pytorch_flash"
     DAO_FLASH = "dao_flash"
@@ -211,6 +219,10 @@ class GPT2ModelSpec:
     compute_dtype: str = "bfloat16"  # block compute dtype
     # weight-only quantized serving: "none" | "int8" | "fp8" (quant/weights.py)
     quant_weights: str = "none"
+    attention_impl: str = AttentionImplementation.MANUAL.value  # the training forward's tier
+    dropout: float = 0.0
+    param_dtype: str = "float32"  # storage dtype of the training parameters (norms stay fp32)
+    lm_head_chunk_size: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
@@ -276,8 +288,11 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
 
     def forward(self, x):
-        y = torch.matmul(x, self.kernel)
-        return y + self.bias if self.bias is not None else y
+        """In x's dtype: the kernel (and bias) are cast per call when they are
+        stored in another dtype (flax's `dtype` semantics; a no-op in serving,
+        where kernels are cast once at load)."""
+        y = torch.matmul(x, self.kernel.to(x.dtype))
+        return y + self.bias.to(y.dtype) if self.bias is not None else y
 
     def cast_(self, dtype):
         self.kernel.data = self.kernel.data.to(dtype)
@@ -357,6 +372,26 @@ class CausalSelfAttention(nn.Module):
         y = masked_attention(q, k_all, v_all, step.mask)
         return self.c_proj(y.reshape(b, s, spec.n_head_q * hd))
 
+    def train_forward(self, x, cos, sin):
+        """Full-sequence causal attention (JAX `CausalSelfAttention.__call__`,
+        gpt2_model.py:496-576): x [B, S, E] in the compute dtype; cos/sin the
+        RoPE rows of positions [0, S) or None."""
+        spec = self.spec
+        b, s, _ = x.shape
+        hd = spec.head_dim
+        q = self.q_attn(x).reshape(b, s, spec.n_head_q, hd)
+        k = self.k_attn(x).reshape(b, s, spec.n_head_kv, hd)
+        v = self.v_attn(x).reshape(b, s, spec.n_head_kv, hd)
+        if spec.qk_norm is not None:
+            q, k = self.q_norm(q), self.k_norm(k)
+        if cos is not None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if spec.attention_impl == AttentionImplementation.MANUAL.value:  # the JAX manual_attention oracle
+            y = reference_attention(q, k, v, causal=True)
+        else:  # dao_flash, pytorch_flash: fused exact attention
+            y = flash_attention(q, k, v, causal=True)
+        return self.c_proj(y.reshape(b, s, spec.n_head_q * hd))
+
 
 class MLP(nn.Module):
     """GELU MLP or SwiGLU (JAX gpt2_model.py:820)."""
@@ -393,6 +428,10 @@ class GPT2Block(nn.Module):
         x = x + self.attn(self.attention_norm(x), cache_k, cache_v, step)
         return x + self.mlp(self.ffn_norm(x))
 
+    def train_forward(self, x, cos, sin):
+        x = x + self.attn.train_forward(self.attention_norm(x), cos, sin)
+        return x + self.mlp(self.ffn_norm(x))
+
 
 @dataclasses.dataclass
 class SlotCache:
@@ -426,7 +465,8 @@ class _Step:
 
 
 class GPT2Module(nn.Module):
-    """wte (+wpe) -> blocks -> lm_head_norm -> fp32 head, over the ring cache."""
+    """wte (+wpe) -> blocks -> lm_head_norm -> fp32 head: the full-sequence
+    training forward (`forward`) and the serving API over the ring cache."""
 
     def __init__(self, spec: GPT2ModelSpec, device=None):
         super().__init__()
@@ -464,6 +504,32 @@ class GPT2Module(nn.Module):
             cos, sin = rope_tables(hd, capacity, self.spec.rope_base_freq, dtype=self.compute_dtype)
             self._rope[key] = (cos.to(self.device), sin.to(self.device))
         return self._rope[key]
+
+    # ------------------------------------------------------------- training
+    def forward(self, input_ids):
+        """The full-sequence forward of the JAX `GPT2Module.__call__`
+        (gpt2_model.py:977-1121): input_ids [B, S] -> logits [B, S, V] fp32,
+        RoPE over positions [0, S), blocks in the compute dtype, the head in
+        fp32."""
+        spec = self.spec
+        if spec.dropout > 0.0:
+            raise NotImplementedError(
+                "dropout > 0 in the training forward is not ported yet (ROADMAP.md, Queue 1 item 7); "
+                "set dropout: 0.0"
+            )
+        s = input_ids.shape[1]
+        x = F.embedding(input_ids, self.wte).to(self.compute_dtype)
+        if spec.poe_type == PositionTypes.ABSOLUTE.value:
+            x = x + self.wpe[:s].to(self.compute_dtype)
+        cos = sin = None
+        if spec.use_rope:
+            cos, sin = self._rope_tables(s)
+        for block in self.blocks:
+            x = block.train_forward(x, cos, sin)
+        h = self.lm_head_norm(x).float()
+        if spec.use_weight_tying:
+            return torch.matmul(h, self.wte.float().t())
+        return self.lm_head(h)
 
     # ----------------------------------------------------------- slot cache API
     def init_slot_cache(self, max_batch_slots: int, cache_capacity: Optional[int] = None) -> SlotCache:
@@ -531,12 +597,50 @@ class GPT2Module(nn.Module):
 # ------------------------------------------------------------- the model
 
 
+@dataclasses.dataclass
+class MixedPrecisionSpec:
+    """The `fsdp2_wrapped` mixed-precision policy (JAX models/model.py:35-38)."""
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    reduce_dtype: str = "float32"
+
+
+@dataclasses.dataclass
+class TrainSpec:
+    """Model-transform descriptors recorded by the registry's model variants and
+    applied when the train step is built (JAX models/model.py:41-49)."""
+
+    mixed_precision: MixedPrecisionSpec = dataclasses.field(default_factory=MixedPrecisionSpec)
+    init_routines: tuple = ()
+
+
+# weight-decay groups, the JAX model's regexes (gpt2_model.py:1158-1164); they
+# match the port's state-dict names (`blocks.0.attn.q_attn.kernel`) as they
+# match the flax paths
+WEIGHT_DECAY_GROUPS = {
+    "linear": [r".*(q_attn|k_attn|v_attn|c_proj|c_fc|W|V|W_2|lm_head).*kernel.*"],
+    "embedding": [r".*(wte|wpe).*"],
+    "layernorm": [r".*(norm).*"],
+}
+
+
+def _is_norm_param(name: str) -> bool:
+    return re.search(r"norm\.(scale|bias)$", name) is not None
+
+
 class GPT2LLM:
     """Framework-level GPT2 (the registry's `model.gpt2`): the static spec plus
     parameter creation and module building. Holds no tensors itself."""
 
+    weight_decay_groups = WEIGHT_DECAY_GROUPS
+
     def __init__(self, **config):
         cfg = validate_config(GPT2LLMConfig, config)
+        self.sample_key = cfg.sample_key
+        self.prediction_key = cfg.prediction_key
+        self.seed = cfg.seed if cfg.seed is not None else 42  # the JAX NNModel default
+        self.train_spec = TrainSpec()
         if cfg.n_embd % cfg.n_head_q != 0:
             raise ValueError("n_embd must be divisible by n_head_q")
         rope = [
@@ -567,6 +671,9 @@ class GPT2LLM:
                 if qk_norm_cfg is not None
                 else None
             ),
+            attention_impl=cfg.attention_implementation,
+            dropout=cfg.dropout,
+            lm_head_chunk_size=cfg.lm_head_chunk_size,
         )
 
     def with_spec_updates(self, **changes) -> "GPT2LLM":
@@ -591,6 +698,48 @@ class GPT2LLM:
             else:
                 params[name] = torch.empty(shape, device=device).normal_(0.0, 0.02, generator=generator)
         return params
+
+    def num_parameters(self) -> int:
+        return sum(v.numel() for v in GPT2Module(self.config_spec, device="meta").state_dict().values())
+
+    def update_train_spec(self, **changes) -> "GPT2LLM":
+        self.train_spec = dataclasses.replace(self.train_spec, **changes)
+        return self
+
+    def init_train_params(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """Training parameters drawn from `generator`, on its device: the
+        default initializers (`init_params`), redrawn where a recorded init
+        routine (the `model_initialized` variant) targets the parameter, then
+        stored in the spec's `param_dtype` except the norm parameters, which
+        stay fp32 as flax leaves them. Drawn one tensor at a time, so only one
+        fp32 tensor is alive beside the stored ones."""
+        spec = self.config_spec
+        device = generator.device
+        dtype = getattr(torch, spec.param_dtype)
+        shapes = {k: v.shape for k, v in GPT2Module(spec, device="meta").state_dict().items()}
+        params = {}
+        for name, shape in shapes.items():
+            leaf = name.rsplit(".", 1)[-1]
+            normal = None
+            for routine in self.train_spec.init_routines:
+                normal = routine.normal_for(name) or normal
+            if normal is not None:
+                t = torch.empty(shape, device=device).normal_(normal[0], normal[1], generator=generator)
+            elif leaf == "scale":
+                t = torch.ones(shape, device=device)
+            elif leaf == "bias":
+                t = torch.zeros(shape, device=device)
+            else:
+                t = torch.empty(shape, device=device).normal_(0.0, 0.02, generator=generator)
+            params[name] = t if _is_norm_param(name) else t.to(dtype)
+        return params
+
+    def build_train_module(self, params: dict[str, torch.Tensor]) -> GPT2Module:
+        """The training module over `params` (adopted as its parameters, on
+        their device, in their dtypes), in train mode."""
+        module = GPT2Module(self.config_spec, device="meta")
+        module.load_state_dict(params, strict=True, assign=True)
+        return module.train()
 
     def build_module(self, params: dict[str, torch.Tensor]) -> GPT2Module:
         """The serving module over `params` (fp32, or a quantize_params tree for

@@ -1,0 +1,75 @@
+"""Model transform variants: the port of modalities_tpu/models/model_factory.py
+for the variants the one-card training path uses. Each records a descriptor
+on the model's `TrainSpec`, applied when the train step is built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+from modalities_tpu_torch.config.config import check_dict
+from modalities_tpu_torch.models.gpt2.gpt2_model import MixedPrecisionSpec
+
+
+def _parse_dtype_name(name) -> str:
+    """jax / torch dtype names ("bfloat16", "torch.bfloat16") and the reference's
+    enum spellings ("BF_16"); FP_16 maps to bfloat16 as in the JAX package."""
+    text = str(name).split(".")[-1]
+    return {"BF_16": "bfloat16", "FP_16": "bfloat16", "FP_32": "float32"}.get(text.upper(), text.lower())
+
+
+@dataclasses.dataclass
+class FSDP2WrappedModelConfig:
+    model: Any
+    device_mesh: Any = None
+    mixed_precision_settings: Optional[dict] = None
+    block_names: Optional[list] = None  # torch FSDP knobs, accepted for config parity
+    layers_per_fsdp_unit: Optional[int] = None
+    reshard_after_forward: bool = True
+
+    def __post_init__(self):
+        check_dict("mixed_precision_settings", self.mixed_precision_settings, optional=True)
+
+
+@dataclasses.dataclass
+class WeightInitializedModelConfig:
+    model: Any
+    model_initializer: Any
+
+
+@dataclasses.dataclass
+class ActivationCheckpointedModelConfig:
+    model: Any
+    activation_checkpointing_variant: str = "full_activation_checkpointing"
+    layers_fqn: Optional[str] = None
+    ac_freq: int = 1
+    save_list: Optional[list] = None
+    device_mesh: Any = None
+
+
+class ModelFactory:
+    @staticmethod
+    def get_fsdp2_wrapped_model(model, device_mesh=None, mixed_precision_settings=None, block_names=None,
+                                layers_per_fsdp_unit=None, reshard_after_forward=True):
+        """On one card `fsdp2_wrapped` shards nothing (its mesh component has
+        already refused degrees > 1): it records the mixed-precision policy,
+        param, reduce and compute dtypes (JAX model_factory.py:34-52,
+        models/model.py:35-38)."""
+        if mixed_precision_settings:
+            model.update_train_spec(mixed_precision=MixedPrecisionSpec(
+                param_dtype=_parse_dtype_name(mixed_precision_settings.get("param_dtype", "float32")),
+                reduce_dtype=_parse_dtype_name(mixed_precision_settings.get("reduce_dtype", "float32")),
+            ))
+        return model
+
+    @staticmethod
+    def get_weight_initialized_model(model, model_initializer):
+        model.update_train_spec(init_routines=model.train_spec.init_routines + (model_initializer,))
+        return model
+
+    @staticmethod
+    def get_activation_checkpointed_model(model, **_):
+        raise NotImplementedError(
+            "activation checkpointing (remat) is not ported yet (ROADMAP.md, Queue 1 item 7)"
+        )

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (route b of a hand-written kernel:
 `nvcc` into a shared library with a plain C interface, bound with `ctypes`).
 
-All `.cu` sources under `modalities_tpu_torch/csrc/` are compiled by ONE nvcc
-call for `sm_90a` into `build/modalities_tpu_torch/` at the repository root. The
-library's file name carries a hash of the sources and flags, so an edited
+Every `.cu` source under `modalities_tpu_torch/csrc/` is compiled for `sm_90a`
+by its own nvcc process, all started together, and the objects are linked into
+one shared library under `build/modalities_tpu_torch/` at the repository root.
+The library's file name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one loads the existing library. The build
 happens on first use, inside the call that launches a kernel, never at import:
 a process without CUDA can import every module.
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "modalities_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _VP = ctypes.c_void_p
@@ -37,12 +38,16 @@ _INT = ctypes.c_int
 # C signatures of the entry points (see the .cu sources)
 _SIGNATURES = {
     "mt_rms_norm_fwd": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, ctypes.c_float, _INT, _VP),
+    "mt_rms_norm_bwd": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "mt_flash_fwd": (_VP, _INT, _INT, _VP),  # (const FlashParams*, head dim, dtype, stream)
+    "mt_flash_bwd_dq": (_VP, _INT, _INT, _VP),
+    "mt_flash_bwd_dkv": (_VP, _INT, _INT, _VP),
     "mt_quant_matmul": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-build_seconds: float | None = None  # wall time of the nvcc call in this process (None: loaded)
+build_seconds: float | None = None  # wall time of the nvcc calls in this process (None: loaded)
 
 
 def sources() -> list[Path]:
@@ -69,19 +74,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmt_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands as concurrent processes; raise with the output of the
+    first that fails, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{output}")
+
+
 def _build(out: Path) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources()]]
+    stem = out.with_suffix(f".{os.getpid()}")
+    objs = [Path(f"{stem}.{src.stem}.o") for src in sources()]
+    tmp = Path(f"{stem}.tmp.so")
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources(), objs)])
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - start
 
 

@@ -1,6 +1,8 @@
-"""The port's component catalog: the entities this slice builds (the JAX
-catalog is modalities_tpu/registry/components.py). `inference_component.serve`
-is added by serving/serve.py, as the JAX package does."""
+"""The port's component catalog (the JAX catalog is
+modalities_tpu/registry/components.py): `COMPONENTS` for serving
+(`inference_component.serve` is added by serving/serve.py, as the JAX package
+does) and `TRAINING_COMPONENTS` for `run`, the component and variant keys of
+the JAX training configs."""
 
 from modalities_tpu_torch.config.config import PreTrainedHFTokenizerConfig
 from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM, GPT2LLMConfig
@@ -11,3 +13,81 @@ COMPONENTS = [
     ComponentEntity("model", "gpt2", GPT2LLM, GPT2LLMConfig),
     ComponentEntity("tokenizer", "pretrained_hf_tokenizer", PreTrainedHFTokenizer, PreTrainedHFTokenizerConfig),
 ]
+
+
+def _training_components() -> list[ComponentEntity]:
+    from modalities_tpu_torch.checkpointing.checkpoint_saving import (
+        CheckpointSaving,
+        CheckpointSavingExecution,
+        SaveKMostRecentCheckpointsStrategy,
+    )
+    from modalities_tpu_torch.dataloader import samplers
+    from modalities_tpu_torch.dataloader.dataloader import GPT2LLMCollateFn, LLMDataLoader
+    from modalities_tpu_torch.dataloader.dataset import (
+        PackedMemMapDatasetContinuousConfig,
+        get_packed_mem_map_dataset_continuous,
+    )
+    from modalities_tpu_torch.logging_broker.subscribers import (
+        DummySubscriber,
+        EvaluationResultToDiscSubscriber,
+        PrintProgressSubscriber,
+    )
+    from modalities_tpu_torch.loss_functions import CLMCrossEntropyLoss
+    from modalities_tpu_torch.models.model_factory import (
+        ActivationCheckpointedModelConfig,
+        FSDP2WrappedModelConfig,
+        ModelFactory,
+        WeightInitializedModelConfig,
+    )
+    from modalities_tpu_torch.nn.model_initialization import ComposedModelInitialization
+    from modalities_tpu_torch.optimizers.optimizer_factory import AdamOptimizerConfig, OptimizerFactory
+    from modalities_tpu_torch.optimizers.scheduler_factory import SCHEDULERS
+    from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
+    from modalities_tpu_torch.running_env.xla_flags import XlaPerformanceFlags
+    from modalities_tpu_torch.training.app_state import AppStateSpec
+    from modalities_tpu_torch.training.gradient_clipping import (
+        DummyGradientClipper,
+        GradientClipper,
+        LoggingOnlyGradientClipper,
+    )
+    from modalities_tpu_torch.utils.mfu import GPT2MFUCalculator, GPT2MFUCalculatorConfig
+
+    def E(key, variant, component, config=None, own_config=True):  # noqa: N802
+        """A dataclass component is its own config unless another is given."""
+        return ComponentEntity(key, variant, component, config or (component if own_config else None))
+
+    return [
+        E("performance", "xla_flags", XlaPerformanceFlags),
+        E("device_mesh", "default", DeviceMesh),
+        E("model", "fsdp2_wrapped", ModelFactory.get_fsdp2_wrapped_model, FSDP2WrappedModelConfig),
+        E("model", "model_initialized", ModelFactory.get_weight_initialized_model, WeightInitializedModelConfig),
+        E("model", "activation_checkpointed", ModelFactory.get_activation_checkpointed_model,
+          ActivationCheckpointedModelConfig),
+        E("model_initialization", "composed", ComposedModelInitialization),
+        E("loss", "clm_cross_entropy_loss", CLMCrossEntropyLoss),
+        E("optimizer", "adam", OptimizerFactory.get_adam, AdamOptimizerConfig),
+        E("optimizer", "adam_w", OptimizerFactory.get_adam_w, AdamOptimizerConfig),
+        *[E("scheduler", name, cls) for name, cls in SCHEDULERS.items()],
+        E("app_state", "raw", AppStateSpec),
+        E("dataset", "packed_mem_map_dataset_continuous", get_packed_mem_map_dataset_continuous,
+          PackedMemMapDatasetContinuousConfig),
+        E("sampler", "resumable_distributed_multi_dim_sampler",
+          samplers.create_resumable_distributed_multi_dim_sampler, samplers.ResumableDistributedMultiDimSamplerConfig),
+        E("batch_sampler", "default", samplers.create_batch_sampler, samplers.BatchSamplerConfig),
+        E("collate_fn", "gpt_2_llm_collator", GPT2LLMCollateFn),
+        E("data_loader", "default", LLMDataLoader),
+        E("checkpoint_saving", "default", CheckpointSaving),
+        E("checkpoint_saving_strategy", "save_k_most_recent_checkpoints_strategy", SaveKMostRecentCheckpointsStrategy),
+        E("checkpoint_saving_execution", "orbax", CheckpointSavingExecution),
+        E("gradient_clipper", "fsdp2", GradientClipper),
+        E("gradient_clipper", "fsdp2_logging_only", LoggingOnlyGradientClipper),
+        E("gradient_clipper", "dummy", DummyGradientClipper, own_config=False),
+        E("progress_subscriber", "rich", PrintProgressSubscriber),
+        E("progress_subscriber", "dummy", DummySubscriber, own_config=False),
+        E("results_subscriber", "save_to_disc", EvaluationResultToDiscSubscriber),
+        E("results_subscriber", "dummy", DummySubscriber, own_config=False),
+        E("mfu_calculator", "gpt2", GPT2MFUCalculator, GPT2MFUCalculatorConfig),
+    ]
+
+
+TRAINING_COMPONENTS = COMPONENTS + _training_components()

@@ -165,3 +165,28 @@ def test_yaml_style_epsilon_string_is_read_as_a_number():
     """YAML 1.1 reads `1e-5` as a string; the port accepts it as pydantic does."""
     cfg = port_config(lm_head_norm_config={"norm_type": "rms_norm", "config": {"ndim": 128, "epsilon": "1e-5"}})
     assert GPT2LLM(**cfg).config_spec.lm_head_norm.eps == 1e-5
+
+
+@pytest.mark.parametrize(
+    "impl,overrides",
+    [
+        ("dao_flash", {"use_weight_tying": False}),
+        ("manual", {"use_weight_tying": True}),
+        ("pytorch_flash", {"use_weight_tying": False}),
+        ("manual", {"poe_type": "ABSOLUTE", "activation_type": "gelu", "bias": True}),
+    ],
+    ids=["dao_flash-untied", "manual-tied", "pytorch_flash", "manual-absolute-gelu-bias"],
+)
+def test_training_forward_matches_jax_apply_f32(impl, overrides):
+    """The full-sequence forward (GPT2Module.forward) against the JAX model's
+    `apply` in f32; on the CPU the JAX dao_flash and pytorch_flash tiers are
+    XLA SDPA and the port's are its plain attention."""
+    jm = tiny_gpt2(impl, **overrides).with_spec_updates(compute_dtype="float32")
+    params = meta.unbox(jm.init_params(jax.random.PRNGKey(1)))
+    tokens = np.random.default_rng(2).integers(0, 128, size=(2, 32))
+    want = np.asarray(jm.apply(params, {"input_ids": jnp.asarray(tokens, jnp.int32)})["logits"])
+    pm = GPT2LLM(**port_config(attention_implementation=impl, **overrides)).with_spec_updates(compute_dtype="float32")
+    module = pm.build_train_module(params_from_jax(jax.tree.map(np.asarray, params), pm))
+    got = module(torch.as_tensor(tokens))
+    assert got.shape == (2, 32, 128) and got.dtype == torch.float32 and module.training
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=F32_ATOL, rtol=0)

@@ -1,20 +1,34 @@
-"""The port's kernel wrappers (ops/rmsnorm.py, ops/quant_matmul.py) without
-JAX: how they dispatch, and — on a card — each kernel against its plain
-PyTorch version. This file imports no JAX, so the `cuda`-marked tests run on a
-machine with a card and no JAX:
+"""The port's kernel wrappers (ops/rmsnorm.py, ops/quant_matmul.py,
+ops/flash_attention.py) without JAX: how they dispatch, and — on a card — each
+kernel against its plain PyTorch version. This file imports no JAX, so the
+`cuda`-marked tests run on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tolerances on the card: RMSNorm f32 1e-5 (warp-tree vs torch sum order), bf16
 two bf16 ulps (rtol 2^-6); dequant-matmul f32 x 1e-5 * max|ref| (sums of 2560
-products in another order), bf16 x the same plus two bf16 ulps."""
+products in another order), bf16 x the same plus two bf16 ulps. RMSNorm
+backward: f32 1e-5 relative to the largest gradient; bf16 dx two bf16 ulps.
+Flash attention: each output row (one query's out or dq, one key's dk or dv)
+against its own norm, ||got - want|| <= rel * ||want|| + 1e-5 * sqrt(D): f32
+rel 1e-4 (sums in another order); bf16 rel 1e-2, since the kernels round P and
+dS to bf16 before their tensor-core products and round each output to bf16,
+while the plain version stays fp32. Autograd's dq and dk of the fp32 plain
+attention are first moved to the delta the kernels read (sum dO * out of the
+kernel's own out, bf16 in bf16): they are linear in it. lse 1e-4 absolute."""
 
 import pytest
 import torch
 
 from modalities_tpu_torch.device import resolve_device
+from modalities_tpu_torch.ops import flash_attention as fa
 from modalities_tpu_torch.ops.quant_matmul import BLOCK_K, quant_matmul, reference_quant_matmul, split_k
-from modalities_tpu_torch.ops.rmsnorm import reference_rms_norm, rms_norm
+from modalities_tpu_torch.ops.rmsnorm import (
+    fused_rms_norm,
+    reference_rms_norm,
+    rms_norm,
+    rms_norm_backward,
+)
 from modalities_tpu_torch.quant.core import quantize_fp8, quantize_per_channel
 
 EPS = 1e-5
@@ -110,3 +124,141 @@ def test_quant_matmul_kernel_matches_the_plain_version_on_the_card(mode, dtype):
         atol = 1e-5 * float(want.float().abs().max())
         rtol = 0.0 if dtype == torch.float32 else 2**-6
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_cpu_tensors_take_the_plain_flash_attention_and_rms_norm_backward():
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 16, h, 16, generator=g) for h in (4, 2, 2))
+    counts = (fa.flash_fwd_out_lse.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+              rms_norm_backward.launches)
+    assert torch.equal(fa.flash_attention(q, k, v), fa.reference_attention(q, k, v))
+    out, lse = fa.flash_fwd_out_lse(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert out.shape == (1, 4, 16, 16) and lse.shape == (1, 4, 16, 1) and lse.dtype == torch.float32
+    x = torch.randn(3, 64, generator=g, requires_grad=True)
+    fused_rms_norm(x, torch.ones(64), None, eps=EPS).sum().backward()
+    assert x.grad is not None
+    assert counts == (fa.flash_fwd_out_lse.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches,
+                      rms_norm_backward.launches)
+
+
+def _rel_close(got, want, rel, what, atol=1e-5):
+    """|got - want| <= rel * max|want| + atol; the atol covers gradients that
+    are exactly 0 in exact arithmetic (one key: p = 1, dp = delta)."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    assert torch.isfinite(got).all() and err <= rel * scale + atol, f"{what}: max err {err:g} vs max {scale:g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rms_norm_backward_kernel_matches_autograd_of_the_plain_version(dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, e in ((1, 2560), (64, 2560), (1000, 2560), (8192, 2560), (5, 128)):
+        x = torch.randn(n, e, generator=g, device=dev).to(dtype)
+        dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
+        for scale_dtype in (None, torch.float32, torch.bfloat16):
+            s = None if scale_dtype is None else torch.randn(e, generator=g, device=dev).to(scale_dtype)
+            b = None if scale_dtype is None else torch.randn(e, generator=g, device=dev).to(scale_dtype)
+            leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (x, s, b)]
+            fused_rms_norm(*leaves, eps=EPS).backward(dy)
+            plain = [t.clone().requires_grad_(True) if t is not None else None for t in (x, s, b)]
+            reference_rms_norm(*plain, eps=EPS).backward(dy)
+            torch.cuda.synchronize()
+            rel = 1e-5 if dtype == torch.float32 else 2**-6
+            for got, want, name in zip(leaves, plain, ("dx", "dscale", "dbias")):
+                if got is not None:
+                    assert got.grad.dtype == got.dtype
+                    _rel_close(got.grad, want.grad, rel if name == "dx" else max(rel, 1e-5 if scale_dtype ==
+                               torch.float32 else 2**-7), f"{name} N={n} {dtype} scale {scale_dtype}")
+
+
+FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rows_close(got, want, rel, what):
+    """Every row (last axis) within rel of its own norm, floored at 1e-3 x the
+    RMS row norm, plus 1e-5 * sqrt(D) for rows that are 0 in exact arithmetic."""
+    got, want = got.detach().float(), want.detach().float()
+    err, size = (got - want).norm(dim=-1), want.norm(dim=-1)
+    size = size.clamp_min(1e-3 * float(size.square().mean().sqrt()))
+    allowed = rel * size + 1e-5 * want.shape[-1] ** 0.5
+    assert torch.isfinite(got).all() and bool((err <= allowed).all()), (
+        f"{what}: {int((err > allowed).sum())} rows outside rel {rel:g}, worst {float((err / size).max()):g}")
+
+
+def _with_kernel_delta(q, k, do, out_ref, out_kernel, dq, dk, causal):
+    """Autograd's dq, dk of the fp32 plain attention ([B, H, S, D]) at the
+    delta the kernels read: with e = sum_D dO * (out_kernel - out_ref),
+    dq_i - scale e_i sum_j P_ij k_j and dk_j - scale sum_i P_ij e_i q_i."""
+    group, scale = q.shape[1] // k.shape[1], q.shape[-1] ** -0.5
+    kx = k.float().repeat_interleave(group, 1)
+    s = torch.matmul(q.float() * scale, kx.transpose(-1, -2))
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool, device=s.device).triu(1), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    e = (do.float() * (out_kernel.float() - out_ref.float())).sum(-1, keepdim=True)
+    per_head = torch.matmul(p.transpose(-1, -2), e * q.float())
+    b, hq, sk, d = per_head.shape
+    return (dq.float() - scale * e * torch.matmul(p, kx),
+            dk.float() - scale * per_head.reshape(b, hq // group, group, sk, d).sum(2))
+
+
+def _qkv(dev, b, s, hq, hkv, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 8, 2, 80), (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80),
+                                   (1, 77, 4, 1, 16), (1, 130, 2, 2, 32)], ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, causal, dtype):
+    dev = _card()
+    b, s, hq, hkv, d = shape
+    q, k, v = _qkv(dev, b, s, hq, hkv, d, dtype)
+    w = torch.randn(b, s, hq, d, device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    counts = (fa.flash_fwd_out_lse.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    out = fa.FlashAttentionFn.apply(*leaves, causal, 1.0 / d**0.5)
+    out.backward(w)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd_out_lse.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == tuple(
+        c + 1 for c in counts)
+    plain = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.reference_attention(*plain, causal=causal)
+    ref.backward(w.float())
+    rel = FLASH_ROW_REL[dtype]
+    _rows_close(out, ref, rel, "out")
+    bhsd = [t.detach().transpose(1, 2) for t in (q, k, w, ref, out, plain[0].grad, plain[1].grad)]
+    want_dq, want_dk = _with_kernel_delta(*bhsd, causal)
+    for got, want, name in zip(leaves, (want_dq, want_dk, plain[2].grad.transpose(1, 2)), "qkv"):
+        assert got.grad.dtype == dtype and got.grad.shape == got.shape
+        _rows_close(got.grad.transpose(1, 2), want, rel, f"d{name}")
+    # the bhsd entries with an explicit global (lse, delta), and bitwise repeatability
+    qt, kt, vt, wt = (t.transpose(1, 2) for t in (q, k, v, w))
+    o1, lse = fa.flash_fwd_out_lse(qt, kt, vt, causal=causal)
+    o_ref, lse_ref = fa.reference_flash_fwd_out_lse(qt, kt, vt, causal=causal)
+    _rows_close(o1, o_ref, rel, "flash_fwd_out_lse out")
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    delta = (wt.float() * o1.float()).sum(-1, keepdim=True)
+    dq1 = fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal)
+    dk1, dv1 = fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)
+    dq2 = fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal)
+    dk2, dv2 = fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    _rows_close(dq1, fa.reference_flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal), rel, "flash_bwd_dq")
+    for got, want, name in zip((dk1, dv1), fa.reference_flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal),
+                               ("dk", "dv")):
+        _rows_close(got, want, rel, f"flash_bwd_dkv {name}")
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_head_dims_it_was_not_built_for():
+    dev = _card()
+    q, k, v = _qkv(dev, 1, 8, 2, 2, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, v)

@@ -103,3 +103,52 @@ def test_norm_modules_match_flax(wrapper):
     module.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     got = module(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("affine", [False, True], ids=["identity", "scale+bias"])
+@pytest.mark.parametrize("n", [1, 7, 33])
+def test_backward_matches_the_jax_custom_vjp_in_interpret_mode(affine, n):
+    """dx, dscale and dbias of the port (autograd through the plain version,
+    and the plain backward kernel given r) against jax.vjp of the JAX
+    `fused_rms_norm` custom_vjp, whose backward is the Pallas `_bwd_kernel` in
+    interpret mode. Tolerance 1e-5 (f32; sums in other orders)."""
+    from modalities_tpu_torch.ops.rmsnorm import fused_rms_norm as port_fused_rms_norm
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm_backward
+
+    e = 256
+    rng = np.random.default_rng(100 + n)
+    x = rng.standard_normal((n, e)).astype(np.float32)
+    dy = rng.standard_normal((n, e)).astype(np.float32)
+    scale = rng.standard_normal(e).astype(np.float32)
+    bias = rng.standard_normal(e).astype(np.float32)
+    if affine:
+        _, vjp = jax.vjp(lambda a, s, b: fused_rms_norm(a, s, b, eps=EPS, block_rows=8, interpret=True),
+                         jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+        jdx, jds, jdb = vjp(jnp.asarray(dy))
+    else:
+        _, vjp = jax.vjp(lambda a: fused_rms_norm(a, eps=EPS, block_rows=8, interpret=True), jnp.asarray(x))
+        (jdx,) = vjp(jnp.asarray(dy))
+    leaves = [torch.from_numpy(a.copy()).requires_grad_(True) for a in ((x, scale, bias) if affine else (x,))]
+    port_fused_rms_norm(*leaves, eps=EPS).backward(torch.from_numpy(dy))
+    tol = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(leaves[0].grad.numpy(), np.asarray(jdx), **tol)
+    if affine:
+        np.testing.assert_allclose(leaves[1].grad.numpy(), np.asarray(jds), **tol)
+        np.testing.assert_allclose(leaves[2].grad.numpy(), np.asarray(jdb), **tol)
+    # the plain backward kernel itself, from the forward's r
+    xt = torch.from_numpy(x)
+    _, r = rms_norm(xt, torch.from_numpy(scale) if affine else None, None, eps=EPS, residual=True)
+    dx, ds, db = rms_norm_backward(torch.from_numpy(dy), xt, torch.from_numpy(scale) if affine else None, r)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **tol)
+    if affine:
+        np.testing.assert_allclose(ds.numpy(), np.asarray(jds), **tol)
+        np.testing.assert_allclose(db.numpy(), np.asarray(jdb), **tol)
+
+
+def test_bf16_scale_gradient_returns_in_the_parameters_dtype():
+    from modalities_tpu_torch.ops.rmsnorm import fused_rms_norm as port_fused_rms_norm
+
+    x = torch.randn(4, 64, requires_grad=True)
+    scale = torch.randn(64).to(torch.bfloat16).requires_grad_(True)
+    port_fused_rms_norm(x, scale, None, eps=EPS).sum().backward()
+    assert scale.grad.dtype == torch.bfloat16 and x.grad.dtype == torch.float32
