@@ -14,7 +14,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      backward kernel called twice for bitwise-identical gradients; per-kernel
      times (kernel, plain version, one library call as a yardstick, least
      possible). Flash outputs are held row by row to each row's own norm, and
-     that check must reject a forward that drops one key tile. A small GPT2
+     that check must reject a forward that drops one key tile; flash and
+     RMSNorm also at the 32k config's shapes (q [1, 12, 32768, 128], k/v
+     [1, 4, 32768, 128], checked head by head; x [32768, 1536]). The fused-CE kernels
+     at the 32k training shape (N 32768, V 50304, E 1536, bf16) and on small
+     ragged f32 and bf16 cases: lse, corr and total against the plain
+     version, dh and dW of the total per row against autograd of it; that
+     check must reject a dh that skips one vocab tile. A small GPT2
      then runs prefill + decode on the card and on the CPU with the same
      weights (logits agree), and takes 3 optimizer steps on the card and on
      the CPU from the same parameters (losses and parameters agree); a tiny
@@ -38,7 +44,18 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      every step. Then the config's lr 1.6e-4 on one repeated batch, at full
      width and cut depth or length, through the kernels and through the plain
      path on the card: the two loss curves agree at every step.
-  5. one JSON line naming the kernels, then the device line (last line).
+  5. train the 32k long-context GPT2 of configs/config_long_context_32k.yaml
+     through Main (full width and depth: 24 layers of 1536, one sequence of
+     32768 a step, full remat, the fused-CE head), on a seeded synthetic
+     .pbin: 3 steps with finite losses, step 0's loss within 0.5 of
+     ln(50304) + 1536 * 0.02^2 / 2, exact launch counts per step (the
+     remat's second forwards included), peak memory within the written
+     reckoning (LONG_PEAK_GB), a profiled step; 5 steps on one repeated
+     batch at lr 2e-5 (the loss falls at every step); the config's lr 2e-4
+     at full width and 4 layers x 4096 through the kernels and through the
+     plain path (chunked-scan head): the loss curves agree at every step.
+  6. one JSON line naming the kernels (launches summed over the paths, and
+     per path: serve, train_2p7b, train_32k), then the device line (last line).
 
 Exits non-zero, printing no result, without a CUDA device or without the rest
 of the repository beside it.
@@ -94,7 +111,9 @@ MODEL_2P7B = {  # config_serve.yaml's model node at configs/config_2p7b_dp.yaml'
 }
 SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 64
 TRAIN_SHAPE = (2, 4096, 32, 8, 80)  # (B, S, Hq, Hkv, D) of one 2.7B training microbatch
-FLASH_SHAPES = [TRAIN_SHAPE, (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80)]
+# the last shape is the 32k config's heads (GQA group 3, D 128) at a length whose plain scores fit
+FLASH_SHAPES = [TRAIN_SHAPE, (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80), (1, 2048, 12, 4, 128)]
+FLASH_LONG = (1, 32768, 12, 4, 128)  # (B, S, Hq, Hkv, D) of the 32k config's attention, checked head by head
 # Flash attention against the plain version, per output row relative to the
 # row's own norm (_row_check). bf16: the kernels round P and dS to bf16 before
 # their tensor-core products and round each output to bf16, while the plain
@@ -112,7 +131,27 @@ TINY_BF16_TOL = {"grads": 4e-2, "loss": 3e-5, "grad_norm": 1e-3, "params": 0.1}
 LR_WITNESS = [(32, 1024), (4, 4096)]
 LR_WITNESS_TOL = 0.1
 RMS_ROWS = (1, 4, 8, 16, 64, 1000, 8192)  # 8192 = 2 x 4096 rows of a training microbatch
+RMS_LONG = (32768, 1536)  # (rows, width) of the 32k config's norms: one sequence of 32768 at width 1536
 QMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 7680), (7680, 2560), (2560, 50304)]  # (K, N) per decode step
+CE_SHAPE = (32768, 50304, 1536)  # (N, V, E) of one 32k training microbatch: rows, vocab, width
+# Small fused-CE cases (N, V, E, h dtype, w dtype, ignored rows): ragged rows and vocab on both
+# paths, ignored rows, all rows ignored, widths up to the 32k config's, bf16 h with fp32 w
+CE_SMALL = [(100, 300, 64, "float32", "float32", 7), (37, 129, 128, "float32", "float32", 0),
+            (16, 128, 32, "float32", "float32", 16), (100, 300, 128, "bfloat16", "bfloat16", 7),
+            (37, 129, 256, "bfloat16", "bfloat16", 0), (45, 1000, 1536, "bfloat16", "bfloat16", 3),
+            (16, 128, 128, "bfloat16", "bfloat16", 16), (32, 256, 64, "bfloat16", "float32", 2)]
+# Fused CE against the plain version (fp32 logits from the same inputs): lse and corr 1e-4
+# absolute (fp32 sums of E products in another order; |lse| ~ 11); total rtol 1e-5; dh and dW of
+# the total held per row to the row's own norm (_row_check), by the gradient's dtype: f32 1e-4
+# (fp32 sums in another order), bf16 1e-2 (the bf16 kernels round ds to bf16 before the
+# tensor-core product, and every bf16 gradient is rounded to bf16 at the end).
+CE_ROW_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+LONG_CONFIG = "config_long_context_32k.yaml"
+LONG_MODEL = {"seq": 32768, "vocab": 50304, "width": 1536, "layers": 24}  # the 32k config's model, uncut
+LONG_PEAK_GB = 20.0  # the written reckoning of the 32k step's peak memory (PERF.md, section 6): 12-18 GB, at most 20
+LONG_WITNESS = (4, 4096)  # (layers, sequence length) of the 32k config's witness runs, kernels vs plain path
+TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "rms_fwd", "rms_bwd")
+LONG_KERNELS = TRAIN_KERNELS + ("ce_fwd", "ce_dh", "ce_dw")
 
 
 def log(msg: str) -> None:
@@ -206,8 +245,10 @@ def phase_kernels(torch) -> dict:
     # torch's mean: a few f32 ulps); bf16 two bf16 ulps (rtol 2^-6) on the
     # output rounded from those fp32 values.
     e, eps, err_max, cases = 2560, 1e-5, 0.0, 0
+    # decode 8, prefill ladder 64/16/4/1 and many rows at the 2.7B width; the 32k training shape
+    shapes = [(n, e) for n in (1, 4, 8, 16, 64, 1000)] + [RMS_LONG]
     for dtype, tol in ((torch.float32, (1e-5, 1e-5)), (torch.bfloat16, (1e-6, 2**-6))):
-        for n in (1, 4, 8, 16, 64, 1000):  # decode 8, prefill ladder 64/16/4/1, and many rows
+        for n, e in shapes:
             x = torch.randn(n, e, generator=g, device=dev).to(dtype)
             for affine in (False, True):
                 s = torch.randn(e, generator=g, device=dev) if affine else None
@@ -219,6 +260,7 @@ def phase_kernels(torch) -> dict:
                 r_ref = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + eps)
                 check_close(torch, r, r_ref, 0.0, 1e-5, f"rms_norm residual {dtype} N={n}")
                 cases += 1
+    e = 2560
     timings = []
     for n in (8, 64):  # decode rows, largest prefill chunk
         x = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
@@ -245,7 +287,7 @@ def phase_kernels(torch) -> dict:
     for t in timings:
         log(f"[phase 1] rms_norm {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
-    log(f"[phase 1] rms_norm: {cases} cases agree, max abs err {err_max:g}")
+    log(f"[phase 1] rms_norm: {cases} cases ({shapes}, f32 and bf16) agree, max abs err {err_max:g}")
 
     # Dequant-matmul. Tolerances: f32 x |err| <= 1e-5*max|ref| (fp32 sums of
     # up to 7680 products in another order); bf16 x the same plus two bf16
@@ -452,9 +494,9 @@ def phase_train_kernels(torch) -> dict:
     # plus 1e-5 absolute): f32 1e-5 (fp32 sums in another order); bf16 dx 2^-6
     # (two bf16 ulps of the rounded gradient); dscale/dbias are fp32 column
     # sums (1e-5), 2^-7 when returned in a bf16 parameter's dtype.
-    e, eps, err_max, cases = 2560, 1e-5, 0.0, 0
+    eps, err_max, cases = 1e-5, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
-        for n in RMS_ROWS:
+        for n, e in [(n, 2560) for n in RMS_ROWS] + [RMS_LONG]:
             x = torch.randn(n, e, generator=g, device=dev).to(dtype)
             dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
             for pdtype in (None, torch.float32, torch.bfloat16):
@@ -471,18 +513,19 @@ def phase_train_kernels(torch) -> dict:
                     low = got.dtype == torch.bfloat16
                     rel = (2**-6 if low else 1e-5) if i == 0 else (2**-7 if low else 1e-5)
                     err_max = max(err_max, _rel_check(torch, got.grad, want.grad, rel, 1e-5,
-                                                      f"rms_norm backward d{'x sb'[i]} {dtype} N={n} params {pdtype}"))
+                                                      f"rms_norm backward d{'x sb'[i]} {dtype} N={n} E={e} "
+                                                      f"params {pdtype}"))
                 cases += 1
             _, r = rms_norm(x, None, None, eps=eps, residual=True)
             s32 = torch.randn(e, generator=g, device=dev)
             first = rms_norm_backward(dy, x, s32, r)
             second = rms_norm_backward(dy, x, s32, r)
             if not all(torch.equal(a, b) for a, b in zip(first, second)):
-                raise AssertionError(f"rms_norm backward N={n} {dtype}: two calls differ")
-    log(f"[phase 1] rms_norm backward: {cases} cases agree with autograd of the plain version (f32 rel 1e-5; "
+                raise AssertionError(f"rms_norm backward N={n} E={e} {dtype}: two calls differ")
+    log(f"[phase 1] rms_norm backward: {cases} cases (E 2560 at N {RMS_ROWS}; N {RMS_LONG[0]} at E {RMS_LONG[1]}) agree with autograd of the plain version (f32 rel 1e-5; "
         f"bf16 dx rel 2^-6, bf16 dscale/dbias rel 2^-7; + atol 1e-5), max abs err {err_max:g}; "
         f"a second call is bitwise identical")
-    n = 8192
+    n, e = 8192, 2560
     x = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
     dy = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
     s32 = torch.randn(e, generator=g, device=dev)
@@ -502,7 +545,17 @@ def phase_train_kernels(torch) -> dict:
     t = out["rmsnorm_bwd"]["timings"][0]
     log(f"[phase 1] rms_norm backward {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
         f"autograd of F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
-    del x, dy, xl, wl, y_lib
+    n, e = RMS_LONG
+    x = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    s32 = torch.randn(e, generator=g, device=dev)
+    _, r = rms_norm(x, s32, None, eps=eps, residual=True)
+    log(f"[phase 1] rms_norm at the 32k shape x[{n},{e}] bf16, scale f32: forward kernel "
+        f"{time_ms(torch, lambda: rms_norm(x, s32, None, eps=eps, residual=True), reps=10):.4f} ms (bound "
+        f"{1e3 * (2 * n * e * 2 + 4 * e + 4 * n) / PEAK_BYTES_S:.5f} ms, bytes), backward kernel "
+        f"{time_ms(torch, lambda: rms_norm_backward(dy, x, s32, r, want_dbias=False), reps=10):.4f} ms (bound "
+        f"{1e3 * (3 * n * e * 2 + 4 * n + 2 * 4 * e) / PEAK_BYTES_S:.5f} ms, bytes)")
+    del x, dy, xl, wl, y_lib, r
 
     # Flash attention, every output row held to its own norm (_row_check) at
     # FLASH_ROW_REL: against autograd of the fp32 plain attention, dq and dk
@@ -628,6 +681,199 @@ def phase_train_kernels(torch) -> dict:
             f"{lib_name} {lib:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
     del q, k, v, w, o, lse, delta, ql, kl, vl, y_lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_long(torch) -> None:
+    """Flash at the 32k config's attention shape: q [1, 12, 32768, 128], k/v
+    [1, 4, 32768, 128] bf16 (GQA group 3). The forward, dq and dk/dv kernels
+    run once on the whole shape; their outputs are held, every row to its own
+    norm, against the plain versions given the same global (lse, delta), one
+    head at a time so that the plain fp32 scores (4.3 GB a head) fit: each q
+    head's out, lse and dq, and each kv head's dk and dv against the sum of
+    the plain dk/dv of its 3 q heads (fp32)."""
+    from modalities_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = FLASH_LONG
+    group = hq // hkv
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, w = (torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    what = f"flash bf16 causal q [{b}, {hq}, {s}, {d}] k/v [{b}, {hkv}, {s}, {d}]"
+    rel = FLASH_ROW_REL["bfloat16"]
+    o, lse = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    delta = (w.float() * o.float()).sum(-1, keepdim=True)
+    dq = fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    seen: dict[str, list[float]] = {}  # output -> [worst row rel err, share of allowance used]
+
+    def held(got, want, name, head):
+        row_rel, used, _ = _row_check(torch, got, want, rel, f"{what} {name} head {head}")
+        slot = seen.setdefault(name, [0.0, 0.0])
+        slot[0], slot[1] = max(slot[0], row_rel), max(slot[1], used)
+
+    lse_err = 0.0
+    for hk in range(hkv):
+        ks, vs = k[:, hk:hk + 1], v[:, hk:hk + 1]
+        want_dk = want_dv = 0.0
+        for h in range(hk * group, (hk + 1) * group):
+            qs, ws, lse_h, delta_h = q[:, h:h + 1], w[:, h:h + 1], lse[:, h:h + 1], delta[:, h:h + 1]
+            o_ref, lse_ref = fa.reference_flash_fwd_out_lse(qs, ks, vs, causal=True)
+            held(o[:, h:h + 1], o_ref, "out", h)
+            lse_err = max(lse_err, _rel_check(torch, lse_h, lse_ref, 0.0, 1e-4, f"{what} lse head {h}"))
+            del o_ref, lse_ref
+            held(dq[:, h:h + 1], fa.reference_flash_bwd_dq(qs, ks, vs, ws, lse_h, delta_h, causal=True), "dq", h)
+            # fp32 operands: the plain per-head dk/dv stay fp32 until the group's sum
+            dk_h, dv_h = fa.reference_flash_bwd_dkv(qs.float(), ks.float(), vs.float(), ws.float(), lse_h, delta_h,
+                                                    causal=True)
+            want_dk, want_dv = want_dk + dk_h, want_dv + dv_h
+            del dk_h, dv_h
+            torch.cuda.empty_cache()
+        held(dk[:, hk:hk + 1], want_dk, "dk", hk)
+        held(dv[:, hk:hk + 1], want_dv, "dv", hk)
+        del want_dk, want_dv
+    log(f"[phase 1] {what}: kernels on the whole shape vs their plain versions given the same (lse, delta), "
+        f"head by head (dk/dv: each kv head against the fp32 sum over its {group} q heads): worst row rel err "
+        f"(share of allowance used) {', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f})' for n, r in seen.items())}, "
+        f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4)")
+    del q, k, v, w, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+
+
+def _ce_inputs(torch, g, n, v, e, h_dtype, w_dtype, ignored):
+    """h ~ N(0, 1) (RMS-normalized hidden states), w ~ N(0, 0.02) (the
+    head's init), labels uniform over the vocab with `ignored` rows at -100."""
+    h = torch.randn(n, e, generator=g, device="cuda").to(getattr(torch, h_dtype))
+    w = (0.02 * torch.randn(v, e, generator=g, device="cuda")).to(getattr(torch, w_dtype))
+    labels = torch.randint(0, v, (n,), generator=g, device="cuda")
+    if ignored:
+        labels[torch.randperm(n, generator=g, device="cuda")[:ignored]] = -100
+    return h, w, labels
+
+
+def _ce_check(torch, h, w, labels, what: str, drop_tile=None) -> dict:
+    """The kernels against the plain version on the same inputs: lse, corr
+    and total (FusedCEFn) against reference_fused_ce_forward; dh and dW (one
+    backward of total) against autograd of plain_sum_and_count in fp32, per
+    row; each backward kernel twice, bitwise. The gradients are those of the
+    sum, not of the mean: their rows are O(1), where the row check's
+    absolute floor (1e-5 sqrt(E)) would hide the rows of the mean's (1/count
+    smaller). With `drop_tile`, the dh check must reject what a kernel that
+    skips vocab columns [drop_tile, drop_tile + 32) would return. Returns the
+    worst errors."""
+    from modalities_tpu_torch.ops import fused_ce as fce
+
+    rel_h, rel_w = (CE_ROW_REL[str(t.dtype).removeprefix("torch.")] for t in (h, w))  # by the gradient's dtype
+    lse, corr = fce.fused_ce_forward(h, w, labels)
+    lse_ref, corr_ref = fce.reference_fused_ce_forward(h, w, labels)
+    errs = {"lse": _rel_check(torch, lse, lse_ref, 0.0, 1e-4, f"{what} lse"),
+            "corr": _rel_check(torch, corr, corr_ref, 0.0, 1e-4, f"{what} corr")}
+    del corr_ref
+    hl, wl = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    total, count = fce.FusedCEFn.apply(hl, wl, labels, -100)
+    total.backward()
+    hp, wp = h.float().requires_grad_(True), w.float().requires_grad_(True)
+    total_ref, count_ref = fce.plain_sum_and_count(hp, wp, labels)
+    total_ref.backward()
+    torch.cuda.synchronize()
+    total, total_ref = float(total.detach()), float(total_ref.detach())
+    errs["total"] = abs(total - total_ref) / max(abs(total_ref), 1e-30)
+    if float(count) != float(count_ref) or errs["total"] > 1e-5:
+        raise AssertionError(f"{what}: total {float(total)} count {float(count)} vs plain {float(total_ref)} "
+                             f"{float(count_ref)}")
+    if hl.grad.dtype != h.dtype or wl.grad.dtype != w.dtype:
+        raise AssertionError(f"{what}: gradient dtypes {hl.grad.dtype}/{wl.grad.dtype} for {h.dtype}/{w.dtype}")
+    errs["dh"] = _row_check(torch, hl.grad, hp.grad, rel_h, f"{what} dh")
+    errs["dw"] = _row_check(torch, wl.grad, wp.grad, rel_w, f"{what} dW")
+    gm = (labels != -100).float()
+    if drop_tile is not None:
+        cols = slice(drop_tile, drop_tile + 32)
+        ds = torch.exp(hp.detach() @ wp.detach()[cols].t() - lse_ref[:, None])
+        hit = (labels >= drop_tile) & (labels < drop_tile + 32)
+        ds[hit, labels[hit] - drop_tile] -= 1.0
+        mutant = hp.grad - (ds * gm[:, None]) @ wp.detach()[cols]
+        try:
+            _row_check(torch, mutant, hp.grad, rel_h, "mutant")
+        except AssertionError as e:
+            errs["mutant"] = f"{int(hit.sum())} rows with their label in the tile; rejected ({e})"
+        else:
+            raise AssertionError(f"{what}: the dh row check passes a dh with vocab columns {cols} dropped")
+        del ds, mutant
+    del hp, wp, total_ref, lse_ref
+    for fn, name in ((fce.fused_ce_backward_dh, "dh"), (fce.fused_ce_backward_dw, "dW")):
+        if not torch.equal(fn(h, w, labels, lse, gm), fn(h, w, labels, lse, gm)):
+            raise AssertionError(f"{what}: two {name} calls differ")
+    return errs
+
+
+def phase_fused_ce(torch) -> dict:
+    """The three fused-CE kernels against their plain versions: small f32 and
+    bf16 cases (ragged rows and vocab, ignored rows, all rows ignored), then
+    the 32k training shape in bf16; the times at that shape."""
+    import torch.nn.functional as F
+
+    from modalities_tpu_torch.ops import fused_ce as fce
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst: dict[str, dict[str, Any]] = {}
+    for n, v, e, hd, wd, ignored in CE_SMALL:
+        what = f"fused CE h {hd} w {wd} N={n} V={v} E={e} ignored={ignored}"
+        errs = _ce_check(torch, *_ce_inputs(torch, g, n, v, e, hd, wd, ignored), what)
+        key = f"h {hd} w {wd}"
+        for name, err in errs.items():  # dh/dW: the worst row's relative error
+            slot = worst.setdefault(key, {})
+            slot[name] = max(slot.get(name, 0.0), err[0] if isinstance(err, tuple) else err)
+    log(f"[phase 1] fused CE: {len(CE_SMALL)} small cases (ragged rows and vocab, ignored rows, all ignored; "
+        f"f32 path and bf16 path) agree with the plain version: {worst} (lse/corr max abs err, bound 1e-4; "
+        f"dh/dW worst row rel err, bound by the gradient's dtype {CE_ROW_REL}); backward kernels bitwise "
+        f"repeatable")
+
+    n, v, e = CE_SHAPE
+    h, w, labels = _ce_inputs(torch, g, n, v, e, "bfloat16", "bfloat16", n // 16)
+    what = f"fused CE bf16 h[{n},{e}] w[{v},{e}], {n // 16} rows ignored"
+    errs = _ce_check(torch, h, w, labels, what, drop_tile=32 * (v // 64))
+    torch.cuda.empty_cache()
+    log(f"[phase 1] {what}: lse max abs err {errs['lse']:.3g}, corr {errs['corr']:.3g} (bound 1e-4); total rel "
+        f"err {errs['total']:.3g} (bound 1e-5); gradients of the total: worst row rel err (share of allowance used) "
+        f"dh {errs['dh'][0]:.3g} ({errs['dh'][1]:.2f}), dW {errs['dw'][0]:.3g} ({errs['dw'][1]:.2f}), bound "
+        f"{CE_ROW_REL['bfloat16']:g}; both backward kernels bitwise repeatable; a dh that skips vocab columns "
+        f"[{32 * (v // 64)}, {32 * (v // 64) + 32}): {errs['mutant']}")
+    lse, _ = fce.fused_ce_forward(h, w, labels)
+    mask = (labels != -100).float()
+    gm = mask / mask.sum()
+    hl, wl = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    loss_lib = F.cross_entropy(F.linear(hl, wl).float(), labels, ignore_index=-100, reduction="sum")
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(loss_lib, (hl, wl), retain_graph=True), reps=3)
+    del loss_lib
+    torch.cuda.empty_cache()
+    lib_fwd = time_ms(torch, lambda: F.cross_entropy(F.linear(h, w).float(), labels, ignore_index=-100,
+                                                     reduction="sum"), reps=3)
+    plain_bwd = time_ms(torch, lambda: fce.reference_fused_ce_backward(h, w, labels, lse, gm), reps=2)
+    flops = 2.0 * n * v * e  # one h . W^T over every (row, vocab) pair
+    nbytes = {"fwd": 2 * (n + v) * e + 4 * n + 2 * 4 * n, "dh": 2 * (n + v) * e + 3 * 4 * n + 2 * n * e,
+              "dw": 2 * (n + v) * e + 3 * 4 * n + 2 * v * e}
+    calls = {
+        "fwd": (lambda: fce.fused_ce_forward(h, w, labels), lambda: fce.reference_fused_ce_forward(h, w, labels),
+                lib_fwd, flops),
+        "dh": (lambda: fce.fused_ce_backward_dh(h, w, labels, lse, gm), None, lib_bwd, 2 * flops),
+        "dw": (lambda: fce.fused_ce_backward_dw(h, w, labels, lse, gm), None, lib_bwd, 2 * flops),
+    }
+    out = {}
+    for name, (kernel, plain, lib, ops) in calls.items():
+        t = {"shape": f"h[{n},{e}] w[{v},{e}] bf16", "ms": time_ms(torch, kernel, reps=3),
+             "plain_ms": time_ms(torch, plain, reps=2) if plain is not None else plain_bwd, "library_ms": lib,
+             "bound_ms": 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes[name] / PEAK_BYTES_S),
+             "bound_by": "operations" if ops / PEAK_BF16_FLOPS >= nbytes[name] / PEAK_BYTES_S else "bytes"}
+        max_abs = max(errs["lse"], errs["corr"]) if name == "fwd" else errs[name][2]
+        out[f"fused_ce_{name}"] = {"max_abs_err": max_abs, "timings": [t]}
+        lib_name = ("F.linear (bf16) + fp32 F.cross_entropy(reduction='sum')" if name == "fwd"
+                    else "the autograd backward of that (dh and dW in one call)")
+        plain_name = "plain" if name == "fwd" else "plain backward (dh and dW together)"
+        log(f"[phase 1] fused CE {name} {t['shape']}: kernel {t['ms']:.3f} ms, {plain_name} {t['plain_ms']:.3f} ms, "
+            f"{lib_name} {lib:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}); "
+            f"{ops / t['ms'] / 1e9:.1f} TFLOP/s")
+    del h, w, labels, lse, gm, hl, wl
     torch.cuda.empty_cache()
     return out
 
@@ -759,23 +1005,25 @@ def phase_small_model_training_bf16(torch) -> None:
 
 
 # ---------------------------------------------------------------- phase 4
-def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: dict, seq: int = 4096) -> Path:
-    """A copy of configs/config_2p7b_dp.yaml cut to one card; prints every override."""
+def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: dict, seq: int = 4096,
+                  base: str = "config_2p7b_dp.yaml", micro: int = 2, acc: int = 2, phase: str = "phase 4") -> Path:
+    """A copy of configs/`base` cut to one card (micro x acc sequences of
+    `seq` a step); prints every override."""
     import yaml
 
     repo = Path(__file__).resolve().parent
-    cfg = yaml.safe_load((repo / "configs" / "config_2p7b_dp.yaml").read_text())
+    cfg = yaml.safe_load((repo / "configs" / base).read_text())
     from modalities_tpu_torch.dataloader.packed_data import write_pbin_file
 
     data = tmp / f"{name}.pbin"
     write_pbin_file(data, [corpus], 2)
-    per_step = 2 * 2 * seq
+    per_step = micro * acc * seq
     overrides = {
         "settings.step_profile.sequence_length": seq,
         "device_mesh.config.data_parallel_shard_degree": 1,
         "device_mesh.config.world_size": 1,
-        "settings.step_profile.local_train_micro_batch_size": 2,
-        "settings.step_profile.gradient_accumulation_steps": 2,
+        "settings.step_profile.local_train_micro_batch_size": micro,
+        "settings.step_profile.gradient_accumulation_steps": acc,
         "settings.training_target.num_target_steps": steps,
         "settings.training_target.num_target_tokens": steps * per_step,
         "settings.intervals.training_log_interval_in_steps": 1,
@@ -793,30 +1041,35 @@ def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: d
         for key in parents:
             node = node[key]
         node[leaf] = value
-        log(f"[phase 4] {name}: {dotted} = {value}")
+        log(f"[{phase}] {name}: {dotted} = {value}")
     path = tmp / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg, sort_keys=False))
     return path
 
 
-def _launch_counts() -> dict[str, int]:
+def _launch_counts(keys=TRAIN_KERNELS) -> dict[str, int]:
     from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.ops import fused_ce as fce
     from modalities_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_backward
 
-    return {"flash_fwd": fa.flash_fwd_out_lse.launches, "flash_dq": fa.flash_bwd_dq.launches,
-            "flash_dkv": fa.flash_bwd_dkv.launches, "rms_fwd": rms_norm.launches,
-            "rms_bwd": rms_norm_backward.launches}
+    counts = {"flash_fwd": fa.flash_fwd_out_lse.launches, "flash_dq": fa.flash_bwd_dq.launches,
+              "flash_dkv": fa.flash_bwd_dkv.launches, "rms_fwd": rms_norm.launches,
+              "rms_bwd": rms_norm_backward.launches, "ce_fwd": fce.fused_ce_forward.launches,
+              "ce_dh": fce.fused_ce_backward_dh.launches, "ce_dw": fce.fused_ce_backward_dw.launches}
+    return {k: counts[k] for k in keys}
 
 
 def _reset_counts() -> None:
     from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.ops import fused_ce as fce
     from modalities_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_backward
 
     fa.flash_fwd_out_lse.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
     rms_norm.launches = rms_norm_backward.launches = 0
+    fce.fused_ce_forward.launches = fce.fused_ce_backward_dh.launches = fce.fused_ce_backward_dw.launches = 0
 
 
-def profile_train_step(torch, main, smi: str) -> None:
+def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
     """One warm train step under torch.profiler: device busy share and the top
     device ops (informational)."""
     from torch.autograd import DeviceType
@@ -825,7 +1078,7 @@ def profile_train_step(torch, main, smi: str) -> None:
     from modalities_tpu_torch.trainer import stack_microbatches
 
     loader = iter(main.components.train_dataloader)
-    batch = stack_microbatches([next(loader), next(loader)], torch.device("cuda"))
+    batch = stack_microbatches([next(loader) for _ in range(main.train_step.acc_steps)], torch.device("cuda"))
     main.train_step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -841,34 +1094,37 @@ def profile_train_step(torch, main, smi: str) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    log(f"[phase 4] profiled step ({smi}): {device_ms:.1f} ms of kernels ({sum(r[1] for r in rows)} launches) "
+    log(f"[{phase}] profiled step ({smi}): {device_ms:.1f} ms of kernels ({sum(r[1] for r in rows)} launches) "
         f"in a {wall_ms:.1f} ms step under the profiler -> device busy {device_ms / wall_ms:.3f} (informational)")
-    for ms, count, key in rows[:10]:
-        log(f"[phase 4]   {ms:.2f} ms in {count} x {key[:100]}")
+    for ms, count, key in rows[:12]:
+        log(f"[{phase}]   {ms:.2f} ms in {count} x {key[:100]}")
 
 
-def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int) -> None:
-    """The config's lr 1.6e-4 with no warmup (warmup_steps 1, cosine to
-    1.6e-5) on one repeated batch of 2 x 2 sequences, at full width and
-    `n_layer` layers, through Main twice from the same seed: with the kernels
-    (dao_flash, fused RMSNorm) and with the plain path on the card (manual
-    attention, autograd of the plain RMSNorm). The two loss curves agree
-    within LR_WITNESS_TOL at every step, whether or not they fall."""
+def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, vocab: int, keys, phase: str,
+               plain_extra: dict, **shape) -> None:
+    """The config's `lr` with no warmup (warmup_steps 1, then its cosine) on
+    one repeated batch, at full width and `n_layer` layers x `seq`, through
+    Main twice from the same seed: with the kernels (dao_flash, fused RMSNorm
+    and whatever else the config runs; `keys` name their counters) and with
+    the plain path on the card (manual attention, autograd of the plain
+    RMSNorm, and `plain_extra`'s overrides). `shape` goes to _train_config.
+    The two loss curves agree within LR_WITNESS_TOL at every step, whether or
+    not they fall."""
     from modalities_tpu_torch.main import Main
 
-    repeat = np.tile(rng.integers(0, MODEL_2P7B["vocab_size"], size=seq), 24)[: seq + 1 + 19 * seq]
-    extra = {"model_raw.config.n_layer": n_layer, "scheduler.config.warmup_steps": 1,
-             "scheduler.config.initial_lr": 0.00016}
+    repeat = np.tile(rng.integers(0, vocab, size=seq), 24)[: seq + 1 + 19 * seq]
+    extra = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": lr, "model_raw.config.n_layer": n_layer}
     curves, launched = {}, {}
     for arm, attention in (("kernels", "dao_flash"), ("plain", "manual")):
         name = f"witness_{n_layer}x{seq}_{arm}"
-        cfg = _train_config(tmp, name, repeat, 5, {**extra, "model_raw.config.attention_implementation": attention},
-                            seq=seq)
+        arm_extra = {**extra, "model_raw.config.attention_implementation": attention,
+                     **(plain_extra if arm == "plain" else {})}
+        cfg = _train_config(tmp, name, repeat, 5, arm_extra, seq=seq, phase=phase, **shape)
         with plain_norms() if arm == "plain" else contextlib.nullcontext():
             _reset_counts()
             main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
             curves[arm] = [r["losses"]["train loss last"] for r in main.run()]
-            launched[arm] = _launch_counts()
+            launched[arm] = _launch_counts(keys)
         del main
         gc.collect()
         torch.cuda.empty_cache()
@@ -877,7 +1133,8 @@ def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int) -> None:
     k, p = curves["kernels"], curves["plain"]
     diff = max(abs(a - b) for a, b in zip(k, p))
     falls = {arm: all(b < a for a, b in zip(c, c[1:])) for arm, c in curves.items()}
-    log(f"[phase 4] lr witness, {n_layer} layers x seq {seq}, lr 1.6e-4 with no warmup on one repeated batch: "
+    log(f"[{phase}] lr witness, {n_layer} layers x seq {seq}, lr {lr:g} with no warmup on one "
+        f"repeated batch: "
         f"kernels {[round(x, 5) for x in k]}, plain path {[round(x, 5) for x in p]}; falls at every step: {falls}; "
         f"max |loss diff| {diff:.4g} (bound {LR_WITNESS_TOL:g})")
     if not diff <= LR_WITNESS_TOL:
@@ -954,7 +1211,87 @@ def phase_train(torch, smi: str) -> dict[str, int]:
         gc.collect()
         torch.cuda.empty_cache()
         for n_layer, wseq in LR_WITNESS:
-            lr_witness(torch, tmp, rng, n_layer, wseq)
+            lr_witness(torch, tmp, rng, n_layer, wseq, lr=0.00016, vocab=MODEL_2P7B["vocab_size"], keys=TRAIN_KERNELS,
+                       phase="phase 4", plain_extra={})
+    return counts
+
+
+def phase_train_long(torch, smi: str) -> dict[str, int]:
+    """The 32k long-context config through Main: full width and depth (24
+    layers of 1536, one sequence of 32768 a step), full remat, the fused-CE
+    head. Returns the kernel launch counts of its 3-step run."""
+    from modalities_tpu_torch.main import Main
+
+    rng = np.random.default_rng(2028)
+    steps = 3
+    seq, vocab, width, layers = (LONG_MODEL[k] for k in ("seq", "vocab", "width", "layers"))
+    shape = {"base": LONG_CONFIG, "micro": 1, "acc": 1}
+    scratch = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        cfg = _train_config(tmp, "long", rng.integers(0, vocab, size=seq + 1 + (steps + 2) * seq), steps, {}, seq=seq,
+                            phase="phase 5", **shape)
+        torch.cuda.reset_peak_memory_stats()
+        main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+        main.components = main.build_components()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = main.run(main.components)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts(LONG_KERNELS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        losses = [r["losses"]["train loss last"] for r in results]
+        norms = [r["metrics"]["grad norm last"] for r in results]
+        if len(results) != steps or not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"32k training: {len(results)} steps, losses {losses}, grad norms {norms}")
+        # the tied head: N(0, 0.02) wte rows over RMS-normalized hidden states of width 1536
+        expected = math.log(vocab) + width * 0.02**2 / 2
+        if abs(losses[0] - expected) > 0.5:
+            raise AssertionError(f"32k training: step 0 loss {losses[0]} not within 0.5 of ln({vocab}) + "
+                                 f"{width} * 0.02^2 / 2 = {expected:.3f}")
+        # remat runs every block's forward twice: flash and both block norms; the head norm and CE once
+        per_step = {"flash_fwd": 2 * layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 4 * layers + 1,
+                    "rms_bwd": 2 * layers + 1, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+        for key, want in per_step.items():
+            if counts[key] != want * steps:
+                raise AssertionError(f"32k training: {key} launched {counts[key]} times in {steps} steps, expected "
+                                     f"{want} per step")
+        if peak_gb > LONG_PEAK_GB:
+            raise AssertionError(f"32k training: peak memory {peak_gb:.2f} GB above the reckoning's {LONG_PEAK_GB} GB")
+        log(f"[phase 5] step 0 loss {losses[0]:.5f}: expected {expected:.5f} = ln({vocab}) + {width} * 0.02^2 / 2, "
+            f"within 0.5")
+        log(f"[phase 5] 32k training through Main ({main.train_step.num_parameters / 1e9:.3f} B parameters, full "
+            f"remat, fused-CE head): {steps} steps in {wall:.1f} s; losses {[round(x, 5) for x in losses]}, grad "
+            f"norms {[round(x, 5) for x in norms]}; launches per step {({k: v // steps for k, v in counts.items()})}; "
+            f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated; reckoning at most {LONG_PEAK_GB} GB), "
+            f"{reserved_gb:.2f} GB reserved")
+        for r in results[1:]:
+            th = r["throughput_metrics"]
+            log(f"[phase 5] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
+                f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
+        profile_train_step(torch, main, smi, phase="phase 5")
+        del main, results
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        repeat = np.tile(rng.integers(0, vocab, size=seq), 8)[: seq + 1 + 6 * seq]
+        lrs = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": 0.00002,
+               "scheduler.config.max_lr": 0.00002, "scheduler.config.final_lr": 0.000002}
+        main = Main(_train_config(tmp, "long_repeat", repeat, 5, lrs, seq=seq, phase="phase 5", **shape),
+                    experiments_root_path=tmp / "experiments", device="cuda")
+        losses = [r["losses"]["train loss last"] for r in main.run()]
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"32k training on one repeated batch: the loss did not fall at every step: {losses}")
+        log(f"[phase 5] 5 steps on one repeated batch (warmup_steps 1, lr 2e-5 cosine to 2e-6): losses "
+            f"{[round(x, 5) for x in losses]} fall at every step")
+        del main
+        gc.collect()
+        torch.cuda.empty_cache()
+        lr_witness(torch, tmp, rng, *LONG_WITNESS, lr=0.0002, vocab=vocab, keys=LONG_KERNELS, phase="phase 5",
+                   plain_extra={"model_raw.config.lm_head_fused_ce": "off"}, **shape)
     return counts
 
 
@@ -1132,6 +1469,8 @@ def main() -> int:
     warm_up(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_train_kernels(torch))
+    phase_flash_long(torch)
+    kernels.update(phase_fused_ce(torch))
     phase_small_model_reference(torch)
     phase_small_model_training(torch)
     phase_small_model_training_bf16(torch)
@@ -1182,27 +1521,45 @@ def main() -> int:
     if any(v == 0 for v in train_counts.values()):
         raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
     log(f"[phase 4] launches in the 3-step run: {train_counts}; rms_norm forward also {rms_total} in serving")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 5
-    def entry(name, source, replaces, launches, k, pick=lambda ts: ts[0]):
+    # phase 5: the 32k long-context training path. Counts start from 0 inside phase_train_long.
+    long_counts = phase_train_long(torch, smi_now)
+    if any(v == 0 for v in long_counts.values()):
+        raise AssertionError(f"a kernel of the 32k training path was never launched: {long_counts}")
+    log(f"[phase 5] launches in the 3-step run: {long_counts}")
+
+    # phase 6. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
+    def by_path(key):
+        paths = {"train_2p7b": train_counts, "train_32k": long_counts}
+        return {path: counts[key] for path, counts in paths.items() if key in counts}
+
+    def entry(name, source, replaces, paths, k, pick=lambda ts: ts[0]):
         t = pick(kernels[k]["timings"])
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(paths.values()), "launches_by_path": paths,
                 "max_abs_err": kernels[k]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"), "library_ms": t["library_ms"],
                 "shape": t["shape"]}
 
     flash_src = "modalities_tpu_torch/csrc/flash_attention.cu"
     flash_tpu = "modalities_tpu/ops/pallas/flash_attention.py"
+    ce_src = "modalities_tpu_torch/csrc/fused_ce.cu"
+    ce_tpu = "modalities_tpu/ops/pallas/fused_ce.py"
     print(json.dumps({"kernels": [
         entry("fused_rmsnorm_fwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
-              "modalities_tpu/ops/pallas/fused_rmsnorm.py:34", rms_total + train_counts["rms_fwd"], "rmsnorm"),
+              "modalities_tpu/ops/pallas/fused_rmsnorm.py:34", {"serve": rms_total, **by_path("rms_fwd")}, "rmsnorm"),
         entry("fused_rmsnorm_bwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
-              "modalities_tpu/ops/pallas/fused_rmsnorm.py:43", train_counts["rms_bwd"], "rmsnorm_bwd"),
-        entry("flash_attention_fwd", flash_src, f"{flash_tpu}:43", train_counts["flash_fwd"], "flash_fwd"),
-        entry("flash_attention_bwd_dq", flash_src, f"{flash_tpu}:88", train_counts["flash_dq"], "flash_dq"),
-        entry("flash_attention_bwd_dkv", flash_src, f"{flash_tpu}:130", train_counts["flash_dkv"], "flash_dkv"),
+              "modalities_tpu/ops/pallas/fused_rmsnorm.py:43", by_path("rms_bwd"), "rmsnorm_bwd"),
+        entry("flash_attention_fwd", flash_src, f"{flash_tpu}:43", by_path("flash_fwd"), "flash_fwd"),
+        entry("flash_attention_bwd_dq", flash_src, f"{flash_tpu}:88", by_path("flash_dq"), "flash_dq"),
+        entry("flash_attention_bwd_dkv", flash_src, f"{flash_tpu}:130", by_path("flash_dkv"), "flash_dkv"),
+        entry("fused_ce_fwd", ce_src, f"{ce_tpu}:59", by_path("ce_fwd"), "fused_ce_fwd"),
+        entry("fused_ce_bwd_dh", ce_src, f"{ce_tpu}:141", by_path("ce_dh"), "fused_ce_dh"),
+        entry("fused_ce_bwd_dw", ce_src, f"{ce_tpu}:158", by_path("ce_dw"), "fused_ce_dw"),
         entry("quant_matmul", "modalities_tpu_torch/csrc/quant_matmul.cu",
-              "modalities_tpu/ops/pallas/quant_matmul.py:31", qmm_total, "quant_matmul",
+              "modalities_tpu/ops/pallas/quant_matmul.py:31", {"serve": qmm_total}, "quant_matmul",
               lambda ts: next(t for t in ts if t["m"] == 8 and (t["k"], t["n"]) == (2560, 7680))),
     ]}))
     print(smi)

@@ -1,8 +1,10 @@
 """Loss functions: the port of modalities_tpu/loss_functions.py
 (`CLMCrossEntropyLoss`).
 
-Plain PyTorch is the port here: on the training path the JAX package computes
-this loss outside any Pallas kernel, over the full fp32 logits.
+`sum_and_count` and `__call__` are plain PyTorch over the full fp32 logits, as
+the JAX package computes them outside any Pallas kernel. `fused_sum_and_count`
+takes the hidden states and the head weight instead and goes through the
+fused-CE kernels (ops/fused_ce.py), so the logits never exist.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from modalities_tpu_torch.config.config import check_int, check_str
+from modalities_tpu_torch.ops.fused_ce import fused_ce_sum_and_count
 
 
 @dataclasses.dataclass
@@ -40,10 +43,9 @@ class CLMCrossEntropyLoss:
         return total, (labels != self.ignore_index).sum().float()
 
     def fused_sum_and_count(self, hidden, head_weight, labels):
-        raise NotImplementedError(
-            "the fused (vocab-streaming) cross entropy is the next slice of the port: it needs the fused-CE "
-            "kernels (modalities_tpu/ops/pallas/fused_ce.py); ROADMAP.md, Queue 1 item 1"
-        )
+        """`sum_and_count` of the logits hidden [..., E] @ head_weight.T
+        ([V, E]) without materializing them (JAX loss_functions.py:51-61)."""
+        return fused_ce_sum_and_count(hidden, head_weight, labels, ignore_index=self.ignore_index)
 
     def __call__(self, predictions: dict, targets: dict):
         total, count = self.sum_and_count(predictions[self.prediction_key], targets[self.target_key])

@@ -7,12 +7,16 @@ Kept from the JAX model: the config surface and its validation
 blocks, NOPE/ABSOLUTE positions, tied or untied fp32 heads, weight-only
 quantized dense layers, the slot-cache API (`init_slot_cache`,
 `prefill_slot`, `decode_slots`) and the full-sequence training forward
-(`GPT2Module.forward`, logits [B, S, V] fp32), with the same numerics at every
-cast point. Attention in training follows `attention_implementation`:
+(`GPT2Module.forward`, logits [B, S, V] fp32; `forward_hidden` stops after
+`lm_head_norm` for the chunked and fused-CE heads), with the same numerics at
+every cast point. Attention in training follows `attention_implementation`:
 `manual` runs the plain oracle; `dao_flash` and `pytorch_flash` (the JAX
 package's Pallas and XLA-SDPA tiers, both fused exact attention) run the
-port's flash kernels (ops/flash_attention.py). Not here yet: the paged cache, speculative verify, pipeline and context
-parallelism, remat and dropout.
+port's flash kernels (ops/flash_attention.py). Blocks chosen by the spec's
+remat variant run under `torch.utils.checkpoint`
+(training/activation_checkpointing.py). Not here yet: the paged cache,
+speculative verify, pipeline and context parallelism, selective-op remat and
+dropout.
 
 Layout: parameters follow the flax tree with the scan axis unrolled — the
 state dict key `blocks.3.attn.q_attn.kernel` is `params/blocks/block/attn/
@@ -55,6 +59,7 @@ from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_n
 from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from modalities_tpu_torch.ops.quant_matmul import quant_matmul
 from modalities_tpu_torch.quant.weights import quant_storage_dtype
+from modalities_tpu_torch.training.activation_checkpointing import checkpointed, layer_remats
 
 
 class PositionTypes(str, Enum):
@@ -150,8 +155,8 @@ class GPT2LLMConfig:
     use_meta_device: Optional[bool] = False
     seed: Optional[int] = None
     enforce_swiglu_hidden_dim_multiple_of: int = 256
-    lm_head_chunk_size: Optional[int] = None  # training-side knob, accepted for config compatibility
-    lm_head_fused_ce: str = "auto"  # training-side knob, accepted for config compatibility
+    lm_head_chunk_size: Optional[int] = None  # training: the chunked / fused-CE head (train_step.py)
+    lm_head_fused_ce: str = "auto"  # with a chunk size: auto/on the fused-CE kernels, off the chunked scan
 
     def __post_init__(self):
         check_str("sample_key", self.sample_key)
@@ -223,6 +228,9 @@ class GPT2ModelSpec:
     dropout: float = 0.0
     param_dtype: str = "float32"  # storage dtype of the training parameters (norms stay fp32)
     lm_head_chunk_size: Optional[int] = None
+    lm_head_fused_ce: str = "auto"
+    remat_variant: Optional[str] = None  # None, "full" or "selective_layer" (activation_checkpointing.py)
+    remat_freq: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -511,6 +519,12 @@ class GPT2Module(nn.Module):
         (gpt2_model.py:977-1121): input_ids [B, S] -> logits [B, S, V] fp32,
         RoPE over positions [0, S), blocks in the compute dtype, the head in
         fp32."""
+        return self.head_logits(self.forward_hidden(input_ids))
+
+    def forward_hidden(self, input_ids):
+        """The backbone through `lm_head_norm` (JAX `apply_hidden`,
+        gpt2_model.py:1243-1251): input_ids [B, S] -> [B, S, E] in the norm's
+        output dtype. Blocks the remat variant picks run under checkpoint."""
         spec = self.spec
         if spec.dropout > 0.0:
             raise NotImplementedError(
@@ -524,12 +538,27 @@ class GPT2Module(nn.Module):
         cos = sin = None
         if spec.use_rope:
             cos, sin = self._rope_tables(s)
-        for block in self.blocks:
-            x = block.train_forward(x, cos, sin)
-        h = self.lm_head_norm(x).float()
-        if spec.use_weight_tying:
+        for i, block in enumerate(self.blocks):
+            if layer_remats(spec.remat_variant, spec.remat_freq, i):
+                x = checkpointed(block.train_forward, x, cos, sin)
+            else:
+                x = block.train_forward(x, cos, sin)
+        return self.lm_head_norm(x)
+
+    def head_logits(self, hidden):
+        """fp32 vocab logits of post-`lm_head_norm` hidden states [..., E]
+        (JAX `head_project`, gpt2_model.py:899-914)."""
+        h = hidden.float()
+        if self.spec.use_weight_tying:
             return torch.matmul(h, self.wte.float().t())
         return self.lm_head(h)
+
+    def head_weight(self):
+        """The [V, E] head projection: the tied `wte`, or the lm_head kernel
+        transposed (JAX `head_weight`, gpt2_model.py:1259-1269)."""
+        if self.spec.use_weight_tying:
+            return self.wte
+        return self.lm_head.kernel.t()
 
     # ----------------------------------------------------------- slot cache API
     def init_slot_cache(self, max_batch_slots: int, cache_capacity: Optional[int] = None) -> SlotCache:
@@ -674,6 +703,7 @@ class GPT2LLM:
             attention_impl=cfg.attention_implementation,
             dropout=cfg.dropout,
             lm_head_chunk_size=cfg.lm_head_chunk_size,
+            lm_head_fused_ce=cfg.lm_head_fused_ce,
         )
 
     def with_spec_updates(self, **changes) -> "GPT2LLM":

@@ -10,6 +10,10 @@ from typing import Any, Optional
 
 from modalities_tpu_torch.config.config import check_dict
 from modalities_tpu_torch.models.gpt2.gpt2_model import MixedPrecisionSpec
+from modalities_tpu_torch.training.activation_checkpointing import apply_activation_checkpointing
+
+# the GPT2 blocks: unset, the upstream torch module's path, or the port's own attribute
+_BLOCKS_FQNS = (None, "transformer.h", "blocks")
 
 
 def _parse_dtype_name(name) -> str:
@@ -69,7 +73,17 @@ class ModelFactory:
         return model
 
     @staticmethod
-    def get_activation_checkpointed_model(model, **_):
-        raise NotImplementedError(
-            "activation checkpointing (remat) is not ported yet (ROADMAP.md, Queue 1 item 7)"
-        )
+    def get_activation_checkpointed_model(model, activation_checkpointing_variant="full_activation_checkpointing",
+                                          layers_fqn=None, ac_freq=1, save_list=None, device_mesh=None):
+        """Records the remat variant on the model's spec (JAX
+        model_factory.py:101-111). The port remats whole transformer blocks:
+        `layers_fqn` may only name them, and a `save_list` (selective_op's
+        policies) is refused. `device_mesh` is accepted for config parity: on
+        one card its mesh component has already refused degrees > 1."""
+        if layers_fqn not in _BLOCKS_FQNS:
+            raise ValueError(f"layers_fqn {layers_fqn!r}: the port checkpoints the transformer blocks only "
+                             f"({', '.join(repr(n) for n in _BLOCKS_FQNS)})")
+        if save_list:
+            raise NotImplementedError(f"save_list {save_list!r}: save-list policies are not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 7)")
+        return apply_activation_checkpointing(model, activation_checkpointing_variant, ac_freq=ac_freq)

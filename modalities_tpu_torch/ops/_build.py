@@ -43,6 +43,9 @@ _SIGNATURES = {
     "mt_flash_bwd_dq": (_VP, _INT, _INT, _VP),
     "mt_flash_bwd_dkv": (_VP, _INT, _INT, _VP),
     "mt_quant_matmul": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP),
+    "mt_fused_ce_fwd": (_VP, _INT, _VP),  # (const CEParams*, dtype, stream)
+    "mt_fused_ce_bwd_dh": (_VP, _INT, _VP),
+    "mt_fused_ce_bwd_dw": (_VP, _INT, _VP),
 }
 
 _lock = threading.Lock()

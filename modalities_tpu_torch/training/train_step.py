@@ -1,9 +1,19 @@
 """The train step: the port of the non-mesh branch of
 modalities_tpu/training/train_step.py:TrainStepBuilder (`build`, :337-354,
-:503-507, :550-551, :553-691).
+:413-507, :550-551, :553-691).
 
 One optimizer step over `gradient_accumulation_steps` microbatches: for each,
-the forward (logits [B, S, V] fp32), the loss and its backward; the gradients
+the forward, the loss and its backward. The head and loss take one of three
+routes, as in the JAX builder:
+- no `lm_head_chunk_size`: logits [B, S, V] fp32, then the loss over them;
+- a chunk size and `lm_head_fused_ce` auto/on: the backbone's hidden states
+  and the head weight go to the loss's `fused_sum_and_count`, the fused-CE
+  kernels (ops/fused_ce.py), and no logits exist;
+- a chunk size and `off`: the chunked scan, chunk logits and their loss under
+  `torch.utils.checkpoint` one sequence chunk at a time (a ragged tail is one
+  shorter chunk), so the backward recomputes each chunk's logits.
+The two chunked routes return total / max(count, 1) over the token-weighted
+(sum, count) of the loss's `sum_and_count` form. The gradients
 are added into an fp32 accumulator (`reduce_dtype`). Then they are divided by
 the number of microbatches and cast to the parameters' dtype, their global
 norm is taken in fp32 and reported, they are clipped, and `optimizer.step()`
@@ -21,6 +31,7 @@ from typing import Any, Optional
 
 import torch
 
+from modalities_tpu_torch.training.activation_checkpointing import checkpointed
 from modalities_tpu_torch.training.gradient_clipping import GradientClippingMode, clip_, global_norm
 
 
@@ -35,9 +46,15 @@ class TrainStep:
                  gradient_acc_steps: int = 1, grad_clipper=None, params: Optional[dict] = None,
                  seed: Optional[int] = None):
         spec = model.config_spec
-        if spec.lm_head_chunk_size is not None:
-            raise NotImplementedError("lm_head_chunk_size (the chunked / fused-CE head) is not ported to the train "
-                                      "step yet (ROADMAP.md, Queue 1 item 1)")
+        self.head_chunk = spec.lm_head_chunk_size
+        if self.head_chunk is not None and not hasattr(loss_fn, "sum_and_count"):
+            # silently materializing the [B, S, V] logits would be the memory blowup the chunking exists to prevent
+            raise ValueError(
+                f"lm_head_chunk_size={self.head_chunk} requires a loss with the sum_and_count accumulation form "
+                f"(got loss {type(loss_fn).__name__}); unset the chunk size or use a CLM-style loss"
+            )
+        self.fused_ce = (self.head_chunk is not None and spec.lm_head_fused_ce in ("auto", "on")
+                         and hasattr(loss_fn, "fused_sum_and_count"))
         mp = model.train_spec.mixed_precision
         model.with_spec_updates(param_dtype=mp.param_dtype, compute_dtype=mp.compute_dtype)
         self.reduce_dtype = getattr(torch, mp.reduce_dtype)
@@ -71,6 +88,31 @@ class TrainStep:
                 a.zero_()
         return self._acc
 
+    def _chunk_sum_count(self, hidden, labels):
+        return self.loss_fn.sum_and_count(self.module.head_logits(hidden), labels)
+
+    def _chunked_ce(self, hidden, labels):
+        """The loss of the chunked routes (JAX train_step.py:457-492)."""
+        if self.fused_ce:
+            total, count = self.loss_fn.fused_sum_and_count(hidden, self.module.head_weight(), labels)
+            return total / torch.clamp(count, min=1.0)
+        seq = hidden.shape[1]
+        if seq > self.head_chunk:
+            total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            for start in range(0, seq, self.head_chunk):  # the last chunk is the ragged tail, if any
+                end = start + self.head_chunk
+                s, c = checkpointed(self._chunk_sum_count, hidden[:, start:end], labels[:, start:end])
+                total, count = total + s, count + c
+        else:  # short sequences: one chunk, no recompute
+            total, count = self._chunk_sum_count(hidden, labels)
+        return total / torch.clamp(count, min=1.0)
+
+    def _loss(self, inputs, targets: dict):
+        if self.head_chunk is None:
+            return self.loss_fn({self.model.prediction_key: self.module(inputs)}, targets)
+        return self._chunked_ce(self.module.forward_hidden(inputs), targets[self.loss_fn.target_key])
+
     def __call__(self, batch: dict) -> dict[str, Any]:
         """batch: {"samples": {key: [acc, mb, S]}, "targets": {key: [acc, mb, S]}}
         (integer tensors on the step's device) -> metrics."""
@@ -81,9 +123,7 @@ class TrainStep:
         acc = self._zero_accumulators()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.acc_steps):
-            logits = self.module(samples[sample_key][i])
-            loss = self.loss_fn({self.model.prediction_key: logits}, {k: v[i] for k, v in targets.items()})
-            del logits
+            loss = self._loss(samples[sample_key][i], {k: v[i] for k, v in targets.items()})
             grads = torch.autograd.grad(loss, self.params)
             for a, g in zip(acc, grads):
                 a.add_(g)

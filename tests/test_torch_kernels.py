@@ -1,5 +1,5 @@
 """The port's kernel wrappers (ops/rmsnorm.py, ops/quant_matmul.py,
-ops/flash_attention.py) without JAX: how they dispatch, and — on a card — each
+ops/flash_attention.py, ops/fused_ce.py) without JAX: how they dispatch, and — on a card — each
 kernel against its plain PyTorch version. This file imports no JAX, so the
 `cuda`-marked tests run on a machine with a card and no JAX:
 
@@ -15,13 +15,18 @@ rel 1e-4 (sums in another order); bf16 rel 1e-2, since the kernels round P and
 dS to bf16 before their tensor-core products and round each output to bf16,
 while the plain version stays fp32. Autograd's dq and dk of the fp32 plain
 attention are first moved to the delta the kernels read (sum dO * out of the
-kernel's own out, bf16 in bf16): they are linear in it. lse 1e-4 absolute."""
+kernel's own out, bf16 in bf16): they are linear in it. lse 1e-4 absolute.
+Fused CE: lse and corr 1e-4 absolute (fp32 sums of E products in another
+order), total rtol 1e-5, dh and dW of the total row by row at flash's bounds (the bf16
+kernels round ds to bf16 before the tensor-core product and each output to
+bf16), against autograd of the fp32 plain version."""
 
 import pytest
 import torch
 
 from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.ops import flash_attention as fa
+from modalities_tpu_torch.ops import fused_ce as fce
 from modalities_tpu_torch.ops.quant_matmul import BLOCK_K, quant_matmul, reference_quant_matmul, split_k
 from modalities_tpu_torch.ops.rmsnorm import (
     fused_rms_norm,
@@ -83,8 +88,8 @@ def test_rms_norm_kernel_matches_the_plain_version_on_the_card(dtype):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-6, rtol=2**-6)
-    # CTA per row at every row count the serving path gives it; warp per row
-    for n, e in ((1, 2560), (4, 2560), (8, 2560), (16, 2560), (64, 2560), (3, 128)):
+    # CTA per row at every row count the serving path gives it; warp per row; the 32k config's training shape
+    for n, e in ((1, 2560), (4, 2560), (8, 2560), (16, 2560), (64, 2560), (3, 128), (32768, 1536)):
         x = torch.randn(n, e, generator=g, device=dev).to(dtype)
         s, b = torch.randn(e, generator=g, device=dev), torch.randn(e, generator=g, device=dev)
         before = rms_norm.launches
@@ -155,7 +160,7 @@ def _rel_close(got, want, rel, what, atol=1e-5):
 def test_rms_norm_backward_kernel_matches_autograd_of_the_plain_version(dtype):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
-    for n, e in ((1, 2560), (64, 2560), (1000, 2560), (8192, 2560), (5, 128)):
+    for n, e in ((1, 2560), (64, 2560), (1000, 2560), (8192, 2560), (5, 128), (32768, 1536)):
         x = torch.randn(n, e, generator=g, device=dev).to(dtype)
         dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
         for scale_dtype in (None, torch.float32, torch.bfloat16):
@@ -213,7 +218,8 @@ def _qkv(dev, b, s, hq, hkv, d, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 512, 8, 2, 80), (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80),
-                                   (1, 77, 4, 1, 16), (1, 130, 2, 2, 32)], ids=str)
+                                   (1, 77, 4, 1, 16), (1, 130, 2, 2, 32), (1, 384, 6, 2, 128),
+                                   (1, 2048, 12, 4, 128)], ids=str)
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, causal, dtype):
@@ -257,8 +263,107 @@ def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, ca
 
 
 @pytest.mark.cuda
+def test_flash_attention_kernels_at_the_32k_config_shape_head_by_head():
+    """q [1, 12, 32768, 128], k/v [1, 4, 32768, 128] bf16, causal: the three
+    kernels on the whole shape, each q head's out, lse and dq and each kv
+    head's dk/dv (against the fp32 sum of its 3 q heads' plain dk/dv) held
+    one head at a time, so that the plain fp32 scores (4.3 GB) fit."""
+    dev = _card()
+    b, s, hq, hkv, d = 1, 32768, 12, 4, 128
+    q, k, v = (t.transpose(1, 2) for t in _qkv(dev, b, s, hq, hkv, d, torch.bfloat16))
+    w = torch.randn(b, hq, s, d, device=dev).to(torch.bfloat16)
+    o, lse = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    delta = (w.float() * o.float()).sum(-1, keepdim=True)
+    dq = fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=True)
+    rel, group = FLASH_ROW_REL[torch.bfloat16], hq // hkv
+    for hk in range(hkv):
+        ks, vs = k[:, hk:hk + 1], v[:, hk:hk + 1]
+        want_dk = want_dv = 0.0
+        for h in range(hk * group, (hk + 1) * group):
+            qs, ws, lse_h, delta_h = q[:, h:h + 1], w[:, h:h + 1], lse[:, h:h + 1], delta[:, h:h + 1]
+            o_ref, lse_ref = fa.reference_flash_fwd_out_lse(qs, ks, vs, causal=True)
+            _rows_close(o[:, h:h + 1], o_ref, rel, f"out head {h}")
+            assert float((lse_h - lse_ref).abs().max()) <= 1e-4
+            del o_ref, lse_ref
+            _rows_close(dq[:, h:h + 1], fa.reference_flash_bwd_dq(qs, ks, vs, ws, lse_h, delta_h, causal=True), rel,
+                        f"dq head {h}")
+            dk_h, dv_h = fa.reference_flash_bwd_dkv(qs.float(), ks.float(), vs.float(), ws.float(), lse_h, delta_h,
+                                                    causal=True)
+            want_dk, want_dv = want_dk + dk_h, want_dv + dv_h
+            del dk_h, dv_h
+        _rows_close(dk[:, hk:hk + 1], want_dk, rel, f"dk kv head {hk}")
+        _rows_close(dv[:, hk:hk + 1], want_dv, rel, f"dv kv head {hk}")
+
+
+@pytest.mark.cuda
 def test_flash_attention_refuses_head_dims_it_was_not_built_for():
     dev = _card()
     q, k, v = _qkv(dev, 1, 8, 2, 2, 96, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, k, v)
+
+
+def test_cpu_tensors_take_the_plain_fused_ce():
+    g = torch.Generator().manual_seed(0)
+    h, w = torch.randn(10, 32, generator=g), torch.randn(40, 32, generator=g)
+    y = torch.randint(0, 40, (10,), generator=g)
+    counts = (fce.fused_ce_forward.launches, fce.fused_ce_backward_dh.launches, fce.fused_ce_backward_dw.launches)
+    lse, corr = fce.fused_ce_forward(h, w, y)
+    assert torch.equal(lse, torch.logsumexp(h @ w.t(), -1))
+    gm = torch.full((10,), 0.1)
+    dh, dw = fce.fused_ce_backward_dh(h, w, y, lse, gm), fce.fused_ce_backward_dw(h, w, y, lse, gm)
+    assert (dh.shape, dw.shape) == (h.shape, w.shape)
+    assert counts == (fce.fused_ce_forward.launches, fce.fused_ce_backward_dh.launches,
+                      fce.fused_ce_backward_dw.launches)
+
+
+# (N, V, E, ignored rows): ragged rows and vocab, ignored rows, all rows ignored, the 32k config's width
+FUSED_CE_CASES = [(100, 300, 128, 7), (37, 129, 256, 0), (16, 128, 128, 16), (45, 1000, 1536, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_ce_kernels_match_autograd_of_the_plain_version(case, dtype):
+    """lse and corr 1e-4 absolute; total rtol 1e-5; dh and dW of the total
+    (rows of O(1), above the row check's absolute floor) row by row as flash
+    (f32 1e-4, bf16 1e-2: ds and each output are rounded to bf16); each
+    backward kernel twice, bitwise."""
+    dev = _card()
+    n, v, e, ignored = case
+    g = torch.Generator(device=dev).manual_seed(1)
+    h = torch.randn(n, e, generator=g, device=dev).to(dtype)
+    w = (0.02 * torch.randn(v, e, generator=g, device=dev)).to(dtype)
+    y = torch.randint(0, v, (n,), generator=g, device=dev)
+    y[torch.randperm(n, generator=g, device=dev)[:ignored]] = -100
+    counts = (fce.fused_ce_forward.launches, fce.fused_ce_backward_dh.launches, fce.fused_ce_backward_dw.launches)
+    leaves = [h.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    total, count = fce.fused_ce_sum_and_count(*leaves, y)
+    total.backward()
+    torch.cuda.synchronize()
+    assert (fce.fused_ce_forward.launches, fce.fused_ce_backward_dh.launches,
+            fce.fused_ce_backward_dw.launches) == tuple(c + 1 for c in counts)
+    plain = [h.float().requires_grad_(True), w.float().requires_grad_(True)]
+    total_ref, count_ref = fce.plain_sum_and_count(*plain, y)
+    total_ref.backward()
+    assert float(count) == float(count_ref) == n - ignored
+    torch.testing.assert_close(total.detach(), total_ref.detach(), rtol=1e-5, atol=1e-6)
+    rel = FLASH_ROW_REL[dtype]
+    for got, want, name in zip(leaves, plain, ("dh", "dW")):
+        assert got.grad.dtype == dtype and got.grad.shape == got.shape
+        _rows_close(got.grad, want.grad, rel, name)
+    lse, corr = fce.fused_ce_forward(h, w, y)
+    lse_ref, corr_ref = fce.reference_fused_ce_forward(h, w, y)
+    assert float((lse - lse_ref).abs().max()) <= 1e-4 and float((corr - corr_ref).abs().max()) <= 1e-4
+    gm = (y != -100).float()
+    for fn in (fce.fused_ce_backward_dh, fce.fused_ce_backward_dw):
+        assert torch.equal(fn(h, w, y, lse, gm), fn(h, w, y, lse, gm))
+
+
+@pytest.mark.cuda
+def test_fused_ce_refuses_bf16_widths_it_was_not_built_for():
+    dev = _card()
+    h, w = torch.randn(8, 96, device=dev).to(torch.bfloat16), torch.randn(16, 96, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="E=96"):
+        fce.fused_ce_forward(h, w, torch.zeros(8, dtype=torch.long, device=dev))

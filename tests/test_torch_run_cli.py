@@ -20,22 +20,23 @@ ROOT = Path(__file__).resolve().parents[1]
 SEQ, MBS, ACC, STEPS = 32, 2, 2, 2
 
 
-def tiny_config(tmp_path: Path, **edits) -> Path:
-    """configs/config_2p7b_dp.yaml on one device: 2 layers of 128, vocab 256,
-    sequences of 32, 2 steps of 2 x 2 sequences, no checkpoint in reach.
+def tiny_config(tmp_path: Path, base: str = "config_2p7b_dp.yaml", seq: int = SEQ, mbs: int = MBS, acc: int = ACC,
+                **edits) -> Path:
+    """configs/`base` on one device: 2 layers of 128, vocab 256, sequences of
+    `seq`, 2 steps of `mbs` x `acc` sequences, no checkpoint in reach.
     `edits` maps dotted keys to values (applied last)."""
-    cfg = yaml.safe_load((ROOT / "configs" / "config_2p7b_dp.yaml").read_text())
+    cfg = yaml.safe_load((ROOT / "configs" / base).read_text())
     data = tmp_path / "corpus.pbin"
-    write_pbin_file(data, [np.random.default_rng(0).integers(0, 256, size=SEQ * 40)], 2)
+    write_pbin_file(data, [np.random.default_rng(0).integers(0, 256, size=seq * 40)], 2)
     values = {
         "settings.paths.train_dataset_path": str(data),
         "settings.paths.checkpoint_saving_path": str(tmp_path / "checkpoints"),
         "settings.paths.experiments_root_path": str(tmp_path / "experiments"),
-        "settings.step_profile.sequence_length": SEQ,
-        "settings.step_profile.local_train_micro_batch_size": MBS,
-        "settings.step_profile.gradient_accumulation_steps": ACC,
+        "settings.step_profile.sequence_length": seq,
+        "settings.step_profile.local_train_micro_batch_size": mbs,
+        "settings.step_profile.gradient_accumulation_steps": acc,
         "settings.training_target.num_target_steps": STEPS,
-        "settings.training_target.num_target_tokens": STEPS * SEQ * MBS * ACC,
+        "settings.training_target.num_target_tokens": STEPS * seq * mbs * acc,
         "settings.intervals.training_log_interval_in_steps": 1,
         "settings.intervals.evaluation_interval_in_steps": STEPS,
         "settings.intervals.checkpointing_interval_in_steps": 1000,
@@ -61,8 +62,17 @@ def tiny_config(tmp_path: Path, **edits) -> Path:
     return path
 
 
-def test_run_trains_on_the_cpu_and_prints_loss_lines(tmp_path):
-    cfg = tiny_config(tmp_path)
+def _long_context_config(tmp_path: Path, **edits) -> Path:
+    """configs/config_long_context_32k.yaml cut to 2 layers of 128, vocab 256,
+    one sequence of 64 a step, head chunks of 16; its full remat and fused-CE
+    head as they stand."""
+    return tiny_config(tmp_path, base="config_long_context_32k.yaml", seq=64, mbs=1, acc=1,
+                       **{"model_raw.config.lm_head_chunk_size": 16, **edits})
+
+
+@pytest.mark.parametrize("base", ["config_2p7b_dp", "config_long_context_32k"])
+def test_run_trains_on_the_cpu_and_prints_loss_lines(tmp_path, base):
+    cfg = tiny_config(tmp_path) if base == "config_2p7b_dp" else _long_context_config(tmp_path)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", "modalities_tpu_torch", "run", "--config_file_path", str(cfg),
@@ -104,16 +114,42 @@ def test_the_default_device_raises_without_a_card(tmp_path, monkeypatch):
         ({"device_mesh.config.data_parallel_shard_degree": 2}, NotImplementedError, "Queue 1 item 5"),
         ({"device_mesh.config.zero_stage": 1}, NotImplementedError, "ZeRO"),
         ({"model_raw.config.dropout": 0.1}, ValueError, "dropout"),
-        ({"model_raw.config.lm_head_chunk_size": 16}, NotImplementedError, "lm_head_chunk_size"),
+        ({"model_raw.config.lm_head_chunk_size": 16, "model_raw.config.lm_head_fused_ce": "always"}, ValueError,
+         "lm_head_fused_ce"),
+        ({"model.variant_key": "activation_checkpointed",
+          "model.config": {"model": {"instance_key": "model_raw", "pass_type": "BY_REFERENCE"},
+                           "activation_checkpointing_variant": "selective_op_activation_checkpointing"}},
+         NotImplementedError, "selective_op"),
+        ({"model.variant_key": "activation_checkpointed",
+          "model.config": {"model": {"instance_key": "model_raw", "pass_type": "BY_REFERENCE"},
+                           "activation_checkpointing_variant": "full_activation_checkpointing",
+                           "layers_fqn": "transformer.wte"}},
+         ValueError, "layers_fqn"),
+        ({"model.variant_key": "activation_checkpointed",
+          "model.config": {"model": {"instance_key": "model_raw", "pass_type": "BY_REFERENCE"},
+                           "activation_checkpointing_variant": "full_activation_checkpointing",
+                           "save_list": ["attention"]}},
+         NotImplementedError, "save_list"),
         ({"settings.intervals.checkpointing_interval_in_steps": 1,
           "settings.consistency_enforcement.enforce_last_step_checkpointed": True}, NotImplementedError,
          "checkpoint saving is not ported"),
     ],
-    ids=["mesh-degree", "zero", "dropout-dao-flash", "lm-head-chunk", "due-checkpoint"],
+    ids=["mesh-degree", "zero", "dropout-dao-flash", "lm-head-chunk", "selective-op-remat", "remat-other-layers",
+         "remat-save-list", "due-checkpoint"],
 )
 def test_what_the_port_does_not_have_raises(tmp_path, edits, error, match):
     with pytest.raises(error, match=match):
         Main(tiny_config(tmp_path, **edits), device="cpu").run()
+
+
+def test_the_long_context_config_builds_full_remat_and_the_fused_ce_head(tmp_path):
+    main = Main(_long_context_config(tmp_path), device="cpu")
+    results = main.run(main.build_components())
+    assert [r["num_train_steps_done"] for r in results] == [1, 2]
+    step = main.train_step
+    spec = step.model.config_spec
+    assert (spec.remat_variant, spec.lm_head_chunk_size, step.fused_ce) == ("full", 16, True)
+    assert step.module.wte.dtype == torch.bfloat16 and step.acc_steps == 1
 
 
 def test_dropout_with_the_manual_tier_raises_in_the_forward(tmp_path):
