@@ -22,18 +22,21 @@
 // traffic: over a thousand operations per byte, far above the ~295 where the
 // bf16 tensor cores, not memory, become the limit.
 //
-// Design (right first; wgmma, TMA and warp specialisation are later work):
-// - bf16: FlashAttention-2 structure on mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate). Forward and dq: a CTA of 4 warps owns 64 query rows (16 a
-//   warp) and loops over key tiles; dkv: a CTA owns 64 key rows and loops
-//   over the group's q heads and their query tiles. So each output tile is
-//   written by one CTA and summed in a fixed order: no atomics, and two calls
-//   give identical bits. Causal tiles above the diagonal are skipped; ragged
-//   tails (S not a multiple of the tile) are zero-filled and masked.
-//   Operand tiles live in shared memory; a tile the mma reads as a B operand
-//   along its rows is stored transposed, so each fragment is one 32-bit read.
-//   P (and dS) are rounded to bf16 before their matmul on the tensor cores;
-//   the TPU kernel multiplies them in fp32.
+// Design:
+// - bf16 forward and dq: FlashAttention-2 structure on mma.sync m16n8k16
+//   (bf16 in, fp32 accumulate): a CTA of 4 warps owns 64 query rows (16 a
+//   warp) and loops over key tiles. Operand tiles live in shared memory; a
+//   tile the mma reads as a B operand along its rows is stored transposed,
+//   so each fragment is one 32-bit read. wgmma, asynchronous loads and warp
+//   specialisation are later work for these two.
+// - bf16 dkv (redesigned for Hopper): wgmma with TMA-fed, ring-buffered tiles
+//   and no transposed copies; see flash_bwd_dkv_bf16 below. It needs sm_90a
+//   (wgmma).
+// In all three each output tile is written by one CTA and summed in a fixed
+// order: no atomics, and two calls give identical bits. Causal tiles above
+// the diagonal are skipped; ragged tails (S not a multiple of the tile) are
+// zero-filled and masked. P (and dS) are rounded to bf16 before their matmul
+// on the tensor cores; the TPU kernel multiplies them in fp32.
 // - fp32: the same loops on the CUDA cores, one query row (or key row) per
 //   thread, plain FMA, no TF32: the version the plain PyTorch code is held to
 //   in f32.
@@ -44,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 struct FlashParams {
   const void* q;
@@ -80,11 +85,6 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uin
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
@@ -167,10 +167,10 @@ template <int KT>
 __device__ __forceinline__ void c_to_a(uint32_t (*a)[4], float (*c)[4]) {
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+    a[kk][0] = hopper::pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = hopper::pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = hopper::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = hopper::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
   }
 }
 
@@ -356,87 +356,168 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const FlashParams p) {
 }
 
 // ------------------------------------------------------------------ bf16 dkv
+// On wgmma, along FlashAttention-3's backward. A CTA of two warpgroups owns
+// BKV = 128 key rows (64 a warpgroup, wgmma's M). K and V of those rows are
+// loaded once into shared memory; the dK and dV accumulators stay in
+// registers for the whole kernel. Query tiles of BQ = 64 rows of Q and dO
+// stream through a ring of STAGES buffers by TMA (4-D tensor maps over the
+// strided [B, H, S, D] views, built per launch), their lse and delta beside
+// them by cp.async, one mbarrier a stage. Every tile is swizzled (hopper.cuh;
+// 32-byte atoms at D 80). Per tile:
+//   S^T = K Q^T and dP^T = V dO^T   (wgmma, both operands in shared memory,
+//                                     Q and dO read K-major),
+//   P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale  (fp32, in
+//                                     registers, masked; then bf16 A operands),
+//   dV += P^T dO and dK += dS^T Q   (wgmma, A in registers, B the same Q and
+//                                     dO tiles read MN-major: no transposed copy).
+// The tiles of the group's q heads run in one loop (head by head), so dk/dv
+// are summed over the group in a fixed order: no atomics, bitwise repeatable.
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(const FlashParams p) {
-  constexpr int BKV = 64, BQ = 32, DP = D + 8, BQP = BQ + 8;
-  __shared__ __align__(16) bf16 tiles[BKV * DP];  // stages K and V; then Q rows | dO rows
-  __shared__ __align__(16) bf16 qt_s[D * BQP];    // Q^T
-  __shared__ __align__(16) bf16 dot_s[D * BQP];   // dO^T
-  __shared__ float lse_s[BQ], dl_s[BQ];
-  bf16* qs = tiles;
-  bf16* dos = tiles + BQ * DP;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * BKV;
+struct DkvCfg {
+  static constexpr int BKV = 128, BQ = 64, STAGES = 3, THREADS = 256;
+  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32)
+  static constexpr int SWB = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;
+  static constexpr int AW = SWB / 2;  // columns of a swizzle atom
+  static constexpr int KV = BKV * D;  // elements of the K (or V) tile
+  static constexpr int T = BQ * D;    // elements of a Q (or dO) tile
+  static constexpr int kSmem = 1024 + 2 * KV * 2 + STAGES * 2 * T * 2 + STAGES * 2 * BQ * 4 + STAGES * 8;
+  static_assert(T * 2 % 1024 == 0, "tiles keep the 1024-byte alignment of their swizzle");
+};
+
+template <int D>
+__global__ void __launch_bounds__(256, 1) flash_bwd_dkv_bf16(const FlashParams p, const __grid_constant__ CUtensorMap qmap,
+                                                             const __grid_constant__ CUtensorMap omap) {
+  using C = DkvCfg<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023));  // 1024-aligned
+  bf16* vs = ks + C::KV;
+  bf16* ring = vs + C::KV;                                      // stage s: Q, then dO
+  float* stats = reinterpret_cast<float*>(ring + C::STAGES * 2 * C::T);  // stage s: lse, then delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + C::STAGES * 2 * C::BQ);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * C::BKV;
   const int b = blockIdx.y / p.hkv, hk = blockIdx.y % p.hkv, group = p.hq / p.hkv;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
-  const int key = k0 + warp * 16 + g;  // and key + 8
+  const int key = k0 + wg * 64 + ((tid >> 5) & 3) * 16 + g;  // and key + 8
+  const float sl2 = p.sm_scale * kLog2e;
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_rows<D, BKV, DP, 128>(tiles, kg, p.k_s[2], k0, p.sk, tid);
-  __syncthreads();
-  load_a_frags<D, DP>(kf, tiles, warp * 16 + g, t4);
-  __syncthreads();
-  load_rows<D, BKV, DP, 128>(tiles, vg, p.v_s[2], k0, p.sk, tid);
-  __syncthreads();
-  load_a_frags<D, DP>(vf, tiles, warp * 16 + g, t4);
-  __syncthreads();
+  const int n_qt = (p.sq + C::BQ - 1) / C::BQ;
+  const int qt0 = p.causal ? k0 / C::BQ : 0;
+  const int per_head = max(n_qt - qt0, 0);
+  const int total = group * per_head;  // query tiles over the group's q heads
 
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  const int n_qt = (p.sq + BQ - 1) / BQ;
-  const int qt0 = p.causal ? k0 / BQ : 0;
-
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
-    const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.o_s[0] + h * p.o_s[1];
-    const long long rb = (static_cast<long long>(b) * p.hq + h) * p.sq;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      load_rows<D, BQ, DP, 128>(qs, qg, p.q_s[2], q0, p.sq, tid);
-      load_rows<D, BQ, DP, 128>(dos, dog, p.o_s[2], q0, p.sq, tid);
-      load_rows_t<D, BQ, BQP, 128>(qt_s, qg, p.q_s[2], q0, p.sq, tid);
-      load_rows_t<D, BQ, BQP, 128>(dot_s, dog, p.o_s[2], q0, p.sq, tid);
-      if (tid < BQ) {
-        const bool in = q0 + tid < p.sq;
-        lse_s[tid] = in ? p.lse_in[rb + q0 + tid] : 0.f;
-        dl_s[tid] = in ? p.delta[rb + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      float st[BQ / 8][4], dpt[BQ / 8][4];  // S^T and dP^T: keys x queries
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      mma_abt<D, DP, BQ / 8>(st, kf, qs, g, t4);
-      mma_abt<D, DP, BQ / 8>(dpt, vf, dos, g, t4);
-      float pt[BQ / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = j * 8 + 2 * t4 + (e & 1), qpos = q0 + qc, kpos = key + 8 * (e >> 1);
-          const bool ok = qpos < p.sq && (!p.causal || qpos >= kpos);
-          const float pr = ok ? expf(st[j][e] * p.sm_scale - lse_s[qc]) : 0.f;
-          pt[j][e] = pr;
-          st[j][e] = pr * (dpt[j][e] - dl_s[qc]) * p.sm_scale;  // dS^T
-        }
-      uint32_t af[BQ / 16][4];
-      c_to_a<BQ / 16>(af, pt);
-      mma_ab_t<D, BQ, BQP>(dv, af, dot_s, g, t4);
-      c_to_a<BQ / 16>(af, st);
-      mma_ab_t<D, BQ, BQP>(dk, af, qt_s, g, t4);
-      __syncthreads();
+  // tile t of the loop into ring stage t % STAGES: Q and dO by TMA (thread 0), lse and delta by cp.async
+  // (threads 128..255)
+  auto issue = [&](int t) {
+    const int s = t % C::STAGES, h = hk * group + t / per_head, q0 = (qt0 + t % per_head) * C::BQ;
+    bf16* qd = ring + s * 2 * C::T;
+    if (tid >= C::THREADS - 2 * C::BQ) {
+      const int i = tid - (C::THREADS - 2 * C::BQ), r = i % C::BQ;
+      const float* src = (i < C::BQ ? p.lse_in : p.delta) + (static_cast<long long>(b) * p.hq + h) * p.sq + q0 + r;
+      const bool in = q0 + r < p.sq;
+      hopper::cp_async4(stats + s * 2 * C::BQ + i, in ? src : p.lse_in, in);
+      hopper::cp_async_arrive(&full[s]);
     }
+    if (tid == 0) {
+      hopper::mbar_expect(&full[s], 2 * C::T * 2);
+      for (int a = 0; a < D / C::AW; ++a) {
+        hopper::tma_load_4d(qd + a * C::BQ * C::AW, &qmap, a * C::AW, q0, h, b, &full[s]);
+        hopper::tma_load_4d(qd + C::T + a * C::BQ * C::AW, &omap, a * C::AW, q0, h, b, &full[s]);
+      }
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) hopper::mbar_init(&full[s], 2 * C::BQ + 1);
+    hopper::fence_mbar_init();
   }
+  __syncthreads();
+  for (int t = 0; t < C::STAGES && t < total; ++t) issue(t);
+  hopper::cp_tile_sw<C::SWB, D, C::BKV, C::THREADS>(
+      ks, static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1], p.k_s[2], k0, p.sk, tid);
+  hopper::cp_tile_sw<C::SWB, D, C::BKV, C::THREADS>(
+      vs, static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1], p.v_s[2], k0, p.sk, tid);
+  hopper::cp_async_wait_all();
+  hopper::fence_async_smem();  // K and V, written by cp.async, read by wgmma
+  __syncthreads();
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const bf16* kw = ks + wg * 64 * C::AW;  // this warpgroup's 64 key rows (in every atom)
+  const bf16* vw = vs + wg * 64 * C::AW;
+
+  for (int t = 0; t < total; ++t) {
+    const int s = t % C::STAGES, q0 = (qt0 + t % per_head) * C::BQ;
+    const bf16* qt = ring + s * 2 * C::T;
+    const bf16* dot = qt + C::T;
+    const float* lse_s = stats + s * 2 * C::BQ;
+    const float* dl_s = lse_s + C::BQ;
+    hopper::mbar_wait(&full[s], (t / C::STAGES) & 1);
+    hopper::fence_async_smem();
+
+    float st[32], dpt[32];  // S^T and dP^T: 64 keys x 64 queries, the m64n64 accumulator layout
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // k step kk: atom kk * 16 / AW, columns kk * 16 % AW in it
+      const int ka = (kk * 16 / C::AW) * C::BKV * C::AW + kk * 16 % C::AW;
+      const int qa = (kk * 16 / C::AW) * C::BQ * C::AW + kk * 16 % C::AW;
+      hopper::wgmma_ss<64, 0>(st, hopper::desc_sw_k<C::SWB>(kw + ka), hopper::desc_sw_k<C::SWB>(qt + qa), 1);
+      hopper::wgmma_ss<64, 0>(dpt, hopper::desc_sw_k<C::SWB>(vw + ka), hopper::desc_sw_k<C::SWB>(dot + qa), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(st);
+    hopper::reg_fence(dpt);
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qc = (i >> 2) * 8 + 2 * t4 + (i & 1), qpos = q0 + qc, kpos = key + 8 * ((i >> 1) & 1);
+      const bool ok = qpos < p.sq && (!p.causal || qpos >= kpos);
+      const float pr = ok ? exp2f(fmaf(st[i], sl2, -lse_s[qc] * kLog2e)) : 0.f;
+      st[i] = pr;
+      dpt[i] = pr * (dpt[i] - dl_s[qc]) * p.sm_scale;  // dS^T
+    }
+    uint32_t pa[4][4], da[4][4];  // P^T and dS^T as A operands, one k16 step (16 queries) each
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = hopper::pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] = hopper::pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::wgmma_rs<D, 1>(dv, pa[kk], hopper::desc_sw_mn<C::SWB>(dot + kk * 16 * C::AW, C::BQ), 1);
+      hopper::wgmma_rs<D, 1>(dk, da[kk], hopper::desc_sw_mn<C::SWB>(qt + kk * 16 * C::AW, C::BQ), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(dk);
+    hopper::reg_fence(dv);
+    __syncthreads();  // every read of stage s done before it is refilled
+    if (t + C::STAGES < total) issue(t + C::STAGES);
+  }
+
   bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_s[0] + hk * p.dk_s[1];
   bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_s[0] + hk * p.dv_s[1];
-  store_rows_bf16<D>(dkg, p.dk_s[2], dk, key, p.sk, 1.f, 1.f, t4);
-  store_rows_bf16<D>(dvg, p.dv_s[2], dv, key, p.sk, 1.f, 1.f, t4);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = j * 8 + 2 * t4;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = key + 8 * half;
+      if (row < p.sk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkg + row * p.dk_s[2] + col) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dvg + row * p.dv_s[2] + col) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -637,7 +718,23 @@ int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
     } else if (which == kDq) {
       flash_bwd_dq_bf16<D><<<dim3((p.sq + 63) / 64, bh_q), 128, 0, s>>>(p);
     } else {
-      flash_bwd_dkv_bf16<D><<<dim3((p.sk + 63) / 64, bh_kv), 128, 0, s>>>(p);
+      using C = DkvCfg<D>;
+      const cudaError_t e =
+          cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      // Q and dO [B, H, S, D] (any strides) as TMA tensor maps: boxes of one swizzle atom x BQ rows
+      CUtensorMap qmap, omap;
+      const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(p.sq), static_cast<cuuint64_t>(p.hq),
+                                  static_cast<cuuint64_t>(p.b)};
+      const cuuint64_t q_st[3] = {static_cast<cuuint64_t>(p.q_s[2]) * 2, static_cast<cuuint64_t>(p.q_s[1]) * 2,
+                                  static_cast<cuuint64_t>(p.q_s[0]) * 2};
+      const cuuint64_t o_st[3] = {static_cast<cuuint64_t>(p.o_s[2]) * 2, static_cast<cuuint64_t>(p.o_s[1]) * 2,
+                                  static_cast<cuuint64_t>(p.o_s[0]) * 2};
+      const cuuint32_t box[4] = {C::AW, C::BQ, 1, 1};
+      cudaError_t me = hopper::make_tensor_map<C::SWB>(&qmap, p.q, 4, dims, q_st, box);
+      if (me == cudaSuccess) me = hopper::make_tensor_map<C::SWB>(&omap, p.dout, 4, dims, o_st, box);
+      if (me != cudaSuccess) return static_cast<int>(me);
+      flash_bwd_dkv_bf16<D><<<dim3((p.sk + C::BKV - 1) / C::BKV, bh_kv), C::THREADS, C::kSmem, s>>>(p, qmap, omap);
     }
   } else if (dtype == 0) {
     if (which == kFwd) {

@@ -22,23 +22,27 @@
 // 0.25 GB of h and W: ~2e4 operations per byte, far above the ~295 where the
 // tensor cores, not memory, become the limit.
 //
-// Design (right first; wgmma, TMA and warp specialisation are later work):
-// - bf16: a CTA of 8 warps owns 16 output rows (rows of h for the forward and
-//   dh, rows of W for dW) and streams the other matrix in tiles of 32 rows.
-//   The contraction dim E is split over the warps: warp w holds the columns
-//   [w E/8, (w+1) E/8) of its 16 rows as mma.sync m16n8k16 A fragments in
-//   registers for the whole kernel, computes the partial s tile of its
-//   columns, and the 8 partials are summed through shared memory in a fixed
-//   order. The backward kernels round ds to bf16 (as the flash kernels round
-//   P and dS) and multiply it against the same E-slice of the streamed tile,
+// Design:
+// - bf16 forward and dh (mma.sync; wgmma, TMA and warp specialisation are
+//   later work for these two): a CTA of 8 warps owns 16 rows of h and
+//   streams W in tiles of 32 rows. The contraction dim E is split over the
+//   warps: warp w holds the columns [w E/8, (w+1) E/8) of its 16 rows as
+//   mma.sync m16n8k16 A fragments in registers for the whole kernel, computes
+//   the partial s tile of its columns, and the 8 partials are summed through
+//   shared memory in a fixed order. dh carries ds to the tensor cores as bf16
+//   hi + lo, ds - hi (two products per fragment, about 16 mantissa bits, near
+//   the TPU kernel's fp32 ds), against the same E-slice of the streamed tile,
 //   read transposed with ldmatrix.trans, into a [16, E/8] fp32 accumulator
 //   per warp: the [16, E] accumulator of a row block (96 KB at E 1536) lives
 //   in the registers of the whole CTA, so every output element is summed by
 //   one thread in a fixed order: no atomics, bitwise repeatable. Each warp
 //   loads its own slice of the streamed tile with cp.async, double buffered.
-//   The price of 16 rows per CTA: the streamed matrix is read once per 16
-//   rows from L2 (N/16 x 154 MB = 316 GB per forward or dh at the 32k shape).
-//   E must be a multiple of 128 (E/8 a multiple of 16), up to 1536.
+//   The price of 16 rows per CTA: W is read once per 16 rows from L2 (N/16 x
+//   154 MB = 316 GB per forward or dh at the 32k shape).
+// - bf16 dW (redesigned for Hopper): a thread-block cluster of 8 CTAs splits
+//   E and owns 128 vocab rows, with wgmma and a distributed-shared-memory
+//   reduction of s; see ce_dw_bf16 below.
+//   E must be a multiple of 128 (E/8 a multiple of 16): 128, 256 or 1536.
 // - fp32: one warp per output row on the CUDA cores (lanes split E, a fixed
 //   xor-butterfly sum), plain FMA, no TF32: the version the plain PyTorch code
 //   is held to in f32, at small shapes.
@@ -49,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 struct CEParams {
   const void* h;        // [N, E]
@@ -79,15 +85,6 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uin
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without registers; zero-filled when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 16 : 0));
-}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -99,7 +96,7 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
+               : "r"(hopper::smem_u32(p)));
 }
 
 __device__ __forceinline__ float xor_sum16(float x) {  // over the 16 lanes of a half warp
@@ -127,7 +124,7 @@ struct Cfg {
   static constexpr int PP = kBT + 8;    // fp32 pitch of the partial-s rows
   static constexpr int DP = kBT + 8;    // bf16 pitch of the ds rows
   static constexpr int kStage = kBT * SP;  // bf16 elements of one buffer of one warp
-  static constexpr int kSmem = 2 * kWarps * kStage * 2 + kWarps * kRows * PP * 4 + kRows * DP * 2;
+  static constexpr int kSmem = 2 * kWarps * kStage * 2 + kWarps * kRows * PP * 4 + 2 * kRows * DP * 2;
 };
 
 // Rows [r0, r0 + R) of M [nm, e] bf16, columns [e0, e0 + SW), into buf[R][SP]
@@ -140,7 +137,7 @@ __device__ __forceinline__ void load_slice(bf16* buf, const bf16* m, int e, int 
     const int r = i / VPR, c = (i % VPR) * 8;
     const bool in = r0 + r < nm;
     const bf16* src = in ? m + static_cast<long long>(r0 + r) * e + e0 + c : m;
-    cp_async16(buf + r * Cfg<SW>::SP + c, src, in);
+    hopper::cp_async16(buf + r * Cfg<SW>::SP + c, src, in);
   }
 }
 
@@ -154,13 +151,12 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sb = reinterpret_cast<bf16*>(smem);
   float* sp = reinterpret_cast<float*>(smem + 2 * C::kWarps * C::kStage * 2);
-  bf16* sd = reinterpret_cast<bf16*>(sp + C::kWarps * C::kRows * C::PP);
+  bf16* sd = reinterpret_cast<bf16*>(sp + C::kWarps * C::kRows * C::PP);  // ds hi rows, then ds lo rows
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const bool dw = MODE == kDw;
-  const bf16* A = static_cast<const bf16*>(dw ? p.w : p.h);  // the CTA's output rows
-  const bf16* S = static_cast<const bf16*>(dw ? p.h : p.w);  // the streamed matrix
-  const int na = dw ? p.v : p.n, ns = dw ? p.n : p.v;
+  const bf16* A = static_cast<const bf16*>(p.h);  // the CTA's output rows
+  const bf16* S = static_cast<const bf16*>(p.w);  // the streamed matrix
+  const int na = p.n, ns = p.v;
   const int r0 = blockIdx.x * C::kRows, e0 = warp * SW;
   bf16* buf[2] = {sb + (warp * 2) * C::kStage, sb + (warp * 2 + 1) * C::kStage};
 
@@ -184,7 +180,7 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
   const int rr = tid >> 4, cc = (tid & 15) * 2, row = r0 + rr;
   int lab_r = -1;
   float lse_r = 0.f, gm_r = 0.f;
-  if (!dw && row < na) {
+  if (row < na) {
     lab_r = p.labels[row];
     if (MODE == kDh) {
       lse_r = p.lse[row];
@@ -211,17 +207,6 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
     }
     __syncwarp();
     const int c0 = b0 + cc;  // streamed index of this thread's first column
-    float lse_c[2] = {0.f, 0.f}, gm_c[2] = {0.f, 0.f};
-    int lab_c[2] = {-1, -1};
-    if (dw) {  // dW: the statistics belong to the streamed rows (tokens)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (c0 + i < ns) {
-          lse_c[i] = p.lse[c0 + i];
-          gm_c[i] = p.gm[c0 + i];
-          lab_c[i] = p.labels[c0 + i];
-        }
-    }
 
     // the partial s tile [16 x 32] of this warp's E-slice
     float s[NJ][4];
@@ -260,34 +245,38 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
       if (ok1 && c0 + 1 == lab_r) corr += x[1];
       __syncthreads();  // every partial read before the next tile's are written
     } else {
+      // ds in fp32, carried to the tensor cores as bf16 hi + lo (about 16 mantissa bits)
       float ds[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = c0 + i;
-        if (MODE == kDh) {
-          ds[i] = c < ns ? gm_r * (expf(x[i] - lse_r) - (c == lab_r ? 1.f : 0.f)) : 0.f;
-        } else {
-          ds[i] = (c < ns && row < na) ? gm_c[i] * (expf(x[i] - lse_c[i]) - (row == lab_c[i] ? 1.f : 0.f)) : 0.f;
-        }
+        ds[i] = c < ns ? gm_r * (expf(x[i] - lse_r) - (c == lab_r ? 1.f : 0.f)) : 0.f;
       }
-      *reinterpret_cast<__nv_bfloat162*>(sd + rr * C::DP + cc) = __floats2bfloat162_rn(ds[0], ds[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(ds[0], ds[1]);
+      const float2 hif = __bfloat1622float2(hi);
+      *reinterpret_cast<__nv_bfloat162*>(sd + rr * C::DP + cc) = hi;
+      *reinterpret_cast<__nv_bfloat162*>(sd + (C::kRows + rr) * C::DP + cc) =
+          __floats2bfloat162_rn(ds[0] - hif.x, ds[1] - hif.y);
       __syncthreads();  // also: every partial read before the next tile's are written
-      uint32_t dsf[KB][4];
+      uint32_t dsf[2][KB][4];  // [hi, lo]
 #pragma unroll
-      for (int kk = 0; kk < KB; ++kk) {
-        const bf16* q = sd + g * C::DP + kk * 16 + 2 * t4;
-        dsf[kk][0] = ld32(q);
-        dsf[kk][1] = ld32(q + 8 * C::DP);
-        dsf[kk][2] = ld32(q + 8);
-        dsf[kk][3] = ld32(q + 8 * C::DP + 8);
-      }
+      for (int part = 0; part < 2; ++part)
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) {
+          const bf16* q = sd + (part * C::kRows + g) * C::DP + kk * 16 + 2 * t4;
+          dsf[part][kk][0] = ld32(q);
+          dsf[part][kk][1] = ld32(q + 8 * C::DP);
+          dsf[part][kk][2] = ld32(q + 8);
+          dsf[part][kk][3] = ld32(q + 8 * C::DP + 8);
+        }
 #pragma unroll
       for (int kk = 0; kk < KB; ++kk)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           uint32_t bfr[2];
           ldsm_x2_trans(bfr, cur + (kk * 16 + (lane & 15)) * C::SP + j * 8);
-          mma_16816(acc[j], dsf[kk], bfr);
+          mma_16816(acc[j], dsf[0][kk], bfr);
+          mma_16816(acc[j], dsf[1][kk], bfr);
         }
     }
     __syncwarp();  // this warp's reads of `cur` are done before the prefetch after next overwrites it
@@ -301,7 +290,7 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
       p.corr_out[row] = corr;
     }
   } else {
-    bf16* out = static_cast<bf16*>(dw ? p.dw : p.dh);
+    bf16* out = static_cast<bf16*>(p.dh);
     const int ra = r0 + g, rb = ra + 8;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -314,6 +303,274 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
             __floats2bfloat162_rn(acc[j][2], acc[j][3]);
     }
   }
+}
+
+// ------------------------------------------------------------ bf16 dW (cluster)
+// dW = ds^T h on a thread-block cluster of CL = 8 CTAs. A cluster owns BV =
+// 128 vocab rows; CTA c of it owns the E-slice [c SE, (c + 1) SE), SE = E / 8,
+// keeps W[v0 : v0 + 128, slice c] in registers (wgmma A fragments, 4 SE / 16
+// a thread) and the [128, SE] fp32 dW accumulator in the registers of its two
+// warpgroups (64 rows each) for the whole kernel. Tiles of BN = 64 tokens of
+// h[:, slice c] stream through a ring of STAGES buffers by TMA (a tensor map
+// built per launch; swizzled as wgmma reads at full rate), the tokens' lse,
+// gm and labels beside them by cp.async, one mbarrier a stage. Per tile t:
+//   1. each CTA computes the partial s^T [128, 64] = W_c h_c^T of its slice
+//      (wgmma) and sends rows [16 c', 16 c' + 16) of it into slot c of CTA
+//      c''s receive buffer (distributed shared memory, one bulk copy a CTA);
+//   2. CTA c waits for its 8 slots (an mbarrier counts the bytes), sums its
+//      16 rows over them in the fixed order 0..7, computes ds in fp32 from
+//      lse, gm and the labels, splits it into bf16 hi + lo (about 16 mantissa
+//      bits, near the TPU kernel's fp32 ds) and sends those rows into every
+//      other CTA's ds tiles (bulk copies, counted by each CTA's mbarrier);
+//   3. each CTA: dW_c += ds_hi^T h_c + ds_lo^T h_c (wgmma, A the ds tiles, B
+//      the same h tile read MN-major).
+// Pipelined across tiles: tile t - 1's dW runs on the tensor cores while
+// tile t's partials travel and are reduced, and tile t + 1's partial s while
+// tile t's ds rows travel (two sets of ds tiles). One cluster barrier a tile,
+// split: a CTA arrives once it has read its slots, and waits before it sends
+// the next partial. Exchanges go through the bulk-copy engine: a thread's own
+// loads or stores to a peer stall for the round trip. h is read once per 128
+// vocab rows (not once per 16 as the mma.sync kernel did), every dW element
+// is summed by one thread in a fixed order (no atomics, bitwise repeatable),
+// and no [rows, V] buffer exists. Needs sm_90a (wgmma) and a cluster launch.
+template <int SE>
+struct DwCfg {
+  static constexpr int CL = 8, BV = 128, BN = 64, STAGES = 3, THREADS = 256;
+  static constexpr int RV = BV / CL;                  // vocab rows a CTA reduces
+  static constexpr int RP = BN + 4;                   // fp32 pitch of partial-s rows
+  static constexpr int SWH = SE * 2 < 128 ? SE * 2 : 128;  // swizzle (row) bytes of the h tiles
+  static constexpr int AWH = SWH / 2;                 // columns of an h-tile atom
+  static constexpr int H_BYTES = BN * SE * 2;         // one h tile (swizzled)
+  static constexpr int ST_BYTES = 3 * BN * 4;         // lse, gm, labels of a tile's tokens
+  static constexpr int SLOT = RV * RP * 4;            // RV partial rows: one CTA's share of another's s^T
+  static constexpr int P_BYTES = CL * SLOT;           // partial s^T [128, 64] (pitch RP); as much to receive
+  static constexpr int DS_BYTES = BV * BN * 2;        // one of ds hi, ds lo (swizzled, 128-byte rows)
+  static constexpr int DS_ROWS = RV * BN * 2;         // a CTA's RV rows of one ds tile: contiguous
+  static constexpr int kSmem = 1024 + STAGES * H_BYTES + 4 * DS_BYTES + 2 * P_BYTES + STAGES * ST_BYTES +
+                               (STAGES + 3) * 8;  // 1024: room to align the swizzled tiles
+  static_assert(BN * 2 == 128 && H_BYTES % 1024 == 0, "ds rows are one 128-byte swizzle atom");
+  static_assert(RV * (BN / 4) == THREADS, "one thread reduces 4 tokens of one vocab row");
+  static_assert(2 * P_BYTES >= BV * SE * 2, "the W slice is staged in the partial-s buffers");
+};
+
+template <int SE>
+__global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __grid_constant__ CUtensorMap hmap) {
+  using C = DwCfg<SE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023);  // 1024-byte aligned
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* dsb = ring + C::STAGES * C::BN * SE;  // [2 sets][hi, lo] swizzled tiles
+  float* part = reinterpret_cast<float*>(dsb + 4 * C::BV * C::BN);
+  float* recv = part + C::P_BYTES / 4;
+  float* stats = recv + C::P_BYTES / 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + C::STAGES * 3 * C::BN);
+  uint64_t* recv_bar = full + C::STAGES;
+  uint64_t* ds_bar = recv_bar + 1;  // one a set of ds tiles
+  const uint32_t rank = hopper::cluster_rank();
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int v0 = (blockIdx.x / C::CL) * C::BV, e0 = rank * SE;
+  const int n_tiles = (p.n + C::BN - 1) / C::BN;
+  auto h_of = [&](int t) { return ring + (t % C::STAGES) * C::BN * SE; };
+  auto stats_of = [&](int t) { return stats + (t % C::STAGES) * 3 * C::BN; };
+
+  // tile t into its ring stage: h by TMA (thread 32), lse, gm and labels by cp.async (threads 64..255), so
+  // that warp 0, which sends the partials, is not held up
+  auto issue = [&](int t) {
+    const int n0 = t * C::BN;
+    uint64_t* bar = &full[t % C::STAGES];
+    if (tid >= C::THREADS - 3 * C::BN) {
+      const int i = tid - (C::THREADS - 3 * C::BN), n = n0 + i % C::BN;
+      const void* src = i < C::BN ? static_cast<const void*>(p.lse + n)
+                        : i < 2 * C::BN ? static_cast<const void*>(p.gm + n) : static_cast<const void*>(p.labels + n);
+      hopper::cp_async4(stats_of(t) + i, n < p.n ? src : p.gm, n < p.n);
+      hopper::cp_async_arrive(bar);
+    }
+    if (tid == 32) {
+      hopper::mbar_expect(bar, C::H_BYTES);
+      for (int a = 0; a < SE / C::AWH; ++a) hopper::tma_load_2d(h_of(t) + a * C::BN * C::AWH, &hmap, e0 + a * C::AWH, n0, bar);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) hopper::mbar_init(&full[s], 3 * C::BN + 1);
+    hopper::mbar_init(recv_bar, 1);
+    hopper::mbar_init(&ds_bar[0], 1);
+    hopper::mbar_init(&ds_bar[1], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the W slice, staged in shared memory (the partial-s buffers, unused until the loop), into A fragments
+  bf16* wst = reinterpret_cast<bf16*>(part);
+  hopper::cp_tile_sw<C::SWH, SE, C::BV, C::THREADS>(wst, static_cast<const bf16*>(p.w) + e0, p.e, v0, p.v, tid);
+  issue(0);
+  hopper::cp_async_wait_all();
+  __syncthreads();
+  uint32_t wf[SE / 16][4];
+  const int prow = wg * 64 + warp * 16 + g;  // and prow + 8: this thread's rows of W, s^T and dW
+#pragma unroll
+  for (int kk = 0; kk < SE / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      wf[kk][r] = *reinterpret_cast<const uint32_t*>(
+          wst + hopper::sw_offset<C::SWH>(prow + 8 * (r & 1), kk * 16 + 8 * (r >> 1) + 2 * t4, C::BV));
+  __syncthreads();  // every W fragment read before the staging buffers take partials
+
+  float sc[32];
+  auto scores = [&](int t) {  // partial s^T of tile t into sc: issued and committed, not waited for
+    const bf16* ht = h_of(t);
+    hopper::mbar_wait(&full[t % C::STAGES], (t / C::STAGES) & 1);
+    hopper::fence_async_smem();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SE / 16; ++kk)
+      hopper::wgmma_rs<64, 0>(
+          sc, wf[kk], hopper::desc_sw_k<C::SWH>(ht + (kk * 16 / C::AWH) * C::BN * C::AWH + kk * 16 % C::AWH), 1);
+    hopper::wgmma_commit();
+  };
+  auto store_partial = [&]() {  // sc, once its wgmma is done, into the partial-s buffer
+    hopper::reg_fence(sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(part + prow * C::RP + j * 8 + 2 * t4) = make_float2(sc[4 * j], sc[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + (prow + 8) * C::RP + j * 8 + 2 * t4) =
+          make_float2(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+    hopper::fence_async_smem();  // read by the bulk copies
+  };
+
+  // the reduction thread's place: row rr of this CTA's RV (vocab row v), tokens nc .. nc + 3 of a tile
+  const int rr = tid / 16, nc = (tid % 16) * 4, v = v0 + rank * C::RV + rr;
+  const int my_off = hopper::sw_offset<128>(rank * C::RV + rr, nc, C::BV);
+  float acc[SE / 2];
+#pragma unroll
+  for (int i = 0; i < SE / 2; ++i) acc[i] = 0.f;
+
+  auto dw = [&](int t) {  // dW_c += ds_hi^T h_c + ds_lo^T h_c for tile t, issued and committed
+    hopper::mbar_wait(&ds_bar[t & 1], (t >> 1) & 1);
+    const bf16* ht = h_of(t);
+    const bf16* dst = dsb + (t & 1) * 2 * C::BV * C::BN + wg * 64 * C::BN;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int part_i = 0; part_i < 2; ++part_i)
+#pragma unroll
+      for (int kk = 0; kk < C::BN / 16; ++kk)
+        hopper::wgmma_ss<SE, 1>(acc, hopper::desc_sw_k<128>(dst + part_i * C::BV * C::BN + kk * 16),
+                                hopper::desc_sw_mn<C::SWH>(ht + kk * 16 * C::AWH, C::BN), 1);
+    hopper::wgmma_commit();
+  };
+
+  scores(0);
+  hopper::wgmma_wait<0>();
+  hopper::cluster_arrive();  // every CTA's barriers exist and its W fragments are read before any exchange
+  hopper::cluster_wait();
+  for (int t = 0; t < n_tiles; ++t) {
+    bf16* ds_set = dsb + (t & 1) * 2 * C::BV * C::BN;
+    // 1. the partial s^T of tile t (in sc) out to the CTAs that reduce it; the barrier (armed in
+    // tile t - 1) says every CTA has read its slots of tile t - 1 and so received this CTA's partial
+    if (t > 0) hopper::cluster_wait();
+    store_partial();
+    __syncthreads();
+    if (t + 1 < n_tiles) issue(t + 1);  // into the stage of tile t - 2, whose dW is done
+    if (tid < C::CL) {  // thread c sends CTA c its rows of the partial
+      if (tid == 0) {
+        hopper::mbar_expect(recv_bar, C::P_BYTES);
+        hopper::mbar_expect(&ds_bar[t & 1], (C::CL - 1) * 2 * C::DS_ROWS);
+      }
+      hopper::bulk_to_peer(hopper::mapa(recv + rank * C::SLOT / 4, tid), part + tid * C::SLOT / 4, C::SLOT,
+                           hopper::mapa(recv_bar, tid));
+    }
+
+    if (t > 0) dw(t - 1);  // on the tensor cores while the partials travel
+
+    // 2. s = the sum of the 8 slots in order; ds in fp32; hi + lo rows, then to every other CTA
+    hopper::mbar_wait(recv_bar, t & 1);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < C::CL; ++c) {
+      const float4 y = *reinterpret_cast<const float4*>(recv + (c * C::RV + rr) * C::RP + nc);
+      x[0] += y.x;
+      x[1] += y.y;
+      x[2] += y.z;
+      x[3] += y.w;
+    }
+    const float* st = stats_of(t);
+    float hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lab = __float_as_int(st[2 * C::BN + nc + i]);
+      const float ds = v < p.v ? st[C::BN + nc + i] * (expf(x[i] - st[nc + i]) - (lab == v ? 1.f : 0.f)) : 0.f;
+      hi[i] = __bfloat162float(__float2bfloat16_rn(ds));
+      lo[i] = ds - hi[i];
+    }
+    *reinterpret_cast<uint2*>(ds_set + my_off) =
+        make_uint2(hopper::pack_bf16(hi[0], hi[1]), hopper::pack_bf16(hi[2], hi[3]));
+    *reinterpret_cast<uint2*>(ds_set + C::BV * C::BN + my_off) =
+        make_uint2(hopper::pack_bf16(lo[0], lo[1]), hopper::pack_bf16(lo[2], lo[3]));
+    hopper::fence_async_smem();  // the ds rows, read by the bulk copies and by wgmma
+    __syncthreads();
+    hopper::cluster_arrive();  // this CTA has read its slots of tile t
+    // A peer writes its ds rows of tile t + 2 into this CTA's set t % 2 only after its partial of tile
+    // t + 2 has arrived here, which this CTA sends after dW(t) is done: no other guard is needed.
+    if (tid >= 1 && tid < C::CL) {  // thread c sends CTA rank + c this CTA's ds rows
+      const uint32_t peer = (rank + tid) % C::CL;
+      for (int part_i = 0; part_i < 2; ++part_i) {
+        const bf16* rows = ds_set + part_i * C::BV * C::BN + rank * C::RV * C::BN;
+        hopper::bulk_to_peer(hopper::mapa(rows, peer), rows, C::DS_ROWS, hopper::mapa(&ds_bar[t & 1], peer));
+      }
+    }
+    if (t + 1 < n_tiles) scores(t + 1);
+    hopper::wgmma_wait<0>();  // dW(t - 1), scores(t + 1)
+    hopper::reg_fence(acc);
+  }
+  dw(n_tiles - 1);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(acc);
+  hopper::cluster_wait();    // the last tile's arrival
+  hopper::cluster_arrive();  // no CTA leaves while a peer's copies may still read or write its memory
+  hopper::cluster_wait();
+
+  bf16* out = static_cast<bf16*>(p.dw) + e0;
+#pragma unroll
+  for (int j = 0; j < SE / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = v0 + prow + 8 * half;
+      if (row < p.v)
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * p.e + j * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+template <int SE>
+int launch_dw(const CEParams& p, cudaStream_t s) {
+  using C = DwCfg<SE>;
+  cudaError_t e = cudaFuncSetAttribute(ce_dw_bf16<SE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // h [N, E] as a TMA tensor map: boxes of one swizzle atom (AWH columns) x BN rows, zero-filled past N
+  CUtensorMap hmap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.e) * 2};
+  const cuuint32_t box[2] = {C::AWH, C::BN};
+  e = hopper::make_tensor_map<C::SWH>(&hmap, p.h, 2, dims, strides, box);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C::CL * ((p.v + C::BV - 1) / C::BV));
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ce_dw_bf16<SE>, p, hmap);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -388,11 +645,11 @@ __global__ void __launch_bounds__(32 * kWarpsF) ce_dw_f32(const CEParams p) {
 template <int SW>
 int launch_bf16(const CEParams& p, int mode, cudaStream_t s) {
   using C = Cfg<SW>;
-  void (*k)(const CEParams) = mode == kFwd ? ce_bf16<SW, kFwd> : mode == kDh ? ce_bf16<SW, kDh> : ce_bf16<SW, kDw>;
+  if (mode == kDw) return launch_dw<SW>(p, s);
+  void (*k)(const CEParams) = mode == kFwd ? ce_bf16<SW, kFwd> : ce_bf16<SW, kDh>;
   const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rows = mode == kDw ? p.v : p.n;
-  k<<<(rows + C::kRows - 1) / C::kRows, C::kThreads, C::kSmem, s>>>(p);
+  k<<<(p.n + C::kRows - 1) / C::kRows, C::kThreads, C::kSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

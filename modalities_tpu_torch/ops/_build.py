@@ -4,8 +4,11 @@
 Every `.cu` source under `modalities_tpu_torch/csrc/` is compiled for `sm_90a`
 by its own nvcc process, all started together, and the objects are linked into
 one shared library under `build/modalities_tpu_torch/` at the repository root.
-The library's file name carries a hash of the sources and flags, so an edited
-source builds anew and an unchanged one loads the existing library. The build
+The sources share `csrc/hopper.cuh` (wgmma, mbarrier, cp.async and cluster
+helpers in raw PTX). The library's file name carries a hash of the sources,
+headers and flags, so an edited source builds anew and an unchanged one loads
+the existing library. nvcc runs with `-Xptxas -v`: `build_log` keeps what it
+printed (registers, shared memory and spills of every kernel). The build
 happens on first use, inside the call that launches a kernel, never at import:
 a process without CUDA can import every module.
 
@@ -30,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "modalities_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _VP = ctypes.c_void_p
@@ -51,6 +54,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the nvcc calls in this process (None: loaded)
+build_log = ""  # nvcc's output of that build (ptxas -v)
 
 
 def sources() -> list[Path]:
@@ -70,38 +74,52 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libmt_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands as concurrent processes; raise with the output of the
-    first that fails, after every one has ended."""
+    first that fails, after every one has ended. Returns their outputs."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
     outputs = [p.communicate()[0] for p in procs]
     for cmd, proc, output in zip(cmds, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{output}")
+    return "".join(outputs)
 
 
 def _build(out: Path) -> None:
-    global build_seconds
+    global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
     stem = out.with_suffix(f".{os.getpid()}")
     objs = [Path(f"{stem}.{src.stem}.o") for src in sources()]
     tmp = Path(f"{stem}.tmp.so")
     start = time.perf_counter()
     try:
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources(), objs)])
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources(), objs)])
         _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
         for path in (*objs, tmp):
             path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - start
+    build_log = log
+
+
+def ptxas_usage(kernel: str) -> list[str]:
+    """ptxas's lines (registers, shared memory, spills) for every compiled
+    kernel whose mangled name contains `kernel`, from this process's build."""
+    lines, keep = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and ("entry function" in line or "registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
 
 
 def library() -> ctypes.CDLL:

@@ -17,9 +17,9 @@ while the plain version stays fp32. Autograd's dq and dk of the fp32 plain
 attention are first moved to the delta the kernels read (sum dO * out of the
 kernel's own out, bf16 in bf16): they are linear in it. lse 1e-4 absolute.
 Fused CE: lse and corr 1e-4 absolute (fp32 sums of E products in another
-order), total rtol 1e-5, dh and dW of the total row by row at flash's bounds (the bf16
-kernels round ds to bf16 before the tensor-core product and each output to
-bf16), against autograd of the fp32 plain version."""
+order), total rtol 1e-5, dh and dW of the total row by row against autograd of
+the fp32 plain version: f32 1e-4, bf16 CE_ROW_REL_BF16 (ds reaches the tensor
+cores as bf16 hi + lo; each output is rounded to bf16)."""
 
 import pytest
 import torch
@@ -219,7 +219,8 @@ def _qkv(dev, b, s, hq, hkv, d, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 512, 8, 2, 80), (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80),
                                    (1, 77, 4, 1, 16), (1, 130, 2, 2, 32), (1, 384, 6, 2, 128),
-                                   (1, 2048, 12, 4, 128)], ids=str)
+                                   (1, 2048, 12, 4, 128), (1, 1000, 3, 3, 80), (1, 4097, 8, 2, 80),
+                                   (1, 1000, 6, 2, 128), (1, 4097, 12, 4, 128)], ids=str)
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, causal, dtype):
@@ -260,6 +261,29 @@ def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, ca
     for got, want, name in zip((dk1, dv1), fa.reference_flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal),
                                ("dk", "dv")):
         _rows_close(got, want, rel, f"flash_bwd_dkv {name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_dkv_kernel_over_ragged_lengths(d, group, causal):
+    """The wgmma dk/dv kernel (128 key rows a CTA, 64-query tiles through a
+    ring) at lengths around its tiles: each kv head's dk/dv row by row
+    against the plain version given the same (lse, delta), and two calls
+    bitwise equal."""
+    dev = _card()
+    for s in (1, 63, 64, 65, 127, 128, 129, 200, 1000):
+        q, k, v = (t.transpose(1, 2) for t in _qkv(dev, 2, s, 2 * group, 2, d, torch.bfloat16, seed=s))
+        w = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+        o, lse = fa.flash_fwd_out_lse(q, k, v, causal=causal)
+        delta = (w.float() * o.float()).sum(-1, keepdim=True)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=causal)
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=causal)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        want = fa.reference_flash_bwd_dkv(q.float(), k.float(), v.float(), w.float(), lse, delta, causal=causal)
+        for got, ref, name in zip((dk, dv), want, ("dk", "dv")):
+            _rows_close(got, ref, FLASH_ROW_REL[torch.bfloat16], f"{name} S={s}")
 
 
 @pytest.mark.cuda
@@ -318,8 +342,13 @@ def test_cpu_tensors_take_the_plain_fused_ce():
                       fce.fused_ce_backward_dw.launches)
 
 
-# (N, V, E, ignored rows): ragged rows and vocab, ignored rows, all rows ignored, the 32k config's width
-FUSED_CE_CASES = [(100, 300, 128, 7), (37, 129, 256, 0), (16, 128, 128, 16), (45, 1000, 1536, 3)]
+# (N, V, E, ignored rows): ragged rows and vocab, ignored rows, all rows ignored, the 32k config's width,
+# vocab not a multiple of the dW kernel's 128 rows, tokens not a multiple of its 64-token tiles
+FUSED_CE_CASES = [(100, 300, 128, 7), (37, 129, 256, 0), (16, 128, 128, 16), (45, 1000, 1536, 3),
+                  (1000, 777, 128, 50), (4097, 1000, 256, 100), (300, 1000, 1536, 5), (64, 130, 1536, 0)]
+# dh and dW of the bf16 kernels against the fp32 plain version, per row: ds reaches the tensor cores as
+# bf16 hi + lo (about 16 bits), so what is left is mostly each output's own rounding to bf16
+CE_ROW_REL_BF16 = 2.5e-3
 
 
 @pytest.mark.cuda
@@ -327,9 +356,9 @@ FUSED_CE_CASES = [(100, 300, 128, 7), (37, 129, 256, 0), (16, 128, 128, 16), (45
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_ce_kernels_match_autograd_of_the_plain_version(case, dtype):
     """lse and corr 1e-4 absolute; total rtol 1e-5; dh and dW of the total
-    (rows of O(1), above the row check's absolute floor) row by row as flash
-    (f32 1e-4, bf16 1e-2: ds and each output are rounded to bf16); each
-    backward kernel twice, bitwise."""
+    (rows of O(1), above the row check's absolute floor) row by row: f32 1e-4
+    (sums in another order), bf16 CE_ROW_REL_BF16; each backward kernel
+    twice, bitwise."""
     dev = _card()
     n, v, e, ignored = case
     g = torch.Generator(device=dev).manual_seed(1)
@@ -349,7 +378,7 @@ def test_fused_ce_kernels_match_autograd_of_the_plain_version(case, dtype):
     total_ref.backward()
     assert float(count) == float(count_ref) == n - ignored
     torch.testing.assert_close(total.detach(), total_ref.detach(), rtol=1e-5, atol=1e-6)
-    rel = FLASH_ROW_REL[dtype]
+    rel = FLASH_ROW_REL[torch.float32] if dtype == torch.float32 else CE_ROW_REL_BF16
     for got, want, name in zip(leaves, plain, ("dh", "dW")):
         assert got.grad.dtype == dtype and got.grad.shape == got.shape
         _rows_close(got.grad, want.grad, rel, name)
