@@ -8,22 +8,24 @@ card.
 Phases (each raises on failure, so any failed phase exits non-zero):
   0. the card's name and power limit; sm_90 required; build the kernels from
      modalities_tpu_torch/csrc (one nvcc per source, in parallel) and report
-     the build time and ptxas's registers and spills of the two wgmma kernels
-     (flash dk/dv; fused-CE dW on a cluster of 8 CTAs).
+     the build time and ptxas's registers and spills of the four wgmma kernels
+     (flash forward and dk/dv; fused-CE forward, and dW on a cluster of 8 CTAs).
   1. every kernel against its plain PyTorch version on the card, at the shapes
      the serving and training paths give it, with stated tolerances, and each
-     backward kernel called twice for bitwise-identical gradients; per-kernel
-     times (kernel, plain version, one library call as a yardstick, least
-     possible). Flash outputs are held row by row to each row's own norm, and
-     that check must reject a forward that drops one key tile, and a dk/dv
-     that drops one 64-query tile near the diagonal; flash and RMSNorm also at
+     backward kernel and both forwards called twice for bitwise-identical
+     results; per-kernel times (kernel, plain version, one library call as a
+     yardstick, least possible). Flash outputs are held row by row to each
+     row's own norm, and that check must reject a forward that drops 64 keys
+     or one 128-key tile, and a dk/dv that drops one 64-query tile near the
+     diagonal; flash and RMSNorm also at
      the 32k config's shapes (q [1, 12, 32768, 128], k/v [1, 4, 32768, 128],
      checked head by head, flash timed there beside SDPA; x [32768, 1536]).
      The fused-CE kernels at the 32k training shape (N 32768, V 50304, E 1536,
      bf16) and on small ragged f32 and bf16 cases: lse, corr and total against
      the plain version, dh and dW of the total per row against autograd of it;
-     that check must reject a dh that skips one vocab tile and a dW that skips
-     one 64-token tile; dW is also timed beside autograd's dW alone. A small GPT2
+     those checks must reject a forward that skips 128 vocab columns, a dh that
+     skips one vocab tile and a dW that skips one 64-token tile; dW is also
+     timed beside autograd's dW alone. A small GPT2
      then runs prefill + decode on the card and on the CPU with the same
      weights (logits agree), and takes 3 optimizer steps on the card and on
      the CPU from the same parameters (losses and parameters agree); a tiny
@@ -154,7 +156,8 @@ LONG_MODEL = {"seq": 32768, "vocab": 50304, "width": 1536, "layers": 24}  # the 
 LONG_PEAK_GB = 20.0  # the written reckoning of the 32k step's peak memory (PERF.md, section 6): 12-18 GB, at most 20
 LONG_WITNESS = (4, 4096)  # (layers, sequence length) of the 32k config's witness runs, kernels vs plain path
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "rms_fwd", "rms_bwd")
-REDESIGNED = ("flash_bwd_dkv_bf16", "ce_dw_bf16")  # the wgmma kernels (sm_90a; dW on a cluster of 8 CTAs)
+# the wgmma kernels (sm_90a; dW on a cluster of 8 CTAs)
+REDESIGNED = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "ce_fwd_bf16", "ce_dw_bf16")
 LONG_KERNELS = TRAIN_KERNELS + ("ce_fwd", "ce_dh", "ce_dw")
 
 
@@ -433,26 +436,26 @@ def _row_check(torch, got, want, rel: float, what: str) -> tuple[float, float, f
     return worst, used, float(diff.abs().max())
 
 
-def _plain_probs(torch, q, k, causal: bool, drop_from=None):
+def _plain_probs(torch, q, k, causal: bool, drop_from=None, width: int = 64):
     """fp32 softmax probabilities [B, Hq, Sq, Sk] of the plain attention
     ([B, H, S, D] inputs, scale 1/sqrt(D)); with `drop_from`, keys
-    [drop_from, drop_from + 64) are hidden from every query past them."""
+    [drop_from, drop_from + width) are hidden from every query past them."""
     group = q.shape[1] // k.shape[1]
     s = torch.matmul(q.float() / math.sqrt(q.shape[-1]), k.float().repeat_interleave(group, 1).transpose(-1, -2))
     if causal:
         n, m = s.shape[-2:]
         keep = torch.arange(m, device=q.device)[None, :] <= torch.arange(n, device=q.device)[:, None]
         if drop_from is not None:
-            keep[drop_from + 64:, drop_from:drop_from + 64] = False
+            keep[drop_from + width:, drop_from:drop_from + width] = False
         s = s.masked_fill(~keep, float("-inf"))
     return torch.softmax(s, dim=-1)
 
 
-def _tile_dropped_attention(torch, q, k, v, start: int):
-    """The plain causal forward ([B, H, S, D]) with keys [start, start + 64)
-    hidden from every query past them: what a kernel that skips one key tile
-    of those rows would return."""
-    p = _plain_probs(torch, q, k, True, drop_from=start)
+def _tile_dropped_attention(torch, q, k, v, start: int, width: int):
+    """The plain causal forward ([B, H, S, D]) with keys [start, start +
+    width) hidden from every query past them: what a kernel that skips one key
+    tile of those rows would return."""
+    p = _plain_probs(torch, q, k, True, drop_from=start, width=width)
     return torch.matmul(p, v.float().repeat_interleave(q.shape[1] // k.shape[1], 1)).to(q.dtype)
 
 
@@ -564,11 +567,24 @@ def phase_train_kernels(torch) -> dict:
     dy = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
     s32 = torch.randn(e, generator=g, device=dev)
     _, r = rms_norm(x, s32, None, eps=eps, residual=True)
-    log(f"[phase 1] rms_norm at the 32k shape x[{n},{e}] bf16, scale f32: forward kernel "
-        f"{time_ms(torch, lambda: rms_norm(x, s32, None, eps=eps, residual=True), reps=10):.4f} ms (bound "
-        f"{1e3 * (2 * n * e * 2 + 4 * e + 4 * n) / PEAK_BYTES_S:.5f} ms, bytes), backward kernel "
-        f"{time_ms(torch, lambda: rms_norm_backward(dy, x, s32, r, want_dbias=False), reps=10):.4f} ms (bound "
-        f"{1e3 * (3 * n * e * 2 + 4 * n + 2 * 4 * e) / PEAK_BYTES_S:.5f} ms, bytes)")
+    xl = x.clone().requires_grad_(True)
+    wl = s32.to(torch.bfloat16).requires_grad_(True)
+    y_lib = F.rms_norm(xl, (e,), wl, eps)
+    shape = f"x[{n},{e}] bf16, scale f32"
+    out["rmsnorm_fwd_long"] = {  # the 32k path's forward (row 1's second shape), as residual=True runs there
+        "shape": shape, "ms": time_ms(torch, lambda: rms_norm(x, s32, None, eps=eps, residual=True), reps=10),
+        "plain_ms": time_ms(torch, lambda: reference_rms_norm(x, s32, None, eps=eps), reps=10),
+        "library_ms": time_ms(torch, lambda: F.rms_norm(x, (e,), wl.detach(), eps), reps=10),
+        "bound_ms": 1e3 * (2 * n * e * 2 + 4 * e + 4 * n) / PEAK_BYTES_S, "bound_by": "bytes"}
+    out["rmsnorm_bwd"]["timings"].append({
+        "shape": shape, "ms": time_ms(torch, lambda: rms_norm_backward(dy, x, s32, r, want_dbias=False), reps=10),
+        "plain_ms": time_ms(torch, lambda: reference_rms_norm_backward(dy, x, s32, r), reps=10),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(y_lib, (xl, wl), dy, retain_graph=True), reps=10),
+        "bound_ms": 1e3 * (3 * n * e * 2 + 4 * n + 2 * 4 * e) / PEAK_BYTES_S, "bound_by": "bytes"})
+    for name, t in (("forward", out["rmsnorm_fwd_long"]), ("backward", out["rmsnorm_bwd"]["timings"][-1])):
+        lib_name = "F.rms_norm" if name == "forward" else "autograd of F.rms_norm"
+        log(f"[phase 1] rms_norm {name} at the 32k shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
     del x, dy, xl, wl, y_lib, r
 
     # Flash attention, every output row held to its own norm (_row_check) at
@@ -649,21 +665,29 @@ def phase_train_kernels(torch) -> dict:
     b, s, hq, hkv, d = TRAIN_SHAPE
     q, k, v, w = (torch.randn(b, hh, s, d, generator=g, device=dev).to(torch.bfloat16) for hh in (hq, hkv, hkv, hq))
     o, lse = fa.flash_fwd_out_lse(q, k, v, causal=True)
-    # the check can see a kernel that skips one key tile near the end of the sequence
+    o2, lse2 = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError("flash bf16 forward at the 2.7B shape: two calls differ")
+    del o2, lse2
+    # the check can see a kernel that skips 64 keys near the end of the sequence, or one of its 128-key tiles
     o_ref = fa.reference_flash_fwd_out_lse(q, k, v, causal=True)[0]
     _row_check(torch, o, o_ref, FLASH_ROW_REL["bfloat16"], "flash bf16 out at the 2.7B shape")
-    mutant = _tile_dropped_attention(torch, q, k, v, start=s - 192)
-    old_err = float((mutant.float() - o_ref.float()).abs().max())
-    old_allowed = 2e-2 * float(o_ref.float().abs().max()) + 1e-5
-    try:
-        _row_check(torch, mutant, o_ref, FLASH_ROW_REL["bfloat16"], "mutant")
-    except AssertionError as e:
-        log(f"[phase 1] flash bf16 check against a forward with keys [{s - 192}, {s - 128}) dropped for queries "
-            f"past them: rejected ({e}); the global check 2e-2 x max|ref| would "
-            f"{'pass' if old_err <= old_allowed else 'reject'} it (max abs err {old_err:.4g} vs {old_allowed:.4g})")
-    else:
-        raise AssertionError("flash bf16 row check passes a forward with one key tile dropped")
-    del mutant, o_ref
+    for start, width in ((s - 192, 64), (s - 256, 128)):
+        mutant = _tile_dropped_attention(torch, q, k, v, start=start, width=width)
+        old_err = float((mutant.float() - o_ref.float()).abs().max())
+        old_allowed = 2e-2 * float(o_ref.float().abs().max()) + 1e-5
+        try:
+            _row_check(torch, mutant, o_ref, FLASH_ROW_REL["bfloat16"], "mutant")
+        except AssertionError as e:
+            log(f"[phase 1] flash bf16 check against a forward with keys [{start}, {start + width}) dropped for "
+                f"queries past them: rejected ({e}); the global check 2e-2 x max|ref| would "
+                f"{'pass' if old_err <= old_allowed else 'reject'} it (max abs err {old_err:.4g} vs "
+                f"{old_allowed:.4g})")
+        else:
+            raise AssertionError(f"flash bf16 row check passes a forward with keys [{start}, {start + width}) dropped")
+        del mutant
+    log("[phase 1] flash bf16 forward at the 2.7B shape: a second call is bitwise identical")
+    del o_ref
     torch.cuda.empty_cache()
     delta = (w.float() * o.float()).sum(-1, keepdim=True)
     work = _flash_work(b, s, hq, hkv, d)
@@ -750,6 +774,10 @@ def phase_flash_long(torch) -> dict:
     what = f"flash bf16 causal q [{b}, {hq}, {s}, {d}] k/v [{b}, {hkv}, {s}, {d}]"
     rel = FLASH_ROW_REL["bfloat16"]
     o, lse = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    o2, lse2 = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{what}: two forward calls differ")
+    del o2, lse2
     delta = (w.float() * o.float()).sum(-1, keepdim=True)
     dq = fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True)
     dk, dv = fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=True)
@@ -784,7 +812,7 @@ def phase_flash_long(torch) -> dict:
     log(f"[phase 1] {what}: kernels on the whole shape vs their plain versions given the same (lse, delta), "
         f"head by head (dk/dv: each kv head against the fp32 sum over its {group} q heads): worst row rel err "
         f"(share of allowance used) {', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f})' for n, r in seen.items())}, "
-        f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4)")
+        f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4); two forward calls bitwise identical")
     del dq, dk, dv
 
     def plain_dkv():  # head by head: the plain fp32 scores of all 12 heads would take 51 GB
@@ -832,17 +860,19 @@ def _ce_inputs(torch, g, n, v, e, h_dtype, w_dtype, ignored):
     return h, w, labels
 
 
-def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None) -> dict:
+def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, drop_vocab=None) -> dict:
     """The kernels against the plain version on the same inputs: lse, corr
     and total (FusedCEFn) against reference_fused_ce_forward; dh and dW (one
     backward of total) against autograd of plain_sum_and_count in fp32, per
-    row; each backward kernel twice, bitwise. The gradients are those of the
+    row; every kernel twice, bitwise. The gradients are those of the
     sum, not of the mean: their rows are O(1), where the row check's
     absolute floor (1e-5 sqrt(E)) would hide the rows of the mean's (1/count
     smaller). With `drop_tile`, the dh check must reject what a kernel that
     skips vocab columns [drop_tile, drop_tile + 32) would return; with
     `drop_tokens`, the dW check must reject what a kernel that skips tokens
-    [drop_tokens, drop_tokens + 64) would return. Returns the worst errors."""
+    [drop_tokens, drop_tokens + 64) would return; with `drop_vocab`, the lse
+    check must reject what a forward that skips vocab columns [drop_vocab,
+    drop_vocab + 128) would return. Returns the worst errors."""
     from modalities_tpu_torch.ops import fused_ce as fce
 
     rel_h, rel_w = (CE_ROW_REL[str(t.dtype).removeprefix("torch.")] for t in (h, w))  # by the gradient's dtype
@@ -851,6 +881,21 @@ def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None) 
     errs = {"lse": _rel_check(torch, lse, lse_ref, 0.0, 1e-4, f"{what} lse"),
             "corr": _rel_check(torch, corr, corr_ref, 0.0, 1e-4, f"{what} corr")}
     del corr_ref
+    again = fce.fused_ce_forward(h, w, labels)
+    if not (torch.equal(lse, again[0]) and torch.equal(corr, again[1])):
+        raise AssertionError(f"{what}: two forward calls differ")
+    del again
+    if drop_vocab is not None:  # lse without the columns' share of the exp-sum
+        cols = slice(drop_vocab, drop_vocab + 128)
+        share = torch.exp(h.float() @ w[cols].float().t() - lse_ref[:, None]).sum(-1)
+        mutant = lse_ref + torch.log1p(-share)
+        try:
+            _rel_check(torch, mutant, lse_ref, 0.0, 1e-4, "mutant")
+        except AssertionError as e:
+            errs["mutant_fwd"] = f"rejected ({e})"
+        else:
+            raise AssertionError(f"{what}: the lse check passes a forward with vocab columns {cols} dropped")
+        del share, mutant
     hl, wl = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
     total, count = fce.FusedCEFn.apply(hl, wl, labels, -100)
     total.backward()
@@ -925,20 +970,22 @@ def phase_fused_ce(torch) -> dict:
             slot[name] = max(slot.get(name, 0.0), err[0] if isinstance(err, tuple) else err)
     log(f"[phase 1] fused CE: {len(CE_SMALL)} small cases (ragged rows and vocab, ignored rows, all ignored; "
         f"f32 path and bf16 path) agree with the plain version: {worst} (lse/corr max abs err, bound 1e-4; "
-        f"dh/dW worst row rel err, bound by the gradient's dtype {CE_ROW_REL}); backward kernels bitwise "
+        f"dh/dW worst row rel err, bound by the gradient's dtype {CE_ROW_REL}); all three kernels bitwise "
         f"repeatable")
 
     n, v, e = CE_SHAPE
     h, w, labels = _ce_inputs(torch, g, n, v, e, "bfloat16", "bfloat16", n // 16)
     what = f"fused CE bf16 h[{n},{e}] w[{v},{e}], {n // 16} rows ignored"
-    errs = _ce_check(torch, h, w, labels, what, drop_tile=32 * (v // 64), drop_tokens=64 * (n // 128))
+    errs = _ce_check(torch, h, w, labels, what, drop_tile=32 * (v // 64), drop_tokens=64 * (n // 128),
+                     drop_vocab=128 * (v // 256))
     torch.cuda.empty_cache()
     log(f"[phase 1] {what}: lse max abs err {errs['lse']:.3g}, corr {errs['corr']:.3g} (bound 1e-4); total rel "
         f"err {errs['total']:.3g} (bound 1e-5); gradients of the total: worst row rel err (share of allowance used) "
         f"dh {errs['dh'][0]:.4g} ({errs['dh'][1]:.2f}), dW {errs['dw'][0]:.4g} ({errs['dw'][1]:.2f}), bound "
         f"{CE_ROW_REL['bfloat16']:g}; the fp32 plain gradient rounded to bf16 has worst rows dh "
         f"{errs['dh_floor']:.4g}, dW {errs['dw_floor']:.4g}; elements unequal to it: dh {errs['dh_flips']:.4g}, "
-        f"dW {errs['dw_flips']:.4g}; both backward kernels bitwise repeatable; a dh that skips vocab columns "
+        f"dW {errs['dw_flips']:.4g}; all three kernels bitwise repeatable; a forward that skips vocab columns "
+        f"[{128 * (v // 256)}, {128 * (v // 256) + 128}): {errs['mutant_fwd']}; a dh that skips vocab columns "
         f"[{32 * (v // 64)}, {32 * (v // 64) + 32}): {errs['mutant']}; a dW that skips tokens "
         f"[{64 * (n // 128)}, {64 * (n // 128) + 64}): {errs['mutant_dw']}")
     lse, _ = fce.fused_ce_forward(h, w, labels)
@@ -1579,6 +1626,7 @@ def main() -> int:
     warm_up(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_train_kernels(torch))
+    kernels["rmsnorm"]["timings"].append(kernels.pop("rmsnorm_fwd_long"))
     for name, t in phase_flash_long(torch).items():  # the 32k shape, after the 2.7B one
         kernels[name]["timings"].append(t)
     kernels.update(phase_fused_ce(torch))

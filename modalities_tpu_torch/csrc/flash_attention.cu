@@ -23,15 +23,17 @@
 // bf16 tensor cores, not memory, become the limit.
 //
 // Design:
-// - bf16 forward and dq: FlashAttention-2 structure on mma.sync m16n8k16
-//   (bf16 in, fp32 accumulate): a CTA of 4 warps owns 64 query rows (16 a
-//   warp) and loops over key tiles. Operand tiles live in shared memory; a
-//   tile the mma reads as a B operand along its rows is stored transposed,
-//   so each fragment is one 32-bit read. wgmma, asynchronous loads and warp
-//   specialisation are later work for these two.
+// - bf16 forward (redesigned for Hopper): wgmma with TMA-fed, ring-buffered
+//   K/V tiles, P kept in registers and V read MN-major (no transposed copy);
+//   see flash_fwd_bf16 below.
+// - bf16 dq: FlashAttention-2 structure on mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate): a CTA of 4 warps owns 64 query rows (16 a warp) and loops
+//   over key tiles. Operand tiles live in shared memory; a tile the mma reads
+//   as a B operand along its rows is stored transposed, so each fragment is
+//   one 32-bit read. wgmma and TMA are later work for it.
 // - bf16 dkv (redesigned for Hopper): wgmma with TMA-fed, ring-buffered tiles
-//   and no transposed copies; see flash_bwd_dkv_bf16 below. It needs sm_90a
-//   (wgmma).
+//   and no transposed copies; see flash_bwd_dkv_bf16 below.
+// The forward and dkv need sm_90a (wgmma).
 // In all three each output tile is written by one CTA and summed in a fixed
 // order: no atomics, and two calls give identical bits. Causal tiles above
 // the diagonal are skipped; ragged tails (S not a multiple of the tile) are
@@ -197,91 +199,221 @@ __device__ __forceinline__ int key_tiles(const FlashParams& p, int q_end, int bk
 }
 
 // ------------------------------------------------------------------ bf16 fwd
+// On wgmma, along FlashAttention-3's forward. A CTA of two consumer
+// warpgroups owns BQ = 128 query rows (64 a warpgroup, wgmma's M) of one
+// (batch, q head); a third warpgroup is the producer, one thread of which
+// loads the Q tile once by TMA (a 4-D tensor map over the strided [B, H, S, D]
+// view), then streams key tiles of BK = 128 rows of K and V through a ring of
+// STAGES buffers by TMA, each stage with a `full` mbarrier (the bytes landed)
+// and an `empty` one (the 8 consumer warps have read it). The producer gives
+// its registers to the consumers (setmaxnreg: 40 and 232 a thread; 384
+// threads at launch allow 168 each, and fewer than ~190 serialise the
+// consumers' wgmma at D 128). Every tile is swizzled (hopper.cuh; 32-byte
+// atoms at D 80). Per key tile t, a warpgroup's tensor-core phase issues
+//   O += P_{t-1} V_{t-1}  (wgmma, P as bf16 A fragments in registers, V the
+//                          tile read MN-major: no transposed copy) and
+//   S_t = Q K_t^T         (wgmma, both operands in shared memory, K-major),
+// waits for both, then runs the online softmax of S_t in the accumulator
+// layout (two rows a thread, quad shuffles), in base 2 (the row max m2 of S
+// sm_scale log2(e), P = exp2(S sm_scale log2(e) - m2)), masks only on the
+// diagonal tile and the ragged last one (causal tiles above the diagonal are
+// never loaded), and rescales O, whose wgmma group has completed by then. The
+// two warpgroups take turns (two named barriers): one issues its products
+// while the other runs its softmax, so the exponentials (16 a clock on an SM;
+// at D 80 a tile's take about as long as its products) overlap the tensor
+// cores instead of following them. What bounds it is operations (see the
+// file note); PERF.md has its time beside that bound. lse leaves in natural
+// log, m2 ln 2 + log(max(l, 1e-30)), as dq and dkv read it. CTAs run the
+// longest causal rows of every head first.
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(const FlashParams p) {
-  constexpr int BQ = 64, BK = 64, DP = D + 8, BKP = BK + 8;
-  __shared__ __align__(16) bf16 ks[BK * DP];   // also stages the Q tile
-  __shared__ __align__(16) bf16 vt[D * BKP];   // V^T
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
-  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / (p.hq / p.hkv);
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+struct FwdCfg {
+  static constexpr int BQ = 128, BK = 128, STAGES = 3;
+  static constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;  // two consumer warpgroups, one producer
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;        // 128 x 40 + 256 x 232 <= 65536
+  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32)
+  static constexpr int SWB = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;
+  static constexpr int AW = SWB / 2;  // columns of a swizzle atom
+  static constexpr int Q = BQ * D;    // elements of the Q tile
+  static constexpr int KV = BK * D;   // elements of a K (or V) tile
+  static constexpr int kSmem = 1024 + Q * 2 + STAGES * 2 * KV * 2 + (2 * STAGES + 1) * 8;
+  static_assert(KV * 2 % 1024 == 0 && Q * 2 % 1024 == 0, "tiles keep the 1024-byte alignment of their swizzle");
+  static_assert(kSmem <= 232448, "fits an SM's shared memory");
+};
 
-  uint32_t qf[D / 16][4];
-  load_rows<D, BQ, DP, 128>(ks, qg, p.q_s[2], q0, p.sq, tid);
-  __syncthreads();
-  load_a_frags<D, DP>(qf, ks, warp * 16 + g, t4);
-  __syncthreads();
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, 1)
+    flash_fwd_bf16(const FlashParams p, const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap) {
+  using C = FwdCfg<D>;
+  constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023));  // 1024-aligned
+  bf16* ring = qs + C::Q;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * 2 * C::KV);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = empty + C::STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int bhs = p.b * p.hq, bh = blockIdx.x % bhs;
+  const int q0 = (gridDim.x / bhs - 1 - blockIdx.x / bhs) * C::BQ;  // longest causal rows of every head first
+  const int b = bh / p.hq, h = bh % p.hq, hk = h / (p.hq / p.hkv);
+  const int n_kt = key_tiles(p, q0 + C::BQ, C::BK);
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row = q0 + warp * 16 + g;  // and row + 8
-  const int n_kt = key_tiles(p, q0 + BQ, BK);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    load_rows<D, BK, DP, 128>(ks, kg, p.k_s[2], k0, p.sk, tid);
-    load_rows_t<D, BK, BKP, 128>(vt, vg, p.v_s[2], k0, p.sk, tid);
-    __syncthreads();
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt<D, DP, BK / 8>(s, qf, ks, g, t4);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1), r = row + 8 * (e >> 1);
-        const bool ok = col < p.sk && (!p.causal || r >= col);
-        s[j][e] = ok ? s[j][e] * p.sm_scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], C::CONSUMERS / 32);
     }
-    const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
-    m[0] = mx[0];
-    m[1] = mx[1];
-    l[0] *= alpha[0];
-    l[1] *= alpha[1];
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= C::CONSUMERS) {  // the producer warpgroup: Q, then K and V of every key tile as stages empty
+    hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid == C::CONSUMERS) {
+      hopper::mbar_expect(qbar, C::Q * 2);
+      for (int a = 0; a < D / C::AW; ++a)
+        hopper::tma_load_4d(qs + a * C::BQ * C::AW, &qmap, a * C::AW, q0, h, b, qbar);
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % C::STAGES;
+        if (t >= C::STAGES) hopper::mbar_wait(&empty[s], (t / C::STAGES - 1) & 1);
+        bf16* kt = ring + s * 2 * C::KV;
+        hopper::mbar_expect(&full[s], 2 * C::KV * 2);
+        for (int a = 0; a < D / C::AW; ++a) {
+          hopper::tma_load_4d(kt + a * C::BK * C::AW, &kmap, a * C::AW, t * C::BK, hk, b, &full[s]);
+          hopper::tma_load_4d(kt + C::KV + a * C::BK * C::AW, &vmap, a * C::AW, t * C::BK, hk, b, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int w0 = q0 + wg * 64;                      // this warpgroup's first row
+  const int row = w0 + ((tid >> 5) & 3) * 16 + g;  // and row + 8
+  const float sl2 = p.sm_scale * kLog2e;
+  float o[D / 2];  // O: 64 rows x D, the m64nD accumulator layout
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows row, row + 8; l: this thread's columns
+  float sc[C::BK / 2];         // S, then P in fp32: 64 rows x BK keys
+  uint32_t pa[C::BK / 16][4];  // P as A operands, one k16 step (16 keys) each
+  const bf16* qw = qs + wg * 64 * C::AW;  // this warpgroup's 64 rows (in every atom)
+
+  auto qk = [&](int t) {  // S_t = Q K_t^T, issued
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) sc[i] = 0.f;
+    hopper::reg_fence(sc);
+    const bf16* kt = ring + (t % C::STAGES) * 2 * C::KV;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // k step kk: atom kk * 16 / AW, columns kk * 16 % AW in it
+      const int qa = (kk * 16 / C::AW) * C::BQ * C::AW + kk * 16 % C::AW;
+      const int ka = (kk * 16 / C::AW) * C::BK * C::AW + kk * 16 % C::AW;
+      hopper::wgmma_ss<C::BK, 0>(sc, hopper::desc_sw_k<C::SWB>(qw + qa), hopper::desc_sw_k<C::SWB>(kt + ka), 1);
+    }
+  };
+  auto pv = [&](int t) {  // O += P_t V_t, issued
+    const bf16* vt = ring + (t % C::STAGES) * 2 * C::KV + C::KV;
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk)
+      hopper::wgmma_rs<D, 1>(o, pa[kk], hopper::desc_sw_mn<C::SWB>(vt + kk * 16 * C::AW, C::BK), 1);
+  };
+  auto softmax = [&](int t) {  // S_t -> P_t (bf16 A operands), the new row maxima and l; O rescaled
+    const int k0 = t * C::BK;
+    if (k0 + C::BK > p.sk || (p.causal && k0 + C::BK - 1 > w0)) {  // the ragged or diagonal tile
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) {
+        const int col = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1), r = row + 8 * ((i >> 1) & 1);
+        if (col >= p.sk || (p.causal && col > r)) sc[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float mn = fmaxf(m2[hh], mx[hh] * sl2);
+      alpha[hh] = hopper::exp2_approx(m2[hh] - mn);
+      m2[hh] = mn;
+      l[hh] *= alpha[hh];
     }
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];
+    for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = hopper::exp2_approx(fmaf(sc[8 * kk + 2 * r], sl2, -m2[r & 1]));
+        const float p1 = hopper::exp2_approx(fmaf(sc[8 * kk + 2 * r + 1], sl2, -m2[r & 1]));
+        l[r & 1] += p0 + p1;
+        pa[kk][r] = hopper::pack_bf16(p0, p1);
       }
-    uint32_t pf[BK / 16][4];
-    c_to_a<BK / 16>(pf, s);
-    mma_ab_t<D, BK, BKP>(acc, pf, vt, g, t4);
-    __syncthreads();
+  };
+  // Turns on the tensor cores: warpgroup w waits on barrier 1 + w before it issues, and arrives on the
+  // other's once it has issued. Warpgroup 1 opens warpgroup 0's first turn; warpgroup 0 opens warpgroup
+  // 1's last one (so every arrival has its wait).
+  const int mine = 1 + wg, other = 2 - wg;
+  if (wg == 1) hopper::named_bar_arrive(other, C::CONSUMERS);
+  hopper::mbar_wait(qbar, 0);
+  hopper::mbar_wait(&full[0], 0);
+  hopper::named_bar_sync(mine, C::CONSUMERS);
+  hopper::wgmma_fence();
+  qk(0);
+  hopper::wgmma_commit();
+  hopper::named_bar_arrive(other, C::CONSUMERS);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(sc);
+  softmax(0);
+  for (int t = 1; t < n_kt; ++t) {
+    hopper::mbar_wait(&full[t % C::STAGES], (t / C::STAGES) & 1);
+    hopper::named_bar_sync(mine, C::CONSUMERS);
+    hopper::wgmma_fence();
+    pv(t - 1);
+    qk(t);
+    hopper::wgmma_commit();
+    hopper::named_bar_arrive(other, C::CONSUMERS);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(sc);
+    hopper::reg_fence(o);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[(t - 1) % C::STAGES]);  // this warp is done with tile t - 1
+    softmax(t);
   }
+  hopper::named_bar_sync(mine, C::CONSUMERS);
+  hopper::wgmma_fence();
+  pv(n_kt - 1);
+  hopper::wgmma_commit();
+  if (wg == 0) hopper::named_bar_arrive(other, C::CONSUMERS);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(o);
+
+  float inv[2], lse[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const float ls = fmaxf(l[hh], 1e-30f);
+    inv[hh] = 1.f / ls;
+    lse[hh] = m2[hh] * kLn2 + logf(ls);
   }
-  const float ls0 = fmaxf(l[0], 1e-30f), ls1 = fmaxf(l[1], 1e-30f);
   bf16* og = static_cast<bf16*>(p.out) + b * p.o_s[0] + h * p.o_s[1];
-  store_rows_bf16<D>(og, p.o_s[2], acc, row, p.sq, 1.f / ls0, 1.f / ls1, t4);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row + 8 * hh;
+      if (r < p.sq)
+        *reinterpret_cast<__nv_bfloat162*>(og + r * p.o_s[2] + j * 8 + 2 * t4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
+    }
+  }
   if (t4 == 0) {
-    float* lse = p.lse_out + static_cast<long long>(blockIdx.y) * p.sq;
-    if (row < p.sq) lse[row] = m[0] + logf(ls0);
-    if (row + 8 < p.sq) lse[row + 8] = m[1] + logf(ls1);
+    float* lg = p.lse_out + static_cast<long long>(bh) * p.sq;
+    if (row < p.sq) lg[row] = lse[0];
+    if (row + 8 < p.sq) lg[row + 8] = lse[1];
   }
 }
 
@@ -709,12 +841,32 @@ __global__ void __launch_bounds__(kRowsF) flash_bwd_dkv_f32(const FlashParams p)
 // ------------------------------------------------------------------ launch
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// A [B, H, S, D] bf16 view (element strides `st` over batch, head, row; unit
+// stride along D) as a TMA tensor map with boxes of one swizzle atom x `rows`.
+template <int SWB>
+cudaError_t bhsd_map(CUtensorMap* map, const void* base, const long long* st, int d, int s, int h, int b, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2, static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {SWB / 2, static_cast<cuuint32_t>(rows), 1, 1};
+  return hopper::make_tensor_map<SWB>(map, base, 4, dims, strides, box);
+}
+
 template <int D>
 int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
   const int bh_q = p.b * p.hq, bh_kv = p.b * p.hkv;
   if (dtype == 1) {
     if (which == kFwd) {
-      flash_fwd_bf16<D><<<dim3((p.sq + 63) / 64, bh_q), 128, 0, s>>>(p);
+      using C = FwdCfg<D>;
+      const cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      CUtensorMap qmap, kmap, vmap;
+      cudaError_t me = bhsd_map<C::SWB>(&qmap, p.q, p.q_s, D, p.sq, p.hq, p.b, C::BQ);
+      if (me == cudaSuccess) me = bhsd_map<C::SWB>(&kmap, p.k, p.k_s, D, p.sk, p.hkv, p.b, C::BK);
+      if (me == cudaSuccess) me = bhsd_map<C::SWB>(&vmap, p.v, p.v_s, D, p.sk, p.hkv, p.b, C::BK);
+      if (me != cudaSuccess) return static_cast<int>(me);
+      flash_fwd_bf16<D><<<((p.sq + C::BQ - 1) / C::BQ) * bh_q, C::THREADS, C::kSmem, s>>>(p, qmap, kmap, vmap);
     } else if (which == kDq) {
       flash_bwd_dq_bf16<D><<<dim3((p.sq + 63) / 64, bh_q), 128, 0, s>>>(p);
     } else {
@@ -724,15 +876,8 @@ int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
       if (e != cudaSuccess) return static_cast<int>(e);
       // Q and dO [B, H, S, D] (any strides) as TMA tensor maps: boxes of one swizzle atom x BQ rows
       CUtensorMap qmap, omap;
-      const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(p.sq), static_cast<cuuint64_t>(p.hq),
-                                  static_cast<cuuint64_t>(p.b)};
-      const cuuint64_t q_st[3] = {static_cast<cuuint64_t>(p.q_s[2]) * 2, static_cast<cuuint64_t>(p.q_s[1]) * 2,
-                                  static_cast<cuuint64_t>(p.q_s[0]) * 2};
-      const cuuint64_t o_st[3] = {static_cast<cuuint64_t>(p.o_s[2]) * 2, static_cast<cuuint64_t>(p.o_s[1]) * 2,
-                                  static_cast<cuuint64_t>(p.o_s[0]) * 2};
-      const cuuint32_t box[4] = {C::AW, C::BQ, 1, 1};
-      cudaError_t me = hopper::make_tensor_map<C::SWB>(&qmap, p.q, 4, dims, q_st, box);
-      if (me == cudaSuccess) me = hopper::make_tensor_map<C::SWB>(&omap, p.dout, 4, dims, o_st, box);
+      cudaError_t me = bhsd_map<C::SWB>(&qmap, p.q, p.q_s, D, p.sq, p.hq, p.b, C::BQ);
+      if (me == cudaSuccess) me = bhsd_map<C::SWB>(&omap, p.dout, p.o_s, D, p.sq, p.hq, p.b, C::BQ);
       if (me != cudaSuccess) return static_cast<int>(me);
       flash_bwd_dkv_bf16<D><<<dim3((p.sk + C::BKV - 1) / C::BKV, bh_kv), C::THREADS, C::kSmem, s>>>(p, qmap, omap);
     }

@@ -20,25 +20,31 @@
 // V 50304, E 1536, bf16) the forward does 2 N V E = 5.1e12 FLOPs and each
 // backward kernel 4 N V E (the s tile again, then ds against W or h) against
 // 0.25 GB of h and W: ~2e4 operations per byte, far above the ~295 where the
-// tensor cores, not memory, become the limit.
+// tensor cores, not memory, become the limit. What a kernel re-reads from L2
+// is the next limit: the forward reads h and W again for every tile of the
+// other, 59 GB at its tiles (128 rows x 256 vocab rows).
 //
 // Design:
-// - bf16 forward and dh (mma.sync; wgmma, TMA and warp specialisation are
-//   later work for these two): a CTA of 8 warps owns 16 rows of h and
-//   streams W in tiles of 32 rows. The contraction dim E is split over the
-//   warps: warp w holds the columns [w E/8, (w+1) E/8) of its 16 rows as
-//   mma.sync m16n8k16 A fragments in registers for the whole kernel, computes
-//   the partial s tile of its columns, and the 8 partials are summed through
-//   shared memory in a fixed order. dh carries ds to the tensor cores as bf16
-//   hi + lo, ds - hi (two products per fragment, about 16 mantissa bits, near
-//   the TPU kernel's fp32 ds), against the same E-slice of the streamed tile,
+// - bf16 forward (redesigned for Hopper): a GEMM mainloop on wgmma, h and W
+//   chunks by TMA through a ring, with the online softmax as its epilogue in
+//   registers; vocab split over 8 CTAs a row block and merged by a second
+//   kernel; see ce_fwd_bf16 below. It needs sm_90a (wgmma).
+// - bf16 dh (mma.sync; wgmma, TMA and warp specialisation are later work):
+//   a CTA of 8 warps owns 16 rows of h and streams W in tiles of 32 rows. The
+//   contraction dim E is split over the warps: warp w holds the columns
+//   [w E/8, (w+1) E/8) of its 16 rows as mma.sync m16n8k16 A fragments in
+//   registers for the whole kernel, computes the partial s tile of its
+//   columns, and the 8 partials are summed through shared memory in a fixed
+//   order. It carries ds to the tensor cores as bf16 hi + lo, ds - hi (two
+//   products per fragment, about 16 mantissa bits, near the TPU kernel's fp32
+//   ds), against the same E-slice of the streamed tile,
 //   read transposed with ldmatrix.trans, into a [16, E/8] fp32 accumulator
 //   per warp: the [16, E] accumulator of a row block (96 KB at E 1536) lives
 //   in the registers of the whole CTA, so every output element is summed by
 //   one thread in a fixed order: no atomics, bitwise repeatable. Each warp
 //   loads its own slice of the streamed tile with cp.async, double buffered.
 //   The price of 16 rows per CTA: W is read once per 16 rows from L2 (N/16 x
-//   154 MB = 316 GB per forward or dh at the 32k shape).
+//   154 MB = 316 GB per call at the 32k shape).
 // - bf16 dW (redesigned for Hopper): a thread-block cluster of 8 CTAs splits
 //   E and owns 128 vocab rows, with wgmma and a distributed-shared-memory
 //   reduction of s; see ce_dw_bf16 below.
@@ -66,7 +72,9 @@ struct CEParams {
   float* corr_out;      // forward: [N]
   void* dh;             // dh: [N, E] like h
   void* dw;             // dW: [V, E] like w
+  float* part;          // bf16 forward: [3, splits, N] partial (m2, l, corr) of each vocab split
   int n, v, e;
+  int splits;           // bf16 forward: vocab splits (CTAs a row block)
 };
 
 namespace {
@@ -99,22 +107,6 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
                : "r"(hopper::smem_u32(p)));
 }
 
-__device__ __forceinline__ float xor_sum16(float x) {  // over the 16 lanes of a half warp
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 8);
-  return x;
-}
-
-__device__ __forceinline__ float xor_max16(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
-  return x;
-}
-
 template <int SW>
 struct Cfg {
   static constexpr int kWarps = 8, kThreads = 256;
@@ -141,8 +133,8 @@ __device__ __forceinline__ void load_slice(bf16* buf, const bf16* m, int e, int 
   }
 }
 
-template <int SW, int MODE>
-__global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
+template <int SW>
+__global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p) {
   using C = Cfg<SW>;
   constexpr int KT = SW / 16;       // k16 steps of a warp's slice
   constexpr int NJ = C::kBT / 8;    // n8 tiles of the s tile
@@ -182,12 +174,9 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
   float lse_r = 0.f, gm_r = 0.f;
   if (row < na) {
     lab_r = p.labels[row];
-    if (MODE == kDh) {
-      lse_r = p.lse[row];
-      gm_r = p.gm[row];
-    }
+    lse_r = p.lse[row];
+    gm_r = p.gm[row];
   }
-  float m = kNegInf, l = 0.f, corr = 0.f;  // forward: online statistics of row `row`
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -235,74 +224,239 @@ __global__ void __launch_bounds__(256, 1) ce_bf16(const CEParams p) {
       x[1] += v.y;
     }
 
-    if (MODE == kFwd) {
-      const bool ok0 = c0 < ns, ok1 = c0 + 1 < ns;
-      const float mx = xor_max16(fmaxf(ok0 ? x[0] : kNegInf, ok1 ? x[1] : kNegInf));
-      const float mn = fmaxf(m, mx);
-      l = l * expf(m - mn) + (ok0 ? expf(x[0] - mn) : 0.f) + (ok1 ? expf(x[1] - mn) : 0.f);
-      m = mn;
-      if (ok0 && c0 == lab_r) corr += x[0];
-      if (ok1 && c0 + 1 == lab_r) corr += x[1];
-      __syncthreads();  // every partial read before the next tile's are written
-    } else {
-      // ds in fp32, carried to the tensor cores as bf16 hi + lo (about 16 mantissa bits)
-      float ds[2];
+    // ds in fp32, carried to the tensor cores as bf16 hi + lo (about 16 mantissa bits)
+    float ds[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = c0 + i;
-        ds[i] = c < ns ? gm_r * (expf(x[i] - lse_r) - (c == lab_r ? 1.f : 0.f)) : 0.f;
-      }
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(ds[0], ds[1]);
-      const float2 hif = __bfloat1622float2(hi);
-      *reinterpret_cast<__nv_bfloat162*>(sd + rr * C::DP + cc) = hi;
-      *reinterpret_cast<__nv_bfloat162*>(sd + (C::kRows + rr) * C::DP + cc) =
-          __floats2bfloat162_rn(ds[0] - hif.x, ds[1] - hif.y);
-      __syncthreads();  // also: every partial read before the next tile's are written
-      uint32_t dsf[2][KB][4];  // [hi, lo]
-#pragma unroll
-      for (int part = 0; part < 2; ++part)
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk) {
-          const bf16* q = sd + (part * C::kRows + g) * C::DP + kk * 16 + 2 * t4;
-          dsf[part][kk][0] = ld32(q);
-          dsf[part][kk][1] = ld32(q + 8 * C::DP);
-          dsf[part][kk][2] = ld32(q + 8);
-          dsf[part][kk][3] = ld32(q + 8 * C::DP + 8);
-        }
-#pragma unroll
-      for (int kk = 0; kk < KB; ++kk)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t bfr[2];
-          ldsm_x2_trans(bfr, cur + (kk * 16 + (lane & 15)) * C::SP + j * 8);
-          mma_16816(acc[j], dsf[0][kk], bfr);
-          mma_16816(acc[j], dsf[1][kk], bfr);
-        }
+    for (int i = 0; i < 2; ++i) {
+      const int c = c0 + i;
+      ds[i] = c < ns ? gm_r * (expf(x[i] - lse_r) - (c == lab_r ? 1.f : 0.f)) : 0.f;
     }
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(ds[0], ds[1]);
+    const float2 hif = __bfloat1622float2(hi);
+    *reinterpret_cast<__nv_bfloat162*>(sd + rr * C::DP + cc) = hi;
+    *reinterpret_cast<__nv_bfloat162*>(sd + (C::kRows + rr) * C::DP + cc) =
+        __floats2bfloat162_rn(ds[0] - hif.x, ds[1] - hif.y);
+    __syncthreads();  // also: every partial read before the next tile's are written
+    uint32_t dsf[2][KB][4];  // [hi, lo]
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const bf16* q = sd + (part * C::kRows + g) * C::DP + kk * 16 + 2 * t4;
+        dsf[part][kk][0] = ld32(q);
+        dsf[part][kk][1] = ld32(q + 8 * C::DP);
+        dsf[part][kk][2] = ld32(q + 8);
+        dsf[part][kk][3] = ld32(q + 8 * C::DP + 8);
+      }
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bfr[2];
+        ldsm_x2_trans(bfr, cur + (kk * 16 + (lane & 15)) * C::SP + j * 8);
+        mma_16816(acc[j], dsf[0][kk], bfr);
+        mma_16816(acc[j], dsf[1][kk], bfr);
+      }
     __syncwarp();  // this warp's reads of `cur` are done before the prefetch after next overwrites it
   }
 
-  if (MODE == kFwd) {
-    l = xor_sum16(l);
-    corr = xor_sum16(corr);
-    if ((tid & 15) == 0 && row < na) {
-      p.lse_out[row] = m + logf(fmaxf(l, 1e-37f));
-      p.corr_out[row] = corr;
-    }
-  } else {
-    bf16* out = static_cast<bf16*>(p.dh);
-    const int ra = r0 + g, rb = ra + 8;
+  bf16* out = static_cast<bf16*>(p.dh);
+  const int ra = r0 + g, rb = ra + 8;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const long long col = e0 + j * 8 + 2 * t4;
-      if (ra < na)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(ra) * p.e + col) =
-            __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-      if (rb < na)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(rb) * p.e + col) =
-            __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  for (int j = 0; j < NT; ++j) {
+    const long long col = e0 + j * 8 + 2 * t4;
+    if (ra < na)
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(ra) * p.e + col) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (rb < na)
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(rb) * p.e + col) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// ------------------------------------------------------- bf16 forward (wgmma)
+// A GEMM mainloop with a softmax epilogue. A CTA of two warpgroups owns BM =
+// 128 rows of h (64 a warpgroup, wgmma's M) and walks its split's vocab tiles
+// of BV = 256 rows of W. For each tile it accumulates s [128, 256] = h W^T
+// over E in chunks of BK = 64 columns: the chunk of h and of W arrive by TMA
+// (2-D tensor maps, 128-byte swizzle) through a ring of STAGES buffers, one
+// `full` mbarrier a stage (the bytes landed) and one `empty` mbarrier (its 8
+// warps have read it; thread 0 then refills it), and feed wgmma with both
+// operands K-major in shared memory; one wgmma group stays in flight while
+// the next chunk is waited for.
+// The finished tile is folded into each row's running m2 (the max of s
+// log2(e)), l and corr in registers (two rows a thread, quad shuffles);
+// vocab columns past V are masked to -inf, never left at s = 0. Nothing of s
+// goes through shared or global memory. So h is read V / 256 times and W N /
+// 128 times from L2 (the mma.sync kernel read W N / 16 times: 316 GB at the
+// 32k shape, now 39.5 GB of W and 19.7 GB of h). V is split over `splits`
+// CTAs a row block (neighbours in launch order, so the CTAs on the card share
+// few row blocks of h and each split's W tiles); ce_fwd_combine merges the
+// splits' (m2, l, corr) per row in split order: no atomics, bitwise
+// repeatable, and lse = m + log(max(l, 1e-37)) as the contract has it.
+// What bounds it: 59 GB of L2 reads a call at the 32k shape against 5.1e12
+// FLOPs (5.1 ms on the tensor cores); at its 10.3 ms on an H100 (PERF.md)
+// that is 5.8 TB/s from L2, so L2 traffic, not the tensor cores, is the
+// likely limit. A cluster of two row blocks sharing each W chunk by TMA
+// multicast would cut it to 39.5 GB.
+struct FwdCfg {
+  static constexpr int BM = 128, BV = 256, BK = 64, STAGES = 4, THREADS = 256;
+  static constexpr int H_TILE = BM * BK, W_TILE = BV * BK;  // elements; rows of 128 bytes (one swizzle atom)
+  static constexpr int kSmem = 1024 + STAGES * (H_TILE + W_TILE) * 2 + 2 * STAGES * 8;
+};
+
+__global__ void __launch_bounds__(256, 1) ce_fwd_bf16(const CEParams p, const __grid_constant__ CUtensorMap hmap,
+                                                      const __grid_constant__ CUtensorMap wmap) {
+  using C = FwdCfg;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023));  // 1024-aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * (C::H_TILE + C::W_TILE));
+  uint64_t* empty = full + C::STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x % p.splits, r0 = (blockIdx.x / p.splits) * C::BM;
+  const int n_vt = (p.v + C::BV - 1) / C::BV;
+  const int vt0 = static_cast<int>(static_cast<long long>(split) * n_vt / p.splits);
+  const int vt1 = static_cast<int>(static_cast<long long>(split + 1) * n_vt / p.splits);
+  const int n_kc = p.e / C::BK;
+  const int n_it = (vt1 - vt0) * n_kc;  // (vocab tile, k chunk) pairs, k chunks innermost
+
+  auto issue = [&](int it) {  // h and W chunks of iteration it into ring stage it % STAGES (thread 0)
+    const int s = it % C::STAGES, kc = it % n_kc, vt = vt0 + it / n_kc;
+    bf16* hs = ring + s * (C::H_TILE + C::W_TILE);
+    hopper::mbar_expect(&full[s], (C::H_TILE + C::W_TILE) * 2);
+    hopper::tma_load_2d(hs, &hmap, kc * C::BK, r0, &full[s]);
+    hopper::tma_load_2d(hs + C::H_TILE, &wmap, kc * C::BK, vt * C::BV, &full[s]);
+  };
+  auto release = [&](int it) {  // every warp has read iteration it's stage: refill it
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[it % C::STAGES]);
+    if (tid == 0 && it + C::STAGES < n_it) {
+      hopper::mbar_wait(&empty[it % C::STAGES], (it / C::STAGES) & 1);
+      issue(it + C::STAGES);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], C::THREADS / 32);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int it = 0; it < C::STAGES && it < n_it; ++it) issue(it);
+
+  const int row = r0 + wg * 64 + ((tid >> 5) & 3) * 16 + g;  // and row + 8
+  int lab[2];  // the label of each row, -1 where it is not a vocab column
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int y = row + 8 * hh < p.n ? p.labels[row + 8 * hh] : -1;
+    lab[hh] = y >= 0 && y < p.v ? y : -1;
+  }
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2] = {0.f, 0.f};  // l, corr: this thread's columns
+  float acc[C::BV / 2];  // s: 64 rows x 256 vocab rows, the m64n256 accumulator layout
+  int it = 0;
+  for (int vt = vt0; vt < vt1; ++vt) {
+#pragma unroll
+    for (int i = 0; i < C::BV / 2; ++i) acc[i] = 0.f;
+    for (int kc = 0; kc < n_kc; ++kc, ++it) {
+      const int s = it % C::STAGES;
+      const bf16* hs = ring + s * (C::H_TILE + C::W_TILE);
+      hopper::mbar_wait(&full[s], (it / C::STAGES) & 1);
+      hopper::reg_fence(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        hopper::wgmma_ss<C::BV, 0>(acc, hopper::desc_sw_k<128>(hs + wg * 64 * C::BK + kk * 16),
+                                   hopper::desc_sw_k<128>(hs + C::H_TILE + kk * 16), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the previous chunk's products are done: its stage can go
+      hopper::reg_fence(acc);
+      if (kc > 0) release(it - 1);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(acc);
+    release(it - 1);
+
+    // fold the tile into the rows' running statistics
+    const int v0 = vt * C::BV, c0 = v0 + 2 * t4;  // vocab row of this thread's first column
+    const int lc[2] = {lab[0] - c0, lab[1] - c0};
+    const bool ragged = v0 + C::BV > p.v;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < C::BV / 2; ++i) {
+      const int c = (i >> 2) * 8 + (i & 1), hh = (i >> 1) & 1;  // column c0 + c, row row + 8 hh
+      if (ragged && c0 + c >= p.v) acc[i] = -INFINITY;
+      if (c == lc[hh]) corr[hh] += acc[i];
+      mx[hh] = fmaxf(mx[hh], acc[i]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float mn = fmaxf(m2[hh], mx[hh] * kLog2e);
+      l[hh] *= hopper::exp2_approx(m2[hh] - mn);
+      m2[hh] = mn;
+    }
+#pragma unroll
+    for (int i = 0; i < C::BV / 2; ++i) l[(i >> 1) & 1] += hopper::exp2_approx(fmaf(acc[i], kLog2e, -m2[(i >> 1) & 1]));
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    corr[hh] += __shfl_xor_sync(0xffffffffu, corr[hh], 1);
+    corr[hh] += __shfl_xor_sync(0xffffffffu, corr[hh], 2);
+    const int r = row + 8 * hh;
+    if (t4 == 0 && r < p.n) {
+      const long long at = static_cast<long long>(split) * p.n + r, plane = static_cast<long long>(p.splits) * p.n;
+      p.part[at] = m2[hh];
+      p.part[plane + at] = l[hh];
+      p.part[2 * plane + at] = corr[hh];
     }
   }
+}
+
+// Per row, the splits' (m2, l, corr) in split order: lse = m + log(max(l, 1e-37)), corr the sum (the label's
+// split holds it, every other split 0).
+__global__ void __launch_bounds__(256) ce_fwd_combine(const CEParams p) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= p.n) return;
+  const long long plane = static_cast<long long>(p.splits) * p.n;
+  float m2 = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) m2 = fmaxf(m2, p.part[static_cast<long long>(s) * p.n + r]);
+  float l = 0.f, corr = 0.f;
+  for (int s = 0; s < p.splits; ++s) {
+    const long long at = static_cast<long long>(s) * p.n + r;
+    l += p.part[plane + at] * hopper::exp2_approx(p.part[at] - m2);
+    corr += p.part[2 * plane + at];
+  }
+  p.lse_out[r] = m2 * kLn2 + logf(fmaxf(l, 1e-37f));
+  p.corr_out[r] = corr;
+}
+
+int launch_fwd(const CEParams& p, cudaStream_t s) {
+  using C = FwdCfg;
+  if (p.splits <= 0 || p.part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(ce_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // h [N, E] and W [V, E] as TMA tensor maps: boxes of BK columns x BM (h) or BV (W) rows, zero-filled past the edge
+  CUtensorMap hmap, wmap;
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.e) * 2};
+  const cuuint64_t hdims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.n)};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.v)};
+  const cuuint32_t hbox[2] = {C::BK, C::BM}, wbox[2] = {C::BK, C::BV};
+  e = hopper::make_tensor_map<128>(&hmap, p.h, 2, hdims, strides, hbox);
+  if (e == cudaSuccess) e = hopper::make_tensor_map<128>(&wmap, p.w, 2, wdims, strides, wbox);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_fwd_bf16<<<p.splits * ((p.n + C::BM - 1) / C::BM), C::THREADS, C::kSmem, s>>>(p, hmap, wmap);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_fwd_combine<<<(p.n + 255) / 256, 256, 0, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------ bf16 dW (cluster)
@@ -645,11 +799,11 @@ __global__ void __launch_bounds__(32 * kWarpsF) ce_dw_f32(const CEParams p) {
 template <int SW>
 int launch_bf16(const CEParams& p, int mode, cudaStream_t s) {
   using C = Cfg<SW>;
+  if (mode == kFwd) return launch_fwd(p, s);
   if (mode == kDw) return launch_dw<SW>(p, s);
-  void (*k)(const CEParams) = mode == kFwd ? ce_bf16<SW, kFwd> : ce_bf16<SW, kDh>;
-  const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  const cudaError_t e = cudaFuncSetAttribute(ce_dh_bf16<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  k<<<(p.n + C::kRows - 1) / C::kRows, C::kThreads, C::kSmem, s>>>(p);
+  ce_dh_bf16<SW><<<(p.n + C::kRows - 1) / C::kRows, C::kThreads, C::kSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

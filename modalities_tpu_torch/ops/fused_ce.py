@@ -32,6 +32,7 @@ from modalities_tpu_torch.ops import _build
 
 BF16_WIDTHS = (128, 256, 1536)  # E the bf16 kernels are compiled for: the 32k config's, and two for the tests
 PLAIN_BLOCK_ROWS = 4096  # rows of dense fp32 logits the plain versions hold at a time
+FWD_SPLITS = 8  # vocab splits of the bf16 forward kernel: CTAs per 128-row block of h
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -48,9 +49,11 @@ class _CEParams(ctypes.Structure):
         ("corr_out", ctypes.c_void_p),
         ("dh", ctypes.c_void_p),
         ("dw", ctypes.c_void_p),
+        ("part", ctypes.c_void_p),
         ("n", ctypes.c_int),
         ("v", ctypes.c_int),
         ("e", ctypes.c_int),
+        ("splits", ctypes.c_int),
     ]
 
 
@@ -185,6 +188,9 @@ def fused_ce_forward(h, w, labels):
     corr = torch.empty_like(lse)
     p = _params(hk, wk, lab)
     p.lse_out, p.corr_out = lse.data_ptr(), corr.data_ptr()
+    if code == 1:  # the bf16 kernel's per-split (m2, l, corr), merged by its second kernel
+        part = torch.empty(3 * FWD_SPLITS * hk.shape[0], dtype=torch.float32, device=h.device)
+        p.part, p.splits = part.data_ptr(), FWD_SPLITS
     _run("mt_fused_ce_fwd", p, code, h)
     fused_ce_forward.launches += 1
     return lse, corr

@@ -264,6 +264,27 @@ def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, ca
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_fwd_kernel_over_ragged_lengths(d, group, causal):
+    """The wgmma forward (128 query rows a CTA, 128-key tiles through a TMA
+    ring) at lengths around its tiles, and with Sq != Sk: out row by row and
+    lse against the plain version, two calls bitwise equal."""
+    dev = _card()
+    lengths = [(s, s) for s in (1, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 1000)] + [(100, 300), (300, 100)]
+    for sq, sk in lengths:
+        q = _qkv(dev, 2, sq, 2 * group, 2, d, torch.bfloat16, seed=sq)[0].transpose(1, 2)
+        k, v = (t.transpose(1, 2) for t in _qkv(dev, 2, sk, 2 * group, 2, d, torch.bfloat16, seed=sk + 1)[1:])
+        o, lse = fa.flash_fwd_out_lse(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_fwd_out_lse(q, k, v, causal=causal)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        o_ref, lse_ref = fa.reference_flash_fwd_out_lse(q.float(), k.float(), v.float(), causal=causal)
+        _rows_close(o, o_ref, FLASH_ROW_REL[torch.bfloat16], f"out Sq={sq} Sk={sk}")
+        assert float((lse - lse_ref).abs().max()) <= 1e-4, f"lse Sq={sq} Sk={sk}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [80, 128])
 @pytest.mark.parametrize("group", [1, 3, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -388,6 +409,35 @@ def test_fused_ce_kernels_match_autograd_of_the_plain_version(case, dtype):
     gm = (y != -100).float()
     for fn in (fce.fused_ce_backward_dh, fce.fused_ce_backward_dw):
         assert torch.equal(fn(h, w, y, lse, gm), fn(h, w, y, lse, gm))
+
+
+# (N, V, E, ignored rows) of the bf16 forward kernel (128 rows a CTA, 256-row vocab tiles): ragged rows and vocab,
+# one row and one vocab column, all rows ignored, the 32k config's width and vocab
+CE_FWD_CASES = [(1, 1, 128, 0), (37, 129, 256, 0), (100, 300, 128, 7), (16, 128, 128, 16), (129, 257, 1536, 3),
+                (300, 1000, 1536, 5), (4097, 2049, 256, 100), (200, 50304, 1536, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CE_FWD_CASES, ids=str)
+def test_fused_ce_forward_kernel_over_ragged_rows_and_vocab(case):
+    """The wgmma forward: lse and corr 1e-4 absolute against the plain
+    version, with a quarter of the labels in the last (partial) vocab tile and
+    one past the vocab (corr 0); two calls bitwise equal."""
+    dev = _card()
+    n, v, e, ignored = case
+    g = torch.Generator(device=dev).manual_seed(2)
+    h = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    w = (0.02 * torch.randn(v, e, generator=g, device=dev)).to(torch.bfloat16)
+    y = torch.randint(0, v, (n,), generator=g, device=dev)
+    y[: n // 4] = v - 1
+    y[n // 2] = v
+    y[torch.randperm(n, generator=g, device=dev)[:ignored]] = -100
+    lse, corr = fce.fused_ce_forward(h, w, y)
+    lse2, corr2 = fce.fused_ce_forward(h, w, y)
+    assert torch.equal(lse, lse2) and torch.equal(corr, corr2)
+    lse_ref, corr_ref = fce.reference_fused_ce_forward(h, w, y)
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    assert float((corr - corr_ref).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
