@@ -8,24 +8,27 @@ card.
 Phases (each raises on failure, so any failed phase exits non-zero):
   0. the card's name and power limit; sm_90 required; build the kernels from
      modalities_tpu_torch/csrc (one nvcc per source, in parallel) and report
-     the build time and ptxas's registers and spills of the four wgmma kernels
-     (flash forward and dk/dv; fused-CE forward, and dW on a cluster of 8 CTAs).
+     the build time and ptxas's registers and spills of the six wgmma kernels
+     (flash forward, dq and dk/dv; fused-CE forward, and dh and dW on a
+     cluster of 8 CTAs).
   1. every kernel against its plain PyTorch version on the card, at the shapes
      the serving and training paths give it, with stated tolerances, and each
      backward kernel and both forwards called twice for bitwise-identical
      results; per-kernel times (kernel, plain version, one library call as a
      yardstick, least possible). Flash outputs are held row by row to each
      row's own norm, and that check must reject a forward that drops 64 keys
-     or one 128-key tile, and a dk/dv that drops one 64-query tile near the
-     diagonal; flash and RMSNorm also at
+     or one 128-key tile, a dq that drops one 64-key tile of one 128-query
+     block, and a dk/dv that drops one 64-query tile near the diagonal; flash
+     and RMSNorm also at
      the 32k config's shapes (q [1, 12, 32768, 128], k/v [1, 4, 32768, 128],
      checked head by head, flash timed there beside SDPA; x [32768, 1536]).
      The fused-CE kernels at the 32k training shape (N 32768, V 50304, E 1536,
      bf16) and on small ragged f32 and bf16 cases: lse, corr and total against
      the plain version, dh and dW of the total per row against autograd of it;
      those checks must reject a forward that skips 128 vocab columns, a dh that
-     skips one vocab tile and a dW that skips one 64-token tile; dW is also
-     timed beside autograd's dW alone. A small GPT2
+     skips one 64-column vocab tile and a dW that skips one 64-token tile; dh
+     and dW are also timed beside autograd's dh alone and dW alone. The 2.7B
+     witness at 32 x 1024 (phase 4) also runs the plain path in fp32. A small GPT2
      then runs prefill + decode on the card and on the CPU with the same
      weights (logits agree), and takes 3 optimizer steps on the card and on
      the CPU from the same parameters (losses and parameters agree); a tiny
@@ -156,8 +159,8 @@ LONG_MODEL = {"seq": 32768, "vocab": 50304, "width": 1536, "layers": 24}  # the 
 LONG_PEAK_GB = 20.0  # the written reckoning of the 32k step's peak memory (PERF.md, section 6): 12-18 GB, at most 20
 LONG_WITNESS = (4, 4096)  # (layers, sequence length) of the 32k config's witness runs, kernels vs plain path
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "rms_fwd", "rms_bwd")
-# the wgmma kernels (sm_90a; dW on a cluster of 8 CTAs)
-REDESIGNED = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "ce_fwd_bf16", "ce_dw_bf16")
+# the wgmma kernels (sm_90a; dh and dW on a cluster of 8 CTAs)
+REDESIGNED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16", "ce_fwd_bf16", "ce_dh_bf16", "ce_dw_bf16")
 LONG_KERNELS = TRAIN_KERNELS + ("ce_fwd", "ce_dh", "ce_dw")
 
 
@@ -729,9 +732,40 @@ def phase_train_kernels(torch) -> dict:
                 f"head {head} for keys [{kb}, {kb + 128}): rejected ({e})")
         else:
             raise AssertionError(f"flash bf16 {name} row check passes a dkv with one query tile dropped")
-    del q, k, v, w, o, lse, delta, ql, kl, vl, y_lib, dk, dv, want, mutants
+    # the dq check can see a kernel that drops one 64-key tile of one 128-query block
+    dq = fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True)
+    want_dq = fa.reference_flash_bwd_dq(q, k, v, w, lse, delta, causal=True)
+    _row_check(torch, dq, want_dq, FLASH_ROW_REL["bfloat16"], "flash bf16 dq at the 2.7B shape")
+    q0 = s - 256
+    mutant = _dq_tile_dropped(torch, q, k, v, w, lse, delta, want_dq, head=head, q0=q0, kb=q0 - 64)
+    try:
+        _row_check(torch, mutant, want_dq, FLASH_ROW_REL["bfloat16"], "mutant")
+    except AssertionError as e:
+        log(f"[phase 1] flash bf16 dq check against a dq that drops keys [{q0 - 64}, {q0}) for queries "
+            f"[{q0}, {q0 + 128}) of head {head}: rejected ({e})")
+    else:
+        raise AssertionError("flash bf16 dq row check passes a dq with one key tile dropped")
+    del q, k, v, w, o, lse, delta, ql, kl, vl, y_lib, dk, dv, want, mutants, dq, want_dq, mutant
     torch.cuda.empty_cache()
     return out
+
+
+def _dq_tile_dropped(torch, q, k, v, do, lse, delta, want, head: int, q0: int, kb: int):
+    """dq `want` ([B, Hq, S, D], causal, scale 1/sqrt(D)) without the
+    contribution of keys [kb, kb + 64) to queries [q0, q0 + 128) of q head
+    `head`: what a dq kernel that skips that key tile of one query block
+    would return (fp32)."""
+    hk = head // (q.shape[1] // k.shape[1])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    rows, keys = slice(q0, q0 + 128), slice(kb, kb + 64)
+    qs, dos = q[:, head, rows].float(), do[:, head, rows].float()  # [B, 128, D]
+    ks, vs = k[:, hk, keys].float(), v[:, hk, keys].float()  # [B, 64, D]
+    keep = torch.arange(kb, kb + 64, device=q.device)[None, :] <= torch.arange(q0, q0 + 128, device=q.device)[:, None]
+    p = torch.exp(torch.matmul(qs, ks.transpose(-1, -2)) * scale - lse[:, head, rows].float()) * keep
+    ds = p * (torch.matmul(dos, vs.transpose(-1, -2)) - delta[:, head, rows].float()) * scale
+    dq = want.float().clone()
+    dq[:, head, rows] -= torch.matmul(ds, ks)
+    return dq
 
 
 def _dkv_tile_dropped(torch, q, k, v, do, lse, delta, want, head: int, q0: int, kb: int):
@@ -780,6 +814,8 @@ def phase_flash_long(torch) -> dict:
     del o2, lse2
     delta = (w.float() * o.float()).sum(-1, keepdim=True)
     dq = fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True)
+    if not torch.equal(dq, fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=True)):
+        raise AssertionError(f"{what}: two dq calls differ")
     dk, dv = fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=True)
     torch.cuda.synchronize()
     seen: dict[str, list[float]] = {}  # output -> [worst row rel err, share of allowance used]
@@ -812,7 +848,8 @@ def phase_flash_long(torch) -> dict:
     log(f"[phase 1] {what}: kernels on the whole shape vs their plain versions given the same (lse, delta), "
         f"head by head (dk/dv: each kv head against the fp32 sum over its {group} q heads): worst row rel err "
         f"(share of allowance used) {', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f})' for n, r in seen.items())}, "
-        f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4); two forward calls bitwise identical")
+        f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4); two forward calls and two dq calls bitwise "
+        f"identical")
     del dq, dk, dv
 
     def plain_dkv():  # head by head: the plain fp32 scores of all 12 heads would take 51 GB
@@ -868,7 +905,8 @@ def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, 
     sum, not of the mean: their rows are O(1), where the row check's
     absolute floor (1e-5 sqrt(E)) would hide the rows of the mean's (1/count
     smaller). With `drop_tile`, the dh check must reject what a kernel that
-    skips vocab columns [drop_tile, drop_tile + 32) would return; with
+    skips vocab columns [drop_tile, drop_tile + 64) (one of its tiles) would
+    return; with
     `drop_tokens`, the dW check must reject what a kernel that skips tokens
     [drop_tokens, drop_tokens + 64) would return; with `drop_vocab`, the lse
     check must reject what a forward that skips vocab columns [drop_vocab,
@@ -918,9 +956,9 @@ def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, 
         errs[f"{name}_flips"] = float((got.float() != want.to(got.dtype).float()).float().mean())
     gm = (labels != -100).float()
     if drop_tile is not None:
-        cols = slice(drop_tile, drop_tile + 32)
+        cols = slice(drop_tile, drop_tile + 64)
         ds = torch.exp(hp.detach() @ wp.detach()[cols].t() - lse_ref[:, None])
-        hit = (labels >= drop_tile) & (labels < drop_tile + 32)
+        hit = (labels >= drop_tile) & (labels < drop_tile + 64)
         ds[hit, labels[hit] - drop_tile] -= 1.0
         mutant = hp.grad - (ds * gm[:, None]) @ wp.detach()[cols]
         try:
@@ -976,7 +1014,7 @@ def phase_fused_ce(torch) -> dict:
     n, v, e = CE_SHAPE
     h, w, labels = _ce_inputs(torch, g, n, v, e, "bfloat16", "bfloat16", n // 16)
     what = f"fused CE bf16 h[{n},{e}] w[{v},{e}], {n // 16} rows ignored"
-    errs = _ce_check(torch, h, w, labels, what, drop_tile=32 * (v // 64), drop_tokens=64 * (n // 128),
+    errs = _ce_check(torch, h, w, labels, what, drop_tile=64 * (v // 128), drop_tokens=64 * (n // 128),
                      drop_vocab=128 * (v // 256))
     torch.cuda.empty_cache()
     log(f"[phase 1] {what}: lse max abs err {errs['lse']:.3g}, corr {errs['corr']:.3g} (bound 1e-4); total rel "
@@ -986,7 +1024,7 @@ def phase_fused_ce(torch) -> dict:
         f"{errs['dh_floor']:.4g}, dW {errs['dw_floor']:.4g}; elements unequal to it: dh {errs['dh_flips']:.4g}, "
         f"dW {errs['dw_flips']:.4g}; all three kernels bitwise repeatable; a forward that skips vocab columns "
         f"[{128 * (v // 256)}, {128 * (v // 256) + 128}): {errs['mutant_fwd']}; a dh that skips vocab columns "
-        f"[{32 * (v // 64)}, {32 * (v // 64) + 32}): {errs['mutant']}; a dW that skips tokens "
+        f"[{64 * (v // 128)}, {64 * (v // 128) + 64}): {errs['mutant']}; a dW that skips tokens "
         f"[{64 * (n // 128)}, {64 * (n // 128) + 64}): {errs['mutant_dw']}")
     lse, _ = fce.fused_ce_forward(h, w, labels)
     mask = (labels != -100).float()
@@ -1000,6 +1038,10 @@ def phase_fused_ce(torch) -> dict:
     lib_dw = time_ms(torch, lambda: torch.autograd.grad(loss_w, (wl,), retain_graph=True), reps=3)
     del loss_w
     torch.cuda.empty_cache()
+    loss_h = F.cross_entropy(F.linear(hl, w).float(), labels, ignore_index=-100, reduction="sum")  # W: no grad
+    lib_dh = time_ms(torch, lambda: torch.autograd.grad(loss_h, (hl,), retain_graph=True), reps=3)
+    del loss_h
+    torch.cuda.empty_cache()
     lib_fwd = time_ms(torch, lambda: F.cross_entropy(F.linear(h, w).float(), labels, ignore_index=-100,
                                                      reduction="sum"), reps=3)
     plain_bwd = time_ms(torch, lambda: fce.reference_fused_ce_backward(h, w, labels, lse, gm), reps=2)
@@ -1009,7 +1051,7 @@ def phase_fused_ce(torch) -> dict:
     calls = {
         "fwd": (lambda: fce.fused_ce_forward(h, w, labels), lambda: fce.reference_fused_ce_forward(h, w, labels),
                 lib_fwd, flops),
-        "dh": (lambda: fce.fused_ce_backward_dh(h, w, labels, lse, gm), None, lib_bwd, 2 * flops),
+        "dh": (lambda: fce.fused_ce_backward_dh(h, w, labels, lse, gm), None, lib_dh, 2 * flops),
         "dw": (lambda: fce.fused_ce_backward_dw(h, w, labels, lse, gm), None, lib_dw, 2 * flops),
     }
     out = {}
@@ -1021,7 +1063,7 @@ def phase_fused_ce(torch) -> dict:
         max_abs = max(errs["lse"], errs["corr"]) if name == "fwd" else errs[name][2]
         out[f"fused_ce_{name}"] = {"max_abs_err": max_abs, "timings": [t]}
         lib_name = {"fwd": "F.linear (bf16) + fp32 F.cross_entropy(reduction='sum')",
-                    "dh": "the autograd backward of that (dh and dW in one call)",
+                    "dh": f"its dh alone (W not requiring grad; dh and dW: {lib_bwd:.3f} ms)",
                     "dw": f"its dW alone (h not requiring grad; dh and dW: {lib_bwd:.3f} ms)"}[name]
         plain_name = "plain" if name == "fwd" else "plain backward (dh and dW together)"
         log(f"[phase 1] fused CE {name} {t['shape']}: kernel {t['ms']:.3f} ms, {plain_name} {t['plain_ms']:.3f} ms, "
@@ -1255,7 +1297,7 @@ def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
 
 
 def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, vocab: int, keys, phase: str,
-               plain_extra: dict, **shape) -> None:
+               plain_extra: dict, fp32_arm: bool = False, **shape) -> None:
     """The config's `lr` with no warmup (warmup_steps 1, then its cosine) on
     one repeated batch, at full width and `n_layer` layers x `seq`, through
     Main twice from the same seed: with the kernels (dao_flash, fused RMSNorm
@@ -1263,34 +1305,49 @@ def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, voca
     the plain path on the card (manual attention, autograd of the plain
     RMSNorm, and `plain_extra`'s overrides). `shape` goes to _train_config.
     The two loss curves agree within LR_WITNESS_TOL at every step, whether or
-    not they fall."""
+    not they fall. With `fp32_arm`, a third run takes the plain path with
+    parameters and compute in float32: its gap to the plain bf16 run (printed,
+    gating nothing) is how far bf16 rounding alone moves the curve on any
+    path, the yardstick for the kernels' gap."""
     from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.models.gpt2.gpt2_model import MixedPrecisionSpec
 
     repeat = np.tile(rng.integers(0, vocab, size=seq), 24)[: seq + 1 + 19 * seq]
     extra = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": lr, "model_raw.config.n_layer": n_layer}
     curves, launched = {}, {}
-    for arm, attention in (("kernels", "dao_flash"), ("plain", "manual")):
+    arms = [("kernels", "dao_flash"), ("plain", "manual")] + ([("plain_fp32", "manual")] if fp32_arm else [])
+    for arm, attention in arms:
         name = f"witness_{n_layer}x{seq}_{arm}"
         arm_extra = {**extra, "model_raw.config.attention_implementation": attention,
-                     **(plain_extra if arm == "plain" else {})}
+                     **(plain_extra if arm != "kernels" else {})}
         cfg = _train_config(tmp, name, repeat, 5, arm_extra, seq=seq, phase=phase, **shape)
-        with plain_norms() if arm == "plain" else contextlib.nullcontext():
+        with plain_norms() if arm != "kernels" else contextlib.nullcontext():
             _reset_counts()
             main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
-            curves[arm] = [r["losses"]["train loss last"] for r in main.run()]
+            components = main.build_components()
+            if arm == "plain_fp32":  # the config's policy has no compute dtype: set both on the model's spec
+                components.app_state.model.update_train_spec(
+                    mixed_precision=MixedPrecisionSpec("float32", "float32", "float32"))
+            curves[arm] = [r["losses"]["train loss last"] for r in main.run(components)]
             launched[arm] = _launch_counts(keys)
-        del main
+        del main, components
         gc.collect()
         torch.cuda.empty_cache()
-    if any(launched["plain"].values()) or not all(launched["kernels"].values()):
-        raise AssertionError(f"lr witness: launches with the kernels {launched['kernels']}, plain {launched['plain']}")
+    if any(any(launched[arm].values()) for arm in curves if arm != "kernels") or not all(launched["kernels"].values()):
+        raise AssertionError(f"lr witness: launches by arm {launched}")
     k, p = curves["kernels"], curves["plain"]
     diff = max(abs(a - b) for a, b in zip(k, p))
     falls = {arm: all(b < a for a, b in zip(c, c[1:])) for arm, c in curves.items()}
+    fp32_txt = ""
+    if fp32_arm:
+        f32 = curves["plain_fp32"]
+        fp32_txt = (f"; plain path in fp32 {[round(x, 5) for x in f32]}, its max |loss diff| to the plain bf16 path "
+                    f"{max(abs(a - b) for a, b in zip(f32, p)):.4g} and to the kernels "
+                    f"{max(abs(a - b) for a, b in zip(f32, k)):.4g} (informational)")
     log(f"[{phase}] lr witness, {n_layer} layers x seq {seq}, lr {lr:g} with no warmup on one "
         f"repeated batch: "
         f"kernels {[round(x, 5) for x in k]}, plain path {[round(x, 5) for x in p]}; falls at every step: {falls}; "
-        f"max |loss diff| {diff:.4g} (bound {LR_WITNESS_TOL:g})")
+        f"max |loss diff| {diff:.4g} (bound {LR_WITNESS_TOL:g}){fp32_txt}")
     if not diff <= LR_WITNESS_TOL:
         raise AssertionError(f"lr witness: kernels {k} and plain path {p} differ by {diff:g}")
 
@@ -1366,7 +1423,7 @@ def phase_train(torch, smi: str) -> dict[str, int]:
         torch.cuda.empty_cache()
         for n_layer, wseq in LR_WITNESS:
             lr_witness(torch, tmp, rng, n_layer, wseq, lr=0.00016, vocab=MODEL_2P7B["vocab_size"], keys=TRAIN_KERNELS,
-                       phase="phase 4", plain_extra={})
+                       phase="phase 4", plain_extra={}, fp32_arm=(n_layer, wseq) == LR_WITNESS[0])
     return counts
 
 

@@ -26,14 +26,12 @@
 // - bf16 forward (redesigned for Hopper): wgmma with TMA-fed, ring-buffered
 //   K/V tiles, P kept in registers and V read MN-major (no transposed copy);
 //   see flash_fwd_bf16 below.
-// - bf16 dq: FlashAttention-2 structure on mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate): a CTA of 4 warps owns 64 query rows (16 a warp) and loops
-//   over key tiles. Operand tiles live in shared memory; a tile the mma reads
-//   as a B operand along its rows is stored transposed, so each fragment is
-//   one 32-bit read. wgmma and TMA are later work for it.
+// - bf16 dq (redesigned for Hopper): the forward's structure, with S and dP
+//   by wgmma from TMA-fed tiles, dS kept in registers and K read MN-major (no
+//   transposed copy); see flash_bwd_dq_bf16 below.
 // - bf16 dkv (redesigned for Hopper): wgmma with TMA-fed, ring-buffered tiles
 //   and no transposed copies; see flash_bwd_dkv_bf16 below.
-// The forward and dkv need sm_90a (wgmma).
+// All three need sm_90a (wgmma).
 // In all three each output tile is written by one CTA and summed in a fixed
 // order: no atomics, and two calls give identical bits. Causal tiles above
 // the diagonal are skipped; ragged tails (S not a multiple of the tile) are
@@ -80,117 +78,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// Rows [r0, r0 + ROWS) of a [rows, D] bf16 matrix (row stride rs elements)
-// into smem[ROWS][DP]; rows >= n are zero-filled (0 * anything stays finite).
-template <int D, int ROWS, int DP, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* smem, const bf16* g, long long rs, int r0, int n, int tid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors a row
-  for (int i = tid; i < ROWS * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(g + (r0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(smem + r * DP + c) = v;
-  }
-}
-
-// The same rows stored transposed, smem[D][RP] (column r holds row r0 + r).
-// Consecutive threads take consecutive rows so the 2-byte stores of a warp
-// land in consecutive shared-memory words.
-template <int D, int ROWS, int RP, int THREADS>
-__device__ __forceinline__ void load_rows_t(bf16* smem, const bf16* g, long long rs, int r0, int n, int tid) {
-  constexpr int VPR = D / 8;
-  for (int i = tid; i < ROWS * VPR; i += THREADS) {
-    const int r = i % ROWS, c = (i / ROWS) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(g + (r0 + r) * rs + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) smem[(c + j) * RP + r] = e[j];
-  }
-}
-
-// A fragments (m16 x k16 per k step) of the 16 rows a warp owns in smem[.][DP].
-template <int D, int DP>
-__device__ __forceinline__ void load_a_frags(uint32_t (*f)[4], const bf16* smem, int row, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* p0 = smem + row * DP + kk * 16 + 2 * t4;
-    const bf16* p1 = p0 + 8 * DP;
-    f[kk][0] = ld32(p0);
-    f[kk][1] = ld32(p1);
-    f[kk][2] = ld32(p0 + 8);
-    f[kk][3] = ld32(p1 + 8);
-  }
-}
-
-// c[NT][4] += A (warp's 16 rows x D, fragments) . B^T, where B is smem[NT*8][DP]
-// (the n index along rows, the contraction along D).
-template <int D, int DP, int NT>
-__device__ __forceinline__ void mma_abt(float (*c)[4], uint32_t (*a)[4], const bf16* b, int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* p = b + (j * 8 + g) * DP + kk * 16 + 2 * t4;
-      uint32_t bf[2] = {ld32(p), ld32(p + 8)};
-      mma_16816(c[j], a[kk], bf);
-    }
-  }
-}
-
-// c[D/8][4] += A (16 x K, fragments) . B, where B^T is stored as smem[D][KP]
-// (the output column along rows, the contraction along KP).
-template <int D, int K, int KP>
-__device__ __forceinline__ void mma_ab_t(float (*c)[4], uint32_t (*a)[4], const bf16* bt, int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* p = bt + (n * 8 + g) * KP + kk * 16 + 2 * t4;
-      uint32_t bf[2] = {ld32(p), ld32(p + 8)};
-      mma_16816(c[n], a[kk], bf);
-    }
-  }
-}
-
-// The C fragments of a 16 x (2*KT*8) fp32 tile as bf16 A fragments.
-template <int KT>
-__device__ __forceinline__ void c_to_a(uint32_t (*a)[4], float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    a[kk][0] = hopper::pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = hopper::pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = hopper::pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = hopper::pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// Writes a warp's 16 x D fp32 accumulator (scaled per row) as bf16 rows.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* g, long long rs, float (*acc)[4], int row, int n,
-                                                float mul0, float mul1, int t4) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (row < n)
-      *reinterpret_cast<__nv_bfloat162*>(g + row * rs + col) =
-          __floats2bfloat162_rn(acc[j][0] * mul0, acc[j][1] * mul0);
-    if (row + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(g + (row + 8) * rs + col) =
-          __floats2bfloat162_rn(acc[j][2] * mul1, acc[j][3] * mul1);
-  }
-}
 
 __device__ __forceinline__ int key_tiles(const FlashParams& p, int q_end, int bk) {
   int n = (p.sk + bk - 1) / bk;
@@ -418,73 +305,208 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, 1)
 }
 
 // ------------------------------------------------------------------- bf16 dq
+// On wgmma, along the forward's structure (flash_fwd_bf16). A CTA of two
+// consumer warpgroups owns BQ = 128 query rows (64 a warpgroup, wgmma's M) of
+// one (batch, q head); a third warpgroup is the producer, one thread of which
+// loads the Q and dO tiles once by TMA (4-D tensor maps over the strided
+// [B, H, S, D] views: no copy), then streams key tiles of BK = 64 rows of K
+// and V through a ring of STAGES buffers, each stage with a `full` mbarrier
+// (the bytes landed) and an `empty` one (the 8 consumer warps are done with
+// it); the producer gives its registers to the consumers (setmaxnreg). Every
+// tile is swizzled (hopper.cuh; 32-byte atoms at D 80). lse and delta of a
+// thread's two rows are read once into registers. Per key tile t, a
+// warpgroup's tensor-core phase issues
+//   dQ += dS_{t-1} K_{t-1}    (wgmma, dS as bf16 A fragments in registers, K
+//                              the same tile read MN-major: no transposed copy),
+//   S_t = Q K_t^T, dP_t = dO V_t^T   (wgmma, both operands in shared memory),
+// waits for them, releases tile t - 1, and then computes in registers (fp32)
+// P = exp2(S sm_scale log2(e) - lse log2(e)) and dS = P (dP - delta) sm_scale,
+// masked only on the diagonal tile and the ragged last one (causal tiles above
+// the diagonal are never loaded), rounded to bf16 A fragments. The two
+// warpgroups take turns on the tensor cores (two named barriers), so one
+// warpgroup's exponentials overlap the other's products. Registers set BK: at
+// D 128 a consumer thread holds dQ (64 fp32), S and dP (32 each) and dS (16),
+// which 128-key tiles would double past CONSUMER_REGS. dQ is written once from
+// registers: no atomics, bitwise repeatable. CTAs run the longest causal rows
+// of every head first.
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(const FlashParams p) {
-  constexpr int BQ = 64, BK = 32, DP = D + 8, BKP = BK + 8;
-  __shared__ __align__(16) bf16 stage[BQ * DP];  // Q, then dO
-  __shared__ __align__(16) bf16 ks[BK * DP];
-  __shared__ __align__(16) bf16 vs[BK * DP];
-  __shared__ __align__(16) bf16 kt_s[D * BKP];  // K^T
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int b = blockIdx.y / p.hq, h = blockIdx.y % p.hq, hk = h / (p.hq / p.hkv);
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
-  const bf16* dog = static_cast<const bf16*>(p.dout) + b * p.o_s[0] + h * p.o_s[1];
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
-  const int row = q0 + warp * 16 + g;
+struct DqCfg {
+  static constexpr int BQ = 128, BK = 64, STAGES = 4;
+  static constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;  // two consumer warpgroups, one producer
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;        // 128 x 40 + 256 x 232 <= 65536
+  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32)
+  static constexpr int SWB = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;
+  static constexpr int AW = SWB / 2;  // columns of a swizzle atom
+  static constexpr int Q = BQ * D;    // elements of the Q (or dO) tile
+  static constexpr int KV = BK * D;   // elements of a K (or V) tile
+  static constexpr int kSmem = 1024 + 2 * Q * 2 + STAGES * 2 * KV * 2 + (2 * STAGES + 1) * 8;
+  static_assert(KV * 2 % 1024 == 0 && Q * 2 % 1024 == 0, "tiles keep the 1024-byte alignment of their swizzle");
+  static_assert(kSmem <= 232448, "fits an SM's shared memory");
+};
 
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_rows<D, BQ, DP, 128>(stage, qg, p.q_s[2], q0, p.sq, tid);
-  __syncthreads();
-  load_a_frags<D, DP>(qf, stage, warp * 16 + g, t4);
-  __syncthreads();
-  load_rows<D, BQ, DP, 128>(stage, dog, p.o_s[2], q0, p.sq, tid);
-  __syncthreads();
-  load_a_frags<D, DP>(dof, stage, warp * 16 + g, t4);
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
+    flash_bwd_dq_bf16(const FlashParams p, const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap) {
+  using C = DqCfg<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023));  // 1024-aligned
+  bf16* dos = qs + C::Q;
+  bf16* ring = dos + C::Q;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * 2 * C::KV);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = empty + C::STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int bhs = p.b * p.hq, bh = blockIdx.x % bhs;
+  const int q0 = (gridDim.x / bhs - 1 - blockIdx.x / bhs) * C::BQ;  // longest causal rows of every head first
+  const int b = bh / p.hq, h = bh % p.hq, hk = h / (p.hq / p.hkv);
+  const int n_kt = key_tiles(p, q0 + C::BQ, C::BK);
 
-  const long long rb = static_cast<long long>(blockIdx.y) * p.sq;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row + 8 * i;
-    lse[i] = r < p.sq ? p.lse_in[rb + r] : 0.f;
-    dl[i] = r < p.sq ? p.delta[rb + r] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], C::CONSUMERS / 32);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_mbar_init();
   }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int n_kt = key_tiles(p, q0 + BQ, BK);
+  __syncthreads();
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    load_rows<D, BK, DP, 128>(ks, kg, p.k_s[2], k0, p.sk, tid);
-    load_rows<D, BK, DP, 128>(vs, vg, p.v_s[2], k0, p.sk, tid);
-    load_rows_t<D, BK, BKP, 128>(kt_s, kg, p.k_s[2], k0, p.sk, tid);
-    __syncthreads();
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<D, DP, BK / 8>(s, qf, ks, g, t4);
-    mma_abt<D, DP, BK / 8>(dp, dof, vs, g, t4);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1), i = e >> 1, r = row + 8 * i;
-        const bool ok = col < p.sk && (!p.causal || r >= col);
-        const float pr = ok ? expf(s[j][e] * p.sm_scale - lse[i]) : 0.f;
-        s[j][e] = pr * (dp[j][e] - dl[i]) * p.sm_scale;  // dS
+  if (tid >= C::CONSUMERS) {  // the producer warpgroup: Q and dO, then K and V of every key tile as stages empty
+    hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid == C::CONSUMERS) {
+      hopper::mbar_expect(qbar, 2 * C::Q * 2);
+      for (int a = 0; a < D / C::AW; ++a) {
+        hopper::tma_load_4d(qs + a * C::BQ * C::AW, &qmap, a * C::AW, q0, h, b, qbar);
+        hopper::tma_load_4d(dos + a * C::BQ * C::AW, &omap, a * C::AW, q0, h, b, qbar);
       }
-    uint32_t dsf[BK / 16][4];
-    c_to_a<BK / 16>(dsf, s);
-    mma_ab_t<D, BK, BKP>(acc, dsf, kt_s, g, t4);
-    __syncthreads();
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % C::STAGES;
+        if (t >= C::STAGES) hopper::mbar_wait(&empty[s], (t / C::STAGES - 1) & 1);
+        bf16* kt = ring + s * 2 * C::KV;
+        hopper::mbar_expect(&full[s], 2 * C::KV * 2);
+        for (int a = 0; a < D / C::AW; ++a) {
+          hopper::tma_load_4d(kt + a * C::BK * C::AW, &kmap, a * C::AW, t * C::BK, hk, b, &full[s]);
+          hopper::tma_load_4d(kt + C::KV + a * C::BK * C::AW, &vmap, a * C::AW, t * C::BK, hk, b, &full[s]);
+        }
+      }
+    }
+    return;
   }
+
+  hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int w0 = q0 + wg * 64;                      // this warpgroup's first row
+  const int row = w0 + ((tid >> 5) & 3) * 16 + g;  // and row + 8
+  const float sl2 = p.sm_scale * kLog2e;
+  float lse2[2], dl[2];  // lse log2(e) and delta of rows row, row + 8
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    const long long at = static_cast<long long>(bh) * p.sq + r;
+    lse2[hh] = r < p.sq ? p.lse_in[at] * kLog2e : 0.f;
+    dl[hh] = r < p.sq ? p.delta[at] : 0.f;
+  }
+  float dq[D / 2];  // dQ: 64 rows x D, the m64nD accumulator layout
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float sc[C::BK / 2], dp[C::BK / 2];  // S and dP: 64 rows x BK keys
+  uint32_t da[C::BK / 16][4];          // dS as A operands, one k16 step (16 keys) each
+  const bf16* qw = qs + wg * 64 * C::AW;  // this warpgroup's 64 rows (in every atom)
+  const bf16* ow = dos + wg * 64 * C::AW;
+
+  auto sdp = [&](int t) {  // S_t = Q K_t^T and dP_t = dO V_t^T, issued
+#pragma unroll
+    for (int i = 0; i < C::BK / 2; ++i) sc[i] = dp[i] = 0.f;
+    hopper::reg_fence(sc);
+    hopper::reg_fence(dp);
+    const bf16* kt = ring + (t % C::STAGES) * 2 * C::KV;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {  // k step kk: atom kk * 16 / AW, columns kk * 16 % AW in it
+      const int qa = (kk * 16 / C::AW) * C::BQ * C::AW + kk * 16 % C::AW;
+      const int ka = (kk * 16 / C::AW) * C::BK * C::AW + kk * 16 % C::AW;
+      hopper::wgmma_ss<C::BK, 0>(sc, hopper::desc_sw_k<C::SWB>(qw + qa), hopper::desc_sw_k<C::SWB>(kt + ka), 1);
+      hopper::wgmma_ss<C::BK, 0>(dp, hopper::desc_sw_k<C::SWB>(ow + qa), hopper::desc_sw_k<C::SWB>(kt + C::KV + ka),
+                                 1);
+    }
+  };
+  auto dsk = [&](int t) {  // dQ += dS_t K_t, issued
+    const bf16* kt = ring + (t % C::STAGES) * 2 * C::KV;
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk)
+      hopper::wgmma_rs<D, 1>(dq, da[kk], hopper::desc_sw_mn<C::SWB>(kt + kk * 16 * C::AW, C::BK), 1);
+  };
+  auto grads = [&](int t) {  // S_t, dP_t -> dS_t (bf16 A operands)
+    const int k0 = t * C::BK;
+    if (k0 + C::BK > p.sk || (p.causal && k0 + C::BK - 1 > w0)) {  // the ragged or diagonal tile
+#pragma unroll
+      for (int i = 0; i < C::BK / 2; ++i) {
+        const int col = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1), r = row + 8 * ((i >> 1) & 1);
+        if (col >= p.sk || (p.causal && col > r)) sc[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        const float p0 = hopper::exp2_approx(fmaf(sc[i], sl2, -lse2[r & 1]));
+        const float p1 = hopper::exp2_approx(fmaf(sc[i + 1], sl2, -lse2[r & 1]));
+        da[kk][r] = hopper::pack_bf16(p0 * (dp[i] - dl[r & 1]) * p.sm_scale, p1 * (dp[i + 1] - dl[r & 1]) * p.sm_scale);
+      }
+  };
+  // Turns on the tensor cores, as in the forward: warpgroup w waits on barrier 1 + w before it issues, and
+  // arrives on the other's once it has issued. Warpgroup 1 opens warpgroup 0's first turn; warpgroup 0
+  // opens warpgroup 1's last one (so every arrival has its wait).
+  const int mine = 1 + wg, other = 2 - wg;
+  if (wg == 1) hopper::named_bar_arrive(other, C::CONSUMERS);
+  hopper::mbar_wait(qbar, 0);
+  hopper::mbar_wait(&full[0], 0);
+  hopper::named_bar_sync(mine, C::CONSUMERS);
+  hopper::wgmma_fence();
+  sdp(0);
+  hopper::wgmma_commit();
+  hopper::named_bar_arrive(other, C::CONSUMERS);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(sc);
+  hopper::reg_fence(dp);
+  grads(0);
+  for (int t = 1; t < n_kt; ++t) {
+    hopper::mbar_wait(&full[t % C::STAGES], (t / C::STAGES) & 1);
+    hopper::named_bar_sync(mine, C::CONSUMERS);
+    hopper::wgmma_fence();
+    dsk(t - 1);
+    sdp(t);
+    hopper::wgmma_commit();
+    hopper::named_bar_arrive(other, C::CONSUMERS);
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(sc);
+    hopper::reg_fence(dp);
+    hopper::reg_fence(dq);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[(t - 1) % C::STAGES]);  // this warp is done with tile t - 1
+    grads(t);
+  }
+  hopper::named_bar_sync(mine, C::CONSUMERS);
+  hopper::wgmma_fence();
+  dsk(n_kt - 1);
+  hopper::wgmma_commit();
+  if (wg == 0) hopper::named_bar_arrive(other, C::CONSUMERS);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(dq);
+
   bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_s[0] + h * p.dq_s[1];
-  store_rows_bf16<D>(dqg, p.dq_s[2], acc, row, p.sq, 1.f, 1.f, t4);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row + 8 * hh;
+      if (r < p.sq)
+        *reinterpret_cast<__nv_bfloat162*>(dqg + r * p.dq_s[2] + j * 8 + 2 * t4) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+    }
+  }
 }
 
 // ------------------------------------------------------------------ bf16 dkv
@@ -868,7 +890,16 @@ int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
       if (me != cudaSuccess) return static_cast<int>(me);
       flash_fwd_bf16<D><<<((p.sq + C::BQ - 1) / C::BQ) * bh_q, C::THREADS, C::kSmem, s>>>(p, qmap, kmap, vmap);
     } else if (which == kDq) {
-      flash_bwd_dq_bf16<D><<<dim3((p.sq + 63) / 64, bh_q), 128, 0, s>>>(p);
+      using C = DqCfg<D>;
+      const cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      CUtensorMap qmap, omap, kmap, vmap;
+      cudaError_t me = bhsd_map<C::SWB>(&qmap, p.q, p.q_s, D, p.sq, p.hq, p.b, C::BQ);
+      if (me == cudaSuccess) me = bhsd_map<C::SWB>(&omap, p.dout, p.o_s, D, p.sq, p.hq, p.b, C::BQ);
+      if (me == cudaSuccess) me = bhsd_map<C::SWB>(&kmap, p.k, p.k_s, D, p.sk, p.hkv, p.b, C::BK);
+      if (me == cudaSuccess) me = bhsd_map<C::SWB>(&vmap, p.v, p.v_s, D, p.sk, p.hkv, p.b, C::BK);
+      if (me != cudaSuccess) return static_cast<int>(me);
+      flash_bwd_dq_bf16<D><<<((p.sq + C::BQ - 1) / C::BQ) * bh_q, C::THREADS, C::kSmem, s>>>(p, qmap, omap, kmap, vmap);
     } else {
       using C = DkvCfg<D>;
       const cudaError_t e =

@@ -29,26 +29,17 @@
 //   chunks by TMA through a ring, with the online softmax as its epilogue in
 //   registers; vocab split over 8 CTAs a row block and merged by a second
 //   kernel; see ce_fwd_bf16 below. It needs sm_90a (wgmma).
-// - bf16 dh (mma.sync; wgmma, TMA and warp specialisation are later work):
-//   a CTA of 8 warps owns 16 rows of h and streams W in tiles of 32 rows. The
-//   contraction dim E is split over the warps: warp w holds the columns
-//   [w E/8, (w+1) E/8) of its 16 rows as mma.sync m16n8k16 A fragments in
-//   registers for the whole kernel, computes the partial s tile of its
-//   columns, and the 8 partials are summed through shared memory in a fixed
-//   order. It carries ds to the tensor cores as bf16 hi + lo, ds - hi (two
-//   products per fragment, about 16 mantissa bits, near the TPU kernel's fp32
-//   ds), against the same E-slice of the streamed tile,
-//   read transposed with ldmatrix.trans, into a [16, E/8] fp32 accumulator
-//   per warp: the [16, E] accumulator of a row block (96 KB at E 1536) lives
-//   in the registers of the whole CTA, so every output element is summed by
-//   one thread in a fixed order: no atomics, bitwise repeatable. Each warp
-//   loads its own slice of the streamed tile with cp.async, double buffered.
-//   The price of 16 rows per CTA: W is read once per 16 rows from L2 (N/16 x
-//   154 MB = 316 GB per call at the 32k shape).
-// - bf16 dW (redesigned for Hopper): a thread-block cluster of 8 CTAs splits
-//   E and owns 128 vocab rows, with wgmma and a distributed-shared-memory
-//   reduction of s; see ce_dw_bf16 below.
-//   E must be a multiple of 128 (E/8 a multiple of 16): 128, 256 or 1536.
+// - bf16 dh and dW (redesigned for Hopper): a thread-block cluster of 8 CTAs
+//   splits E and owns 128 rows of the matrix whose gradient it writes (h for
+//   dh, W for dW), keeps that block's E-slice in registers, streams the other
+//   matrix by TMA, sums the partial s of the 8 slices through distributed
+//   shared memory in a fixed order and carries ds to the tensor cores as bf16
+//   hi + lo, ds - hi (two products a tile, about 16 mantissa bits, near the
+//   TPU kernel's fp32 ds); see ce_dh_bf16 and ce_dw_bf16 below. The gradient
+//   of a 128-row block lives in the registers of its cluster, so every output
+//   element is summed by one thread in a fixed order: no atomics, bitwise
+//   repeatable. E must be a multiple of 128 (E/8 a multiple of 16): 128, 256
+//   or 1536.
 // - fp32: one warp per output row on the CUDA cores (lanes split E, a fixed
 //   xor-butterfly sum), plain FMA, no TF32: the version the plain PyTorch code
 //   is held to in f32, at small shapes.
@@ -83,197 +74,6 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 enum Mode { kFwd = 0, kDh = 1, kDw = 2 };
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// B fragments (k16 x n8) of a row-major [k][n] bf16 tile: rows k are the
-// streamed rows, n the E columns. Lanes 0-15 give the 16 row addresses.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(hopper::smem_u32(p)));
-}
-
-template <int SW>
-struct Cfg {
-  static constexpr int kWarps = 8, kThreads = 256;
-  static constexpr int kRows = 16;  // output rows of a CTA (one m16 tile)
-  static constexpr int kBT = 32;    // streamed rows a tile
-  static constexpr int SP = SW + 8;     // bf16 pitch of a warp's slice rows (conflict-free fragments)
-  static constexpr int PP = kBT + 8;    // fp32 pitch of the partial-s rows
-  static constexpr int DP = kBT + 8;    // bf16 pitch of the ds rows
-  static constexpr int kStage = kBT * SP;  // bf16 elements of one buffer of one warp
-  static constexpr int kSmem = 2 * kWarps * kStage * 2 + kWarps * kRows * PP * 4 + 2 * kRows * DP * 2;
-};
-
-// Rows [r0, r0 + R) of M [nm, e] bf16, columns [e0, e0 + SW), into buf[R][SP]
-// by one warp; rows >= nm are zero-filled.
-template <int SW>
-__device__ __forceinline__ void load_slice(bf16* buf, const bf16* m, int e, int r0, int rows, int nm, int e0,
-                                           int lane) {
-  constexpr int VPR = SW / 8;  // 16-byte vectors a row
-  for (int i = lane; i < rows * VPR; i += 32) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool in = r0 + r < nm;
-    const bf16* src = in ? m + static_cast<long long>(r0 + r) * e + e0 + c : m;
-    hopper::cp_async16(buf + r * Cfg<SW>::SP + c, src, in);
-  }
-}
-
-template <int SW>
-__global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p) {
-  using C = Cfg<SW>;
-  constexpr int KT = SW / 16;       // k16 steps of a warp's slice
-  constexpr int NJ = C::kBT / 8;    // n8 tiles of the s tile
-  constexpr int NT = SW / 8;        // n8 tiles of a warp's accumulator slice
-  constexpr int KB = C::kBT / 16;   // k16 steps of the ds . slice product
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sb = reinterpret_cast<bf16*>(smem);
-  float* sp = reinterpret_cast<float*>(smem + 2 * C::kWarps * C::kStage * 2);
-  bf16* sd = reinterpret_cast<bf16*>(sp + C::kWarps * C::kRows * C::PP);  // ds hi rows, then ds lo rows
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const bf16* A = static_cast<const bf16*>(p.h);  // the CTA's output rows
-  const bf16* S = static_cast<const bf16*>(p.w);  // the streamed matrix
-  const int na = p.n, ns = p.v;
-  const int r0 = blockIdx.x * C::kRows, e0 = warp * SW;
-  bf16* buf[2] = {sb + (warp * 2) * C::kStage, sb + (warp * 2 + 1) * C::kStage};
-
-  // this warp's E-slice of the CTA's 16 rows, as A fragments for the whole kernel
-  uint32_t af[KT][4];
-  load_slice<SW>(buf[0], A, p.e, r0, C::kRows, na, e0, lane);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncwarp();
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const bf16* q = buf[0] + g * C::SP + kk * 16 + 2 * t4;
-    af[kk][0] = ld32(q);
-    af[kk][1] = ld32(q + 8 * C::SP);
-    af[kk][2] = ld32(q + 8);
-    af[kk][3] = ld32(q + 8 * C::SP + 8);
-  }
-  __syncwarp();
-
-  // the reduction thread's place: row rr of the CTA, streamed columns cc, cc + 1 of a tile
-  const int rr = tid >> 4, cc = (tid & 15) * 2, row = r0 + rr;
-  int lab_r = -1;
-  float lse_r = 0.f, gm_r = 0.f;
-  if (row < na) {
-    lab_r = p.labels[row];
-    lse_r = p.lse[row];
-    gm_r = p.gm[row];
-  }
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int n_tiles = (ns + C::kBT - 1) / C::kBT;
-  load_slice<SW>(buf[0], S, p.e, 0, C::kBT, ns, e0, lane);
-  cp_async_commit();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int b0 = t * C::kBT;
-    const bf16* cur = buf[t & 1];
-    if (t + 1 < n_tiles) {
-      load_slice<SW>(buf[(t + 1) & 1], S, p.e, b0 + C::kBT, C::kBT, ns, e0, lane);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();
-    const int c0 = b0 + cc;  // streamed index of this thread's first column
-
-    // the partial s tile [16 x 32] of this warp's E-slice
-    float s[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const bf16* q = cur + (j * 8 + g) * C::SP + kk * 16 + 2 * t4;
-        const uint32_t bfr[2] = {ld32(q), ld32(q + 8)};
-        mma_16816(s[j], af[kk], bfr);
-      }
-    float* mine = sp + warp * C::kRows * C::PP;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      *reinterpret_cast<float2*>(mine + g * C::PP + j * 8 + 2 * t4) = make_float2(s[j][0], s[j][1]);
-      *reinterpret_cast<float2*>(mine + (g + 8) * C::PP + j * 8 + 2 * t4) = make_float2(s[j][2], s[j][3]);
-    }
-    __syncthreads();
-    float x[2] = {0.f, 0.f};
-#pragma unroll
-    for (int w = 0; w < C::kWarps; ++w) {  // fixed order over the E-slices
-      const float2 v = *reinterpret_cast<const float2*>(sp + (w * C::kRows + rr) * C::PP + cc);
-      x[0] += v.x;
-      x[1] += v.y;
-    }
-
-    // ds in fp32, carried to the tensor cores as bf16 hi + lo (about 16 mantissa bits)
-    float ds[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = c0 + i;
-      ds[i] = c < ns ? gm_r * (expf(x[i] - lse_r) - (c == lab_r ? 1.f : 0.f)) : 0.f;
-    }
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(ds[0], ds[1]);
-    const float2 hif = __bfloat1622float2(hi);
-    *reinterpret_cast<__nv_bfloat162*>(sd + rr * C::DP + cc) = hi;
-    *reinterpret_cast<__nv_bfloat162*>(sd + (C::kRows + rr) * C::DP + cc) =
-        __floats2bfloat162_rn(ds[0] - hif.x, ds[1] - hif.y);
-    __syncthreads();  // also: every partial read before the next tile's are written
-    uint32_t dsf[2][KB][4];  // [hi, lo]
-#pragma unroll
-    for (int part = 0; part < 2; ++part)
-#pragma unroll
-      for (int kk = 0; kk < KB; ++kk) {
-        const bf16* q = sd + (part * C::kRows + g) * C::DP + kk * 16 + 2 * t4;
-        dsf[part][kk][0] = ld32(q);
-        dsf[part][kk][1] = ld32(q + 8 * C::DP);
-        dsf[part][kk][2] = ld32(q + 8);
-        dsf[part][kk][3] = ld32(q + 8 * C::DP + 8);
-      }
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t bfr[2];
-        ldsm_x2_trans(bfr, cur + (kk * 16 + (lane & 15)) * C::SP + j * 8);
-        mma_16816(acc[j], dsf[0][kk], bfr);
-        mma_16816(acc[j], dsf[1][kk], bfr);
-      }
-    __syncwarp();  // this warp's reads of `cur` are done before the prefetch after next overwrites it
-  }
-
-  bf16* out = static_cast<bf16*>(p.dh);
-  const int ra = r0 + g, rb = ra + 8;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const long long col = e0 + j * 8 + 2 * t4;
-    if (ra < na)
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(ra) * p.e + col) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    if (rb < na)
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(rb) * p.e + col) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
-  }
-}
-
 // ------------------------------------------------------- bf16 forward (wgmma)
 // A GEMM mainloop with a softmax epilogue. A CTA of two warpgroups owns BM =
 // 128 rows of h (64 a warpgroup, wgmma's M) and walks its split's vocab tiles
@@ -288,12 +88,12 @@ __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p) {
 // log2(e)), l and corr in registers (two rows a thread, quad shuffles);
 // vocab columns past V are masked to -inf, never left at s = 0. Nothing of s
 // goes through shared or global memory. So h is read V / 256 times and W N /
-// 128 times from L2 (the mma.sync kernel read W N / 16 times: 316 GB at the
-// 32k shape, now 39.5 GB of W and 19.7 GB of h). V is split over `splits`
-// CTAs a row block (neighbours in launch order, so the CTAs on the card share
-// few row blocks of h and each split's W tiles); ce_fwd_combine merges the
-// splits' (m2, l, corr) per row in split order: no atomics, bitwise
-// repeatable, and lse = m + log(max(l, 1e-37)) as the contract has it.
+// 128 times from L2 (39.5 GB of W and 19.7 GB of h at the 32k shape). V is
+// split over `splits` CTAs a row block (neighbours in launch order, so the
+// CTAs on the card share few row blocks of h and each split's W tiles);
+// ce_fwd_combine merges the splits' (m2, l, corr) per row in split order: no
+// atomics, bitwise repeatable, and lse = m + log(max(l, 1e-37)) as the
+// contract has it.
 // What bounds it: 59 GB of L2 reads a call at the 32k shape against 5.1e12
 // FLOPs (5.1 ms on the tensor cores); at its 10.3 ms on an H100 (PERF.md)
 // that is 5.8 TB/s from L2, so L2 traffic, not the tensor cores, is the
@@ -459,6 +259,283 @@ int launch_fwd(const CEParams& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ bf16 dh (cluster)
+// dh = ds W on a thread-block cluster of CL = 8 CTAs: ce_dw_bf16's design
+// with the roles of h and W swapped (dh = ds W over the vocab is dW = ds^T h
+// over the tokens). A cluster owns BM = 128 rows of h; CTA c of it owns the
+// E-slice [c SE, (c + 1) SE), SE = E / 8, keeps h[r0 : r0 + 128, slice c] in
+// registers (wgmma A fragments, 4 SE / 16 a thread) and the [128, SE] fp32 dh
+// accumulator in the registers of its two warpgroups (64 rows each) for the
+// whole kernel: the [128, E] accumulator of a row block (98,304 fp32 at E
+// 1536) is more than one SM's registers, and splitting E without sharing s
+// would regenerate s once per slice. Tiles of BV = 64 vocab rows of
+// W[:, slice c] stream through a ring of STAGES buffers by TMA (a 2-D tensor
+// map built per launch, swizzled as wgmma reads at full rate), one mbarrier a
+// stage, loaded two tiles ahead of the partial s that reads them. The reducing
+// thread's row statistics (lse, gm, label) stay in its registers. Per tile t:
+//   1. each CTA computes the partial s [128, 64] = h_c W_c^T of its slice
+//      (wgmma) and sends rows [16 c', 16 c' + 16) of it into slot c of CTA
+//      c''s receive buffer (distributed shared memory, one bulk copy a CTA);
+//   2. CTA c waits for its 8 slots (an mbarrier counts the bytes), sums its
+//      16 rows over them in the fixed order 0..7, computes ds in fp32 (vocab
+//      columns past V are 0), splits it into bf16 hi + lo (about 16 mantissa
+//      bits, near the TPU kernel's fp32 ds) and sends those rows into every
+//      other CTA's ds tiles (bulk copies, counted by each CTA's mbarrier);
+//   3. each CTA: dh_c += ds_hi W_c + ds_lo W_c (wgmma, A the ds tiles, B the
+//      same W tile read MN-major).
+// Pipelined across tiles as dW is: tile t - 1's dh runs on the tensor cores
+// while tile t's partials travel and are reduced, and tile t + 1's partial s
+// while tile t's ds rows travel (two sets of ds tiles); one split cluster
+// barrier a tile. W is read once per 128 rows of h (39.5 GB from L2 at the
+// 32k shape), every dh element
+// is summed by one thread in a fixed order (no atomics, bitwise repeatable),
+// and no [rows, V] buffer exists. Needs sm_90a (wgmma) and a cluster launch.
+template <int SE>
+struct DhCfg {
+  static constexpr int CL = 8, BM = 128, BV = 64, STAGES = 4, THREADS = 256;
+  static constexpr int RM = BM / CL;                  // rows of h a CTA reduces
+  static constexpr int SWW = SE * 2 < 128 ? SE * 2 : 128;  // swizzle (row) bytes of the W tiles
+  static constexpr int AWW = SWW / 2;                 // columns of a W-tile atom
+  static constexpr int W_BYTES = BV * SE * 2;         // one W tile (swizzled)
+  static constexpr int SLOT = RM * BV * 4;            // RM partial rows: one CTA's share of another's s
+  static constexpr int P_BYTES = CL * SLOT;           // partial s [128, 64] (see pcol); as much to receive
+  static constexpr int DS_BYTES = BM * BV * 2;        // one of ds hi, ds lo (swizzled, 128-byte rows)
+  static constexpr int DS_ROWS = RM * BV * 2;         // a CTA's RM rows of one ds tile: contiguous
+  static constexpr int kSmem = 1024 + STAGES * W_BYTES + 4 * DS_BYTES + 2 * P_BYTES + (STAGES + 3) * 8;
+  static_assert(BV * 2 == 128 && W_BYTES % 1024 == 0, "ds rows are one 128-byte swizzle atom");
+  static_assert(RM * (BV / 4) == THREADS, "one thread reduces 4 vocab columns of one row");
+  static_assert(2 * P_BYTES >= BM * SE * 2, "the h slice is staged in the partial-s buffers");
+  static_assert(kSmem <= 232448, "fits an SM's shared memory");
+  // Column of partial-s element (r, c) in its unpadded row: 8-column chunks permuted by the row's low bits, so
+  // that the 8 rows a warp stores at once spread over the banks (padded rows would not fit beside a fourth W
+  // stage).
+  static __device__ __forceinline__ int pcol(int r, int c) { return c ^ ((r & 7) << 3); }
+};
+
+template <int SE>
+__global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __grid_constant__ CUtensorMap wmap) {
+  using C = DhCfg<SE>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023);  // 1024-byte aligned
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* dsb = ring + C::STAGES * C::BV * SE;  // [2 sets][hi, lo] swizzled tiles
+  float* part = reinterpret_cast<float*>(dsb + 4 * C::BM * C::BV);
+  float* recv = part + C::P_BYTES / 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(recv + C::P_BYTES / 4);
+  uint64_t* recv_bar = full + C::STAGES;
+  uint64_t* ds_bar = recv_bar + 1;  // one a set of ds tiles
+  const uint32_t rank = hopper::cluster_rank();
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = (blockIdx.x / C::CL) * C::BM, e0 = rank * SE;
+  const int n_tiles = (p.v + C::BV - 1) / C::BV;
+  auto w_of = [&](int t) { return ring + (t % C::STAGES) * C::BV * SE; };
+
+  auto issue = [&](int t) {  // W tile t into its ring stage by TMA (thread 32, so that warp 0 is not held up)
+    if (t >= n_tiles) return;
+    if (tid == 32) {
+      uint64_t* bar = &full[t % C::STAGES];
+      hopper::mbar_expect(bar, C::W_BYTES);
+      for (int a = 0; a < SE / C::AWW; ++a)
+        hopper::tma_load_2d(w_of(t) + a * C::BV * C::AWW, &wmap, e0 + a * C::AWW, t * C::BV, bar);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(recv_bar, 1);
+    hopper::mbar_init(&ds_bar[0], 1);
+    hopper::mbar_init(&ds_bar[1], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the h slice, staged in shared memory (the partial-s buffers, unused until the loop), into A fragments
+  bf16* hst = reinterpret_cast<bf16*>(part);
+  hopper::cp_tile_sw<C::SWW, SE, C::BM, C::THREADS>(hst, static_cast<const bf16*>(p.h) + e0, p.e, r0, p.n, tid);
+  issue(0);
+  issue(1);
+  hopper::cp_async_wait_all();
+  __syncthreads();
+  uint32_t hf[SE / 16][4];
+  const int prow = wg * 64 + warp * 16 + g;  // and prow + 8: this thread's rows of h, s and dh
+#pragma unroll
+  for (int kk = 0; kk < SE / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      hf[kk][r] = *reinterpret_cast<const uint32_t*>(
+          hst + hopper::sw_offset<C::SWW>(prow + 8 * (r & 1), kk * 16 + 8 * (r >> 1) + 2 * t4, C::BM));
+  __syncthreads();  // every h fragment read before the staging buffers take partials
+
+  float sc[32];
+  auto scores = [&](int t) {  // partial s of tile t into sc: issued and committed, not waited for
+    const bf16* wt = w_of(t);
+    hopper::mbar_wait(&full[t % C::STAGES], (t / C::STAGES) & 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < SE / 16; ++kk)
+      hopper::wgmma_rs<64, 0>(
+          sc, hf[kk], hopper::desc_sw_k<C::SWW>(wt + (kk * 16 / C::AWW) * C::BV * C::AWW + kk * 16 % C::AWW), 1);
+    hopper::wgmma_commit();
+  };
+  auto store_partial = [&]() {  // sc, once its wgmma is done, into the partial-s buffer
+    hopper::reg_fence(sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(part + prow * C::BV + C::pcol(prow, j * 8 + 2 * t4)) =
+          make_float2(sc[4 * j], sc[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + (prow + 8) * C::BV + C::pcol(prow + 8, j * 8 + 2 * t4)) =
+          make_float2(sc[4 * j + 2], sc[4 * j + 3]);
+    }
+    hopper::fence_async_smem();  // read by the bulk copies
+  };
+
+  // the reduction thread's place: row rr of this CTA's RM (row n of h), vocab columns nc .. nc + 3 of a tile
+  const int rr = tid / 16, nc = (tid % 16) * 4, n = r0 + rank * C::RM + rr;
+  const int my_off = hopper::sw_offset<128>(rank * C::RM + rr, nc, C::BM);
+  float lse_r = 0.f, gm_r = 0.f;  // rows past N: gm 0, so ds 0
+  int lab_r = -1;
+  if (n < p.n) {
+    lse_r = p.lse[n];
+    gm_r = p.gm[n];
+    lab_r = p.labels[n];
+  }
+  float acc[SE / 2];
+#pragma unroll
+  for (int i = 0; i < SE / 2; ++i) acc[i] = 0.f;
+
+  auto dh = [&](int t) {  // dh_c += ds_hi W_c + ds_lo W_c for tile t, issued and committed
+    hopper::mbar_wait(&ds_bar[t & 1], (t >> 1) & 1);
+    const bf16* wt = w_of(t);
+    const bf16* dst = dsb + (t & 1) * 2 * C::BM * C::BV + wg * 64 * C::BV;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int part_i = 0; part_i < 2; ++part_i)
+#pragma unroll
+      for (int kk = 0; kk < C::BV / 16; ++kk)
+        hopper::wgmma_ss<SE, 1>(acc, hopper::desc_sw_k<128>(dst + part_i * C::BM * C::BV + kk * 16),
+                                hopper::desc_sw_mn<C::SWW>(wt + kk * 16 * C::AWW, C::BV), 1);
+    hopper::wgmma_commit();
+  };
+
+  scores(0);
+  hopper::wgmma_wait<0>();
+  hopper::cluster_arrive();  // every CTA's barriers exist and its h fragments are read before any exchange
+  hopper::cluster_wait();
+  for (int t = 0; t < n_tiles; ++t) {
+    bf16* ds_set = dsb + (t & 1) * 2 * C::BM * C::BV;
+    // 1. the partial s of tile t (in sc) out to the CTAs that reduce it; the barrier (armed in tile t - 1)
+    // says every CTA has read its slots of tile t - 1 and so received this CTA's partial
+    if (t > 0) hopper::cluster_wait();
+    store_partial();
+    __syncthreads();
+    issue(t + 2);  // into the stage of tile t - 2, whose dh is done
+    if (tid < C::CL) {  // thread c sends CTA c its rows of the partial
+      if (tid == 0) {
+        hopper::mbar_expect(recv_bar, C::P_BYTES);
+        hopper::mbar_expect(&ds_bar[t & 1], (C::CL - 1) * 2 * C::DS_ROWS);
+      }
+      hopper::bulk_to_peer(hopper::mapa(recv + rank * C::SLOT / 4, tid), part + tid * C::SLOT / 4, C::SLOT,
+                           hopper::mapa(recv_bar, tid));
+    }
+
+    if (t > 0) dh(t - 1);  // on the tensor cores while the partials travel
+
+    // 2. s = the sum of the 8 slots in order; ds in fp32; hi + lo rows, then to every other CTA
+    hopper::mbar_wait(recv_bar, t & 1);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < C::CL; ++c) {
+      const float4 y = *reinterpret_cast<const float4*>(recv + (c * C::RM + rr) * C::BV + C::pcol(rr, nc));
+      x[0] += y.x;
+      x[1] += y.y;
+      x[2] += y.z;
+      x[3] += y.w;
+    }
+    float hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = t * C::BV + nc + i;
+      const float ds = v < p.v ? gm_r * (expf(x[i] - lse_r) - (v == lab_r ? 1.f : 0.f)) : 0.f;
+      hi[i] = __bfloat162float(__float2bfloat16_rn(ds));
+      lo[i] = ds - hi[i];
+    }
+    *reinterpret_cast<uint2*>(ds_set + my_off) =
+        make_uint2(hopper::pack_bf16(hi[0], hi[1]), hopper::pack_bf16(hi[2], hi[3]));
+    *reinterpret_cast<uint2*>(ds_set + C::BM * C::BV + my_off) =
+        make_uint2(hopper::pack_bf16(lo[0], lo[1]), hopper::pack_bf16(lo[2], lo[3]));
+    hopper::fence_async_smem();  // the ds rows, read by the bulk copies and by wgmma
+    __syncthreads();
+    hopper::cluster_arrive();  // this CTA has read its slots of tile t
+    // A peer writes its ds rows of tile t + 2 into this CTA's set t % 2 only after its partial of tile
+    // t + 2 has arrived here, which this CTA sends after dh(t) is done: no other guard is needed.
+    if (tid >= 1 && tid < C::CL) {  // thread c sends CTA rank + c this CTA's ds rows
+      const uint32_t peer = (rank + tid) % C::CL;
+      for (int part_i = 0; part_i < 2; ++part_i) {
+        const bf16* rows = ds_set + part_i * C::BM * C::BV + rank * C::RM * C::BV;
+        hopper::bulk_to_peer(hopper::mapa(rows, peer), rows, C::DS_ROWS, hopper::mapa(&ds_bar[t & 1], peer));
+      }
+    }
+    if (t + 1 < n_tiles) scores(t + 1);
+    hopper::wgmma_wait<0>();  // dh(t - 1), scores(t + 1)
+    hopper::reg_fence(acc);
+  }
+  dh(n_tiles - 1);
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(acc);
+  hopper::cluster_wait();    // the last tile's arrival
+  hopper::cluster_arrive();  // no CTA leaves while a peer's copies may still read or write its memory
+  hopper::cluster_wait();
+
+  bf16* out = static_cast<bf16*>(p.dh) + e0;
+#pragma unroll
+  for (int j = 0; j < SE / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + prow + 8 * half;
+      if (row < p.n)
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * p.e + j * 8 + 2 * t4) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// A cluster launch of 8 CTAs a block of rows (dh: rows of h; dW: vocab rows of W), `map` the streamed matrix.
+template <class K>
+int launch_cluster(K kernel, const CEParams& p, const CUtensorMap& map, int blocks, int threads, int smem,
+                   cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 8;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(8 * blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, p, map);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SE>
+int launch_dh(const CEParams& p, cudaStream_t s) {
+  using C = DhCfg<SE>;
+  // W [V, E] as a TMA tensor map: boxes of one swizzle atom (AWW columns) x BV rows, zero-filled past V
+  CUtensorMap wmap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.v)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.e) * 2};
+  const cuuint32_t box[2] = {C::AWW, C::BV};
+  const cudaError_t e = hopper::make_tensor_map<C::SWW>(&wmap, p.w, 2, dims, strides, box);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch_cluster(ce_dh_bf16<SE>, p, wmap, (p.n + C::BM - 1) / C::BM, C::THREADS, C::kSmem, s);
+}
+
 // ------------------------------------------------------------ bf16 dW (cluster)
 // dW = ds^T h on a thread-block cluster of CL = 8 CTAs. A cluster owns BV =
 // 128 vocab rows; CTA c of it owns the E-slice [c SE, (c + 1) SE), SE = E / 8,
@@ -484,7 +561,7 @@ int launch_fwd(const CEParams& p, cudaStream_t s) {
 // split: a CTA arrives once it has read its slots, and waits before it sends
 // the next partial. Exchanges go through the bulk-copy engine: a thread's own
 // loads or stores to a peer stall for the round trip. h is read once per 128
-// vocab rows (not once per 16 as the mma.sync kernel did), every dW element
+// vocab rows, every dW element
 // is summed by one thread in a fixed order (no atomics, bitwise repeatable),
 // and no [rows, V] buffer exists. Needs sm_90a (wgmma) and a cluster launch.
 template <int SE>
@@ -701,30 +778,14 @@ __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __g
 template <int SE>
 int launch_dw(const CEParams& p, cudaStream_t s) {
   using C = DwCfg<SE>;
-  cudaError_t e = cudaFuncSetAttribute(ce_dw_bf16<SE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   // h [N, E] as a TMA tensor map: boxes of one swizzle atom (AWH columns) x BN rows, zero-filled past N
   CUtensorMap hmap;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.n)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.e) * 2};
   const cuuint32_t box[2] = {C::AWH, C::BN};
-  e = hopper::make_tensor_map<C::SWH>(&hmap, p.h, 2, dims, strides, box);
+  const cudaError_t e = hopper::make_tensor_map<C::SWH>(&hmap, p.h, 2, dims, strides, box);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C::CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C::CL * ((p.v + C::BV - 1) / C::BV));
-  cfg.blockDim = dim3(C::THREADS);
-  cfg.dynamicSmemBytes = C::kSmem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, ce_dw_bf16<SE>, p, hmap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster(ce_dw_bf16<SE>, p, hmap, (p.v + C::BV - 1) / C::BV, C::THREADS, C::kSmem, s);
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -796,15 +857,10 @@ __global__ void __launch_bounds__(32 * kWarpsF) ce_dw_f32(const CEParams p) {
 }
 
 // ------------------------------------------------------------------ launch
-template <int SW>
+template <int SE>
 int launch_bf16(const CEParams& p, int mode, cudaStream_t s) {
-  using C = Cfg<SW>;
   if (mode == kFwd) return launch_fwd(p, s);
-  if (mode == kDw) return launch_dw<SW>(p, s);
-  const cudaError_t e = cudaFuncSetAttribute(ce_dh_bf16<SW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ce_dh_bf16<SW><<<(p.n + C::kRows - 1) / C::kRows, C::kThreads, C::kSmem, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return mode == kDh ? launch_dh<SE>(p, s) : launch_dw<SE>(p, s);
 }
 
 int launch(const CEParams* p, int mode, int dtype, void* stream) {

@@ -1,13 +1,16 @@
 """`serve` entry: the DI component and config surface for the ring-cache
 engine, the port of modalities_tpu/serving/serve.py.
 
-`configs/config_serve.yaml` loads unchanged. Knobs of engine features that
-this package does not have yet are refused when set to anything that would
-change the served tokens (paged cache, speculative decoding, int8 KV,
-deadlines, brownout, tenants, a device mesh, the HTTP front end). Knobs with no
-effect on the result rows (`slo`, `max_queue_depth`) are accepted and logged
-as not applied; `prefix_sharing` and the `paged_*` sizes are ignored on the
-ring cache, as in the JAX engine.
+Knobs of engine features that this package does not have yet are refused when
+set to anything but their default (paged cache, speculative decoding, int8 KV,
+deadlines, brownout, tenants, an SLO block, a bounded queue, a device mesh, the
+HTTP front end), and so are the JAX serving environment switches that would
+change what is served or what is written beside it (`_refuse_unported_env`).
+So `configs/config_serve.yaml` does not load unchanged: its `slo` block arms
+the JAX engine's brownout shedder, and the port refuses it (set `slo: null`).
+`prefix_sharing` (knob and `MODALITIES_TPU_SERVE_PREFIX_SHARING`) and the
+`paged_*` sizes are ignored on the ring cache, as the JAX engine ignores them
+there.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 from pathlib import Path
 from typing import Any, Optional
 
@@ -87,6 +91,40 @@ class ServingComponentConfig:
         check_dict("tenants", self.tenants, optional=True)
 
 
+# The JAX serving environment switches, each with the values that leave the
+# port's result unchanged (the JAX defaults) and the ROADMAP.md Queue 1 item
+# that ports its feature. MODALITIES_TPU_SERVE_PREFIX_SHARING is not here: the
+# JAX engine ignores it on the ring cache too.
+_ENV_DEFAULTS = {
+    "MODALITIES_TPU_SERVE_KV_CACHE": (lambda v: v == "ring", 3),
+    "MODALITIES_TPU_SERVE_PREFILL_CHUNKS": (lambda v: [c.strip() for c in v.split(",")] == ["64", "16", "4", "1"], 3),
+    "MODALITIES_TPU_SERVE_QUEUE_LIMIT": (lambda v: float(v) <= 0, 3),
+    "MODALITIES_TPU_SERVE_SPEC_K": (lambda v: float(v) == 0, 3),
+    "MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS": (lambda v: float(v) <= 0, 3),
+    "MODALITIES_TPU_SERVE_TENANT_DEFAULT": (lambda v: v.strip() == "default", 3),
+    "MODALITIES_TPU_SERVE_TELEMETRY_DIR": (lambda v: False, 6),
+    "MODALITIES_TPU_SERVE_WATCHDOG_S": (lambda v: float(v) == 300, 6),
+}
+
+
+def _refuse_unported_env() -> None:
+    """Raise on a JAX serving switch set to a value the port would not apply
+    (unset or empty is the default): the port refuses, never ignores."""
+    for name, (is_default, item) in _ENV_DEFAULTS.items():
+        raw = os.environ.get(name, "").strip()
+        if not raw:
+            continue
+        try:
+            default = is_default(raw)
+        except ValueError:
+            default = False
+        if not default:
+            raise NotImplementedError(
+                f"{name}={raw!r}: the port does not have this serving feature yet "
+                f"(ROADMAP.md, Queue 1 item {item}); unset it"
+            )
+
+
 class ServingComponent:
     """Serving as a DI component: holds the engine knobs and builds the
     `ServingEngine` once parameters and the device are resolved."""
@@ -102,16 +140,16 @@ class ServingComponent:
             "deadline_default_ms": cfg.deadline_default_ms is not None,
             "brownout_queue_high": cfg.brownout_queue_high is not None,
             "tenants": bool(cfg.tenants),
+            "slo": cfg.slo is not None,  # the JAX serve() arms brownout shedding from it
+            "max_queue_depth": cfg.max_queue_depth is not None,
         }
         refused = [k for k, v in unported.items() if v]
         if refused:
             raise NotImplementedError(
                 f"serving_component knobs {refused} need engine features the port does not have yet "
-                "(it serves the ring KV cache only)"
+                "(it serves the ring KV cache only; ROADMAP.md, Queue 1 item 3)"
             )
-        inert = [k for k in ("slo", "max_queue_depth") if getattr(cfg, k) is not None]
-        if inert:
-            logger.warning("serve: %s accepted but not applied (no SLO judge or HTTP queue in the port yet)", inert)
+        _refuse_unported_env()
         self.model = model
         self.tokenizer = tokenizer
         self.max_batch_slots = cfg.max_batch_slots

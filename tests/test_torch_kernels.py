@@ -285,6 +285,29 @@ def test_flash_fwd_kernel_over_ragged_lengths(d, group, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_dq_kernel_over_ragged_lengths(d, group, causal):
+    """The wgmma dq kernel (128 query rows a CTA, 64-key tiles through a TMA
+    ring) at lengths around its tiles, and with Sq != Sk: dq row by row
+    against the plain version given the same (lse, delta), two calls bitwise
+    equal."""
+    dev = _card()
+    lengths = [(s, s) for s in (1, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257, 1000)] + [(100, 300), (300, 100)]
+    for sq, sk in lengths:
+        q = _qkv(dev, 2, sq, 2 * group, 2, d, torch.bfloat16, seed=sq)[0].transpose(1, 2)
+        k, v = (t.transpose(1, 2) for t in _qkv(dev, 2, sk, 2 * group, 2, d, torch.bfloat16, seed=sk + 1)[1:])
+        w = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+        o, lse = fa.flash_fwd_out_lse(q, k, v, causal=causal)
+        delta = (w.float() * o.float()).sum(-1, keepdim=True)
+        dq = fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=causal)
+        assert torch.equal(dq, fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=causal))
+        want = fa.reference_flash_bwd_dq(q.float(), k.float(), v.float(), w.float(), lse, delta, causal=causal)
+        _rows_close(dq, want, FLASH_ROW_REL[torch.bfloat16], f"dq Sq={sq} Sk={sk}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [80, 128])
 @pytest.mark.parametrize("group", [1, 3, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -438,6 +461,36 @@ def test_fused_ce_forward_kernel_over_ragged_rows_and_vocab(case):
     lse_ref, corr_ref = fce.reference_fused_ce_forward(h, w, y)
     assert float((lse - lse_ref).abs().max()) <= 1e-4
     assert float((corr - corr_ref).abs().max()) <= 1e-4
+
+
+# (N, V, E, ignored rows) of the bf16 dh kernel (a cluster of 8 CTAs a block of 128 rows, 64-row vocab tiles):
+# rows and vocab around those tiles, one row and one vocab column, all rows ignored, the 32k config's width and vocab
+CE_DH_CASES = [(1, 1, 128, 0), (127, 63, 256, 0), (128, 64, 128, 5), (129, 65, 1536, 3), (257, 129, 128, 257),
+               (300, 1000, 1536, 5), (1000, 777, 256, 50), (200, 50304, 1536, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CE_DH_CASES, ids=str)
+def test_fused_ce_dh_kernel_over_ragged_rows_and_vocab(case):
+    """The cluster dh kernel: dh of the sum (gm = mask) row by row against the
+    fp32 plain backward given the same lse (CE_ROW_REL_BF16), a quarter of the
+    labels in the last (partial) vocab tile, ignored rows exactly 0; two calls
+    bitwise equal."""
+    dev = _card()
+    n, v, e, ignored = case
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    w = (0.02 * torch.randn(v, e, generator=g, device=dev)).to(torch.bfloat16)
+    y = torch.randint(0, v, (n,), generator=g, device=dev)
+    y[: n // 4] = v - 1
+    y[torch.randperm(n, generator=g, device=dev)[:ignored]] = -100
+    lse = fce.reference_fused_ce_forward(h, w, y)[0]
+    gm = (y != -100).float()
+    dh = fce.fused_ce_backward_dh(h, w, y, lse, gm)
+    assert torch.equal(dh, fce.fused_ce_backward_dh(h, w, y, lse, gm))
+    assert dh.dtype == torch.bfloat16 and bool((dh[y == -100] == 0).all())
+    want = fce.reference_fused_ce_backward(h.float(), w.float(), y, lse, gm)[0]
+    _rows_close(dh, want, CE_ROW_REL_BF16, f"dh N={n} V={v} E={e}")
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The port's `serve` entry end to end on the CPU: the shipped
-configs/config_serve.yaml (only its tokenizer path rewritten) drives YAML ->
+configs/config_serve.yaml (its tokenizer path rewritten and its `slo` block,
+which the port refuses, set to null) drives YAML ->
 the port's component graph -> ServingEngine -> JSONL rows, through
 `python -m modalities_tpu_torch serve ... --device cpu` in process. The rows'
 tokens must equal what the port's engine gives for the same prompts and the
@@ -37,6 +38,7 @@ def served(tmp_path_factory):
     cfg["serving_component"]["config"]["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(
         workdir / "tokenizer"
     )
+    cfg["serving_component"]["config"]["slo"] = None  # brownout shedding: not ported, refused
     cfg_path = workdir / "config_serve.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
     req_path = workdir / "requests.jsonl"
@@ -78,7 +80,48 @@ def test_rows_equal_the_port_engine_on_the_same_weights(served):
 
 def test_unported_engine_features_are_refused_not_ignored(served):
     cfg_path, _ = served
-    cfg = load_app_config_dict(cfg_path)
-    cfg["serving_component"]["config"]["kv_cache"] = "paged"
-    with pytest.raises(NotImplementedError, match="kv_cache"):
-        build_serving_components(cfg)
+    # the JAX engine would run a paged cache, shed requests on an SLO breach, bound its queue
+    for knob, value in (("kv_cache", "paged"), ("slo", {"objectives": []}), ("max_queue_depth", 4)):
+        cfg = load_app_config_dict(cfg_path)
+        cfg["serving_component"]["config"][knob] = value
+        with pytest.raises(NotImplementedError, match=rf"{knob}.*Queue 1 item 3"):
+            build_serving_components(cfg)
+
+
+UNPORTED_ENV = [  # (switch, a value the JAX CLI would act on, the ROADMAP Queue 1 item that ports it)
+    ("MODALITIES_TPU_SERVE_KV_CACHE", "paged", 3),
+    ("MODALITIES_TPU_SERVE_PREFILL_CHUNKS", "32,8,1", 3),
+    ("MODALITIES_TPU_SERVE_QUEUE_LIMIT", "16", 3),
+    ("MODALITIES_TPU_SERVE_SPEC_K", "2", 3),
+    ("MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS", "250", 3),
+    ("MODALITIES_TPU_SERVE_TENANT_DEFAULT", "acme", 3),
+    ("MODALITIES_TPU_SERVE_TELEMETRY_DIR", "telemetry", 6),
+    ("MODALITIES_TPU_SERVE_WATCHDOG_S", "30", 6),
+]
+DEFAULT_ENV = {  # values that leave the JAX CLI's result as the port's: these still serve
+    "MODALITIES_TPU_SERVE_KV_CACHE": "ring",
+    "MODALITIES_TPU_SERVE_PREFILL_CHUNKS": "64,16,4,1",
+    "MODALITIES_TPU_SERVE_QUEUE_LIMIT": "0",
+    "MODALITIES_TPU_SERVE_SPEC_K": "0",
+    "MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS": "0",
+    "MODALITIES_TPU_SERVE_TENANT_DEFAULT": "",
+    "MODALITIES_TPU_SERVE_TELEMETRY_DIR": "",
+    "MODALITIES_TPU_SERVE_WATCHDOG_S": "300",
+    "MODALITIES_TPU_SERVE_PREFIX_SHARING": "0",  # ignored on the ring cache, as in the JAX engine
+}
+
+
+@pytest.mark.parametrize("name,value,item", UNPORTED_ENV, ids=[e[0].removeprefix("MODALITIES_TPU_SERVE_") for e in UNPORTED_ENV])
+def test_unported_env_switches_are_refused_not_ignored(served, monkeypatch, tmp_path, name, value, item):
+    cfg_path, rows = served
+    req_path = tmp_path / "requests.jsonl"
+    req_path.write_text(json.dumps(REQUESTS[0]) + "\n")
+    argv = ["serve", "--config_file_path", str(cfg_path), "--requests_file_path", str(req_path),
+            "--output_file_path", str(tmp_path / "out.jsonl"), "--device", "cpu"]
+    monkeypatch.setenv(name, value)
+    with pytest.raises(NotImplementedError, match=rf"{name}.*Queue 1 item {item}"):
+        main(argv)
+    for default_name, default in DEFAULT_ENV.items():
+        monkeypatch.setenv(default_name, default)
+    assert main(argv) == 0
+    assert json.loads((tmp_path / "out.jsonl").read_text())["tokens"] == rows[0]["tokens"]
