@@ -10,11 +10,14 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      modalities_tpu_torch/csrc (one nvcc per source, in parallel) and report
      the build time and ptxas's registers and spills of the six wgmma kernels
      (flash forward, dq and dk/dv; fused-CE forward, and dh and dW on a
-     cluster of 8 CTAs).
+     cluster of 8 CTAs) and of the RMSNorm forward and backward kernels and
+     the backward's column sum.
   1. every kernel against its plain PyTorch version on the card, at the shapes
      the serving and training paths give it, with stated tolerances, and each
      backward kernel and both forwards called twice for bitwise-identical
-     results; per-kernel times (kernel, plain version, one library call as a
+     results, and the RMSNorm forward batch invariant (the rows of x[64, 2560]
+     normalised 1, 8 and 64 at a time equal them among 2048 rows, bitwise);
+     per-kernel times (kernel, plain version, one library call as a
      yardstick, least possible). Flash outputs are held row by row to each
      row's own norm, and that check must reject a forward that drops 64 keys
      or one 128-key tile, a dq that drops one 64-key tile of one 128-query
@@ -159,8 +162,10 @@ LONG_MODEL = {"seq": 32768, "vocab": 50304, "width": 1536, "layers": 24}  # the 
 LONG_PEAK_GB = 20.0  # the written reckoning of the 32k step's peak memory (PERF.md, section 6): 12-18 GB, at most 20
 LONG_WITNESS = (4, 4096)  # (layers, sequence length) of the 32k config's witness runs, kernels vs plain path
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "rms_fwd", "rms_bwd")
-# the wgmma kernels (sm_90a; dh and dW on a cluster of 8 CTAs)
-REDESIGNED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16", "ce_fwd_bf16", "ce_dh_bf16", "ce_dw_bf16")
+# the wgmma kernels (sm_90a; dh and dW on a cluster of 8 CTAs), the RMSNorm forward (a warp a row) and backward
+# (a row ring) at every instantiation, and the backward's column sum
+REDESIGNED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16", "ce_fwd_bf16", "ce_dh_bf16", "ce_dw_bf16",
+              "rms_norm_fwd_warp", "rms_norm_fwd_team", "rms_norm_bwd_ring", "column_sum_kernel")
 LONG_KERNELS = TRAIN_KERNELS + ("ce_fwd", "ce_dh", "ce_dw")
 
 
@@ -270,6 +275,18 @@ def phase_kernels(torch) -> dict:
                 r_ref = torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + eps)
                 check_close(torch, r, r_ref, 0.0, 1e-5, f"rms_norm residual {dtype} N={n}")
                 cases += 1
+    # batch invariance (the serve engine's promise): the rows of x[64,2560] normalised 1, 8 and 64 at a time
+    # (the team kernel) and among 2048 rows (a warp a row), bitwise
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2048, 2560, generator=g, device=dev).to(dtype)
+        for s in (None, torch.randn(2560, generator=g, device=dev)):
+            y, r = rms_norm(x, s, None, eps=eps, residual=True)
+            for n in (1, 8, 64):
+                for i0 in range(0, 64, n):
+                    yi, ri = rms_norm(x[i0:i0 + n].clone(), s, None, eps=eps, residual=True)
+                    if not (torch.equal(yi, y[i0:i0 + n]) and torch.equal(ri, r[i0:i0 + n])):
+                        raise AssertionError(f"rms_norm {dtype} scale={s is not None}: rows {i0}..{i0 + n} "
+                                             f"normalised {n} at a time differ from the same rows among 2048")
     e = 2560
     timings = []
     for n in (8, 64):  # decode rows, largest prefill chunk
@@ -297,7 +314,9 @@ def phase_kernels(torch) -> dict:
     for t in timings:
         log(f"[phase 1] rms_norm {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
-    log(f"[phase 1] rms_norm: {cases} cases ({shapes}, f32 and bf16) agree, max abs err {err_max:g}")
+    log(f"[phase 1] rms_norm: {cases} cases ({shapes}, f32 and bf16) agree, max abs err {err_max:g}; "
+        f"batch invariant: the rows of x[64,2560] normalised 1, 8 and 64 at a time equal them among 2048 rows "
+        f"bitwise (f32 and bf16, with and without scale)")
 
     # Dequant-matmul. Tolerances: f32 x |err| <= 1e-5*max|ref| (fp32 sums of
     # up to 7680 products in another order); bf16 x the same plus two bf16
@@ -553,6 +572,12 @@ def phase_train_kernels(torch) -> dict:
     xl = x.clone().requires_grad_(True)
     wl = s32.to(torch.bfloat16).requires_grad_(True)
     y_lib = F.rms_norm(xl, (e,), wl, eps)
+    out["rmsnorm_fwd_train"] = {  # the 2.7B path's forward, as residual=True runs there
+        "shape": f"x[{n},{e}] bf16, scale f32", "ms": time_ms(torch, lambda: rms_norm(x, s32, None, eps=eps,
+                                                                                     residual=True), reps=10),
+        "plain_ms": time_ms(torch, lambda: reference_rms_norm(x, s32, None, eps=eps), reps=10),
+        "library_ms": time_ms(torch, lambda: F.rms_norm(x, (e,), wl.detach(), eps), reps=10),
+        "bound_ms": 1e3 * (2 * n * e * 2 + 4 * e + 4 * n) / PEAK_BYTES_S, "bound_by": "bytes"}
     nbytes = 3 * n * e * 2 + 4 * n + 2 * 4 * e  # x, dy in; dx out; r, scale in; dscale out
     out["rmsnorm_bwd"] = {"max_abs_err": err_max, "timings": [{
         "shape": f"x[{n},{e}] bf16, scale f32",
@@ -562,9 +587,11 @@ def phase_train_kernels(torch) -> dict:
         "bound_ms": 1e3 * nbytes / PEAK_BYTES_S,
         "bound_by": "bytes",
     }]}
-    t = out["rmsnorm_bwd"]["timings"][0]
-    log(f"[phase 1] rms_norm backward {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"autograd of F.rms_norm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
+    for name, t in (("forward", out["rmsnorm_fwd_train"]), ("backward", out["rmsnorm_bwd"]["timings"][0])):
+        lib_name = "F.rms_norm" if name == "forward" else "autograd of F.rms_norm"
+        log(f"[phase 1] rms_norm {name} {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"{lib_name} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it")
     n, e = RMS_LONG
     x = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
     dy = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
@@ -587,7 +614,8 @@ def phase_train_kernels(torch) -> dict:
     for name, t in (("forward", out["rmsnorm_fwd_long"]), ("backward", out["rmsnorm_bwd"]["timings"][-1])):
         lib_name = "F.rms_norm" if name == "forward" else "autograd of F.rms_norm"
         log(f"[phase 1] rms_norm {name} at the 32k shape {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes)")
+            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms (bytes), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it")
     del x, dy, xl, wl, y_lib, r
 
     # Flash attention, every output row held to its own norm (_row_check) at
@@ -1294,6 +1322,10 @@ def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
         f"in a {wall_ms:.1f} ms step under the profiler -> device busy {device_ms / wall_ms:.3f} (informational)")
     for ms, count, key in rows[:12]:
         log(f"[{phase}]   {ms:.2f} ms in {count} x {key[:100]}")
+    for name, marks in (("RMSNorm forward", ("rms_norm_fwd",)), ("RMSNorm backward", ("rms_norm_bwd", "column_sum"))):
+        mine = [r for r in rows if any(m in r[2] for m in marks)]
+        log(f"[{phase}]   {name}: {sum(r[0] for r in mine):.3f} ms in {sum(r[1] for r in mine)} launches "
+            f"({', '.join(f'{r[1]} x {r[2][:60]} {r[0]:.3f} ms' for r in mine)})")
 
 
 def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, vocab: int, keys, phase: str,
@@ -1675,7 +1707,7 @@ def main() -> int:
     built = _build.build_seconds
     log(f"[phase 0] kernels {'built in %.1f s' % built if built is not None else 'loaded'} "
         f"({time.perf_counter() - t:.1f} s) -> {_build.library_path()}")
-    for kernel in REDESIGNED:  # registers and spills of the wgmma kernels, from ptxas -v
+    for kernel in REDESIGNED:  # registers and spills of the redesigned kernels, from ptxas -v
         for line in _build.ptxas_usage(kernel):
             log(f"[phase 0] {line}")
 
@@ -1683,7 +1715,7 @@ def main() -> int:
     warm_up(torch)
     kernels = phase_kernels(torch)
     kernels.update(phase_train_kernels(torch))
-    kernels["rmsnorm"]["timings"].append(kernels.pop("rmsnorm_fwd_long"))
+    kernels["rmsnorm"]["timings"] += [kernels.pop("rmsnorm_fwd_train"), kernels.pop("rmsnorm_fwd_long")]
     for name, t in phase_flash_long(torch).items():  # the 32k shape, after the 2.7B one
         kernels[name]["timings"].append(t)
     kernels.update(phase_fused_ce(torch))

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (flash_attention.cu: flash_fwd_bf16, flash_bwd_dkv_bf16; fused_ce.cu:
-// ce_fwd_bf16, ce_dw_bf16), as raw
+// ce_fwd_bf16, ce_dw_bf16; fused_rmsnorm.cu: the row rings), as raw
 // PTX so that the build stays at plain nvcc speed (no CuTe):
 // - wgmma: shared-memory matrix descriptors of swizzled tiles, fence /
 //   commit / wait, and m64nNk16 bf16 products with fp32 accumulators, A from
 //   shared memory (ss) or registers (rs);
 // - mbarrier: init, arrive (plain, or with expected bytes), parity wait;
-//   cp.async and TMA completion signalled on an mbarrier (the tile rings:
-//   a `full` barrier a stage for the bytes, an `empty` one for its readers);
+//   cp.async, TMA and 1-D bulk-copy completion signalled on an mbarrier (the
+//   tile rings: a `full` barrier a stage for the bytes, an `empty` one for its
+//   readers);
 // - named barriers (two warpgroups taking turns) and setmaxnreg (a producer
 //   warpgroup's registers moved to the consumers);
 // - thread-block clusters: rank, split barrier, mapa, and bulk copies into a
@@ -173,6 +174,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, i
           smem_u32(dst)),
       "l"(map), "r"(x), "r"(y), "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into this CTA's shared memory by the bulk-copy engine (no
+// tensor map); `bar` counts the bytes as they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 // The same for a 4-D map (x innermost).

@@ -49,6 +49,12 @@ def rms_norm(x, scale=None, bias=None, *, eps: float = 1e-6, residual: bool = Fa
     return (y, r) if residual else y
 
 
+def _aligned(t):
+    """`t` contiguous and 16-byte aligned (a copy if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(x, scale, bias, eps):
     _build.require_hopper(x)
     if x.dtype not in _DTYPE_CODES:
@@ -63,8 +69,7 @@ def _launch(x, scale, bias, eps):
     if (e * x.element_size()) % 16 or x2.data_ptr() % 16:
         raise ValueError(f"rms_norm kernel: needs rows of a multiple of 16 bytes and a 16-byte aligned x, "
                          f"got E={e} of {x.dtype}")
-    scale = scale.contiguous() if scale is not None else None
-    bias = bias.contiguous() if bias is not None else None
+    scale, bias = (_aligned(t) if t is not None else None for t in (scale, bias))  # read as 16-byte vectors
     n = x2.shape[0]
     y = torch.empty_like(x2)
     r = torch.empty((n, 1), dtype=torch.float32, device=x.device)
@@ -90,9 +95,25 @@ def _launch(x, scale, bias, eps):
 rms_norm.launches = 0  # kernel launches since the last reset (the CPU path never counts)
 
 
-# Rows a CTA of the backward kernel owns: the column partials are
-# [ceil(N / ROWS), E] fp32, summed in block order by a second kernel.
-BWD_ROWS_PER_BLOCK = 32
+# CTAs of the backward kernel: four a SM of an H100 (132 SMs). CTA b takes
+# rows b, b + G, b + 2G, ... of the grid's G CTAs and writes its fp32 column
+# partials, [G, E], which a second kernel sums over the CTAs in a fixed
+# order. G, and with it the bits of dscale and dbias, depends on N alone.
+BWD_CTAS = 528
+
+
+def backward_grid(n: int) -> tuple[int, int]:
+    """(rows a CTA, CTAs) of the backward kernel for N rows: at most BWD_CTAS
+    CTAs, each taking ceil(N / CTAs) rows or one fewer. A function of N only,
+    never of the device."""
+    rows = max(1, -(-n // BWD_CTAS))
+    return rows, -(-n // rows)
+
+
+def backward_workspace_floats(n: int, e: int, want_dscale: bool, want_dbias: bool) -> int:
+    """Floats of the fp32 scratch the backward kernel takes: the dscale and
+    dbias column partials, [CTAs, E] each, when either is wanted."""
+    return 2 * backward_grid(n)[1] * e if want_dscale or want_dbias else 0
 
 
 def reference_rms_norm_backward(dy, x, scale, r):
@@ -140,10 +161,8 @@ def _launch_backward(dy, x, scale, r, want_dscale, want_dbias):
     dx = torch.empty_like(x2)
     dscale = torch.empty(e, dtype=torch.float32, device=x.device) if want_dscale else None
     dbias = torch.empty(e, dtype=torch.float32, device=x.device) if want_dbias else None
-    ws = None
-    if want_dscale or want_dbias:
-        n_blocks = -(-n // BWD_ROWS_PER_BLOCK)
-        ws = torch.empty(2 * n_blocks * e, dtype=torch.float32, device=x.device)
+    ws_floats = backward_workspace_floats(n, e, want_dscale, want_dbias)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device) if ws_floats else None
     scale = scale.contiguous() if scale is not None else None
     lib = _build.library()
     with torch.cuda.device(x.device):
@@ -158,7 +177,7 @@ def _launch_backward(dy, x, scale, r, want_dscale, want_dbias):
             ws.data_ptr() if ws is not None else None,
             n,
             e,
-            BWD_ROWS_PER_BLOCK,
+            backward_grid(n)[0],
             _DTYPE_CODES[x.dtype],
             _build.stream_of(x),
         )

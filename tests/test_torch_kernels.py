@@ -88,8 +88,12 @@ def test_rms_norm_kernel_matches_the_plain_version_on_the_card(dtype):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-6, rtol=2**-6)
-    # CTA per row at every row count the serving path gives it; warp per row; the 32k config's training shape
-    for n, e in ((1, 2560), (4, 2560), (8, 2560), (16, 2560), (64, 2560), (3, 128), (32768, 1536)):
+    # every row count the serving path gives it; then both kernels at every width class: a warp a row (E <= 1024,
+    # or more than 528 rows of up to 8 KB) at 1 to 16 vectors a lane, and a CTA a row (at most 528 rows, or rows
+    # over 8 KB), around the switch; the 32k config's training shape
+    for n, e in ((1, 2560), (4, 2560), (8, 2560), (16, 2560), (64, 2560), (3, 128), (3, 8), (1000, 128),
+                 (528, 1536), (529, 1536), (1057, 2560), (7, 2048), (600, 2048), (5, 4096), (600, 4096), (2, 8192),
+                 (3, 8200), (2, 16384), (32768, 1536)):
         x = torch.randn(n, e, generator=g, device=dev).to(dtype)
         s, b = torch.randn(e, generator=g, device=dev), torch.randn(e, generator=g, device=dev)
         before = rms_norm.launches
@@ -97,6 +101,11 @@ def test_rms_norm_kernel_matches_the_plain_version_on_the_card(dtype):
         torch.cuda.synchronize()
         assert rms_norm.launches == before + 1 and r.shape == (n, 1)
         torch.testing.assert_close(got.float(), reference_rms_norm(x, s, b, eps=EPS).float(), **tol)
+        torch.testing.assert_close(r, torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + EPS), atol=0, rtol=1e-5)
+    # scale and bias one float off 16-byte alignment (the kernel reads them as 16-byte vectors)
+    x = torch.randn(5000, 2560, generator=g, device=dev).to(dtype)
+    s, b = (torch.randn(2561, generator=g, device=dev)[1:] for _ in range(2))
+    torch.testing.assert_close(rms_norm(x, s, b, eps=EPS).float(), reference_rms_norm(x, s, b, eps=EPS).float(), **tol)
 
 
 @pytest.mark.cuda
@@ -160,9 +169,16 @@ def _rel_close(got, want, rel, what, atol=1e-5):
 def test_rms_norm_backward_kernel_matches_autograd_of_the_plain_version(dtype):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
-    for n, e in ((1, 2560), (64, 2560), (1000, 2560), (8192, 2560), (5, 128), (32768, 1536)):
+    # fewer rows than the kernel's CTAs (100), CTAs of 2 rows and of 1 (1000), E from 128 to 4096
+    for n, e in ((1, 2560), (64, 2560), (1000, 2560), (8192, 2560), (5, 128), (32768, 1536), (100, 128),
+                 (1000, 128), (100, 1536), (1000, 1536), (100, 2560), (100, 4096), (1000, 4096), (100, 2048),
+                 (1000, 2048)):
         x = torch.randn(n, e, generator=g, device=dev).to(dtype)
         dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
+        _, r = rms_norm(x, None, None, eps=EPS, residual=True)
+        s32 = torch.randn(e, generator=g, device=dev)
+        first, second = (rms_norm_backward(dy, x, s32, r) for _ in range(2))
+        assert all(torch.equal(a, c) for a, c in zip(first, second)), f"N={n} E={e}: two calls differ"
         for scale_dtype in (None, torch.float32, torch.bfloat16):
             s = None if scale_dtype is None else torch.randn(e, generator=g, device=dev).to(scale_dtype)
             b = None if scale_dtype is None else torch.randn(e, generator=g, device=dev).to(scale_dtype)
@@ -177,6 +193,35 @@ def test_rms_norm_backward_kernel_matches_autograd_of_the_plain_version(dtype):
                     assert got.grad.dtype == got.dtype
                     _rel_close(got.grad, want.grad, rel if name == "dx" else max(rel, 1e-5 if scale_dtype ==
                                torch.float32 else 2**-7), f"{name} N={n} {dtype} scale {scale_dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("affine", [False, True], ids=["identity", "scale"])
+def test_rms_norm_forward_kernel_is_batch_invariant(dtype, affine):
+    """A row's output and r are bitwise the same normalised alone, among 8
+    rows, among 64 or among 2048 (the last call on the warp-a-row kernel, the
+    others on the team kernel): the serve engine's batch invariance rests on
+    it."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2048, 2560, generator=g, device=dev).to(dtype)
+    s = torch.randn(2560, generator=g, device=dev) if affine else None
+    y, r = rms_norm(x, s, None, eps=EPS, residual=True)
+    for n in (1, 8, 64):
+        for i0 in range(0, 64, n):
+            yi, ri = rms_norm(x[i0:i0 + n].clone(), s, None, eps=EPS, residual=True)
+            assert torch.equal(yi, y[i0:i0 + n]) and torch.equal(ri, r[i0:i0 + n]), f"rows {i0}..{i0 + n}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,e", [(torch.bfloat16, 8200), (torch.float32, 4100)], ids=["bf16", "f32"])
+def test_rms_norm_backward_kernel_refuses_widths_beyond_its_limit(dtype, e):
+    dev = _card()
+    x = torch.randn(4, e, device=dev).to(dtype)
+    _, r = rms_norm(x, None, None, eps=EPS, residual=True)
+    with pytest.raises(ValueError, match="at most"):
+        rms_norm_backward(x, x, None, r)
 
 
 FLASH_ROW_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}

@@ -152,3 +152,26 @@ def test_bf16_scale_gradient_returns_in_the_parameters_dtype():
     scale = torch.randn(64).to(torch.bfloat16).requires_grad_(True)
     port_fused_rms_norm(x, scale, None, eps=EPS).sum().backward()
     assert scale.grad.dtype == torch.bfloat16 and x.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 527, 528, 529, 1000, 8192, 32768, 100003])
+def test_backward_grid_depends_on_rows_alone_and_sizes_the_workspace(n, monkeypatch):
+    """The backward kernel's CTA count, and with it the order of its
+    dscale/dbias sums, is computed from N without asking the device: at most
+    BWD_CTAS CTAs, each with ceil(N / CTAs) rows or one fewer, covering every
+    row once; the workspace holds [CTAs, E] fp32 partials for dscale and for
+    dbias (what the kernel indexes)."""
+    from modalities_tpu_torch.ops import rmsnorm as port
+
+    def no_device(*args, **kwargs):
+        raise AssertionError("the grid sizing asked the device")
+
+    for name in ("device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_device)
+    rows, ctas = port.backward_grid(n)
+    assert 1 <= ctas <= port.BWD_CTAS and (ctas - 1) * rows < n <= ctas * rows
+    assert port.backward_grid(n) == (rows, ctas)
+    for e in (128, 1536, 2560):
+        assert port.backward_workspace_floats(n, e, True, False) == 2 * ctas * e
+        assert port.backward_workspace_floats(n, e, False, True) == 2 * ctas * e
+        assert port.backward_workspace_floats(n, e, False, False) == 0
