@@ -8,10 +8,10 @@ card.
 Phases (each raises on failure, so any failed phase exits non-zero):
   0. the card's name and power limit; sm_90 required; build the kernels from
      modalities_tpu_torch/csrc (one nvcc per source, in parallel) and report
-     the build time and ptxas's registers and spills of the six wgmma kernels
+     the build time and ptxas's registers and spills of the seven wgmma kernels
      (flash forward, dq and dk/dv; fused-CE forward, and dh and dW on a
-     cluster of 8 CTAs) and of the RMSNorm forward and backward kernels and
-     the backward's column sum.
+     cluster of 8 CTAs; the dequant-matmul on a cluster of up to 8), of the
+     RMSNorm forward and backward kernels and the backward's column sum.
   1. every kernel against its plain PyTorch version on the card, at the shapes
      the serving and training paths give it, with stated tolerances, and each
      backward kernel and both forwards called twice for bitwise-identical
@@ -30,7 +30,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      the plain version, dh and dW of the total per row against autograd of it;
      those checks must reject a forward that skips 128 vocab columns, a dh that
      skips one 64-column vocab tile and a dW that skips one 64-token tile; dh
-     and dW are also timed beside autograd's dh alone and dW alone. The 2.7B
+     and dW are also timed beside autograd's dh alone and dW alone. The
+     dequant-matmul at every serving shape (q/c_proj, k/v, W/V, W_2, the fp32
+     head), int8 and fp8, bf16 and fp32 x, M 1..100: against the plain
+     version; bitwise batch invariant (the rows of x[64, K] 1, 8 and 64 at a
+     time) and repeatable; its check must reject a product with one 64-deep k
+     tile or one cluster rank's k range left out; timed at M 8 and 64 beside
+     torch.matmul + scale, with the 225 calls of a forward summed. The 2.7B
      witness at 32 x 1024 (phase 4) also runs the plain path in fp32. A small GPT2
      then runs prefill + decode on the card and on the CPU with the same
      weights (logits agree), and takes 3 optimizer steps on the card and on
@@ -43,7 +49,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      65 times per forward; one greedy request re-served alone gets bitwise its
      batched tokens.
   3. the same weights quantized to int8 and to fp8: every request finishes and
-     the dequant-matmul kernel ran 225 times per forward.
+     the dequant-matmul kernel ran 225 times per forward; the profiled decode
+     step gives the dequant-matmul's device ms a step.
   4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
      `python -m modalities_tpu_torch run` calls) from a copy of
      configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
@@ -165,7 +172,7 @@ TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "rms_fwd", "rms_bwd")
 # the wgmma kernels (sm_90a; dh and dW on a cluster of 8 CTAs), the RMSNorm forward (a warp a row) and backward
 # (a row ring) at every instantiation, and the backward's column sum
 REDESIGNED = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16", "ce_fwd_bf16", "ce_dh_bf16", "ce_dw_bf16",
-              "rms_norm_fwd_warp", "rms_norm_fwd_team", "rms_norm_bwd_ring", "column_sum_kernel")
+              "rms_norm_fwd_warp", "rms_norm_fwd_team", "rms_norm_bwd_ring", "column_sum_kernel", "quant_mm_tc")
 LONG_KERNELS = TRAIN_KERNELS + ("ce_fwd", "ce_dh", "ce_dw")
 
 
@@ -246,9 +253,7 @@ def check_close(torch, got, want, atol: float, rtol: float, what: str) -> float:
 def phase_kernels(torch) -> dict:
     import torch.nn.functional as F
 
-    from modalities_tpu_torch.ops.quant_matmul import quant_matmul, reference_quant_matmul
     from modalities_tpu_torch.ops.rmsnorm import reference_rms_norm, rms_norm
-    from modalities_tpu_torch.quant.core import quantize_fp8, quantize_per_channel
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain version is full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -318,73 +323,158 @@ def phase_kernels(torch) -> dict:
         f"batch invariant: the rows of x[64,2560] normalised 1, 8 and 64 at a time equal them among 2048 rows "
         f"bitwise (f32 and bf16, with and without scale)")
 
-    # Dequant-matmul. Tolerances: f32 x |err| <= 1e-5*max|ref| (fp32 sums of
-    # up to 7680 products in another order); bf16 x the same plus two bf16
-    # ulps (rtol 2^-6) for the final rounding of values near a boundary.
+    out.update(phase_quant_matmul(torch))
+    return out
+
+
+# Dequant-matmul shapes (K, N) with their calls per served forward: q, k, v, c_proj, W, V, W_2 in each of the 32
+# layers, and the untied head (fp32 x)
+QMM_PER_FORWARD = {(2560, 2560): 64, (2560, 640): 64, (2560, 7680): 64, (7680, 2560): 32, (2560, 50304): 1}
+
+
+def _rejects(fn) -> str:
+    """The message of the AssertionError `fn` raises; raises if it passes."""
+    try:
+        fn()
+    except AssertionError as e:
+        return str(e)
+    raise AssertionError("a check passed what it must reject")
+
+
+def phase_quant_matmul(torch) -> dict:
+    """The dequant-matmul against its plain version at every serving shape,
+    mode, x dtype and row count; batch invariance and repeatability, bitwise;
+    the check's sensitivity to a dropped k tile and a dropped cluster rank;
+    times beside the bound, the plain version and torch.matmul + scale."""
+    from modalities_tpu_torch.ops.quant_matmul import (
+        PreparedWeight,
+        quant_matmul,
+        rank_k_tiles,
+        reference_quant_matmul,
+        split_k,
+    )
+    from modalities_tpu_torch.quant.core import quantize_fp8, quantize_per_channel
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    # Tolerances: f32 x |err| <= 1e-5*max|ref| (fp32 sums of up to 7680
+    # products in another order, the tensor cores' over 64 k at a time, the
+    # head's x as bf16 hi + mid + lo); bf16 x the same plus two bf16 ulps
+    # (rtol 2^-6) for the final rounding of values near a boundary.
+    def tol(want, dtype):
+        return 1e-5 * float(want.float().abs().max()), (2**-6 if dtype == torch.bfloat16 else 0.0)
+
     err_max, cases = 0.0, 0
+    share = {torch.bfloat16: 0.0, torch.float32: 0.0}  # the largest error as a share of what the tolerance allows
     weights = {}
     for k, n in QMM_SHAPES:
         w = torch.randn(n, k, generator=g, device=dev) * 0.02  # [out, in] rows -> per-out scales
         q8, s8 = quantize_per_channel(w)
         qf, sf = quantize_fp8(w)
-        weights[(k, n)] = {"int8": (q8.t().contiguous(), s8[:, 0].contiguous()),
-                           "fp8": (qf.t().contiguous(), sf[:, 0].contiguous()), "bf16": w.t().contiguous().bfloat16()}
+        ws = {"int8": (q8.t().contiguous(), s8[:, 0].contiguous()),
+              "fp8": (qf.t().contiguous(), sf[:, 0].contiguous()), "bf16": w.t().contiguous().bfloat16()}
+        for mode in ("int8", "fp8"):
+            ws[mode + "_prepared"] = PreparedWeight(*ws[mode])
+        weights[(k, n)] = ws
     for (k, n), ws in weights.items():
         for mode in ("int8", "fp8"):
             wq, scale = ws[mode]
-            for m in (1, 4, 8, 16, 64):  # decode 8, prefill ladder 64/16/4/1
+            for m in (1, 4, 8, 16, 64, 100):  # decode 8, prefill ladder 64/16/4/1, and more rows than one CTA's 64
                 for dtype in (torch.bfloat16, torch.float32):
                     x = torch.randn(m, k, generator=g, device=dev).to(dtype)
-                    got = quant_matmul(x, wq, scale)
+                    got = quant_matmul(x, wq, scale, ws[mode + "_prepared"])
                     torch.cuda.synchronize()
                     want = reference_quant_matmul(x, wq, scale)
-                    atol = 1e-5 * float(want.float().abs().max())
-                    rtol = 2**-6 if dtype == torch.bfloat16 else 0.0
+                    atol, rtol = tol(want, dtype)
                     err_max = max(err_max, check_close(torch, got, want, atol, rtol,
                                                        f"quant_matmul {mode} {dtype} M={m} K={k} N={n}"))
+                    allowed = atol + rtol * want.float().abs()
+                    share[dtype] = max(share[dtype], float(((got.float() - want.float()).abs() / allowed).max()))
                     cases += 1
-    log(f"[phase 1] quant_matmul: {cases} cases agree, max abs err {err_max:g}")
+            # bitwise: the rows of x[64, K] computed 1, 8 and 64 at a time are equal, and two calls give equal bits
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(64, k, generator=g, device=dev).to(dtype)
+                y = quant_matmul(x, wq, scale, ws[mode + "_prepared"])
+                if not torch.equal(y, quant_matmul(x, wq, scale, ws[mode + "_prepared"])):
+                    raise AssertionError(f"quant_matmul {mode} {dtype} K={k} N={n}: two calls differ")
+                for rows in (1, 8):
+                    for i0 in range(0, 64, rows):
+                        yi = quant_matmul(x[i0:i0 + rows].clone(), wq, scale, ws[mode + "_prepared"])
+                        if not torch.equal(yi, y[i0:i0 + rows]):
+                            raise AssertionError(f"quant_matmul {mode} {dtype} K={k} N={n}: rows {i0}..{i0 + rows} "
+                                                 f"computed {rows} at a time differ from the same rows among 64")
+    log(f"[phase 1] quant_matmul: {cases} cases (5 shapes x int8/fp8 x M 1/4/8/16/64/100 x bf16/f32) agree, "
+        f"max abs err {err_max:g}, the largest error {share[torch.float32]:.3f} of the f32 tolerance and "
+        f"{share[torch.bfloat16]:.3f} of the bf16 one; bitwise batch invariant (the rows of x[64,K] 1, 8 and 64 at "
+        f"a time) and repeatable at every shape, int8/fp8 x bf16/f32")
+
+    # the check rejects a product with one 64-deep k tile left out, and one with one cluster rank's k range left out
+    for k, n in QMM_SHAPES:
+        dtype = torch.float32 if n == 50304 else torch.bfloat16
+        wq, scale = weights[(k, n)]["int8"]
+        x = torch.randn(8, k, generator=g, device=dev).to(dtype)
+        got = quant_matmul(x, wq, scale, weights[(k, n)]["int8_prepared"])
+        want = reference_quant_matmul(x, wq, scale)
+        check_close(torch, got, want, *tol(want, dtype), f"quant_matmul int8 {dtype} M=8 K={k} N={n}")
+        ranks = rank_k_tiles(k, n)
+        tile = (k // 64) // 2
+        r = len(ranks) // 2
+        for what, (a, b) in ((f"k tile {tile}", (tile, tile + 1)), (f"rank {r} of {len(ranks)} (k tiles {ranks[r]})", ranks[r])):
+            xm = x.clone()
+            xm[:, a * 64:b * 64] = 0
+            mutant = reference_quant_matmul(xm, wq, scale)
+            msg = _rejects(lambda: check_close(torch, mutant, want, *tol(want, dtype), "mutant"))
+            log(f"[phase 1] quant_matmul check at x[8,{k}] {str(dtype)[6:]} @ int8[{k},{n}] (split {split_k(k, n)}) "
+                f"rejects a product with {what} left out: {msg}")
+
     timings = []
     for m in (8, 64):
         for k, n in QMM_SHAPES:
             x_dtype = torch.float32 if n == 50304 else torch.bfloat16  # the untied head runs in fp32
-            wq, scale = weights[(k, n)]["int8"]
             w_lib = weights[(k, n)]["bf16"].to(x_dtype)
             x = torch.randn(m, k, generator=g, device=dev).to(x_dtype)
             xb = x.element_size()
-            flops = 2.0 * m * k * n
             nbytes = m * k * xb + k * n + 4 * n + m * n * xb  # x, wq (1 byte), scale in; y out
-            peak = PEAK_F32_FLOPS if x_dtype == torch.float32 else PEAK_BF16_FLOPS
+            # fp32 x: three bf16 products on the tensor cores (the CUDA-core bound it replaces beside it)
+            flops, peak = (3 * 2.0 * m * k * n, PEAK_BF16_FLOPS) if xb == 4 else (2.0 * m * k * n, PEAK_BF16_FLOPS)
             bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / peak)
-            timings.append({
-                "shape": f"x[{m},{k}] {str(x_dtype)[6:]} @ int8[{k},{n}]",
-                "m": m, "k": k, "n": n,
-                "ms": time_ms(torch, lambda: quant_matmul(x, wq, scale)),
-                "plain_ms": time_ms(torch, lambda: reference_quant_matmul(x, wq, scale)),
-                "library_ms": time_ms(torch, lambda: torch.matmul(x, w_lib) * scale),
-                "bound_ms": bound,
-                "bound_by": "bytes" if nbytes / PEAK_BYTES_S >= flops / peak else "operations",
-            })
-    wq, scale = weights[(2560, 2560)]["int8"]
-    w_lib = weights[(2560, 2560)]["bf16"]
+            library_ms = time_ms(torch, lambda: torch.matmul(x, w_lib) * weights[(k, n)]["int8"][1])
+            for mode in ("int8", "fp8"):
+                wq, scale = weights[(k, n)][mode]
+                pw = weights[(k, n)][mode + "_prepared"]
+                timings.append({
+                    "shape": f"x[{m},{k}] {str(x_dtype)[6:]} @ {mode}[{k},{n}]",
+                    "m": m, "k": k, "n": n, "mode": mode,
+                    "ms": time_ms(torch, lambda: quant_matmul(x, wq, scale, pw)),
+                    "plain_ms": time_ms(torch, lambda: reference_quant_matmul(x, wq, scale)),
+                    "library_ms": library_ms,
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if nbytes / PEAK_BYTES_S >= flops / peak else "operations",
+                    "cuda_core_bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S, 2.0 * m * k * n / PEAK_F32_FLOPS)
+                    if xb == 4 else None,
+                })
+    ws = weights[(2560, 2560)]
+    wq, scale = ws["int8"]
     x = torch.randn(8, 2560, generator=g, device=dev).to(torch.bfloat16)
-    log(f"[phase 1] host us per call at x[8,2560] bf16 @ int8[2560,2560]: quant_matmul wrapper "
-        f"{host_us(torch, lambda: quant_matmul(x, wq, scale)):.1f}, "
+    log(f"[phase 1] host us per call at x[8,2560] bf16 @ int8[2560,2560]: quant_matmul with the prepared weight "
+        f"(QuantLinear's call) {host_us(torch, lambda: quant_matmul(x, wq, scale, ws['int8_prepared'])):.1f}, "
+        f"preparing the weight each call {host_us(torch, lambda: quant_matmul(x, wq, scale)):.1f}, "
         f"plain version {host_us(torch, lambda: reference_quant_matmul(x, wq, scale)):.1f}, "
-        f"bf16 torch.matmul {host_us(torch, lambda: torch.matmul(x, w_lib)):.1f}")
+        f"bf16 torch.matmul {host_us(torch, lambda: torch.matmul(x, ws['bf16'])):.1f}")
     for t in timings:
+        extra = f", CUDA-core bound {t['cuda_core_bound_ms']:.5f} ms" if t["cuda_core_bound_ms"] else ""
         log(f"[phase 1] quant_matmul {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"matmul+scale {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
-    per_layer = {"q": (2560, 2560), "k": (2560, 640), "v": (2560, 640), "c_proj": (2560, 2560),
-                 "W": (2560, 7680), "V": (2560, 7680), "W_2": (7680, 2560)}
+            f"matmul+scale {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}{extra}), "
+            f"{t['bound_ms'] / t['ms']:.3f} of it, {t['ms'] / t['library_ms']:.2f}x the library")
     for m in (8, 64):
-        row = {(t["k"], t["n"]): t for t in timings if t["m"] == m}
-        step = {key: 32 * sum(row[kn][key] for kn in per_layer.values()) + row[(2560, 50304)][key]
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        log(f"[phase 1] quant_matmul, all 225 calls of one forward at M={m}: kernel {step['ms']:.3f} ms, "
-            f"plain {step['plain_ms']:.3f} ms, matmul+scale {step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
-    out["quant_matmul"] = {"max_abs_err": err_max, "timings": timings}
-    return out
+        for mode in ("int8", "fp8"):
+            row = {(t["k"], t["n"]): t for t in timings if t["m"] == m and t["mode"] == mode}
+            step = {key: sum(calls * row[kn][key] for kn, calls in QMM_PER_FORWARD.items())
+                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"[phase 1] quant_matmul, all 225 calls of one forward at M={m} ({mode}): kernel {step['ms']:.3f} ms, "
+                f"plain {step['plain_ms']:.3f} ms, matmul+scale {step['library_ms']:.3f} ms, "
+                f"bound {step['bound_ms']:.3f} ms")
+    return {"quant_matmul": {"max_abs_err": err_max, "timings": timings}}
 
 
 def phase_small_model_reference(torch) -> None:
@@ -1642,7 +1732,9 @@ def profile_decode(torch, engine, reqs: list[dict], steps: int = 8) -> dict:
             rows.append((dev_us / 1e3 / steps, ev.count / steps, ev.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    return {"wall_ms": wall_ms / steps, "device_ms": device_ms, "launches": sum(r[1] for r in rows), "top": rows[:8]}
+    qmm = [r for r in rows if "quant_mm" in r[2]]  # the dequant-matmul kernel's rows (none with bf16 weights)
+    return {"wall_ms": wall_ms / steps, "device_ms": device_ms, "launches": sum(r[1] for r in rows), "top": rows[:8],
+            "qmm_ms": sum(r[0] for r in qmm), "qmm_launches": sum(r[1] for r in qmm)}
 
 
 def report_profile(name: str, r: dict) -> None:
@@ -1655,6 +1747,9 @@ def report_profile(name: str, r: dict) -> None:
         f"(profiled window: {p['wall_ms']:.2f} ms/step under the profiler)")
     for ms, count, key in p["top"]:
         log(f"[{name}]   {ms:.4f} ms/step in {count:.0f} x {key[:90]}")
+    if p["qmm_launches"]:
+        log(f"[{name}] dequant-matmul: {p['qmm_ms']:.3f} ms of kernels per decode step in {p['qmm_launches']:.0f} "
+            f"launches (its bound: phase 1's sum of 225 calls at M=8)")
 
 
 def report_serve(name: str, r: dict) -> None:
@@ -1808,7 +1903,7 @@ def main() -> int:
         entry("fused_ce_bwd_dw", ce_src, f"{ce_tpu}:158", by_path("ce_dw"), "fused_ce_dw"),
         entry("quant_matmul", "modalities_tpu_torch/csrc/quant_matmul.cu",
               "modalities_tpu/ops/pallas/quant_matmul.py:31", {"serve": qmm_total}, "quant_matmul",
-              lambda ts: next(t for t in ts if t["m"] == 8 and (t["k"], t["n"]) == (2560, 7680))),
+              lambda ts: next(t for t in ts if t["m"] == 8 and (t["k"], t["n"]) == (2560, 7680) and t["mode"] == "int8")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
 // (flash_attention.cu: flash_fwd_bf16, flash_bwd_dkv_bf16; fused_ce.cu:
-// ce_fwd_bf16, ce_dw_bf16; fused_rmsnorm.cu: the row rings), as raw
-// PTX so that the build stays at plain nvcc speed (no CuTe):
+// ce_fwd_bf16, ce_dw_bf16; fused_rmsnorm.cu: the row rings; quant_matmul.cu:
+// quant_mm_tc), as raw PTX so that the build stays at plain nvcc speed (no
+// CuTe):
 // - wgmma: shared-memory matrix descriptors of swizzled tiles, fence /
 //   commit / wait, and m64nNk16 bf16 products with fp32 accumulators, A from
-//   shared memory (ss) or registers (rs);
+//   shared memory (ss; ss_tn with A read MN-major) or registers (rs);
 // - mbarrier: init, arrive (plain, or with expected bytes), parity wait;
 //   cp.async, TMA and 1-D bulk-copy completion signalled on an mbarrier (the
 //   tile rings: a `full` barrier a stage for the bytes, an `empty` one for its
 //   readers);
 // - named barriers (two warpgroups taking turns) and setmaxnreg (a producer
 //   warpgroup's registers moved to the consumers);
-// - thread-block clusters: rank, split barrier, mapa, and bulk copies into a
-//   peer CTA's shared memory (distributed shared memory).
+// - thread-block clusters: rank, split barrier, mapa, and stores and bulk
+//   copies into a peer CTA's shared memory (distributed shared memory).
 //
 // The tiles wgmma reads (`sw_offset`): rows of 32, 64 or 128 bytes, the 16-
 // byte chunks of a row permuted within every 8 rows (or 4, or 2), a wider
@@ -195,13 +196,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int x, i
       : "memory");
 }
 
-// Host: a bf16 tensor map of `rank` dims (sizes and byte strides innermost
-// first; dims[0] contiguous, strides multiples of 16 bytes) with boxes of
-// `box` elements, swizzled by SWB bytes, zero-filled past the edges. Through
-// cudaGetDriverEntryPoint, so nothing links against libcuda.
+// Host: a tensor map of `rank` dims (sizes and byte strides innermost first;
+// dims[0] contiguous, strides multiples of 16 bytes) with boxes of `box`
+// elements of `type` (bf16 unless named), swizzled by SWB bytes (0: not
+// swizzled), zero-filled past the edges. Through cudaGetDriverEntryPoint, so nothing links against
+// libcuda.
 template <int SWB>
 inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                                   const cuuint64_t* strides, const cuuint32_t* box) {
+                                   const cuuint64_t* strides, const cuuint32_t* box,
+                                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -211,9 +214,11 @@ inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int rank,
     if (found != cudaDriverEntryPointSuccess || encode == nullptr) return cudaErrorSymbolNotFound;
   }
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = SWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box,
+  const CUtensorMapSwizzle sw = SWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : SWB == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -244,6 +249,19 @@ __device__ __forceinline__ void bulk_to_peer(uint32_t dst, const void* src, uint
   asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
                "r"(smem_u32(src)), "r"(bytes), "r"(bar)
                : "memory");
+}
+// Two floats from registers into shared memory at `addr` (from mapa: this
+// CTA's or a peer's), counted as 8 bytes by the mbarrier `bar` there (from
+// mapa): the receiver waits on its barrier, no cluster barrier needed.
+__device__ __forceinline__ void st_async_v2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(addr),
+               "f"(a), "f"(b), "r"(bar)
+               : "memory");
+}
+// The cluster barrier's first half without a release fence: for a set-up
+// that only mbarrier initialisations (fence_mbar_init) must publish.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 // One arrival on a local mbarrier that also expects `bytes` more to land in
 // its current phase (they may land before it).
@@ -398,6 +416,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, db, scale_d);
   if constexpr (N == 80) wgmma_rs_n80<TRANS_B>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TRANS_B>(d, a, db, scale_d);
+}
+
+// ------------------------------- wgmma m64nNk16, A MN-major, B K-major
+// d += A . B as wgmma_ss, but A [64, 16] read MN-major (its 64 rows contiguous
+// in each k row of a swizzled tile, desc_sw_mn) and B K-major: an operand
+// stored k row by k row (a weight [K, N]) serves as A without a transposed
+// copy.
+__device__ __forceinline__ void wgmma_ss_tn_n8(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tn_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tn_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tn(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 16 || N == 64, "wgmma_ss_tn: no wrapper for this N");
+  if constexpr (N == 8) wgmma_ss_tn_n8(d, da, db, scale_d);
+  if constexpr (N == 16) wgmma_ss_tn_n16(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_tn_n64(d, da, db, scale_d);
 }
 
 }  // namespace hopper

@@ -6,301 +6,492 @@
 // Computes y [M, N] = ((x [M, K] @ widen(wq [K, N])) * scale [N]) cast to x's
 // dtype, with fp32 accumulation. wq holds one byte per weight: int8, or fp8
 // e4m3 (float8_e4m3fn). x is bf16 (every dense layer) or fp32 (the untied
-// head, which the model computes in fp32).
+// head, which the model computes in fp32). Serving calls it with M = 1..64.
 //
-// What bounds it on an H100: bytes. Serving calls it with M = 1..64 rows, so
-// each weight byte feeds at most 2*64 operations, far below the ~295 operations
-// per byte at which the tensor cores, not memory, become the limit. One decode
-// step of the 2.7B model reads ~2.54 GB of int8 weights (75.4 MB a layer x 32,
-// plus the 128.8 MB head): ~0.76 ms at 3.35 TB/s, against ~1.52 ms for the
-// same weights in bf16. The weight must therefore cross device memory in its
-// 1-byte form and be widened on chip; dequantizing outside the matmul would
-// write and re-read a full-width copy and give the saving back.
+// What bounds it on an H100: bytes. Each weight byte feeds at most 2 * 64
+// operations, under the ~295 a byte at which the bf16 tensor cores become the
+// limit; one decode step of the 2.7B model reads ~2.54 GB of int8 weights,
+// ~0.77 ms at 3.35 TB/s. The weight must cross device memory in its 1-byte
+// form and be widened on chip. The fp32 head at M = 64 is the exception: its
+// three bf16 products (below) make 3 * 2MKN operations, 0.050 ms at 989.4
+// TFLOP/s against 0.039 ms of bytes.
 //
-// Design (simple first):
-// - Each CTA (4 warps) owns a [BM, 64] output tile, BM = 16 or 64, and loops
-//   over K in 64-deep steps. The 64x64 weight tile is read with 16-byte loads,
-//   widened to x's dtype (exact in bf16 for both formats) and stored in shared
-//   memory; the x tile goes beside it.
-// - bf16 x: mma.sync m16n8k16 bf16 with fp32 accumulators; the widened weight
-//   is stored n-major so each B fragment is one 32-bit shared-memory read.
-//   fp32 x: plain fp32 FMA on the CUDA cores (no TF32: the head stays fp32).
-// - Small M leaves too few output tiles to keep enough loads in flight, so K is
-//   split over `splits` CTAs (chosen by the wrapper from K and N only, never
-//   from M). Each split writes fp32 partials to a workspace; a second kernel
-//   sums them in split order, applies the scale and casts. Every output element
-//   is accumulated in the same order whatever M is, so a row's result does not
-//   depend on the other rows in the batch.
+// Design (quant_mm_tc, one launch a call, no global workspace):
+// - The weight is the wgmma's A operand and x its B: a CTA owns 128 output
+//   columns (64 a consumer warpgroup, wgmma's M) for NB rows of x (wgmma's N:
+//   8, 16 or 64, the fewest that hold M), so a decode step's 8 rows fill no
+//   64-row tile.
+// - K is split over the CTAs of a thread-block cluster (`splits`, 1..8, a
+//   function of K and N only: ops/quant_matmul.py:split_k). Rank r takes k
+//   tiles [r T / splits, (r + 1) T / splits) of T and owns four-column groups
+//   [r 32 / splits, (r + 1) 32 / splits) of the tile's 32. After its main
+//   loop every rank sends each column's fp32 partial into the owner's
+//   receive buffer (st.async into distributed shared memory, counted by an
+//   mbarrier there); each rank waits for its own barrier, sums its columns'
+//   partials in rank order from its own shared memory, applies the scale and
+//   the cast, and stores y. The only cluster barrier is the set-up one
+//   (arrived at entry, waited for after the main loop); no rank reads a
+//   peer's memory, so none waits for the others to leave.
+// - A producer warp streams the rank's k tiles through a ring of STAGES by
+//   TMA: 64 k x 128 columns of one-byte weights (a 2-D tensor map over wq,
+//   built once per weight by mt_quant_matmul_prepare, 128-byte swizzled) and
+//   x's 64 k x NB slice (a tensor map built per call: bf16 straight into the
+//   swizzled K-major B tile, fp32 as it is; rows past M zero-filled). One
+//   mbarrier a stage counts the bytes, another the consumer warps' release.
+// - Each consumer warpgroup widens its 64 columns of the tile, 16 bytes a
+//   thread, into a 128-byte-swizzled bf16 tile that wgmma reads MN-major (no
+//   transpose), with 16-byte stores; both widenings are exact (int8: the
+//   2^23 magic number; e4m3: cvt.rn.f16x2.e4m3x2, the f16 bits shifted into
+//   bf16 and scaled by 2^112).
+// - bf16 x: one accumulator over the rank's k tiles; tile t's wgmma group is
+//   issued once the warpgroup has widened it, and tile t - 1's is waited for
+//   after that (its stage and widened tile then go back).
+// - fp32 x (the head): split into bf16 hi + mid + lo (x to 2^-24 relative),
+//   each multiplied by the widened weight (exact in bf16): 3 wgmma a k16 step
+//   into a fresh accumulator a k tile, added to an fp32 total on the CUDA
+//   cores once that tile's group has completed, so the tensor cores'
+//   accumulation spans 64 k and the rest is IEEE fp32.
+// Every output element is summed in the same order whatever M is (the split
+// does not depend on M; rows of x never mix; the products of a row do not
+// depend on wgmma's N), and there are no atomics: the results are bitwise
+// repeatable and batch invariant (chip_smoke.py phase 1).
 
 #include <cuda_bf16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-#include <algorithm>
+#include <type_traits>
+
+#include "hopper.cuh"
+
+// What the wrapper passes (mirror: ops/quant_matmul.py:_QmmArgs): the weight's
+// tensor map from mt_quant_matmul_prepare, then the call's operands.
+struct QmmArgs {
+  unsigned char wmap[128];
+  const void* x;
+  const float* scale;
+  void* y;
+  int m, k, n, splits;
+  int x_f32, w_fp8, device;
+};
 
 namespace {
 
-constexpr int kBN = 64;       // output columns per CTA
-constexpr int kBK = 64;       // K depth per shared-memory stage
-constexpr int kThreads = 128; // 4 warps
-constexpr int kPad = 8;       // bf16 elements of row padding against bank conflicts
+typedef __nv_bfloat16 bf16;
+
+struct Params {
+  const void* x;
+  const float* scale;
+  void* y;
+  int m, k, n, splits;
+};
+
+constexpr int kBN = 128;                   // output columns a CTA: 64 a consumer warpgroup
+constexpr int kBK = 64;                    // k depth of a ring stage
+constexpr int kConsumers = 256;            // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kMaxRows = 64;               // rows of x a CTA; grid.y covers more
+
+template <int NB, bool XF32>
+struct Cfg {
+  static constexpr int STAGES = XF32 && NB == 8 ? 6 : XF32 || NB == 64 ? 4 : 6;
+  static constexpr int W_TILE = kBK * kBN;                  // bytes: 64 k rows of 128 one-byte weights
+  static constexpr int X_TILE = NB * kBK * (XF32 ? 4 : 2);  // bytes: NB rows of 64 k
+  static constexpr int STAGE = W_TILE + X_TILE;
+  static constexpr int A_TILE = kBK * 64;   // bf16 elements: a warpgroup's widened 64 k x 64 columns
+  static constexpr int PIECE = NB * kBK;    // bf16 elements: hi, mid or lo of an fp32 x tile
+  static constexpr int RING = STAGES * STAGE;
+  // The ranks' partials of this rank's columns: [rank][column][row], at most 8 ranks of ceil(32 / ranks)
+  // four-column groups. bf16 x at NB 64 keeps them in the ring (two CTAs a SM), other instances apart.
+  static constexpr int RECV = 160 * NB;
+  static constexpr bool RECV_IN_RING = !XF32 && NB == 64;
+  static constexpr int kSmem = 1024 + RING + 4 * A_TILE * 2 + (XF32 ? 6 * PIECE * 2 : 0) + (RECV_IN_RING ? 0 : RECV * 4) +
+                               (2 * STAGES + 1) * 8;
+  static_assert(!RECV_IN_RING || RING >= RECV * 4, "the partials fit in the ring");
+  static_assert(STAGE % 1024 == 0 && PIECE * 2 % 1024 == 0, "tiles keep the 1024-byte alignment of their swizzle");
+  static_assert(kSmem <= 232448, "fits an SM's shared memory");
+};
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// Four int8 weights (one word) -> four bf16 (two words), exactly: each byte,
+// biased by 128, becomes the low byte of 2^23's mantissa, 2^23 + 128 is
+// subtracted, and the integer's fp32 upper half is its bf16.
+__device__ __forceinline__ uint2 widen4_s8(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(prmt(u, 0x4B000000u, 0x7650u)) - 8388736.f;
+  const float f1 = __uint_as_float(prmt(u, 0x4B000000u, 0x7651u)) - 8388736.f;
+  const float f2 = __uint_as_float(prmt(u, 0x4B000000u, 0x7652u)) - 8388736.f;
+  const float f3 = __uint_as_float(prmt(u, 0x4B000000u, 0x7653u)) - 8388736.f;
+  return make_uint2(prmt(__float_as_uint(f0), __float_as_uint(f1), 0x7632u),
+                    prmt(__float_as_uint(f2), __float_as_uint(f3), 0x7632u));
+}
+
+// Two e4m3 magnitudes -> bf16x2 with the signs `sign2` (bits 15 and 31),
+// exactly: every e4m3 value is a normal f16 or 0; an f16 whose mantissa has
+// 3 bits, shifted right by 3, reads as a bf16 of the value times 2^-112
+// (exponent bias 15 where bf16's is 127), and 2^112 restores it.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t mag2, uint32_t sign2) {
+  uint32_t h;
+  asm("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %1;\ncvt.rn.f16x2.e4m3x2 %0, lo;\n}\n" : "=r"(h) : "r"(mag2));
+  uint32_t b = (h >> 3) | sign2;
+  const uint32_t two112 = 0x77807780u;  // bf16x2 (2^112, 2^112)
+  __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&b), *reinterpret_cast<const __nv_bfloat162*>(&two112));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four e4m3 weights -> four bf16. prmt's sign mode (selector nibble 8 + i)
+// spreads the sign of byte i over a byte.
+__device__ __forceinline__ uint2 widen4_e4m3(uint32_t w) {
+  const uint32_t m = w & 0x7F7F7F7Fu;
+  return make_uint2(e4m3x2_to_bf16x2(m, prmt(w, 0u, 0x9484u) & 0x80008000u),
+                    e4m3x2_to_bf16x2(m >> 16, prmt(w, 0u, 0xB4A4u) & 0x80008000u));
+}
 
 template <bool FP8>
-__device__ __forceinline__ float widen(uint8_t b) {
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
   if constexpr (FP8) {
-    __nv_fp8_e4m3 v;
-    v.__x = b;
-    return static_cast<float>(v);
+    return widen4_e4m3(w);
   } else {
-    return static_cast<float>(static_cast<int8_t>(b));
+    return widen4_s8(w);
   }
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// A warpgroup's 64 columns (64 wg ..) of the stage's one-byte tile (64 k rows
+// of 128 bytes, 128-byte swizzled by TMA) widened into `a`: 64 k rows of 64
+// bf16 columns, 128-byte swizzled, read MN-major by wgmma. A thread widens
+// 16 bytes of one row at a time; the 8 lanes of a quarter warp take 8
+// consecutive rows, so loads and stores meet no bank twice.
+template <bool FP8>
+__device__ __forceinline__ void widen_tile(const unsigned char* wt, bf16* a, int wg, int t128) {
+  const int lane = t128 & 31, q = lane >> 3;
+  const int k = 8 * (t128 >> 5) + (lane & 7), sw = k & 7;  // rows k and k + 32 (the same swizzle)
+  const int from = ((4 * wg + q) ^ sw) << 4, to0 = ((2 * q) ^ sw) << 3, to1 = ((2 * q + 1) ^ sw) << 3;
+  const uint4 v0 = *reinterpret_cast<const uint4*>(wt + k * kBN + from);  // both loads first: the
+  const uint4 v1 = *reinterpret_cast<const uint4*>(wt + (k + 32) * kBN + from);  // widenings overlap
+  const uint2 c0 = widen4<FP8>(v0.x), c1 = widen4<FP8>(v0.y), c2 = widen4<FP8>(v0.z), c3 = widen4<FP8>(v0.w);
+  const uint2 d0 = widen4<FP8>(v1.x), d1 = widen4<FP8>(v1.y), d2 = widen4<FP8>(v1.z), d3 = widen4<FP8>(v1.w);
+  *reinterpret_cast<uint4*>(a + k * 64 + to0) = make_uint4(c0.x, c0.y, c1.x, c1.y);
+  *reinterpret_cast<uint4*>(a + k * 64 + to1) = make_uint4(c2.x, c2.y, c3.x, c3.y);
+  *reinterpret_cast<uint4*>(a + (k + 32) * 64 + to0) = make_uint4(d0.x, d0.y, d1.x, d1.y);
+  *reinterpret_cast<uint4*>(a + (k + 32) * 64 + to1) = make_uint4(d2.x, d2.y, d3.x, d3.y);
 }
 
-// Stores one finished accumulator: the epilogue (scale, cast) when K is not
-// split, the raw fp32 partial otherwise.
-template <typename T>
-__device__ __forceinline__ void store_out(T* y, float* ws, const float* scale, int splits, int split,
-                                          int m, int n, int row, int col, float acc) {
-  if (row >= m || col >= n) return;
-  const int64_t idx = static_cast<int64_t>(row) * n + col;
-  if (splits == 1) {
-    const float v = __fmul_rn(acc, scale[col]);
-    if constexpr (sizeof(T) == 2) {
-      y[idx] = __float2bfloat16_rn(v);
-    } else {
-      y[idx] = v;
-    }
-  } else {
-    ws[static_cast<int64_t>(split) * m * n + idx] = acc;
+// fp32 (a, b) -> bf16x2 hi, mid, lo with hi + mid + lo = (a, b) to 2^-24
+// relative: each piece is the residual of the ones before rounded to bf16
+// (the residuals are exact in fp32).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float ra = a - __low2float(h), rb = b - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(ra - __low2float(m), rb - __high2float(m));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The stage's fp32 x (NB rows of 64 k) -> three bf16 B tiles (hi, mid, lo),
+// each NB rows of 64 k, K-major and 128-byte swizzled; by all consumers.
+template <int NB>
+__device__ __forceinline__ void split_tile(const float* xr, bf16* pieces, int tid) {
+  constexpr int PIECE = NB * kBK;
+  for (int i = tid; i < NB * 16; i += kConsumers) {
+    const int r = i >> 4, c4 = i & 15;  // row, 4 k columns
+    const float4 v = *reinterpret_cast<const float4*>(xr + r * kBK + 4 * c4);
+    const int off = r * kBK + ((((c4 >> 1) ^ (r & 7)) << 3) | ((c4 & 1) << 2));
+    uint2 h, m, l;
+    split2(v.x, v.y, h.x, m.x, l.x);
+    split2(v.z, v.w, h.y, m.y, l.y);
+    *reinterpret_cast<uint2*>(pieces + off) = h;
+    *reinterpret_cast<uint2*>(pieces + PIECE + off) = m;
+    *reinterpret_cast<uint2*>(pieces + 2 * PIECE + off) = l;
   }
 }
 
-// bf16 x through the tensor cores. MT m16 tiles per CTA (BM = 16 * MT).
-template <int MT, bool FP8>
-__global__ void __launch_bounds__(kThreads)
-quant_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wq,
-                     const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
-                     float* __restrict__ ws, int m, int k, int n, int splits) {
-  constexpr int BM = 16 * MT;
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][kBK + kPad];
-  __shared__ __align__(16) __nv_bfloat16 wsT[kBN][kBK + kPad];  // n-major widened weights
-
+template <int NB, bool XF32, bool FP8>
+__global__ void __launch_bounds__(kThreads, XF32 && NB == 64 ? 1 : 2)
+    quant_mm_tc(const Params p, const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap xmap) {
+  using C = Cfg<NB, XF32>;
+  typedef typename std::conditional<XF32, float, bf16>::type T;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);  // 1024-aligned
+  bf16* atiles = reinterpret_cast<bf16*>(ring + C::RING);  // [warpgroup][2][A_TILE]
+  bf16* pieces = atiles + 4 * C::A_TILE;                   // fp32 x: [2][hi, mid, lo][PIECE]
+  float* recv_own = reinterpret_cast<float*>(pieces + (XF32 ? 6 * C::PIECE : 0));
+  float* recv = C::RECV_IN_RING ? reinterpret_cast<float*>(ring) : recv_own;  // [rank][column][row]
+  uint64_t* full = reinterpret_cast<uint64_t*>(recv_own + (C::RECV_IN_RING ? 0 : C::RECV));
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* recv_bar = empty + C::STAGES;  // counts the bytes of the ranks' partials as they land in `recv`
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n_base = blockIdx.x * kBN;
-  const int m_base = blockIdx.y * BM;
-  const int ktiles = k / kBK;
-  const int kps = (ktiles + splits - 1) / splits;
-  const int kt0 = blockIdx.z * kps;
-  const int kt1 = min(ktiles, kt0 + kps);
+  const int rank = static_cast<int>(hopper::cluster_rank());  // clusters of `splits` CTAs along x
+  const int n0 = blockIdx.x / p.splits * kBN, m0 = blockIdx.y * kMaxRows;
+  const int rows = min(NB, p.m - m0);
+  const int ktiles = p.k / kBK;
+  const int kt0 = rank * ktiles / p.splits, n_t = (rank + 1) * ktiles / p.splits - kt0;
+  // Rank r reduces and stores four-column groups [r 32 / splits, (r + 1) 32 / splits) of the tile's 32; the
+  // owner of group g is ((g + 1) splits - 1) / 32.
+  const int g0 = rank * 32 / p.splits, groups = (rank + 1) * 32 / p.splits - g0, cmax = 4 * ((31 + p.splits) / p.splits);
+  // the scales of this thread's first output (row-fastest order below), loaded now for the epilogue
+  // (consumers; the producer warp's first outputs load theirs there)
+  const int s_col = n0 + 4 * (g0 + tid / rows);
+  float4 sc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < rows * groups && s_col < p.n)
+    sc = make_float4(__ldg(p.scale + s_col), __ldg(p.scale + s_col + 1), __ldg(p.scale + s_col + 2),
+                     __ldg(p.scale + s_col + 3));
 
-  float acc[MT][2][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k_base = kt * kBK;
-    // x tile: BM rows x 64 bf16 = 8 16-byte vectors a row
-    for (int idx = tid; idx < BM * 8; idx += kThreads) {
-      const int r = idx >> 3, c8 = idx & 7;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m_base + r < m)
-        v = *reinterpret_cast<const uint4*>(x + static_cast<int64_t>(m_base + r) * k + k_base + c8 * 8);
-      *reinterpret_cast<uint4*>(&xs[r][c8 * 8]) = v;
+  // The producer warp sets up the ring and starts loading at once; the consumers wait for its set-up alone
+  // (named barrier 3).
+  if (tid == kConsumers) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&wmap) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&xmap) : "memory");
+    for (int s = 0; s < C::STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);  // the stage's bytes: the weight tile and x's slice
+      hopper::mbar_init(&empty[s], kConsumers / 32);
     }
-    // weight tile: 64 rows (k) x 64 bytes (n) = 4 16-byte vectors a row, widened
-    // and transposed into wsT[n][k]
-    for (int idx = tid; idx < kBK * 4; idx += kThreads) {
-      const int kr = idx >> 2, c16 = (idx & 3) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n_base + c16 < n)
-        v = *reinterpret_cast<const uint4*>(wq + static_cast<int64_t>(k_base + kr) * n + n_base + c16);
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-      for (int b = 0; b < 16; ++b) wsT[c16 + b][kr] = __float2bfloat16_rn(widen<FP8>(bytes[b]));
-    }
-    __syncthreads();
+    hopper::mbar_init(recv_bar, 1);
+    hopper::mbar_expect(recv_bar, p.splits * 4 * groups * NB * 4);  // every rank's partials of this rank's columns
+    hopper::fence_mbar_init();
+  }
+  __syncwarp();
+  hopper::cluster_arrive_relaxed();  // the peers' recv_bar is initialised once this barrier completes
 
+  float total[NB / 2];  // this thread's fp32 sums: the m64nNB accumulator layout
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t bfrag[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int nc = warp * 16 + j * 8 + g;
-        bfrag[j][0] = *reinterpret_cast<const uint32_t*>(&wsT[nc][kk + 2 * t4]);
-        bfrag[j][1] = *reinterpret_cast<const uint32_t*>(&wsT[nc][kk + 2 * t4 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t afrag[4];
-        const int r0 = i * 16 + g;
-        afrag[0] = *reinterpret_cast<const uint32_t*>(&xs[r0][kk + 2 * t4]);
-        afrag[1] = *reinterpret_cast<const uint32_t*>(&xs[r0 + 8][kk + 2 * t4]);
-        afrag[2] = *reinterpret_cast<const uint32_t*>(&xs[r0][kk + 2 * t4 + 8]);
-        afrag[3] = *reinterpret_cast<const uint32_t*>(&xs[r0 + 8][kk + 2 * t4 + 8]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) mma_bf16_16816(acc[i][j], afrag, bfrag[j]);
+  for (int i = 0; i < NB / 2; ++i) total[i] = 0.f;
+
+  if (tid >= kConsumers) {  // the producer warp: the weight tile and x's slice by TMA, as stages empty
+    hopper::named_bar_arrive(3, kThreads);
+    if (tid == kConsumers) {
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % C::STAGES, k0 = (kt0 + t) * kBK;
+        if (t >= C::STAGES) hopper::mbar_wait(&empty[s], (t / C::STAGES - 1) & 1);
+        unsigned char* st = ring + s * C::STAGE;
+        hopper::mbar_expect(&full[s], C::STAGE);
+        hopper::tma_load_2d(st, &wmap, n0, k0, &full[s]);
+        hopper::tma_load_2d(st + C::W_TILE, &xmap, k0, m0, &full[s]);  // rows >= M zero-filled
       }
     }
-    __syncthreads();
+  } else {  // the consumer warpgroups
+    const int wg = tid >> 7, lane = tid & 31;
+    hopper::named_bar_sync(3, kThreads);
+    // the scales arrive while the first tile does (the compiler would otherwise load them in the epilogue)
+    asm volatile("" : "+f"(sc.x), "+f"(sc.y), "+f"(sc.z), "+f"(sc.w));
+    float acc[NB / 2];
+#pragma unroll
+    for (int i = 0; i < NB / 2; ++i) acc[i] = 0.f;
+    auto a_of = [&](int t) { return atiles + (2 * wg + (t & 1)) * C::A_TILE; };
+    auto prepare = [&](int t) {  // tile t landed: widen this warpgroup's columns (and split x)
+      const unsigned char* st = ring + (t % C::STAGES) * C::STAGE;
+      hopper::mbar_wait(&full[t % C::STAGES], (t / C::STAGES) & 1);
+      widen_tile<FP8>(st, a_of(t), wg, tid & 127);
+      if constexpr (XF32) split_tile<NB>(reinterpret_cast<const float*>(st + C::W_TILE), pieces + (t & 1) * 3 * C::PIECE, tid);
+      hopper::fence_async_smem();  // the widened tile (and the pieces), for wgmma
+    };
+    auto release = [&](int t) {  // this warp is done with tile t's stage
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[t % C::STAGES]);
+    };
+    if constexpr (XF32) {
+      // fp32 x: acc = tile t's products alone (a fresh accumulator, lo, mid, hi: the small ones first), added to
+      // `total` on the CUDA cores once its group has completed, while tile t + 1 is widened and split
+      auto issue = [&](int t) {
+        const bf16* a = a_of(t);
+        const bf16* pc = pieces + (t & 1) * 3 * C::PIECE;
+        hopper::reg_fence(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int piece = 2; piece >= 0; --piece)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            hopper::wgmma_ss_tn<NB>(acc, hopper::desc_sw_mn<128>(a + kk * 16 * 64, kBK),
+                                    hopper::desc_sw_k<128>(pc + piece * C::PIECE + kk * 16), piece == 2 && kk == 0 ? 0 : 1);
+        hopper::wgmma_commit();
+      };
+      prepare(0);
+      hopper::named_bar_sync(1, kConsumers);
+      issue(0);
+      for (int t = 1; t < n_t; ++t) {
+        prepare(t);  // while tile t - 1's products run
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(acc);
+#pragma unroll
+        for (int i = 0; i < NB / 2; ++i) total[i] += acc[i];
+        // every warp has tile t's pieces in shared memory, and both warpgroups' tile t - 1 products are done
+        hopper::named_bar_sync(1, kConsumers);
+        release(t - 1);
+        issue(t);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) total[i] += acc[i];
+    } else {
+      // bf16 x: one accumulator over the rank's k tiles; tile t's group is issued as soon as this warpgroup
+      // has widened it, and tile t - 1's is waited for after that (its stage and widened tile then go)
+      for (int t = 0; t < n_t; ++t) {
+        prepare(t);
+        hopper::named_bar_sync(1 + wg, 128);  // this warpgroup's four warps have widened tile t
+        const bf16* a = a_of(t);
+        const bf16* xb = reinterpret_cast<const bf16*>(ring + (t % C::STAGES) * C::STAGE + C::W_TILE);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_ss_tn<NB>(acc, hopper::desc_sw_mn<128>(a + kk * 16 * 64, kBK),
+                                  hopper::desc_sw_k<128>(xb + kk * 16), t > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        if (t > 0) release(t - 1);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::reg_fence(acc);
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) total[i] = acc[i];
+    }
   }
 
+  // Every column's partial goes to the rank that owns it, into its `recv` at [this rank][column][row], by
+  // stores that its recv_bar counts; each rank then waits for its own barrier alone, sums its columns'
+  // partials in rank order from its own shared memory, scales, casts and stores. No rank reads a peer's
+  // memory and there is no cluster barrier here (in the ring, one first: every rank's loads are done).
+  hopper::cluster_wait();  // the set-up barrier: every peer's recv_bar is initialised
+  if constexpr (C::RECV_IN_RING) {
+    hopper::cluster_arrive();
+    hopper::cluster_wait();
+  }
+  if (tid < kConsumers) {
+    const int col = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2), t4 = tid & 3;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int h = 0; h < 2; ++h) {  // columns col and col + 8
+      const int c = col + 8 * h, owner = ((c >> 2) * p.splits + p.splits - 1) >> 5;
+      const uint32_t dst = hopper::mapa(recv + (rank * cmax + c - 4 * (owner * 32 / p.splits)) * NB, owner);
+      const uint32_t bar = hopper::mapa(recv_bar, owner);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int row = m_base + i * 16 + g;
-      const int col = n_base + warp * 16 + j * 8 + 2 * t4;
-      store_out(y, ws, scale, splits, blockIdx.z, m, n, row, col, acc[i][j][0]);
-      store_out(y, ws, scale, splits, blockIdx.z, m, n, row, col + 1, acc[i][j][1]);
-      store_out(y, ws, scale, splits, blockIdx.z, m, n, row + 8, col, acc[i][j][2]);
-      store_out(y, ws, scale, splits, blockIdx.z, m, n, row + 8, col + 1, acc[i][j][3]);
+      for (int j = 0; j < NB / 8; ++j)  // rows 8 j + 2 t4 and the next
+        hopper::st_async_v2(dst + 4 * (8 * j + 2 * t4), total[4 * j + 2 * h], total[4 * j + 2 * h + 1], bar);
     }
+  }
+  hopper::mbar_wait(recv_bar, 0);  // every rank's partials of this rank's columns have landed
+  T* y = static_cast<T*>(p.y) + static_cast<long long>(m0) * p.n;
+  for (int i = tid; i < rows * groups; i += kThreads) {
+    const int r = i % rows, c = 4 * (i / rows), col = n0 + 4 * g0 + c;  // row r, this rank's columns c .. c + 3
+    if (col >= p.n) continue;  // N % 16 == 0: four columns lie wholly inside or outside
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {  // straight-line: ranks past `splits` read rank splits - 1 and add nothing
+      const float* src = recv + (min(q, p.splits - 1) * cmax + c) * NB + r;
+      const float w = q < p.splits ? 1.f : 0.f;
+      v.x = fmaf(src[0], w, v.x);
+      v.y = fmaf(src[NB], w, v.y);
+      v.z = fmaf(src[2 * NB], w, v.z);
+      v.w = fmaf(src[3 * NB], w, v.w);
+    }
+    if (i != tid)  // a later output of this thread: its scales now
+      sc = make_float4(__ldg(p.scale + col), __ldg(p.scale + col + 1), __ldg(p.scale + col + 2),
+                       __ldg(p.scale + col + 3));
+    v.x *= sc.x;
+    v.y *= sc.y;
+    v.z *= sc.z;
+    v.w *= sc.w;
+    T* out = y + static_cast<long long>(r) * p.n + col;
+    if constexpr (XF32) {
+      *reinterpret_cast<float4*>(out) = v;
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(out) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
 }
 
-// fp32 x on the CUDA cores. Thread t owns column t % 64 and BM/2 rows.
-template <int MT, bool FP8>
-__global__ void __launch_bounds__(kThreads)
-quant_mm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wq,
-                    const float* __restrict__ scale, float* __restrict__ y, float* __restrict__ ws,
-                    int m, int k, int n, int splits) {
-  constexpr int BM = 16 * MT;
-  constexpr int RPT = BM / 2;  // rows per thread
-  __shared__ __align__(16) float xs[BM][kBK];
-  __shared__ __align__(16) float wsf[kBK][kBN];
-
-  const int tid = threadIdx.x;
-  const int n_base = blockIdx.x * kBN;
-  const int m_base = blockIdx.y * BM;
-  const int ktiles = k / kBK;
-  const int kps = (ktiles + splits - 1) / splits;
-  const int kt0 = blockIdx.z * kps;
-  const int kt1 = min(ktiles, kt0 + kps);
-  const int col = tid & (kBN - 1);
-  const int r_base = (tid / kBN) * RPT;
-
-  float acc[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k_base = kt * kBK;
-    // x tile: BM rows x 64 floats = 16 16-byte vectors a row
-    for (int idx = tid; idx < BM * 16; idx += kThreads) {
-      const int r = idx >> 4, c4 = idx & 15;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m_base + r < m)
-        v = *reinterpret_cast<const float4*>(x + static_cast<int64_t>(m_base + r) * k + k_base + c4 * 4);
-      *reinterpret_cast<float4*>(&xs[r][c4 * 4]) = v;
-    }
-    for (int idx = tid; idx < kBK * 4; idx += kThreads) {
-      const int kr = idx >> 2, c16 = (idx & 3) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n_base + c16 < n)
-        v = *reinterpret_cast<const uint4*>(wq + static_cast<int64_t>(k_base + kr) * n + n_base + c16);
-      const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-      for (int b = 0; b < 16; ++b) wsf[kr][c16 + b] = widen<FP8>(bytes[b]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float w = wsf[kk][col];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] = fmaf(xs[r_base + r][kk], w, acc[r]);
-    }
-    __syncthreads();
+template <int NB, bool XF32, bool FP8>
+int launch(const Params& p, const CUtensorMap& map, int device, cudaStream_t s) {
+  using C = Cfg<NB, XF32>;
+  // x [M, K] as a tensor map, per call: boxes of 64 k x NB rows, zero-filled past M; bf16 128-byte swizzled
+  // (the K-major B tile wgmma reads), fp32 as it is (split by the consumers)
+  CUtensorMap xmap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.k), static_cast<cuuint64_t>(p.m)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.k) * (XF32 ? 4 : 2)};
+  const cuuint32_t box[2] = {kBK, NB};
+  const cudaError_t em =
+      XF32 ? hopper::make_tensor_map<0>(&xmap, p.x, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
+           : hopper::make_tensor_map<128>(&xmap, p.x, 2, dims, strides, box);
+  if (em != cudaSuccess) return static_cast<int>(em);
+  static unsigned long long raised = 0;  // devices on which the kernel's shared memory limit is raised
+  const auto kernel = quant_mm_tc<NB, XF32, FP8>;
+  if (!(raised >> device & 1ull)) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised |= 1ull << device;
   }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    store_out(y, ws, scale, splits, blockIdx.z, m, n, m_base + r_base + r, n_base + col, acc[r]);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits * ((p.n + kBN - 1) / kBN), (p.m + kMaxRows - 1) / kMaxRows);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p, map, xmap);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Sums the split partials in split order, applies the scale and casts.
-template <typename T>
-__global__ void split_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
-                                    T* __restrict__ y, int m, int n, int splits) {
-  const int64_t mn = static_cast<int64_t>(m) * n;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < mn;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float acc = ws[i];
-    for (int s = 1; s < splits; ++s) acc = __fadd_rn(acc, ws[s * mn + i]);
-    const float v = __fmul_rn(acc, scale[i % n]);
-    if constexpr (sizeof(T) == 2) {
-      y[i] = __float2bfloat16_rn(v);
-    } else {
-      y[i] = v;
-    }
-  }
-}
-
-template <typename T, bool FP8>
-void launch(const void* x, const void* wq, const float* scale, void* y, float* ws, int m, int k, int n,
-            int splits, cudaStream_t stream) {
-  const dim3 block(kThreads);
-  const int tiles_n = (n + kBN - 1) / kBN;
-  const T* xt = static_cast<const T*>(x);
-  const uint8_t* w = static_cast<const uint8_t*>(wq);
-  T* yt = static_cast<T*>(y);
-  if (m <= 16) {
-    const dim3 grid(tiles_n, (m + 15) / 16, splits);
-    if constexpr (sizeof(T) == 2) {
-      quant_mm_bf16_kernel<1, FP8><<<grid, block, 0, stream>>>(xt, w, scale, yt, ws, m, k, n, splits);
-    } else {
-      quant_mm_f32_kernel<1, FP8><<<grid, block, 0, stream>>>(xt, w, scale, yt, ws, m, k, n, splits);
-    }
-  } else {
-    const dim3 grid(tiles_n, (m + 63) / 64, splits);
-    if constexpr (sizeof(T) == 2) {
-      quant_mm_bf16_kernel<4, FP8><<<grid, block, 0, stream>>>(xt, w, scale, yt, ws, m, k, n, splits);
-    } else {
-      quant_mm_f32_kernel<4, FP8><<<grid, block, 0, stream>>>(xt, w, scale, yt, ws, m, k, n, splits);
-    }
-  }
-  if (splits > 1) {
-    const int64_t mn = static_cast<int64_t>(m) * n;
-    const int blocks = static_cast<int>(std::min<int64_t>((mn + 255) / 256, 4096));
-    split_reduce_kernel<T><<<blocks, 256, 0, stream>>>(ws, scale, yt, m, n, splits);
-  }
+template <bool XF32, bool FP8>
+int launch_rows(const Params& p, const CUtensorMap& map, int device, cudaStream_t s) {
+  if (p.m <= 8) return launch<8, XF32, FP8>(p, map, device, s);
+  if (p.m <= 16) return launch<16, XF32, FP8>(p, map, device, s);
+  return launch<64, XF32, FP8>(p, map, device, s);
 }
 
 }  // namespace
 
-// x_dtype: 0 = float32, 1 = bfloat16. w_fp8: 0 = int8, 1 = float8_e4m3fn.
-// Requires K % 64 == 0, N % 16 == 0 and 16-byte aligned x and wq (the wrapper
-// checks). ws holds splits * M * N floats when splits > 1 (may be null
-// otherwise). Returns cudaGetLastError() right after the launches.
-extern "C" int mt_quant_matmul(const void* x, const void* wq, const void* scale, void* y, void* ws,
-                               int m, int k, int n, int x_dtype, int w_fp8, int splits,
-                               void* stream) {
+// The weight's TMA tensor map (into `map_out`, 128 bytes), once per weight:
+// wq [K, N] one-byte elements, boxes of 64 k rows x 128 columns, 128-byte
+// swizzled, zero-filled past N. Requires K % 64 == 0, N % 16 == 0 and a
+// 16-byte aligned wq (the wrapper checks first).
+extern "C" int mt_quant_matmul_prepare(const void* wq, int k, int n, void* map_out) {
+  if (k <= 0 || n <= 0 || k % kBK || n % 16 || reinterpret_cast<uintptr_t>(wq) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(k)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint32_t box[2] = {kBN, kBK};
+  const cudaError_t e = hopper::make_tensor_map<128>(&map, wq, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  memcpy(map_out, &map, sizeof map);
+  return 0;
+}
+
+// One launch on `stream`, on device a->device. x_f32: 1 float32, 0 bfloat16;
+// w_fp8: 1 float8_e4m3fn, 0 int8. Requires 1 <= splits <= 8, splits <= K / 64,
+// 16-byte aligned x and y rows (the wrapper checks). Returns
+// cudaGetLastError() right after the launch.
+extern "C" int mt_quant_matmul(const QmmArgs* a, void* stream) {
+  if (a->m <= 0 || a->splits < 1 || a->splits > 8 || a->splits > a->k / kBK || a->device < 0 || a->device >= 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map;
+  memcpy(&map, a->wmap, sizeof map);
+  const Params p{a->x, a->scale, a->y, a->m, a->k, a->n, a->splits};
+  int prev = -1;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e == cudaSuccess && prev != a->device) e = cudaSetDevice(a->device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  float* w = static_cast<float*>(ws);
-  if (splits < 1 || (splits > 1 && ws == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (m > 0 && n > 0) {
-    if (x_dtype == 1) {
-      if (w_fp8) launch<__nv_bfloat16, true>(x, wq, sc, y, w, m, k, n, splits, s);
-      else launch<__nv_bfloat16, false>(x, wq, sc, y, w, m, k, n, splits, s);
-    } else if (x_dtype == 0) {
-      if (w_fp8) launch<float, true>(x, wq, sc, y, w, m, k, n, splits, s);
-      else launch<float, false>(x, wq, sc, y, w, m, k, n, splits, s);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+  int status;
+  if (a->x_f32) {
+    status = a->w_fp8 ? launch_rows<true, true>(p, map, a->device, s) : launch_rows<true, false>(p, map, a->device, s);
+  } else {
+    status = a->w_fp8 ? launch_rows<false, true>(p, map, a->device, s) : launch_rows<false, false>(p, map, a->device, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (prev != a->device) cudaSetDevice(prev);
+  return status;
 }

@@ -57,7 +57,7 @@ from modalities_tpu_torch.config.config import (
 )
 from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_norm
 from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_attention
-from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+from modalities_tpu_torch.ops.quant_matmul import PreparedWeight, quant_matmul
 from modalities_tpu_torch.quant.weights import quant_storage_dtype
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed, layer_remats
 
@@ -312,16 +312,25 @@ class QuantLinear(nn.Module):
     """Dense layer over a weight-only quantized [in, out] kernel (int8 or
     float8_e4m3fn) and its fp32 per-output-channel `scale` — the port of
     QuantDenseGeneral (gpt2_model.py:395-455). The matmul runs through
-    ops/quant_matmul.py: the fused dequant kernel on the card."""
+    ops/quant_matmul.py: the fused dequant kernel on the card, with the weight
+    checked and its tensor map built once (`PreparedWeight`, made anew when
+    the kernel or scale tensor is replaced)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool, storage: torch.dtype, device=None):
         super().__init__()
         self.register_buffer("kernel", torch.empty(in_features, out_features, dtype=storage, device=device))
         self.register_buffer("scale", torch.ones(out_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device)) if bias else None
+        self._prepared = None
 
     def forward(self, x):
-        y = quant_matmul(x.reshape(-1, x.shape[-1]), self.kernel, self.scale)
+        x2, kernel, scale = x.reshape(-1, x.shape[-1]), self.kernel, self.scale
+        prepared = None
+        if x2.is_cuda:
+            prepared = self._prepared
+            if prepared is None or not prepared.holds(kernel, scale):
+                prepared = self._prepared = PreparedWeight(kernel, scale)
+        y = quant_matmul(x2, kernel, scale, prepared)
         y = y.reshape(*x.shape[:-1], y.shape[-1])
         return y + self.bias if self.bias is not None else y
 

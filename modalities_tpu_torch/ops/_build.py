@@ -45,7 +45,8 @@ _SIGNATURES = {
     "mt_flash_fwd": (_VP, _INT, _INT, _VP),  # (const FlashParams*, head dim, dtype, stream)
     "mt_flash_bwd_dq": (_VP, _INT, _INT, _VP),
     "mt_flash_bwd_dkv": (_VP, _INT, _INT, _VP),
-    "mt_quant_matmul": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP),
+    "mt_quant_matmul_prepare": (_VP, _INT, _INT, _VP),  # (wq, K, N, tensor map out)
+    "mt_quant_matmul": (_VP, _VP),  # (const QmmArgs*, stream)
     "mt_fused_ce_fwd": (_VP, _INT, _VP),  # (const CEParams*, dtype, stream)
     "mt_fused_ce_bwd_dh": (_VP, _INT, _VP),
     "mt_fused_ce_bwd_dw": (_VP, _INT, _VP),
@@ -156,6 +157,9 @@ def require_hopper(t) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream of `t`'s device (what
+    `torch.cuda.current_stream(t.device).cuda_stream` gives, without building
+    a Stream object: a few microseconds of host time a launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -27,7 +27,13 @@ import torch
 from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.ops import flash_attention as fa
 from modalities_tpu_torch.ops import fused_ce as fce
-from modalities_tpu_torch.ops.quant_matmul import BLOCK_K, quant_matmul, reference_quant_matmul, split_k
+from modalities_tpu_torch.ops.quant_matmul import (
+    BLOCK_K,
+    PreparedWeight,
+    quant_matmul,
+    reference_quant_matmul,
+    split_k,
+)
 from modalities_tpu_torch.ops.rmsnorm import (
     fused_rms_norm,
     reference_rms_norm,
@@ -119,25 +125,98 @@ def test_rms_norm_kernel_refuses_rows_it_cannot_load_in_16_byte_vectors(dtype):
         rms_norm(torch.randn(4, 100, device=dev).to(torch.bfloat16), None, None, eps=EPS)  # 200-byte rows
 
 
+# (K, N) of the serving path's dequant-matmuls (q and c_proj, k and v, W and V, W_2, the untied head), then
+# small and ragged weights (one k tile; a tile narrower than the 128 columns of a cluster's tile)
+QMM_CARD_SHAPES = [(2560, 2560), (2560, 640), (2560, 7680), (7680, 2560), (2560, 50304), (128, 64), (64, 16),
+                   (192, 48)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_quant_matmul_kernel_matches_the_plain_version_on_the_card(mode, dtype):
+    """Every serving shape at every row count of the decode step and the
+    prefill ladder (and more rows than a CTA's 64); the rows of x[64, K]
+    computed 1, 8 and 64 at a time equal each other bitwise, and two calls
+    give the same bits."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(0)
-    w = torch.randn(640, 2560, generator=g, device=dev)  # [out, in]
-    wq, scale = quantize_per_channel(w) if mode == "int8" else quantize_fp8(w)
-    wq, scale = wq.t().contiguous(), scale[:, 0].contiguous()
-    for m in (1, 4, 8, 16, 64):  # every row count of the decode step and the prefill ladder
-        x = torch.randn(m, 2560, generator=g, device=dev).to(dtype)
-        before = quant_matmul.launches
-        got = quant_matmul(x, wq, scale)
-        torch.cuda.synchronize()
-        assert quant_matmul.launches == before + 1
-        want = reference_quant_matmul(x, wq, scale)
-        atol = 1e-5 * float(want.float().abs().max())
-        rtol = 0.0 if dtype == torch.float32 else 2**-6
-        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for k, n in QMM_CARD_SHAPES:
+        w = torch.randn(n, k, generator=g, device=dev) * 0.02  # [out, in]
+        wq, scale = quantize_per_channel(w) if mode == "int8" else quantize_fp8(w)
+        wq, scale = wq.t().contiguous(), scale[:, 0].contiguous()
+        prepared = PreparedWeight(wq, scale)
+        for m in (1, 4, 8, 16, 64, 100):
+            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+            before = quant_matmul.launches
+            got = quant_matmul(x, wq, scale, prepared)
+            torch.cuda.synchronize()
+            assert quant_matmul.launches == before + 1
+            want = reference_quant_matmul(x, wq, scale)
+            atol = 1e-5 * float(want.float().abs().max())
+            rtol = 0.0 if dtype == torch.float32 else 2**-6
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        x = torch.randn(64, k, generator=g, device=dev).to(dtype)
+        y = quant_matmul(x, wq, scale, prepared)
+        assert torch.equal(y, quant_matmul(x, wq, scale, prepared)), (k, n)
+        for rows in (1, 8):
+            for i0 in range(0, 64, rows):
+                assert torch.equal(quant_matmul(x[i0:i0 + rows].clone(), wq, scale, prepared), y[i0:i0 + rows]), (
+                    k, n, rows, i0)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_a_bad_weight_once_when_it_is_prepared():
+    """The weight's checks run when it is prepared; a call then checks x only,
+    and refuses a weight the preparation was not made for."""
+    dev = _card()
+    wq = torch.randint(-127, 128, (256, 64), dtype=torch.int8, device=dev)
+    scale = torch.rand(64, device=dev)
+    misaligned = torch.empty(256 * 64 + 1, dtype=torch.int8, device=dev)[1:].view(256, 64)
+    for bad_wq, bad_scale, exc, match in [
+        (wq.to(torch.float16), scale, TypeError, "int8 or float8"),
+        (wq, scale.double(), TypeError, "float32"),
+        (wq[:, :40].contiguous(), scale[:40], ValueError, "N % 16"),
+        (wq[:200].contiguous(), scale, ValueError, "K % 64"),
+        (wq.t().contiguous().t(), scale, ValueError, "contiguous"),
+        (misaligned, scale, ValueError, "16-byte"),
+        (wq, scale[:32], ValueError, "scale shape"),
+        (wq.cpu(), scale.cpu(), RuntimeError, "CUDA device"),
+    ]:
+        with pytest.raises(exc, match=match):
+            PreparedWeight(bad_wq, bad_scale)
+    prepared = PreparedWeight(wq, scale)
+    x = torch.randn(4, 256, device=dev).to(torch.bfloat16)
+    before = quant_matmul.launches
+    quant_matmul(x, wq, scale, prepared)
+    assert quant_matmul.launches == before + 1
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        quant_matmul(x.half(), wq, scale, prepared)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(torch.randn(256, 4, device=dev).to(torch.bfloat16).t(), wq, scale, prepared)
+    with pytest.raises(ValueError, match="contraction"):
+        quant_matmul(torch.randn(4, 128, device=dev).to(torch.bfloat16), wq, scale, prepared)
+    with pytest.raises(ValueError, match="another weight"):
+        quant_matmul(x, wq.clone(), scale, prepared)
+    assert quant_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_quant_linear_prepares_its_weight_once_and_again_when_the_tensor_changes():
+    from modalities_tpu_torch.models.gpt2.gpt2_model import QuantLinear
+
+    dev = _card()
+    layer = QuantLinear(256, 64, False, torch.int8, device=dev)
+    layer.kernel.copy_(torch.randint(-127, 128, (256, 64), dtype=torch.int8, device=dev))
+    x = torch.randn(3, 5, 256, device=dev).to(torch.bfloat16)
+    y = layer(x)
+    prepared = layer._prepared
+    assert y.shape == (3, 5, 64) and prepared is not None and prepared.holds(layer.kernel, layer.scale)
+    torch.testing.assert_close(layer(x), y, atol=0, rtol=0)
+    assert layer._prepared is prepared
+    layer.kernel = layer.kernel.clone()  # a new tensor: prepared anew
+    layer(x)
+    assert layer._prepared is not prepared
 
 
 def test_cpu_tensors_take_the_plain_flash_attention_and_rms_norm_backward():
