@@ -72,8 +72,29 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      batch at lr 2e-5 (the loss falls at every step); the config's lr 2e-4
      at full width and 4 layers x 4096 through the kernels and through the
      plain path (chunked-scan head): the loss curves agree at every step.
-  6. one JSON line naming the kernels (launches summed over the paths, and
-     per path: serve, train_2p7b, train_32k), then the device line (last line).
+  6. checkpointing at full width and depth. Run A: the 32k config through
+     Main for 52 steps with its own checkpointing interval (50) and k (2):
+     it saves and seals the step-50 folder (DCP files, topology.json,
+     manifest.json, then last_checkpoint_info.json) and goes on to step 52;
+     bytes on disk, save, dcp.save, manifest and verification seconds are
+     printed. Run B: the `warmstart` entry point's function on a warmstart
+     config derived from the same file (number_conversion nodes, app_state
+     `dcp`, warmstart_checkpoint_paths) resumes from the pointer and runs
+     steps 51-52: their losses, grad norms and lr, and the final parameters,
+     equal run A's bitwise, and each step launches phase 5's counts; run
+     B's final state saved again with `use_async` (dcp.async_save) reads back
+     bitwise, its pointer written only after the commit. Then
+     `serve` from the step-50 folder (a config derived from
+     configs/config_serve.yaml at the 32k model's widths, 4 requests, bf16
+     and int8): every request finishes, RMSNorm and dequant-matmul launch
+     their per-forward counts for 24 layers, and the greedy tokens equal
+     those of the step-50 parameters handed over in memory, bitwise (which
+     the folder's model tensors equal, bitwise). A copy of the folder with
+     one byte flipped is refused by the loader (run B's train step left as
+     it was), the warmstart's resolution and the serving loader.
+  7. one JSON line naming the kernels (launches summed over the paths, and
+     per path: serve, train_2p7b, train_32k, train_32k_resume, serve_ckpt),
+     then the device line (last line).
 
 Exits non-zero, printing no result, without a CUDA device or without the rest
 of the repository beside it.
@@ -87,6 +108,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -332,11 +354,11 @@ def phase_kernels(torch) -> dict:
 QMM_PER_FORWARD = {(2560, 2560): 64, (2560, 640): 64, (2560, 7680): 64, (7680, 2560): 32, (2560, 50304): 1}
 
 
-def _rejects(fn) -> str:
-    """The message of the AssertionError `fn` raises; raises if it passes."""
+def _rejects(fn, error: type = AssertionError) -> str:
+    """The message of the `error` `fn` raises; raises if it passes."""
     try:
         fn()
-    except AssertionError as e:
+    except error as e:
         return str(e)
     raise AssertionError("a check passed what it must reject")
 
@@ -1320,9 +1342,12 @@ def phase_small_model_training_bf16(torch) -> None:
 
 # ---------------------------------------------------------------- phase 4
 def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: dict, seq: int = 4096,
-                  base: str = "config_2p7b_dp.yaml", micro: int = 2, acc: int = 2, phase: str = "phase 4") -> Path:
+                  base: str = "config_2p7b_dp.yaml", micro: int = 2, acc: int = 2, phase: str = "phase 4",
+                  keep_checkpointing: bool = False) -> Path:
     """A copy of configs/`base` cut to one card (micro x acc sequences of
-    `seq` a step); prints every override."""
+    `seq` a step); prints every override. The checkpointing interval is put
+    out of reach unless `keep_checkpointing` (then the file's interval, k
+    and last-step rule stand)."""
     import yaml
 
     repo = Path(__file__).resolve().parent
@@ -1342,8 +1367,8 @@ def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: d
         "settings.training_target.num_target_tokens": steps * per_step,
         "settings.intervals.training_log_interval_in_steps": 1,
         "settings.intervals.evaluation_interval_in_steps": steps,
-        "settings.intervals.checkpointing_interval_in_steps": 1_000_000,
-        "settings.consistency_enforcement.enforce_last_step_checkpointed": False,
+        **({} if keep_checkpointing else {"settings.intervals.checkpointing_interval_in_steps": 1_000_000,
+                                          "settings.consistency_enforcement.enforce_last_step_checkpointed": False}),
         "settings.paths.train_dataset_path": str(data),
         "settings.paths.checkpoint_saving_path": str(tmp / "checkpoints"),
         "settings.paths.experiments_root_path": str(tmp / "experiments"),
@@ -1628,6 +1653,364 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------- phase 6
+CKPT_STEPS = 52  # run A: the 32k config two steps past its step-50 checkpoint (the file's interval 50 and k 2)
+CKPT_SERVE = {"requests": 4, "new_tokens": 32, "slots": 4, "capacity": 1024, "prompt_len": (32, 257)}
+
+
+def _warmstart_config(run_config: Path, out: Path) -> Path:
+    """The run's config as a warmstart config, in the pattern of
+    configs/config_lorem_ipsum_tpu_warmstart.yaml: training progress read
+    from the checkpoint folder's name by `number_conversion` nodes, the app
+    state (`dcp`) loaded from that folder, `warmstart_checkpoint_paths` from
+    `${warmstart_env:...}`. Prints every change."""
+    import yaml
+
+    cfg = yaml.safe_load(run_config.read_text())
+    folder = "${settings.warmstart_checkpoint_paths.checkpoint_folder_path}"
+
+    def conversion(variant, **config):
+        return {"component_key": "number_conversion", "variant_key": variant, "config": config}
+
+    changes = {
+        "settings.training_progress": {
+            "global_num_seen_tokens": conversion("global_num_seen_tokens_from_checkpoint_path", checkpoint_path=folder),
+            "num_seen_steps": conversion("num_seen_steps_from_checkpoint_path", checkpoint_path=folder),
+            "num_seen_samples": conversion("num_samples_from_num_tokens",
+                                           num_tokens="${settings.training_progress.global_num_seen_tokens}",
+                                           sequence_length="${settings.step_profile.sequence_length}"),
+            "last_step": conversion("last_step_from_checkpoint_path", checkpoint_path=folder),
+        },
+        "settings.warmstart_checkpoint_paths": {"checkpoint_folder_path": "${warmstart_env:checkpoint_folder_path}"},
+        "app_state_raw": cfg["app_state"],
+        "app_state": {"component_key": "app_state", "variant_key": "dcp", "config": {
+            "raw_app_state": {"instance_key": "app_state_raw", "pass_type": "BY_REFERENCE"},
+            "checkpoint_dir_path": folder}},
+    }
+    for dotted, value in changes.items():
+        node = cfg
+        *parents, leaf = dotted.split(".")
+        for key in parents:
+            node = node[key]
+        node[leaf] = value
+        log(f"[phase 6] warmstart config: {dotted} = {json.dumps(value)}")
+    out.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return out
+
+
+@contextlib.contextmanager
+def _timed(owner, name: str, into: list):
+    """Record the wall seconds of each call of owner.name while inside."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        into.append(time.perf_counter() - t0)
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def _host_copy(module) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
+
+def _step_metrics(results: list[dict]) -> dict[int, tuple[float, float, float]]:
+    """step -> (loss, grad norm, lr) of a run logged every step."""
+    return {r["num_train_steps_done"]: (r["losses"]["train loss last"], r["metrics"]["grad norm last"],
+                                        r["metrics"]["lr mean"]) for r in results}
+
+
+def _word_tokenizer(folder: Path, vocab_size: int) -> None:
+    """A word-level tokenizer saved to `folder`: word "t<i>" is id i, and the
+    last id is <eod>."""
+    import tokenizers
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {f"t{i}": i for i in range(vocab_size - 1)}
+    vocab["<eod>"] = vocab_size - 1
+    tok = tokenizers.Tokenizer(WordLevel(vocab, unk_token="t0"))
+    tok.pre_tokenizer = Whitespace()
+    PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="t0", eos_token="<eod>").save_pretrained(folder)
+
+
+def _serve_ckpt_config(tmp: Path, run_config: Path, folder: Path, quant: str) -> Path:
+    """configs/config_serve.yaml serving `folder`: the 32k model's node (its
+    widths), 4 slots of a 1024-token ring, 32 new tokens, greedy, `quant`
+    weights, a word-level tokenizer; `slo` null (refused by the port)."""
+    import yaml
+
+    from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
+
+    repo = Path(__file__).resolve().parent
+    cfg = yaml.safe_load((repo / "configs" / "config_serve.yaml").read_text())
+    node = cfg["serving_component"]["config"]
+    model = load_app_config_dict(run_config, experiment_id="serve")["model_raw"]["config"]
+    changes = {"max_batch_slots": CKPT_SERVE["slots"], "cache_capacity": CKPT_SERVE["capacity"],
+               "max_new_tokens": CKPT_SERVE["new_tokens"], "quant": {"weights": quant}, "slo": None}
+    node.update(changes)
+    node["model"]["config"] = model
+    node["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(tmp / "tokenizer")
+    cfg["settings"]["checkpoint_folder_path"] = str(folder)
+    log(f"[phase 6] serve config ({quant}): {json.dumps(changes)}, model node of {LONG_CONFIG}, "
+        f"checkpoint_folder_path = {folder.name}")
+    path = tmp / f"serve_{quant}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dict[str, int]]:
+    """The 32k config past its step-50 checkpoint (run A), the warmstart
+    from it (run B), an async save that training overtakes, serving from the
+    checkpoint, and the refusal of a corrupted copy. `per_step`: phase 5's
+    launches per step. Returns the launch counts of run B and of serving from
+    the checkpoint."""
+    device = "cuda"
+    sync = torch.cuda.synchronize
+
+    from modalities_tpu_torch.__main__ import warmstart
+    from modalities_tpu_torch.checkpointing.checkpoint_saving import CheckpointSaving
+    from modalities_tpu_torch.checkpointing.checkpoint_saving_strategies import SaveKMostRecentCheckpointsStrategy
+    from modalities_tpu_torch.checkpointing.dcp import dcp_checkpoint_saving
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_saving import DCPCheckpointSaving
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import (
+        CheckpointingError,
+        DCPCheckpointLoading,
+        restore_tree_single_device,
+    )
+    from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+    from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+    from modalities_tpu_torch.resilience.manifest import resolve_resume_folder, verify_manifest
+    from modalities_tpu_torch.serving.serve import build_serving_components, load_serving_params, serve
+    from modalities_tpu_torch.training.training_progress import TrainingProgress
+
+    import torch.distributed.checkpoint as dcp
+
+    rng = np.random.default_rng(2029)
+    seq, vocab, layers = LONG_MODEL["seq"], LONG_MODEL["vocab"], LONG_MODEL["layers"]
+    shape = {"base": LONG_CONFIG, "micro": 1, "acc": 1}
+    scratch = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        corpus = rng.integers(0, vocab, size=seq + 1 + (CKPT_STEPS + 2) * seq)
+        cfg = _train_config(tmp, "ckpt", corpus, CKPT_STEPS, {}, seq=seq, phase="phase 6", keep_checkpointing=True,
+                            **shape)
+
+        # run A: 52 steps through Main, saving at step 50 with the file's interval and k
+        main = Main(cfg, experiments_root_path=tmp / "experiments", device=device)
+        main.components = main.build_components()
+        execution = main.components.checkpoint_saving.checkpoint_saving_execution
+        saved: dict = {}
+        save_s, dcp_s, manifest_s = [], [], []
+
+        def snapshot_then_save(app_state, training_progress):
+            sync()
+            saved["params"] = _host_copy(app_state.train_step.module)  # the step-50 parameters, in memory
+            saved["step"] = training_progress.num_seen_steps_total
+            t0 = time.perf_counter()
+            original(app_state=app_state, training_progress=training_progress)
+            save_s.append(time.perf_counter() - t0)
+
+        original = execution._save_checkpoint
+        execution._save_checkpoint = snapshot_then_save
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _timed(dcp, "save", dcp_s), _timed(dcp_checkpoint_saving, "write_manifest", manifest_s):
+            results_a = main.run(main.components)
+        sync()
+        wall_a = time.perf_counter() - t0
+        counts_a = _launch_counts(LONG_KERNELS)
+        metrics_a = _step_metrics(results_a)
+        final_a = _host_copy(main.train_step.module)
+        if len(results_a) != CKPT_STEPS or saved.get("step") != 50 or len(save_s) != 1:
+            raise AssertionError(f"run A: {len(results_a)} steps, saves at {saved.get('step')} ({len(save_s)} saves); "
+                                 f"expected {CKPT_STEPS} steps and one save at step 50")
+        for key, want in per_step.items():
+            if counts_a[key] != want * CKPT_STEPS:
+                raise AssertionError(f"run A: {key} launched {counts_a[key]} times in {CKPT_STEPS} steps, "
+                                     f"expected {want} per step")
+        ckpts = tmp / "checkpoints"
+        info = ckpts / "last_checkpoint_info.json"
+        folder = Path(json.loads(info.read_text())["checkpoint_folder_path"])
+        folders = [p for p in ckpts.iterdir() if p.is_dir()]
+        if folders != [folder] or "seen_steps_50-" not in folder.name:
+            raise AssertionError(f"run A: checkpoint folders {[p.name for p in folders]}, pointer {folder.name}")
+        files = sorted(p for p in folder.rglob("*") if p.is_file())
+        nbytes = sum(p.stat().st_size for p in files)
+        t0 = time.perf_counter()
+        check = verify_manifest(folder)
+        verify_s = time.perf_counter() - t0
+        if not check.ok or not (folder / "topology.json").is_file():
+            raise AssertionError(f"run A: the step-50 folder is not sealed: {check.reason}")
+        log(f"[phase 6] run A: {CKPT_STEPS} steps of {LONG_CONFIG} through Main in {wall_a:.1f} s "
+            f"(checkpointing interval 50, k 2, as the file has them); losses of steps 49-52 "
+            f"{[metrics_a[s][0] for s in (49, 50, 51, 52)]}; launches per step "
+            f"{({k: v // CKPT_STEPS for k, v in counts_a.items()})}")
+        log(f"[phase 6] checkpoint at step 50 ({smi}): {folder.name}; {len(files)} files, {nbytes} bytes on disk "
+            f"({', '.join(f'{p.name} {p.stat().st_size}' for p in files)}); save {save_s[0]:.2f} s in all, of it "
+            f"dcp.save {dcp_s[0]:.2f} s and write_manifest (sha256 of every file) {manifest_s[0]:.2f} s; "
+            f"verify_manifest {verify_s:.2f} s")
+        del main, results_a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: the warmstart entry point from last_checkpoint_info.json, steps 51-52
+        warm = _warmstart_config(cfg, tmp / "ckpt_warmstart.yaml")
+        load_s = []
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _timed(DCPCheckpointLoading, "load_app_state", load_s):
+            main_b, results_b = warmstart(warm, info, experiments_root_path=tmp / "experiments", device=device)
+        sync()
+        wall_b = time.perf_counter() - t0
+        counts_b = _launch_counts(LONG_KERNELS)
+        metrics_b = _step_metrics(results_b)
+        log(f"[phase 6] run B ({smi}): warmstart from {info.name} in {wall_b:.1f} s (load_app_state {load_s[0]:.2f} s: "
+            f"manifest, shape gate, dcp.load, set_state_dict); steps {sorted(metrics_b)}; launches per step "
+            f"{({k: v // 2 for k, v in counts_b.items()})}")
+        if sorted(metrics_b) != [51, 52] or len(load_s) != 1:
+            raise AssertionError(f"run B: steps {sorted(metrics_b)}, {len(load_s)} loads; expected 51, 52 after one")
+        for key, want in per_step.items():
+            if counts_b[key] != want * 2:
+                raise AssertionError(f"run B: {key} launched {counts_b[key]} times in 2 steps, expected {want} per "
+                                     "step (phase 5's)")
+        for s in (51, 52):
+            if metrics_b[s] != metrics_a[s]:
+                raise AssertionError(f"run B step {s} (loss, grad norm, lr) {metrics_b[s]} != run A's {metrics_a[s]}")
+        final_b = _host_copy(main_b.train_step.module)
+        unequal = [k for k in final_a if not torch.equal(final_a[k], final_b[k])]
+        if unequal or set(final_a) != set(final_b):
+            raise AssertionError(f"run B's final parameters differ from run A's: {unequal[:5]} ({len(unequal)})")
+        log(f"[phase 6] steps 51-52 (loss, grad norm, lr) bitwise equal in runs A and B: "
+            f"{[metrics_b[s] for s in (51, 52)]}; all {len(final_a)} final parameter tensors bitwise equal")
+
+        # run B's final state saved again with use_async: dcp.async_save stages the tensors to the host and
+        # writes in the background; the pointer waits for the commit. One more training step runs before the
+        # commit is awaited, so the folder must hold the state as it was at the save, not the live one.
+        async_root = tmp / "async"
+        saving = CheckpointSaving(SaveKMostRecentCheckpointsStrategy(k=1),
+                                  DCPCheckpointSaving(async_root, "async", use_async=True))
+        progress = TrainingProgress(2, 2 * seq, CKPT_STEPS, CKPT_STEPS * seq, 50, 50 * seq)
+        t0 = time.perf_counter()
+        saving.save_checkpoint(progress, AppState(main_b.train_step))
+        staged_s = time.perf_counter() - t0
+        if (async_root / "last_checkpoint_info.json").exists():
+            raise AssertionError("async save: the resume pointer was written before the commit")
+        t = torch.as_tensor(rng.integers(0, vocab, size=(1, 1, seq + 1)), device=device)
+        main_b.train_step({"samples": {"input_ids": t[..., :-1]}, "targets": {"target_ids": t[..., 1:]}})
+        sync()
+        step_s = time.perf_counter() - t0 - staged_s
+        after_step = _host_copy(main_b.train_step.module)
+        moved = [k for k in final_b if not torch.equal(after_step[k], final_b[k])]
+        if not moved:
+            raise AssertionError("async save: the training step after the save changed no parameter")
+        t1 = time.perf_counter()
+        saving.wait_until_finished()
+        wait_s = time.perf_counter() - t1
+        async_folder = Path(json.loads((async_root / "last_checkpoint_info.json").read_text())["checkpoint_folder_path"])
+        t0 = time.perf_counter()
+        restored = restore_tree_single_device(async_folder, device=device)
+        sync()
+        restore_s = time.perf_counter() - t0
+        unequal = [k for k in final_b if not torch.equal(restored[k].cpu(), final_b[k])]
+        if not verify_manifest(async_folder).ok or unequal or set(restored) != set(final_b):
+            raise AssertionError(f"async save: the folder does not verify or differs from the state at the save: "
+                                 f"{unequal[:5]} ({len(unequal)})")
+        log(f"[phase 6] async save of run B's final state ({smi}): save_checkpoint returned after {staged_s:.2f} s "
+            f"(staged to the host, no pointer yet); one more training step ({step_s:.2f} s) changed "
+            f"{len(moved)} of {len(final_b)} parameter tensors; wait_until_finished (commit and seal) {wait_s:.2f} s; "
+            f"the folder's model parameters, read back onto the {device} in {restore_s:.2f} s, are bitwise those "
+            "at the save")
+        del restored
+        shutil.rmtree(async_root)
+
+        # a copy of the folder with one byte flipped: loading, warmstart and serving refuse it
+        broken_root = tmp / "broken"
+        broken = broken_root / folder.name
+        shutil.copytree(folder, broken)
+        data = broken / "__0_0.distcp"
+        with open(data, "r+b") as f:
+            f.seek(data.stat().st_size // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x01]))
+        (broken_root / "last_checkpoint_info.json").write_text(json.dumps({"checkpoint_folder_path": str(broken)}))
+        refusals = {
+            "load_app_state": (CheckpointingError, lambda: DCPCheckpointLoading().load_app_state(
+                AppState(main_b.train_step), broken)),
+            "warmstart's resolve_resume_folder": (FileNotFoundError, lambda: resolve_resume_folder(
+                broken_root / "last_checkpoint_info.json")),
+            "load_serving_params": (ValueError, lambda: load_serving_params(broken, device=device)),
+        }
+        for what, (error, fn) in refusals.items():
+            log(f"[phase 6] corrupted copy (one byte of __0_0.distcp flipped): {what} refused: {_rejects(fn, error)[:200]}")
+        unequal = [k for k, v in _host_copy(main_b.train_step.module).items() if not torch.equal(v, after_step[k])]
+        if unequal:
+            raise AssertionError(f"the refused load changed the train step's parameters: {unequal[:5]}")
+        shutil.rmtree(broken_root)
+        del main_b, results_b, final_a, final_b, after_step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serving from the step-50 folder, against the same parameters handed over in memory
+        restored = restore_tree_single_device(folder, device="cpu")
+        unequal = [k for k in saved["params"] if not torch.equal(restored[k], saved["params"][k])]
+        if unequal or set(restored) != set(saved["params"]):
+            raise AssertionError(f"the folder's model parameters differ from step 50's in memory: {unequal[:5]}")
+        del restored
+        _word_tokenizer(tmp / "tokenizer", vocab)
+        prompts = [" ".join(f"t{i}" for i in rng.integers(0, vocab - 1, size=int(n)))
+                   for n in rng.integers(*CKPT_SERVE["prompt_len"], size=CKPT_SERVE["requests"])]
+        requests = tmp / "requests.jsonl"
+        requests.write_text("".join(json.dumps({"prompt": p}) + "\n" for p in prompts))
+        serve_counts = {"rms_fwd": 0, "quant_matmul": 0}
+        for quant in ("none", "int8"):
+            serve_cfg = _serve_ckpt_config(tmp, cfg, folder, quant)
+            out = tmp / f"served_{quant}.jsonl"
+            rms0, qmm0 = rms_norm.launches, quant_matmul.launches
+            t0 = time.perf_counter()
+            stats = serve(serve_cfg, requests, out, device=device)
+            wall = time.perf_counter() - t0
+            rms, qmm = rms_norm.launches - rms0, quant_matmul.launches - qmm0
+            serve_counts["rms_fwd"] += rms
+            serve_counts["quant_matmul"] += qmm
+            rows = [json.loads(line) for line in out.read_text().splitlines()]
+            fwd = stats["forward_calls"]
+            want_qmm = 7 * layers * fwd if quant == "int8" else 0  # q, k, v, c_proj, W, V, W_2; the tied head stays
+            if (rms != (2 * layers + 1) * fwd or qmm != want_qmm):
+                raise AssertionError(f"serve {quant} from the checkpoint: rms_norm {rms}, quant_matmul {qmm} launches "
+                                     f"in {fwd} forwards; expected {2 * layers + 1} and {want_qmm // max(fwd, 1)} each")
+            if len(rows) != CKPT_SERVE["requests"] or any(r["finish_reason"] not in ("budget", "eod") for r in rows):
+                raise AssertionError(f"serve {quant} from the checkpoint: {[r['finish_reason'] for r in rows]}")
+            component = build_serving_components(load_app_config_dict(serve_cfg)).serving_component
+            component.device, component.params = torch.device(device), saved["params"]
+            in_memory = component.run_requests([{"prompt": p} for p in prompts])
+            del component
+            if [r["tokens"] for r in rows] != [r["tokens"] for r in in_memory]:
+                raise AssertionError(f"serve {quant}: the checkpoint's tokens differ from those of the same "
+                                     "parameters in memory")
+            log(f"[phase 6] serve {quant if quant != 'none' else 'bf16'} from the step-50 folder in {wall:.1f} s "
+                f"(manifest, read, {'quantize, ' if quant != 'none' else ''}engine, {len(rows)} requests of "
+                f"{CKPT_SERVE['new_tokens']} tokens): every request finished; launches rms_norm {rms} = "
+                f"{2 * layers + 1} x {fwd} forwards, quant_matmul {qmm}; greedy tokens bitwise those of the same "
+                "parameters in memory")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    return {"train_32k_resume": counts_b, "serve_ckpt": serve_counts}
+
+
 # ---------------------------------------------------------------- phases 2-3
 def build_model():
     from modalities_tpu_torch.config.component_factory import ComponentFactory
@@ -1872,10 +2255,19 @@ def main() -> int:
     if any(v == 0 for v in long_counts.values()):
         raise AssertionError(f"a kernel of the 32k training path was never launched: {long_counts}")
     log(f"[phase 5] launches in the 3-step run: {long_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # phase 6. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
+    # phase 6: checkpoint, warmstart and serving from a checkpoint. Counts start from 0 before each path inside.
+    long_per_step = {k: v // 3 for k, v in long_counts.items()}
+    ckpt_counts = phase_checkpoint(torch, smi_now, long_per_step)
+    log(f"[phase 6] launches: warmstart (2 steps) {ckpt_counts['train_32k_resume']}; serving from the checkpoint "
+        f"{ckpt_counts['serve_ckpt']}")
+
+    # phase 7. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
-        paths = {"train_2p7b": train_counts, "train_32k": long_counts}
+        paths = {"train_2p7b": train_counts, "train_32k": long_counts,
+                 "train_32k_resume": ckpt_counts["train_32k_resume"]}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
 
     def entry(name, source, replaces, paths, k, pick=lambda ts: ts[0]):
@@ -1892,7 +2284,8 @@ def main() -> int:
     ce_tpu = "modalities_tpu/ops/pallas/fused_ce.py"
     print(json.dumps({"kernels": [
         entry("fused_rmsnorm_fwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
-              "modalities_tpu/ops/pallas/fused_rmsnorm.py:34", {"serve": rms_total, **by_path("rms_fwd")}, "rmsnorm"),
+              "modalities_tpu/ops/pallas/fused_rmsnorm.py:34",
+              {"serve": rms_total, **by_path("rms_fwd"), "serve_ckpt": ckpt_counts["serve_ckpt"]["rms_fwd"]}, "rmsnorm"),
         entry("fused_rmsnorm_bwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
               "modalities_tpu/ops/pallas/fused_rmsnorm.py:43", by_path("rms_bwd"), "rmsnorm_bwd"),
         entry("flash_attention_fwd", flash_src, f"{flash_tpu}:43", by_path("flash_fwd"), "flash_fwd"),
@@ -1902,7 +2295,8 @@ def main() -> int:
         entry("fused_ce_bwd_dh", ce_src, f"{ce_tpu}:141", by_path("ce_dh"), "fused_ce_dh"),
         entry("fused_ce_bwd_dw", ce_src, f"{ce_tpu}:158", by_path("ce_dw"), "fused_ce_dw"),
         entry("quant_matmul", "modalities_tpu_torch/csrc/quant_matmul.cu",
-              "modalities_tpu/ops/pallas/quant_matmul.py:31", {"serve": qmm_total}, "quant_matmul",
+              "modalities_tpu/ops/pallas/quant_matmul.py:31",
+              {"serve": qmm_total, "serve_ckpt": ckpt_counts["serve_ckpt"]["quant_matmul"]}, "quant_matmul",
               lambda ts: next(t for t in ts if t["m"] == 8 and (t["k"], t["n"]) == (2560, 7680) and t["mode"] == "int8")),
     ]}))
     print(smi)

@@ -2,11 +2,15 @@
 
     python -m modalities_tpu_torch run --config_file_path <yaml>
         [--experiments_root_path <dir>] [--device cuda|cpu]
+    python -m modalities_tpu_torch warmstart --config_file_path <yaml>
+        --last_checkpoint_info_file_path <json> [--experiments_root_path <dir>] [--device cuda|cpu]
     python -m modalities_tpu_torch serve --config_file_path <yaml>
         --requests_file_path <jsonl> [--output_file_path <jsonl>] [--device cuda|cpu]
 
-Both run on the CUDA card unless `--device cpu`. `run` sets
-PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the caller set it."""
+All run on the CUDA card unless `--device cpu`. `run` and `warmstart` set
+PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the caller set it.
+`warmstart` resumes from the folder a `last_checkpoint_info.json` names
+(`warmstart`, below)."""
 
 from __future__ import annotations
 
@@ -15,6 +19,32 @@ import logging
 import os
 import sys
 from pathlib import Path
+from typing import Optional
+
+
+def warmstart(config_file_path: Path, last_checkpoint_info_file_path: Path,
+              experiments_root_path: Optional[Path] = None, device: Optional[str] = None):
+    """Resume training from the last checkpoint (the JAX CLI's `warmstart`):
+    the folder `last_checkpoint_info.json` names is resolved and verified
+    before the config is built, since the folder's name is the metadata store
+    (seen steps and tokens, and the sampler's skip, are parsed from it); if it
+    fails its manifest, the ring is walked back to the newest folder that
+    verifies. The config reads the folder through `${warmstart_env:...}`.
+    Returns the `Main` that ran (its `train_step` holds the final state) and
+    the run's published interval results."""
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.resilience.manifest import resolve_resume_folder
+
+    resume_folder = str(resolve_resume_folder(last_checkpoint_info_file_path))
+
+    def warmstart_env(key: str):
+        if key in ("checkpoint_paths", "checkpoint_folder_path"):
+            return resume_folder
+        raise ValueError(f"Unknown warmstart_env variable {key!r}")
+
+    main_obj = Main(config_file_path, experiments_root_path=experiments_root_path, device=device,
+                    additional_resolver_funs={"warmstart_env": warmstart_env})
+    return main_obj, main_obj.run()
 
 
 def main(argv=None) -> int:
@@ -24,6 +54,11 @@ def main(argv=None) -> int:
     run_p.add_argument("--config_file_path", type=Path, required=True)
     run_p.add_argument("--experiments_root_path", type=Path, default=None)
     run_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    warm_p = sub.add_parser("warmstart", help="resume training from the last checkpoint")
+    warm_p.add_argument("--config_file_path", type=Path, required=True)
+    warm_p.add_argument("--last_checkpoint_info_file_path", type=Path, required=True)
+    warm_p.add_argument("--experiments_root_path", type=Path, default=None)
+    warm_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     serve_p = sub.add_parser("serve", help="continuous-batching text serving from the ring KV cache")
     serve_p.add_argument("--config_file_path", type=Path, required=True)
     serve_p.add_argument("--requests_file_path", type=Path, required=True, help="JSONL of requests to replay")
@@ -32,10 +67,14 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
 
-    if args.command == "run":
+    if args.command in ("run", "warmstart"):
         # before the first allocation on the card: a training step's activations come and go in many sizes,
         # and expandable segments let the caching allocator reuse freed memory across them
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        if args.command == "warmstart":
+            warmstart(args.config_file_path, args.last_checkpoint_info_file_path, args.experiments_root_path,
+                      device=args.device)
+            return 0
         from modalities_tpu_torch.main import Main
 
         Main(args.config_file_path, experiments_root_path=args.experiments_root_path, device=args.device).run()

@@ -1,48 +1,39 @@
-"""Checkpoint saving, as far as the port has it: the `checkpoint_saving`
-component and its strategy / execution nodes build from the JAX configs
-(`save_k_most_recent_checkpoints_strategy`, `orbax`), and a save that falls
-due raises, because writing checkpoints is not ported yet (ROADMAP.md,
-Queue 1 item 2). Runs whose intervals put no save in reach train.
-"""
+"""Checkpoint saving: the port of modalities_tpu/checkpointing/checkpoint_saving.py.
+The strategy decides whether a save is due and which old folders go; the
+execution (checkpointing/dcp/dcp_checkpoint_saving.py) writes and seals them."""
 
 from __future__ import annotations
 
 import dataclasses
-from pathlib import Path
-from typing import Any
 
-from modalities_tpu_torch.config.config import check_bool, check_int, check_str
-
-
-@dataclasses.dataclass
-class SaveKMostRecentCheckpointsStrategy:
-    k: int
-
-    def __post_init__(self):
-        check_int("k", self.k, ge=-1)
-
-
-@dataclasses.dataclass
-class CheckpointSavingExecution:
-    checkpoint_path: Path
-    experiment_id: str
-    global_rank: int = 0
-    use_async: bool = False
-
-    def __post_init__(self):
-        self.checkpoint_path = Path(self.checkpoint_path)
-        check_str("experiment_id", self.experiment_id)
-        check_int("global_rank", self.global_rank, ge=0)
-        check_bool("use_async", self.use_async)
+from modalities_tpu_torch.checkpointing.checkpoint_saving_execution import CheckpointSavingExecutionABC
+from modalities_tpu_torch.checkpointing.checkpoint_saving_strategies import CheckpointSavingStrategyIF
+from modalities_tpu_torch.training.training_progress import TrainingProgress
 
 
 @dataclasses.dataclass
 class CheckpointSaving:
-    checkpoint_saving_strategy: Any
-    checkpoint_saving_execution: Any
+    checkpoint_saving_strategy: CheckpointSavingStrategyIF
+    checkpoint_saving_execution: CheckpointSavingExecutionABC
 
-    def save_checkpoint(self, training_progress, train_step) -> None:
-        raise NotImplementedError(
-            f"a checkpoint is due at step {training_progress.num_seen_steps_total}, but checkpoint saving is not "
-            "ported yet (ROADMAP.md, Queue 1 item 2); raise checkpointing_interval_in_steps beyond the run"
+    def __post_init__(self):
+        if not isinstance(self.checkpoint_saving_strategy, CheckpointSavingStrategyIF):
+            raise ValueError(f"checkpoint_saving_strategy: expected a strategy, got {self.checkpoint_saving_strategy!r}")
+        if not isinstance(self.checkpoint_saving_execution, CheckpointSavingExecutionABC):
+            raise ValueError(
+                f"checkpoint_saving_execution: expected an execution, got {self.checkpoint_saving_execution!r}"
+            )
+
+    def save_checkpoint(self, training_progress: TrainingProgress, app_state, force: bool = False) -> None:
+        """`force=True` saves whatever the strategy's schedule says (a
+        preemption's last save); the strategy's ring deletions still apply."""
+        instruction = self.checkpoint_saving_strategy.get_checkpoint_instruction(training_progress=training_progress)
+        if force:
+            instruction.savable = True
+        self.checkpoint_saving_execution.run_checkpoint_instruction(
+            checkpointing_instruction=instruction, training_progress=training_progress, app_state=app_state,
         )
+
+    def wait_until_finished(self) -> None:
+        """Drain pending (async) saves; flushes the deferred resume pointer."""
+        self.checkpoint_saving_execution.wait_until_finished()

@@ -1,0 +1,86 @@
+"""Checkpoint topology record: the port of modalities_tpu/checkpointing/topology.py.
+
+Every sealed checkpoint folder gains a ``topology.json`` beside its
+``manifest.json``: the saving run's mesh axis degrees, process and device
+counts, each state leaf's sharding and the sampler-state layout. It is
+written before the manifest, so the manifest's digests seal it too. The port
+trains on a world-1 mesh (running_env/device_mesh.py), so every degree is 1
+and every leaf is whole on its one device (spec "()", the JAX spelling of a
+replicated leaf); `diff_topology` is what a later multi-GPU resume compares.
+
+Unlike the JAX package's `write_topology`, a failure to write the record
+raises: a save's seal does not carry on past a failed step.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+from typing import Optional
+
+from modalities_tpu_torch.resilience.manifest import atomic_write_json
+
+logger = logging.getLogger(__name__)
+
+TOPOLOGY_FILE_NAME = "topology.json"
+TOPOLOGY_VERSION = 1
+
+
+def describe_topology(device_mesh, state_dict: dict) -> dict:
+    """The topology record of a state dict on the port's mesh (`device_mesh`
+    a running_env.device_mesh.DeviceMesh, or None for the default world-1
+    mesh)."""
+    from modalities_tpu_torch.checkpointing.stateful.app_state import flatten_tensors
+    from modalities_tpu_torch.running_env.device_mesh import PARALLEL_METHODS
+
+    mesh_axes = dict(device_mesh.degrees) if device_mesh is not None else {m: 1 for m in PARALLEL_METHODS}
+    num_slices = mesh_axes.get("dcn", 1)
+    dp_degree = num_slices * mesh_axes.get("dp_replicate", 1) * mesh_axes.get("dp_shard", 1)
+    device_count = 1
+    for degree in mesh_axes.values():
+        device_count *= degree
+    return {
+        "version": TOPOLOGY_VERSION,
+        "mesh_axes": mesh_axes,
+        "process_count": 1,
+        "device_count": device_count,
+        "slices": {"num_slices": num_slices, "devices_per_slice": device_count // num_slices},
+        "leaf_specs": {name: "()" for name in flatten_tensors(state_dict)},
+        "sampler_state": {"dp_degree": dp_degree, "skip_semantics": "global"},
+    }
+
+
+def write_topology(folder: Path, record: dict) -> Path:
+    """Write the record into a committed checkpoint folder (before
+    `write_manifest`, so the manifest seals it)."""
+    path = Path(folder) / TOPOLOGY_FILE_NAME
+    atomic_write_json(path, record)
+    return path
+
+
+def read_topology(folder: Path) -> Optional[dict]:
+    """The saved record, or None for a folder without one."""
+    path = Path(folder) / TOPOLOGY_FILE_NAME
+    if not path.is_file():
+        return None
+    return json.loads(path.read_text())
+
+
+def diff_topology(saved: dict, current: dict) -> list[str]:
+    """Mismatch lines between a saved record and the current one; empty when
+    the checkpoint was written under this topology."""
+    mismatches: list[str] = []
+    for key in ("mesh_axes", "process_count", "device_count"):
+        if saved.get(key) != current.get(key):
+            mismatches.append(f"{key}: saved {saved.get(key)} != current {current.get(key)}")
+    saved_slices = (saved.get("slices") or {}).get("num_slices", 1)
+    current_slices = (current.get("slices") or {}).get("num_slices", 1)
+    if saved_slices != current_slices:
+        mismatches.append(f"num_slices: saved {saved_slices} != current {current_slices}")
+    saved_specs = saved.get("leaf_specs") or {}
+    current_specs = current.get("leaf_specs") or {}
+    changed = sum(1 for k, v in current_specs.items() if k in saved_specs and saved_specs[k] != v)
+    if changed:
+        mismatches.append(f"leaf_specs: {changed} leaves shard differently")
+    return mismatches

@@ -118,6 +118,14 @@ class TrainingProgressSettings:
 
 
 @dataclasses.dataclass
+class WarmstartCheckpointPaths:
+    checkpoint_folder_path: Path
+
+    def __post_init__(self):
+        self.checkpoint_folder_path = Path(check_str("checkpoint_folder_path", str(self.checkpoint_folder_path)))
+
+
+@dataclasses.dataclass
 class TrainingSettings:
     experiment_id: str
     config_file_path: Any
@@ -130,7 +138,7 @@ class TrainingSettings:
     training_progress: Any
     cuda_env: Any = None  # the JAX settings' alias of dist_env
     dist_env: Any = None
-    warmstart_checkpoint_paths: Optional[dict] = None
+    warmstart_checkpoint_paths: Any = None
     debugging: Any = None
 
     def __post_init__(self):
@@ -148,7 +156,8 @@ class TrainingSettings:
         self.dist_env = _section(DistEnvSettings, self.dist_env or self.cuda_env or {}, "dist_env")
         self.cuda_env = self.dist_env
         if self.warmstart_checkpoint_paths is not None:
-            raise NotImplementedError("warmstart from a checkpoint is not ported yet (ROADMAP.md, Queue 1 item 2)")
+            self.warmstart_checkpoint_paths = _section(WarmstartCheckpointPaths, self.warmstart_checkpoint_paths,
+                                                       "warmstart_checkpoint_paths")
         self._check_tokens_per_step()
         c = self.consistency_enforcement
         self._check_interval(self.intervals.training_log_interval_in_steps, "logged", c.enforce_last_step_logged)

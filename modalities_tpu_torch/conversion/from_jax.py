@@ -12,6 +12,10 @@ The walk is convert_gpt2.py's (modalities_tpu/conversion/gpt2/convert_gpt2.py
 becomes the layer index; DenseGeneral kernels [E, H, D] (q/k/v) and
 [H, D, E] (attention c_proj) flatten to the port's 2-D [in, out] kernels, and
 their scales [H, D] / [E] flatten to [out].
+
+`app_state_from_jax` carries a whole JAX training state {params, opt_state,
+step} (as numpy, e.g. from the JAX package's `restore_tree_single_device`)
+into a train step's app-state dict (checkpointing/stateful/app_state.py).
 """
 
 from __future__ import annotations
@@ -84,3 +88,47 @@ def params_from_jax(tree: Mapping, config) -> dict[str, torch.Tensor]:
     if not spec.use_weight_tying:
         flat.update(_dense_2d(p["lm_head"], "lm_head", 1))
     return {k: to_torch(v) for k, v in flat.items()}
+
+
+def _find_adam_state(node):
+    """The optax Adam state ({count, mu, nu}, as a namedtuple or the dict a
+    restored checkpoint makes of it) inside an opt_state tree."""
+    if isinstance(node, Mapping) and {"count", "mu", "nu"} <= set(node):
+        return node
+    if all(hasattr(node, k) for k in ("count", "mu", "nu")):
+        return {"count": node.count, "mu": node.mu, "nu": node.nu}
+    children = node.values() if isinstance(node, Mapping) else node if isinstance(node, (list, tuple)) else ()
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def app_state_from_jax(tree: Mapping, train_step) -> dict:
+    """The app-state dict of `train_step` (checkpointing/stateful/app_state.py)
+    from the JAX {params, opt_state, step} tree: the parameters through
+    `params_from_jax`; optax Adam's `mu` and `nu` become AdamW's `exp_avg`
+    and `exp_avg_sq` and its `count` each parameter's `step`. The JAX
+    optimizer's hyperparameters are config and its schedule a function of the
+    step, so the param groups and the LR scheduler's state are the train
+    step's own, put at `step`: the scheduler's position and every group's lr
+    are those of a run that took `step` steps."""
+    from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+
+    adam = _find_adam_state(tree["opt_state"])
+    if adam is None:
+        raise ValueError("the JAX opt_state holds no Adam state (count, mu, nu)")
+    config = train_step.model
+    exp_avg, exp_avg_sq = params_from_jax(adam["mu"], config), params_from_jax(adam["nu"], config)
+    count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    state = {name: {"step": count.clone(), "exp_avg": exp_avg[name], "exp_avg_sq": exp_avg_sq[name]}
+             for name in exp_avg}
+    step = int(np.asarray(tree["step"]))
+    built = AppState(train_step).state_dict()
+    scheduler = train_step.scheduler
+    rates = [base * fn(step) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    groups = [{**group, "lr": lr} for group, lr in zip(built["optimizer"]["param_groups"], rates)]
+    lr_scheduler = {**built["lr_scheduler"], "last_epoch": step, "_step_count": step + 1, "_last_lr": rates}
+    return {"model": params_from_jax(tree["params"], config), "optimizer": {"state": state, "param_groups": groups},
+            "lr_scheduler": lr_scheduler, "step": torch.tensor(step, dtype=torch.int64)}

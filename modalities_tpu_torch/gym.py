@@ -1,12 +1,16 @@
 """Gym: the trainer plus the evaluation and checkpoint callbacks, the port of
 modalities_tpu/gym.py. Evaluation runs only with an empty `eval_dataloaders`
-(eval loops are not ported yet); a checkpoint that falls due raises from the
-checkpoint-saving component."""
+(eval loops are not ported yet). A checkpoint falls due every
+`checkpointing_interval_in_steps` seen steps; after a run that ends well the
+pending (async) save is drained, which seals its folder and moves the resume
+pointer to it. A run that raises leaves a pending folder unsealed, with the
+pointer on the last sealed one."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
 from modalities_tpu_torch.trainer import Trainer
 from modalities_tpu_torch.training.training_progress import TrainingProgress
 
@@ -15,9 +19,11 @@ class Gym:
     def __init__(self, trainer: Trainer):
         self.trainer = trainer
 
-    def run(self, train_step, train_data_loader, evaluation_data_loaders: list, checkpoint_saving=None,
+    def run(self, app_state: AppState, train_data_loader, evaluation_data_loaders: list, checkpoint_saving=None,
             training_progress: Optional[TrainingProgress] = None, evaluation_interval_in_steps: int = 0,
             checkpointing_interval_in_steps: int = 0) -> list[dict]:
+        """Trains `app_state.train_step`; a checkpoint saves `app_state`."""
+        train_step = app_state.train_step
         if evaluation_data_loaders:
             raise NotImplementedError(
                 "eval loops are not ported yet (ROADMAP.md, Queue 1 item 7); set eval_dataloaders: []"
@@ -28,8 +34,11 @@ class Gym:
         def checkpointing_callback(progress: TrainingProgress) -> None:
             if (checkpoint_saving is not None and checkpointing_interval_in_steps > 0
                     and progress.num_seen_steps_total % checkpointing_interval_in_steps == 0):
-                checkpoint_saving.save_checkpoint(progress, train_step)
+                checkpoint_saving.save_checkpoint(progress, app_state)
 
-        return self.trainer.train(train_step, train_data_loader, training_progress,
-                                  evaluation_callback=lambda step: None,
-                                  checkpointing_callback=checkpointing_callback)
+        results = self.trainer.train(train_step, train_data_loader, training_progress,
+                                     evaluation_callback=lambda step: None,
+                                     checkpointing_callback=checkpointing_callback)
+        if checkpoint_saving is not None:
+            checkpoint_saving.wait_until_finished()
+        return results

@@ -5,8 +5,10 @@ modalities_tpu/main.py for one device.
 interpolation (`cuda_env` resolves to rank 0 of a world of 1 without a
 launcher), builds every node with the training catalog, builds the
 `TrainStep` from the app state's model / optimizer / scheduler, the loss, the
-clipper and the step profile, and runs the trainer. It runs on the CUDA card
-unless `device="cpu"`.
+clipper and the step profile, loads a checkpoint into it when the app state
+names one (the `dcp` variant: a warmstart), and runs the trainer. It runs on
+the CUDA card unless `device="cpu"`. `additional_resolver_funs` adds `${name:...}`
+resolvers to the config's (warmstart adds `warmstart_env`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 import shutil
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 from modalities_tpu_torch.config.component_factory import ComponentFactory
 from modalities_tpu_torch.config.instantiation_models import (
@@ -40,7 +42,8 @@ def experiment_id_of_run(config_path: Path) -> str:
 
 class Main:
     def __init__(self, config_path: Path, experiments_root_path: Optional[Path] = None,
-                 experiment_id: Optional[str] = None, device: Optional[str] = None):
+                 experiment_id: Optional[str] = None, device: Optional[str] = None,
+                 additional_resolver_funs: Optional[dict[str, Callable]] = None):
         if os.environ.get("MODALITIES_TPU_FAULTS"):
             raise NotImplementedError(
                 "fault injection (MODALITIES_TPU_FAULTS) is not ported (ROADMAP.md, Queue 1 item 7)"
@@ -49,7 +52,8 @@ class Main:
         self.experiment_id = experiment_id or experiment_id_of_run(self.config_path)
         self.experiments_root_path = Path(experiments_root_path) if experiments_root_path else None
         self.config_dict = load_app_config_dict(self.config_path, experiments_root_path=self.experiments_root_path,
-                                                experiment_id=self.experiment_id)
+                                                experiment_id=self.experiment_id,
+                                                additional_resolver_funs=additional_resolver_funs)
         self.device = resolve_device(device)
         self.registry = Registry(TRAINING_COMPONENTS)
 
@@ -70,6 +74,27 @@ class Main:
             grad_clipper=components.gradient_clipper,
         )
 
+    def load_app_state(self, components: TrainingComponentsInstantiationModel, train_step):
+        """The AppState over the built step; a checkpoint the app state names
+        is loaded into it, and must hold as many optimizer steps as the
+        settings' training progress says were seen."""
+        from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+
+        spec = components.app_state
+        app_state = AppState(train_step, device_mesh=components.device_mesh)
+        if spec.checkpoint_dir_path is not None:
+            loader = spec.checkpoint_loading
+            if loader is None:
+                from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
+
+                loader = DCPCheckpointLoading()
+            loader.load_app_state(app_state, spec.checkpoint_dir_path)
+            seen = components.settings.training_progress.num_seen_steps
+            if app_state.step_count != seen:
+                raise ValueError(f"checkpoint {spec.checkpoint_dir_path} holds {app_state.step_count} optimizer steps, "
+                                 f"the settings' training_progress.num_seen_steps is {seen}")
+        return app_state
+
     def run(self, components: Optional[TrainingComponentsInstantiationModel] = None) -> list[dict]:
         """Train; returns the published interval results."""
         from modalities_tpu_torch.gym import Gym
@@ -83,6 +108,7 @@ class Main:
             folder.mkdir(parents=True, exist_ok=True)
             shutil.copy(self.config_path, folder / self.config_path.name)
         train_step = self.build_train_step(components)
+        app_state = self.load_app_state(components, train_step)
         print(f"experiment {self.experiment_id}: {train_step.num_parameters:,} trainable parameters on {self.device}",
               flush=True)
         mfu = components.mfu_calculator.bind(self.device) if components.mfu_calculator is not None else None
@@ -106,7 +132,7 @@ class Main:
         )
         self.train_step = train_step
         return Gym(trainer).run(
-            train_step, components.train_dataloader, components.eval_dataloaders,
+            app_state, components.train_dataloader, components.eval_dataloaders,
             checkpoint_saving=components.checkpoint_saving,
             training_progress=training_progress,
             evaluation_interval_in_steps=settings.intervals.evaluation_interval_in_steps,

@@ -16,10 +16,25 @@ COMPONENTS = [
 
 
 def _training_components() -> list[ComponentEntity]:
-    from modalities_tpu_torch.checkpointing.checkpoint_saving import (
-        CheckpointSaving,
-        CheckpointSavingExecution,
+    from modalities_tpu_torch.checkpointing.checkpoint_saving import CheckpointSaving
+    from modalities_tpu_torch.checkpointing.checkpoint_saving_strategies import (
+        SaveEveryKStepsCheckpointingStrategy,
         SaveKMostRecentCheckpointsStrategy,
+    )
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import (
+        DCPCheckpointLoading,
+        FSDP1AliasCheckpointLoadingConfig,
+        TorchAliasCheckpointLoadingConfig,
+        alias_checkpoint_loading,
+    )
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_saving import (
+        DCPCheckpointSaving,
+        DCPCheckpointSavingConfig,
+    )
+    from modalities_tpu_torch.checkpointing.stateful.app_state_factory import (
+        AppStateFactory,
+        DCPAppStateConfig,
+        RawAppStateConfig,
     )
     from modalities_tpu_torch.dataloader import samplers
     from modalities_tpu_torch.dataloader.dataloader import GPT2LLMCollateFn, LLMDataLoader
@@ -44,13 +59,13 @@ def _training_components() -> list[ComponentEntity]:
     from modalities_tpu_torch.optimizers.scheduler_factory import SCHEDULERS
     from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
     from modalities_tpu_torch.running_env.xla_flags import XlaPerformanceFlags
-    from modalities_tpu_torch.training.app_state import AppStateSpec
     from modalities_tpu_torch.training.gradient_clipping import (
         DummyGradientClipper,
         GradientClipper,
         LoggingOnlyGradientClipper,
     )
     from modalities_tpu_torch.utils.mfu import GPT2MFUCalculator, GPT2MFUCalculatorConfig
+    from modalities_tpu_torch.utils.number_conversion import NUMBER_CONVERSIONS
 
     def E(key, variant, component, config=None, own_config=True):  # noqa: N802
         """A dataclass component is its own config unless another is given."""
@@ -68,7 +83,8 @@ def _training_components() -> list[ComponentEntity]:
         E("optimizer", "adam", OptimizerFactory.get_adam, AdamOptimizerConfig),
         E("optimizer", "adam_w", OptimizerFactory.get_adam_w, AdamOptimizerConfig),
         *[E("scheduler", name, cls) for name, cls in SCHEDULERS.items()],
-        E("app_state", "raw", AppStateSpec),
+        E("app_state", "raw", AppStateFactory.get_raw_app_state, RawAppStateConfig),
+        E("app_state", "dcp", AppStateFactory.get_dcp_checkpointed_app_state_, DCPAppStateConfig),
         E("dataset", "packed_mem_map_dataset_continuous", get_packed_mem_map_dataset_continuous,
           PackedMemMapDatasetContinuousConfig),
         E("sampler", "resumable_distributed_multi_dim_sampler",
@@ -78,7 +94,14 @@ def _training_components() -> list[ComponentEntity]:
         E("data_loader", "default", LLMDataLoader),
         E("checkpoint_saving", "default", CheckpointSaving),
         E("checkpoint_saving_strategy", "save_k_most_recent_checkpoints_strategy", SaveKMostRecentCheckpointsStrategy),
-        E("checkpoint_saving_execution", "orbax", CheckpointSavingExecution),
+        E("checkpoint_saving_strategy", "save_every_k_steps_checkpointing_strategy",
+          SaveEveryKStepsCheckpointingStrategy),
+        # the JAX variant keys of the one checkpoint format here, DCP (the JAX package's is Orbax whatever the name)
+        *[E("checkpoint_saving_execution", name, DCPCheckpointSaving, DCPCheckpointSavingConfig)
+          for name in ("orbax", "dcp", "fsdp1")],
+        *[E("checkpoint_loading", name, DCPCheckpointLoading) for name in ("orbax", "dcp")],
+        E("checkpoint_loading", "fsdp1", alias_checkpoint_loading, FSDP1AliasCheckpointLoadingConfig),
+        E("checkpoint_loading", "torch", alias_checkpoint_loading, TorchAliasCheckpointLoadingConfig),
         E("gradient_clipper", "fsdp2", GradientClipper),
         E("gradient_clipper", "fsdp2_logging_only", LoggingOnlyGradientClipper),
         E("gradient_clipper", "dummy", DummyGradientClipper, own_config=False),
@@ -87,6 +110,7 @@ def _training_components() -> list[ComponentEntity]:
         E("results_subscriber", "save_to_disc", EvaluationResultToDiscSubscriber),
         E("results_subscriber", "dummy", DummySubscriber, own_config=False),
         E("mfu_calculator", "gpt2", GPT2MFUCalculator, GPT2MFUCalculatorConfig),
+        *[E("number_conversion", name, fn, config) for name, fn, config in NUMBER_CONVERSIONS],
     ]
 
 

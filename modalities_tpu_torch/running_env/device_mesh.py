@@ -11,6 +11,7 @@ import dataclasses
 
 from modalities_tpu_torch.config.config import check_bool, check_int, check_str
 
+PARALLEL_METHODS = ("dp_replicate", "dp_shard", "tp", "pp", "cp", "dcn")  # the JAX mesh's axis names
 _MULTI_GPU = "multi-GPU training is not ported yet (ROADMAP.md, Queue 1 item 5)"
 
 
@@ -50,6 +51,16 @@ class DeviceMesh:
             raise NotImplementedError(f"device_mesh degrees {over}: {_MULTI_GPU}")
         if self.zero_stage:
             raise NotImplementedError(f"zero_stage {self.zero_stage}: ZeRO optimizer-state sharding needs {_MULTI_GPU}")
+
+    @property
+    def degrees(self) -> dict[str, int]:
+        """The JAX mesh's axis degrees by name: all 1 on the world-1 mesh."""
+        return {name: 1 for name in PARALLEL_METHODS}
+
+    def get_parallel_degree(self, method: str) -> int:
+        if method not in PARALLEL_METHODS:
+            raise ValueError(f"unknown parallelism method {method!r}; expected one of {PARALLEL_METHODS}")
+        return self.degrees[method]
 
 
 def get_data_loading_info(device_mesh) -> tuple[int, int]:

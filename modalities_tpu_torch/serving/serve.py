@@ -238,16 +238,36 @@ def build_serving_components(config_dict: dict):
     return ComponentFactory(registry).build_components(config_dict, ServeInstantiationModel)
 
 
+def load_serving_params(checkpoint_folder_path, device=None, quant_weights=None) -> dict:
+    """A sealed training checkpoint -> serving parameters (the JAX
+    `load_serving_params`): the folder must pass its manifest, then the
+    model's parameters alone are read onto `device` (default: the CUDA card;
+    raises without one) in the dtypes they were trained in, then quantized as
+    `quant_weights` (none|int8|fp8; unset: none) says."""
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import restore_tree_single_device
+    from modalities_tpu_torch.quant.weights import quantize_params, resolve_quant_weights_mode
+    from modalities_tpu_torch.resilience.manifest import verify_manifest
+
+    folder = Path(checkpoint_folder_path)
+    device = resolve_device(device)
+    verification = verify_manifest(folder)
+    if not verification.ok:
+        raise ValueError(f"refusing to serve from {folder}: checkpoint failed manifest verification "
+                         f"({verification.reason})")
+    params = restore_tree_single_device(folder, device=device)
+    return quantize_params(params, resolve_quant_weights_mode(quant_weights))
+
+
 def resolve_params(component: ServingComponent, checkpoint_folder_path, seed: int = 0) -> None:
-    """Startup parameter resolution: explicit params win; no checkpoint serves
-    fresh-init parameters drawn from a generator seeded with `seed`."""
+    """Startup parameter resolution: explicit params win, then a sealed
+    checkpoint (`load_serving_params`); with neither, fresh-init parameters
+    drawn from a generator seeded with `seed`."""
     if component.params is not None:
         return
     if checkpoint_folder_path:
-        raise NotImplementedError(
-            "loading a sealed checkpoint is not ported yet; convert JAX params with "
-            "modalities_tpu_torch.conversion.from_jax.params_from_jax and set component.params"
-        )
+        component.params = load_serving_params(checkpoint_folder_path, device=component.device,
+                                               quant_weights=component.quant_weights_setting)
+        return
     logger.warning("serve: no checkpoint_folder_path — serving fresh-init params")
     generator = torch.Generator(device=component.device).manual_seed(seed)
     component.params = component.model.init_params(generator)

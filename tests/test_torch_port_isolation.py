@@ -30,6 +30,16 @@ def test_the_port_has_modules_to_check():
     assert len(FILES) > 10 and all(p.exists() for p in FILES)
 
 
+def test_the_walk_covers_the_checkpointing_modules():
+    walked = {str(p.relative_to(ROOT / "modalities_tpu_torch")) for p in FILES if "modalities_tpu_torch" in p.parts}
+    assert {"resilience/retry.py", "resilience/manifest.py", "utils/number_conversion.py",
+            "checkpointing/checkpoint_saving.py", "checkpointing/checkpoint_saving_instruction.py",
+            "checkpointing/checkpoint_saving_strategies.py", "checkpointing/checkpoint_saving_execution.py",
+            "checkpointing/topology.py", "checkpointing/stateful/app_state.py",
+            "checkpointing/stateful/app_state_factory.py", "checkpointing/dcp/dcp_checkpoint_saving.py",
+            "checkpointing/dcp/dcp_checkpoint_loading.py"} <= walked
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_jax_package_imports(path):
     bad = [name for name in _imports(path) if name.split(".")[0] in FORBIDDEN]

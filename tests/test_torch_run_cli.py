@@ -3,7 +3,9 @@ config derived from configs/config_2p7b_dp.yaml (the same nodes and keys, cut
 to 2 layers of width 128 and one CPU), and the knobs it refuses. Imports no
 JAX."""
 
+import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -130,16 +132,31 @@ def test_the_default_device_raises_without_a_card(tmp_path, monkeypatch):
                            "activation_checkpointing_variant": "full_activation_checkpointing",
                            "save_list": ["attention"]}},
          NotImplementedError, "save_list"),
-        ({"settings.intervals.checkpointing_interval_in_steps": 1,
-          "settings.consistency_enforcement.enforce_last_step_checkpointed": True}, NotImplementedError,
-         "checkpoint saving is not ported"),
+        ({"resilience": {"component_key": "resilience", "variant_key": "default",
+                         "config": {"preemption": {"enabled": True}}}}, NotImplementedError,
+         "preemption and fault injection"),
     ],
     ids=["mesh-degree", "zero", "dropout-dao-flash", "lm-head-chunk", "selective-op-remat", "remat-other-layers",
-         "remat-save-list", "due-checkpoint"],
+         "remat-save-list", "preemption"],
 )
 def test_what_the_port_does_not_have_raises(tmp_path, edits, error, match):
     with pytest.raises(error, match=match):
         Main(tiny_config(tmp_path, **edits), device="cpu").run()
+
+
+def test_a_due_checkpoint_is_saved_and_sealed(tmp_path):
+    from modalities_tpu_torch.resilience.manifest import verify_manifest
+
+    cfg = tiny_config(tmp_path, **{"settings.intervals.checkpointing_interval_in_steps": 1,
+                                   "settings.consistency_enforcement.enforce_last_step_checkpointed": True})
+    Main(cfg, device="cpu").run()
+    ckpts = tmp_path / "checkpoints"
+    folders = sorted((p for p in ckpts.iterdir() if p.is_dir()), key=lambda p: p.name)
+    assert [re.search(r"-seen_steps_(\d+)-", p.name).group(1) for p in folders] == ["1", "2"]  # k 3: both kept
+    assert all(verify_manifest(p).ok and (p / "topology.json").is_file() and (p / "manifest.json").is_file()
+               for p in folders)
+    pointer = json.loads((ckpts / "last_checkpoint_info.json").read_text())
+    assert pointer["checkpoint_folder_path"] == str(folders[-1].absolute())
 
 
 def test_the_long_context_config_builds_full_remat_and_the_fused_ce_head(tmp_path):
