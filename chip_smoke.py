@@ -92,9 +92,28 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      the folder's model tensors equal, bitwise). A copy of the folder with
      one byte flipped is refused by the loader (run B's train step left as
      it was), the warmstart's resolution and the serving loader.
-  7. one JSON line naming the kernels (launches summed over the paths, and
-     per path: serve, train_2p7b, train_32k, train_32k_resume, serve_ckpt),
-     then the device line (last line).
+  7. context and data parallelism. The flash ring of
+     modalities_tpu_torch/parallel/ring_attention.py at the 32k config's
+     attention widths with cp 4 (q [1, 12, 32768, 128], k/v [1, 4, 32768,
+     128] bf16, 4 contiguous chunks of 8192), forward and backward driven
+     rank by rank in this process through the module's own hop functions,
+     held against one flash call on the whole sequence (out, dq, dk, dv row
+     by row as in phase 1; lse within 1e-4); exactly 10 forward (4 causal, 6
+     full), 10 dq and 10 dk/dv launches, none for the 6 skipped hops; each
+     rank's hop times beside the whole call's (informational). Then the 32k
+     config cut to 2 steps through Main here and through `python -m
+     torch.distributed.run --standalone --nproc_per_node 1 -m
+     modalities_tpu_torch run` in a subprocess: losses, grad norms and lr
+     bitwise equal.
+  8. one JSON line naming the kernels (launches summed over the paths, and
+     per path: serve, train_2p7b, train_32k, train_32k_resume, ring_cp4,
+     train_32k_torchrun, serve_ckpt), then the device line (last line).
+
+Phases 4-7 run on the world-1 NCCL process group that `run` builds without
+a launcher (held across them), so every training run goes through
+`fully_shard` (the configs' `fsdp2_wrapped`); phases 4 and 5 also run their
+3 steps with the train step built without a mesh and hold every step's loss,
+grad norm and lr bitwise equal (step 0's losses 11.34302 and 11.13179).
 
 Exits non-zero, printing no result, without a CUDA device or without the rest
 of the repository beside it.
@@ -1387,14 +1406,9 @@ def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: d
 
 
 def _launch_counts(keys=TRAIN_KERNELS) -> dict[str, int]:
-    from modalities_tpu_torch.ops import flash_attention as fa
-    from modalities_tpu_torch.ops import fused_ce as fce
-    from modalities_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_backward
+    from modalities_tpu_torch.ops import launch_counts
 
-    counts = {"flash_fwd": fa.flash_fwd_out_lse.launches, "flash_dq": fa.flash_bwd_dq.launches,
-              "flash_dkv": fa.flash_bwd_dkv.launches, "rms_fwd": rms_norm.launches,
-              "rms_bwd": rms_norm_backward.launches, "ce_fwd": fce.fused_ce_forward.launches,
-              "ce_dh": fce.fused_ce_backward_dh.launches, "ce_dw": fce.fused_ce_backward_dw.launches}
+    counts = launch_counts()
     return {k: counts[k] for k in keys}
 
 
@@ -1406,6 +1420,39 @@ def _reset_counts() -> None:
     fa.flash_fwd_out_lse.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
     rms_norm.launches = rms_norm_backward.launches = 0
     fce.fused_ce_forward.launches = fce.fused_ce_backward_dh.launches = fce.fused_ce_backward_dw.launches = 0
+
+
+def fsdp_witness(torch, cfg: Path, tmp: Path, sharded: list[dict], want_step0: str, phase: str) -> None:
+    """The same config and data through Main with its train step built without
+    a mesh (no fully_shard, no collective: the port's world-1 step before
+    FSDP2): every step's loss, grad norm and lr must equal the sharded run's
+    (`sharded`, run on the world-1 NCCL group) bitwise, and step 0's loss
+    must print as `want_step0` (the value the unsharded kernels' path gives)."""
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+
+    def unsharded(components):
+        app_state = components.app_state
+        return TrainStep(app_state.model, components.loss_fn, app_state.optimizer, app_state.lr_scheduler,
+                         device=main.device,
+                         gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
+                         grad_clipper=components.gradient_clipper)
+
+    main.build_train_step = unsharded
+    plain = _step_metrics(main.run())
+    got = _step_metrics(sharded)
+    del main
+    gc.collect()
+    torch.cuda.empty_cache()
+    step0 = f"{got[1][0]:.5f}"
+    if got != plain or step0 != want_step0:
+        raise AssertionError(f"{phase}: fully_shard on the world-1 group {got} != without it {plain}, or step 0's "
+                             f"loss {step0} != {want_step0}")
+    log(f"[{phase}] fully_shard on a world-1 NCCL group: steps 1-{len(got)} (loss, grad norm, lr) "
+        f"{[got[k] for k in sorted(got)]} bitwise those of the same run without fully_shard; step 0's loss "
+        f"{step0} as the unsharded path gives it")
 
 
 def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
@@ -1540,6 +1587,7 @@ def phase_train(torch, smi: str) -> dict[str, int]:
                                      f"{want} per step")
         log(f"[phase 4] step 0 loss {losses[0]:.5f}: expected {expected:.5f} = ln(50304) + 2560 * 0.02^2 / 2 "
             f"(ln(50304) = {math.log(MODEL_2P7B['vocab_size']):.5f}), within 0.5")
+        sharded_results = results
         log(f"[phase 4] 2.7B training through Main: {steps} steps in {wall:.1f} s (build included); losses "
             f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 5) for x in norms]}; launches per step "
             f"{ {k: v // steps for k, v in counts.items()} }; peak memory {peak_gb:.1f} GB "
@@ -1552,6 +1600,7 @@ def phase_train(torch, smi: str) -> dict[str, int]:
         del main, results
         gc.collect()
         torch.cuda.empty_cache()
+        fsdp_witness(torch, cfg, tmp, sharded_results, "11.34302", "phase 4")
 
         # one batch repeated: no warmup (fn(0) = initial_lr, not 0), and an lr of 1.6e-5. At the config's
         # 1.6e-4 the loss does not fall at every step; lr_witness shows the plain path doing the same
@@ -1631,9 +1680,11 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
             log(f"[phase 5] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
                 f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
         profile_train_step(torch, main, smi, phase="phase 5")
+        sharded_results = results
         del main, results
         gc.collect()
         torch.cuda.empty_cache()
+        fsdp_witness(torch, cfg, tmp, sharded_results, "11.13179", "phase 5")
 
         repeat = np.tile(rng.integers(0, vocab, size=seq), 8)[: seq + 1 + 6 * seq]
         lrs = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": 0.00002,
@@ -1716,8 +1767,8 @@ def _timed(owner, name: str, into: list):
         setattr(owner, name, fn)
 
 
-def _host_copy(module) -> dict:
-    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+def _host_copy(train_step) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in train_step.state_dict().items()}
 
 
 def _step_metrics(results: list[dict]) -> dict[int, tuple[float, float, float]]:
@@ -1816,7 +1867,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
 
         def snapshot_then_save(app_state, training_progress):
             sync()
-            saved["params"] = _host_copy(app_state.train_step.module)  # the step-50 parameters, in memory
+            saved["params"] = _host_copy(app_state.train_step)  # the step-50 parameters, in memory
             saved["step"] = training_progress.num_seen_steps_total
             t0 = time.perf_counter()
             original(app_state=app_state, training_progress=training_progress)
@@ -1832,7 +1883,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
         wall_a = time.perf_counter() - t0
         counts_a = _launch_counts(LONG_KERNELS)
         metrics_a = _step_metrics(results_a)
-        final_a = _host_copy(main.train_step.module)
+        final_a = _host_copy(main.train_step)
         if len(results_a) != CKPT_STEPS or saved.get("step") != 50 or len(save_s) != 1:
             raise AssertionError(f"run A: {len(results_a)} steps, saves at {saved.get('step')} ({len(save_s)} saves); "
                                  f"expected {CKPT_STEPS} steps and one save at step 50")
@@ -1888,7 +1939,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
         for s in (51, 52):
             if metrics_b[s] != metrics_a[s]:
                 raise AssertionError(f"run B step {s} (loss, grad norm, lr) {metrics_b[s]} != run A's {metrics_a[s]}")
-        final_b = _host_copy(main_b.train_step.module)
+        final_b = _host_copy(main_b.train_step)
         unequal = [k for k in final_a if not torch.equal(final_a[k], final_b[k])]
         if unequal or set(final_a) != set(final_b):
             raise AssertionError(f"run B's final parameters differ from run A's: {unequal[:5]} ({len(unequal)})")
@@ -1911,7 +1962,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
         main_b.train_step({"samples": {"input_ids": t[..., :-1]}, "targets": {"target_ids": t[..., 1:]}})
         sync()
         step_s = time.perf_counter() - t0 - staged_s
-        after_step = _host_copy(main_b.train_step.module)
+        after_step = _host_copy(main_b.train_step)
         moved = [k for k in final_b if not torch.equal(after_step[k], final_b[k])]
         if not moved:
             raise AssertionError("async save: the training step after the save changed no parameter")
@@ -1955,7 +2006,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
         }
         for what, (error, fn) in refusals.items():
             log(f"[phase 6] corrupted copy (one byte of __0_0.distcp flipped): {what} refused: {_rejects(fn, error)[:200]}")
-        unequal = [k for k, v in _host_copy(main_b.train_step.module).items() if not torch.equal(v, after_step[k])]
+        unequal = [k for k, v in _host_copy(main_b.train_step).items() if not torch.equal(v, after_step[k])]
         if unequal:
             raise AssertionError(f"the refused load changed the train step's parameters: {unequal[:5]}")
         shutil.rmtree(broken_root)
@@ -2012,6 +2063,132 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
 
 
 # ---------------------------------------------------------------- phases 2-3
+# ---------------------------------------------------------------- phase 7
+RING_CP = 4  # the ring's ranks: the 32k sequence in 4 contiguous chunks of 8192
+RING_STEPS = 2  # the 32k config cut to 2 steps, in process and under the launcher
+
+
+def phase_ring(torch, smi: str) -> dict:
+    """The flash ring's hops at the 32k config's attention widths (q [1, 12,
+    32768, 128], k/v [1, 4, 32768, 128] bf16) with cp 4, driven rank by rank
+    in this process through parallel/ring_attention.py's own hop functions
+    (`ring_in_process`), against one flash call on the whole sequence: out,
+    dq, dk and dv held row by row (FLASH_ROW_REL), lse within 1e-4. The ring
+    launches 4 causal and 6 full forward hops, 10 dq and 10 dk/dv, and none
+    for its 6 skipped hops. Then each rank's hop time and the whole call's
+    (informational: the contiguous chunks' imbalance). Returns the ring's
+    launch counts."""
+    from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.parallel import ring_attention as ra
+
+    b, s, hq, hkv, d = FLASH_LONG
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    out_ref, lse_ref = fa.flash_fwd_out_lse(q, k, v, causal=True)
+    delta = (do.float() * out_ref.float()).sum(-1, keepdim=True)
+    dq_ref = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal=True)
+    dk_ref, dv_ref = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal=True)
+    torch.cuda.synchronize()
+    _reset_counts()
+    out, lse, dq, dk, dv = ra.ring_in_process(q, k, v, do, RING_CP, causal=True)
+    torch.cuda.synchronize()
+    counts = _launch_counts(("flash_fwd", "flash_dq", "flash_dkv"))
+    if counts != {"flash_fwd": 10, "flash_dq": 10, "flash_dkv": 10}:
+        raise AssertionError(f"ring cp {RING_CP}: launches {counts}, expected 10 forward (4 causal, 6 full), 10 dq, "
+                             "10 dk/dv and none for the 6 skipped hops")
+    what = f"ring cp {RING_CP} at q [{b}, {hq}, {s}, {d}] k/v [{b}, {hkv}, {s}, {d}] bf16 causal"
+    rel = FLASH_ROW_REL["bfloat16"]
+    seen = {}
+    for name, got, want in (("out", out, out_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        seen[name] = _row_check(torch, got, want, rel, f"{what} {name} against one flash call on the whole sequence")
+    lse_err = _rel_check(torch, lse, lse_ref, 0.0, 1e-4, f"{what} lse")
+    log(f"[phase 7] {what}, driven rank by rank through the module's hop functions: launches {counts} (4 causal and "
+        f"6 full forward hops, 6 skipped); against one flash call on the whole sequence, worst row rel err (share of "
+        f"allowance used, max abs err) "
+        f"{', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f}, {r[2]:.3g})' for n, r in seen.items())}, "
+        f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4)")
+    del out, lse, dq, dk, dv, dq_ref, dk_ref, dv_ref
+
+    chunk = s // RING_CP
+    sm_scale = 1.0 / math.sqrt(d)
+    qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(RING_CP, dim=2)] for t in (q, k, v, do))
+    lses = [lse_ref[:, :, i * chunk:(i + 1) * chunk].contiguous() for i in range(RING_CP)]
+    deltas = [delta[:, :, i * chunk:(i + 1) * chunk].contiguous() for i in range(RING_CP)]
+
+    def rank_fwd(i):
+        return ra.forward_hops(qs[i], ks[i], vs[i], i, RING_CP, True, sm_scale,
+                               lambda r, k_, v_: (ks[(i - r - 1) % RING_CP], vs[(i - r - 1) % RING_CP]))
+
+    def rank_bwd(i):
+        for r in range(RING_CP):
+            j = (i - r) % RING_CP
+            ra.hop_backward(qs[i], ks[j], vs[j], dos[i], lses[i], deltas[i], ra.branch(True, i, j), sm_scale)
+
+    fwd_ms = [time_ms(torch, lambda i=i: rank_fwd(i), reps=3) for i in range(RING_CP)]
+    bwd_ms = [time_ms(torch, lambda i=i: rank_bwd(i), reps=3) for i in range(RING_CP)]
+    whole_fwd = time_ms(torch, lambda: fa.flash_fwd_out_lse(q, k, v, causal=True), reps=3)
+    whole_bwd = time_ms(torch, lambda: (fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal=True),
+                                        fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal=True)), reps=3)
+    log(f"[phase 7] ring hop times by rank ({smi}; informational, no exchange): forward (hops merged) "
+        f"{[round(t, 3) for t in fwd_ms]} ms, backward (dq and dk/dv a hop) {[round(t, 3) for t in bwd_ms]} ms; "
+        f"the slowest rank {max(fwd_ms) + max(bwd_ms):.3f} ms against one whole-sequence forward {whole_fwd:.3f} ms "
+        f"+ dq and dk/dv {whole_bwd:.3f} ms; rank i runs i + 1 hops (contiguous chunks, no load balancing)")
+    del q, k, v, do, out_ref, lse_ref, delta, qs, ks, vs, dos, lses, deltas
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_launcher(torch, smi: str) -> dict[str, int]:
+    """The 32k config cut to RING_STEPS steps through Main in this process,
+    then through `python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m modalities_tpu_torch run` in a subprocess (its own
+    world-1 NCCL group, the library this process built): the same losses,
+    grad norms and lr, bitwise. Returns the subprocess's kernel launches
+    (its `[train] kernel launches` line)."""
+    from modalities_tpu_torch.main import Main
+
+    rng = np.random.default_rng(2030)
+    seq, vocab = LONG_MODEL["seq"], LONG_MODEL["vocab"]
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        corpus = rng.integers(0, vocab, size=seq + 1 + (RING_STEPS + 2) * seq)
+        cfg = _train_config(tmp, "launcher", corpus, RING_STEPS, {}, seq=seq, base=LONG_CONFIG, micro=1, acc=1,
+                            phase="phase 7")
+        main = Main(cfg, experiments_root_path=tmp / "in_process", device="cuda")
+        in_process = _step_metrics(main.run())
+        del main
+        gc.collect()
+        torch.cuda.empty_cache()
+        import yaml
+
+        launcher_cfg = yaml.safe_load(cfg.read_text())  # the same config, its results in a folder of their own
+        launcher_cfg["settings"]["paths"]["experiments_root_path"] = str(tmp / "launcher")
+        (tmp / "launcher.yaml").write_text(yaml.safe_dump(launcher_cfg, sort_keys=False))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", "-m",
+               "modalities_tpu_torch", "run", "--config_file_path", str(tmp / "launcher.yaml")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher run exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rows = [json.loads(line) for f in (tmp / "launcher").rglob("evaluation_results.jsonl")
+                for line in f.read_text().splitlines()]
+        launched = _step_metrics(rows)
+        counts_line = [line for line in proc.stdout.splitlines() if line.startswith("[train] kernel launches")]
+        if launched != in_process or len(counts_line) != 1:
+            raise AssertionError(f"launcher run: steps {launched} != in process {in_process} "
+                                 f"({len(counts_line)} launch lines)\n{proc.stdout[-3000:]}")
+        counts = json.loads(counts_line[0].split(": ", 1)[1])
+        step_lines = [line for line in proc.stdout.splitlines() if line.startswith("[train] step")]
+        log(f"[phase 7] {LONG_CONFIG} cut to {RING_STEPS} steps under `torch.distributed.run --standalone "
+            f"--nproc_per_node 1` ({wall:.1f} s with the process start; {smi}): (loss, grad norm, lr) "
+            f"{[launched[s] for s in sorted(launched)]} bitwise those of the same config through Main in this process; "
+            f"its launches {counts}; its lines: {step_lines}")
+    return counts
+
+
 def build_model():
     from modalities_tpu_torch.config.component_factory import ComponentFactory
     from modalities_tpu_torch.registry.components import COMPONENTS
@@ -2158,6 +2335,42 @@ def greedy_agreement(reqs, base, other) -> float:
 
 
 # ---------------------------------------------------------------- main
+def training_phases(torch):
+    """Phases 4-7 on the process group; returns each path's launch counts."""
+    # phase 4: the training path. Counts start from 0 inside phase_train.
+    smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    train_counts = phase_train(torch, smi_now)
+    if any(v == 0 for v in train_counts.values()):
+        raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
+    log(f"[phase 4] launches in the 3-step run: {train_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 5: the 32k long-context training path. Counts start from 0 inside phase_train_long.
+    long_counts = phase_train_long(torch, smi_now)
+    if any(v == 0 for v in long_counts.values()):
+        raise AssertionError(f"a kernel of the 32k training path was never launched: {long_counts}")
+    log(f"[phase 5] launches in the 3-step run: {long_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 6: checkpoint, warmstart and serving from a checkpoint. Counts start from 0 before each path inside.
+    long_per_step = {k: v // 3 for k, v in long_counts.items()}
+    ckpt_counts = phase_checkpoint(torch, smi_now, long_per_step)
+    log(f"[phase 6] launches: warmstart (2 steps) {ckpt_counts['train_32k_resume']}; serving from the checkpoint "
+        f"{ckpt_counts['serve_ckpt']}")
+
+    # phase 7: the ring's hops at the 32k widths (counts from 0 just before the ring), then the launcher
+    ring_counts = phase_ring(torch, smi_now)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher_counts = phase_launcher(torch, smi_now)
+    if any(launcher_counts[k] == 0 for k in LONG_KERNELS):
+        raise AssertionError(f"a kernel of the 32k path under the launcher was never launched: {launcher_counts}")
+    return train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts
+
+
 def main() -> int:
     # what `python -m modalities_tpu_torch run` sets, before the first allocation
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -2240,35 +2453,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 4: the training path. Counts start from 0 inside phase_train.
-    smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    train_counts = phase_train(torch, smi_now)
-    if any(v == 0 for v in train_counts.values()):
-        raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
-    log(f"[phase 4] launches in the 3-step run: {train_counts}; rms_norm forward also {rms_total} in serving")
-    gc.collect()
-    torch.cuda.empty_cache()
+    # phases 4-7 train on the world-1 NCCL group `run` builds without a launcher, held here across the runs
+    # (each Main joins it; the profiled steps and phase 6's saves after a run use it too)
+    from modalities_tpu_torch.running_env.env import process_group
 
-    # phase 5: the 32k long-context training path. Counts start from 0 inside phase_train_long.
-    long_counts = phase_train_long(torch, smi_now)
-    if any(v == 0 for v in long_counts.values()):
-        raise AssertionError(f"a kernel of the 32k training path was never launched: {long_counts}")
-    log(f"[phase 5] launches in the 3-step run: {long_counts}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    with process_group(torch.device("cuda")):
+        paths = training_phases(torch)
+    train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts = paths
 
-    # phase 6: checkpoint, warmstart and serving from a checkpoint. Counts start from 0 before each path inside.
-    long_per_step = {k: v // 3 for k, v in long_counts.items()}
-    ckpt_counts = phase_checkpoint(torch, smi_now, long_per_step)
-    log(f"[phase 6] launches: warmstart (2 steps) {ckpt_counts['train_32k_resume']}; serving from the checkpoint "
-        f"{ckpt_counts['serve_ckpt']}")
-
-    # phase 7. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
+    # phase 8. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
         paths = {"train_2p7b": train_counts, "train_32k": long_counts,
-                 "train_32k_resume": ckpt_counts["train_32k_resume"]}
+                 "train_32k_resume": ckpt_counts["train_32k_resume"], "ring_cp4": ring_counts,
+                 "train_32k_torchrun": launcher_counts}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
+
 
     def entry(name, source, replaces, paths, k, pick=lambda ts: ts[0]):
         t = pick(kernels[k]["timings"])

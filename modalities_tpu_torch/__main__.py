@@ -10,7 +10,14 @@
 All run on the CUDA card unless `--device cpu`. `run` and `warmstart` set
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the caller set it.
 `warmstart` resumes from the folder a `last_checkpoint_info.json` names
-(`warmstart`, below)."""
+(`warmstart`, below).
+
+`run` and `warmstart` train on N cards under the launcher, one process a card
+(card LOCAL_RANK; the config's device_mesh degrees multiply to N):
+
+    python -m torch.distributed.run --nproc_per_node N -m modalities_tpu_torch run --config_file_path <yaml>
+
+Without a launcher they build a world-1 process group themselves."""
 
 from __future__ import annotations
 

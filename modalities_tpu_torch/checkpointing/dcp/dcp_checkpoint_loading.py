@@ -9,10 +9,12 @@ naming the leaves that differ). Then `dcp.load` reads into the train step's
 own tensors, the AppState takes what it read, and is marked loaded; a second
 load is refused before anything is read.
 
-A saved topology record that differs from the current mesh is logged; it
-refuses nothing, since DCP lays the tensors out for the current run (the
-JAX loader also relaxes the manifest gate then; the port does not, as it
-runs one process and no file can be missing for that reason).
+A saved topology record that differs from the current mesh (another world)
+is logged; it refuses nothing, since DCP reshards the saved tensors onto the
+current run's layout on load (the JAX loader also relaxes the manifest gate
+then; the port keeps it: every rank's files are on the shared folder, so
+none can be missing for that reason). Every rank runs the gates before it
+reads.
 
 `restore_tree_single_device` reads the model's parameters alone from a
 folder onto one device, shaped by the checkpoint's own metadata: the serving
@@ -36,6 +38,7 @@ from modalities_tpu_torch.config.config import check_bool, check_int
 from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.resilience.manifest import verify_manifest
 from modalities_tpu_torch.resilience.retry import retry_io
+from modalities_tpu_torch.running_env import env
 
 logger = logging.getLogger(__name__)
 
@@ -57,14 +60,14 @@ class CheckpointLoadingIF(ABC):
 
 @dataclasses.dataclass
 class DCPCheckpointLoading(CheckpointLoadingIF):
-    """`global_rank` is accepted for config parity (one process here);
-    `elastic` False skips the topology comparison."""
+    """A `global_rank` given must be this process's rank (unset: whatever rank
+    runs it); `elastic` False skips the topology comparison."""
 
-    global_rank: int = 0
+    global_rank: Optional[int] = None
     elastic: bool = True
 
     def __post_init__(self):
-        check_int("global_rank", self.global_rank, ge=0)
+        check_int("global_rank", self.global_rank, ge=0, optional=True)
         check_bool("elastic", self.elastic)
 
     def _log_reshard(self, folder: Path, app_state, target: dict) -> None:
@@ -98,6 +101,8 @@ class DCPCheckpointLoading(CheckpointLoadingIF):
         import torch.distributed.checkpoint as dcp
 
         folder = Path(checkpoint_dir_path)
+        if self.global_rank is not None:
+            env.check_global_rank(self.global_rank, "checkpoint_loading")
         if app_state.is_loaded:
             raise RuntimeError(DOUBLE_LOAD)
         if not folder.exists():

@@ -6,12 +6,14 @@ package's layout and with its guarantees.
   ``eid_{eid}-seen_steps_{s}-seen_tokens_{t}-target_steps_{S}-target_tokens_{T}``
   (parsed back by utils/number_conversion.py when a warmstart config is built).
 - ``dcp.save`` of the AppState (checkpointing/stateful/app_state.py) writes the
-  folder; it runs with no process group (one process, one file of tensors
-  plus DCP's ``.metadata``).
-- Once the write has committed, the folder is sealed in this order:
-  ``topology.json``, then ``manifest.json`` (sizes and sha256 of every file,
-  the topology record included), then the resume pointer
-  ``last_checkpoint_info.json`` beside the folders, written atomically.
+  folder: each rank its own shards (``__<rank>_0.distcp``), the coordinator
+  (rank 0) DCP's ``.metadata``; without a process group one process writes
+  them all.
+- Once the write has committed on every rank (a barrier), rank 0 alone seals
+  the folder in this order: ``topology.json``, then ``manifest.json`` (sizes
+  and sha256 of every file, the topology record included), then the resume
+  pointer ``last_checkpoint_info.json`` beside the folders, written
+  atomically; a second barrier holds every rank until the seal is on disk.
 - With ``use_async``, ``dcp.async_save`` copies the state to the host and
   writes it in the background while training goes on. The folder is sealed,
   and the pointer moved to it, only once that write is confirmed: at the next
@@ -36,6 +38,7 @@ from modalities_tpu_torch.checkpointing.topology import describe_topology, write
 from modalities_tpu_torch.config.config import check_bool, check_int, check_str
 from modalities_tpu_torch.resilience.manifest import atomic_write_json, write_manifest
 from modalities_tpu_torch.resilience.retry import retry_io
+from modalities_tpu_torch.running_env import env
 from modalities_tpu_torch.training.training_progress import TrainingProgress
 
 logger = logging.getLogger(__name__)
@@ -60,18 +63,18 @@ def checkpoint_folder_path(checkpoint_path: Path, experiment_id: str, training_p
 
 @dataclasses.dataclass
 class DCPCheckpointSavingConfig:
-    """The JAX execution's keys. `global_rank` is accepted for config parity:
-    the port runs one process, which writes and seals."""
+    """The JAX execution's keys; a `global_rank` given must be this process's
+    rank (unset: whatever rank runs it)."""
 
     checkpoint_path: Path
     experiment_id: str
-    global_rank: int = 0
+    global_rank: Optional[int] = None
     use_async: bool = False
 
     def __post_init__(self):
         self.checkpoint_path = Path(self.checkpoint_path)
         check_str("experiment_id", self.experiment_id)
-        check_int("global_rank", self.global_rank, ge=0)
+        check_int("global_rank", self.global_rank, ge=0, optional=True)
         check_bool("use_async", self.use_async)
 
 
@@ -83,7 +86,8 @@ class _PendingSave:
 
 
 class DCPCheckpointSaving(CheckpointSavingExecutionABC):
-    def __init__(self, checkpoint_path: Path, experiment_id: str, global_rank: int = 0, use_async: bool = False):
+    def __init__(self, checkpoint_path: Path, experiment_id: str, global_rank: Optional[int] = None,
+                 use_async: bool = False):
         self.checkpoint_path = Path(checkpoint_path)
         self.experiment_id = experiment_id
         self.global_rank = global_rank
@@ -95,6 +99,8 @@ class DCPCheckpointSaving(CheckpointSavingExecutionABC):
     def _save_checkpoint(self, app_state, training_progress: TrainingProgress) -> None:
         import torch.distributed.checkpoint as dcp
 
+        if self.global_rank is not None:
+            env.check_global_rank(self.global_rank, "checkpoint_saving_execution")
         folder = checkpoint_folder_path(self.checkpoint_path, self.experiment_id, training_progress)
         folder.parent.mkdir(parents=True, exist_ok=True)
         logger.info("Saving checkpoint to %s ...", folder)
@@ -110,14 +116,18 @@ class DCPCheckpointSaving(CheckpointSavingExecutionABC):
         logger.info("Checkpoint saved.")
 
     def _seal_committed(self, folder: Path, topology: dict) -> None:
-        """Topology record, then manifest (its presence certifies a whole
-        folder and its digests cover the topology file), then the resume
-        pointer (naming the folder the manifest just certified)."""
-        write_topology(folder, topology)
-        write_manifest(folder)
+        """On rank 0, once every rank's write has committed: topology record,
+        then manifest (its presence certifies a whole folder and its digests
+        cover the topology file), then the resume pointer (naming the folder
+        the manifest just certified)."""
         info_path = folder.parent / LAST_CHECKPOINT_INFO_FILE_NAME
-        retry_io(lambda: atomic_write_json(info_path, {"checkpoint_folder_path": str(folder.absolute())}),
-                 what="info_write")
+        env.barrier()
+        if env.rank() == 0:
+            write_topology(folder, topology)
+            write_manifest(folder)
+            retry_io(lambda: atomic_write_json(info_path, {"checkpoint_folder_path": str(folder.absolute())}),
+                     what="info_write")
+        env.barrier()
         self._last_info_folder = folder
         logger.info("Checkpoint info saved to %s.", info_path)
 
@@ -127,6 +137,9 @@ class DCPCheckpointSaving(CheckpointSavingExecutionABC):
         # a whole interval: drain the pending write first, so the pointer moves to the newest folder
         if self._pending is not None and self._last_info_folder == folder:
             self.wait_until_finished()
+        env.barrier()  # no rank still reads the folder
+        if env.rank() != 0:
+            return
         if not folder.exists():
             logger.warning("Checkpoint folder %s already gone; skipping ring deletion.", folder)
             return

@@ -1,12 +1,13 @@
 """Checkpoint topology record: the port of modalities_tpu/checkpointing/topology.py.
 
 Every sealed checkpoint folder gains a ``topology.json`` beside its
-``manifest.json``: the saving run's mesh axis degrees, process and device
-counts, each state leaf's sharding and the sampler-state layout. It is
-written before the manifest, so the manifest's digests seal it too. The port
-trains on a world-1 mesh (running_env/device_mesh.py), so every degree is 1
-and every leaf is whole on its one device (spec "()", the JAX spelling of a
-replicated leaf); `diff_topology` is what a later multi-GPU resume compares.
+``manifest.json``: the saving run's mesh axes (the built ones, as the JAX
+mesh has them), process and device counts, each state leaf's sharding and
+the sampler-state layout. It is written before the manifest, so the
+manifest's digests seal it too. A leaf's sharding is spelled as the JAX
+package spells a PartitionSpec, one entry a dim: an FSDP2 shard over the
+flattened (dp_shard, cp) group is "(('dp_shard', 'cp'), None)", a whole
+leaf "()". `diff_topology` is what a resume at another world compares.
 
 Unlike the JAX package's `write_topology`, a failure to write the record
 raises: a save's seal does not carry on past a failed step.
@@ -27,26 +28,43 @@ TOPOLOGY_FILE_NAME = "topology.json"
 TOPOLOGY_VERSION = 1
 
 
+def leaf_spec(tensor) -> str:
+    """A state leaf's sharding in the JAX spelling: "()" for a whole tensor;
+    for a DTensor one entry a dim, the mesh axes it is sharded over (a
+    flattened dim's axes as a tuple) or None."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(tensor, DTensor):
+        return "()"
+    dims: list = [None] * tensor.ndim
+    for mesh_dim, placement in enumerate(tensor.placements):
+        if placement.is_shard():
+            name = tensor.device_mesh.mesh_dim_names[mesh_dim]
+            axes = ("dp_shard", "cp") if name == "dp_shard_cp" else (name,)  # the FSDP mesh's flattened dim
+            current = dims[placement.dim]
+            dims[placement.dim] = (current if isinstance(current, tuple) else ()) + axes
+    return str(tuple(d[0] if isinstance(d, tuple) and len(d) == 1 else d for d in dims))
+
+
 def describe_topology(device_mesh, state_dict: dict) -> dict:
     """The topology record of a state dict on the port's mesh (`device_mesh`
-    a running_env.device_mesh.DeviceMesh, or None for the default world-1
+    a running_env.device_mesh.DeviceMesh, or None for a world-1 step with no
     mesh)."""
     from modalities_tpu_torch.checkpointing.stateful.app_state import flatten_tensors
-    from modalities_tpu_torch.running_env.device_mesh import PARALLEL_METHODS
+    from modalities_tpu_torch.running_env import env
 
-    mesh_axes = dict(device_mesh.degrees) if device_mesh is not None else {m: 1 for m in PARALLEL_METHODS}
-    num_slices = mesh_axes.get("dcn", 1)
-    dp_degree = num_slices * mesh_axes.get("dp_replicate", 1) * mesh_axes.get("dp_shard", 1)
+    mesh_axes = dict(device_mesh.mesh_axes) if device_mesh is not None else {"dp_shard": 1}
+    dp_degree = mesh_axes.get("dp_replicate", 1) * mesh_axes.get("dp_shard", 1)
     device_count = 1
     for degree in mesh_axes.values():
         device_count *= degree
     return {
         "version": TOPOLOGY_VERSION,
         "mesh_axes": mesh_axes,
-        "process_count": 1,
+        "process_count": env.world_size(),
         "device_count": device_count,
-        "slices": {"num_slices": num_slices, "devices_per_slice": device_count // num_slices},
-        "leaf_specs": {name: "()" for name in flatten_tensors(state_dict)},
+        "slices": {"num_slices": 1, "devices_per_slice": device_count},
+        "leaf_specs": {name: leaf_spec(t) for name, t in flatten_tensors(state_dict).items()},
         "sampler_state": {"dp_degree": dp_degree, "skip_semantics": "global"},
     }
 

@@ -4,7 +4,9 @@ modalities_tpu/dataloader/samplers.py and sampler_factory.py.
 `ResumableDistributedSampler` shuffles with numpy PCG64(seed + epoch), as the
 JAX sampler does, so the port reads the JAX package's sample order; the
 `resumable_distributed_multi_dim_sampler` variant takes its replica count
-and rank from the (world-1) device mesh.
+(dp_replicate * dp_shard) and rank (this rank's flat dp coordinate) from the
+device mesh, so the cp ranks of one dp coordinate read the same samples and
+each takes its chunk of their sequence in the train step.
 """
 
 from __future__ import annotations
@@ -134,5 +136,5 @@ def create_resumable_distributed_multi_dim_sampler(dataset, device_mesh, data_pa
 
 
 def create_batch_sampler(sampler, batch_size: int, drop_last: bool = True, device_mesh=None) -> BatchSampler:
-    """`batch_size` is the per-rank micro batch; one card is the whole data-parallel world."""
+    """`batch_size` is the per-rank micro batch (the dp ranks' together make the global one)."""
     return BatchSampler(sampler, batch_size, drop_last)

@@ -2,10 +2,13 @@
 
 Entry points run on the card unless the caller asks for the CPU: `device`
 defaults to "cuda", and with no CUDA device present that default raises
-instead of dropping to the CPU. Tests pass `device="cpu"`.
+instead of dropping to the CPU. Tests pass `device="cpu"`. "cuda" without an
+index is the launcher's card, LOCAL_RANK (0 without a launcher).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -21,7 +24,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "to run the plain PyTorch path on the CPU"
             )
         if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: expected 'cuda' or 'cpu'")
     return dev

@@ -1,14 +1,20 @@
 """Main: YAML config -> component graph -> train step -> Gym.run, the port of
-modalities_tpu/main.py for one device.
+modalities_tpu/main.py.
 
 `Main(config_path).run()` loads the config with the port's `${...}`
-interpolation (`cuda_env` resolves to rank 0 of a world of 1 without a
-launcher), builds every node with the training catalog, builds the
-`TrainStep` from the app state's model / optimizer / scheduler, the loss, the
-clipper and the step profile, loads a checkpoint into it when the app state
-names one (the `dcp` variant: a warmstart), and runs the trainer. It runs on
-the CUDA card unless `device="cpu"`. `additional_resolver_funs` adds `${name:...}`
-resolvers to the config's (warmstart adds `warmstart_env`).
+interpolation (`cuda_env` reads the launcher's RANK / WORLD_SIZE /
+LOCAL_RANK, or rank 0 of a world of 1 without a launcher), joins the process
+group (running_env/env.py: under `torch.distributed.run` the launcher's, else
+a world-1 group it builds), builds every node with the training catalog,
+builds the `TrainStep` over the config's device mesh (FSDP2, and the cp ring
+when the mesh has a cp axis) from the app state's model / optimizer /
+scheduler, the loss, the clipper and the step profile, loads a checkpoint
+into it when the app state names one (the `dcp` variant: a warmstart), and
+runs the trainer. The group is joined when `Main` is made (every rank takes
+rank 0's experiment id); a group `Main` built is torn down at the end of
+`run`, one that existed before is left to its owner. It runs on the CUDA card
+LOCAL_RANK unless `device="cpu"`. `additional_resolver_funs` adds
+`${name:...}` resolvers to the config's (warmstart adds `warmstart_env`).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
 from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.registry.components import TRAINING_COMPONENTS
 from modalities_tpu_torch.registry.registry import Registry
+from modalities_tpu_torch.running_env import env
 
 logger = logging.getLogger(__name__)
 
@@ -49,21 +56,55 @@ class Main:
                 "fault injection (MODALITIES_TPU_FAULTS) is not ported (ROADMAP.md, Queue 1 item 7)"
             )
         self.config_path = Path(config_path)
-        self.experiment_id = experiment_id or experiment_id_of_run(self.config_path)
-        self.experiments_root_path = Path(experiments_root_path) if experiments_root_path else None
-        self.config_dict = load_app_config_dict(self.config_path, experiments_root_path=self.experiments_root_path,
-                                                experiment_id=self.experiment_id,
-                                                additional_resolver_funs=additional_resolver_funs)
         self.device = resolve_device(device)
         self.registry = Registry(TRAINING_COMPONENTS)
+        self._owns_group = False
+        self._join_group()
+        try:  # every rank names the run as rank 0 does: its checkpoint folders are one folder
+            self.experiment_id = experiment_id or env.broadcast_object(experiment_id_of_run(self.config_path))
+            self.experiments_root_path = Path(experiments_root_path) if experiments_root_path else None
+            self.config_dict = load_app_config_dict(self.config_path, experiments_root_path=self.experiments_root_path,
+                                                    experiment_id=self.experiment_id,
+                                                    additional_resolver_funs=additional_resolver_funs)
+        except BaseException:
+            self._leave_group()
+            raise
+
+    def _join_group(self) -> None:
+        self._owns_group = env.init_process_group(self.device) or self._owns_group
+
+    def _leave_group(self) -> None:
+        if self._owns_group:
+            env.destroy_process_group()
+            self._owns_group = False
 
     def build_components(self) -> TrainingComponentsInstantiationModel:
         for key, what in UNPORTED_TRAINING_COMPONENTS.items():
             if self.config_dict.get(key) is not None:
                 raise NotImplementedError(f"config node {key!r}: {what} is not ported yet")
-        return ComponentFactory(self.registry).build_components(self.config_dict, TrainingComponentsInstantiationModel)
+        self._join_group()
+        try:
+            components = ComponentFactory(self.registry).build_components(self.config_dict,
+                                                                         TrainingComponentsInstantiationModel)
+            self._check_ranks(components)
+        except BaseException:
+            self._leave_group()
+            raise
+        return components
+
+    @staticmethod
+    def _check_ranks(components: TrainingComponentsInstantiationModel) -> None:
+        """The config's rank and world must be this process's (`cuda_env`
+        reads them from the launcher; the mesh's world is checked when it is
+        built)."""
+        dist_env = components.settings.dist_env
+        env.check_global_rank(dist_env.global_rank, "settings.cuda_env")
+        if dist_env.world_size != env.world_size():
+            raise ValueError(f"settings.cuda_env: world_size {dist_env.world_size} but the process group has "
+                             f"{env.world_size()} ranks")
 
     def build_train_step(self, components: TrainingComponentsInstantiationModel):
+        from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
         from modalities_tpu_torch.training.train_step import TrainStep
 
         app_state = components.app_state
@@ -72,6 +113,7 @@ class Main:
             device=self.device,
             gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
             grad_clipper=components.gradient_clipper,
+            device_mesh=components.device_mesh or DeviceMesh(world_size=env.world_size()),
         )
 
     def load_app_state(self, components: TrainingComponentsInstantiationModel, train_step):
@@ -96,21 +138,30 @@ class Main:
         return app_state
 
     def run(self, components: Optional[TrainingComponentsInstantiationModel] = None) -> list[dict]:
-        """Train; returns the published interval results."""
+        """Train; returns the interval results (published on rank 0)."""
+        self._join_group()
+        try:
+            return self._run(components or self.build_components())
+        finally:
+            self._leave_group()
+
+    def _run(self, components: TrainingComponentsInstantiationModel) -> list[dict]:
         from modalities_tpu_torch.gym import Gym
         from modalities_tpu_torch.trainer import Trainer
         from modalities_tpu_torch.training.training_progress import TrainingProgress
 
-        components = components or self.build_components()
         settings = components.settings
-        if self.experiments_root_path is not None:
+        rank = env.rank()
+        if self.experiments_root_path is not None and rank == 0:
             folder = self.experiments_root_path / self.experiment_id
             folder.mkdir(parents=True, exist_ok=True)
             shutil.copy(self.config_path, folder / self.config_path.name)
         train_step = self.build_train_step(components)
         app_state = self.load_app_state(components, train_step)
-        print(f"experiment {self.experiment_id}: {train_step.num_parameters:,} trainable parameters on {self.device}",
-              flush=True)
+        if rank == 0:
+            mesh = train_step.mesh.mesh_axes if train_step.mesh is not None else {}
+            print(f"experiment {self.experiment_id}: {train_step.num_parameters:,} trainable parameters on "
+                  f"{self.device}, {env.world_size()} rank(s), mesh {mesh}", flush=True)
         mfu = components.mfu_calculator.bind(self.device) if components.mfu_calculator is not None else None
         progress = settings.training_progress
         trainer = Trainer(
@@ -121,6 +172,7 @@ class Main:
             training_log_interval_in_steps=settings.intervals.training_log_interval_in_steps,
             mfu_calculator=mfu,
             error_if_nonfinite=bool(getattr(components.gradient_clipper, "error_if_nonfinite", False)),
+            global_rank=rank, world_size=env.world_size(),
         )
         training_progress = TrainingProgress(
             num_seen_steps_current_run=0,

@@ -12,11 +12,14 @@ quantized dense layers, the slot-cache API (`init_slot_cache`,
 every cast point. Attention in training follows `attention_implementation`:
 `manual` runs the plain oracle; `dao_flash` and `pytorch_flash` (the JAX
 package's Pallas and XLA-SDPA tiers, both fused exact attention) run the
-port's flash kernels (ops/flash_attention.py). Blocks chosen by the spec's
+port's flash kernels (ops/flash_attention.py). Under context parallelism
+(`set_context_parallel`) the training forward sees this rank's contiguous
+chunk of the sequence: RoPE and `wpe` take the chunk's global offset and
+attention runs the ring over the cp group (parallel/ring_attention.py; the
+flash ring, or the dense ring under `manual`). Blocks chosen by the spec's
 remat variant run under `torch.utils.checkpoint`
 (training/activation_checkpointing.py). Not here yet: the paged cache,
-speculative verify, pipeline and context parallelism, selective-op remat and
-dropout.
+speculative verify, pipeline parallelism, selective-op remat and dropout.
 
 Layout: parameters follow the flax tree with the scan axis unrolled — the
 state dict key `blocks.3.attn.q_attn.kernel` is `params/blocks/block/attn/
@@ -58,6 +61,7 @@ from modalities_tpu_torch.config.config import (
 from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_norm
 from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from modalities_tpu_torch.ops.quant_matmul import PreparedWeight, quant_matmul
+from modalities_tpu_torch.parallel.ring_attention import ring_attention
 from modalities_tpu_torch.quant.weights import quant_storage_dtype
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed, layer_remats
 
@@ -361,6 +365,7 @@ class CausalSelfAttention(nn.Module):
             cd = getattr(torch, spec.compute_dtype)
             self.q_norm = build_norm(spec.qk_norm, dtype=cd, device=device)
             self.k_norm = build_norm(spec.qk_norm, dtype=cd, device=device)
+        self.cp_group = None  # the cp ring's process group under context parallelism
 
     def forward(self, x, cache_k, cache_v, step):
         """x: [B, S, E]; cache_k/cache_v: this layer's [slots, capacity, Hkv, D]
@@ -391,8 +396,9 @@ class CausalSelfAttention(nn.Module):
 
     def train_forward(self, x, cos, sin):
         """Full-sequence causal attention (JAX `CausalSelfAttention.__call__`,
-        gpt2_model.py:496-576): x [B, S, E] in the compute dtype; cos/sin the
-        RoPE rows of positions [0, S) or None."""
+        gpt2_model.py:496-576): x [B, S, E] in the compute dtype (this rank's
+        chunk under context parallelism); cos/sin the RoPE rows of x's
+        positions or None."""
         spec = self.spec
         b, s, _ = x.shape
         hd = spec.head_dim
@@ -403,7 +409,10 @@ class CausalSelfAttention(nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         if cos is not None:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        if spec.attention_impl == AttentionImplementation.MANUAL.value:  # the JAX manual_attention oracle
+        manual = spec.attention_impl == AttentionImplementation.MANUAL.value
+        if self.cp_group is not None:  # the JAX ring: dense under manual, flash hops otherwise
+            y = ring_attention(q, k, v, self.cp_group, causal=True, impl="dense" if manual else "flash")
+        elif manual:  # the JAX manual_attention oracle
             y = reference_attention(q, k, v, causal=True)
         else:  # dao_flash, pytorch_flash: fused exact attention
             y = flash_attention(q, k, v, causal=True)
@@ -496,6 +505,15 @@ class GPT2Module(nn.Module):
         if not spec.use_weight_tying:
             self.lm_head = _dense(spec, spec.n_embd, spec.vocab_size, False, device)
         self._rope: dict = {}
+        self.cp_group = None
+
+    def set_context_parallel(self, group) -> "GPT2Module":
+        """Train on this rank's chunk of each sequence, with attention over the
+        cp ring `group` (None: the whole sequence on this rank)."""
+        self.cp_group = group
+        for block in self.blocks:
+            block.attn.cp_group = group
+        return self
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -528,25 +546,39 @@ class GPT2Module(nn.Module):
         (gpt2_model.py:977-1121): input_ids [B, S] -> logits [B, S, V] fp32,
         RoPE over positions [0, S), blocks in the compute dtype, the head in
         fp32."""
-        return self.head_logits(self.forward_hidden(input_ids))
+        return self.head_logits(self._hidden(input_ids))
 
     def forward_hidden(self, input_ids):
         """The backbone through `lm_head_norm` (JAX `apply_hidden`,
         gpt2_model.py:1243-1251): input_ids [B, S] -> [B, S, E] in the norm's
-        output dtype. Blocks the remat variant picks run under checkpoint."""
+        output dtype. Blocks the remat variant picks run under checkpoint.
+        Under context parallelism input_ids is this rank's chunk, at global
+        offset cp_rank * S (JAX `cp_shard_offset`, gpt2_model.py:516-520,
+        :1495-1496)."""
+        return self._hidden(input_ids)
+
+    def _hidden(self, input_ids):
         spec = self.spec
+        if spec.dropout > 0.0 and self.cp_group is not None:
+            raise NotImplementedError(
+                "attention-probability dropout (dropout > 0) is not implemented for ring attention (context "
+                "parallelism): the ring merges per-chunk softmax statistics that dropout would invalidate. Set "
+                "dropout: 0.0 or run without a cp mesh axis."
+            )
         if spec.dropout > 0.0:
             raise NotImplementedError(
                 "dropout > 0 in the training forward is not ported yet (ROADMAP.md, Queue 1 item 7); "
                 "set dropout: 0.0"
             )
         s = input_ids.shape[1]
+        offset = 0 if self.cp_group is None else self.cp_group.rank() * s
         x = F.embedding(input_ids, self.wte).to(self.compute_dtype)
         if spec.poe_type == PositionTypes.ABSOLUTE.value:
-            x = x + self.wpe[:s].to(self.compute_dtype)
+            x = x + self.wpe[offset:offset + s].to(self.compute_dtype)
         cos = sin = None
         if spec.use_rope:
-            cos, sin = self._rope_tables(s)
+            cos, sin = self._rope_tables(offset + s)
+            cos, sin = cos[offset:], sin[offset:]
         for i, block in enumerate(self.blocks):
             if layer_remats(spec.remat_variant, spec.remat_freq, i):
                 x = checkpointed(block.train_forward, x, cos, sin)
@@ -645,12 +677,21 @@ class MixedPrecisionSpec:
 
 
 @dataclasses.dataclass
+class FSDPSpec:
+    """The `fsdp2_wrapped` variant's sharding knobs (parallel/fsdp.py)."""
+
+    layers_per_fsdp_unit: Optional[int] = None
+    reshard_after_forward: bool = True
+
+
+@dataclasses.dataclass
 class TrainSpec:
     """Model-transform descriptors recorded by the registry's model variants and
     applied when the train step is built (JAX models/model.py:41-49)."""
 
     mixed_precision: MixedPrecisionSpec = dataclasses.field(default_factory=MixedPrecisionSpec)
     init_routines: tuple = ()
+    fsdp: FSDPSpec = dataclasses.field(default_factory=FSDPSpec)
 
 
 # weight-decay groups, the JAX model's regexes (gpt2_model.py:1158-1164); they

@@ -1,6 +1,7 @@
 """Model transform variants: the port of modalities_tpu/models/model_factory.py
-for the variants the one-card training path uses. Each records a descriptor
-on the model's `TrainSpec`, applied when the train step is built.
+for the variants the training path uses. Each records a descriptor on the
+model's `TrainSpec`, applied when the train step is built (the train step
+shards the model over the device mesh with parallel/fsdp.py).
 """
 
 from __future__ import annotations
@@ -8,8 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-from modalities_tpu_torch.config.config import check_dict
-from modalities_tpu_torch.models.gpt2.gpt2_model import MixedPrecisionSpec
+from modalities_tpu_torch.config.config import check_bool, check_dict, check_int
+from modalities_tpu_torch.models.gpt2.gpt2_model import FSDPSpec, MixedPrecisionSpec
 from modalities_tpu_torch.training.activation_checkpointing import apply_activation_checkpointing
 
 # the GPT2 blocks: unset, the upstream torch module's path, or the port's own attribute
@@ -28,12 +29,14 @@ class FSDP2WrappedModelConfig:
     model: Any
     device_mesh: Any = None
     mixed_precision_settings: Optional[dict] = None
-    block_names: Optional[list] = None  # torch FSDP knobs, accepted for config parity
+    block_names: Optional[list] = None  # accepted for config parity: the units are the GPT2 blocks
     layers_per_fsdp_unit: Optional[int] = None
     reshard_after_forward: bool = True
 
     def __post_init__(self):
         check_dict("mixed_precision_settings", self.mixed_precision_settings, optional=True)
+        check_int("layers_per_fsdp_unit", self.layers_per_fsdp_unit, ge=1, optional=True)
+        check_bool("reshard_after_forward", self.reshard_after_forward)
 
 
 @dataclasses.dataclass
@@ -56,10 +59,11 @@ class ModelFactory:
     @staticmethod
     def get_fsdp2_wrapped_model(model, device_mesh=None, mixed_precision_settings=None, block_names=None,
                                 layers_per_fsdp_unit=None, reshard_after_forward=True):
-        """On one card `fsdp2_wrapped` shards nothing (its mesh component has
-        already refused degrees > 1): it records the mixed-precision policy,
-        param, reduce and compute dtypes (JAX model_factory.py:34-52,
-        models/model.py:35-38)."""
+        """Records the mixed-precision policy (param and reduce dtypes; JAX
+        model_factory.py:34-52, models/model.py:35-38) and the FSDP2 units
+        (`layers_per_fsdp_unit` blocks a unit, `reshard_after_forward`); the
+        train step shards over its device mesh when it is built."""
+        model.update_train_spec(fsdp=FSDPSpec(layers_per_fsdp_unit, reshard_after_forward))
         if mixed_precision_settings:
             model.update_train_spec(mixed_precision=MixedPrecisionSpec(
                 param_dtype=_parse_dtype_name(mixed_precision_settings.get("param_dtype", "float32")),
@@ -78,8 +82,8 @@ class ModelFactory:
         """Records the remat variant on the model's spec (JAX
         model_factory.py:101-111). The port remats whole transformer blocks:
         `layers_fqn` may only name them, and a `save_list` (selective_op's
-        policies) is refused. `device_mesh` is accepted for config parity: on
-        one card its mesh component has already refused degrees > 1."""
+        policies) is refused. `device_mesh` is accepted for config parity (the
+        remat does not depend on the mesh)."""
         if layers_fqn not in _BLOCKS_FQNS:
             raise ValueError(f"layers_fqn {layers_fqn!r}: the port checkpoints the transformer blocks only "
                              f"({', '.join(repr(n) for n in _BLOCKS_FQNS)})")

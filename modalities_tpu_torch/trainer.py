@@ -6,12 +6,16 @@ Each step takes `gradient_accumulation_steps` microbatches from the loader,
 moves them to the device as [acc, mb, S] tensors and runs the train step. The
 step's metrics stay on the device until a logging interval ends; then they
 are fetched once, and one line with loss, grad_norm, lr, tokens/s and MFU is
-printed and published to the results subscriber. The run ends with the peak
-device memory.
+printed and published to the results subscriber. The loss is the global one
+(every rank's step sums it over the ranks); tokens are the global tokens of a
+step, and tokens/s per card divides them by the world. Only rank 0 prints and
+publishes. On the card the run ends with the peak device memory and the
+process's kernel launches (ops.launch_counts).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import time
@@ -43,7 +47,8 @@ def stack_microbatches(batches: list, device: torch.device) -> dict:
 class Trainer:
     def __init__(self, progress_subscriber, evaluation_subscriber, device: torch.device, gradient_acc_steps: int = 1,
                  global_num_tokens_per_train_step: int = 0, num_seen_train_steps: int = 0,
-                 training_log_interval_in_steps: int = 1, mfu_calculator=None, error_if_nonfinite: bool = False):
+                 training_log_interval_in_steps: int = 1, mfu_calculator=None, error_if_nonfinite: bool = False,
+                 global_rank: int = 0, world_size: int = 1):
         self.progress_subscriber = progress_subscriber
         self.evaluation_subscriber = evaluation_subscriber
         self.device = device
@@ -53,6 +58,8 @@ class Trainer:
         self.log_interval = training_log_interval_in_steps
         self.mfu_calculator = mfu_calculator
         self.error_if_nonfinite = error_if_nonfinite
+        self.global_rank = global_rank
+        self.world_size = world_size
 
     def _feed(self, loader) -> Iterator[dict]:
         group: list = []
@@ -93,9 +100,12 @@ class Trainer:
         if pending:
             results.append(self._publish(pending, step_id, train_loader.dataloader_tag, interval_start,
                                          training_progress))
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.global_rank == 0:
+            from modalities_tpu_torch.ops import launch_counts
+
             print(f"[train] peak device memory {torch.cuda.max_memory_allocated(self.device) / 1e9:.2f} GB "
                   f"(torch.cuda.max_memory_allocated, {torch.cuda.get_device_name(self.device)})", flush=True)
+            print(f"[train] kernel launches in this process: {json.dumps(launch_counts())}", flush=True)
         return results
 
     def _publish(self, pending: list[dict], step_id: int, tag: str, interval_start: float,
@@ -108,7 +118,8 @@ class Trainer:
         if self.error_if_nonfinite and not np.isfinite(values["grad_norm"]).all():
             raise RuntimeError(f"non-finite gradient norm in the interval ending at step {step_id}")
         tokens_per_s = len(pending) * self.tokens_per_step / wall
-        throughput = {"train steps/s": len(pending) / wall, "tokens/s": tokens_per_s}
+        throughput = {"train steps/s": len(pending) / wall, "tokens/s": tokens_per_s,
+                      "tokens/s per card": tokens_per_s / self.world_size}
         if self.mfu_calculator is not None:
             throughput["MFU"] = self.mfu_calculator.compute(tokens_per_s)
         result = {
@@ -124,8 +135,11 @@ class Trainer:
             "throughput_metrics": throughput,
             "device": str(self.device),
         }
-        mfu = throughput.get("MFU", math.nan)
-        print(f"[{tag}] step {step_id}: loss {values['loss'][-1]:.5f} grad_norm {values['grad_norm'][-1]:.5f} "
-              f"lr {values['lr'][-1]:.4e} tokens/s {tokens_per_s:.1f} MFU {mfu:.4f} ({self.device})", flush=True)
-        self.evaluation_subscriber.consume(result)
+        if self.global_rank == 0:
+            mfu = throughput.get("MFU", math.nan)
+            print(f"[{tag}] step {step_id}: loss {values['loss'][-1]:.5f} grad_norm {values['grad_norm'][-1]:.5f} "
+                  f"lr {values['lr'][-1]:.4e} tokens/s {tokens_per_s:.1f} "
+                  f"({throughput['tokens/s per card']:.1f} per card of {self.world_size}) MFU {mfu:.4f} "
+                  f"({self.device})", flush=True)
+            self.evaluation_subscriber.consume(result)
         return result

@@ -2,7 +2,11 @@
 
 A clipper is a descriptor the train step reads. The global p2 / p1 / max norm
 of all gradients is computed in fp32 and reported as `grad_norm` before
-clipping. Clipping follows the JAX package, not `torch.nn.utils.clip_grad_norm_`
+clipping. Gradients sharded over the device mesh (DTensors) give the whole
+model's norm: each rank reduces its shards, then the squares (p2), the sums
+(p1) or the maxima are reduced over the mesh dims the shards are spread on
+(not over dp_replicate, which holds copies), so every rank gets the world-1
+norm. Clipping follows the JAX package, not `torch.nn.utils.clip_grad_norm_`
 (whose `+ 1e-6` gives other numbers):
 
 - p2: optax's `clip_by_global_norm`: g * max_norm / norm where norm >= max_norm;
@@ -16,6 +20,8 @@ from enum import Enum
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from modalities_tpu_torch.config.config import check_bool, check_float
 
@@ -41,17 +47,39 @@ class GradientClippingMode(str, Enum):
                 ) from None
 
 
+def _local(g: torch.Tensor) -> torch.Tensor:
+    return g.to_local() if isinstance(g, DTensor) else g
+
+
+def _shard_groups(grads: list[torch.Tensor]) -> list:
+    """The process groups of the mesh dims the DTensor gradients are sharded on."""
+    for g in grads:
+        if isinstance(g, DTensor):
+            return [g.device_mesh.get_group(i) for i, p in enumerate(g.placements) if p.is_shard()]
+    return []
+
+
 def global_norm(grads: list[torch.Tensor], mode: GradientClippingMode) -> torch.Tensor:
-    """The global norm over all gradients, in fp32, as a 0-d tensor."""
+    """The global norm over all gradients (plain tensors or DTensors), in
+    fp32, as a 0-d tensor."""
+    local = [_local(g) for g in grads]
     if mode == GradientClippingMode.P2_NORM:
-        return torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]).sum().sqrt()
-    if mode == GradientClippingMode.P1_NORM:
-        return torch.stack([torch.linalg.vector_norm(g, 1, dtype=torch.float32) for g in grads]).sum()
-    return torch.stack([torch.linalg.vector_norm(g, float("inf"), dtype=torch.float32) for g in grads]).max()
+        total = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in local]).sum()
+    elif mode == GradientClippingMode.P1_NORM:
+        total = torch.stack([torch.linalg.vector_norm(g, 1, dtype=torch.float32) for g in local]).sum()
+    else:  # an empty shard has no inf norm: it adds nothing to the maximum of |g| >= 0
+        norms = [torch.linalg.vector_norm(g, float("inf"), dtype=torch.float32) for g in local if g.numel()]
+        total = torch.stack(norms).max() if norms else torch.zeros((), device=local[0].device)
+    op = dist.ReduceOp.MAX if mode == GradientClippingMode.MAX_NORM else dist.ReduceOp.SUM
+    for group in _shard_groups(grads):
+        dist.all_reduce(total, op=op, group=group)
+    return total.sqrt() if mode == GradientClippingMode.P2_NORM else total
 
 
 def clip_(grads: list[torch.Tensor], norm: torch.Tensor, max_norm: float, mode: GradientClippingMode) -> None:
-    """Clip in place, without a host sync (the decision stays on the device)."""
+    """Clip in place (a DTensor's local shard), without a host sync (the
+    decision stays on the device)."""
+    grads = [_local(g) for g in grads]
     if mode == GradientClippingMode.P2_NORM:
         clip = norm >= max_norm
         div = torch.where(clip, norm, torch.ones_like(norm))

@@ -514,3 +514,70 @@ def test_a_port_checkpoint_folder_is_sealed_like_a_jax_one(tmp_path):
     shutil.copytree(folder, tmp_path / "copy")
     _flip_one_byte(tmp_path / "copy" / ".metadata", at=10)
     assert not jax_manifest.verify_manifest(tmp_path / "copy").ok
+
+
+# ------------------------------------------------------ two ranks (gloo)
+# The tiny GPT2 with bf16 parameters (fp32 norms, each norm an FSDP2 unit of
+# its own) on a dp_shard 2 mesh of two gloo ranks (tests/test_torch_gloo.py:
+# checkpoint_worker): 2 of 4 steps, a save (each rank its shards, rank 0 the
+# seal), a fresh build from another seed loaded from the folder.
+TWO_RANK = dict(degrees={"dp_shard": 2}, dtypes=("bfloat16", "bfloat16", "float32"), acc=ACC, clip=1.0, opt=OPT,
+                sched=SCHED, save_at=2, tokens_per_step=ACC * 2 * MB * SEQ)
+
+
+@pytest.fixture(scope="module")
+def two_rank_checkpoint(tmp_path_factory):
+    from tests.test_torch_gloo import checkpoint_worker, run_world
+
+    rng = np.random.default_rng(31)
+    batches = []
+    for _ in range(4):
+        tokens = rng.integers(0, 128, size=(ACC, 2 * MB, SEQ + 1))
+        batches.append({"samples": {"input_ids": tokens[..., :-1]}, "targets": {"target_ids": tokens[..., 1:]}})
+    spec = {**TWO_RANK, "batches": batches, "seed": 0,
+            "model": port_config(attention_implementation="dao_flash", use_weight_tying=False)}
+    root = tmp_path_factory.mktemp("two_rank_checkpoint")
+    return spec, run_world(2, checkpoint_worker, spec, str(root))
+
+
+def test_a_two_rank_save_resumes_bitwise_on_two_ranks(two_rank_checkpoint):
+    _, ranks = two_rank_checkpoint
+    for r in ranks:
+        assert len(r["got"]) == len(r["want"]) == 4
+        for i, (g, w) in enumerate(zip(r["got"], r["want"])):
+            assert np.array_equal(g, w), f"step {i + 1}: {g.tolist()} != {w.tolist()}"
+    unbroken, resumed = ranks[0]["finals"]
+    assert set(unbroken) == set(resumed)
+    for name in unbroken:
+        assert np.array_equal(unbroken[name], resumed[name]), name
+    folder = Path(ranks[0]["folder"])
+    assert {p.name for p in folder.iterdir()} == {".metadata", "__0_0.distcp", "__1_0.distcp", "manifest.json",
+                                                  "topology.json"}
+    topology = read_topology(folder)
+    assert topology["mesh_axes"] == {"dp_shard": 2} and topology["process_count"] == 2
+    assert topology["leaf_specs"]["model.blocks.0.attention_norm.scale"] == "('dp_shard',)"
+
+
+def test_a_two_rank_save_loads_at_world_1_with_equal_parameters_and_logs_the_mismatch(two_rank_checkpoint,
+                                                                                      caplog):
+    from tests.test_torch_gloo import _tiny_step
+
+    spec, ranks = two_rank_checkpoint
+    step, _ = _tiny_step({**spec, "degrees": None, "seed": 1}, 1)
+    with caplog.at_level("WARNING"):
+        app = DCPCheckpointLoading().load_app_state(AppState(step), Path(ranks[0]["folder"]))
+    assert app.step_count == 2
+    assert any("another topology" in r.message and "mesh_axes" in r.message for r in caplog.records)
+    loaded, saved = step.state_dict(), ranks[0]["saved"]
+    assert set(loaded) == set(saved)
+    for name, tensor in loaded.items():
+        assert np.array_equal(tensor.float().numpy(), saved[name]), name
+    assert step.module.blocks[0].attn.q_attn.kernel.dtype == torch.bfloat16
+
+
+def test_the_jax_manifest_accepts_the_two_rank_folder(two_rank_checkpoint):
+    _, ranks = two_rank_checkpoint
+    folder = Path(ranks[0]["folder"])
+    assert jax_manifest.verify_manifest(folder).ok and manifest.verify_manifest(folder).ok
+    sealed = json.loads((folder / "manifest.json").read_text())
+    assert sealed["step"] == 2 and {"__0_0.distcp", "__1_0.distcp"} <= {f["path"] for f in sealed["files"]}

@@ -1,0 +1,101 @@
+"""The port's device mesh component (modalities_tpu_torch/running_env/
+device_mesh.py) against the JAX package's `DeviceMeshConfig` and
+`get_device_mesh` on the 8 CPU devices of tests/conftest.py:
+
+- the same inputs are accepted or rejected, and -1 infers the same degree;
+- the built axes and their order are the JAX mesh's;
+- each rank's data-loading coordinate is that of JAX device `rank` in the
+  JAX mesh of the same degrees (rank r of the port sits where device r
+  sits), for (dp_shard 2, cp 2) and (dp_replicate 2, dp_shard 2): the cp
+  ranks of one dp coordinate read the same samples;
+- tensor, pipeline and DCN degrees above 1, ZeRO and loss parallelism are
+  refused, naming ROADMAP.md Queue 1 item 5."""
+
+import jax
+import numpy as np
+import pytest
+
+from modalities_tpu.exceptions import ConfigError
+from modalities_tpu.running_env.device_mesh import DeviceMeshConfig, get_device_mesh
+from modalities_tpu_torch.running_env.device_mesh import (
+    DeviceMesh,
+    get_data_loading_info,
+    get_parallel_degree,
+    get_parallel_rank,
+)
+
+VALIDATION_CASES = [  # (world, dp_replicate, dp_shard, cp)
+    (1, 1, -1, 1), (1, 1, 1, 1), (2, 1, -1, 1), (4, 2, -1, 1), (4, -1, 2, 1), (4, 1, -1, 2), (4, 1, 2, 2),
+    (8, 2, 2, 2), (8, -1, 2, 2), (4, 1, 1, 4), (4, -1, -1, 1), (4, 1, 3, 1), (4, 2, 2, 2), (6, 1, -1, 4),
+    (4, 0, 2, 1), (4, 1, 0, 4), (3, 2, -1, 1),
+]
+
+
+def _jax(world, rep, shard, cp):
+    try:
+        cfg = DeviceMeshConfig(world_size=world, data_parallel_replicate_degree=rep,
+                               data_parallel_shard_degree=shard, context_parallel_degree=cp)
+    except (ConfigError, ValueError):
+        return None
+    return cfg.data_parallel_replicate_degree, cfg.data_parallel_shard_degree
+
+
+def _port(world, rep, shard, cp):
+    try:
+        mesh = DeviceMesh(world_size=world, data_parallel_replicate_degree=rep, data_parallel_shard_degree=shard,
+                          context_parallel_degree=cp)
+    except ValueError:
+        return None
+    return mesh.data_parallel_replicate_degree, mesh.data_parallel_shard_degree
+
+
+@pytest.mark.parametrize("case", VALIDATION_CASES, ids=lambda c: "world{}-rep{}-shard{}-cp{}".format(*c))
+def test_the_validator_accepts_rejects_and_infers_as_the_jax_one(case):
+    assert _port(*case) == _jax(*case)
+
+
+@pytest.mark.parametrize("degrees", [dict(dp_shard=1), dict(dp_shard=4), dict(dp_replicate=2, dp_shard=2),
+                                     dict(dp_shard=2, cp=2), dict(cp=4), dict(dp_replicate=2, dp_shard=2, cp=2)],
+                         ids=lambda d: "-".join(f"{k}{v}" for k, v in d.items()))
+def test_the_axes_and_each_ranks_coordinates_are_the_jax_meshs(degrees):
+    world = int(np.prod(list(degrees.values())))
+    kw = dict(data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
+              data_parallel_shard_degree=degrees.get("dp_shard", 1), context_parallel_degree=degrees.get("cp", 1))
+    port = DeviceMesh(world_size=world, **kw)
+    handle = get_device_mesh(device_type="cpu", world_size=world, devices=jax.devices()[:world], **kw)
+    mesh = handle.mesh
+    assert tuple(port.mesh_axes) == tuple(mesh.axis_names)
+    assert tuple(port.mesh_axes.values()) == tuple(mesh.devices.shape)
+    for rank in range(world):
+        coords = np.argwhere(mesh.devices == jax.devices()[rank])[0]
+        want = dict(zip(mesh.axis_names, (int(c) for c in coords)))
+        assert port.coordinates(rank) == want
+        for name in ("dp_replicate", "dp_shard", "cp", "tp", "pp"):
+            assert get_parallel_rank(port, name, rank) == want.get(name, 0)
+            assert get_parallel_degree(port, name) == handle.get_parallel_degree(name)
+
+
+def test_the_data_loading_info_gives_cp_ranks_the_same_samples():
+    shard_cp = DeviceMesh(world_size=4, data_parallel_shard_degree=2, context_parallel_degree=2)
+    assert [get_data_loading_info(shard_cp, r) for r in range(4)] == [(2, 0), (2, 0), (2, 1), (2, 1)]
+    hsdp = DeviceMesh(world_size=4, data_parallel_replicate_degree=2, data_parallel_shard_degree=2)
+    assert [get_data_loading_info(hsdp, r) for r in range(4)] == [(4, 0), (4, 1), (4, 2), (4, 3)]
+    assert get_data_loading_info(DeviceMesh(world_size=1)) == (1, 0)
+    assert get_data_loading_info(None) == (1, 0)
+
+
+@pytest.mark.parametrize("edits,match", [
+    (dict(world_size=2, tensor_parallel_degree=2, data_parallel_shard_degree=1), "tensor parallelism"),
+    (dict(world_size=2, pipeline_parallel_degree=2, data_parallel_shard_degree=1), "pipeline parallelism"),
+    (dict(world_size=2, dcn_parallel_degree=2, data_parallel_shard_degree=1), "DCN"),
+    (dict(world_size=2, zero_stage=1), "ZeRO"),
+    (dict(world_size=2, enable_loss_parallel=True), "loss parallelism"),
+], ids=["tp", "pp", "dcn", "zero", "loss-parallel"])
+def test_what_item_5_still_holds_is_refused(edits, match):
+    with pytest.raises(NotImplementedError, match=f"{match}.*Queue 1 item 5"):
+        DeviceMesh(**edits)
+
+
+def test_an_unknown_method_is_refused():
+    with pytest.raises(ValueError, match="unknown parallelism method"):
+        get_parallel_degree(DeviceMesh(world_size=1), "ep")

@@ -1,0 +1,254 @@
+"""Gloo worlds on the CPU for the port's multi-rank tests, and the workers they
+run. `run_world(world, worker, *args)` spawns `world` processes with the
+variables `torch.distributed.run` sets (RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR, MASTER_PORT), so each worker joins its group through the port's
+own launcher path (running_env/env.py); each returns what its worker
+returned. This module imports no JAX, so the spawned processes start fast; the
+JAX oracles run in the test process (tests/test_torch_ring_attention.py,
+test_torch_parallel_train.py, test_torch_checkpointing.py).
+
+Its own tests: the ring's exchange on three ranks, and `run` then
+`warmstart` of a tiny config on two ranks (dp_shard 2) through the CLI: the
+resumed steps give bitwise the unbroken run's losses, and only rank 0 prints
+and publishes."""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import pickle
+import socket
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank: int, world: int, port: int, out: str, worker, args) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    result = worker(rank, world, *args)
+    Path(out, f"{rank}.pkl").write_bytes(pickle.dumps(result))
+
+
+def run_world(world: int, worker, *args) -> list:
+    """worker(rank, world, *args) in `world` spawned processes; their results by rank."""
+    with tempfile.TemporaryDirectory() as out:
+        mp.start_processes(_entry, args=(world, free_port(), out, worker, args), nprocs=world, join=True,
+                           start_method="spawn")
+        return [pickle.loads(Path(out, f"{r}.pkl").read_bytes()) for r in range(world)]
+
+
+def _numpy(tensors: dict) -> dict:
+    return {k: v.detach().float().numpy() if v.is_floating_point() else v.numpy() for k, v in tensors.items()}
+
+
+# ------------------------------------------------------------------ workers
+
+
+def ring_worker(rank: int, world: int, cases: list[dict]) -> list[dict]:
+    """The port's ring on this rank's chunk of each case's q/k/v ([B, S, H, D]
+    numpy): out and the gradients of sum(out * w) for q, k and v."""
+    from modalities_tpu_torch.parallel.ring_attention import ring_attention
+    from modalities_tpu_torch.running_env import env
+
+    results = []
+    with env.process_group(torch.device("cpu")):
+        group = torch.distributed.group.WORLD
+        for case in cases:
+            chunk = case["q"].shape[1] // world
+            local = [torch.from_numpy(case[n][:, rank * chunk:(rank + 1) * chunk].copy()).requires_grad_()
+                     for n in ("q", "k", "v")]
+            out = ring_attention(*local, group, causal=case["causal"], impl=case["impl"])
+            w = torch.from_numpy(case["w"][:, rank * chunk:(rank + 1) * chunk].copy())
+            (out * w).sum().backward()
+            results.append({"out": out.detach().numpy(), **{f"d{n}": t.grad.numpy() for n, t in zip("qkv", local)}})
+    return results
+
+
+def train_worker(rank: int, world: int, spec: dict) -> dict:
+    """A tiny GPT2 `TrainStep` over the mesh of `spec["degrees"]`, from the
+    parameters `spec["params"]`; each rank feeds its data-parallel rows of
+    the global batches (strided, as the sampler deals them). Returns each
+    step's (loss, grad_norm, lr) and, on rank 0, the parameters after the
+    steps."""
+    from modalities_tpu_torch.running_env import env
+    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
+
+    with env.process_group(torch.device("cpu")):
+        step, mesh = _tiny_step(spec, world)
+        n_dp, dp_rank = get_data_loading_info(mesh)
+        metrics = []
+        for batch in spec["batches"]:
+            local = {part: {k: torch.from_numpy(np.ascontiguousarray(v[:, dp_rank::n_dp])) for k, v in d.items()}
+                     for part, d in batch.items()}
+            m = step(local)
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+        state = _numpy(step.state_dict())
+    return {"metrics": metrics, "state": state if rank == 0 else None}
+
+
+def _tiny_step(spec: dict, world: int):
+    from modalities_tpu_torch.loss_functions import CLMCrossEntropyLoss
+    from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM, MixedPrecisionSpec
+    from modalities_tpu_torch.optimizers.optimizer_factory import OptimizerFactory
+    from modalities_tpu_torch.optimizers.scheduler_factory import LinearWarmupCosineAnnealingLRScheduler
+    from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
+    from modalities_tpu_torch.training.activation_checkpointing import apply_activation_checkpointing
+    from modalities_tpu_torch.training.gradient_clipping import GradientClipper
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    degrees = spec["degrees"]
+    mesh = DeviceMesh(world_size=world, data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
+                      data_parallel_shard_degree=degrees.get("dp_shard", 1),
+                      context_parallel_degree=degrees.get("cp", 1)) if degrees is not None else None
+    model = GPT2LLM(**spec["model"])
+    model.update_train_spec(mixed_precision=MixedPrecisionSpec(*spec.get("dtypes", ("float32",) * 3)))
+    if spec.get("remat"):
+        apply_activation_checkpointing(model, "full_activation_checkpointing")
+    opt = OptimizerFactory.get_adam_w(wrapped_model=model, **spec["opt"])
+    sched = LinearWarmupCosineAnnealingLRScheduler(optimizer=opt, **spec["sched"])
+    params = spec.get("params")
+    step = TrainStep(model, CLMCrossEntropyLoss("target_ids", "logits"), opt, sched, device="cpu",
+                     gradient_acc_steps=spec["acc"], grad_clipper=GradientClipper(max_norm=spec["clip"]),
+                     params=None if params is None else {k: torch.from_numpy(v.copy()) for k, v in params.items()},
+                     seed=spec.get("seed"), device_mesh=mesh)
+    return step, mesh
+
+
+def checkpoint_worker(rank: int, world: int, spec: dict, folder_root: str) -> dict:
+    """On a dp_shard mesh: an unbroken run of len(batches) steps; a run of
+    `save_at` steps saved through the DCP execution (each rank its shards,
+    rank 0 the seal); a fresh build from another seed loaded from the folder
+    and run on. Returns the metrics of both runs, the folder and, on rank 0,
+    the parameters at the save and both final states."""
+    from modalities_tpu_torch.checkpointing import checkpoint_saving_strategies as strategies
+    from modalities_tpu_torch.checkpointing.checkpoint_saving import CheckpointSaving
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_saving import DCPCheckpointSaving, checkpoint_folder_path
+    from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+    from modalities_tpu_torch.running_env import env
+    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
+    from modalities_tpu_torch.training.training_progress import TrainingProgress
+
+    def run(step, batches, mesh):
+        n_dp, dp_rank = get_data_loading_info(mesh)
+        out = []
+        for batch in batches:
+            m = step({part: {k: torch.from_numpy(np.ascontiguousarray(v[:, dp_rank::n_dp])) for k, v in d.items()}
+                      for part, d in batch.items()})
+            out.append(torch.stack([m[k].detach().float() for k in ("loss", "grad_norm", "lr")]).numpy())
+        return out
+
+    batches, save_at = spec["batches"], spec["save_at"]
+    with env.process_group(torch.device("cpu")):
+        unbroken, mesh = _tiny_step(spec, world)
+        want = run(unbroken, batches, mesh)
+        first, mesh = _tiny_step(spec, world)
+        got = run(first, batches[:save_at], mesh)
+        progress = TrainingProgress(save_at, save_at * spec["tokens_per_step"], len(batches),
+                                    len(batches) * spec["tokens_per_step"])
+        saving = CheckpointSaving(strategies.SaveKMostRecentCheckpointsStrategy(k=-1),
+                                  DCPCheckpointSaving(Path(folder_root), "multi", global_rank=rank))
+        saving.save_checkpoint(progress, AppState(first, device_mesh=mesh))
+        saving.wait_until_finished()
+        folder = checkpoint_folder_path(Path(folder_root), "multi", progress)
+        saved = _numpy(first.state_dict())
+        resumed, mesh = _tiny_step({**spec, "params": None, "seed": 1}, world)  # every tensor from the folder
+        DCPCheckpointLoading(global_rank=rank).load_app_state(AppState(resumed, device_mesh=mesh), folder)
+        got += run(resumed, batches[save_at:], mesh)
+        finals = (_numpy(unbroken.state_dict()), _numpy(resumed.state_dict()))
+    return {"want": want, "got": got, "folder": str(folder), "saved": saved if rank == 0 else None,
+            "finals": finals if rank == 0 else None}
+
+
+def cli_worker(rank: int, world: int, run_cfg: str, warm_cfg: str, info: str, ports: tuple) -> dict:
+    """`run` and then `warmstart` through the CLI (in process), each with its
+    own rendezvous port; every train step's metrics and what each printed."""
+    from modalities_tpu_torch.__main__ import main
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    seen = []
+    call = TrainStep.__call__
+
+    def recording(self, batch):
+        metrics = call(self, batch)
+        seen.append([metrics[k].detach().clone().item() for k in ("loss", "grad_norm", "lr")])
+        return metrics
+
+    TrainStep.__call__ = recording
+    printed = []
+    for port, argv in zip(ports, (["run", "--config_file_path", run_cfg, "--device", "cpu"],
+                                  ["warmstart", "--config_file_path", warm_cfg, "--last_checkpoint_info_file_path",
+                                   info, "--device", "cpu"])):
+        os.environ["MASTER_PORT"] = str(port)
+        buffer = io.StringIO()
+        with contextlib.redirect_stdout(buffer):
+            assert main(argv) == 0
+        printed.append(buffer.getvalue())
+    return {"steps": seen, "printed": printed}
+
+
+def exchange_worker(rank: int, world: int) -> list:
+    from modalities_tpu_torch.parallel.ring_attention import _exchange
+    from modalities_tpu_torch.running_env import env
+
+    with env.process_group(torch.device("cpu")):
+        group = torch.distributed.group.WORLD
+        x = torch.full((2, 3), float(rank))
+        forward, back = _exchange([x, x + 10], group, 1), _exchange([x], group, -1)
+    return [t[0, 0].item() for t in forward + back]
+
+
+# -------------------------------------------------------------------- tests
+
+
+def test_the_ring_exchange_passes_chunks_to_the_next_rank_and_back():
+    got = run_world(3, exchange_worker)
+    assert got == [[(r - 1) % 3, (r - 1) % 3 + 10, (r + 1) % 3] for r in range(3)]
+
+
+def test_run_and_warmstart_train_on_two_ranks_through_the_cli(tmp_path):
+    """A tiny copy of configs/config_2p7b_dp.yaml on a dp_shard 2 mesh (bf16
+    parameters, fp32 norms): `run` saves at step 3 of 5, `warmstart` resumes
+    from the pointer; the resumed steps' losses, grad norms and lr equal the
+    unbroken run's bitwise on both ranks; the topology record names the
+    2-rank mesh; only rank 0 prints the step lines."""
+    import json
+
+    from tests.test_torch_run_cli import tiny_config
+    from tests.test_torch_warmstart import warmstart_config
+
+    steps, save_at, per_step = 5, 3, 32 * 2 * 1 * 2  # sequence x micro batch x accumulation x dp ranks
+    cfg = tiny_config(tmp_path, acc=1, **{"device_mesh.config.data_parallel_shard_degree": 2,
+                                   "device_mesh.config.world_size": 2,
+                                   "settings.training_target.num_target_steps": steps,
+                                   "settings.training_target.num_target_tokens": steps * per_step,
+                                   "settings.intervals.checkpointing_interval_in_steps": save_at,
+                                   "settings.intervals.evaluation_interval_in_steps": steps,
+                                   "settings.consistency_enforcement.enforce_last_step_evaluated": False})
+    warm = warmstart_config(cfg, tmp_path / "warmstart.yaml")
+    info = tmp_path / "checkpoints" / "last_checkpoint_info.json"
+    ranks = run_world(2, cli_worker, str(cfg), str(warm), str(info), (free_port(), free_port()))
+    for r in ranks:
+        assert len(r["steps"]) == steps + steps - save_at
+        assert r["steps"][steps:] == r["steps"][save_at:steps]
+    assert ranks[0]["steps"] == ranks[1]["steps"]  # the global loss, grad norm and lr on every rank
+    assert "[train] step 1:" in ranks[0]["printed"][0] and "[train] step 4:" in ranks[0]["printed"][1]
+    assert "[train] step" not in ranks[1]["printed"][0] + ranks[1]["printed"][1]
+    folder = Path(json.loads(info.read_text())["checkpoint_folder_path"])
+    assert {"__0_0.distcp", "__1_0.distcp", ".metadata", "manifest.json", "topology.json"} <= {
+        p.name for p in folder.iterdir()}
+    topology = json.loads((folder / "topology.json").read_text())
+    assert topology["mesh_axes"] == {"dp_shard": 2} and topology["process_count"] == 2
+    assert topology["leaf_specs"]["model.wte"] == "('dp_shard', None)"

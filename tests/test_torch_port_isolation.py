@@ -44,3 +44,9 @@ def test_the_walk_covers_the_checkpointing_modules():
 def test_no_jax_and_no_jax_package_imports(path):
     bad = [name for name in _imports(path) if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_walk_covers_the_parallel_modules():
+    walked = {str(p.relative_to(ROOT / "modalities_tpu_torch")) for p in FILES if "modalities_tpu_torch" in p.parts}
+    assert {"running_env/env.py", "running_env/device_mesh.py", "parallel/fsdp.py",
+            "parallel/ring_attention.py"} <= walked

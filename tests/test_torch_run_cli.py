@@ -113,7 +113,8 @@ def test_the_default_device_raises_without_a_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "edits,error,match",
     [
-        ({"device_mesh.config.data_parallel_shard_degree": 2}, NotImplementedError, "Queue 1 item 5"),
+        ({"device_mesh.config.tensor_parallel_degree": 2, "device_mesh.config.world_size": 2}, NotImplementedError,
+         "Queue 1 item 5"),
         ({"device_mesh.config.zero_stage": 1}, NotImplementedError, "ZeRO"),
         ({"model_raw.config.dropout": 0.1}, ValueError, "dropout"),
         ({"model_raw.config.lm_head_chunk_size": 16, "model_raw.config.lm_head_fused_ce": "always"}, ValueError,

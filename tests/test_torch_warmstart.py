@@ -143,7 +143,7 @@ def trained(tmp_path_factory):
     cfg = tiny_config(tmp, **{"settings.intervals.checkpointing_interval_in_steps": 2})
     run = Main(cfg, device="cpu")
     run.run()
-    params = {k: v.detach().clone() for k, v in run.train_step.module.state_dict().items()}
+    params = {k: v.detach().clone() for k, v in run.train_step.state_dict().items()}
     folder = next(p for p in (tmp / "checkpoints").iterdir() if p.is_dir())
     vocab = {f"t{i}": i for i in range(255)}
     vocab["<eod>"] = 255
