@@ -24,7 +24,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      block, and a dk/dv that drops one 64-query tile near the diagonal; flash
      and RMSNorm also at
      the 32k config's shapes (q [1, 12, 32768, 128], k/v [1, 4, 32768, 128],
-     checked head by head, flash timed there beside SDPA; x [32768, 1536]).
+     checked head by head, flash timed there beside SDPA; x [32768, 1536])
+     and at the 7B's (phase 8: q [4, 32, 4096, 128], k/v [4, 8, 4096, 128]
+     head by head, and one tp-8 rank's q [1, 4, 4096, 128], k/v [1, 1, 4096,
+     128]; x [16384, 4096] and [512, 4096], forward and backward).
      The fused-CE kernels at the 32k training shape (N 32768, V 50304, E 1536,
      bf16) and on small ragged f32 and bf16 cases: lse, corr and total against
      the plain version, dh and dW of the total per row against autograd of it;
@@ -72,6 +75,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      batch at lr 2e-5 (the loss falls at every step); the config's lr 2e-4
      at full width and 4 layers x 4096 through the kernels and through the
      plain path (chunked-scan head): the loss curves agree at every step.
+     The 3 steps also run with the tensor-parallel plan applied on a
+     (dp_shard 1, tp 1) mesh with loss parallelism (the fused-CE head on
+     vocab shards): the path's launches, losses and grad norms within
+     TP_ONE_TOL.
   6. checkpointing at full width and depth. Run A: the 32k config through
      Main for 52 steps with its own checkpointing interval (50) and k (2):
      it saves and seals the step-50 folder (DCP files, topology.json,
@@ -105,15 +112,41 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      torch.distributed.run --standalone --nproc_per_node 1 -m
      modalities_tpu_torch run` in a subprocess: losses, grad norms and lr
      bitwise equal.
-  8. one JSON line naming the kernels (launches summed over the paths, and
+  8. tensor parallelism. (a) configs/config_7b_tp_fsdp.yaml through Main at
+     full width (E 4096, 32/8 heads of 128, SwiGLU 14336, vocab 50304,
+     untied, the gpt2_llama3_like init with depth_init), cut where one card
+     forces it: world 1 and tp 1 (no loss parallelism), 4 of 32 layers, the
+     file's micro-batch of 4 x 4096: 3 steps with finite losses, step 0's
+     loss within 0.5 of ln(50304) + 0.5 x 0.973 (the Llama3 head's logits),
+     exact flash and RMSNorm launches per step, peak memory within the
+     written reckoning (SEVEN_B_PEAK_GB), the same steps without a mesh
+     bitwise (step 0's loss 11.30021), the same steps with the
+     tensor-parallel plan applied on a (dp_shard 1, tp 1) mesh with loss
+     parallelism (DTensor parameters under 2-D FSDP2, the loss-parallel CE;
+     the path's launches, losses and grad norms within TP_ONE_TOL), a
+     profiled step with its ms and MFU. (b) One 7B block at tp 8
+     on x [1, 4096, 4096] bf16, driven rank by rank in this process through
+     parallel/tensor_parallel.py's `tp_in_process` (each rank's 512 rows
+     under SP, its 4/1 heads, its eighth of the MLP; partials summed in rank
+     order): output, dx and every weight gradient against the unsharded
+     block row by row; exactly 8 flash forward, dq and dk/dv launches at q
+     [1, 4, 4096, 128], k/v [1, 1, 4096, 128] and 16 RMSNorm forward and
+     backward launches. (c) The fused CE on 8 vocab shards of 6288 at the
+     32k CE shape (h [32768, 1536], W [50304, 1536]): 8 forward, 8 dh and 8
+     dW launches and the combine against one whole-vocabulary call (lse
+     within 1e-4, dh within phase 1's bound, the dW shards against the whole
+     dW's rows), the shards' summed time beside the whole call's.
+  9. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, train_2p7b, train_32k, train_32k_resume, ring_cp4,
-     train_32k_torchrun, serve_ckpt), then the device line (last line).
+     train_32k_torchrun, train_7b, tp8, serve_ckpt), then the device line
+     (last line).
 
-Phases 4-7 run on the world-1 NCCL process group that `run` builds without
+Phases 4-8 run on the world-1 NCCL process group that `run` builds without
 a launcher (held across them), so every training run goes through
-`fully_shard` (the configs' `fsdp2_wrapped`); phases 4 and 5 also run their
-3 steps with the train step built without a mesh and hold every step's loss,
-grad norm and lr bitwise equal (step 0's losses 11.34302 and 11.13179).
+`fully_shard` (the configs' `fsdp2_wrapped`); phases 4, 5 and 8a also run
+their 3 steps with the train step built without a mesh and hold every
+step's loss, grad norm and lr bitwise equal (step 0's losses 11.34302,
+11.13179 and 11.30021 in phases 4, 5 and 8a).
 
 Exits non-zero, printing no result, without a CUDA device or without the rest
 of the repository beside it.
@@ -170,9 +203,12 @@ MODEL_2P7B = {  # config_serve.yaml's model node at configs/config_2p7b_dp.yaml'
 }
 SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 64
 TRAIN_SHAPE = (2, 4096, 32, 8, 80)  # (B, S, Hq, Hkv, D) of one 2.7B training microbatch
-# the last shape is the 32k config's heads (GQA group 3, D 128) at a length whose plain scores fit
-FLASH_SHAPES = [TRAIN_SHAPE, (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80), (1, 2048, 12, 4, 128)]
+# (1, 2048, 12, 4, 128) is the 32k config's heads (GQA group 3, D 128) at a length whose plain scores fit;
+# (1, 4096, 4, 1, 128) one tp-8 rank's heads of the 7B (phase 8b)
+FLASH_SHAPES = [TRAIN_SHAPE, (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80), (1, 2048, 12, 4, 128),
+                (1, 4096, 4, 1, 128)]
 FLASH_LONG = (1, 32768, 12, 4, 128)  # (B, S, Hq, Hkv, D) of the 32k config's attention, checked head by head
+FLASH_7B = (4, 4096, 32, 8, 128)  # the 7B's attention on one card (phase 8a), checked head by head
 # Flash attention against the plain version, per output row relative to the
 # row's own norm (_row_check). bf16: the kernels round P and dS to bf16 before
 # their tensor-core products and round each output to bf16, while the plain
@@ -189,8 +225,13 @@ TINY_BF16_TOL = {"grads": 4e-2, "loss": 3e-5, "grad_norm": 1e-3, "params": 0.1}
 # (the H100 showed 0.031 at 32 x 1024)
 LR_WITNESS = [(32, 1024), (4, 4096)]
 LR_WITNESS_TOL = 0.1
+# The tp plan at tp 1 on the card against the unsharded route of the same run: each step's loss (absolute) and
+# grad norm (relative). Both routes give the same sums in another order; a fault of the plan's route (a wrong
+# shard offset, a lost or doubled exchange) moves them by O(1)
+TP_ONE_TOL = 1e-3
 RMS_ROWS = (1, 4, 8, 16, 64, 1000, 8192)  # 8192 = 2 x 4096 rows of a training microbatch
 RMS_LONG = (32768, 1536)  # (rows, width) of the 32k config's norms: one sequence of 32768 at width 1536
+RMS_7B = ((16384, 4096), (512, 4096))  # the 7B's norms: 8a's 4 x 4096 rows; one tp-8 rank's 512 rows under SP (8b)
 QMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 7680), (7680, 2560), (2560, 50304)]  # (K, N) per decode step
 CE_SHAPE = (32768, 50304, 1536)  # (N, V, E) of one 32k training microbatch: rows, vocab, width
 # Small fused-CE cases (N, V, E, h dtype, w dtype, ignored rows): ragged rows and vocab on both
@@ -306,8 +347,8 @@ def phase_kernels(torch) -> dict:
     # torch's mean: a few f32 ulps); bf16 two bf16 ulps (rtol 2^-6) on the
     # output rounded from those fp32 values.
     e, eps, err_max, cases = 2560, 1e-5, 0.0, 0
-    # decode 8, prefill ladder 64/16/4/1 and many rows at the 2.7B width; the 32k training shape
-    shapes = [(n, e) for n in (1, 4, 8, 16, 64, 1000)] + [RMS_LONG]
+    # decode 8, prefill ladder 64/16/4/1 and many rows at the 2.7B width; the 32k and 7B training shapes
+    shapes = [(n, e) for n in (1, 4, 8, 16, 64, 1000)] + [RMS_LONG, *RMS_7B]
     for dtype, tol in ((torch.float32, (1e-5, 1e-5)), (torch.bfloat16, (1e-6, 2**-6))):
         for n, e in shapes:
             x = torch.randn(n, e, generator=g, device=dev).to(dtype)
@@ -666,7 +707,7 @@ def phase_train_kernels(torch) -> dict:
     # sums (1e-5), 2^-7 when returned in a bf16 parameter's dtype.
     eps, err_max, cases = 1e-5, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
-        for n, e in [(n, 2560) for n in RMS_ROWS] + [RMS_LONG]:
+        for n, e in [(n, 2560) for n in RMS_ROWS] + [RMS_LONG, *RMS_7B]:
             x = torch.randn(n, e, generator=g, device=dev).to(dtype)
             dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
             for pdtype in (None, torch.float32, torch.bfloat16):
@@ -692,7 +733,8 @@ def phase_train_kernels(torch) -> dict:
             second = rms_norm_backward(dy, x, s32, r)
             if not all(torch.equal(a, b) for a, b in zip(first, second)):
                 raise AssertionError(f"rms_norm backward N={n} E={e} {dtype}: two calls differ")
-    log(f"[phase 1] rms_norm backward: {cases} cases (E 2560 at N {RMS_ROWS}; N {RMS_LONG[0]} at E {RMS_LONG[1]}) agree with autograd of the plain version (f32 rel 1e-5; "
+    log(f"[phase 1] rms_norm backward: {cases} cases (E 2560 at N {RMS_ROWS}; N {RMS_LONG[0]} at E {RMS_LONG[1]}; "
+        f"the 7B's (N, E) {list(RMS_7B)}) agree with autograd of the plain version (f32 rel 1e-5; "
         f"bf16 dx rel 2^-6, bf16 dscale/dbias rel 2^-7; + atol 1e-5), max abs err {err_max:g}; "
         f"a second call is bitwise identical")
     n, e = 8192, 2560
@@ -946,23 +988,20 @@ def _dkv_tile_dropped(torch, q, k, v, do, lse, delta, want, head: int, q0: int, 
     return dk, dv
 
 
-def phase_flash_long(torch) -> dict:
-    """Flash at the 32k config's attention shape: q [1, 12, 32768, 128], k/v
-    [1, 4, 32768, 128] bf16 (GQA group 3). The forward, dq and dk/dv kernels
-    run once on the whole shape; their outputs are held, every row to its own
-    norm, against the plain versions given the same global (lse, delta), one
-    head at a time so that the plain fp32 scores (4.3 GB a head) fit: each q
-    head's out, lse and dq, and each kv head's dk and dv against the sum of
-    the plain dk/dv of its 3 q heads (fp32). Then the three kernels' times at
-    this shape beside SDPA's (forward; backward with dq, dk, dv) and, for
-    dk/dv, the plain version run head by head. Returns those timings."""
-    import torch.nn.functional as F
-
+def flash_by_head(torch, shape, seed: int, phase: str = "phase 1"):
+    """Flash at a shape too large for the plain scores of every head at
+    once: (B, S, Hq, Hkv, D), bf16, causal. The forward, dq and dk/dv
+    kernels run once on the whole shape; their outputs are held, every row to
+    its own norm, against the plain versions given the same global (lse,
+    delta), one head at a time (all B rows) so that the plain fp32 scores
+    fit: each q head's out, lse and dq, and each kv head's dk and dv against
+    the sum of the plain dk/dv of its q heads (fp32). Two forward and two dq
+    calls bitwise equal. Returns (q, k, v, w, lse, delta) [B, H, S, D]."""
     from modalities_tpu_torch.ops import flash_attention as fa
 
-    b, s, hq, hkv, d = FLASH_LONG
+    b, s, hq, hkv, d = shape
     group = hq // hkv
-    g = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, w = (torch.randn(b, h, s, d, generator=g, device="cuda").to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
     what = f"flash bf16 causal q [{b}, {hq}, {s}, {d}] k/v [{b}, {hkv}, {s}, {d}]"
     rel = FLASH_ROW_REL["bfloat16"]
@@ -1004,12 +1043,30 @@ def phase_flash_long(torch) -> dict:
         held(dk[:, hk:hk + 1], want_dk, "dk", hk)
         held(dv[:, hk:hk + 1], want_dv, "dv", hk)
         del want_dk, want_dv
-    log(f"[phase 1] {what}: kernels on the whole shape vs their plain versions given the same (lse, delta), "
+    log(f"[{phase}] {what}: kernels on the whole shape vs their plain versions given the same (lse, delta), "
         f"head by head (dk/dv: each kv head against the fp32 sum over its {group} q heads): worst row rel err "
         f"(share of allowance used) {', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f})' for n, r in seen.items())}, "
         f"bound rel {rel:g}; lse max abs err {lse_err:.3g} (bound 1e-4); two forward calls and two dq calls bitwise "
         f"identical")
-    del dq, dk, dv
+    del dq, dk, dv, o
+    torch.cuda.empty_cache()
+    return q, k, v, w, lse, delta
+
+
+def phase_flash_long(torch) -> dict:
+    """Flash at the 32k config's attention shape: q [1, 12, 32768, 128], k/v
+    [1, 4, 32768, 128] bf16 (GQA group 3), held head by head
+    (`flash_by_head`: the plain fp32 scores take 4.3 GB a head). Then the
+    three kernels' times at this shape beside SDPA's (forward; backward with
+    dq, dk, dv) and, for dk/dv, the plain version run head by head. Returns
+    those timings."""
+    import torch.nn.functional as F
+
+    from modalities_tpu_torch.ops import flash_attention as fa
+
+    b, s, hq, hkv, d = FLASH_LONG
+    group = hq // hkv
+    q, k, v, w, lse, delta = flash_by_head(torch, FLASH_LONG, seed=4)
 
     def plain_dkv():  # head by head: the plain fp32 scores of all 12 heads would take 51 GB
         for h in range(hq):
@@ -1040,7 +1097,7 @@ def phase_flash_long(torch) -> dict:
         lib_name = "F.scaled_dot_product_attention" if name == "fwd" else "its backward (dq, dk, dv in one call)"
         log(f"[phase 1] flash {name} {t['shape']}: kernel {t['ms']:.3f} ms, {plain_txt}{lib_name} {lib:.3f} ms, "
             f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}); {flops / t['ms'] / 1e9:.1f} TFLOP/s")
-    del q, k, v, w, o, lse, delta
+    del q, k, v, w, lse, delta
     torch.cuda.empty_cache()
     return out
 
@@ -1455,6 +1512,77 @@ def fsdp_witness(torch, cfg: Path, tmp: Path, sharded: list[dict], want_step0: s
         f"{step0} as the unsharded path gives it")
 
 
+def _tp_one_mesh():
+    """The port's DeviceMesh on the world-1 group with its tp axis built at
+    size 1 ((dp_shard 1, tp 1)) and loss parallelism on. The config's
+    validator, as the JAX one, builds no size-1 axis and wants tp > 1 for
+    loss parallelism; here the train step still takes the tensor-parallel
+    route with every exchange over one rank."""
+    from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
+
+    class TpOne(DeviceMesh):
+        @property
+        def mesh_axes(self) -> dict[str, int]:
+            return {"dp_shard": 1, "tp": 1}
+
+    mesh = TpOne(world_size=1)
+    mesh.enable_loss_parallel = True
+    return mesh
+
+
+def tp_one_witness(torch, cfg: Path, tmp: Path, reference: list[dict], counts: dict[str, int], phase: str) -> None:
+    """The same config and data through Main with its train step built over
+    a (dp_shard 1, tp 1) mesh with loss parallelism (`_tp_one_mesh`): the
+    tensor-parallel plan applies on the card (the parameters become DTensors
+    over tp, FSDP2 shards them over dp_shard of the same 2-D mesh, the
+    module bodies and kernel wrappers see their local tensors, the
+    vocab-parallel lookup, the loss-parallel CE or the fused-CE head on
+    vocab shards, the tp sum of the replicated gradients). Its launches must
+    equal the path's (`counts`), and each step's loss and grad norm must be
+    within TP_ONE_TOL of the path's run (`reference`; the grad norm
+    relative), its lr equal: the loss-parallel CE sums its exponentials, and
+    the global norm its tp-sharded and tp-replicated gradients, in another
+    order than the unsharded route."""
+    from torch.distributed.tensor import DTensor
+
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+
+    def over_tp_one(components):
+        app_state = components.app_state
+        return TrainStep(app_state.model, components.loss_fn, app_state.optimizer, app_state.lr_scheduler,
+                         device=main.device,
+                         gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
+                         grad_clipper=components.gradient_clipper, device_mesh=_tp_one_mesh())
+
+    main.build_train_step = over_tp_one
+    _reset_counts()
+    got = _step_metrics(main.run())
+    launched = _launch_counts(tuple(counts))
+    module = main.train_step.module
+    kernel = module.blocks[0].attn.q_attn.kernel
+    route = "the fused-CE head on vocab shards" if main.train_step.fused_ce else "the loss-parallel CE on fp32 logits"
+    placed = (isinstance(kernel, DTensor) and kernel.device_mesh.mesh_dim_names == ("dp_shard", "tp")
+              and module.tp is not None and module.tp.loss_parallel)
+    del main, module, kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = _step_metrics(reference)
+    diffs = {k: (abs(got[k][0] - want[k][0]), abs(got[k][1] - want[k][1]) / want[k][1]) for k in want if k in got}
+    worst = max(max(d) for d in diffs.values()) if diffs else math.inf
+    if (not placed or launched != counts or sorted(got) != sorted(want) or worst > TP_ONE_TOL
+            or any(got[k][2] != want[k][2] for k in want)):
+        raise AssertionError(f"{phase}: the tp plan on a (dp_shard 1, tp 1) mesh: placed {placed}, launches "
+                             f"{launched} (the path's {counts}), steps {got} against {want} (bound {TP_ONE_TOL:g})")
+    log(f"[{phase}] the same run with the tp plan applied on a (dp_shard 1, tp 1) mesh of the world-1 NCCL group, "
+        f"loss parallelism on ({route}; parameters DTensors over (dp_shard, tp)): launches {launched}, as the "
+        f"path's; steps 1-{len(got)} (loss, grad norm, lr) {[got[k] for k in sorted(got)]}; largest |loss diff| "
+        f"{max(d[0] for d in diffs.values()):.3g}, grad norm rel diff {max(d[1] for d in diffs.values()):.3g} "
+        f"(bound {TP_ONE_TOL:g}); bitwise the path's: {got == want}")
+
+
 def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
     """One warm train step under torch.profiler: device busy share and the top
     device ops (informational)."""
@@ -1685,6 +1813,7 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
         gc.collect()
         torch.cuda.empty_cache()
         fsdp_witness(torch, cfg, tmp, sharded_results, "11.13179", "phase 5")
+        tp_one_witness(torch, cfg, tmp, sharded_results, counts, "phase 5")
 
         repeat = np.tile(rng.integers(0, vocab, size=seq), 8)[: seq + 1 + 6 * seq]
         lrs = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": 0.00002,
@@ -2189,6 +2318,246 @@ def phase_launcher(torch, smi: str) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------- phase 8
+SEVEN_B_CONFIG = "config_7b_tp_fsdp.yaml"
+SEVEN_B = {"layers": 4, "micro": 4, "seq": 4096, "vocab": 50304, "width": 4096}  # the 7B cut to 4 of its 32 layers
+# The written reckoning of the 7B step's peak memory at 4 layers (PERF.md, section 4): 1.284 B parameters at 12
+# bytes each (bf16 parameter and gradient, fp32 accumulator, two bf16 Adam moments: 15.4 GB), about 3 GB of block
+# activations a layer (12 GB) and about 14 GB for the fp32 head (logits, log-softmax and their gradient at
+# 16384 x 50304, the head kernel widened to fp32): about 42 GB, at most 55
+SEVEN_B_PEAK_GB = 55.0
+SEVEN_B_STEP0 = "11.30021"  # 8a's step-0 loss as the unsharded kernels' path gives it on the H100
+TP_DEGREE = 8  # config_7b_tp_fsdp.yaml's tp
+MODEL_7B_BLOCK = {**MODEL_2P7B, "n_layer": 1, "n_embd": 4096, "ffn_hidden": 21504,
+                  "attention_implementation": "dao_flash",
+                  "attention_config": {"qkv_transforms": [{"type_hint": "RotaryTransform",
+                                                           "config": {"n_embd": 4096, "n_head": 32,
+                                                                      "base_freq": 500000}}]},
+                  **{f"{n}_norm_config": {"norm_type": "rms_norm", "config": {"ndim": 4096, "bias": False,
+                                                                               "epsilon": 1e-5}}
+                     for n in ("attention", "ffn", "lm_head")}}
+# the variance of a unit normal truncated at +-3 (the Llama3 head's init: truncN(0, 1/sqrt(E)) at +-3/sqrt(E))
+TRUNC3_VAR = 1.0 - 6.0 * math.exp(-4.5) / math.sqrt(2.0 * math.pi) / math.erf(3.0 / math.sqrt(2.0))
+
+
+def phase_train_7b(torch, smi: str) -> dict[str, int]:
+    """8a: configs/config_7b_tp_fsdp.yaml through Main at full width (E 4096,
+    32/8 heads of 128, SwiGLU 14336, vocab 50304, untied head, the
+    gpt2_llama3_like init with depth_init), cut where one card forces it:
+    world 1 and tp 1 (so no loss parallelism, which needs tp > 1), 4 layers
+    of 32, the file's micro-batch of 4 x 4096. 3 steps with finite losses,
+    step 0's loss within 0.5 of ln(50304) + 0.5 x TRUNC3_VAR, exact flash and
+    RMSNorm launches per step, peak memory within SEVEN_B_PEAK_GB, a
+    profiled step; the same steps without a mesh bitwise (step 0's loss
+    SEVEN_B_STEP0) and with the tp plan on a (dp_shard 1, tp 1) mesh within
+    TP_ONE_TOL (`tp_one_witness`). Returns the launch counts."""
+    from modalities_tpu_torch.main import Main
+
+    rng = np.random.default_rng(2031)
+    steps = 3
+    layers, micro, seq, vocab = (SEVEN_B[k] for k in ("layers", "micro", "seq", "vocab"))
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        corpus = rng.integers(0, vocab, size=seq + 1 + micro * (steps + 3) * seq)
+        cuts = {"device_mesh.config.tensor_parallel_degree": 1, "device_mesh.config.enable_loss_parallel": False,
+                "model_raw.config.n_layer": layers}
+        cfg = _train_config(tmp, "train_7b", corpus, steps, cuts, seq=seq, base=SEVEN_B_CONFIG, micro=micro, acc=1,
+                            phase="phase 8a")
+        torch.cuda.reset_peak_memory_stats()
+        main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+        main.components = main.build_components()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = main.run(main.components)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+        losses = [r["losses"]["train loss last"] for r in results]
+        norms = [r["metrics"]["grad norm last"] for r in results]
+        if len(results) != steps or not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"7B training: {len(results)} steps, losses {losses}, grad norms {norms}")
+        # the head's logits: rows of std 1/sqrt(E) truncated at 3 sigma over unit-RMS hidden states of width E
+        expected = math.log(vocab) + TRUNC3_VAR / 2
+        if abs(losses[0] - expected) > 0.5:
+            raise AssertionError(f"7B training: step 0 loss {losses[0]} not within 0.5 of ln({vocab}) + "
+                                 f"{TRUNC3_VAR:.5f} / 2 = {expected:.3f}")
+        per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 2 * layers + 1,
+                    "rms_bwd": 2 * layers + 1}
+        for key, want in per_step.items():
+            if counts[key] != want * steps:
+                raise AssertionError(f"7B training: {key} launched {counts[key]} times in {steps} steps, expected "
+                                     f"{want} per step")
+        if peak_gb > SEVEN_B_PEAK_GB:
+            raise AssertionError(f"7B training: peak memory {peak_gb:.2f} GB above the reckoning's "
+                                 f"{SEVEN_B_PEAK_GB} GB")
+        log(f"[phase 8a] {SEVEN_B_CONFIG} through Main at full width, cut to world 1 / tp 1 (no loss parallelism) "
+            f"and {layers} of 32 layers, micro-batch {micro} x {seq} ({main.train_step.num_parameters / 1e9:.3f} B "
+            f"parameters, gpt2_llama3_like with depth_init): {steps} steps in {wall:.1f} s; losses "
+            f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 5) for x in norms]}; step 0 expected "
+            f"{expected:.5f} = ln({vocab}) + {TRUNC3_VAR:.5f} / 2, within 0.5; launches per step "
+            f"{ {k: v // steps for k, v in counts.items()} }; peak memory {peak_gb:.2f} GB "
+            f"(torch.cuda.max_memory_allocated; reckoning at most {SEVEN_B_PEAK_GB} GB), {reserved_gb:.2f} GB "
+            f"reserved")
+        for r in results[1:]:
+            th = r["throughput_metrics"]
+            log(f"[phase 8a] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
+                f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
+        profile_train_step(torch, main, smi, phase="phase 8a")
+        sharded_results = results
+        del main, results
+        gc.collect()
+        torch.cuda.empty_cache()
+        fsdp_witness(torch, cfg, tmp, sharded_results, SEVEN_B_STEP0, "phase 8a")
+        tp_one_witness(torch, cfg, tmp, sharded_results, counts, "phase 8a")
+    return counts
+
+
+def phase_tp_block(torch, smi: str) -> dict[str, int]:
+    """8b: one 7B block (E 4096, 32/8 heads of 128, SwiGLU 14336, bf16, the
+    Llama3 init) on x [1, 4096, 4096] at tp 8, driven rank by rank in this
+    process through parallel/tensor_parallel.py's `tp_in_process`: each
+    rank's norms on its 512 rows (SP), its 4/1 heads and its 1/8 of the MLP;
+    the partial outputs summed in rank order in fp32, as the reduce-scatter
+    sums them. The output, dx and every weight gradient against the
+    unsharded block, row by row (FLASH_ROW_REL); exactly
+    8 flash forward, dq and dk/dv launches at q [1, 4, 4096, 128], k/v [1, 1,
+    4096, 128], and 16 RMSNorm forward and backward launches. Returns the
+    launch counts."""
+    from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM
+    from modalities_tpu_torch.nn.llama3_initialization import Llama3Initializer
+    from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.parallel import tensor_parallel as tpm
+
+    model = GPT2LLM(**MODEL_7B_BLOCK)
+    model.with_spec_updates(param_dtype="bfloat16", compute_dtype="bfloat16")
+    model.update_train_spec(init_routines=(Llama3Initializer(num_layers=1, n_embd=4096),))
+    module = model.build_train_module(model.init_train_params(torch.Generator(device="cuda").manual_seed(11)))
+    block = module.blocks[0]
+    s, e = MODEL_7B_BLOCK["sequence_length"], MODEL_7B_BLOCK["n_embd"]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(1, s, e, generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(1, s, e, generator=g, device="cuda").to(torch.bfloat16)
+    cos, sin = module._rope_tables(s)
+    x_ref = x.clone().requires_grad_(True)
+    out_ref = block.train_forward(x_ref, cos, sin)
+    out_ref.backward(dy)
+    torch.cuda.synchronize()
+    shapes = []
+    kernel = fa._fwd_kernel
+
+    def recording(q, k, *rest):  # the forward kernel's q and k shapes ([B, H, S, D]) on the tp path
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return kernel(q, k, *rest)
+
+    _reset_counts()
+    fa._fwd_kernel = recording
+    try:
+        x_tp = x.clone().requires_grad_(True)
+        out, ranks = tpm.tp_in_process(block, x_tp, cos, sin, TP_DEGREE)
+        out.backward(dy)
+        torch.cuda.synchronize()
+    finally:
+        fa._fwd_kernel = kernel
+    counts = _launch_counts()
+    want = {"flash_fwd": TP_DEGREE, "flash_dq": TP_DEGREE, "flash_dkv": TP_DEGREE, "rms_fwd": 2 * TP_DEGREE,
+            "rms_bwd": 2 * TP_DEGREE}
+    want_shapes = [((1, 4, s, 128), (1, 1, s, 128))] * TP_DEGREE
+    if counts != want or shapes != want_shapes:
+        raise AssertionError(f"tp {TP_DEGREE} block: launches {counts} (expected {want}), flash shapes {shapes}")
+    rel = FLASH_ROW_REL["bfloat16"]
+    what = f"7B block at tp {TP_DEGREE}, x [1, {s}, {e}] bf16"
+    grads = tpm.gather_rank_grads(block, ranks)
+    pairs = {"out": (out, out_ref), "dx": (x_tp.grad, x_ref.grad),
+             **{f"d {name}": (grads[name], p.grad) for name, p in block.named_parameters()}}
+    seen, failed = {}, []
+    for name, (got, ref) in pairs.items():  # every tensor checked before any failure is raised
+        try:
+            seen[name] = _row_check(torch, got, ref, rel, f"{what}: {name}")
+        except AssertionError as err:
+            failed.append(str(err))
+    if failed:
+        raise AssertionError("; ".join(failed) + f" (the others: {seen})")
+    worst = max(seen.items(), key=lambda kv: kv[1][1])
+    log(f"[phase 8b] {what}, driven rank by rank through tensor_parallel.tp_in_process: launches {counts} (flash "
+        f"q/k {shapes[0]} a rank; RMSNorm on {s // TP_DEGREE}-row chunks under SP); against the unsharded block, "
+        f"worst row rel err (share of allowance used, max abs err) "
+        f"{', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f}, {r[2]:.3g})' for n, r in seen.items())}; most used: "
+        f"{worst[0]} {worst[1][1]:.2f}; bound rel {rel:g}")
+    del module, block, ranks, out, out_ref, x_ref, x_tp, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tp_fused_ce(torch, smi: str) -> dict[str, int]:
+    """8c: the fused CE on TP_DEGREE vocab shards at the 32k CE shape (h
+    [32768, 1536], W [50304, 1536] bf16: shards of 6288 rows, no multiple of
+    the kernels' 64-column tile), 8 forward, 8 dh and 8 dW launches and the
+    combine (parallel/vocab_parallel_ce.py:fused_ce_in_process), against one
+    whole-vocabulary call: lse and corr within 1e-4; dh held per row to the
+    plain fp32 gradient with phase 1's bound (CE_ROW_REL) as the whole
+    call's is; the dW shards against the whole dW's rows (bitwise or not,
+    printed; and with the whole call's lse). Labels sit on every shard
+    boundary. The shard calls' summed time beside the whole call's
+    (informational). Returns the launch counts."""
+    from modalities_tpu_torch.ops import fused_ce as fce
+    from modalities_tpu_torch.parallel import vocab_parallel_ce as vce
+
+    n, v, e = CE_SHAPE
+    shard = v // TP_DEGREE
+    g = torch.Generator(device="cuda").manual_seed(19)
+    h, w, labels = _ce_inputs(torch, g, n, v, e, "bfloat16", "bfloat16", n // 16)
+    edges = torch.tensor([r * shard + d for r in range(TP_DEGREE) for d in (-1, 0) if 0 <= r * shard + d < v],
+                         device="cuda")
+    labels[:edges.numel()] = edges
+    gm = (labels != -100).float()  # the gradient of the sum, as phase 1 holds it
+    lse_w, corr_w = fce.fused_ce_forward(h, w, labels)
+    dh_w = fce.fused_ce_backward_dh(h, w, labels, lse_w, gm)
+    dw_w = fce.fused_ce_backward_dw(h, w, labels, lse_w, gm)
+    torch.cuda.synchronize()
+    _reset_counts()
+    lse, corr, dh, dw = vce.fused_ce_in_process(h, w, labels, TP_DEGREE, gm)
+    torch.cuda.synchronize()
+    counts = _launch_counts(("ce_fwd", "ce_dh", "ce_dw"))
+    if counts != {"ce_fwd": TP_DEGREE, "ce_dh": TP_DEGREE, "ce_dw": TP_DEGREE}:
+        raise AssertionError(f"fused CE at tp {TP_DEGREE}: launches {counts}")
+    what = f"fused CE on {TP_DEGREE} vocab shards of {shard}, h[{n},{e}] w[{v},{e}] bf16"
+    lse_err = check_close(torch, lse, lse_w, 1e-4, 0.0, f"{what}: lse against the whole call")
+    corr_err = check_close(torch, corr, corr_w, 1e-4, 0.0, f"{what}: corr against the whole call")
+    lse_p, _ = fce.reference_fused_ce_forward(h, w, labels)
+    dh_p, dw_p = fce.reference_fused_ce_backward(h.float(), w.float(), labels, lse_p, gm)
+    del lse_p
+    rel = CE_ROW_REL["bfloat16"]
+    dh_err = _row_check(torch, dh, dh_p, rel, f"{what}: dh against the plain fp32 gradient")
+    dh_whole = _row_check(torch, dh_w, dh_p, rel, f"{what}: the whole call's dh against the plain fp32 gradient")
+    dw_err = _row_check(torch, dw, dw_p, rel, f"{what}: dW against the plain fp32 gradient")
+    bitwise = bool(torch.equal(dw, dw_w))
+    same_lse = torch.cat([fce.fused_ce_backward_dw(h, s_, labels.long() - r * shard, lse_w, gm)
+                          for r, s_ in enumerate(w.chunk(TP_DEGREE, dim=0))])
+    bitwise_same_lse = bool(torch.equal(same_lse, dw_w))
+    del dh_p, dw_p, same_lse
+    torch.cuda.empty_cache()
+    shard_ms = time_ms(torch, lambda: vce.fused_ce_in_process(h, w, labels, TP_DEGREE, gm), reps=3)
+    whole_ms = time_ms(torch, lambda: (fce.fused_ce_forward(h, w, labels),
+                                       fce.fused_ce_backward_dh(h, w, labels, lse_w, gm),
+                                       fce.fused_ce_backward_dw(h, w, labels, lse_w, gm)), reps=3)
+    log(f"[phase 8c] {what}: launches {counts}; against one whole-vocabulary call lse max abs err {lse_err:.3g}, "
+        f"corr {corr_err:.3g} (bound 1e-4); dh worst row rel err (share of allowance used) {dh_err[0]:.4g} "
+        f"({dh_err[1]:.2f}) against the plain fp32 gradient (the whole call's {dh_whole[0]:.4g} ({dh_whole[1]:.2f})), "
+        f"bound {rel:g}; dW {dw_err[0]:.4g} ({dw_err[1]:.2f}); the dW shards bitwise the whole dW's rows: {bitwise} "
+        f"(max abs diff {float((dw.float() - dw_w.float()).abs().max()):.3g}); with the whole call's lse: "
+        f"{bitwise_same_lse}")
+    log(f"[phase 8c] {TP_DEGREE} shards' forward, dh and dW and the combine, one after another: {shard_ms:.3f} ms, "
+        f"against one whole-vocabulary forward, dh and dW {whole_ms:.3f} ms ({smi}; informational)")
+    del h, w, labels, gm, lse, corr, dh, dw, lse_w, corr_w, dh_w, dw_w
+    torch.cuda.empty_cache()
+    return counts
+
+
 def build_model():
     from modalities_tpu_torch.config.component_factory import ComponentFactory
     from modalities_tpu_torch.registry.components import COMPONENTS
@@ -2336,7 +2705,7 @@ def greedy_agreement(reqs, base, other) -> float:
 
 # ---------------------------------------------------------------- main
 def training_phases(torch):
-    """Phases 4-7 on the process group; returns each path's launch counts."""
+    """Phases 4-8 on the process group; returns each path's launch counts."""
     # phase 4: the training path. Counts start from 0 inside phase_train.
     smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -2368,7 +2737,17 @@ def training_phases(torch):
     launcher_counts = phase_launcher(torch, smi_now)
     if any(launcher_counts[k] == 0 for k in LONG_KERNELS):
         raise AssertionError(f"a kernel of the 32k path under the launcher was never launched: {launcher_counts}")
-    return train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 8: tensor parallelism. The 7B config on the card (counts from 0 inside), then tp 8 rank by rank
+    seven_b_counts = phase_train_7b(torch, smi_now)
+    if any(v == 0 for v in seven_b_counts.values()):
+        raise AssertionError(f"a kernel of the 7B training path was never launched: {seven_b_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp8_counts = {**phase_tp_block(torch, smi_now), **phase_tp_fused_ce(torch, smi_now)}
+    return train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts
 
 
 def main() -> int:
@@ -2409,6 +2788,8 @@ def main() -> int:
     kernels["rmsnorm"]["timings"] += [kernels.pop("rmsnorm_fwd_train"), kernels.pop("rmsnorm_fwd_long")]
     for name, t in phase_flash_long(torch).items():  # the 32k shape, after the 2.7B one
         kernels[name]["timings"].append(t)
+    flash_by_head(torch, FLASH_7B, seed=6)  # the 7B's shape on one card (phase 8a)
+    torch.cuda.empty_cache()
     kernels.update(phase_fused_ce(torch))
     phase_small_model_reference(torch)
     phase_small_model_training(torch)
@@ -2459,13 +2840,13 @@ def main() -> int:
 
     with process_group(torch.device("cuda")):
         paths = training_phases(torch)
-    train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts = paths
+    train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts = paths
 
-    # phase 8. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
+    # phase 9. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
         paths = {"train_2p7b": train_counts, "train_32k": long_counts,
                  "train_32k_resume": ckpt_counts["train_32k_resume"], "ring_cp4": ring_counts,
-                 "train_32k_torchrun": launcher_counts}
+                 "train_32k_torchrun": launcher_counts, "train_7b": seven_b_counts, "tp8": tp8_counts}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
 
 

@@ -38,7 +38,7 @@ def leaf_spec(tensor) -> str:
         return "()"
     dims: list = [None] * tensor.ndim
     for mesh_dim, placement in enumerate(tensor.placements):
-        if placement.is_shard():
+        if not (placement.is_replicate() or placement.is_partial()):  # Shard, or FSDP2's _StridedShard under tp
             name = tensor.device_mesh.mesh_dim_names[mesh_dim]
             axes = ("dp_shard", "cp") if name == "dp_shard_cp" else (name,)  # the FSDP mesh's flattened dim
             current = dims[placement.dim]

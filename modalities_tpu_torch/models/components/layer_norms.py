@@ -33,6 +33,7 @@ from modalities_tpu_torch.config.config import (
     validate_config,
 )
 from modalities_tpu_torch.ops.rmsnorm import fused_rms_norm
+from modalities_tpu_torch.parallel.tensor_parallel import local
 
 
 class LayerNorms(Enum):
@@ -122,7 +123,8 @@ class NormSpec:
 
 class _Norm(nn.Module):
     """Shared parameter layout: fp32 `scale` (ones) and `bias` (zeros) over the
-    last axis, the JAX modules' parameter names."""
+    last axis, the JAX modules' parameter names. Under tensor parallelism they
+    are replicated DTensors, read as their local tensors."""
 
     def __init__(self, dim: int, eps: float, use_scale: bool, use_bias: bool, dtype=None, device=None):
         super().__init__()
@@ -134,7 +136,7 @@ class _Norm(nn.Module):
 
 class RMSNorm(_Norm):
     def forward(self, x):
-        y = fused_rms_norm(x, self.scale, self.bias, eps=self.eps)
+        y = fused_rms_norm(x, local(self.scale), local(self.bias), eps=self.eps)
         return y.to(self.dtype) if self.dtype is not None else y
 
 
@@ -149,9 +151,9 @@ class LayerNorm(_Norm):
         var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         if self.scale is not None:
-            y = y * self.scale
+            y = y * local(self.scale)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + local(self.bias)
         return y.to(self.dtype if self.dtype is not None else torch.float32)
 
 

@@ -16,8 +16,12 @@ port's flash kernels (ops/flash_attention.py). Under context parallelism
 (`set_context_parallel`) the training forward sees this rank's contiguous
 chunk of the sequence: RoPE and `wpe` take the chunk's global offset and
 attention runs the ring over the cp group (parallel/ring_attention.py; the
-flash ring, or the dense ring under `manual`). Blocks chosen by the spec's
-remat variant run under `torch.utils.checkpoint`
+flash ring, or the dense ring under `manual`). Under tensor parallelism
+(`set_tensor_parallel`, applied by parallel/tensor_parallel.py) the
+parameters are DTensors over tp and every body computes on its local shard:
+attention on this rank's heads, the vocab-parallel lookup and head, the
+residual stream on this rank's rows of the sequence. Blocks chosen by the
+spec's remat variant run under `torch.utils.checkpoint`
 (training/activation_checkpointing.py). Not here yet: the paged cache,
 speculative verify, pipeline parallelism, selective-op remat and dropout.
 
@@ -62,6 +66,7 @@ from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_n
 from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from modalities_tpu_torch.ops.quant_matmul import PreparedWeight, quant_matmul
 from modalities_tpu_torch.parallel.ring_attention import ring_attention
+from modalities_tpu_torch.parallel.tensor_parallel import gather_vocab, local, vocab_parallel_embedding
 from modalities_tpu_torch.quant.weights import quant_storage_dtype
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed, layer_remats
 
@@ -302,9 +307,10 @@ class Linear(nn.Module):
     def forward(self, x):
         """In x's dtype: the kernel (and bias) are cast per call when they are
         stored in another dtype (flax's `dtype` semantics; a no-op in serving,
-        where kernels are cast once at load)."""
-        y = torch.matmul(x, self.kernel.to(x.dtype))
-        return y + self.bias.to(y.dtype) if self.bias is not None else y
+        where kernels are cast once at load). Under tensor parallelism, this
+        rank's shard."""
+        y = torch.matmul(x, local(self.kernel).to(x.dtype))
+        return y + local(self.bias).to(y.dtype) if self.bias is not None else y
 
     def cast_(self, dtype):
         self.kernel.data = self.kernel.data.to(dtype)
@@ -398,13 +404,14 @@ class CausalSelfAttention(nn.Module):
         """Full-sequence causal attention (JAX `CausalSelfAttention.__call__`,
         gpt2_model.py:496-576): x [B, S, E] in the compute dtype (this rank's
         chunk under context parallelism); cos/sin the RoPE rows of x's
-        positions or None."""
+        positions or None. Under tensor parallelism q/k/v hold this rank's
+        n_head_q / tp and n_head_kv / tp heads."""
         spec = self.spec
         b, s, _ = x.shape
         hd = spec.head_dim
-        q = self.q_attn(x).reshape(b, s, spec.n_head_q, hd)
-        k = self.k_attn(x).reshape(b, s, spec.n_head_kv, hd)
-        v = self.v_attn(x).reshape(b, s, spec.n_head_kv, hd)
+        q = self.q_attn(x).reshape(b, s, -1, hd)
+        k = self.k_attn(x).reshape(b, s, -1, hd)
+        v = self.v_attn(x).reshape(b, s, -1, hd)
         if spec.qk_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if cos is not None:
@@ -416,7 +423,7 @@ class CausalSelfAttention(nn.Module):
             y = reference_attention(q, k, v, causal=True)
         else:  # dao_flash, pytorch_flash: fused exact attention
             y = flash_attention(q, k, v, causal=True)
-        return self.c_proj(y.reshape(b, s, spec.n_head_q * hd))
+        return self.c_proj(y.reshape(b, s, -1))
 
 
 class MLP(nn.Module):
@@ -506,6 +513,7 @@ class GPT2Module(nn.Module):
             self.lm_head = _dense(spec, spec.n_embd, spec.vocab_size, False, device)
         self._rope: dict = {}
         self.cp_group = None
+        self.tp = None  # parallel/tensor_parallel.TensorParallel under tensor parallelism
 
     def set_context_parallel(self, group) -> "GPT2Module":
         """Train on this rank's chunk of each sequence, with attention over the
@@ -513,6 +521,12 @@ class GPT2Module(nn.Module):
         self.cp_group = group
         for block in self.blocks:
             block.attn.cp_group = group
+        return self
+
+    def set_tensor_parallel(self, tp) -> "GPT2Module":
+        """Run the vocab-parallel lookup and head over `tp`
+        (parallel/tensor_parallel.TensorParallel), or unsharded (None)."""
+        self.tp = tp
         return self
 
     @property
@@ -572,9 +586,13 @@ class GPT2Module(nn.Module):
             )
         s = input_ids.shape[1]
         offset = 0 if self.cp_group is None else self.cp_group.rank() * s
-        x = F.embedding(input_ids, self.wte).to(self.compute_dtype)
+        if self.tp is None:
+            x, start = F.embedding(input_ids, self.wte).to(self.compute_dtype), offset
+        else:  # this rank's rows of the sequence (SP) from the vocab-parallel lookup
+            x = vocab_parallel_embedding(input_ids, local(self.wte), self.tp.group).to(self.compute_dtype)
+            start = offset + self.tp.group.rank() * x.shape[1]
         if spec.poe_type == PositionTypes.ABSOLUTE.value:
-            x = x + self.wpe[offset:offset + s].to(self.compute_dtype)
+            x = x + local(self.wpe)[start:start + x.shape[1]].to(self.compute_dtype)
         cos = sin = None
         if spec.use_rope:
             cos, sin = self._rope_tables(offset + s)
@@ -588,18 +606,25 @@ class GPT2Module(nn.Module):
 
     def head_logits(self, hidden):
         """fp32 vocab logits of post-`lm_head_norm` hidden states [..., E]
-        (JAX `head_project`, gpt2_model.py:899-914)."""
+        (JAX `head_project`, gpt2_model.py:899-914). Under tensor parallelism
+        this rank's vocab columns [..., V / tp] under loss parallelism, else
+        gathered."""
         h = hidden.float()
         if self.spec.use_weight_tying:
-            return torch.matmul(h, self.wte.float().t())
-        return self.lm_head(h)
+            logits = torch.matmul(h, local(self.wte).float().t())
+        else:
+            logits = self.lm_head(h)
+        if self.tp is not None and not self.tp.loss_parallel:
+            logits = gather_vocab(logits, self.tp.group)
+        return logits
 
     def head_weight(self):
         """The [V, E] head projection: the tied `wte`, or the lm_head kernel
-        transposed (JAX `head_weight`, gpt2_model.py:1259-1269)."""
+        transposed (JAX `head_weight`, gpt2_model.py:1259-1269); this rank's
+        [V / tp, E] rows under tensor parallelism."""
         if self.spec.use_weight_tying:
-            return self.wte
-        return self.lm_head.kernel.t()
+            return local(self.wte)
+        return local(self.lm_head.kernel).t()
 
     # ----------------------------------------------------------- slot cache API
     def init_slot_cache(self, max_batch_slots: int, cache_capacity: Optional[int] = None) -> SlotCache:
@@ -656,6 +681,9 @@ class GPT2Module(nn.Module):
         return x
 
     def _forward(self, x, cache: SlotCache, step: _Step):
+        if self.tp is not None:
+            raise NotImplementedError("serving a tensor-parallel module is not ported yet (ROADMAP.md, Queue 1 "
+                                      "item 3)")
         for i, block in enumerate(self.blocks):
             x = block(x, cache.k[i], cache.v[i], step)
         h = self.lm_head_norm(x).float()
@@ -788,23 +816,25 @@ class GPT2LLM:
 
     def init_train_params(self, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """Training parameters drawn from `generator`, on its device: the
-        default initializers (`init_params`), redrawn where a recorded init
-        routine (the `model_initialized` variant) targets the parameter, then
-        stored in the spec's `param_dtype` except the norm parameters, which
-        stay fp32 as flax leaves them. Drawn one tensor at a time, so only one
-        fp32 tensor is alive beside the stored ones."""
+        default initializers (`init_params`), drawn instead by the last
+        recorded init routine (the `model_initialized` variant) that targets
+        the parameter, then stored in the spec's `param_dtype` except the norm
+        parameters, which stay fp32 as flax leaves them. Drawn whole, one
+        tensor at a time, so only one fp32 tensor is alive beside the stored
+        ones and no value depends on how the parameters are sharded later."""
         spec = self.config_spec
         device = generator.device
         dtype = getattr(torch, spec.param_dtype)
         shapes = {k: v.shape for k, v in GPT2Module(spec, device="meta").state_dict().items()}
+        routines = self.train_spec.init_routines
+        for routine in routines:
+            routine.validate(list(shapes))
         params = {}
         for name, shape in shapes.items():
             leaf = name.rsplit(".", 1)[-1]
-            normal = None
-            for routine in self.train_spec.init_routines:
-                normal = routine.normal_for(name) or normal
-            if normal is not None:
-                t = torch.empty(shape, device=device).normal_(normal[0], normal[1], generator=generator)
+            targeting = [r for r in routines if r.targets(name)]
+            if targeting:
+                t = targeting[-1].draw(name, shape, generator)
             elif leaf == "scale":
                 t = torch.ones(shape, device=device)
             elif leaf == "bias":

@@ -1,7 +1,9 @@
 """Model transform variants: the port of modalities_tpu/models/model_factory.py
 for the variants the training path uses. Each records a descriptor on the
 model's `TrainSpec`, applied when the train step is built (the train step
-shards the model over the device mesh with parallel/fsdp.py).
+applies the tensor-parallel plan of parallel/tensor_parallel.py over the
+mesh's tp axis, then shards the model over its dp dims with
+parallel/fsdp.py).
 """
 
 from __future__ import annotations
@@ -40,6 +42,12 @@ class FSDP2WrappedModelConfig:
 
 
 @dataclasses.dataclass
+class GPT2TPModelConfig:
+    model: Any
+    device_mesh: Any
+
+
+@dataclasses.dataclass
 class WeightInitializedModelConfig:
     model: Any
     model_initializer: Any
@@ -56,6 +64,17 @@ class ActivationCheckpointedModelConfig:
 
 
 class ModelFactory:
+    @staticmethod
+    def get_gpt2_tp_model(model, device_mesh):
+        """The `gpt2_tp` variant (JAX config.py:149-154). In the JAX package
+        it is the identity: the mesh's tp axis shards the model by rule. Here
+        too the mesh decides: the train step applies the plan
+        (parallel/tensor_parallel.py) whenever its mesh has tp > 1, and at
+        tp 1 the variant changes nothing. It requires the mesh component."""
+        if not hasattr(device_mesh, "tensor_parallel_degree"):
+            raise ValueError(f"gpt2_tp: device_mesh must be the device_mesh component, got {device_mesh!r}")
+        return model
+
     @staticmethod
     def get_fsdp2_wrapped_model(model, device_mesh=None, mixed_precision_settings=None, block_names=None,
                                 layers_per_fsdp_unit=None, reshard_after_forward=True):

@@ -4,8 +4,9 @@ modalities_tpu/nn/model_initialization/composed_initialization.py (`plain`,
 
 Each routine is a regex-targeted N(mean, std) over parameter names. The JAX
 package applies them in order as redraws of the whole tree; here a parameter
-takes the (mean, std) of the last routine that targets it and is drawn once,
-from the `torch.Generator` of the train step (`GPT2LLM.init_train_params`).
+is drawn once, by the last routine that targets it (`targets`, `draw`; the
+interface nn/llama3_initialization.py shares), from the `torch.Generator` of
+the train step (`GPT2LLM.init_train_params`).
 The two frameworks draw different numbers from one seed; the distributions
 are the same.
 """
@@ -16,6 +17,8 @@ import dataclasses
 import math
 import re
 from typing import Optional
+
+import torch
 
 from modalities_tpu_torch.config.config import check_float, check_int, check_str
 
@@ -79,6 +82,17 @@ class ComposedModelInitialization:
             )
         if self.weight_init_type == "scaled_embed":
             self.routines.append(InitializationRoutine(tuple(groups["embedding_layers"]), math.sqrt(0.4), self.mean))
+
+    def validate(self, names: list[str]) -> None:
+        """Nothing to check: a routine may target no parameter."""
+
+    def targets(self, name: str) -> bool:
+        return self.normal_for(name) is not None
+
+    def draw(self, name: str, shape, generator: torch.Generator) -> torch.Tensor:
+        """The fp32 tensor of parameter `name`, drawn on the generator's device."""
+        mean, std = self.normal_for(name)
+        return torch.empty(shape, device=generator.device).normal_(mean, std, generator=generator)
 
     def normal_for(self, name: str) -> Optional[tuple[float, float]]:
         """(mean, std) of the last routine targeting `name`, or None."""

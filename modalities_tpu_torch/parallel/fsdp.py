@@ -8,6 +8,9 @@ with dp_replicate > 1 replicates it over dp_replicate (HSDP, a 2-D mesh).
 Units: each group of `layers_per_fsdp_unit` transformer blocks, then the
 root (embeddings, head).
 
+Under tensor parallelism the parameters are already DTensors over the tp
+dim of the same mesh, and FSDP2 shards each over the dp dims besides (2-D).
+
 FSDP2 needs one dtype per unit, and the port stores matmul weights in the
 policy's param dtype and norm parameters in fp32 (as flax does). Each module
 whose parameters are in another dtype than most of its unit's is therefore
@@ -34,8 +37,9 @@ from torch import nn
 def _minority_dtype_modules(unit: list[nn.Module]) -> list[nn.Module]:
     """The submodules of `unit` (not inside a module already sharded) whose
     own parameters are in another dtype than most of the unit's parameter
-    elements."""
+    elements (a tensor-parallel DTensor counts its local elements)."""
     from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
 
     elements: collections.Counter = collections.Counter()
     owners = []
@@ -46,7 +50,7 @@ def _minority_dtype_modules(unit: list[nn.Module]) -> list[nn.Module]:
         if own:
             owners.append((sub, {p.dtype for p in own}))
             for p in own:
-                elements[p.dtype] += p.numel()
+                elements[p.dtype] += p.to_local().numel() if isinstance(p, DTensor) else p.numel()
         stack.extend(child for child in sub.children() if not isinstance(child, FSDPModule))
     if len(elements) < 2:
         return []

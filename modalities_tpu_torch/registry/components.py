@@ -2,16 +2,62 @@
 modalities_tpu/registry/components.py): `COMPONENTS` for serving
 (`inference_component.serve` is added by serving/serve.py, as the JAX package
 does) and `TRAINING_COMPONENTS` for `run`, the component and variant keys of
-the JAX training configs."""
+the JAX training configs. Together they hold every (component_key,
+variant_key) pair of the JAX catalog: the ones the port lacks are `Unported`
+entities (`UNPORTED`), whose lookup raises NotImplementedError naming their
+ROADMAP.md Queue 1 item."""
 
 from modalities_tpu_torch.config.config import PreTrainedHFTokenizerConfig
 from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM, GPT2LLMConfig
-from modalities_tpu_torch.registry.registry import ComponentEntity
+from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
 from modalities_tpu_torch.tokenization.tokenizer_wrapper import PreTrainedHFTokenizer
+
+_PIPELINES = "pipeline parallelism"
+_MODELS = "the other models and their data"
+_RESULTS = "the results subscribers"
+_FSDP1 = "the FSDP1 names, to be mapped onto FSDP2"
+_DATA = "the other data variants"
+_PROFILING = "the profiler components"
+_DEBUGGING = "the debugging transforms"
+# the JAX catalog's pairs the port does not have yet: (component_key, variant_key) -> (Queue 1 item, what)
+UNPORTED = {
+    **{pair: (5, _PIPELINES) for pair in (
+        ("model", "pipelined"), ("pipeline", "builder"), ("pipeline", "scheduled"), ("pipeline", "selector"),
+        ("pipeline", "staged"), ("stages_generator", "gpt2_stages_generator"))},
+    **{pair: (6, _MODELS) for pair in (
+        ("model", "coca"), ("collate_fn", "coca_collator"), ("dataset", "dummy_dataset"), ("loss", "nce_loss"),
+        ("model", "vision_transformer"), ("model", "huggingface_pretrained_model"),
+        ("tokenizer", "pretrained_sp_tokenizer"))},
+    **{pair: (6, _RESULTS) for pair in (
+        ("results_subscriber", "rich"), ("results_subscriber", "to_disc"), ("results_subscriber", "wandb"))},
+    ("telemetry", "default"): (6, "telemetry"),
+    **{pair: (7, _FSDP1) for pair in (
+        ("model", "fsdp1_wrapped"), ("model", "fsdp1_checkpointed"), ("model", "activation_checkpointed_fsdp1"),
+        ("optimizer", "fsdp1_checkpointed"), ("gradient_clipper", "fsdp1"),
+        ("gradient_clipper", "fsdp1_logging_only"))},
+    **{pair: (7, _DATA) for pair in (
+        ("collate_fn", "mask_loss_collator_wrapper"), ("data_loader", "repeating_data_loader"), ("dataset", "combined"),
+        ("dataset", "mem_map_dataset"), ("dataset", "packed_mem_map_dataset_megatron"),
+        ("sampler", "distributed_sampler"), ("sampler", "random_sampler"), ("sampler", "resumable_distributed_sampler"),
+        ("sampler", "sequential_sampler"))},
+    **{pair: (7, _PROFILING) for pair in (
+        ("profiler", "no_profiler"), ("profiler", "kernel_profiler"), ("profiler", "memory_profiler"),
+        ("profiler", "combined_profiler"), ("steppable_profiler", "no_profiler"), ("steppable_profiler", "combined"),
+        ("steppable_profiler", "kernel_tracing"), ("steppable_profiler", "memory_tracing"),
+        ("steppable_component", "forward_pass"), ("batch_generator", "random_dataset_batch_generator"),
+        ("dataset_batch_generator", "random"))},
+    **{pair: (7, _DEBUGGING) for pair in (
+        ("model", "compiled"), ("model", "debugging_enriched"), ("model_debugging_hook", "nan_hook"),
+        ("model_debugging_hook", "print_forward_hook"), ("debugging", "settings"))},
+    **{("layer_norm", v): (7, "the layer_norm components") for v in ("layer_norm", "pytorch_rms_norm", "rms_norm")},
+    ("device_feeder", "default"): (7, "the device feeder"),
+    ("resilience", "default"): (7, "the anomaly policy and preemption"),
+}
 
 COMPONENTS = [
     ComponentEntity("model", "gpt2", GPT2LLM, GPT2LLMConfig),
     ComponentEntity("tokenizer", "pretrained_hf_tokenizer", PreTrainedHFTokenizer, PreTrainedHFTokenizerConfig),
+    *[ComponentEntity(key, variant, Unported(item, what)) for (key, variant), (item, what) in UNPORTED.items()],
 ]
 
 
@@ -51,9 +97,11 @@ def _training_components() -> list[ComponentEntity]:
     from modalities_tpu_torch.models.model_factory import (
         ActivationCheckpointedModelConfig,
         FSDP2WrappedModelConfig,
+        GPT2TPModelConfig,
         ModelFactory,
         WeightInitializedModelConfig,
     )
+    from modalities_tpu_torch.nn.llama3_initialization import Llama3Initializer
     from modalities_tpu_torch.nn.model_initialization import ComposedModelInitialization
     from modalities_tpu_torch.optimizers.optimizer_factory import AdamOptimizerConfig, OptimizerFactory
     from modalities_tpu_torch.optimizers.scheduler_factory import SCHEDULERS
@@ -74,11 +122,13 @@ def _training_components() -> list[ComponentEntity]:
     return [
         E("performance", "xla_flags", XlaPerformanceFlags),
         E("device_mesh", "default", DeviceMesh),
+        E("model", "gpt2_tp", ModelFactory.get_gpt2_tp_model, GPT2TPModelConfig),
         E("model", "fsdp2_wrapped", ModelFactory.get_fsdp2_wrapped_model, FSDP2WrappedModelConfig),
         E("model", "model_initialized", ModelFactory.get_weight_initialized_model, WeightInitializedModelConfig),
         E("model", "activation_checkpointed", ModelFactory.get_activation_checkpointed_model,
           ActivationCheckpointedModelConfig),
         E("model_initialization", "composed", ComposedModelInitialization),
+        E("model_initialization", "gpt2_llama3_like", Llama3Initializer),
         E("loss", "clm_cross_entropy_loss", CLMCrossEntropyLoss),
         E("optimizer", "adam", OptimizerFactory.get_adam, AdamOptimizerConfig),
         E("optimizer", "adam_w", OptimizerFactory.get_adam_w, AdamOptimizerConfig),

@@ -9,9 +9,11 @@ dp_shard, cp, tp]. An axis exists only when its degree is above 1, except
 dp_shard, which always exists. Rank r sits at the row-major coordinate of r,
 as device r does in the JAX mesh.
 
-Data parallelism (dp_replicate, dp_shard) and context parallelism (cp) run;
-tensor, pipeline and DCN degrees above 1, ZeRO and loss parallelism raise
-NotImplementedError (-1 for dcn resolves to 1: a GPU host is one slice).
+Data parallelism (dp_replicate, dp_shard), context parallelism (cp) and
+tensor parallelism (tp, the innermost axis, with loss parallelism over it)
+run; pipeline and DCN degrees above 1 and ZeRO raise NotImplementedError
+(-1 for dcn resolves to 1: a GPU host is one slice). Loss parallelism needs
+tp > 1, as the JAX validator says.
 """
 
 from __future__ import annotations
@@ -52,17 +54,16 @@ class DeviceMesh:
             check_int(name, getattr(self, name), ge=1)
         check_bool("enable_loss_parallel", self.enable_loss_parallel, optional=True)
         check_int("zero_stage", self.zero_stage, ge=0)
-        for name, what in (("tensor_parallel_degree", "tensor parallelism"),
-                           ("pipeline_parallel_degree", "pipeline parallelism"),
+        for name, what in (("pipeline_parallel_degree", "pipeline parallelism"),
                            ("dcn_parallel_degree", "cross-slice (DCN) data parallelism")):
             if getattr(self, name) > 1:
                 raise NotImplementedError(f"{name} {getattr(self, name)}: {what} {_MULTI_GPU}")
         if self.zero_stage:
             raise NotImplementedError(f"zero_stage {self.zero_stage}: ZeRO optimizer-state sharding {_MULTI_GPU}")
-        if self.enable_loss_parallel:
-            raise NotImplementedError(f"enable_loss_parallel: loss parallelism (with tensor parallelism) {_MULTI_GPU}")
         self.dcn_parallel_degree = 1
         self._validate_product()
+        if self.enable_loss_parallel and self.tensor_parallel_degree <= 1:
+            raise ValueError(f"enable_loss_parallel={self.enable_loss_parallel} requires tensor_parallel_degree > 1")
         self._torch_mesh = None
 
     def _validate_product(self) -> None:
@@ -132,6 +133,8 @@ class DeviceMesh:
             mesh = init_device_mesh(torch.device(device).type, tuple(axes.values()), mesh_dim_names=tuple(axes))
             if "cp" in axes:
                 mesh["dp_shard", "cp"]._flatten("dp_shard_cp")
+            if "dp_replicate" in axes and "tp" in axes:  # the loss's group (`batch_group`)
+                mesh[tuple(name for name in axes if name != "tp")]._flatten("batch")
             self._torch_mesh = mesh
         return self._torch_mesh
 
@@ -145,6 +148,20 @@ class DeviceMesh:
     def cp_group(self, device: torch.device):
         """The process group of this rank's cp ring (None without a cp axis)."""
         return self.torch_mesh(device)["cp"].get_group() if "cp" in self.mesh_axes else None
+
+    def tp_mesh(self, device: torch.device):
+        """The 1-D mesh of this rank's tp group (None without a tp axis)."""
+        return self.torch_mesh(device)["tp"] if "tp" in self.mesh_axes else None
+
+    def batch_group(self, device: torch.device):
+        """The ranks that hold other rows of the global batch (every built
+        axis but tp): the process group the loss's (sum, count) is summed
+        over. None without a tp axis (then it is every rank)."""
+        axes = self.mesh_axes
+        if "tp" not in axes:
+            return None
+        name = "batch" if "dp_replicate" in axes else "dp_shard_cp" if "cp" in axes else "dp_shard"
+        return self.torch_mesh(device)[name].get_group()
 
 
 def get_parallel_degree(device_mesh: Optional[DeviceMesh], method: str) -> int:

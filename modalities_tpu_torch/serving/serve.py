@@ -229,13 +229,20 @@ def build_serving_components(config_dict: dict):
     from modalities_tpu_torch.config.component_factory import ComponentFactory
     from modalities_tpu_torch.config.instantiation_models import ServeInstantiationModel
     from modalities_tpu_torch.registry.components import COMPONENTS
-    from modalities_tpu_torch.registry.registry import ComponentEntity, Registry
+    from modalities_tpu_torch.registry.registry import Registry
 
-    registry = Registry(COMPONENTS)
-    registry.add_entity(
-        ComponentEntity("inference_component", "serve", ServingComponent, ServingComponentConfig)
-    )
-    return ComponentFactory(registry).build_components(config_dict, ServeInstantiationModel)
+    return ComponentFactory(Registry(COMPONENTS + serving_entities())).build_components(config_dict,
+                                                                                       ServeInstantiationModel)
+
+
+def serving_entities() -> list:
+    """The `inference_component` variants of the JAX serve(): `serve`, and the
+    fleet and disaggregated tiers, which wait on ROADMAP.md Queue 1 item 3."""
+    from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
+
+    return [ComponentEntity("inference_component", "serve", ServingComponent, ServingComponentConfig),
+            ComponentEntity("inference_component", "fleet", Unported(3, "the serving fleet")),
+            ComponentEntity("inference_component", "disagg", Unported(3, "disaggregated prefill/decode"))]
 
 
 def load_serving_params(checkpoint_folder_path, device=None, quant_weights=None) -> dict:

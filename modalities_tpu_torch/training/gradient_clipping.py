@@ -4,9 +4,10 @@ A clipper is a descriptor the train step reads. The global p2 / p1 / max norm
 of all gradients is computed in fp32 and reported as `grad_norm` before
 clipping. Gradients sharded over the device mesh (DTensors) give the whole
 model's norm: each rank reduces its shards, then the squares (p2), the sums
-(p1) or the maxima are reduced over the mesh dims the shards are spread on
-(not over dp_replicate, which holds copies), so every rank gets the world-1
-norm. Clipping follows the JAX package, not `torch.nn.utils.clip_grad_norm_`
+(p1) or the maxima are reduced over the mesh dims each gradient is sharded on
+(not over a dim that holds copies: dp_replicate, and tp for the gradients
+the tensor-parallel plan replicates), so every rank gets the world-1 norm.
+Clipping follows the JAX package, not `torch.nn.utils.clip_grad_norm_`
 (whose `+ 1e-6` gives other numbers):
 
 - p2: optax's `clip_by_global_norm`: g * max_norm / norm where norm >= max_norm;
@@ -51,28 +52,39 @@ def _local(g: torch.Tensor) -> torch.Tensor:
     return g.to_local() if isinstance(g, DTensor) else g
 
 
-def _shard_groups(grads: list[torch.Tensor]) -> list:
-    """The process groups of the mesh dims the DTensor gradients are sharded on."""
+def _buckets(grads: list[torch.Tensor]) -> list[tuple[list, list[torch.Tensor]]]:
+    """The gradients grouped by the mesh dims they are sharded on, in order of
+    first appearance: (the process groups of those dims, the local tensors).
+    A gradient replicated over a dim (dp_replicate; tp for the norms) is
+    reduced over the others only, so it counts once."""
+    buckets: dict = {}
     for g in grads:
+        key, groups = (), []
         if isinstance(g, DTensor):
-            return [g.device_mesh.get_group(i) for i, p in enumerate(g.placements) if p.is_shard()]
-    return []
+            dims = tuple(i for i, p in enumerate(g.placements) if not (p.is_replicate() or p.is_partial()))
+            key = (g.device_mesh.mesh_dim_names, dims)
+            groups = [g.device_mesh.get_group(i) for i in dims]
+        buckets.setdefault(key, (groups, []))[1].append(_local(g))
+    return list(buckets.values())
 
 
 def global_norm(grads: list[torch.Tensor], mode: GradientClippingMode) -> torch.Tensor:
     """The global norm over all gradients (plain tensors or DTensors), in
     fp32, as a 0-d tensor."""
-    local = [_local(g) for g in grads]
-    if mode == GradientClippingMode.P2_NORM:
-        total = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in local]).sum()
-    elif mode == GradientClippingMode.P1_NORM:
-        total = torch.stack([torch.linalg.vector_norm(g, 1, dtype=torch.float32) for g in local]).sum()
-    else:  # an empty shard has no inf norm: it adds nothing to the maximum of |g| >= 0
-        norms = [torch.linalg.vector_norm(g, float("inf"), dtype=torch.float32) for g in local if g.numel()]
-        total = torch.stack(norms).max() if norms else torch.zeros((), device=local[0].device)
     op = dist.ReduceOp.MAX if mode == GradientClippingMode.MAX_NORM else dist.ReduceOp.SUM
-    for group in _shard_groups(grads):
-        dist.all_reduce(total, op=op, group=group)
+    totals = []
+    for groups, local in _buckets(grads):
+        if mode == GradientClippingMode.P2_NORM:
+            total = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in local]).sum()
+        elif mode == GradientClippingMode.P1_NORM:
+            total = torch.stack([torch.linalg.vector_norm(g, 1, dtype=torch.float32) for g in local]).sum()
+        else:  # an empty shard has no inf norm: it adds nothing to the maximum of |g| >= 0
+            norms = [torch.linalg.vector_norm(g, float("inf"), dtype=torch.float32) for g in local if g.numel()]
+            total = torch.stack(norms).max() if norms else torch.zeros((), device=local[0].device)
+        for group in groups:
+            dist.all_reduce(total, op=op, group=group)
+        totals.append(total)
+    total = torch.stack(totals).max() if mode == GradientClippingMode.MAX_NORM else torch.stack(totals).sum()
     return total.sqrt() if mode == GradientClippingMode.P2_NORM else total
 
 

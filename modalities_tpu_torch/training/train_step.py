@@ -1,12 +1,16 @@
 """The train step: the port of
 modalities_tpu/training/train_step.py:TrainStepBuilder (`build`, :337-354,
-:413-507, :550-551, :553-691) for meshes of data and context parallelism.
+:413-507, :550-551, :553-691) for meshes of data, context and tensor
+parallelism.
 
-With a device mesh (running_env/device_mesh.py) the module is sharded with
-FSDP2 over it (parallel/fsdp.py), each rank feeds its own data-parallel rows
-(the sampler's), and under cp each rank takes its contiguous chunk of every
-sequence and attends over the cp ring. Without one (`device_mesh=None`) the
-module stays whole on its device and nothing is exchanged.
+With a device mesh (running_env/device_mesh.py) the module takes the
+tensor-parallel plan over the mesh's tp axis when it has one
+(parallel/tensor_parallel.py), is sharded with FSDP2 over the dp dims
+(parallel/fsdp.py), each rank feeds its own data-parallel rows (the
+sampler's; the tp ranks of one dp coordinate feed the same rows), and under
+cp each rank takes its contiguous chunk of every sequence and attends over
+the cp ring. Without one (`device_mesh=None`) the module stays whole on its
+device and nothing is exchanged.
 
 One optimizer step over `gradient_accumulation_steps` microbatches: for each,
 the forward, the loss and its backward. The head and loss take one of three
@@ -18,13 +22,20 @@ routes, as in the JAX builder:
 - a chunk size and `off`: the chunked scan, chunk logits and their loss under
   `torch.utils.checkpoint` one sequence chunk at a time (a ragged tail is one
   shorter chunk), so the backward recomputes each chunk's logits.
-Every route gives this rank's token-weighted (sum, count) of the loss's
-`sum_and_count` form; the count is summed over all ranks, and the rank's loss
-is its sum over max(global count, 1), so the ranks' losses add up to the
-global loss of the JAX step (the mean over all rows and chunks of the
-microbatch) and FSDP2's summed reduction gives its gradient. `backward()`
-runs; each parameter's (sharded) gradient is added into an fp32 accumulator
-(`reduce_dtype`) and cleared. Then the accumulators are divided by the number
+Under tensor parallelism the logits are this rank's vocab columns under loss
+parallelism (the loss reduces over tp) and gathered otherwise; the fused-CE
+route always runs on this rank's vocab shard of the head
+(parallel/vocab_parallel_ce.py). Every route gives this rank's
+token-weighted (sum, count) of the loss's `sum_and_count` form; the count is
+summed over the ranks that hold other rows (every rank but the other tp
+ranks, which hold the same rows: `DeviceMesh.batch_group`), and the rank's
+loss is its sum over max(global count, 1), so the losses of one tp
+coordinate add up to the global loss of the JAX step (the mean over all rows
+and chunks of the microbatch) and FSDP2's summed reduction gives its
+gradient. `backward()` runs; each parameter's (sharded) gradient is added
+into an fp32 accumulator (`reduce_dtype`) and cleared. The gradients of
+tp-replicated parameters are then summed over tp (each rank's is a partial
+sum over its rows or heads). Then the accumulators are divided by the number
 of microbatches and cast to the parameters' dtype, their global norm is taken
 in fp32 and reported, they are clipped, and `optimizer.step()` and
 `scheduler.step()` run. The step returns its metrics as 0-d device
@@ -44,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from modalities_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel, sum_replicated_grads
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed
 from modalities_tpu_torch.training.gradient_clipping import GradientClippingMode, clip_, global_norm
 
@@ -86,13 +98,19 @@ class TrainStep:
         self.module = model.build_train_module(params)
         del params
         self.mesh = device_mesh
-        self.cp_group = None
+        self.cp_group = self.tp_group = self.batch_group = self.logits_group = None
         if device_mesh is not None:
             from modalities_tpu_torch.parallel.fsdp import shard_model
 
             if dist.get_world_size() > 1 and self.head_chunk is None and not hasattr(loss_fn, "sum_and_count"):
                 raise ValueError(f"loss {type(loss_fn).__name__} has no sum_and_count form: the global loss over "
                                  "ranks needs each rank's (sum, count)")
+            tp_mesh = device_mesh.tp_mesh(self.device)
+            if tp_mesh is not None:
+                apply_tensor_parallel(self.module, tp_mesh, loss_parallel=device_mesh.enable_loss_parallel)
+                self.tp_group = tp_mesh.get_group()
+                self.logits_group = self.tp_group if device_mesh.enable_loss_parallel else None
+            self.batch_group = device_mesh.batch_group(self.device)
             fsdp = model.train_spec.fsdp
             shard_model(self.module, device_mesh.fsdp_mesh(self.device), layers_per_fsdp_unit=fsdp.layers_per_fsdp_unit,
                         reshard_after_forward=fsdp.reshard_after_forward, reduce_dtype=self.reduce_dtype)
@@ -117,12 +135,21 @@ class TrainStep:
                 a.zero_()
         return self._acc
 
+    def _logits_sum_count(self, logits, labels):
+        """The loss's (sum, count) of logits: over vocab shards under loss parallelism."""
+        if self.logits_group is None:
+            return self.loss_fn.sum_and_count(logits, labels)
+        return self.loss_fn.sum_and_count(logits, labels, vocab_group=self.logits_group)
+
     def _chunk_sum_count(self, hidden, labels):
-        return self.loss_fn.sum_and_count(self.module.head_logits(hidden), labels)
+        return self._logits_sum_count(self.module.head_logits(hidden), labels)
 
     def _chunked_ce(self, hidden, labels):
         """(sum, count) of the chunked routes (JAX train_step.py:457-492)."""
         if self.fused_ce:
+            if self.tp_group is not None:
+                return self.loss_fn.fused_sum_and_count(hidden, self.module.head_weight(), labels,
+                                                        vocab_group=self.tp_group)
             return self.loss_fn.fused_sum_and_count(hidden, self.module.head_weight(), labels)
         seq = hidden.shape[1]
         if seq > self.head_chunk:
@@ -142,17 +169,17 @@ class TrainStep:
         if self.head_chunk is not None:
             return self._chunked_ce(self.module.forward_hidden(inputs), targets[self.loss_fn.target_key])
         if hasattr(self.loss_fn, "sum_and_count"):
-            return self.loss_fn.sum_and_count(self.module(inputs), targets[self.loss_fn.target_key])
+            return self._logits_sum_count(self.module(inputs), targets[self.loss_fn.target_key])
         mean = self.loss_fn({self.model.prediction_key: self.module(inputs)}, targets)
         return mean, torch.ones((), device=self.device)
 
     def _loss(self, inputs, targets: dict):
         """This rank's share of the microbatch's global loss: its sum over the
-        token count of all ranks."""
+        token count of the ranks that hold other rows."""
         total, count = self._sum_count(inputs, targets)
         count = count.detach().float().clone()
         if self.mesh is not None:
-            dist.all_reduce(count)
+            dist.all_reduce(count, group=self.batch_group)
         return total / torch.clamp(count, min=1.0)
 
     def _local_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -185,7 +212,9 @@ class TrainStep:
                         p.grad = None
             loss_sum += loss.detach()
         if self.mesh is not None:
-            dist.all_reduce(loss_sum)
+            dist.all_reduce(loss_sum, group=self.batch_group)
+        if self.tp_group is not None:
+            sum_replicated_grads(self.params, acc, self.tp_group)
         lr = torch.tensor(self.optimizer.param_groups[0]["lr"], dtype=torch.float32)
         with torch.no_grad():
             for p, a in zip(self.params, acc):

@@ -7,9 +7,12 @@ device_mesh.py) against the JAX package's `DeviceMeshConfig` and
 - each rank's data-loading coordinate is that of JAX device `rank` in the
   JAX mesh of the same degrees (rank r of the port sits where device r
   sits), for (dp_shard 2, cp 2) and (dp_replicate 2, dp_shard 2): the cp
-  ranks of one dp coordinate read the same samples;
-- tensor, pipeline and DCN degrees above 1, ZeRO and loss parallelism are
-  refused, naming ROADMAP.md Queue 1 item 5."""
+  ranks of one dp coordinate read the same samples, and so do the tp ranks
+  of one dp coordinate;
+- tensor parallelism builds the tp axis last; loss parallelism needs tp > 1
+  (the JAX validator's check, a ValueError here);
+- pipeline and DCN degrees above 1 and ZeRO are refused, naming ROADMAP.md
+  Queue 1 item 5."""
 
 import jax
 import numpy as np
@@ -55,12 +58,15 @@ def test_the_validator_accepts_rejects_and_infers_as_the_jax_one(case):
 
 
 @pytest.mark.parametrize("degrees", [dict(dp_shard=1), dict(dp_shard=4), dict(dp_replicate=2, dp_shard=2),
-                                     dict(dp_shard=2, cp=2), dict(cp=4), dict(dp_replicate=2, dp_shard=2, cp=2)],
+                                     dict(dp_shard=2, cp=2), dict(cp=4), dict(dp_replicate=2, dp_shard=2, cp=2),
+                                     dict(tp=2), dict(dp_shard=2, tp=2), dict(cp=2, tp=2),
+                                     dict(dp_replicate=2, dp_shard=2, tp=2)],
                          ids=lambda d: "-".join(f"{k}{v}" for k, v in d.items()))
 def test_the_axes_and_each_ranks_coordinates_are_the_jax_meshs(degrees):
     world = int(np.prod(list(degrees.values())))
     kw = dict(data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
-              data_parallel_shard_degree=degrees.get("dp_shard", 1), context_parallel_degree=degrees.get("cp", 1))
+              data_parallel_shard_degree=degrees.get("dp_shard", 1), context_parallel_degree=degrees.get("cp", 1),
+              tensor_parallel_degree=degrees.get("tp", 1))
     port = DeviceMesh(world_size=world, **kw)
     handle = get_device_mesh(device_type="cpu", world_size=world, devices=jax.devices()[:world], **kw)
     mesh = handle.mesh
@@ -84,16 +90,61 @@ def test_the_data_loading_info_gives_cp_ranks_the_same_samples():
     assert get_data_loading_info(None) == (1, 0)
 
 
+def test_the_data_loading_info_gives_tp_ranks_the_same_samples():
+    shard_tp = DeviceMesh(world_size=4, data_parallel_shard_degree=2, tensor_parallel_degree=2)
+    assert [get_data_loading_info(shard_tp, r) for r in range(4)] == [(2, 0), (2, 0), (2, 1), (2, 1)]
+    full = DeviceMesh(world_size=16, data_parallel_replicate_degree=2, data_parallel_shard_degree=2,
+                      context_parallel_degree=2, tensor_parallel_degree=2)
+    assert [get_data_loading_info(full, r) for r in range(16)] == [(4, r // 4) for r in range(16)]
+
+
 @pytest.mark.parametrize("edits,match", [
-    (dict(world_size=2, tensor_parallel_degree=2, data_parallel_shard_degree=1), "tensor parallelism"),
     (dict(world_size=2, pipeline_parallel_degree=2, data_parallel_shard_degree=1), "pipeline parallelism"),
     (dict(world_size=2, dcn_parallel_degree=2, data_parallel_shard_degree=1), "DCN"),
     (dict(world_size=2, zero_stage=1), "ZeRO"),
-    (dict(world_size=2, enable_loss_parallel=True), "loss parallelism"),
-], ids=["tp", "pp", "dcn", "zero", "loss-parallel"])
+], ids=["pp", "dcn", "zero"])
 def test_what_item_5_still_holds_is_refused(edits, match):
     with pytest.raises(NotImplementedError, match=f"{match}.*Queue 1 item 5"):
         DeviceMesh(**edits)
+
+
+TP_CASES = [  # (world, dp_shard, tp, cp, enable_loss_parallel)
+    (2, 1, 2, 1, False), (2, -1, 2, 1, True), (8, -1, 2, 2, True), (8, 2, 4, 1, True), (4, 2, 2, 1, False),
+    (2, 2, 1, 1, True), (1, 1, 1, 1, True), (4, 1, 2, 1, True), (8, -1, 8, 1, True),
+]
+
+
+@pytest.mark.parametrize("case", TP_CASES, ids=lambda c: "world{}-shard{}-tp{}-cp{}-lp{}".format(*c))
+def test_tensor_and_loss_parallelism_validate_as_the_jax_mesh(case):
+    world, shard, tp, cp, lp = case
+    kw = dict(world_size=world, data_parallel_shard_degree=shard, tensor_parallel_degree=tp,
+              context_parallel_degree=cp, enable_loss_parallel=lp)
+    try:
+        jax_cfg = DeviceMeshConfig(**kw)
+        want = (jax_cfg.data_parallel_shard_degree, jax_cfg.tensor_parallel_degree)
+    except (ConfigError, ValueError):
+        want = None
+    try:
+        port = DeviceMesh(**kw)
+        got = (port.data_parallel_shard_degree, port.tensor_parallel_degree)
+    except ValueError:
+        got = None
+    assert got == want
+
+
+def test_tp_validates_and_its_axis_is_built_last():
+    mesh = DeviceMesh(world_size=2, tensor_parallel_degree=2, data_parallel_shard_degree=1)
+    assert list(mesh.mesh_axes.items())[-1] == ("tp", 2)
+    assert list(DeviceMesh(world_size=16, data_parallel_replicate_degree=2, data_parallel_shard_degree=2,
+                           context_parallel_degree=2, tensor_parallel_degree=2).mesh_axes) == [
+        "dp_replicate", "dp_shard", "cp", "tp"]
+
+
+def test_loss_parallelism_needs_tp():
+    with pytest.raises(ValueError, match="requires tensor_parallel_degree > 1"):
+        DeviceMesh(world_size=2, enable_loss_parallel=True)
+    assert DeviceMesh(world_size=2, tensor_parallel_degree=2, data_parallel_shard_degree=1,
+                      enable_loss_parallel=True).enable_loss_parallel
 
 
 def test_an_unknown_method_is_refused():

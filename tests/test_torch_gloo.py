@@ -111,9 +111,12 @@ def _tiny_step(spec: dict, world: int):
     degrees = spec["degrees"]
     mesh = DeviceMesh(world_size=world, data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
                       data_parallel_shard_degree=degrees.get("dp_shard", 1),
-                      context_parallel_degree=degrees.get("cp", 1)) if degrees is not None else None
+                      context_parallel_degree=degrees.get("cp", 1), tensor_parallel_degree=degrees.get("tp", 1),
+                      enable_loss_parallel=spec.get("loss_parallel", False)) if degrees is not None else None
     model = GPT2LLM(**spec["model"])
     model.update_train_spec(mixed_precision=MixedPrecisionSpec(*spec.get("dtypes", ("float32",) * 3)))
+    for routine in spec.get("init_routines", ()):
+        model.update_train_spec(init_routines=model.train_spec.init_routines + (routine,))
     if spec.get("remat"):
         apply_activation_checkpointing(model, "full_activation_checkpointing")
     opt = OptimizerFactory.get_adam_w(wrapped_model=model, **spec["opt"])
@@ -127,11 +130,12 @@ def _tiny_step(spec: dict, world: int):
 
 
 def checkpoint_worker(rank: int, world: int, spec: dict, folder_root: str) -> dict:
-    """On a dp_shard mesh: an unbroken run of len(batches) steps; a run of
-    `save_at` steps saved through the DCP execution (each rank its shards,
-    rank 0 the seal); a fresh build from another seed loaded from the folder
-    and run on. Returns the metrics of both runs, the folder and, on rank 0,
-    the parameters at the save and both final states."""
+    """On the mesh of `spec["degrees"]`: an unbroken run of len(batches)
+    steps; a run of `save_at` steps saved through the DCP execution (each
+    rank its shards, rank 0 the seal); a fresh build from another seed loaded
+    from the folder and run on. Returns the metrics of both runs, the folder
+    and, on rank 0, the initial parameters, the parameters at the save and
+    both final states."""
     from modalities_tpu_torch.checkpointing import checkpoint_saving_strategies as strategies
     from modalities_tpu_torch.checkpointing.checkpoint_saving import CheckpointSaving
     from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
@@ -153,6 +157,7 @@ def checkpoint_worker(rank: int, world: int, spec: dict, folder_root: str) -> di
     batches, save_at = spec["batches"], spec["save_at"]
     with env.process_group(torch.device("cpu")):
         unbroken, mesh = _tiny_step(spec, world)
+        initial = {k: v.copy() for k, v in _numpy(unbroken.state_dict()).items()}  # the steps update in place
         want = run(unbroken, batches, mesh)
         first, mesh = _tiny_step(spec, world)
         got = run(first, batches[:save_at], mesh)
@@ -169,7 +174,7 @@ def checkpoint_worker(rank: int, world: int, spec: dict, folder_root: str) -> di
         got += run(resumed, batches[save_at:], mesh)
         finals = (_numpy(unbroken.state_dict()), _numpy(resumed.state_dict()))
     return {"want": want, "got": got, "folder": str(folder), "saved": saved if rank == 0 else None,
-            "finals": finals if rank == 0 else None}
+            "finals": finals if rank == 0 else None, "initial": initial if rank == 0 else None}
 
 
 def cli_worker(rank: int, world: int, run_cfg: str, warm_cfg: str, info: str, ports: tuple) -> dict:

@@ -69,7 +69,8 @@ def _jax_run(world: dict, batches: list[dict]):
     size = int(np.prod(list(degrees.values())))
     mesh = get_device_mesh(device_type="cpu", data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
                            data_parallel_shard_degree=degrees.get("dp_shard", 1),
-                           context_parallel_degree=degrees.get("cp", 1), world_size=size,
+                           context_parallel_degree=degrees.get("cp", 1), tensor_parallel_degree=degrees.get("tp", 1),
+                           enable_loss_parallel=world.get("loss_parallel", False), world_size=size,
                            devices=jax.devices()[:size])
     opt = JaxOptimizers.get_adam_w(wrapped_model=model, **OPT)
     sched = JaxWarmupCosine(name="linear_warmup_cosine_annealing_lr", optimizer=opt, **SCHED)
@@ -90,7 +91,8 @@ def _spec(world: dict, params: dict, batches: list[dict], degrees) -> dict:
     model = port_config(attention_implementation="dao_flash", use_weight_tying=chunk is not None,
                         lm_head_chunk_size=chunk, lm_head_fused_ce="auto")
     return {"degrees": degrees, "model": model, "remat": world.get("remat", False), "opt": OPT, "sched": SCHED,
-            "clip": CLIP, "acc": ACC, "params": params, "batches": batches}
+            "clip": CLIP, "acc": ACC, "params": params, "batches": batches,
+            "loss_parallel": world.get("loss_parallel", False) and degrees is not None}
 
 
 @pytest.mark.parametrize("name", list(WORLDS))

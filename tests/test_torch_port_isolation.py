@@ -49,4 +49,5 @@ def test_no_jax_and_no_jax_package_imports(path):
 def test_the_walk_covers_the_parallel_modules():
     walked = {str(p.relative_to(ROOT / "modalities_tpu_torch")) for p in FILES if "modalities_tpu_torch" in p.parts}
     assert {"running_env/env.py", "running_env/device_mesh.py", "parallel/fsdp.py",
-            "parallel/ring_attention.py"} <= walked
+            "parallel/ring_attention.py", "parallel/tensor_parallel.py", "parallel/vocab_parallel_ce.py",
+            "nn/llama3_initialization.py", "registry/registry.py", "registry/components.py"} <= walked

@@ -1,0 +1,70 @@
+"""The port's component catalog against the JAX package's: every
+(component_key, variant_key) pair the JAX catalog registers
+(modalities_tpu/registry/components.py, and the `inference_component`
+variants its serve() adds) is registered in the port, and every pair a
+shipped configs/*.yaml names is either built by the port or refused with
+NotImplementedError naming its ROADMAP.md Queue 1 item, never "Unknown
+variant_key". No component is built, so no data file is needed."""
+
+import re
+from pathlib import Path
+
+import pytest
+import yaml
+
+from modalities_tpu.registry.components import COMPONENTS as JAX_COMPONENTS
+from modalities_tpu_torch.registry.components import TRAINING_COMPONENTS, UNPORTED
+from modalities_tpu_torch.registry.registry import Registry, Unported
+from modalities_tpu_torch.serving.serve import serving_entities
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = Registry(TRAINING_COMPONENTS + serving_entities())
+
+
+def _pairs(node, out: set) -> set:
+    if isinstance(node, dict):
+        if "component_key" in node and "variant_key" in node:
+            out.add((node["component_key"], node["variant_key"]))
+        for value in node.values():
+            _pairs(value, out)
+    elif isinstance(node, list):
+        for value in node:
+            _pairs(value, out)
+    return out
+
+
+def test_the_port_registers_exactly_the_jax_catalogs_pairs():
+    jax_keys = {(e.component_key, e.variant_key) for e in JAX_COMPONENTS}
+    serve_source = (ROOT / "modalities_tpu" / "serving" / "serve.py").read_text()
+    jax_keys |= {("inference_component", v) for v in re.findall(r'ComponentEntity\(\s*"inference_component", "(\w+)"',
+                                                                serve_source)}
+    assert {("inference_component", v) for v in ("serve", "fleet", "disagg")} <= jax_keys
+    assert PORT.keys() == jax_keys
+
+
+def test_each_unported_pair_names_a_queue_1_item():
+    assert len(UNPORTED) == 53
+    for (key, variant), (item, _) in UNPORTED.items():
+        assert item in (5, 6, 7)
+        with pytest.raises(NotImplementedError, match=rf"{key}\.{variant} .* Queue 1 item {item}\)"):
+            PORT.get_component(key, variant)
+
+
+@pytest.mark.parametrize("config", sorted((ROOT / "configs").glob("*.yaml")), ids=lambda p: p.name)
+def test_each_pair_a_shipped_config_names_is_built_or_names_its_item(config):
+    pairs = _pairs(yaml.safe_load(config.read_text()), set())
+    assert pairs
+    for key, variant in sorted(pairs):
+        try:
+            component = PORT.get_component(key, variant)
+        except NotImplementedError as e:
+            assert re.search(r"ROADMAP\.md, Queue 1 item \d+", str(e)), (key, variant, str(e))
+        else:
+            assert not isinstance(component, Unported) and callable(component), (key, variant)
+
+
+def test_the_7b_tp_configs_variants_are_ported():
+    pairs = _pairs(yaml.safe_load((ROOT / "configs" / "config_7b_tp_fsdp.yaml").read_text()), set())
+    for key, variant in pairs:
+        PORT.get_component(key, variant)
+    assert {("model", "gpt2_tp"), ("model_initialization", "gpt2_llama3_like")} <= pairs
