@@ -10,8 +10,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      modalities_tpu_torch/csrc (one nvcc per source, in parallel) and report
      the build time and ptxas's registers and spills of the seven wgmma kernels
      (flash forward, dq and dk/dv; fused-CE forward, and dh and dW on a
-     cluster of 8 CTAs; the dequant-matmul on a cluster of up to 8), of the
-     RMSNorm forward and backward kernels and the backward's column sum.
+     cluster of 8 CTAs, 16 at E = 4096; the dequant-matmul on a cluster of up
+     to 8), of the RMSNorm forward and backward kernels and the backward's
+     column sum; and how many fused-CE dh / dW clusters the card holds at once
+     at each width.
   1. every kernel against its plain PyTorch version on the card, at the shapes
      the serving and training paths give it, with stated tolerances, and each
      backward kernel and both forwards called twice for bitwise-identical
@@ -29,11 +31,15 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      head by head, and one tp-8 rank's q [1, 4, 4096, 128], k/v [1, 1, 4096,
      128]; x [16384, 4096] and [512, 4096], forward and backward).
      The fused-CE kernels at the 32k training shape (N 32768, V 50304, E 1536,
-     bf16) and on small ragged f32 and bf16 cases: lse, corr and total against
-     the plain version, dh and dW of the total per row against autograd of it;
-     those checks must reject a forward that skips 128 vocab columns, a dh that
-     skips one 64-column vocab tile and a dW that skips one 64-token tile; dh
-     and dW are also timed beside autograd's dh alone and dW alone. The
+     bf16), at the 7B 32k warmstart recipe's (E 4096: one rank's h [8192,
+     4096] against a vocab shard of 6288, and the recipe on one card, h
+     [32768, 4096] against W [50304, 4096]) and on small ragged f32 and bf16
+     cases: lse, corr and total against the plain version, dh and dW of the
+     total per row against autograd of it; those checks must reject a forward
+     that skips 128 vocab columns, a dh that skips one 64-column vocab tile, a
+     dW that skips one 64-token tile, and a dh and a dW whose partial-s sum
+     leaves out one cluster rank's slice of E; dh and dW are also timed beside
+     autograd's dh alone and dW alone. The
      dequant-matmul at every serving shape (q/c_proj, k/v, W/V, W_2, the fp32
      head), int8 and fp8, bf16 and fp32 x, M 1..100: against the plain
      version; bitwise batch invariant (the rows of x[64, K] 1, 8 and 64 at a
@@ -79,7 +85,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      (dp_shard 1, tp 1) mesh with loss parallelism (the fused-CE head on
      vocab shards): the path's launches, losses and grad norms within
      TP_ONE_TOL.
-  6. checkpointing at full width and depth. Run A: the 32k config through
+  6. checkpointing at full width, the 32k config cut to 12 of its 24 layers
+     (CKPT_LAYERS; the script's time). Run A: the 32k config through
      Main for 52 steps with its own checkpointing interval (50) and k (2):
      it saves and seals the step-50 folder (DCP files, topology.json,
      manifest.json, then last_checkpoint_info.json) and goes on to step 52;
@@ -88,13 +95,13 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      config derived from the same file (number_conversion nodes, app_state
      `dcp`, warmstart_checkpoint_paths) resumes from the pointer and runs
      steps 51-52: their losses, grad norms and lr, and the final parameters,
-     equal run A's bitwise, and each step launches phase 5's counts; run
+     equal run A's bitwise, and each step launches the remat counts; run
      B's final state saved again with `use_async` (dcp.async_save) reads back
      bitwise, its pointer written only after the commit. Then
      `serve` from the step-50 folder (a config derived from
      configs/config_serve.yaml at the 32k model's widths, 4 requests, bf16
      and int8): every request finishes, RMSNorm and dequant-matmul launch
-     their per-forward counts for 24 layers, and the greedy tokens equal
+     their per-forward counts for 12 layers, and the greedy tokens equal
      those of the step-50 parameters handed over in memory, bitwise (which
      the folder's model tensors equal, bitwise). A copy of the folder with
      one byte flipped is refused by the loader (run B's train step left as
@@ -124,7 +131,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      tensor-parallel plan applied on a (dp_shard 1, tp 1) mesh with loss
      parallelism (DTensor parameters under 2-D FSDP2, the loss-parallel CE;
      the path's launches, losses and grad norms within TP_ONE_TOL), a
-     profiled step with its ms and MFU. (b) One 7B block at tp 8
+     profiled step with its ms and MFU; the run saves its step-3 checkpoint
+     (interval 3), the pretrain folder of (d). (b) One 7B block at tp 8
      on x [1, 4096, 4096] bf16, driven rank by rank in this process through
      parallel/tensor_parallel.py's `tp_in_process` (each rank's 512 rows
      under SP, its 4/1 heads, its eighth of the MLP; partials summed in rank
@@ -132,14 +140,26 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      block row by row; exactly 8 flash forward, dq and dk/dv launches at q
      [1, 4, 4096, 128], k/v [1, 1, 4096, 128] and 16 RMSNorm forward and
      backward launches. (c) The fused CE on 8 vocab shards of 6288 at the
-     32k CE shape (h [32768, 1536], W [50304, 1536]): 8 forward, 8 dh and 8
-     dW launches and the combine against one whole-vocabulary call (lse
-     within 1e-4, dh within phase 1's bound, the dW shards against the whole
-     dW's rows), the shards' summed time beside the whole call's.
+     32k CE shape (h [32768, 1536], W [50304, 1536]) and at one rank of the
+     7B 32k warmstart recipe (h [8192, 4096], W [50304, 4096]): 8 forward, 8
+     dh and 8 dW launches and the combine against one whole-vocabulary call
+     (lse within 1e-4, dh within phase 1's bound, the dW shards against the
+     whole dW's rows), the shards' summed time beside the whole call's. (d)
+     The recipe's chain, pretrain to warmstart: the `warmstart` entry
+     point's function on configs/config_7b_warmstart_32k.yaml from (a)'s
+     folder, cut to world 1 and 4 of 32 layers (full width, SwiGLU 14336,
+     RoPE base 500000, full remat, the fused-CE head at E 4096, one sequence
+     of 32768), 3 steps: the progress read from the folder's name, the
+     loaded parameters bitwise (a)'s saved ones, finite losses within 0.5 of
+     (a)'s last, exact launches per step, peak memory within WARM_7B_PEAK_GB,
+     a profiled step; then the same config at 4 layers x 4096 through the
+     kernels and through the plain path (chunked-scan head) from step 0.
   9. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, train_2p7b, train_32k, train_32k_resume, ring_cp4,
-     train_32k_torchrun, train_7b, tp8, serve_ckpt), then the device line
-     (last line).
+     train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, serve_ckpt;
+     the fused-CE kernels' times at every shape of phase 1 under `shapes`),
+     then the card's name and power limit, then the device line (last line).
+     `[timing]` lines give the script's wall time after each phase.
 
 Phases 4-8 run on the world-1 NCCL process group that `run` builds without
 a launcher (held across them), so every training run goes through
@@ -234,12 +254,16 @@ RMS_LONG = (32768, 1536)  # (rows, width) of the 32k config's norms: one sequenc
 RMS_7B = ((16384, 4096), (512, 4096))  # the 7B's norms: 8a's 4 x 4096 rows; one tp-8 rank's 512 rows under SP (8b)
 QMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 7680), (7680, 2560), (2560, 50304)]  # (K, N) per decode step
 CE_SHAPE = (32768, 50304, 1536)  # (N, V, E) of one 32k training microbatch: rows, vocab, width
+# (N, V, E) of the 7B 32k warmstart recipe's head (config_7b_warmstart_32k.yaml): one rank of its dp_shard 2 x cp 4
+# x tp 8 mesh (its cp chunk of 8192 rows gathered over tp, a vocab shard of 6288), and the recipe cut to one card
+CE_7B_SHAPES = [(8192, 6288, 4096), (32768, 50304, 4096)]
 # Small fused-CE cases (N, V, E, h dtype, w dtype, ignored rows): ragged rows and vocab on both
-# paths, ignored rows, all rows ignored, widths up to the 32k config's, bf16 h with fp32 w
+# paths, ignored rows, all rows ignored, widths up to the 7B's, bf16 h with fp32 w
 CE_SMALL = [(100, 300, 64, "float32", "float32", 7), (37, 129, 128, "float32", "float32", 0),
             (16, 128, 32, "float32", "float32", 16), (100, 300, 128, "bfloat16", "bfloat16", 7),
             (37, 129, 256, "bfloat16", "bfloat16", 0), (45, 1000, 1536, "bfloat16", "bfloat16", 3),
-            (16, 128, 128, "bfloat16", "bfloat16", 16), (32, 256, 64, "bfloat16", "float32", 2)]
+            (16, 128, 128, "bfloat16", "bfloat16", 16), (32, 256, 64, "bfloat16", "float32", 2),
+            (45, 1000, 4096, "bfloat16", "bfloat16", 3), (129, 63, 4096, "bfloat16", "bfloat16", 7)]
 # Fused CE against the plain version (fp32 logits from the same inputs): lse and corr 1e-4
 # absolute (fp32 sums of E products in another order; |lse| ~ 11); total rtol 1e-5; dh and dW of
 # the total held per row to the row's own norm (_row_check), by the gradient's dtype: f32 1e-4
@@ -260,6 +284,14 @@ LONG_KERNELS = TRAIN_KERNELS + ("ce_fwd", "ce_dh", "ce_dw")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """A line with the script's wall time so far, after `what` (the time budget's breakdown)."""
+    log(f"[timing] {what} done at {time.perf_counter() - _START:.1f} s")
 
 
 class _IdTok:
@@ -1113,7 +1145,8 @@ def _ce_inputs(torch, g, n, v, e, h_dtype, w_dtype, ignored):
     return h, w, labels
 
 
-def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, drop_vocab=None) -> dict:
+def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, drop_vocab=None,
+              drop_slice=None) -> dict:
     """The kernels against the plain version on the same inputs: lse, corr
     and total (FusedCEFn) against reference_fused_ce_forward; dh and dW (one
     backward of total) against autograd of plain_sum_and_count in fp32, per
@@ -1126,7 +1159,11 @@ def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, 
     `drop_tokens`, the dW check must reject what a kernel that skips tokens
     [drop_tokens, drop_tokens + 64) would return; with `drop_vocab`, the lse
     check must reject what a forward that skips vocab columns [drop_vocab,
-    drop_vocab + 128) would return. Returns the worst errors."""
+    drop_vocab + 128) would return; with `drop_slice` (columns [c0, c1) of E:
+    one cluster rank's slice), the dh and the dW check must each reject what a
+    kernel whose partial-s sum leaves that rank's share out would return (dh
+    on the first 128 rows, dW on the first 128 vocab rows: one cluster's
+    block). Returns the worst errors."""
     from modalities_tpu_torch.ops import fused_ce as fce
 
     rel_h, rel_w = (CE_ROW_REL[str(t.dtype).removeprefix("torch.")] for t in (h, w))  # by the gradient's dtype
@@ -1198,6 +1235,30 @@ def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, 
         else:
             raise AssertionError(f"{what}: the dW row check passes a dW with tokens {rows} dropped")
         del ds, mutant
+    if drop_slice is not None:
+        sl = slice(*drop_slice)
+        hd, wd = hp.detach(), wp.detach()
+
+        def ds_without_slice(hr, wr, lse_r, lab):  # ds of rows hr against vocab rows wr, s missing the slice
+            ds = torch.exp(hr @ wr.t() - hr[:, sl] @ wr[:, sl].t() - lse_r[:, None])
+            hit = (lab >= 0) & (lab < wr.shape[0])
+            ds[torch.arange(hr.shape[0], device=ds.device)[hit], lab[hit]] -= 1.0
+            return ds
+
+        rows = slice(0, 128)
+        mutant = (ds_without_slice(hd[rows], wd, lse_ref[rows], labels[rows]) * gm[rows, None]) @ wd
+        vocab = slice(0, 128)
+        mutant_w = (ds_without_slice(hd, wd[vocab], lse_ref, labels) * gm[:, None]).t() @ hd
+        for name, got, want, rel in (("mutant_slice_dh", mutant, hp.grad[rows], rel_h),
+                                     ("mutant_slice_dw", mutant_w, wp.grad[vocab], rel_w)):
+            try:
+                _row_check(torch, got, want, rel, "mutant")
+            except AssertionError as e:
+                errs[name] = f"rejected ({e})"
+            else:
+                raise AssertionError(f"{what}: the {name[-2:]} row check passes a kernel that leaves columns "
+                                     f"{drop_slice} of E out of the partial-s sum")
+        del mutant, mutant_w
     del hp, wp, total_ref, lse_ref
     for fn, name in ((fce.fused_ce_backward_dh, "dh"), (fce.fused_ce_backward_dw, "dW")):
         if not torch.equal(fn(h, w, labels, lse, gm), fn(h, w, labels, lse, gm)):
@@ -1208,9 +1269,8 @@ def _ce_check(torch, h, w, labels, what: str, drop_tile=None, drop_tokens=None, 
 def phase_fused_ce(torch) -> dict:
     """The three fused-CE kernels against their plain versions: small f32 and
     bf16 cases (ragged rows and vocab, ignored rows, all rows ignored), then
-    the 32k training shape in bf16; the times at that shape."""
-    import torch.nn.functional as F
-
+    the 32k training shape and the 7B's two (CE_7B_SHAPES) in bf16, with
+    their times."""
     from modalities_tpu_torch.ops import fused_ce as fce
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1223,15 +1283,35 @@ def phase_fused_ce(torch) -> dict:
             slot = worst.setdefault(key, {})
             slot[name] = max(slot.get(name, 0.0), err[0] if isinstance(err, tuple) else err)
     log(f"[phase 1] fused CE: {len(CE_SMALL)} small cases (ragged rows and vocab, ignored rows, all ignored; "
-        f"f32 path and bf16 path) agree with the plain version: {worst} (lse/corr max abs err, bound 1e-4; "
-        f"dh/dW worst row rel err, bound by the gradient's dtype {CE_ROW_REL}); all three kernels bitwise "
-        f"repeatable")
+        f"f32 path and bf16 path, E up to 4096) agree with the plain version: {worst} (lse/corr max abs err, "
+        f"bound 1e-4; dh/dW worst row rel err, bound by the gradient's dtype {CE_ROW_REL}); all three kernels "
+        f"bitwise repeatable")
+    out: dict[str, dict[str, Any]] = {}
+    for shape in (CE_SHAPE, *CE_7B_SHAPES):
+        for name, (t, err) in _ce_shape(torch, g, *shape).items():
+            entry = out.setdefault(f"fused_ce_{name}", {"max_abs_err": 0.0, "timings": []})
+            entry["timings"].append(t)
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return out
 
-    n, v, e = CE_SHAPE
+
+def _ce_shape(torch, g, n: int, v: int, e: int) -> dict[str, tuple[dict, float]]:
+    """One bf16 shape: `_ce_check` with every mutant (vocab columns dropped
+    from the forward, a vocab tile from dh, a token tile from dW, one cluster
+    rank's E-slice from dh and dW), then each kernel's time beside the plain
+    version, the library's call and the bound. Returns {kernel: (timing,
+    max abs err)}."""
+    import torch.nn.functional as F
+
+    from modalities_tpu_torch.ops import fused_ce as fce
+
     h, w, labels = _ce_inputs(torch, g, n, v, e, "bfloat16", "bfloat16", n // 16)
+    cl = fce.clusters("dh", e)[0]  # dW's clusters split E alike
+    rank = cl // 2 + 1  # a middle rank's slice of E
+    drop_slice = (rank * e // cl, (rank + 1) * e // cl)
     what = f"fused CE bf16 h[{n},{e}] w[{v},{e}], {n // 16} rows ignored"
     errs = _ce_check(torch, h, w, labels, what, drop_tile=64 * (v // 128), drop_tokens=64 * (n // 128),
-                     drop_vocab=128 * (v // 256))
+                     drop_vocab=128 * (v // 256), drop_slice=drop_slice)
     torch.cuda.empty_cache()
     log(f"[phase 1] {what}: lse max abs err {errs['lse']:.3g}, corr {errs['corr']:.3g} (bound 1e-4); total rel "
         f"err {errs['total']:.3g} (bound 1e-5); gradients of the total: worst row rel err (share of allowance used) "
@@ -1241,7 +1321,9 @@ def phase_fused_ce(torch) -> dict:
         f"dW {errs['dw_flips']:.4g}; all three kernels bitwise repeatable; a forward that skips vocab columns "
         f"[{128 * (v // 256)}, {128 * (v // 256) + 128}): {errs['mutant_fwd']}; a dh that skips vocab columns "
         f"[{64 * (v // 128)}, {64 * (v // 128) + 64}): {errs['mutant']}; a dW that skips tokens "
-        f"[{64 * (n // 128)}, {64 * (n // 128) + 64}): {errs['mutant_dw']}")
+        f"[{64 * (n // 128)}, {64 * (n // 128) + 64}): {errs['mutant_dw']}; a dh / dW whose partial-s sum "
+        f"leaves out cluster rank {rank} of {cl} (E columns {drop_slice}): {errs['mutant_slice_dh']} / "
+        f"{errs['mutant_slice_dw']}")
     lse, _ = fce.fused_ce_forward(h, w, labels)
     mask = (labels != -100).float()
     gm = mask / mask.sum()
@@ -1277,13 +1359,13 @@ def phase_fused_ce(torch) -> dict:
              "bound_ms": 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes[name] / PEAK_BYTES_S),
              "bound_by": "operations" if ops / PEAK_BF16_FLOPS >= nbytes[name] / PEAK_BYTES_S else "bytes"}
         max_abs = max(errs["lse"], errs["corr"]) if name == "fwd" else errs[name][2]
-        out[f"fused_ce_{name}"] = {"max_abs_err": max_abs, "timings": [t]}
+        out[name] = (t, max_abs)
         lib_name = {"fwd": "F.linear (bf16) + fp32 F.cross_entropy(reduction='sum')",
                     "dh": f"its dh alone (W not requiring grad; dh and dW: {lib_bwd:.3f} ms)",
                     "dw": f"its dW alone (h not requiring grad; dh and dW: {lib_bwd:.3f} ms)"}[name]
         plain_name = "plain" if name == "fwd" else "plain backward (dh and dW together)"
         log(f"[phase 1] fused CE {name} {t['shape']}: kernel {t['ms']:.3f} ms, {plain_name} {t['plain_ms']:.3f} ms, "
-            f"{lib_name} {lib:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}); "
+            f"{lib_name} {lib:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
             f"{ops / t['ms'] / 1e9:.1f} TFLOP/s")
     del h, w, labels, lse, gm, hl, wl
     torch.cuda.empty_cache()
@@ -1460,6 +1542,14 @@ def _train_config(tmp: Path, name: str, corpus: np.ndarray, steps: int, extra: d
     path = tmp / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg, sort_keys=False))
     return path
+
+
+def remat_launches(layers: int) -> dict[str, int]:
+    """Kernel launches a step of a one-sequence, full-remat, fused-CE config
+    (the 32k config, the 7B warmstart) at `layers`: remat runs every block's
+    forward twice (flash and both block norms), the head norm and CE once."""
+    return {"flash_fwd": 2 * layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 4 * layers + 1,
+            "rms_bwd": 2 * layers + 1, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
 
 
 def _launch_counts(keys=TRAIN_KERNELS) -> dict[str, int]:
@@ -1787,10 +1877,7 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
         if abs(losses[0] - expected) > 0.5:
             raise AssertionError(f"32k training: step 0 loss {losses[0]} not within 0.5 of ln({vocab}) + "
                                  f"{width} * 0.02^2 / 2 = {expected:.3f}")
-        # remat runs every block's forward twice: flash and both block norms; the head norm and CE once
-        per_step = {"flash_fwd": 2 * layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 4 * layers + 1,
-                    "rms_bwd": 2 * layers + 1, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
-        for key, want in per_step.items():
+        for key, want in remat_launches(layers).items():
             if counts[key] != want * steps:
                 raise AssertionError(f"32k training: {key} launched {counts[key]} times in {steps} steps, expected "
                                      f"{want} per step")
@@ -1835,6 +1922,7 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
 
 # ---------------------------------------------------------------- phase 6
 CKPT_STEPS = 52  # run A: the 32k config two steps past its step-50 checkpoint (the file's interval 50 and k 2)
+CKPT_LAYERS = 12  # phase 6's depth: the 32k config cut to 12 of its 24 layers, so the script stays near 600 s
 CKPT_SERVE = {"requests": 4, "new_tokens": 32, "slots": 4, "capacity": 1024, "prompt_len": (32, 257)}
 
 
@@ -1946,12 +2034,12 @@ def _serve_ckpt_config(tmp: Path, run_config: Path, folder: Path, quant: str) ->
     return path
 
 
-def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dict[str, int]]:
-    """The 32k config past its step-50 checkpoint (run A), the warmstart
-    from it (run B), an async save that training overtakes, serving from the
-    checkpoint, and the refusal of a corrupted copy. `per_step`: phase 5's
-    launches per step. Returns the launch counts of run B and of serving from
-    the checkpoint."""
+def phase_checkpoint(torch, smi: str) -> dict[str, dict[str, int]]:
+    """The 32k config at CKPT_LAYERS layers past its step-50 checkpoint (run
+    A), the warmstart from it (run B), an async save that training
+    overtakes, serving from the checkpoint, and the refusal of a corrupted
+    copy. Returns the launch counts of run B and of serving from the
+    checkpoint."""
     device = "cuda"
     sync = torch.cuda.synchronize
 
@@ -1977,15 +2065,16 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
     import torch.distributed.checkpoint as dcp
 
     rng = np.random.default_rng(2029)
-    seq, vocab, layers = LONG_MODEL["seq"], LONG_MODEL["vocab"], LONG_MODEL["layers"]
+    seq, vocab, layers = LONG_MODEL["seq"], LONG_MODEL["vocab"], CKPT_LAYERS
+    per_step = remat_launches(layers)
     shape = {"base": LONG_CONFIG, "micro": 1, "acc": 1}
     scratch = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
         corpus = rng.integers(0, vocab, size=seq + 1 + (CKPT_STEPS + 2) * seq)
-        cfg = _train_config(tmp, "ckpt", corpus, CKPT_STEPS, {}, seq=seq, phase="phase 6", keep_checkpointing=True,
-                            **shape)
+        cfg = _train_config(tmp, "ckpt", corpus, CKPT_STEPS, {"model_raw.config.n_layer": layers}, seq=seq,
+                            phase="phase 6", keep_checkpointing=True, **shape)
 
         # run A: 52 steps through Main, saving at step 50 with the file's interval and k
         main = Main(cfg, experiments_root_path=tmp / "experiments", device=device)
@@ -2033,7 +2122,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
         verify_s = time.perf_counter() - t0
         if not check.ok or not (folder / "topology.json").is_file():
             raise AssertionError(f"run A: the step-50 folder is not sealed: {check.reason}")
-        log(f"[phase 6] run A: {CKPT_STEPS} steps of {LONG_CONFIG} through Main in {wall_a:.1f} s "
+        log(f"[phase 6] run A: {CKPT_STEPS} steps of {LONG_CONFIG} at {layers} layers through Main in {wall_a:.1f} s "
             f"(checkpointing interval 50, k 2, as the file has them); losses of steps 49-52 "
             f"{[metrics_a[s][0] for s in (49, 50, 51, 52)]}; launches per step "
             f"{({k: v // CKPT_STEPS for k, v in counts_a.items()})}")
@@ -2064,7 +2153,7 @@ def phase_checkpoint(torch, smi: str, per_step: dict[str, int]) -> dict[str, dic
         for key, want in per_step.items():
             if counts_b[key] != want * 2:
                 raise AssertionError(f"run B: {key} launched {counts_b[key]} times in 2 steps, expected {want} per "
-                                     "step (phase 5's)")
+                                     "step")
         for s in (51, 52):
             if metrics_b[s] != metrics_a[s]:
                 raise AssertionError(f"run B step {s} (loss, grad norm, lr) {metrics_b[s]} != run A's {metrics_a[s]}")
@@ -2328,6 +2417,9 @@ SEVEN_B = {"layers": 4, "micro": 4, "seq": 4096, "vocab": 50304, "width": 4096} 
 SEVEN_B_PEAK_GB = 55.0
 SEVEN_B_STEP0 = "11.30021"  # 8a's step-0 loss as the unsharded kernels' path gives it on the H100
 TP_DEGREE = 8  # config_7b_tp_fsdp.yaml's tp
+# 8c's shapes (N, V, E): the 32k CE shape, and one rank of the 7B 32k warmstart recipe (its cp chunk of 8192 rows
+# gathered over tp) with the whole vocabulary, cut into the tp 8 shards
+TP_CE_SHAPES = [CE_SHAPE, (8192, 50304, 4096)]
 MODEL_7B_BLOCK = {**MODEL_2P7B, "n_layer": 1, "n_embd": 4096, "ffn_hidden": 21504,
                   "attention_implementation": "dao_flash",
                   "attention_config": {"qkv_transforms": [{"type_hint": "RotaryTransform",
@@ -2340,7 +2432,7 @@ MODEL_7B_BLOCK = {**MODEL_2P7B, "n_layer": 1, "n_embd": 4096, "ffn_hidden": 2150
 TRUNC3_VAR = 1.0 - 6.0 * math.exp(-4.5) / math.sqrt(2.0 * math.pi) / math.erf(3.0 / math.sqrt(2.0))
 
 
-def phase_train_7b(torch, smi: str) -> dict[str, int]:
+def phase_train_7b(torch, smi: str, tmp: Path) -> tuple[dict[str, int], dict]:
     """8a: configs/config_7b_tp_fsdp.yaml through Main at full width (E 4096,
     32/8 heads of 128, SwiGLU 14336, vocab 50304, untied head, the
     gpt2_llama3_like init with depth_init), cut where one card forces it:
@@ -2348,72 +2440,90 @@ def phase_train_7b(torch, smi: str) -> dict[str, int]:
     of 32, the file's micro-batch of 4 x 4096. 3 steps with finite losses,
     step 0's loss within 0.5 of ln(50304) + 0.5 x TRUNC3_VAR, exact flash and
     RMSNorm launches per step, peak memory within SEVEN_B_PEAK_GB, a
-    profiled step; the same steps without a mesh bitwise (step 0's loss
-    SEVEN_B_STEP0) and with the tp plan on a (dp_shard 1, tp 1) mesh within
-    TP_ONE_TOL (`tp_one_witness`). Returns the launch counts."""
+    profiled step; the run saves its step-3 checkpoint (checkpointing
+    interval 3, the file's k and last-step rule) under `tmp`, the pretrain
+    folder phase 8d warmstarts from. The same steps without a mesh bitwise
+    (step 0's loss SEVEN_B_STEP0) and with the tp plan on a (dp_shard 1, tp 1)
+    mesh within TP_ONE_TOL (`tp_one_witness`), both without a checkpoint in
+    reach. Returns the launch counts and the saved parameters (host copies)."""
+    import torch.distributed.checkpoint as dcp
+
+    from modalities_tpu_torch.checkpointing.dcp import dcp_checkpoint_saving
     from modalities_tpu_torch.main import Main
 
     rng = np.random.default_rng(2031)
     steps = 3
     layers, micro, seq, vocab = (SEVEN_B[k] for k in ("layers", "micro", "seq", "vocab"))
-    scratch = Path(__file__).resolve().parent / "build"
-    scratch.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        tmp = Path(tmp)
-        corpus = rng.integers(0, vocab, size=seq + 1 + micro * (steps + 3) * seq)
-        cuts = {"device_mesh.config.tensor_parallel_degree": 1, "device_mesh.config.enable_loss_parallel": False,
-                "model_raw.config.n_layer": layers}
-        cfg = _train_config(tmp, "train_7b", corpus, steps, cuts, seq=seq, base=SEVEN_B_CONFIG, micro=micro, acc=1,
-                            phase="phase 8a")
-        torch.cuda.reset_peak_memory_stats()
-        main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
-        main.components = main.build_components()
-        _reset_counts()
-        t0 = time.perf_counter()
+    corpus = rng.integers(0, vocab, size=seq + 1 + micro * (steps + 3) * seq)
+    cuts = {"device_mesh.config.tensor_parallel_degree": 1, "device_mesh.config.enable_loss_parallel": False,
+            "model_raw.config.n_layer": layers}
+    cfg = _train_config(tmp, "train_7b", corpus, steps, cuts, seq=seq, base=SEVEN_B_CONFIG, micro=micro, acc=1,
+                        phase="phase 8a")
+    cfg_ckpt = _train_config(tmp, "train_7b_ckpt", corpus, steps,
+                             {**cuts, "settings.intervals.checkpointing_interval_in_steps": steps}, seq=seq,
+                             base=SEVEN_B_CONFIG, micro=micro, acc=1, phase="phase 8a", keep_checkpointing=True)
+    torch.cuda.reset_peak_memory_stats()
+    main = Main(cfg_ckpt, experiments_root_path=tmp / "experiments", device="cuda")
+    main.components = main.build_components()
+    _reset_counts()
+    save_s, dcp_s, manifest_s = [], [], []
+    execution = main.components.checkpoint_saving.checkpoint_saving_execution
+    t0 = time.perf_counter()
+    with (_timed(execution, "_save_checkpoint", save_s), _timed(dcp, "save", dcp_s),
+          _timed(dcp_checkpoint_saving, "write_manifest", manifest_s)):
         results = main.run(main.components)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _launch_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-        losses = [r["losses"]["train loss last"] for r in results]
-        norms = [r["metrics"]["grad norm last"] for r in results]
-        if len(results) != steps or not all(math.isfinite(x) for x in losses + norms):
-            raise AssertionError(f"7B training: {len(results)} steps, losses {losses}, grad norms {norms}")
-        # the head's logits: rows of std 1/sqrt(E) truncated at 3 sigma over unit-RMS hidden states of width E
-        expected = math.log(vocab) + TRUNC3_VAR / 2
-        if abs(losses[0] - expected) > 0.5:
-            raise AssertionError(f"7B training: step 0 loss {losses[0]} not within 0.5 of ln({vocab}) + "
-                                 f"{TRUNC3_VAR:.5f} / 2 = {expected:.3f}")
-        per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 2 * layers + 1,
-                    "rms_bwd": 2 * layers + 1}
-        for key, want in per_step.items():
-            if counts[key] != want * steps:
-                raise AssertionError(f"7B training: {key} launched {counts[key]} times in {steps} steps, expected "
-                                     f"{want} per step")
-        if peak_gb > SEVEN_B_PEAK_GB:
-            raise AssertionError(f"7B training: peak memory {peak_gb:.2f} GB above the reckoning's "
-                                 f"{SEVEN_B_PEAK_GB} GB")
-        log(f"[phase 8a] {SEVEN_B_CONFIG} through Main at full width, cut to world 1 / tp 1 (no loss parallelism) "
-            f"and {layers} of 32 layers, micro-batch {micro} x {seq} ({main.train_step.num_parameters / 1e9:.3f} B "
-            f"parameters, gpt2_llama3_like with depth_init): {steps} steps in {wall:.1f} s; losses "
-            f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 5) for x in norms]}; step 0 expected "
-            f"{expected:.5f} = ln({vocab}) + {TRUNC3_VAR:.5f} / 2, within 0.5; launches per step "
-            f"{ {k: v // steps for k, v in counts.items()} }; peak memory {peak_gb:.2f} GB "
-            f"(torch.cuda.max_memory_allocated; reckoning at most {SEVEN_B_PEAK_GB} GB), {reserved_gb:.2f} GB "
-            f"reserved")
-        for r in results[1:]:
-            th = r["throughput_metrics"]
-            log(f"[phase 8a] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
-                f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
-        profile_train_step(torch, main, smi, phase="phase 8a")
-        sharded_results = results
-        del main, results
-        gc.collect()
-        torch.cuda.empty_cache()
-        fsdp_witness(torch, cfg, tmp, sharded_results, SEVEN_B_STEP0, "phase 8a")
-        tp_one_witness(torch, cfg, tmp, sharded_results, counts, "phase 8a")
-    return counts
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    saved = _host_copy(main.train_step)  # the step-3 state: the folder's parameters
+    folder = Path(json.loads((tmp / "checkpoints" / "last_checkpoint_info.json").read_text())[
+        "checkpoint_folder_path"])
+    nbytes = sum(f.stat().st_size for f in folder.rglob("*") if f.is_file())
+    if len(save_s) != 1 or f"seen_steps_{steps}-" not in folder.name:
+        raise AssertionError(f"7B training: {len(save_s)} saves, pointer {folder.name}; expected one save at "
+                             f"step {steps}")
+    log(f"[phase 8a] checkpoint at step {steps} ({smi}): {folder.name}, {nbytes} bytes; save {save_s[0]:.2f} s "
+        f"(dcp.save {dcp_s[0]:.2f} s, write_manifest {manifest_s[0]:.2f} s; inside step {steps}'s wall time)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    losses = [r["losses"]["train loss last"] for r in results]
+    norms = [r["metrics"]["grad norm last"] for r in results]
+    if len(results) != steps or not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"7B training: {len(results)} steps, losses {losses}, grad norms {norms}")
+    # the head's logits: rows of std 1/sqrt(E) truncated at 3 sigma over unit-RMS hidden states of width E
+    expected = math.log(vocab) + TRUNC3_VAR / 2
+    if abs(losses[0] - expected) > 0.5:
+        raise AssertionError(f"7B training: step 0 loss {losses[0]} not within 0.5 of ln({vocab}) + "
+                             f"{TRUNC3_VAR:.5f} / 2 = {expected:.3f}")
+    per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 2 * layers + 1,
+                "rms_bwd": 2 * layers + 1}
+    for key, want in per_step.items():
+        if counts[key] != want * steps:
+            raise AssertionError(f"7B training: {key} launched {counts[key]} times in {steps} steps, expected "
+                                 f"{want} per step")
+    if peak_gb > SEVEN_B_PEAK_GB:
+        raise AssertionError(f"7B training: peak memory {peak_gb:.2f} GB above the reckoning's "
+                             f"{SEVEN_B_PEAK_GB} GB")
+    log(f"[phase 8a] {SEVEN_B_CONFIG} through Main at full width, cut to world 1 / tp 1 (no loss parallelism) "
+        f"and {layers} of 32 layers, micro-batch {micro} x {seq} ({main.train_step.num_parameters / 1e9:.3f} B "
+        f"parameters, gpt2_llama3_like with depth_init): {steps} steps in {wall:.1f} s; losses "
+        f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 5) for x in norms]}; step 0 expected "
+        f"{expected:.5f} = ln({vocab}) + {TRUNC3_VAR:.5f} / 2, within 0.5; launches per step "
+        f"{ {k: v // steps for k, v in counts.items()} }; peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated; reckoning at most {SEVEN_B_PEAK_GB} GB), {reserved_gb:.2f} GB "
+        f"reserved")
+    for r in results[1:]:
+        th = r["throughput_metrics"]
+        log(f"[phase 8a] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
+            f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
+    profile_train_step(torch, main, smi, phase="phase 8a")
+    sharded_results = results
+    del main, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_witness(torch, cfg, tmp, sharded_results, SEVEN_B_STEP0, "phase 8a")
+    tp_one_witness(torch, cfg, tmp, sharded_results, counts, "phase 8a")
+    return counts, {"params": saved, "steps": steps, "tokens": steps * micro * seq, "loss": losses[-1]}
 
 
 def phase_tp_block(torch, smi: str) -> dict[str, int]:
@@ -2493,10 +2603,11 @@ def phase_tp_block(torch, smi: str) -> dict[str, int]:
     return counts
 
 
-def phase_tp_fused_ce(torch, smi: str) -> dict[str, int]:
-    """8c: the fused CE on TP_DEGREE vocab shards at the 32k CE shape (h
-    [32768, 1536], W [50304, 1536] bf16: shards of 6288 rows, no multiple of
-    the kernels' 64-column tile), 8 forward, 8 dh and 8 dW launches and the
+def phase_tp_fused_ce(torch, smi: str, shape=CE_SHAPE) -> dict[str, int]:
+    """8c: the fused CE on TP_DEGREE vocab shards at `shape`: the 32k CE shape
+    (h [32768, 1536], W [50304, 1536] bf16), or the 7B warmstart recipe's rank
+    (h [8192, 4096], W [50304, 4096]): shards of 6288 rows, no multiple of
+    the kernels' 64-column tile; 8 forward, 8 dh and 8 dW launches and the
     combine (parallel/vocab_parallel_ce.py:fused_ce_in_process), against one
     whole-vocabulary call: lse and corr within 1e-4; dh held per row to the
     plain fp32 gradient with phase 1's bound (CE_ROW_REL) as the whole
@@ -2507,7 +2618,7 @@ def phase_tp_fused_ce(torch, smi: str) -> dict[str, int]:
     from modalities_tpu_torch.ops import fused_ce as fce
     from modalities_tpu_torch.parallel import vocab_parallel_ce as vce
 
-    n, v, e = CE_SHAPE
+    n, v, e = shape
     shard = v // TP_DEGREE
     g = torch.Generator(device="cuda").manual_seed(19)
     h, w, labels = _ce_inputs(torch, g, n, v, e, "bfloat16", "bfloat16", n // 16)
@@ -2555,6 +2666,143 @@ def phase_tp_fused_ce(torch, smi: str) -> dict[str, int]:
         f"against one whole-vocabulary forward, dh and dW {whole_ms:.3f} ms ({smi}; informational)")
     del h, w, labels, gm, lse, corr, dh, dw, lse_w, corr_w, dh_w, dw_w
     torch.cuda.empty_cache()
+    return counts
+
+
+WARM_7B_CONFIG = "config_7b_warmstart_32k.yaml"
+WARM_7B = {"layers": 4, "seq": 32768, "steps": 3}  # the recipe cut to 4 of its 32 layers, 3 steps of one sequence
+# The written reckoning of the warmstart step's peak memory (PERF.md, section 6), before its first run: 15.4 GB of
+# parameters, gradients and optimizer state (8a's 1.284 B parameters at 12 bytes), ~1.1 GB of layer-boundary
+# activations (4 x 32768 x 4096 bf16), one layer's recompute at 32768 (~6 GB: q/k/v, the SwiGLU's 3 x 14336-wide
+# activations, norms) and the fused head's h, dh and bf16 dW (~1 GB): about 25 GB, at most 40
+WARM_7B_PEAK_GB = 40.0
+WARM_7B_LR = 0.00006  # the file's max_lr: the witness's lr
+
+
+def _run_form(warm_config: Path, out: Path) -> Path:
+    """The warmstart config as a config that runs from step 0 (for the
+    witness runs, which have no checkpoint): training progress 0, the raw app
+    state, no warmstart paths; cp and tp 1 (one card)."""
+    import yaml
+
+    cfg = yaml.safe_load(warm_config.read_text())
+    cfg["settings"]["training_progress"] = {"global_num_seen_tokens": 0, "num_seen_steps": 0, "num_seen_samples": 0,
+                                            "last_step": -1}
+    del cfg["settings"]["warmstart_checkpoint_paths"]
+    cfg["app_state"] = cfg.pop("app_state_raw")
+    cfg["device_mesh"]["config"].update(context_parallel_degree=1, tensor_parallel_degree=1)
+    out.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return out
+
+
+def phase_warmstart_7b(torch, smi: str, tmp: Path, pretrain: dict) -> dict[str, int]:
+    """8d: the recipe's chain, pretrain to warmstart. `warmstart` (the
+    `__main__.warmstart` function) on configs/config_7b_warmstart_32k.yaml
+    from the folder 8a saved (`pretrain`: 8a's saved parameters, steps,
+    tokens, last loss), cut where one card forces it: world 1 (dp_shard 1, cp
+    1, tp 1), 4 of 32 layers, the targets (3 steps past 8a's) and intervals
+    (no checkpoint of its own: a second ~10 GB save would not fit the
+    script's time). Everything else as the file has it: full width, SwiGLU
+    14336, RoPE base 500000, full remat, lm_head_chunk_size 2048 (the
+    fused-CE head at E 4096), the untied head, one sequence of 32768 a step.
+    Checks: the progress (steps, tokens) read from the folder's name; the
+    loaded parameters bitwise 8a's saved ones; losses finite, the first
+    within 0.5 of 8a's last; exact launches per step (remat: flash forward 2
+    a layer; RMSNorm 4 a layer + 1 forward, 2 a layer + 1 backward; CE 1
+    each); peak memory within WARM_7B_PEAK_GB; a profiled step. Then the same
+    config at full width, 4 layers x 4096, through the kernels and through
+    the plain path (chunked-scan head) from step 0 (`lr_witness`). Returns
+    the warmstart's launch counts."""
+    from modalities_tpu_torch.__main__ import warmstart
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
+    from modalities_tpu_torch.main import Main
+
+    rng = np.random.default_rng(2033)
+    layers, seq, steps = (WARM_7B[k] for k in ("layers", "seq", "steps"))
+    vocab = SEVEN_B["vocab"]
+    seen_steps, seen_tokens = pretrain["steps"], pretrain["tokens"]
+    cuts = {"device_mesh.config.context_parallel_degree": 1, "device_mesh.config.tensor_parallel_degree": 1,
+            "model_raw.config.n_layer": layers,
+            "settings.training_target.num_target_steps": seen_steps + steps,
+            "settings.training_target.num_target_tokens": seen_tokens + steps * seq}
+    corpus = rng.integers(0, vocab, size=seq + 1 + (steps + 3) * seq)
+    cfg = _train_config(tmp, "warm_7b", corpus, steps, cuts, seq=seq, base=WARM_7B_CONFIG, micro=1, acc=1,
+                        phase="phase 8d")
+    info = tmp / "checkpoints" / "last_checkpoint_info.json"
+    loaded: dict = {}
+    load_s = []
+    load = DCPCheckpointLoading.load_app_state
+
+    build = Main.build_components
+
+    def load_then_copy(self, app_state, folder):
+        t0 = time.perf_counter()
+        load(self, app_state, folder)
+        load_s.append(time.perf_counter() - t0)
+        loaded.update(_host_copy(app_state.train_step))
+
+    def build_and_keep(self):  # the run's components, for its progress and the profiled step
+        self.components = build(self)
+        return self.components
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    DCPCheckpointLoading.load_app_state, Main.build_components = load_then_copy, build_and_keep
+    try:
+        t0 = time.perf_counter()
+        main, results = warmstart(cfg, info, experiments_root_path=tmp / "experiments", device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DCPCheckpointLoading.load_app_state, Main.build_components = load, build
+    counts = _launch_counts(LONG_KERNELS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    progress = main.components.settings.training_progress
+    losses = [r["losses"]["train loss last"] for r in results]
+    norms = [r["metrics"]["grad norm last"] for r in results]
+    done = [r["num_train_steps_done"] for r in results]
+    consumed = results[-1]["metrics"]["consumed tokens"] if results else None
+    if (progress.num_seen_steps, progress.global_num_seen_tokens) != (seen_steps, seen_tokens) or \
+            done != list(range(seen_steps + 1, seen_steps + steps + 1)) or consumed != seen_tokens + steps * seq:
+        raise AssertionError(f"7B warmstart: progress from the folder (steps, tokens) "
+                             f"{(progress.num_seen_steps, progress.global_num_seen_tokens)}, steps run {done}, "
+                             f"consumed tokens {consumed}; expected {(seen_steps, seen_tokens)}, steps "
+                             f"{seen_steps + 1}..{seen_steps + steps}, {seen_tokens + steps * seq}")
+    unequal = [k for k in pretrain["params"] if not torch.equal(pretrain["params"][k], loaded.get(k))]
+    if len(load_s) != 1 or unequal or set(loaded) != set(pretrain["params"]):
+        raise AssertionError(f"7B warmstart: {len(load_s)} loads; parameters unequal to 8a's saved ones: "
+                             f"{unequal[:5]} ({len(unequal)}), keys equal: {set(loaded) == set(pretrain['params'])}")
+    if not all(math.isfinite(x) for x in losses + norms) or abs(losses[0] - pretrain["loss"]) > 0.5:
+        raise AssertionError(f"7B warmstart: losses {losses}, grad norms {norms}; the first not within 0.5 of "
+                             f"8a's last {pretrain['loss']}")
+    for key, want in remat_launches(layers).items():
+        if counts[key] != want * steps:
+            raise AssertionError(f"7B warmstart: {key} launched {counts[key]} times in {steps} steps, expected "
+                                 f"{want} per step")
+    if peak_gb > WARM_7B_PEAK_GB:
+        raise AssertionError(f"7B warmstart: peak memory {peak_gb:.2f} GB above the reckoning's {WARM_7B_PEAK_GB} GB")
+    log(f"[phase 8d] {WARM_7B_CONFIG} through `warmstart` from 8a's step-{seen_steps} folder, cut to world 1 "
+        f"(dp_shard 1, cp 1, tp 1) and {layers} of 32 layers, one sequence of {seq}, full remat, fused-CE head "
+        f"({main.train_step.num_parameters / 1e9:.3f} B parameters): {steps} steps in {wall:.1f} s (load_app_state "
+        f"{load_s[0]:.2f} s: manifest, shape gate, dcp.load, set_state_dict); progress from the folder's name: "
+        f"{seen_steps} steps, {seen_tokens} tokens; steps {done}, consumed tokens {consumed}; all "
+        f"{len(loaded)} loaded parameter tensors bitwise 8a's saved ones; losses {[round(x, 5) for x in losses]} "
+        f"(8a's last {pretrain['loss']:.5f}), grad norms {[round(x, 5) for x in norms]}; launches per step "
+        f"{({k: v // steps for k, v in counts.items()})}; peak memory {peak_gb:.2f} GB "
+        f"(torch.cuda.max_memory_allocated; reckoning at most {WARM_7B_PEAK_GB} GB), {reserved_gb:.2f} GB reserved")
+    for r in results[1:]:
+        th = r["throughput_metrics"]
+        log(f"[phase 8d] step {r['num_train_steps_done']}: {1e3 / th['train steps/s']:.1f} ms, "
+            f"{th['tokens/s']:.1f} tokens/s, MFU {th['MFU']:.4f} vs 989.4 TFLOP/s ({smi}; informational)")
+    profile_train_step(torch, main, smi, phase="phase 8d")
+    del main, results, loaded
+    pretrain.pop("params")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_cfg = _run_form(Path(__file__).resolve().parent / "configs" / WARM_7B_CONFIG, tmp / "warm_7b_run_form.yaml")
+    lr_witness(torch, tmp, rng, *LONG_WITNESS, lr=WARM_7B_LR, vocab=vocab, keys=LONG_KERNELS, phase="phase 8d",
+               plain_extra={"model_raw.config.lm_head_fused_ce": "off"}, base=run_cfg, micro=1, acc=1)
     return counts
 
 
@@ -2710,6 +2958,7 @@ def training_phases(torch):
     smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     train_counts = phase_train(torch, smi_now)
+    mark("phase 4")
     if any(v == 0 for v in train_counts.values()):
         raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
     log(f"[phase 4] launches in the 3-step run: {train_counts}")
@@ -2718,6 +2967,7 @@ def training_phases(torch):
 
     # phase 5: the 32k long-context training path. Counts start from 0 inside phase_train_long.
     long_counts = phase_train_long(torch, smi_now)
+    mark("phase 5")
     if any(v == 0 for v in long_counts.values()):
         raise AssertionError(f"a kernel of the 32k training path was never launched: {long_counts}")
     log(f"[phase 5] launches in the 3-step run: {long_counts}")
@@ -2725,29 +2975,44 @@ def training_phases(torch):
     torch.cuda.empty_cache()
 
     # phase 6: checkpoint, warmstart and serving from a checkpoint. Counts start from 0 before each path inside.
-    long_per_step = {k: v // 3 for k, v in long_counts.items()}
-    ckpt_counts = phase_checkpoint(torch, smi_now, long_per_step)
+    ckpt_counts = phase_checkpoint(torch, smi_now)
+    mark("phase 6")
     log(f"[phase 6] launches: warmstart (2 steps) {ckpt_counts['train_32k_resume']}; serving from the checkpoint "
         f"{ckpt_counts['serve_ckpt']}")
 
     # phase 7: the ring's hops at the 32k widths (counts from 0 just before the ring), then the launcher
     ring_counts = phase_ring(torch, smi_now)
+    mark("phase 7 ring")
     gc.collect()
     torch.cuda.empty_cache()
     launcher_counts = phase_launcher(torch, smi_now)
+    mark("phase 7 launcher")
     if any(launcher_counts[k] == 0 for k in LONG_KERNELS):
         raise AssertionError(f"a kernel of the 32k path under the launcher was never launched: {launcher_counts}")
     gc.collect()
     torch.cuda.empty_cache()
 
-    # phase 8: tensor parallelism. The 7B config on the card (counts from 0 inside), then tp 8 rank by rank
-    seven_b_counts = phase_train_7b(torch, smi_now)
-    if any(v == 0 for v in seven_b_counts.values()):
-        raise AssertionError(f"a kernel of the 7B training path was never launched: {seven_b_counts}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp8_counts = {**phase_tp_block(torch, smi_now), **phase_tp_fused_ce(torch, smi_now)}
-    return train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts
+    # phase 8: tensor parallelism and the 7B chain. The 7B config on the card (counts from 0 inside; it saves the
+    # pretrain folder), tp 8 rank by rank, then the 32k warmstart from that folder (counts from 0 inside)
+    scratch = Path(__file__).resolve().parent / "build"  # gitignored, inside the checkout
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        seven_b_counts, pretrain = phase_train_7b(torch, smi_now, Path(tmp))
+        mark("phase 8a")
+        if any(v == 0 for v in seven_b_counts.values()):
+            raise AssertionError(f"a kernel of the 7B training path was never launched: {seven_b_counts}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp8 = [phase_tp_block(torch, smi_now), *(phase_tp_fused_ce(torch, smi_now, shape) for shape in TP_CE_SHAPES)]
+        tp8_counts = {k: sum(c.get(k, 0) for c in tp8) for c in tp8 for k in c}
+        mark("phases 8b, 8c")
+        gc.collect()
+        torch.cuda.empty_cache()
+        warm_counts = phase_warmstart_7b(torch, smi_now, Path(tmp), pretrain)
+        mark("phase 8d")
+        if any(v == 0 for v in warm_counts.values()):
+            raise AssertionError(f"a kernel of the 7B 32k warmstart path was never launched: {warm_counts}")
+    return train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts
 
 
 def main() -> int:
@@ -2777,23 +3042,35 @@ def main() -> int:
     built = _build.build_seconds
     log(f"[phase 0] kernels {'built in %.1f s' % built if built is not None else 'loaded'} "
         f"({time.perf_counter() - t:.1f} s) -> {_build.library_path()}")
+    mark("phase 0 build")
     for kernel in REDESIGNED:  # registers and spills of the redesigned kernels, from ptxas -v
         for line in _build.ptxas_usage(kernel):
             log(f"[phase 0] {line}")
+    from modalities_tpu_torch.ops import fused_ce as fce
+
+    for e in fce.BF16_WIDTHS:  # the dh / dW clusters the card holds at once (one CTA an SM)
+        (dh_ctas, dh_resident), (dw_ctas, dw_resident) = fce.clusters("dh", e), fce.clusters("dw", e)
+        log(f"[phase 0] fused CE bf16 E={e}: dh clusters of {dh_ctas} CTAs, {dh_resident} resident at once; dW "
+            f"clusters of {dw_ctas}, {dw_resident} resident (cudaOccupancyMaxActiveClusters)")
 
     # phase 1
     warm_up(torch)
     kernels = phase_kernels(torch)
+    mark("phase 1 RMSNorm, dequant-matmul")
     kernels.update(phase_train_kernels(torch))
+    mark("phase 1 training kernels")
     kernels["rmsnorm"]["timings"] += [kernels.pop("rmsnorm_fwd_train"), kernels.pop("rmsnorm_fwd_long")]
     for name, t in phase_flash_long(torch).items():  # the 32k shape, after the 2.7B one
         kernels[name]["timings"].append(t)
     flash_by_head(torch, FLASH_7B, seed=6)  # the 7B's shape on one card (phase 8a)
     torch.cuda.empty_cache()
+    mark("phase 1 flash at 32k and 7B")
     kernels.update(phase_fused_ce(torch))
+    mark("phase 1 fused CE")
     phase_small_model_reference(torch)
     phase_small_model_training(torch)
     phase_small_model_training_bf16(torch)
+    mark("phase 1 small models")
 
     # phases 2-3: the main path. Counts start from 0 here; launches above were comparisons.
     from modalities_tpu_torch.ops.quant_matmul import quant_matmul
@@ -2827,6 +3104,7 @@ def main() -> int:
             log(f"[{phase}] {quant}: greedy tokens agreeing with bf16 position by position: "
                 f"{greedy_agreement(reqs, runs['none']['tokens'], r['tokens']):.3f} (information only)")
     log("[phase 2] batch invariance: request 0 served alone matches its batched tokens bitwise")
+    mark("phases 2-3")
     rms_total, qmm_total = rms_norm.launches, quant_matmul.launches
     if rms_total == 0 or qmm_total == 0:
         raise AssertionError("a kernel of the serving path was never launched")
@@ -2840,23 +3118,28 @@ def main() -> int:
 
     with process_group(torch.device("cuda")):
         paths = training_phases(torch)
-    train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts = paths
+    train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts = (
+        paths)
 
     # phase 9. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
         paths = {"train_2p7b": train_counts, "train_32k": long_counts,
                  "train_32k_resume": ckpt_counts["train_32k_resume"], "ring_cp4": ring_counts,
-                 "train_32k_torchrun": launcher_counts, "train_7b": seven_b_counts, "tp8": tp8_counts}
+                 "train_32k_torchrun": launcher_counts, "train_7b": seven_b_counts, "tp8": tp8_counts,
+                 "train_7b_32k_warmstart": warm_counts}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
 
 
     def entry(name, source, replaces, paths, k, pick=lambda ts: ts[0]):
         t = pick(kernels[k]["timings"])
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": sum(paths.values()), "launches_by_path": paths,
-                "max_abs_err": kernels[k]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"), "library_ms": t["library_ms"],
-                "shape": t["shape"]}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(paths.values()), "launches_by_path": paths,
+               "max_abs_err": kernels[k]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"), "library_ms": t["library_ms"],
+               "shape": t["shape"]}
+        if k.startswith("fused_ce"):  # the 32k shape above; every shape (the 7B's too) here
+            out["shapes"] = kernels[k]["timings"]
+        return out
 
     flash_src = "modalities_tpu_torch/csrc/flash_attention.cu"
     flash_tpu = "modalities_tpu/ops/pallas/flash_attention.py"

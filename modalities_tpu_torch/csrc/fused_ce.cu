@@ -38,14 +38,34 @@
 //   TPU kernel's fp32 ds); see ce_dh_bf16 and ce_dw_bf16 below. The gradient
 //   of a 128-row block lives in the registers of its cluster, so every output
 //   element is summed by one thread in a fixed order: no atomics, bitwise
-//   repeatable. E must be a multiple of 128 (E/8 a multiple of 16): 128, 256
-//   or 1536.
+//   repeatable. E in {128, 256, 1536} on a cluster of 8 (slices of E / 8);
+//   E = 4096 on a cluster of 16 (slices of 256), see "E = 4096" below.
 // - fp32: one warp per output row on the CUDA cores (lanes split E, a fixed
 //   xor-butterfly sum), plain FMA, no TF32: the version the plain PyTorch code
 //   is held to in f32, at small shapes.
 // Out-of-range rows on either side are zero-filled and masked (streamed vocab
 // columns past V take no part in the softmax; rows past N carry gm 0); all
 // flat offsets are 64-bit (N V reaches 1.65e9 at the 32k shape).
+//
+// E = 4096 (the 7B's width). A cluster of 8 would give each CTA a 512-column
+// slice: 128 A-fragment registers a thread for the resident block and 256 for
+// its [128, 512] fp32 accumulator (256 KB, an SM's whole register file), and
+// 64 KB W (or h) tiles, four of them 256 KB of shared memory. So dh and dW
+// keep BM = 128 (the streamed matrix is still read once per 128 rows) and
+// split E over a cluster of CL = 16 CTAs, slices of SE = 256. What a thread
+// holds across the tile loop: 64 registers of A fragments (the resident
+// slice), 128 of accumulator ([64 rows, 256] a warpgroup), 32 of partial s: 224
+// of the 255 a thread may have at 256 threads an SM. Shared memory: dh 3 x 32
+// KB W stages, 4 x 16 KB ds tiles, 2 x 32 KB partial-s buffers (send,
+// receive) and the 1 KB alignment slack, 230,448 bytes; dW the same with its
+// partial rows unpadded (permuted 8-column chunks, as dh's) and two slots of
+// token statistics, 231,984 bytes (of 232,448). With three stages a tile is
+// loaded one tile ahead of the partial s that reads it (four stages: two
+// ahead). Each CTA reduces RM = 8 rows of a tile, two columns a thread. A
+// cluster above 8 CTAs is non-portable (cudaFuncAttributeNonPortable-
+// ClusterSizeAllowed); at one CTA an SM it needs 16 free SMs of one GPC, and
+// `mt_fused_ce_clusters` reports how many such clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters; 7 on an H100 SXM, 15 of 8 CTAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -260,27 +280,30 @@ int launch_fwd(const CEParams& p, cudaStream_t s) {
 }
 
 // ------------------------------------------------------------ bf16 dh (cluster)
-// dh = ds W on a thread-block cluster of CL = 8 CTAs: ce_dw_bf16's design
-// with the roles of h and W swapped (dh = ds W over the vocab is dW = ds^T h
-// over the tokens). A cluster owns BM = 128 rows of h; CTA c of it owns the
-// E-slice [c SE, (c + 1) SE), SE = E / 8, keeps h[r0 : r0 + 128, slice c] in
-// registers (wgmma A fragments, 4 SE / 16 a thread) and the [128, SE] fp32 dh
-// accumulator in the registers of its two warpgroups (64 rows each) for the
-// whole kernel: the [128, E] accumulator of a row block (98,304 fp32 at E
-// 1536) is more than one SM's registers, and splitting E without sharing s
-// would regenerate s once per slice. Tiles of BV = 64 vocab rows of
-// W[:, slice c] stream through a ring of STAGES buffers by TMA (a 2-D tensor
-// map built per launch, swizzled as wgmma reads at full rate), one mbarrier a
-// stage, loaded two tiles ahead of the partial s that reads them. The reducing
-// thread's row statistics (lse, gm, label) stay in its registers. Per tile t:
+// dh = ds W on a thread-block cluster of CL CTAs (8, or 16 at E = 4096):
+// ce_dw_bf16's design with the roles of h and W swapped (dh = ds W over the
+// vocab is dW = ds^T h over the tokens). A cluster owns BM = 128 rows of h;
+// CTA c of it owns the E-slice [c SE, (c + 1) SE), SE = E / CL, keeps
+// h[r0 : r0 + 128, slice c] in registers (wgmma A fragments, 4 SE / 16 a
+// thread) and the [128, SE] fp32 dh accumulator in the registers of its two
+// warpgroups (64 rows each) for the whole kernel: the [128, E] accumulator of
+// a row block (98,304 fp32 at E 1536) is more than one SM's registers, and
+// splitting E without sharing s would regenerate s once per slice. Tiles of
+// BV = 64 vocab rows of W[:, slice c] stream through a ring of STAGES buffers
+// by TMA (a 2-D tensor map built per launch, swizzled as wgmma reads at full
+// rate), one mbarrier a stage, loaded STAGES - 2 tiles ahead of the partial s
+// that reads them. The reducing thread's row statistics (lse, gm, label) stay
+// in its registers. Per tile t:
 //   1. each CTA computes the partial s [128, 64] = h_c W_c^T of its slice
-//      (wgmma) and sends rows [16 c', 16 c' + 16) of it into slot c of CTA
-//      c''s receive buffer (distributed shared memory, one bulk copy a CTA);
-//   2. CTA c waits for its 8 slots (an mbarrier counts the bytes), sums its
-//      16 rows over them in the fixed order 0..7, computes ds in fp32 (vocab
-//      columns past V are 0), splits it into bf16 hi + lo (about 16 mantissa
-//      bits, near the TPU kernel's fp32 ds) and sends those rows into every
-//      other CTA's ds tiles (bulk copies, counted by each CTA's mbarrier);
+//      (wgmma) and sends rows [RM c', RM c' + RM) of it (RM = 128 / CL) into
+//      slot c of CTA c''s receive buffer (distributed shared memory, one bulk
+//      copy a CTA);
+//   2. CTA c waits for its CL slots (an mbarrier counts the bytes), sums its
+//      RM rows over them in the fixed order 0..CL-1, computes ds in fp32
+//      (vocab columns past V are 0), splits it into bf16 hi + lo (about 16
+//      mantissa bits, near the TPU kernel's fp32 ds) and sends those rows into
+//      every other CTA's ds tiles (bulk copies, counted by each CTA's
+//      mbarrier);
 //   3. each CTA: dh_c += ds_hi W_c + ds_lo W_c (wgmma, A the ds tiles, B the
 //      same W tile read MN-major).
 // Pipelined across tiles as dW is: tile t - 1's dh runs on the tensor cores
@@ -290,10 +313,12 @@ int launch_fwd(const CEParams& p, cudaStream_t s) {
 // 32k shape), every dh element
 // is summed by one thread in a fixed order (no atomics, bitwise repeatable),
 // and no [rows, V] buffer exists. Needs sm_90a (wgmma) and a cluster launch.
-template <int SE>
+template <int SE_, int CL_, int STAGES_>
 struct DhCfg {
-  static constexpr int CL = 8, BM = 128, BV = 64, STAGES = 4, THREADS = 256;
+  static constexpr int SE = SE_, CL = CL_, BM = 128, BV = 64, STAGES = STAGES_, THREADS = 256;
+  static constexpr int AHEAD = STAGES - 2;            // W tiles in flight ahead of the partial s that reads them
   static constexpr int RM = BM / CL;                  // rows of h a CTA reduces
+  static constexpr int RC = RM * BV / THREADS;        // vocab columns of one of them a thread reduces
   static constexpr int SWW = SE * 2 < 128 ? SE * 2 : 128;  // swizzle (row) bytes of the W tiles
   static constexpr int AWW = SWW / 2;                 // columns of a W-tile atom
   static constexpr int W_BYTES = BV * SE * 2;         // one W tile (swizzled)
@@ -303,7 +328,8 @@ struct DhCfg {
   static constexpr int DS_ROWS = RM * BV * 2;         // a CTA's RM rows of one ds tile: contiguous
   static constexpr int kSmem = 1024 + STAGES * W_BYTES + 4 * DS_BYTES + 2 * P_BYTES + (STAGES + 3) * 8;
   static_assert(BV * 2 == 128 && W_BYTES % 1024 == 0, "ds rows are one 128-byte swizzle atom");
-  static_assert(RM * (BV / 4) == THREADS, "one thread reduces 4 vocab columns of one row");
+  static_assert(RM * BV == RC * THREADS && (RC == 2 || RC == 4), "one thread reduces 2 or 4 vocab columns of a row");
+  static_assert(AHEAD >= 1, "a tile's stage is refilled only after its dh is done");
   static_assert(2 * P_BYTES >= BM * SE * 2, "the h slice is staged in the partial-s buffers");
   static_assert(kSmem <= 232448, "fits an SM's shared memory");
   // Column of partial-s element (r, c) in its unpadded row: 8-column chunks permuted by the row's low bits, so
@@ -312,9 +338,34 @@ struct DhCfg {
   static __device__ __forceinline__ int pcol(int r, int c) { return c ^ ((r & 7) << 3); }
 };
 
-template <int SE>
+// x[i] += p[i] for the N (2 or 4) consecutive floats at p, one vector load.
+template <int N>
+__device__ __forceinline__ void add_vec(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 y = *reinterpret_cast<const float4*>(p);
+    x[0] += y.x;
+    x[1] += y.y;
+    x[2] += y.z;
+    x[3] += y.w;
+  } else {
+    const float2 y = *reinterpret_cast<const float2*>(p);
+    x[0] += y.x;
+    x[1] += y.y;
+  }
+}
+
+// v[0..N) rounded to bf16 at dst, one vector store.
+template <int N>
+__device__ __forceinline__ void store_bf16(bf16* dst, const float (&v)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(hopper::pack_bf16(v[0], v[1]), hopper::pack_bf16(v[2], v[3]));
+  else
+    *reinterpret_cast<uint32_t*>(dst) = hopper::pack_bf16(v[0], v[1]);
+}
+
+template <class C>
 __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __grid_constant__ CUtensorMap wmap) {
-  using C = DhCfg<SE>;
+  constexpr int SE = C::SE, RC = C::RC;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023);  // 1024-byte aligned
   bf16* ring = reinterpret_cast<bf16*>(base);
@@ -351,8 +402,7 @@ __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __g
   // the h slice, staged in shared memory (the partial-s buffers, unused until the loop), into A fragments
   bf16* hst = reinterpret_cast<bf16*>(part);
   hopper::cp_tile_sw<C::SWW, SE, C::BM, C::THREADS>(hst, static_cast<const bf16*>(p.h) + e0, p.e, r0, p.n, tid);
-  issue(0);
-  issue(1);
+  for (int a = 0; a < C::AHEAD; ++a) issue(a);
   hopper::cp_async_wait_all();
   __syncthreads();
   uint32_t hf[SE / 16][4];
@@ -390,8 +440,8 @@ __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __g
     hopper::fence_async_smem();  // read by the bulk copies
   };
 
-  // the reduction thread's place: row rr of this CTA's RM (row n of h), vocab columns nc .. nc + 3 of a tile
-  const int rr = tid / 16, nc = (tid % 16) * 4, n = r0 + rank * C::RM + rr;
+  // the reduction thread's place: row rr of this CTA's RM (row n of h), vocab columns nc .. nc + RC - 1 of a tile
+  const int rr = tid / (C::BV / RC), nc = (tid % (C::BV / RC)) * RC, n = r0 + rank * C::RM + rr;
   const int my_off = hopper::sw_offset<128>(rank * C::RM + rr, nc, C::BM);
   float lse_r = 0.f, gm_r = 0.f;  // rows past N: gm 0, so ds 0
   int lab_r = -1;
@@ -429,7 +479,7 @@ __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __g
     if (t > 0) hopper::cluster_wait();
     store_partial();
     __syncthreads();
-    issue(t + 2);  // into the stage of tile t - 2, whose dh is done
+    issue(t + C::AHEAD);  // into the stage of tile t - 2, whose dh is done
     if (tid < C::CL) {  // thread c sends CTA c its rows of the partial
       if (tid == 0) {
         hopper::mbar_expect(recv_bar, C::P_BYTES);
@@ -441,29 +491,23 @@ __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __g
 
     if (t > 0) dh(t - 1);  // on the tensor cores while the partials travel
 
-    // 2. s = the sum of the 8 slots in order; ds in fp32; hi + lo rows, then to every other CTA
+    // 2. s = the sum of the CL slots in order; ds in fp32; hi + lo rows, then to every other CTA
     hopper::mbar_wait(recv_bar, t & 1);
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    float x[RC];
 #pragma unroll
-    for (int c = 0; c < C::CL; ++c) {
-      const float4 y = *reinterpret_cast<const float4*>(recv + (c * C::RM + rr) * C::BV + C::pcol(rr, nc));
-      x[0] += y.x;
-      x[1] += y.y;
-      x[2] += y.z;
-      x[3] += y.w;
-    }
-    float hi[4], lo[4];
+    for (int i = 0; i < RC; ++i) x[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int c = 0; c < C::CL; ++c) add_vec<RC>(x, recv + (c * C::RM + rr) * C::BV + C::pcol(rr, nc));
+    float hi[RC], lo[RC];
+#pragma unroll
+    for (int i = 0; i < RC; ++i) {
       const int v = t * C::BV + nc + i;
       const float ds = v < p.v ? gm_r * (expf(x[i] - lse_r) - (v == lab_r ? 1.f : 0.f)) : 0.f;
       hi[i] = __bfloat162float(__float2bfloat16_rn(ds));
       lo[i] = ds - hi[i];
     }
-    *reinterpret_cast<uint2*>(ds_set + my_off) =
-        make_uint2(hopper::pack_bf16(hi[0], hi[1]), hopper::pack_bf16(hi[2], hi[3]));
-    *reinterpret_cast<uint2*>(ds_set + C::BM * C::BV + my_off) =
-        make_uint2(hopper::pack_bf16(lo[0], lo[1]), hopper::pack_bf16(lo[2], lo[3]));
+    store_bf16<RC>(ds_set + my_off, hi);
+    store_bf16<RC>(ds_set + C::BM * C::BV + my_off, lo);
     hopper::fence_async_smem();  // the ds rows, read by the bulk copies and by wgmma
     __syncthreads();
     hopper::cluster_arrive();  // this CTA has read its slots of tile t
@@ -500,19 +544,28 @@ __global__ void __launch_bounds__(256, 1) ce_dh_bf16(const CEParams p, const __g
   }
 }
 
-// A cluster launch of 8 CTAs a block of rows (dh: rows of h; dW: vocab rows of W), `map` the streamed matrix.
-template <class K>
+// The attributes a cluster launch of CL CTAs needs: the dynamic shared memory, and above 8 CTAs the
+// non-portable cluster size.
+template <int CL, class K>
+cudaError_t cluster_attributes(K kernel, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && CL > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// A cluster launch of CL CTAs a block of rows (dh: rows of h; dW: vocab rows of W), `map` the streamed matrix.
+template <int CL, class K>
 int launch_cluster(K kernel, const CEParams& p, const CUtensorMap& map, int blocks, int threads, int smem,
                    cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = cluster_attributes<CL>(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 8;
+  attr[0].val.clusterDim.x = CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(8 * blocks);
+  cfg.gridDim = dim3(CL * blocks);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -523,9 +576,27 @@ int launch_cluster(K kernel, const CEParams& p, const CUtensorMap& map, int bloc
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SE>
+// How many clusters of CL CTAs of `kernel` the card holds at once (cudaOccupancyMaxActiveClusters).
+template <int CL, class K>
+int max_clusters(K kernel, int threads, int smem, int* out) {
+  cudaError_t e = cluster_attributes<CL>(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * 1024);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
+}
+
+template <class C>
 int launch_dh(const CEParams& p, cudaStream_t s) {
-  using C = DhCfg<SE>;
   // W [V, E] as a TMA tensor map: boxes of one swizzle atom (AWW columns) x BV rows, zero-filled past V
   CUtensorMap wmap;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.v)};
@@ -533,23 +604,25 @@ int launch_dh(const CEParams& p, cudaStream_t s) {
   const cuuint32_t box[2] = {C::AWW, C::BV};
   const cudaError_t e = hopper::make_tensor_map<C::SWW>(&wmap, p.w, 2, dims, strides, box);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_cluster(ce_dh_bf16<SE>, p, wmap, (p.n + C::BM - 1) / C::BM, C::THREADS, C::kSmem, s);
+  return launch_cluster<C::CL>(ce_dh_bf16<C>, p, wmap, (p.n + C::BM - 1) / C::BM, C::THREADS, C::kSmem, s);
 }
 
 // ------------------------------------------------------------ bf16 dW (cluster)
-// dW = ds^T h on a thread-block cluster of CL = 8 CTAs. A cluster owns BV =
-// 128 vocab rows; CTA c of it owns the E-slice [c SE, (c + 1) SE), SE = E / 8,
-// keeps W[v0 : v0 + 128, slice c] in registers (wgmma A fragments, 4 SE / 16
-// a thread) and the [128, SE] fp32 dW accumulator in the registers of its two
-// warpgroups (64 rows each) for the whole kernel. Tiles of BN = 64 tokens of
-// h[:, slice c] stream through a ring of STAGES buffers by TMA (a tensor map
-// built per launch; swizzled as wgmma reads at full rate), the tokens' lse,
-// gm and labels beside them by cp.async, one mbarrier a stage. Per tile t:
+// dW = ds^T h on a thread-block cluster of CL CTAs (8, or 16 at E = 4096). A
+// cluster owns BV = 128 vocab rows; CTA c of it owns the E-slice [c SE, (c +
+// 1) SE), SE = E / CL, keeps W[v0 : v0 + 128, slice c] in registers (wgmma A
+// fragments, 4 SE / 16 a thread) and the [128, SE] fp32 dW accumulator in the
+// registers of its two warpgroups (64 rows each) for the whole kernel. Tiles
+// of BN = 64 tokens of h[:, slice c] stream through a ring of STAGES buffers
+// by TMA (a tensor map built per launch; swizzled as wgmma reads at full
+// rate), the tokens' lse, gm and labels beside them by cp.async (ST_SLOTS
+// slots), one mbarrier a stage. Per tile t:
 //   1. each CTA computes the partial s^T [128, 64] = W_c h_c^T of its slice
-//      (wgmma) and sends rows [16 c', 16 c' + 16) of it into slot c of CTA
-//      c''s receive buffer (distributed shared memory, one bulk copy a CTA);
-//   2. CTA c waits for its 8 slots (an mbarrier counts the bytes), sums its
-//      16 rows over them in the fixed order 0..7, computes ds in fp32 from
+//      (wgmma) and sends rows [RV c', RV c' + RV) of it (RV = 128 / CL) into
+//      slot c of CTA c''s receive buffer (distributed shared memory, one bulk
+//      copy a CTA);
+//   2. CTA c waits for its CL slots (an mbarrier counts the bytes), sums its
+//      RV rows over them in the fixed order 0..CL-1, computes ds in fp32 from
 //      lse, gm and the labels, splits it into bf16 hi + lo (about 16 mantissa
 //      bits, near the TPU kernel's fp32 ds) and sends those rows into every
 //      other CTA's ds tiles (bulk copies, counted by each CTA's mbarrier);
@@ -564,11 +637,17 @@ int launch_dh(const CEParams& p, cudaStream_t s) {
 // vocab rows, every dW element
 // is summed by one thread in a fixed order (no atomics, bitwise repeatable),
 // and no [rows, V] buffer exists. Needs sm_90a (wgmma) and a cluster launch.
-template <int SE>
+// The partial rows: padded to a pitch of BN + 4 floats on a cluster of 8; on a
+// cluster of 16 unpadded with dh's permuted chunks, and the statistics in two
+// slots, so that the E = 4096 instance fits an SM's shared memory.
+template <int SE_, int CL_>
 struct DwCfg {
-  static constexpr int CL = 8, BV = 128, BN = 64, STAGES = 3, THREADS = 256;
+  static constexpr int SE = SE_, CL = CL_, BV = 128, BN = 64, STAGES = 3, THREADS = 256;
   static constexpr int RV = BV / CL;                  // vocab rows a CTA reduces
-  static constexpr int RP = BN + 4;                   // fp32 pitch of partial-s rows
+  static constexpr int RC = RV * BN / THREADS;        // tokens of one of them a thread reduces
+  static constexpr bool PAD = CL == 8;                // padded partial rows (else permuted chunks)
+  static constexpr int RP = PAD ? BN + 4 : BN;        // fp32 pitch of partial-s rows
+  static constexpr int ST_SLOTS = PAD ? STAGES : 2;   // slots of token statistics
   static constexpr int SWH = SE * 2 < 128 ? SE * 2 : 128;  // swizzle (row) bytes of the h tiles
   static constexpr int AWH = SWH / 2;                 // columns of an h-tile atom
   static constexpr int H_BYTES = BN * SE * 2;         // one h tile (swizzled)
@@ -577,16 +656,20 @@ struct DwCfg {
   static constexpr int P_BYTES = CL * SLOT;           // partial s^T [128, 64] (pitch RP); as much to receive
   static constexpr int DS_BYTES = BV * BN * 2;        // one of ds hi, ds lo (swizzled, 128-byte rows)
   static constexpr int DS_ROWS = RV * BN * 2;         // a CTA's RV rows of one ds tile: contiguous
-  static constexpr int kSmem = 1024 + STAGES * H_BYTES + 4 * DS_BYTES + 2 * P_BYTES + STAGES * ST_BYTES +
+  static constexpr int kSmem = 1024 + STAGES * H_BYTES + 4 * DS_BYTES + 2 * P_BYTES + ST_SLOTS * ST_BYTES +
                                (STAGES + 3) * 8;  // 1024: room to align the swizzled tiles
   static_assert(BN * 2 == 128 && H_BYTES % 1024 == 0, "ds rows are one 128-byte swizzle atom");
-  static_assert(RV * (BN / 4) == THREADS, "one thread reduces 4 tokens of one vocab row");
+  static_assert(RV * BN == RC * THREADS && (RC == 2 || RC == 4), "one thread reduces 2 or 4 tokens of a vocab row");
   static_assert(2 * P_BYTES >= BV * SE * 2, "the W slice is staged in the partial-s buffers");
+  static_assert(kSmem <= 232448, "fits an SM's shared memory");
+  // Index of partial-s^T element (r, c): padded rows, or (as dh's pcol) 8-column chunks permuted by the row's low
+  // bits.
+  static __device__ __forceinline__ int pidx(int r, int c) { return PAD ? r * RP + c : r * RP + (c ^ ((r & 7) << 3)); }
 };
 
-template <int SE>
+template <class C>
 __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __grid_constant__ CUtensorMap hmap) {
-  using C = DwCfg<SE>;
+  constexpr int SE = C::SE, RC = C::RC;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem + ((1024 - (hopper::smem_u32(smem) & 1023)) & 1023);  // 1024-byte aligned
   bf16* ring = reinterpret_cast<bf16*>(base);
@@ -594,7 +677,7 @@ __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __g
   float* part = reinterpret_cast<float*>(dsb + 4 * C::BV * C::BN);
   float* recv = part + C::P_BYTES / 4;
   float* stats = recv + C::P_BYTES / 4;
-  uint64_t* full = reinterpret_cast<uint64_t*>(stats + C::STAGES * 3 * C::BN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + C::ST_SLOTS * 3 * C::BN);
   uint64_t* recv_bar = full + C::STAGES;
   uint64_t* ds_bar = recv_bar + 1;  // one a set of ds tiles
   const uint32_t rank = hopper::cluster_rank();
@@ -602,7 +685,8 @@ __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __g
   const int v0 = (blockIdx.x / C::CL) * C::BV, e0 = rank * SE;
   const int n_tiles = (p.n + C::BN - 1) / C::BN;
   auto h_of = [&](int t) { return ring + (t % C::STAGES) * C::BN * SE; };
-  auto stats_of = [&](int t) { return stats + (t % C::STAGES) * 3 * C::BN; };
+  // tile t's statistics: its slot is refilled (issue(t + ST_SLOTS)) only after every thread has reduced tile t
+  auto stats_of = [&](int t) { return stats + (t % C::ST_SLOTS) * 3 * C::BN; };
 
   // tile t into its ring stage: h by TMA (thread 32), lse, gm and labels by cp.async (threads 64..255), so
   // that warp 0, which sends the partials, is not held up
@@ -664,15 +748,14 @@ __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __g
     hopper::reg_fence(sc);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<float2*>(part + prow * C::RP + j * 8 + 2 * t4) = make_float2(sc[4 * j], sc[4 * j + 1]);
-      *reinterpret_cast<float2*>(part + (prow + 8) * C::RP + j * 8 + 2 * t4) =
-          make_float2(sc[4 * j + 2], sc[4 * j + 3]);
+      *reinterpret_cast<float2*>(part + C::pidx(prow, j * 8 + 2 * t4)) = make_float2(sc[4 * j], sc[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + C::pidx(prow + 8, j * 8 + 2 * t4)) = make_float2(sc[4 * j + 2], sc[4 * j + 3]);
     }
     hopper::fence_async_smem();  // read by the bulk copies
   };
 
-  // the reduction thread's place: row rr of this CTA's RV (vocab row v), tokens nc .. nc + 3 of a tile
-  const int rr = tid / 16, nc = (tid % 16) * 4, v = v0 + rank * C::RV + rr;
+  // the reduction thread's place: row rr of this CTA's RV (vocab row v), tokens nc .. nc + RC - 1 of a tile
+  const int rr = tid / (C::BN / RC), nc = (tid % (C::BN / RC)) * RC, v = v0 + rank * C::RV + rr;
   const int my_off = hopper::sw_offset<128>(rank * C::RV + rr, nc, C::BV);
   float acc[SE / 2];
 #pragma unroll
@@ -715,30 +798,24 @@ __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __g
 
     if (t > 0) dw(t - 1);  // on the tensor cores while the partials travel
 
-    // 2. s = the sum of the 8 slots in order; ds in fp32; hi + lo rows, then to every other CTA
+    // 2. s = the sum of the CL slots in order; ds in fp32; hi + lo rows, then to every other CTA
     hopper::mbar_wait(recv_bar, t & 1);
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    float x[RC];
 #pragma unroll
-    for (int c = 0; c < C::CL; ++c) {
-      const float4 y = *reinterpret_cast<const float4*>(recv + (c * C::RV + rr) * C::RP + nc);
-      x[0] += y.x;
-      x[1] += y.y;
-      x[2] += y.z;
-      x[3] += y.w;
-    }
+    for (int i = 0; i < RC; ++i) x[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::CL; ++c) add_vec<RC>(x, recv + C::pidx(c * C::RV + rr, nc));
     const float* st = stats_of(t);
-    float hi[4], lo[4];
+    float hi[RC], lo[RC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RC; ++i) {
       const int lab = __float_as_int(st[2 * C::BN + nc + i]);
       const float ds = v < p.v ? st[C::BN + nc + i] * (expf(x[i] - st[nc + i]) - (lab == v ? 1.f : 0.f)) : 0.f;
       hi[i] = __bfloat162float(__float2bfloat16_rn(ds));
       lo[i] = ds - hi[i];
     }
-    *reinterpret_cast<uint2*>(ds_set + my_off) =
-        make_uint2(hopper::pack_bf16(hi[0], hi[1]), hopper::pack_bf16(hi[2], hi[3]));
-    *reinterpret_cast<uint2*>(ds_set + C::BV * C::BN + my_off) =
-        make_uint2(hopper::pack_bf16(lo[0], lo[1]), hopper::pack_bf16(lo[2], lo[3]));
+    store_bf16<RC>(ds_set + my_off, hi);
+    store_bf16<RC>(ds_set + C::BV * C::BN + my_off, lo);
     hopper::fence_async_smem();  // the ds rows, read by the bulk copies and by wgmma
     __syncthreads();
     hopper::cluster_arrive();  // this CTA has read its slots of tile t
@@ -775,9 +852,8 @@ __global__ void __launch_bounds__(256, 1) ce_dw_bf16(const CEParams p, const __g
   }
 }
 
-template <int SE>
+template <class C>
 int launch_dw(const CEParams& p, cudaStream_t s) {
-  using C = DwCfg<SE>;
   // h [N, E] as a TMA tensor map: boxes of one swizzle atom (AWH columns) x BN rows, zero-filled past N
   CUtensorMap hmap;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.e), static_cast<cuuint64_t>(p.n)};
@@ -785,7 +861,7 @@ int launch_dw(const CEParams& p, cudaStream_t s) {
   const cuuint32_t box[2] = {C::AWH, C::BN};
   const cudaError_t e = hopper::make_tensor_map<C::SWH>(&hmap, p.h, 2, dims, strides, box);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return launch_cluster(ce_dw_bf16<SE>, p, hmap, (p.v + C::BV - 1) / C::BV, C::THREADS, C::kSmem, s);
+  return launch_cluster<C::CL>(ce_dw_bf16<C>, p, hmap, (p.v + C::BV - 1) / C::BV, C::THREADS, C::kSmem, s);
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -857,10 +933,31 @@ __global__ void __launch_bounds__(32 * kWarpsF) ce_dw_f32(const CEParams p) {
 }
 
 // ------------------------------------------------------------------ launch
-template <int SE>
+// The bf16 widths and the configurations of their cluster kernels: a cluster of 8 CTAs up to E = 1536, of 16
+// at E = 4096 (see the header).
+template <class Dh, class Dw>
 int launch_bf16(const CEParams& p, int mode, cudaStream_t s) {
   if (mode == kFwd) return launch_fwd(p, s);
-  return mode == kDh ? launch_dh<SE>(p, s) : launch_dw<SE>(p, s);
+  return mode == kDh ? launch_dh<Dh>(p, s) : launch_dw<Dw>(p, s);
+}
+
+template <class Dh, class Dw>
+int clusters_bf16(int mode, int* ctas, int* resident) {
+  *ctas = mode == kDh ? Dh::CL : Dw::CL;
+  return mode == kDh ? max_clusters<Dh::CL>(ce_dh_bf16<Dh>, Dh::THREADS, Dh::kSmem, resident)
+                     : max_clusters<Dw::CL>(ce_dw_bf16<Dw>, Dw::THREADS, Dw::kSmem, resident);
+}
+
+// f(Dh{}, Dw{}) with the configurations of width e; cudaErrorInvalidValue for a width not built.
+template <class F>
+int by_width(int e, F f) {
+  switch (e) {
+    case 128: return f(DhCfg<16, 8, 4>{}, DwCfg<16, 8>{});
+    case 256: return f(DhCfg<32, 8, 4>{}, DwCfg<32, 8>{});
+    case 1536: return f(DhCfg<192, 8, 4>{}, DwCfg<192, 8>{});
+    case 4096: return f(DhCfg<256, 16, 3>{}, DwCfg<256, 16>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int launch(const CEParams* p, int mode, int dtype, void* stream) {
@@ -878,19 +975,14 @@ int launch(const CEParams* p, int mode, int dtype, void* stream) {
     }
     return static_cast<int>(cudaGetLastError());
   }
-  if (dtype != 1 || p->e % 128 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (p->e / 8) {
-    case 16: return launch_bf16<16>(*p, mode, s);
-    case 32: return launch_bf16<32>(*p, mode, s);
-    case 192: return launch_bf16<192>(*p, mode, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return by_width(p->e, [&](auto dh, auto dw) { return launch_bf16<decltype(dh), decltype(dw)>(*p, mode, s); });
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (h, w, dh, dw; statistics are fp32, labels
-// int32). bf16 needs E in {128, 256, 1536};
+// int32). bf16 needs E in {128, 256, 1536, 4096};
 // rows must be contiguous and 16-byte aligned (the wrapper checks). Each
 // returns cudaGetLastError() after its launch.
 extern "C" int mt_fused_ce_fwd(const CEParams* p, int dtype, void* stream) { return launch(p, kFwd, dtype, stream); }
@@ -901,4 +993,15 @@ extern "C" int mt_fused_ce_bwd_dh(const CEParams* p, int dtype, void* stream) {
 
 extern "C" int mt_fused_ce_bwd_dw(const CEParams* p, int dtype, void* stream) {
   return launch(p, kDw, dtype, stream);
+}
+
+// The clusters of the bf16 dh (mode 1) or dW (mode 2) kernel at width E: its CTAs a cluster into *ctas (each owns
+// E / *ctas columns), and how many such clusters the card holds at once (cudaOccupancyMaxActiveClusters) into
+// *resident; returns the status.
+extern "C" int mt_fused_ce_clusters(int mode, int e, int* ctas, int* resident) {
+  *ctas = *resident = 0;
+  if (mode != kDh && mode != kDw) return static_cast<int>(cudaErrorInvalidValue);
+  return by_width(e, [&](auto dh, auto dw) {
+    return clusters_bf16<decltype(dh), decltype(dw)>(mode, ctas, resident);
+  });
 }

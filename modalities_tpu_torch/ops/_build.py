@@ -50,6 +50,7 @@ _SIGNATURES = {
     "mt_fused_ce_fwd": (_VP, _INT, _VP),  # (const CEParams*, dtype, stream)
     "mt_fused_ce_bwd_dh": (_VP, _INT, _VP),
     "mt_fused_ce_bwd_dw": (_VP, _INT, _VP),
+    "mt_fused_ce_clusters": (_INT, _INT, _VP, _VP),  # (dh 1 / dW 2, E, int* ctas, int* resident)
 }
 
 _lock = threading.Lock()

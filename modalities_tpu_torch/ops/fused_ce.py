@@ -30,7 +30,9 @@ import torch
 
 from modalities_tpu_torch.ops import _build
 
-BF16_WIDTHS = (128, 256, 1536)  # E the bf16 kernels are compiled for: the 32k config's, and two for the tests
+# E the bf16 kernels are compiled for: the 32k config's 1536 and the 7B's 4096 (dh and dW on a cluster of 16
+# CTAs there, 8 below), and two for the tests
+BF16_WIDTHS = (128, 256, 1536, 4096)
 PLAIN_BLOCK_ROWS = 4096  # rows of dense fp32 logits the plain versions hold at a time
 FWD_SPLITS = 8  # vocab splits of the bf16 forward kernel: CTAs per 128-row block of h
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,12 +144,11 @@ def _kernel_inputs(h, w, labels):
         raise TypeError(f"fused CE kernels: h and w must be float32 or bfloat16, got {h.dtype}/{w.dtype}")
     if w.device != h.device or labels.device != h.device:
         raise ValueError("fused CE kernels: h, w and labels must lie on one device")
+    bf16 = h.dtype == w.dtype == torch.bfloat16
+    if bf16:
+        check_bf16_width(h.shape[1])
     _build.require_hopper(h)
-    e = h.shape[1]
-    if h.dtype == w.dtype == torch.bfloat16:
-        if e not in BF16_WIDTHS:  # E = 4096 needs a redesign: a [128, 512] fp32 accumulator fills an SM's registers
-            raise NotImplementedError(f"fused CE bf16 kernels: E={e} not in {BF16_WIDTHS}; other widths (the 7B's "
-                                      "4096) wait on ROADMAP.md, Queue 1 item 9")
+    if bf16:
         h, w = h.contiguous(), w.contiguous()
         if h.data_ptr() % 16 or w.data_ptr() % 16:
             raise ValueError("fused CE bf16 kernels: h and w must be 16-byte aligned")
@@ -156,6 +157,24 @@ def _kernel_inputs(h, w, labels):
         h, w = h.float().contiguous(), w.float().contiguous()
         code = 0
     return h, w, labels.reshape(-1).to(torch.int32).contiguous(), code
+
+
+def check_bf16_width(e: int) -> None:
+    """Raise unless the bf16 kernels are built for width `e` (BF16_WIDTHS)."""
+    if e not in BF16_WIDTHS:
+        raise ValueError(f"fused CE bf16 kernels: E={e} is not a width they are built for {BF16_WIDTHS}")
+
+
+def clusters(kernel: str, e: int) -> tuple[int, int]:
+    """The clusters of the bf16 `kernel` ("dh" or "dw") at width `e` on the
+    current card: (CTAs a cluster, each owning E / CTAs columns; how many
+    clusters it holds at once, cudaOccupancyMaxActiveClusters)."""
+    check_bf16_width(e)
+    ctas, resident = ctypes.c_int(0), ctypes.c_int(0)
+    status = _build.library().mt_fused_ce_clusters({"dh": 1, "dw": 2}[kernel], e, ctypes.byref(ctas),
+                                                   ctypes.byref(resident))
+    _build.check(status, f"mt_fused_ce_clusters({kernel}, {e})")
+    return ctas.value, resident.value
 
 
 def _params(h, w, labels) -> _CEParams:

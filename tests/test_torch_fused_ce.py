@@ -12,7 +12,10 @@ runs the kernel-level plain versions (`reference_fused_ce_forward`,
 
 Tolerances: totals rtol 1e-5 (fp32 sums in another order); gradients rtol 1e-4
 / atol 1e-5; gradient dtypes as the JAX custom_vjp returns them (h's and the
-head weight's)."""
+head weight's). The cases at the 7B's width (E = 4096) scale the head by
+1/sqrt(E), as its init does: unit-variance rows over 4096 columns would give
+logits of std 64, whose softmax turns the last-bit differences of two
+summation orders into gradient differences above these tolerances."""
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +30,10 @@ TOTAL_RTOL = 1e-5
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
-def _inputs(seed, shape, vocab, embd, h_dtype="float32", w_dtype="float32", ignored=0):
+def _inputs(seed, shape, vocab, embd, h_dtype="float32", w_dtype="float32", ignored=0, w_scale=1.0):
     rng = np.random.default_rng(seed)
     h = rng.standard_normal((*shape, embd)).astype(np.float32)
-    w = rng.standard_normal((vocab, embd)).astype(np.float32)
+    w = (w_scale * rng.standard_normal((vocab, embd))).astype(np.float32)
     y = rng.integers(0, vocab, size=shape).astype(np.int32)
     y.reshape(-1)[:ignored] = -100
     h = np.array(jnp.asarray(h, dtype=h_dtype).astype(jnp.float32)) if h_dtype == "bfloat16" else h
@@ -81,6 +84,8 @@ CASES = {
     "ignored-rows": dict(shape=(24,), vocab=128, embd=32, blocks=(8, 128), ignored=7),
     "ignored-ragged-grads": dict(shape=(21,), vocab=200, embd=48, blocks=(8, 128), ignored=1),
     "bsd-hidden": dict(shape=(2, 9), vocab=100, embd=32, blocks=(8, 128)),
+    # the 7B's width (the E = 4096 kernels' on the card): ragged rows and vocab, ignored rows
+    "7b-width": dict(shape=(21,), vocab=200, embd=4096, blocks=(8, 128), ignored=3, w_scale=4096 ** -0.5),
 }
 
 
@@ -88,7 +93,8 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_total_count_and_gradients_match_the_pallas_kernels(case, route):
     c = CASES[case]
-    h, w, y, hd, wd = _inputs(list(CASES).index(case), c["shape"], c["vocab"], c["embd"], ignored=c.get("ignored", 0))
+    h, w, y, hd, wd = _inputs(list(CASES).index(case), c["shape"], c["vocab"], c["embd"], ignored=c.get("ignored", 0),
+                              w_scale=c.get("w_scale", 1.0))
     fn = fce.fused_ce_sum_and_count if route == "autograd-of-plain" else _function
     port = _port(h, w, y, hd, wd, fn)
     assert port[2].shape == h.shape and port[3].shape == w.shape
@@ -139,6 +145,52 @@ def test_kernel_level_plain_versions_match_the_pallas_statistics():
     np.testing.assert_allclose(dh.numpy(), np.asarray(dh_j), **GRAD_TOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(dw_j), **GRAD_TOL)
     assert not dh.numpy()[y == -100].any()
+
+
+def test_kernel_level_plain_versions_match_the_pallas_statistics_at_the_7b_width():
+    """As above at E = 4096 (the 7B's), with 21 rows, a ragged vocab of 200
+    and the head scaled as its init: lse, corr, dh and dW of the plain
+    versions the card's E = 4096 kernels are held to, against the Pallas
+    kernels (given rows and vocab padded to their blocks, as the JAX wrapper
+    pads them: ignored rows, zero vocab rows masked by `vocab`)."""
+    from modalities_tpu.ops.pallas.fused_ce import _ce_backward, _ce_forward
+
+    n, v = 21, 200
+    h, w, y, _, _ = _inputs(8, (n,), v, 4096, ignored=3, w_scale=4096 ** -0.5)
+    gm = np.where(y != -100, 1.0 / 18, 0.0).astype(np.float32)
+    hp, wp = np.pad(h, ((0, 3), (0, 0))), np.pad(w, ((0, 56), (0, 0)))  # rows to 24 (blocks of 8), vocab to 256
+    yp, gmp = np.pad(y, (0, 3), constant_values=-100), np.pad(gm, (0, 3))
+    lse_j, corr_j = _ce_forward(jnp.asarray(hp), jnp.asarray(wp), jnp.asarray(yp)[:, None], 8, 128, v, True)
+    lse, corr = fce.fused_ce_forward(torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(y))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:n, 0], rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(corr.numpy()[y != -100], np.asarray(corr_j)[:n][y != -100, 0], rtol=1e-6, atol=1e-5)
+    dh_j, dw_j = _ce_backward(jnp.asarray(hp), jnp.asarray(wp), jnp.asarray(yp)[:, None], lse_j,
+                              jnp.asarray(gmp)[:, None], 8, 128, v, True)
+    args = (torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(y), lse, torch.from_numpy(gm))
+    dh, dw = fce.fused_ce_backward_dh(*args), fce.fused_ce_backward_dw(*args)
+    np.testing.assert_allclose(dh.numpy(), np.asarray(dh_j)[:n], **GRAD_TOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_j)[:v], **GRAD_TOL)
+    assert not dh.numpy()[y == -100].any()
+
+
+def test_the_card_path_takes_the_7b_width_and_refuses_other_bf16_widths():
+    """BF16_WIDTHS holds the 7B's 4096 beside 1536; the card path's width
+    check (before it asks for a card) refuses any other bf16 width, while
+    4096 passes it and reaches the card check (no card here)."""
+    assert 4096 in fce.BF16_WIDTHS and 1536 in fce.BF16_WIDTHS
+    for e in fce.BF16_WIDTHS:
+        fce.check_bf16_width(e)
+    labels = torch.zeros(4, dtype=torch.long)
+    for e in (64, 96, 1024, 2048, 2560, 8192):
+        with pytest.raises(ValueError, match=f"E={e} is not a width"):
+            fce.check_bf16_width(e)
+        with pytest.raises(ValueError, match=f"E={e} is not a width"):
+            fce._kernel_inputs(torch.zeros(4, e, dtype=torch.bfloat16), torch.zeros(8, e, dtype=torch.bfloat16),
+                               labels)
+    with pytest.raises(Exception) as refused:  # past the width check: the card check, which fails here
+        fce._kernel_inputs(torch.zeros(4, 4096, dtype=torch.bfloat16), torch.zeros(8, 4096, dtype=torch.bfloat16),
+                           labels)
+    assert "not a width" not in str(refused.value)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_never_count_a_launch():

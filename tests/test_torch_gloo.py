@@ -177,31 +177,66 @@ def checkpoint_worker(rank: int, world: int, spec: dict, folder_root: str) -> di
             "finals": finals if rank == 0 else None, "initial": initial if rank == 0 else None}
 
 
+def resume_worker(rank: int, world: int, spec: dict, folder: str) -> list:
+    """A tiny GPT2 `TrainStep` over the mesh of `spec["degrees"]` built from
+    another seed, loaded from the DCP `folder` (parameters, optimizer and
+    scheduler), then run on `spec["batches"]`: each step's (loss, grad_norm,
+    lr)."""
+    from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
+    from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+    from modalities_tpu_torch.running_env import env
+    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
+
+    with env.process_group(torch.device("cpu")):
+        step, mesh = _tiny_step({**spec, "params": None, "seed": 1}, world)
+        DCPCheckpointLoading(global_rank=rank).load_app_state(AppState(step, device_mesh=mesh), Path(folder))
+        n_dp, dp_rank = get_data_loading_info(mesh)
+        metrics = []
+        for batch in spec["batches"]:
+            m = step({part: {k: torch.from_numpy(np.ascontiguousarray(v[:, dp_rank::n_dp])) for k, v in d.items()}
+                      for part, d in batch.items()})
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
+    return metrics
+
+
 def cli_worker(rank: int, world: int, run_cfg: str, warm_cfg: str, info: str, ports: tuple) -> dict:
     """`run` and then `warmstart` through the CLI (in process), each with its
-    own rendezvous port; every train step's metrics and what each printed."""
+    own rendezvous port; every train step's metrics and batch (numpy), and
+    what each printed."""
+    return _cli_commands([(ports[0], ["run", "--config_file_path", run_cfg, "--device", "cpu"]),
+                          (ports[1], ["warmstart", "--config_file_path", warm_cfg, "--last_checkpoint_info_file_path",
+                                      info, "--device", "cpu"])])
+
+
+def cli_command_worker(rank: int, world: int, argv: list) -> dict:
+    """One CLI command (in process, `--device cpu` added) on the world's
+    rendezvous port; as `cli_worker` reports it."""
+    return _cli_commands([(None, [*argv, "--device", "cpu"])])
+
+
+def _cli_commands(commands: list) -> dict:
     from modalities_tpu_torch.__main__ import main
     from modalities_tpu_torch.training.train_step import TrainStep
 
-    seen = []
+    seen, batches = [], []
     call = TrainStep.__call__
 
     def recording(self, batch):
+        batches.append({part: {k: v.numpy().copy() for k, v in d.items()} for part, d in batch.items()})
         metrics = call(self, batch)
         seen.append([metrics[k].detach().clone().item() for k in ("loss", "grad_norm", "lr")])
         return metrics
 
     TrainStep.__call__ = recording
     printed = []
-    for port, argv in zip(ports, (["run", "--config_file_path", run_cfg, "--device", "cpu"],
-                                  ["warmstart", "--config_file_path", warm_cfg, "--last_checkpoint_info_file_path",
-                                   info, "--device", "cpu"])):
-        os.environ["MASTER_PORT"] = str(port)
+    for port, argv in commands:
+        if port is not None:
+            os.environ["MASTER_PORT"] = str(port)
         buffer = io.StringIO()
         with contextlib.redirect_stdout(buffer):
             assert main(argv) == 0
         printed.append(buffer.getvalue())
-    return {"steps": seen, "printed": printed}
+    return {"steps": seen, "batches": batches, "printed": printed}
 
 
 def exchange_worker(rank: int, world: int) -> list:

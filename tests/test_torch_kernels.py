@@ -513,7 +513,8 @@ def test_cpu_tensors_take_the_plain_fused_ce():
 # (N, V, E, ignored rows): ragged rows and vocab, ignored rows, all rows ignored, the 32k config's width,
 # vocab not a multiple of the dW kernel's 128 rows, tokens not a multiple of its 64-token tiles
 FUSED_CE_CASES = [(100, 300, 128, 7), (37, 129, 256, 0), (16, 128, 128, 16), (45, 1000, 1536, 3),
-                  (1000, 777, 128, 50), (4097, 1000, 256, 100), (300, 1000, 1536, 5), (64, 130, 1536, 0)]
+                  (1000, 777, 128, 50), (4097, 1000, 256, 100), (300, 1000, 1536, 5), (64, 130, 1536, 0),
+                  (45, 1000, 4096, 3), (300, 1000, 4096, 5), (129, 63, 4096, 7)]
 # dh and dW of the bf16 kernels against the fp32 plain version, per row: ds reaches the tensor cores as
 # bf16 hi + lo (about 16 bits), so what is left is mostly each output's own rounding to bf16
 CE_ROW_REL_BF16 = 2.5e-3
@@ -559,9 +560,10 @@ def test_fused_ce_kernels_match_autograd_of_the_plain_version(case, dtype):
 
 
 # (N, V, E, ignored rows) of the bf16 forward kernel (128 rows a CTA, 256-row vocab tiles): ragged rows and vocab,
-# one row and one vocab column, all rows ignored, the 32k config's width and vocab
+# one row and one vocab column, all rows ignored, the 32k config's width and vocab, the 7B's width on a vocab shard
 CE_FWD_CASES = [(1, 1, 128, 0), (37, 129, 256, 0), (100, 300, 128, 7), (16, 128, 128, 16), (129, 257, 1536, 3),
-                (300, 1000, 1536, 5), (4097, 2049, 256, 100), (200, 50304, 1536, 10)]
+                (300, 1000, 1536, 5), (4097, 2049, 256, 100), (200, 50304, 1536, 10), (129, 257, 4096, 3),
+                (200, 6288, 4096, 10)]
 
 
 @pytest.mark.cuda
@@ -587,10 +589,12 @@ def test_fused_ce_forward_kernel_over_ragged_rows_and_vocab(case):
     assert float((corr - corr_ref).abs().max()) <= 1e-4
 
 
-# (N, V, E, ignored rows) of the bf16 dh kernel (a cluster of 8 CTAs a block of 128 rows, 64-row vocab tiles):
-# rows and vocab around those tiles, one row and one vocab column, all rows ignored, the 32k config's width and vocab
+# (N, V, E, ignored rows) of the bf16 dh kernel (a cluster of 8 CTAs a block of 128 rows, 16 at E = 4096; 64-row
+# vocab tiles): rows and vocab around those tiles, one row and one vocab column, all rows ignored, the 32k config's
+# width and vocab, the 7B's width and a tp-8 vocab shard
 CE_DH_CASES = [(1, 1, 128, 0), (127, 63, 256, 0), (128, 64, 128, 5), (129, 65, 1536, 3), (257, 129, 128, 257),
-               (300, 1000, 1536, 5), (1000, 777, 256, 50), (200, 50304, 1536, 10)]
+               (300, 1000, 1536, 5), (1000, 777, 256, 50), (200, 50304, 1536, 10), (1, 1, 4096, 0),
+               (129, 65, 4096, 3), (257, 6288, 4096, 10)]
 
 
 @pytest.mark.cuda
