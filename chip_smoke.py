@@ -154,14 +154,31 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      (a)'s last, exact launches per step, peak memory within WARM_7B_PEAK_GB,
      a profiled step; then the same config at 4 layers x 4096 through the
      kernels and through the plain path (chunked-scan head) from step 0.
-  9. one JSON line naming the kernels (launches summed over the paths, and
+  9. pipeline parallelism at the 7B's width: (a)'s config at 4 layers and
+     its first step's 4 sequences, split over pp 2 (device 0 the embeddings
+     and the first layers, device 1 the rest and the head; blocks under
+     their global names) and run by the port's executor over the in-process
+     transport (parallel/pipeline_scheduled.py `pp_in_process`, every stage
+     in this process, tensors handed over by reference; each stage a root of
+     `fully_shard` on the world-1 group), each sequence a microbatch (M 4),
+     for gpipe, 1f1b, interleaved_1f1b (2 chunks a device) and zbv: loss,
+     grad norm and every parameter after the step against (a)'s unpipelined
+     step within PP_LOSS_REL, PP_NORM_REL and PP_MOVE_REL, and against the
+     same step over 4 accumulation microbatches (differences printed;
+     bitwise where they are); exact flash and RMSNorm launches per schedule
+     (16 flash forwards a step where (a) launches 4; zbv's input-gradient
+     pass runs the backward kernels again); each schedule's step ms, peak
+     memory and busy share; the 1F1B tables with two microbatches' B ops
+     swapped refused before any launch.
+ 10. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, train_2p7b, train_32k, train_32k_resume, ring_cp4,
-     train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, serve_ckpt;
-     the fused-CE kernels' times at every shape of phase 1 under `shapes`),
-     then the card's name and power limit, then the device line (last line).
+     train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
+     pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, serve_ckpt; the fused-CE
+     kernels' times at every shape of phase 1 under `shapes`), then the
+     card's name and power limit, then the device line (last line).
      `[timing]` lines give the script's wall time after each phase.
 
-Phases 4-8 run on the world-1 NCCL process group that `run` builds without
+Phases 4-9 run on the world-1 NCCL process group that `run` builds without
 a launcher (held across them), so every training run goes through
 `fully_shard` (the configs' `fsdp2_wrapped`); phases 4, 5 and 8a also run
 their 3 steps with the train step built without a mesh and hold every
@@ -1673,31 +1690,38 @@ def tp_one_witness(torch, cfg: Path, tmp: Path, reference: list[dict], counts: d
         f"(bound {TP_ONE_TOL:g}); bitwise the path's: {got == want}")
 
 
-def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
-    """One warm train step under torch.profiler: device busy share and the top
-    device ops (informational)."""
+def _profiled(torch, fn) -> tuple[list[tuple[float, int, str]], float, float]:
+    """fn() under torch.profiler: its kernels as (device ms, launches, name),
+    most time first; their summed device ms; the wall ms. Kernels only: user
+    annotations (Optimizer.step#...) also carry device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from modalities_tpu_torch.trainer import stack_microbatches
-
-    loader = iter(main.components.train_dataloader)
-    batch = stack_microbatches([next(loader) for _ in range(main.train_step.acc_steps)], torch.device("cuda"))
-    main.train_step(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
-        main.train_step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - w0)
-    rows = []  # kernels only: user annotations (Optimizer.step#...) also carry device time
+    rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0)
         annotation = getattr(ev, "is_user_annotation", False) or "#" in ev.key
         if ev.device_type == DeviceType.CUDA and dev_us > 0 and not annotation:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
+    return rows, sum(r[0] for r in rows), wall_ms
+
+
+def profile_train_step(torch, main, smi: str, phase: str = "phase 4") -> None:
+    """One warm train step under torch.profiler: device busy share and the top
+    device ops (informational)."""
+    from modalities_tpu_torch.trainer import stack_microbatches
+
+    loader = iter(main.components.train_dataloader)
+    batch = stack_microbatches([next(loader) for _ in range(main.train_step.acc_steps)], torch.device("cuda"))
+    main.train_step(batch)
+    rows, device_ms, wall_ms = _profiled(torch, lambda: main.train_step(batch))
     log(f"[{phase}] profiled step ({smi}): {device_ms:.1f} ms of kernels ({sum(r[1] for r in rows)} launches) "
         f"in a {wall_ms:.1f} ms step under the profiler -> device busy {device_ms / wall_ms:.3f} (informational)")
     for ms, count, key in rows[:12]:
@@ -2806,6 +2830,175 @@ def phase_warmstart_7b(torch, smi: str, tmp: Path, pretrain: dict) -> dict[str, 
     return counts
 
 
+# ---------------------------------------------------------------- phase 9
+# the schedules phase 9 runs in one process over pp 2, 4 microbatches of 1 x 4096: (name, virtual chunks)
+PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved_1f1b", 2), ("zbv", 2))
+PP_DEGREE, PP_MICROBATCHES = 2, 4
+# Bounds against 8a's step (the 4 sequences as one microbatch). The pipelined step runs each sequence as a
+# microbatch of its own: its bf16 weight gradients are rounded once per microbatch and summed in fp32, where 8a
+# rounds one product over all 16384 rows once (each element's partial off by up to 2^-9 relative), and its fp32
+# loss adds 4 partial sums. So the loss within 1e-5 of 8a's (relative; its logits are the same rows' fp32 head),
+# the grad norm within 1e-3 (a norm averages the elements' rounding), and each parameter's move (Adam's first step
+# moves an element by about lr, its sign the gradient's) within 0.25 of 8a's move in norm: elements whose four
+# partials nearly cancel may flip sign (each flip 2 lr); a stage whose move went missing or wrong reads 1 or more.
+PP_LOSS_REL, PP_NORM_REL, PP_MOVE_REL = 1e-5, 1e-3, 0.25
+
+
+def pp_launches(layers: int, microbatches: int, stages: int, deferred_w: bool) -> dict[str, int]:
+    """A pipelined step's launches at `layers` (no remat): every block's forward
+    and backward once a microbatch; ZBV's input-gradient pass runs the
+    backward of every global stage but the first once more (its blocks, and
+    the head norm on the last)."""
+    counts = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 2 * layers + 1,
+              "rms_bwd": 2 * layers + 1}
+    if deferred_w:
+        again = layers - layers // stages
+        counts.update(flash_dq=layers + again, flash_dkv=layers + again, rms_bwd=2 * (layers + again) + 1 + 1)
+    return {k: v * microbatches for k, v in counts.items()}
+
+
+def phase_pipeline_7b(torch, smi: str, tmp: Path) -> dict[str, dict[str, int]]:
+    """9: pipeline parallelism at the 7B's full width, in one process. The
+    8a config (configs/config_7b_tp_fsdp.yaml at world 1, 4 of 32 layers,
+    the 4 sequences of 4096 of its first step, the same init) split over pp
+    2 (parallel/pipeline.py: device 0 the embeddings and the first layers,
+    device 1 the rest, lm_head_norm and the head), run by
+    parallel/pipeline_scheduled.py's executor over the in-process transport
+    (`pp_in_process`, through `TrainStep(pp_in_process=2)` on 8a's world-1
+    mesh: each stage a root of FSDP2 on the world-1 NCCL group, so the head
+    runs inside the stage's FSDP forward and every B op's gradients go
+    through FSDP2's reduction), each sequence a microbatch (M 4), for gpipe, 1f1b, interleaved_1f1b (2 chunks a device,
+    a layer a chunk) and zbv. Each schedule's step against 8a's unpipelined
+    world-1 step (the same weights and sequences): loss, grad norm and every
+    parameter after the step within the stated bounds; and against the same
+    unpipelined step taking the 4 sequences as 4 accumulation microbatches
+    (what the pipeline computes per microbatch), where any difference is the
+    order of fp32 sums (printed; bitwise where it is). The warmup's first
+    rate is 0, which would move nothing, so the schedule starts at the
+    file's max_lr. Exact flash and RMSNorm launches per schedule; each
+    schedule's second step timed, with its peak memory and a profiled step's
+    busy share. The 1F1B tables with two microbatches' B ops swapped are
+    refused before any launch."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.parallel.pipeline_scheduled import mutant_tables, pp_in_process
+    from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
+    from modalities_tpu_torch.trainer import stack_microbatches
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    rng = np.random.default_rng(2031)  # 8a's corpus
+    layers, micro, seq, vocab = (SEVEN_B[k] for k in ("layers", "micro", "seq", "vocab"))
+    corpus = rng.integers(0, vocab, size=seq + 1 + micro * (3 + 3) * seq)
+    max_lr = 3e-4
+    cfg = _train_config(tmp, "pp_7b", corpus, 3, {"device_mesh.config.tensor_parallel_degree": 1,
+                                                   "device_mesh.config.enable_loss_parallel": False,
+                                                   "model_raw.config.n_layer": layers,
+                                                   "scheduler.config.initial_lr": max_lr},
+                        seq=seq, base=SEVEN_B_CONFIG, micro=micro, acc=1, phase="phase 9")
+    main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+    comp = main.build_components()
+    spec = comp.app_state
+    model = spec.model
+    batch = stack_microbatches([next(iter(comp.train_dataloader))], torch.device("cuda"))  # 8a's first step
+    as_acc = {part: {k: v.reshape(micro, 1, seq) for k, v in d.items()} for part, d in batch.items()}
+    mp = model.train_spec.mixed_precision  # TrainStep's own draw: in the policy's dtypes, from the model's seed
+    model.with_spec_updates(param_dtype=mp.param_dtype, compute_dtype=mp.compute_dtype)
+    init = model.init_train_params(torch.Generator(device="cuda").manual_seed(model.seed))
+    mesh = comp.device_mesh or DeviceMesh(world_size=1)  # 8a's: the world-1 NCCL group, every stage under FSDP2
+
+    def step_of(acc: int = 1, pipeline=None):
+        if pipeline is not None:
+            model.with_spec_updates(pp_schedule=pipeline[0], pp_num_microbatches=PP_MICROBATCHES,
+                                    pp_num_virtual=pipeline[1])
+        return TrainStep(model, comp.loss_fn, spec.optimizer, spec.lr_scheduler, device=torch.device("cuda"),
+                         gradient_acc_steps=acc, grad_clipper=comp.gradient_clipper,
+                         params={k: v.clone() for k, v in init.items()}, device_mesh=mesh,
+                         pp_in_process=PP_DEGREE if pipeline is not None else None)
+
+    def run(step, b):
+        m = step(b)
+        return [float(m[k]) for k in ("loss", "grad_norm", "lr")], {k: v.detach().clone() for k, v in
+                                                                     step.state_dict().items()}
+
+    ref, ref_params = run(step_of(), batch)
+    if f"{ref[0]:.5f}" != SEVEN_B_STEP0:
+        raise AssertionError(f"phase 9: the unpipelined step's loss {ref[0]:.5f} is not 8a's {SEVEN_B_STEP0}")
+    gc.collect()
+    acc_ref, acc_params = run(step_of(acc=micro), as_acc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 9] {SEVEN_B_CONFIG} at 4 layers, world 1 ({smi}): 8a's step {ref} (loss, grad norm, lr at the "
+        f"schedule's first rate {max_lr}); the 4 sequences as 4 accumulation microbatches {acc_ref}")
+
+    counts: dict[str, dict[str, int]] = {}
+    for name, virtual in PP_SCHEDULES:
+        step = step_of(pipeline=(name, virtual))
+        if not all(isinstance(st.module, FSDPModule) for st in step.stages):
+            raise AssertionError(f"phase 9 {name}: a stage is not sharded with fully_shard")
+        tables = step._tables(PP_DEGREE, PP_MICROBATCHES)
+        if name == "1f1b":  # a swapped pair of B ops: refused before any launch
+            _reset_counts()
+            rejected = _rejects(lambda: pp_in_process(step.stages, mutant_tables(tables, 0, 0, 1),
+                                                      list(batch["samples"]["input_ids"][0].chunk(PP_MICROBATCHES)),
+                                                      lambda module, hidden, m: hidden.sum()), ValueError)
+            if any(_launch_counts().values()):
+                raise AssertionError("phase 9: the refused tables launched kernels")
+            log(f"[phase 9] 1f1b with device 0's B ops of microbatches 0 and 1 swapped: refused ({rejected})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        got, got_params = run(step, batch)
+        counts[name] = _launch_counts()
+        want = pp_launches(layers, PP_MICROBATCHES, tables.num_stages_global, tables.deferred_w)
+        if counts[name] != want:
+            raise AssertionError(f"phase 9 {name}: launches {counts[name]}, expected {want}")
+        loss_rel, norm_rel = abs(got[0] / ref[0] - 1), abs(got[1] / ref[1] - 1)
+        moves = {k: float((got_params[k].float() - ref_params[k].float()).norm()
+                          / (ref_params[k].float() - init[k].float()).norm().clamp(min=1e-30)) for k in ref_params}
+        worst = max(moves, key=moves.get)
+        if set(got_params) != set(ref_params) or loss_rel > PP_LOSS_REL or norm_rel > PP_NORM_REL \
+                or moves[worst] > PP_MOVE_REL or got[2] != ref[2]:
+            raise AssertionError(f"phase 9 {name}: {got} against 8a's {ref} (loss rel {loss_rel:.3e} > "
+                                 f"{PP_LOSS_REL}? norm rel {norm_rel:.3e} > {PP_NORM_REL}?), worst move {worst} "
+                                 f"{moves[worst]:.4f} (bound {PP_MOVE_REL})")
+        bitwise = [k for k in acc_params if torch.equal(got_params[k], acc_params[k])]
+        acc_move = max(float((got_params[k].float() - acc_params[k].float()).norm()
+                             / (acc_params[k].float() - init[k].float()).norm().clamp(min=1e-30)) for k in acc_params)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del got_params
+        # timing: the second step (warm), then a profiled third
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        busy, device_ms, wall_ms = _busy_share(torch, lambda: step(batch))
+        log(f"[phase 9] {name} (pp {PP_DEGREE}, {tables.num_virtual} chunk(s) a device, M {PP_MICROBATCHES}, "
+            f"{tables.num_ticks} ticks, bubble {tables.bubble_fraction:.3f}, at most {tables.max_inflight} "
+            f"microbatches in flight): {got}; against 8a loss rel {loss_rel:.3e}, grad norm rel {norm_rel:.3e}, "
+            f"worst parameter move {worst} {moves[worst]:.4f} of its own; against the 4 accumulation microbatches "
+            f"loss {'bitwise' if got[0] == acc_ref[0] else f'rel {abs(got[0] / acc_ref[0] - 1):.3e}'}, grad norm "
+            f"{'bitwise' if got[1] == acc_ref[1] else f'rel {abs(got[1] / acc_ref[1] - 1):.3e}'}, {len(bitwise)} of "
+            f"{len(acc_params)} parameters bitwise (worst move {acc_move:.2e} of its own); launches {counts[name]}")
+        log(f"[phase 9] {name}: step {step_ms:.1f} ms, peak {peak:.2f} GB (torch.cuda.max_memory_allocated), "
+            f"profiled {device_ms:.1f} ms of kernels in {wall_ms:.1f} ms -> busy {busy:.3f} ({smi}; in one process "
+            "the stages take turns: no bubble, no exchange)")
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del main, comp, init, ref_params, acc_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _busy_share(torch, fn) -> tuple[float, float, float]:
+    """fn() under torch.profiler: (device busy share, kernels' ms, wall ms)."""
+    _, device_ms, wall_ms = _profiled(torch, fn)
+    return device_ms / wall_ms, device_ms, wall_ms
+
+
 def build_model():
     from modalities_tpu_torch.config.component_factory import ComponentFactory
     from modalities_tpu_torch.registry.components import COMPONENTS
@@ -2887,28 +3080,14 @@ def profile_decode(torch, engine, reqs: list[dict], steps: int = 8) -> dict:
     """Where a decode step's time goes: torch.profiler over `steps` batched
     decode steps with all slots busy (prompts cut to one 64-token chunk).
     busy = summed device time of the window's kernels / the window's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for r in reqs[:SLOTS]:
         engine.submit(r["prompt"][:64], steps + 2, temperature=0.0, seed=r["seed"])
     t0 = time.monotonic()
     engine.step(t0)  # admissions (prefill) and the first decode step stay outside the window
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step(t0)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - w0)
+    rows, device_ms, wall_ms = _profiled(torch, lambda: [engine.step(t0) for _ in range(steps)])
     engine.run()  # drain
-    rows = []  # per decode step: (device ms, calls, kernel); kernels only, not the ops that launch them
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if ev.device_type == DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us / 1e3 / steps, ev.count / steps, ev.key))
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
+    rows = [(ms / steps, count / steps, key) for ms, count, key in rows]  # per decode step
+    device_ms /= steps
     qmm = [r for r in rows if "quant_mm" in r[2]]  # the dequant-matmul kernel's rows (none with bf16 weights)
     return {"wall_ms": wall_ms / steps, "device_ms": device_ms, "launches": sum(r[1] for r in rows), "top": rows[:8],
             "qmm_ms": sum(r[0] for r in qmm), "qmm_launches": sum(r[1] for r in qmm)}
@@ -2953,7 +3132,7 @@ def greedy_agreement(reqs, base, other) -> float:
 
 # ---------------------------------------------------------------- main
 def training_phases(torch):
-    """Phases 4-8 on the process group; returns each path's launch counts."""
+    """Phases 4-9 on the process group; returns each path's launch counts."""
     # phase 4: the training path. Counts start from 0 inside phase_train.
     smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -3012,7 +3191,15 @@ def training_phases(torch):
         mark("phase 8d")
         if any(v == 0 for v in warm_counts.values()):
             raise AssertionError(f"a kernel of the 7B 32k warmstart path was never launched: {warm_counts}")
-    return train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 9: pipeline parallelism at the 7B's width, each schedule's launches counted from 0 inside
+        pp_counts = phase_pipeline_7b(torch, smi_now, Path(tmp))
+        mark("phase 9")
+        if any(v == 0 for counts in pp_counts.values() for v in counts.values()):
+            raise AssertionError(f"a kernel of the pipelined 7B path was never launched: {pp_counts}")
+    return (train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts,
+            warm_counts, pp_counts)
 
 
 def main() -> int:
@@ -3118,15 +3305,16 @@ def main() -> int:
 
     with process_group(torch.device("cuda")):
         paths = training_phases(torch)
-    train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts = (
-        paths)
+    (train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts,
+     pp_counts) = paths
 
-    # phase 9. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
+    # the kernels line. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
         paths = {"train_2p7b": train_counts, "train_32k": long_counts,
                  "train_32k_resume": ckpt_counts["train_32k_resume"], "ring_cp4": ring_counts,
                  "train_32k_torchrun": launcher_counts, "train_7b": seven_b_counts, "tp8": tp8_counts,
-                 "train_7b_32k_warmstart": warm_counts}
+                 "train_7b_32k_warmstart": warm_counts,
+                 **{f"pp2_{name}": counts for name, counts in pp_counts.items()}}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
 
 

@@ -7,7 +7,14 @@ their `Stateful` face for `torch.distributed.checkpoint` (DCP):
 
 - "model": the module's parameters and "optimizer": the optimizer's state and
   param groups, both from `torch.distributed.checkpoint.state_dict.get_state_dict`,
-  so optimizer state is keyed by parameter name (as it is under FSDP2);
+  so optimizer state is keyed by parameter name (as it is under FSDP2). The
+  optimizer's dict is flattened (`flatten_optimizer_state_dict`): each
+  parameter's state and its group's hyperparameters under its own name
+  (`state.<fqn>.exp_avg`, `param_groups.<fqn>.lr`). Under pipeline
+  parallelism each pp rank holds other parameters in its groups, and a
+  group's list of names saved under one key for every rank would keep one
+  rank's list; by name, every rank's entries are its own and a folder loads
+  at any pp degree;
 - "lr_scheduler": the `LambdaLR` position (`last_epoch`, the last rates, the
   base rates). The schedule function is config, not state, and is never
   saved;
@@ -22,11 +29,12 @@ copies into the parameters the optimizer holds), so no reference goes stale.
 from __future__ import annotations
 
 import torch
-from torch.distributed.checkpoint.state_dict import get_state_dict, set_state_dict
+from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict, set_state_dict
 from torch.distributed.checkpoint.stateful import Stateful
 
 
 DOUBLE_LOAD = "AppState was already loaded from checkpoint; refusing double-load."
+OPTIONS = StateDictOptions(flatten_optimizer_state_dict=True)
 
 
 def flatten_tensors(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -58,7 +66,7 @@ class AppState(Stateful):
 
     def state_dict(self) -> dict:
         step = self.train_step
-        model_sd, optim_sd = get_state_dict(step.module, step.optimizer)
+        model_sd, optim_sd = get_state_dict(step.module, step.optimizer, options=OPTIONS)
         scheduler_sd = {k: v for k, v in step.scheduler.state_dict().items() if k != "lr_lambdas"}
         return {"model": model_sd, "optimizer": optim_sd, "lr_scheduler": scheduler_sd,
                 "step": torch.tensor(self.step_count, dtype=torch.int64)}
@@ -66,7 +74,7 @@ class AppState(Stateful):
     def load_state_dict(self, state_dict: dict) -> None:
         step = self.train_step
         set_state_dict(step.module, step.optimizer, model_state_dict=state_dict["model"],
-                       optim_state_dict=state_dict["optimizer"])
+                       optim_state_dict=state_dict["optimizer"], options=OPTIONS)
         scheduler = step.scheduler
         scheduler.load_state_dict({**state_dict["lr_scheduler"], "lr_lambdas": [None] * len(scheduler.lr_lambdas)})
         num_steps = int(state_dict["step"])

@@ -212,6 +212,7 @@ class TrainingComponentsInstantiationModel:
     device_mesh: Any = None
     performance: Any = None
     model_raw: Any = None
+    scheduled_pipeline: Any = None  # built for its effect on the model spec (pipeline.scheduled), as in JAX
 
     def __post_init__(self):
         if isinstance(self.settings, dict):
@@ -229,7 +230,6 @@ class TrainingComponentsInstantiationModel:
 # yet: a config that sets one is refused, naming where it waits
 UNPORTED_TRAINING_COMPONENTS = {
     "profiler": "the profiler component (ROADMAP.md, Queue 1 item 7)",
-    "scheduled_pipeline": "multi-GPU training (ROADMAP.md, Queue 1 item 5)",
     "device_feeder": "the device feeder (ROADMAP.md, Queue 1 item 7)",
     "telemetry": "telemetry (ROADMAP.md, Queue 1 item 6)",
     "resilience": "the anomaly policy, preemption and fault injection (ROADMAP.md, Queue 1 item 7)",

@@ -122,13 +122,19 @@ def app_state_from_jax(tree: Mapping, train_step) -> dict:
     config = train_step.model
     exp_avg, exp_avg_sq = params_from_jax(adam["mu"], config), params_from_jax(adam["nu"], config)
     count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
-    state = {name: {"step": count.clone(), "exp_avg": exp_avg[name], "exp_avg_sq": exp_avg_sq[name]}
-             for name in exp_avg}
     step = int(np.asarray(tree["step"]))
     built = AppState(train_step).state_dict()
     scheduler = train_step.scheduler
     rates = [base * fn(step) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
-    groups = [{**group, "lr": lr} for group, lr in zip(built["optimizer"]["param_groups"], rates)]
+    names = {p: name for name, p in train_step.module.named_parameters()}
+    rate_of = {names[p]: lr for group, lr in zip(train_step.optimizer.param_groups, rates) for p in group["params"]}
+    # the optimizer's flattened form (AppState): state.<name>.<key>, param_groups.<name>.<hyperparameter>
+    optimizer = {f"state.{name}.{key}": value for name in exp_avg for key, value in
+                 (("step", count.clone()), ("exp_avg", exp_avg[name]), ("exp_avg_sq", exp_avg_sq[name]))}
+    for key, value in built["optimizer"].items():
+        if key.startswith("param_groups."):
+            name, field = key[len("param_groups."):].rsplit(".", 1)
+            optimizer[key] = rate_of[name] if field == "lr" else value
     lr_scheduler = {**built["lr_scheduler"], "last_epoch": step, "_step_count": step + 1, "_last_lr": rates}
-    return {"model": params_from_jax(tree["params"], config), "optimizer": {"state": state, "param_groups": groups},
+    return {"model": params_from_jax(tree["params"], config), "optimizer": optimizer,
             "lr_scheduler": lr_scheduler, "step": torch.tensor(step, dtype=torch.int64)}

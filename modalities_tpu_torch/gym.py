@@ -1,6 +1,7 @@
 """Gym: the trainer plus the evaluation and checkpoint callbacks, the port of
-modalities_tpu/gym.py. Evaluation runs only with an empty `eval_dataloaders`
-(eval loops are not ported yet). A checkpoint falls due every
+modalities_tpu/gym.py. The evaluator runs over every eval dataloader every
+`evaluation_interval_in_steps` seen steps, step 0 of the run included (JAX
+gym.py:36-46). A checkpoint falls due every
 `checkpointing_interval_in_steps` seen steps; after a run that ends well the
 pending (async) save is drained, which seals its folder and moves the resume
 pointer to it. A run that raises leaves a pending folder unsealed, with the
@@ -11,23 +12,21 @@ from __future__ import annotations
 from typing import Optional
 
 from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+from modalities_tpu_torch.evaluator import Evaluator
 from modalities_tpu_torch.trainer import Trainer
 from modalities_tpu_torch.training.training_progress import TrainingProgress
 
 
 class Gym:
-    def __init__(self, trainer: Trainer):
+    def __init__(self, trainer: Trainer, evaluator: Evaluator):
         self.trainer = trainer
+        self.evaluator = evaluator
 
     def run(self, app_state: AppState, train_data_loader, evaluation_data_loaders: list, checkpoint_saving=None,
             training_progress: Optional[TrainingProgress] = None, evaluation_interval_in_steps: int = 0,
             checkpointing_interval_in_steps: int = 0) -> list[dict]:
         """Trains `app_state.train_step`; a checkpoint saves `app_state`."""
         train_step = app_state.train_step
-        if evaluation_data_loaders:
-            raise NotImplementedError(
-                "eval loops are not ported yet (ROADMAP.md, Queue 1 item 7); set eval_dataloaders: []"
-            )
         if training_progress is None:
             training_progress = TrainingProgress(0, 0, len(train_data_loader), 0)
 
@@ -36,8 +35,13 @@ class Gym:
                     and progress.num_seen_steps_total % checkpointing_interval_in_steps == 0):
                 checkpoint_saving.save_checkpoint(progress, app_state)
 
+        def evaluation_callback(num_train_steps_done: int) -> None:
+            if (evaluation_interval_in_steps > 0 and num_train_steps_done % evaluation_interval_in_steps == 0
+                    and evaluation_data_loaders):
+                self.evaluator.evaluate(train_step, evaluation_data_loaders, num_train_steps_done)
+
         results = self.trainer.train(train_step, train_data_loader, training_progress,
-                                     evaluation_callback=lambda step: None,
+                                     evaluation_callback=evaluation_callback,
                                      checkpointing_callback=checkpointing_callback)
         if checkpoint_saving is not None:
             checkpoint_saving.wait_until_finished()

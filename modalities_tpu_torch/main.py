@@ -8,11 +8,14 @@ group (running_env/env.py: under `torch.distributed.run` the launcher's, else
 a world-1 group it builds), builds every node with the training catalog,
 builds the `TrainStep` over the config's device mesh (FSDP2, and the cp ring
 when the mesh has a cp axis) from the app state's model / optimizer /
-scheduler, the loss, the clipper and the step profile, loads a checkpoint
-into it when the app state names one (the `dcp` variant: a warmstart), and
-runs the trainer. The group is joined when `Main` is made (every rank takes
+scheduler, the loss, the clipper and the step profile (under a pp axis, of
+this rank's pipeline stage), loads a checkpoint into it when the app state
+names one (the `dcp` variant: a warmstart), and runs the trainer with the
+evaluator over the eval dataloaders. The group is joined when `Main` is made (every rank takes
 rank 0's experiment id); a group `Main` built is torn down at the end of
-`run`, one that existed before is left to its owner. It runs on the CUDA card
+`run` (with DTensor's sharding caches, running_env/env.py, so a second run
+on another mesh in the same process starts clean), one that existed before
+is left to its owner. It runs on the CUDA card
 LOCAL_RANK unless `device="cpu"`. `additional_resolver_funs` adds
 `${name:...}` resolvers to the config's (warmstart adds `warmstart_env`).
 """
@@ -183,7 +186,12 @@ class Main:
             num_seen_tokens_previous_run=progress.global_num_seen_tokens,
         )
         self.train_step = train_step
-        return Gym(trainer).run(
+        from modalities_tpu_torch.evaluator import Evaluator
+        from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
+
+        evaluator = Evaluator(components.evaluation_subscriber, self.device,
+                              num_data_parallel_ranks=get_data_loading_info(components.device_mesh)[0], global_rank=rank)
+        return Gym(trainer, evaluator).run(
             app_state, components.train_dataloader, components.eval_dataloaders,
             checkpoint_saving=components.checkpoint_saving,
             training_progress=training_progress,

@@ -23,7 +23,9 @@ attention on this rank's heads, the vocab-parallel lookup and head, the
 residual stream on this rank's rows of the sequence. Blocks chosen by the
 spec's remat variant run under `torch.utils.checkpoint`
 (training/activation_checkpointing.py). Not here yet: the paged cache,
-speculative verify, pipeline parallelism, selective-op remat and dropout.
+speculative verify, selective-op remat and dropout. Pipeline parallelism
+runs a stage's share of the blocks (`stage_forward`) on a module that holds
+only that share (parallel/pipeline.py).
 
 Layout: parameters follow the flax tree with the scan axis unrolled — the
 state dict key `blocks.3.attn.q_attn.kernel` is `params/blocks/block/attn/
@@ -240,6 +242,10 @@ class GPT2ModelSpec:
     lm_head_fused_ce: str = "auto"
     remat_variant: Optional[str] = None  # None, "full" or "selective_layer" (activation_checkpointing.py)
     remat_freq: int = 1
+    # pipeline parallelism (the `pipelined` variant; the mesh's pp axis decides whether it runs)
+    pp_schedule: str = "gpipe"
+    pp_num_microbatches: Optional[int] = None  # default: the pp degree
+    pp_num_virtual: int = 1
 
     @property
     def head_dim(self) -> int:
@@ -535,7 +541,7 @@ class GPT2Module(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.wte.device
+        return next(self.parameters()).device
 
     def cast_dense_(self) -> "GPT2Module":
         """Cast the blocks' dense kernels (and biases) to the compute dtype once;
@@ -572,6 +578,24 @@ class GPT2Module(nn.Module):
         return self._hidden(input_ids)
 
     def _hidden(self, input_ids):
+        return self.lm_head_norm(self._blocks(input_ids, None, 0, self.spec.n_layer))
+
+    def stage_forward(self, input_ids, x, first: int, count: int, head=None):
+        """Blocks [first, first + count) of the training forward (a pipeline
+        stage's layers, parallel/pipeline.py): over the embeddings of
+        input_ids when x is None, else over x, the previous stage's output
+        (this rank's rows of the sequence under tensor parallelism).
+        input_ids [B, S] give the positions (this rank's chunk under cp).
+        Blocks are named by their global index, so a stage that holds only
+        some of them finds each in `blocks`. With `head` (the last stage):
+        returns head(self, lm_head_norm(blocks' output)), computed inside this
+        call, so that under FSDP2 the head reads gathered parameters."""
+        x = self._blocks(input_ids, x, first, count)
+        return x if head is None else head(self, self.lm_head_norm(x))
+
+    def _blocks(self, input_ids, x, first: int, count: int):
+        """`stage_forward`'s body (an FSDP2 forward method must not call
+        another: `forward_hidden` calls this)."""
         spec = self.spec
         if spec.dropout > 0.0 and self.cp_group is not None:
             raise NotImplementedError(
@@ -586,23 +610,29 @@ class GPT2Module(nn.Module):
             )
         s = input_ids.shape[1]
         offset = 0 if self.cp_group is None else self.cp_group.rank() * s
+        if x is None:
+            x = self._train_embed(input_ids, offset)
+        cos = sin = None
+        if spec.use_rope:
+            cos, sin = self._rope_tables(offset + s)
+            cos, sin = cos[offset:], sin[offset:]
+        for i in range(first, first + count):
+            block = self.blocks.get_submodule(str(i))
+            if layer_remats(spec.remat_variant, spec.remat_freq, i):
+                x = checkpointed(block.train_forward, x, cos, sin)
+            else:
+                x = block.train_forward(x, cos, sin)
+        return x
+
+    def _train_embed(self, input_ids, offset: int):
         if self.tp is None:
             x, start = F.embedding(input_ids, self.wte).to(self.compute_dtype), offset
         else:  # this rank's rows of the sequence (SP) from the vocab-parallel lookup
             x = vocab_parallel_embedding(input_ids, local(self.wte), self.tp.group).to(self.compute_dtype)
             start = offset + self.tp.group.rank() * x.shape[1]
-        if spec.poe_type == PositionTypes.ABSOLUTE.value:
+        if self.spec.poe_type == PositionTypes.ABSOLUTE.value:
             x = x + local(self.wpe)[start:start + x.shape[1]].to(self.compute_dtype)
-        cos = sin = None
-        if spec.use_rope:
-            cos, sin = self._rope_tables(offset + s)
-            cos, sin = cos[offset:], sin[offset:]
-        for i, block in enumerate(self.blocks):
-            if layer_remats(spec.remat_variant, spec.remat_freq, i):
-                x = checkpointed(block.train_forward, x, cos, sin)
-            else:
-                x = block.train_forward(x, cos, sin)
-        return self.lm_head_norm(x)
+        return x
 
     def head_logits(self, hidden):
         """fp32 vocab logits of post-`lm_head_norm` hidden states [..., E]

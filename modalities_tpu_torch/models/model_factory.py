@@ -3,7 +3,8 @@ for the variants the training path uses. Each records a descriptor on the
 model's `TrainSpec`, applied when the train step is built (the train step
 applies the tensor-parallel plan of parallel/tensor_parallel.py over the
 mesh's tp axis, then shards the model over its dp dims with
-parallel/fsdp.py).
+parallel/fsdp.py; under a pp axis it does so to this rank's pipeline stage,
+parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Optional
 
 from modalities_tpu_torch.config.config import check_bool, check_dict, check_int
 from modalities_tpu_torch.models.gpt2.gpt2_model import FSDPSpec, MixedPrecisionSpec
+from modalities_tpu_torch.parallel.pipeline_schedules import SUPPORTED_SCHEDULES, canonical_schedule_name
 from modalities_tpu_torch.training.activation_checkpointing import apply_activation_checkpointing
 
 # the GPT2 blocks: unset, the upstream torch module's path, or the port's own attribute
@@ -45,6 +47,50 @@ class FSDP2WrappedModelConfig:
 class GPT2TPModelConfig:
     model: Any
     device_mesh: Any
+
+
+def virtual_stages(pp_schedule_name: str, num_virtual_stages: Optional[int]) -> Optional[int]:
+    """The chunks a device of the schedule runs (JAX config.py:164-210's
+    checks and messages): the V schedules take exactly 2 (unset or 1 read
+    as 2), interleaved_1f1b 2 or more (unset: 2), gpipe and 1f1b 1. None for
+    a name that is no schedule (the model factory refuses it)."""
+    name = canonical_schedule_name(pp_schedule_name)
+    if name in ("zbv", "dualpipev"):
+        if num_virtual_stages not in (None, 1, 2):
+            raise ValueError(
+                f"pp_schedule_name: {pp_schedule_name!r} uses exactly 2 virtual chunks (the V shape); set "
+                f"num_virtual_stages to 2 or leave it unset (got num_virtual_stages: {num_virtual_stages})")
+        return 2
+    if name == "interleaved_1f1b":
+        if num_virtual_stages is not None and num_virtual_stages < 2:
+            raise ValueError("pp_schedule_name: 'interleaved_1f1b' requires num_virtual_stages >= 2 "
+                             f"(got num_virtual_stages: {num_virtual_stages})")
+        return 2 if num_virtual_stages is None else num_virtual_stages
+    if name in ("gpipe", "1f1b"):
+        if num_virtual_stages is not None and num_virtual_stages != 1:
+            raise ValueError(f"num_virtual_stages: {num_virtual_stages} requires pp_schedule_name: "
+                             f"'interleaved_1f1b' (got pp_schedule_name: {pp_schedule_name!r})")
+        return 1
+    return None
+
+
+@dataclasses.dataclass
+class PipelinedModelConfig:
+    """The `pipelined` variant's schema and its schedule / num_virtual_stages
+    checks at config time (`virtual_stages`); an unknown schedule name
+    passes through to the model factory, which refuses it."""
+
+    model: Any
+    pp_schedule_name: str = "1f1b"
+    num_microbatches: Optional[int] = None
+    batch_size: Optional[int] = None
+    microbatch_size: Optional[int] = None
+    num_virtual_stages: Optional[int] = None
+
+    def __post_init__(self):
+        for name in ("num_microbatches", "batch_size", "microbatch_size", "num_virtual_stages"):
+            check_int(name, getattr(self, name), ge=1, optional=True)
+        virtual_stages(self.pp_schedule_name, self.num_virtual_stages)
 
 
 @dataclasses.dataclass
@@ -89,6 +135,33 @@ class ModelFactory:
                 reduce_dtype=_parse_dtype_name(mixed_precision_settings.get("reduce_dtype", "float32")),
             ))
         return model
+
+    @staticmethod
+    def get_pipelined_model(model, pp_schedule_name: str = "1f1b", num_microbatches: Optional[int] = None,
+                            batch_size: Optional[int] = None, microbatch_size: Optional[int] = None,
+                            num_virtual_stages: Optional[int] = None):
+        """The pipeline schedule on the model's spec (JAX
+        model_factory.py:114-181): `pp_schedule`, `pp_num_microbatches`
+        (given, or batch_size // microbatch_size) and `pp_num_virtual`
+        (`virtual_stages`: the schema's checks and messages, where the JAX
+        factory words the same refusals its own way). The mesh's pp axis
+        decides whether it runs (training/train_step.py)."""
+        name = canonical_schedule_name(pp_schedule_name)
+        if name not in SUPPORTED_SCHEDULES:
+            raise NotImplementedError(
+                f"pipeline schedule {pp_schedule_name!r} not supported (have: gpipe, 1f1b, interleaved_1f1b, zbv, "
+                "dualpipev — all five reference schedules, pipeline_parallelism.py:13-20)")
+        num_virtual_stages = virtual_stages(pp_schedule_name, num_virtual_stages)
+        if num_microbatches is None and (batch_size is not None) != (microbatch_size is not None):
+            raise ValueError("pipelined model: batch_size and microbatch_size must be given together")
+        if num_microbatches is None and batch_size is not None:
+            if batch_size % microbatch_size != 0:
+                raise ValueError(f"batch_size ({batch_size}) must be divisible by microbatch_size ({microbatch_size})")
+            num_microbatches = batch_size // microbatch_size
+        if not hasattr(model, "with_spec_updates"):
+            raise NotImplementedError("pipelined model variant requires a staged model (gpt2)")
+        return model.with_spec_updates(pp_schedule=name, pp_num_microbatches=num_microbatches,
+                                       pp_num_virtual=num_virtual_stages)
 
     @staticmethod
     def get_weight_initialized_model(model, model_initializer):

@@ -21,8 +21,13 @@ Gradients: the reduction sums (divide factor 1, sum-only collectives) in the
 policy's `reduce_dtype`; the train step divides each rank's loss by the
 global token count, so the sum is the gradient of the global loss. Forward
 methods other than `forward` that the train step calls (`train_forward` of a
-block, `forward_hidden` of the model) are registered with FSDP2, so they
-gather their unit's parameters as `forward` does.
+block, `forward_hidden` and `stage_forward` of the model) are registered
+with FSDP2, so they gather their unit's parameters as `forward` does.
+
+Under pipeline parallelism the module is one pp rank's stage
+(parallel/pipeline.py): its blocks and, where the stage holds them, the
+embeddings, `lm_head_norm` and the head, so the root unit exists only on the
+stages that hold those.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ def shard_model(module: nn.Module, mesh, *, layers_per_fsdp_unit: Optional[int] 
     # the train step reads the head weight after `forward_hidden` returns
     shard([module], False)
     register_fsdp_forward_method(module, "forward_hidden")
+    register_fsdp_forward_method(module, "stage_forward")
     for sub in module.modules():
         if isinstance(sub, FSDPModule):
             sub.set_gradient_divide_factor(1.0)

@@ -269,7 +269,8 @@ def apply_tensor_parallel(module: nn.Module, mesh, *, loss_parallel: bool = Fals
 
     spec = module.spec
     check_divisible(spec, mesh.size())
-    parallelize_module(module, mesh, plan(spec))
+    # a pipeline stage (parallel/pipeline.py) holds lm_head_norm and lm_head only on the last stage
+    parallelize_module(module, mesh, {k: v for k, v in plan(spec).items() if "*" in k or hasattr(module, k)})
     VocabParallelRoot()._apply(module, mesh)
     return module.set_tensor_parallel(TensorParallel(mesh.get_group(), bool(loss_parallel)))
 

@@ -12,7 +12,6 @@ from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM, GPT2LLMConfig
 from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
 from modalities_tpu_torch.tokenization.tokenizer_wrapper import PreTrainedHFTokenizer
 
-_PIPELINES = "pipeline parallelism"
 _MODELS = "the other models and their data"
 _RESULTS = "the results subscribers"
 _FSDP1 = "the FSDP1 names, to be mapped onto FSDP2"
@@ -21,9 +20,6 @@ _PROFILING = "the profiler components"
 _DEBUGGING = "the debugging transforms"
 # the JAX catalog's pairs the port does not have yet: (component_key, variant_key) -> (Queue 1 item, what)
 UNPORTED = {
-    **{pair: (5, _PIPELINES) for pair in (
-        ("model", "pipelined"), ("pipeline", "builder"), ("pipeline", "scheduled"), ("pipeline", "selector"),
-        ("pipeline", "staged"), ("stages_generator", "gpt2_stages_generator"))},
     **{pair: (6, _MODELS) for pair in (
         ("model", "coca"), ("collate_fn", "coca_collator"), ("dataset", "dummy_dataset"), ("loss", "nce_loss"),
         ("model", "vision_transformer"), ("model", "huggingface_pretrained_model"),
@@ -99,8 +95,10 @@ def _training_components() -> list[ComponentEntity]:
         FSDP2WrappedModelConfig,
         GPT2TPModelConfig,
         ModelFactory,
+        PipelinedModelConfig,
         WeightInitializedModelConfig,
     )
+    from modalities_tpu_torch.parallel import pipeline_components as pl
     from modalities_tpu_torch.nn.llama3_initialization import Llama3Initializer
     from modalities_tpu_torch.nn.model_initialization import ComposedModelInitialization
     from modalities_tpu_torch.optimizers.optimizer_factory import AdamOptimizerConfig, OptimizerFactory
@@ -127,6 +125,12 @@ def _training_components() -> list[ComponentEntity]:
         E("model", "model_initialized", ModelFactory.get_weight_initialized_model, WeightInitializedModelConfig),
         E("model", "activation_checkpointed", ModelFactory.get_activation_checkpointed_model,
           ActivationCheckpointedModelConfig),
+        E("model", "pipelined", ModelFactory.get_pipelined_model, PipelinedModelConfig),
+        E("pipeline", "staged", pl.PipelineFactory.get_staged_pipeline, pl.StagedPipelineConfig),
+        E("pipeline", "scheduled", pl.PipelineFactory.get_scheduled_pipeline, pl.ScheduledPipelineConfig),
+        E("pipeline", "selector", pl.ComponentSelectorFromPipeline.select, pl.ComponentSelectorFromPipelineConfig),
+        E("pipeline", "builder", pl.build_pipeline, pl.PipelineBuilderConfig),
+        E("stages_generator", "gpt2_stages_generator", pl.GPT2LLMStagesGenerator, pl.GPT2LLMStagesGeneratorConfig),
         E("model_initialization", "composed", ComposedModelInitialization),
         E("model_initialization", "gpt2_llama3_like", Llama3Initializer),
         E("loss", "clm_cross_entropy_loss", CLMCrossEntropyLoss),

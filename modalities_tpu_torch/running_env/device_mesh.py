@@ -9,11 +9,14 @@ dp_shard, cp, tp]. An axis exists only when its degree is above 1, except
 dp_shard, which always exists. Rank r sits at the row-major coordinate of r,
 as device r does in the JAX mesh.
 
-Data parallelism (dp_replicate, dp_shard), context parallelism (cp) and
-tensor parallelism (tp, the innermost axis, with loss parallelism over it)
-run; pipeline and DCN degrees above 1 and ZeRO raise NotImplementedError
-(-1 for dcn resolves to 1: a GPU host is one slice). Loss parallelism needs
-tp > 1, as the JAX validator says.
+Pipeline parallelism (pp, the outermost axis: `pp_group`, `pp_rank`; which
+stages a pp rank runs, and so whether it holds the first or the last, its
+schedule says: parallel/pipeline.py), data parallelism (dp_replicate, dp_shard),
+context parallelism (cp) and tensor parallelism (tp, the innermost axis,
+with loss parallelism over it) run; DCN degrees above 1 and ZeRO raise
+NotImplementedError (-1 for dcn resolves to 1: a GPU host is one slice).
+Loss parallelism needs tp > 1, as the JAX validator says. The pp ranks of
+one dp coordinate read the same rows (`get_data_loading_info`).
 """
 
 from __future__ import annotations
@@ -54,10 +57,9 @@ class DeviceMesh:
             check_int(name, getattr(self, name), ge=1)
         check_bool("enable_loss_parallel", self.enable_loss_parallel, optional=True)
         check_int("zero_stage", self.zero_stage, ge=0)
-        for name, what in (("pipeline_parallel_degree", "pipeline parallelism"),
-                           ("dcn_parallel_degree", "cross-slice (DCN) data parallelism")):
-            if getattr(self, name) > 1:
-                raise NotImplementedError(f"{name} {getattr(self, name)}: {what} {_MULTI_GPU}")
+        if self.dcn_parallel_degree > 1:
+            raise NotImplementedError(f"dcn_parallel_degree {self.dcn_parallel_degree}: cross-slice (DCN) data "
+                                      f"parallelism {_MULTI_GPU}")
         if self.zero_stage:
             raise NotImplementedError(f"zero_stage {self.zero_stage}: ZeRO optimizer-state sharding {_MULTI_GPU}")
         self.dcn_parallel_degree = 1
@@ -133,8 +135,9 @@ class DeviceMesh:
             mesh = init_device_mesh(torch.device(device).type, tuple(axes.values()), mesh_dim_names=tuple(axes))
             if "cp" in axes:
                 mesh["dp_shard", "cp"]._flatten("dp_shard_cp")
-            if "dp_replicate" in axes and "tp" in axes:  # the loss's group (`batch_group`)
-                mesh[tuple(name for name in axes if name != "tp")]._flatten("batch")
+            batch = self._batch_axes()
+            if batch is not None and len(batch) > 1 and batch != ("dp_shard", "cp"):  # the loss's group
+                mesh[batch]._flatten("batch")
             self._torch_mesh = mesh
         return self._torch_mesh
 
@@ -153,15 +156,34 @@ class DeviceMesh:
         """The 1-D mesh of this rank's tp group (None without a tp axis)."""
         return self.torch_mesh(device)["tp"] if "tp" in self.mesh_axes else None
 
+    def _batch_axes(self) -> Optional[tuple[str, ...]]:
+        """The built axes whose ranks hold other rows of the global batch:
+        all but tp (its ranks hold the same rows) and pp (its ranks hold other
+        layers); None when that is every axis."""
+        axes = tuple(self.mesh_axes)
+        batch = tuple(name for name in axes if name not in ("tp", "pp"))
+        return None if batch == axes else batch
+
     def batch_group(self, device: torch.device):
         """The ranks that hold other rows of the global batch (every built
-        axis but tp): the process group the loss's (sum, count) is summed
-        over. None without a tp axis (then it is every rank)."""
-        axes = self.mesh_axes
-        if "tp" not in axes:
+        axis but tp and pp): the process group the loss's (sum, count) is
+        summed over. None without a tp or pp axis (then it is every rank)."""
+        batch = self._batch_axes()
+        if batch is None:
             return None
-        name = "batch" if "dp_replicate" in axes else "dp_shard_cp" if "cp" in axes else "dp_shard"
+        name = batch[0] if len(batch) == 1 else "dp_shard_cp" if batch == ("dp_shard", "cp") else "batch"
         return self.torch_mesh(device)[name].get_group()
+
+    def pp_group(self, device: torch.device):
+        """The process group of this rank's pipeline (None without a pp axis);
+        its group rank is the stage's device index."""
+        return self.torch_mesh(device)["pp"].get_group() if "pp" in self.mesh_axes else None
+
+    def pp_rank(self, rank: Optional[int] = None) -> int:
+        """This rank's pipeline device (its coordinate on pp)."""
+        from modalities_tpu_torch.running_env import env
+
+        return self.coordinates(env.rank() if rank is None else rank).get("pp", 0)
 
 
 def get_parallel_degree(device_mesh: Optional[DeviceMesh], method: str) -> int:
@@ -181,7 +203,8 @@ def get_parallel_rank(device_mesh: Optional[DeviceMesh], method: str, rank: Opti
 def get_data_loading_info(device_mesh: Optional[DeviceMesh], rank: Optional[int] = None) -> tuple[int, int]:
     """(number of data-parallel replicas, this rank's flat dp coordinate):
     dp_replicate * dp_shard replicas, coordinate dp_replicate_rank * dp_shard +
-    dp_shard_rank. The cp ranks of one dp coordinate read the same samples."""
+    dp_shard_rank. The cp, tp and pp ranks of one dp coordinate read the same
+    samples."""
     if device_mesh is None:
         return 1, 0
     rep = get_parallel_rank(device_mesh, "dp_replicate", rank)

@@ -73,6 +73,28 @@ def init_process_group(device: torch.device) -> bool:
 def destroy_process_group() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
+    clear_dtensor_caches()
+
+
+def clear_dtensor_caches() -> None:
+    """Forget DTensor's sharding decisions. DTensor caches them (in C++ and
+    in Python) keyed by DeviceMesh equality, which compares layouts, ranks and
+    dim names but not process-group names: after the group is torn down, a
+    new run whose tp mesh equals the old one would get back specs holding the
+    old mesh (`nn.Parameter(dtensor)` goes through that cache), and its first
+    collective over them names a group that no longer exists. The caches
+    differ between torch versions: each one this build has is cleared."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+
+    propagator = DTensor._op_dispatcher.sharding_propagator
+    for clear in (getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None),
+                  getattr(propagator.propagate_op_sharding, "cache_clear", None),
+                  getattr(getattr(propagator, "_propagate_tensor_meta_cached", None), "cache_clear", None),
+                  getattr(_redistribute, "clear_redistribute_planner_cache", None),
+                  getattr(getattr(_redistribute, "_gen_transform_infos", None), "cache_clear", None)):
+        if clear is not None:
+            clear()
 
 
 @contextlib.contextmanager

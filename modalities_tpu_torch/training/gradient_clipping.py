@@ -6,7 +6,10 @@ clipping. Gradients sharded over the device mesh (DTensors) give the whole
 model's norm: each rank reduces its shards, then the squares (p2), the sums
 (p1) or the maxima are reduced over the mesh dims each gradient is sharded on
 (not over a dim that holds copies: dp_replicate, and tp for the gradients
-the tensor-parallel plan replicates), so every rank gets the world-1 norm.
+the tensor-parallel plan replicates), so every rank gets the world-1 norm;
+under pipeline parallelism the stages' totals are reduced over pp too, and
+the train step leaves the tied weight's last-stage copy out, so it counts
+once.
 Clipping follows the JAX package, not `torch.nn.utils.clip_grad_norm_`
 (whose `+ 1e-6` gives other numbers):
 
@@ -68,9 +71,11 @@ def _buckets(grads: list[torch.Tensor]) -> list[tuple[list, list[torch.Tensor]]]
     return list(buckets.values())
 
 
-def global_norm(grads: list[torch.Tensor], mode: GradientClippingMode) -> torch.Tensor:
+def global_norm(grads: list[torch.Tensor], mode: GradientClippingMode, across=None) -> torch.Tensor:
     """The global norm over all gradients (plain tensors or DTensors), in
-    fp32, as a 0-d tensor."""
+    fp32, as a 0-d tensor. `across`: a process group whose ranks hold other
+    parameters (pp: each rank its stage's), over which the squares (sums,
+    maxima) are reduced too."""
     op = dist.ReduceOp.MAX if mode == GradientClippingMode.MAX_NORM else dist.ReduceOp.SUM
     totals = []
     for groups, local in _buckets(grads):
@@ -85,6 +90,8 @@ def global_norm(grads: list[torch.Tensor], mode: GradientClippingMode) -> torch.
             dist.all_reduce(total, op=op, group=group)
         totals.append(total)
     total = torch.stack(totals).max() if mode == GradientClippingMode.MAX_NORM else torch.stack(totals).sum()
+    if across is not None:
+        dist.all_reduce(total, op=op, group=across)
     return total.sqrt() if mode == GradientClippingMode.P2_NORM else total
 
 

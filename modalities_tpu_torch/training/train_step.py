@@ -43,6 +43,25 @@ tensors (`loss`, the mean over microbatches; `grad_norm`; `lr`, the rate this
 step used; the loss summed over the ranks), so the trainer syncs with the
 device only when it logs.
 
+Pipeline parallelism (the mesh's pp axis; or `pp_in_process`, every stage
+in one process, for the card's one-GPU checks): the train step holds this
+rank's stage (parallel/pipeline.py, the tp plan and FSDP2 applied to it) and
+each microbatch's rows are split into the schedule's M microbatches of
+contiguous rows; the schedule's F and B ops run tick by tick
+(parallel/pipeline_scheduled.py), the last stage's head giving each
+microbatch's loss sum over the microbatch's global token count (known before
+the first F op: the count over the batch group, never over pp); every
+backward's gradients go into the fp32 accumulators at once, so each
+pipeline microbatch is accumulated in fp32 as an accumulation microbatch
+is. A tied
+`wte` (a copy on the first and on the last stage) has its two gradients
+summed over pp once a step, counted once in the norm, and takes the same
+step on both. The norm's sum of squares is reduced over pp as well; the
+loss of the last stage is broadcast over pp, so every rank reports it.
+
+`eval_step` is the forward alone on one batch ([mb, S]): the global token
+mean of the loss, every head route, under pp the F ops of the tables.
+
 Knobs of the JAX builder that this branch does not handle raise
 NotImplementedError naming their ROADMAP.md item.
 """
@@ -55,6 +74,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from modalities_tpu_torch.parallel.pipeline import PipelineStage, build_stage_module
+from modalities_tpu_torch.parallel.pipeline_scheduled import InProcess, P2PTransport, run_schedule
+from modalities_tpu_torch.parallel.pipeline_schedules import build_schedule_tables
 from modalities_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel, sum_replicated_grads
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed
 from modalities_tpu_torch.training.gradient_clipping import GradientClippingMode, clip_, global_norm
@@ -67,11 +89,14 @@ class TrainStep:
     tree) replaces fresh initialization; otherwise `model.init_train_params`
     draws them from a generator seeded with `seed` (default: the model's).
     Every rank starts from the same whole parameters and keeps its shards.
-    `device_mesh`: the mesh component (its process group must exist)."""
+    `device_mesh`: the mesh component (its process group must exist).
+    `pp_in_process`: run that many pipeline stages in this process (the
+    in-process transport), without a mesh or on a 1-rank one (each stage
+    then a root of FSDP2 of its own)."""
 
     def __init__(self, model, loss_fn, optimizer_spec, scheduler_spec=None, *, device,
                  gradient_acc_steps: int = 1, grad_clipper=None, params: Optional[dict] = None,
-                 seed: Optional[int] = None, device_mesh=None):
+                 seed: Optional[int] = None, device_mesh=None, pp_in_process: Optional[int] = None):
         spec = model.config_spec
         self.head_chunk = spec.lm_head_chunk_size
         if self.head_chunk is not None and not hasattr(loss_fn, "sum_and_count"):
@@ -95,10 +120,33 @@ class TrainStep:
             params = model.init_train_params(generator)
         else:
             params = {k: v.to(self.device) for k, v in params.items()}
-        self.module = model.build_train_module(params)
-        del params
         self.mesh = device_mesh
-        self.cp_group = self.tp_group = self.batch_group = self.logits_group = None
+        self.cp_group = self.tp_group = self.batch_group = self.logits_group = self.pp_group = None
+        pp = device_mesh.pipeline_parallel_degree if device_mesh is not None else 1
+        if pp_in_process:
+            if device_mesh is not None and dist.get_world_size() > 1:
+                raise ValueError("pp_in_process runs every stage in this process: without a device mesh or on a "
+                                 f"1-rank one (the world has {dist.get_world_size()} ranks)")
+            pp = int(pp_in_process)
+        self.stages: list[PipelineStage] = []
+        self.pp_degree = pp
+        self._tables_by_count: dict = {}
+        if pp > 1:
+            if not hasattr(loss_fn, "sum_and_count"):
+                raise ValueError(f"loss {type(loss_fn).__name__} has no sum_and_count form: the pipeline's loss is "
+                                 "each microbatch's (sum, count)")
+            self.pp_microbatches = spec.pp_num_microbatches or pp
+            layout = self._tables(pp, self.pp_microbatches)
+            self._first_device, self._last_device = layout.device_of(0), layout.device_of(layout.num_stages_global - 1)
+            devices = range(pp) if pp_in_process else [device_mesh.pp_rank()]
+            self.stages = [PipelineStage(build_stage_module(
+                model, {k: v.clone() for k, v in params.items()} if pp_in_process else params, layout, d),
+                layout, d) for d in devices]
+            self.module = None if pp_in_process else self.stages[0].module
+        else:
+            self.module = model.build_train_module(params)
+        del params
+        modules = [st.module for st in self.stages] or [self.module]
         if device_mesh is not None:
             from modalities_tpu_torch.parallel.fsdp import shard_model
 
@@ -107,17 +155,32 @@ class TrainStep:
                                  "ranks needs each rank's (sum, count)")
             tp_mesh = device_mesh.tp_mesh(self.device)
             if tp_mesh is not None:
-                apply_tensor_parallel(self.module, tp_mesh, loss_parallel=device_mesh.enable_loss_parallel)
+                for module in modules:
+                    apply_tensor_parallel(module, tp_mesh, loss_parallel=device_mesh.enable_loss_parallel)
                 self.tp_group = tp_mesh.get_group()
                 self.logits_group = self.tp_group if device_mesh.enable_loss_parallel else None
             self.batch_group = device_mesh.batch_group(self.device)
             fsdp = model.train_spec.fsdp
-            shard_model(self.module, device_mesh.fsdp_mesh(self.device), layers_per_fsdp_unit=fsdp.layers_per_fsdp_unit,
-                        reshard_after_forward=fsdp.reshard_after_forward, reduce_dtype=self.reduce_dtype)
             self.cp_group = device_mesh.cp_group(self.device)
-            self.module.set_context_parallel(self.cp_group)
-        named = list(self.module.named_parameters())
+            for module in modules:  # under pp_in_process every stage is a root of its own
+                shard_model(module, device_mesh.fsdp_mesh(self.device), layers_per_fsdp_unit=fsdp.layers_per_fsdp_unit,
+                            reshard_after_forward=fsdp.reshard_after_forward, reduce_dtype=self.reduce_dtype)
+                module.set_context_parallel(self.cp_group)
+            self.pp_group = device_mesh.pp_group(self.device)
+            if self.pp_group is not None:  # NCCL: a group's first call must include all its ranks; the
+                dist.barrier(group=self.pp_group)  # schedule's P2P calls pair two
+        named = [item for module in modules for item in module.named_parameters()]
         self.params = [p for _, p in named]
+        # a tied wte on two pp devices: the first stage's and the last stage's copy (summed, counted once)
+        self._tied_first = self._tied_copy = None
+        if self.stages and spec.use_weight_tying and self._first_device != self._last_device:
+            for st in self.stages:
+                index = next(i for i, p in enumerate(self.params) if p is st.module.wte) if hasattr(
+                    st.module, "wte") else None
+                if st.is_first:
+                    self._tied_first = index
+                elif st.is_last:
+                    self._tied_copy = index
         self.optimizer = optimizer_spec.build(named)
         fn = scheduler_spec.schedule() if scheduler_spec is not None else (lambda step: 1.0)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, fn)
@@ -135,52 +198,142 @@ class TrainStep:
                 a.zero_()
         return self._acc
 
+    @torch.no_grad()
+    def _accumulate(self) -> None:
+        """Each parameter's (sharded) gradient into its fp32 accumulator, cleared."""
+        for p, a in zip(self.params, self._acc):
+            if p.grad is not None:
+                a.add_(_local(p.grad))
+                p.grad = None
+
     def _logits_sum_count(self, logits, labels):
         """The loss's (sum, count) of logits: over vocab shards under loss parallelism."""
         if self.logits_group is None:
             return self.loss_fn.sum_and_count(logits, labels)
         return self.loss_fn.sum_and_count(logits, labels, vocab_group=self.logits_group)
 
-    def _chunk_sum_count(self, hidden, labels):
-        return self._logits_sum_count(self.module.head_logits(hidden), labels)
-
-    def _chunked_ce(self, hidden, labels):
+    def _chunked_ce(self, module, hidden, labels):
         """(sum, count) of the chunked routes (JAX train_step.py:457-492)."""
         if self.fused_ce:
             if self.tp_group is not None:
-                return self.loss_fn.fused_sum_and_count(hidden, self.module.head_weight(), labels,
+                return self.loss_fn.fused_sum_and_count(hidden, module.head_weight(), labels,
                                                         vocab_group=self.tp_group)
-            return self.loss_fn.fused_sum_and_count(hidden, self.module.head_weight(), labels)
+            return self.loss_fn.fused_sum_and_count(hidden, module.head_weight(), labels)
+
+        def chunk_sum_count(h, lab):
+            return self._logits_sum_count(module.head_logits(h), lab)
+
         seq = hidden.shape[1]
         if seq > self.head_chunk:
             total = torch.zeros((), dtype=torch.float32, device=hidden.device)
             count = torch.zeros((), dtype=torch.float32, device=hidden.device)
             for start in range(0, seq, self.head_chunk):  # the last chunk is the ragged tail, if any
                 end = start + self.head_chunk
-                s, c = checkpointed(self._chunk_sum_count, hidden[:, start:end], labels[:, start:end])
+                s, c = checkpointed(chunk_sum_count, hidden[:, start:end], labels[:, start:end])
                 total, count = total + s, count + c
         else:  # short sequences: one chunk, no recompute
-            total, count = self._chunk_sum_count(hidden, labels)
+            total, count = chunk_sum_count(hidden, labels)
         return total, count
+
+    def _head_sum_count(self, module, hidden, labels):
+        """(loss sum, token count) of post-`lm_head_norm` hidden states: the
+        chunked routes, or the fp32 logits."""
+        if self.head_chunk is not None:
+            return self._chunked_ce(module, hidden, labels)
+        return self._logits_sum_count(module.head_logits(hidden), labels)
 
     def _sum_count(self, inputs, targets: dict):
         """This rank's (loss sum, token count) of a microbatch; a loss without
         the sum_and_count form gives (its mean, 1)."""
         if self.head_chunk is not None:
-            return self._chunked_ce(self.module.forward_hidden(inputs), targets[self.loss_fn.target_key])
+            return self._chunked_ce(self.module, self.module.forward_hidden(inputs), targets[self.loss_fn.target_key])
         if hasattr(self.loss_fn, "sum_and_count"):
             return self._logits_sum_count(self.module(inputs), targets[self.loss_fn.target_key])
         mean = self.loss_fn({self.model.prediction_key: self.module(inputs)}, targets)
         return mean, torch.ones((), device=self.device)
 
+    def _global_count(self, count: torch.Tensor) -> torch.Tensor:
+        """The token count over the ranks that hold other rows (not over tp or pp)."""
+        count = count.detach().float().clone()
+        if self.mesh is not None:
+            dist.all_reduce(count, group=self.batch_group)
+        return count
+
     def _loss(self, inputs, targets: dict):
         """This rank's share of the microbatch's global loss: its sum over the
         token count of the ranks that hold other rows."""
         total, count = self._sum_count(inputs, targets)
-        count = count.detach().float().clone()
-        if self.mesh is not None:
-            dist.all_reduce(count, group=self.batch_group)
-        return total / torch.clamp(count, min=1.0)
+        return total / torch.clamp(self._global_count(count), min=1.0)
+
+    def _tables(self, pp: int, microbatches: int):
+        """The schedule's tables for `microbatches` (built once per count)."""
+        spec = self.model.config_spec
+        if microbatches not in self._tables_by_count:
+            self._tables_by_count[microbatches] = build_schedule_tables(spec.pp_schedule, pp, microbatches,
+                                                                        spec.pp_num_virtual)
+        return self._tables_by_count[microbatches]
+
+    def _pp_run(self, ids: torch.Tensor, labels: torch.Tensor, *, forward_only: bool = False):
+        """One microbatch's rows through the pipeline: split into the
+        schedule's M microbatches of contiguous rows (M at most the rows, as
+        the JAX executor takes it), the tables run over this process's
+        stages. Returns (the loss sum of the microbatches whose head ran
+        here, the global token count); in training each head's value is its
+        sum over that count, so the gradients are the global mean's."""
+        rows = ids.shape[0]
+        m = min(self.pp_microbatches, rows)
+        if rows % m:
+            raise ValueError(f"a rank's {rows} rows of a microbatch must be divisible by the pipeline's "
+                             f"{m} microbatches")
+        tables = self._tables(self.pp_degree, m)
+        ignore = getattr(self.loss_fn, "ignore_index", None)
+        count = labels.numel() if ignore is None else (labels != ignore).sum()
+        count = torch.clamp(self._global_count(torch.as_tensor(count, device=self.device)), min=1.0)
+        ids_mb, labels_mb = ids.chunk(m), labels.chunk(m)
+
+        def head(module, hidden, i):
+            total = self._head_sum_count(module, hidden, labels_mb[i])[0]
+            return total if forward_only else total / count
+
+        if self.pp_group is None:  # every stage in this process
+            transport = InProcess()
+        else:
+            tp = self.tp_group.size() if self.tp_group is not None else 1
+            e = self.model.config_spec.n_embd
+            shape = (rows // m, ids.shape[1] // tp, e)
+            transport = P2PTransport(self.pp_group, shape, self.stages[0].module.compute_dtype, self.device)
+        losses = run_schedule(tables, self.stages, list(ids_mb), head, transport, forward_only=forward_only,
+                              after_backward=self._accumulate)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in sorted(losses):
+            total = total + losses[i].float()
+        return total, count
+
+    def _last_stage_broadcast(self, value: torch.Tensor) -> torch.Tensor:
+        """The last stage's `value` on every pp rank (the loss)."""
+        if self.pp_group is not None:
+            dist.broadcast(value, group_src=self._last_device, group=self.pp_group)
+        return value
+
+    def _sum_tied(self, acc: list[torch.Tensor]) -> None:
+        """The tied wte's gradient: its first-stage copy's plus its last-stage
+        copy's, the same sum on both (in that order)."""
+        if self._tied_first is not None and self._tied_copy is not None:  # both copies in this process
+            total = acc[self._tied_first] + acc[self._tied_copy]
+            acc[self._tied_first].copy_(total)
+            acc[self._tied_copy].copy_(total)
+            return
+        mine = self._tied_first if self._tied_first is not None else self._tied_copy
+        if mine is None:
+            return  # no tied weight here, or one copy (the V placement puts the first and last stage on one device)
+        other = self._last_device if mine == self._tied_first else self._first_device
+        theirs = torch.empty_like(acc[mine])
+        peer = dist.get_global_rank(self.pp_group, other)
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, acc[mine], peer, self.pp_group),
+                                            dist.P2POp(dist.irecv, theirs, peer, self.pp_group)]):
+            work.wait()
+        total = acc[mine] + theirs if mine == self._tied_first else theirs + acc[mine]
+        acc[mine].copy_(total)
 
     def _local_rows(self, t: torch.Tensor) -> torch.Tensor:
         """[mb, S] -> this rank's contiguous sequence chunk [mb, S / cp] under cp."""
@@ -202,19 +355,21 @@ class TrainStep:
         acc = self._zero_accumulators()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(self.acc_steps):
-            loss = self._loss(self._local_rows(samples[sample_key][i]),
-                              {k: self._local_rows(v[i]) for k, v in targets.items()})
-            loss.backward()
-            with torch.no_grad():
-                for p, a in zip(self.params, acc):
-                    if p.grad is not None:
-                        a.add_(_local(p.grad))
-                        p.grad = None
+            inputs = self._local_rows(samples[sample_key][i])
+            mb_targets = {k: self._local_rows(v[i]) for k, v in targets.items()}
+            if self.stages:
+                loss, _ = self._pp_run(inputs, mb_targets[self.loss_fn.target_key])
+            else:
+                loss = self._loss(inputs, mb_targets)
+                loss.backward()
+                self._accumulate()
             loss_sum += loss.detach()
         if self.mesh is not None:
             dist.all_reduce(loss_sum, group=self.batch_group)
+        loss_sum = self._last_stage_broadcast(loss_sum)
         if self.tp_group is not None:
             sum_replicated_grads(self.params, acc, self.tp_group)
+        self._sum_tied(acc)
         lr = torch.tensor(self.optimizer.param_groups[0]["lr"], dtype=torch.float32)
         with torch.no_grad():
             for p, a in zip(self.params, acc):
@@ -223,7 +378,8 @@ class TrainStep:
                           if isinstance(p, DTensor) else g)
         grads = [p.grad for p in self.params]
         mode = self.clipper.norm_type if self.clipper is not None else GradientClippingMode.P2_NORM
-        grad_norm = global_norm(grads, mode)
+        counted = [g for i, g in enumerate(grads) if i != self._tied_copy]  # a tied weight counts once
+        grad_norm = global_norm(counted, mode, across=self.pp_group)
         if self.clipper is not None and self.clipper.max_norm is not None:
             clip_(grads, grad_norm, self.clipper.max_norm, mode)
         self.optimizer.step()
@@ -232,11 +388,30 @@ class TrainStep:
             p.grad = None
         return {"loss": loss_sum / self.acc_steps, "grad_norm": grad_norm, "lr": lr}
 
+    def eval_step(self, batch: dict) -> dict[str, Any]:
+        """batch: {"samples": {key: [mb, S]}, "targets": {key: [mb, S]}} (this
+        rank's rows) -> {"loss": the global token mean of the loss} (JAX
+        train_step.py:702-720), without a graph."""
+        inputs = self._local_rows(batch["samples"][self.model.sample_key])
+        targets = {k: self._local_rows(v) for k, v in batch["targets"].items()}
+        with torch.no_grad():
+            if self.stages:
+                total, count = self._pp_run(inputs, targets[self.loss_fn.target_key], forward_only=True)
+            else:
+                total, count = self._sum_count(inputs, targets)
+                total, count = total.float(), self._global_count(count)
+            if self.mesh is not None:
+                dist.all_reduce(total, group=self.batch_group)
+            total = self._last_stage_broadcast(total)
+        return {"loss": total / torch.clamp(count, min=1.0)}
+
     def state_dict(self) -> dict[str, torch.Tensor]:
         """The module's parameters, whole: sharded ones are gathered from every
         rank (all ranks must call), except on a 1-rank mesh, whose one shard is
-        the whole tensor (read without the process group, which may be gone)."""
-        return {k: _full(v) for k, v in self.module.state_dict().items()}
+        the whole tensor (read without the process group, which may be gone).
+        Under pp, this rank's stage's (in process: every stage's)."""
+        modules = [st.module for st in self.stages] or [self.module]
+        return {k: _full(v) for module in modules for k, v in module.state_dict().items()}
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

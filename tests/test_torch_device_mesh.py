@@ -11,8 +11,11 @@ device_mesh.py) against the JAX package's `DeviceMeshConfig` and
   of one dp coordinate;
 - tensor parallelism builds the tp axis last; loss parallelism needs tp > 1
   (the JAX validator's check, a ValueError here);
-- pipeline and DCN degrees above 1 and ZeRO are refused, naming ROADMAP.md
-  Queue 1 item 5."""
+- the pp axis is built outermost, as in the JAX mesh, and the pp ranks of
+  one dp coordinate read the same samples (the JAX loader's flat dp
+  coordinate of the device);
+- DCN degrees above 1 and ZeRO are refused, naming ROADMAP.md Queue 1 item
+  5."""
 
 import jax
 import numpy as np
@@ -60,13 +63,14 @@ def test_the_validator_accepts_rejects_and_infers_as_the_jax_one(case):
 @pytest.mark.parametrize("degrees", [dict(dp_shard=1), dict(dp_shard=4), dict(dp_replicate=2, dp_shard=2),
                                      dict(dp_shard=2, cp=2), dict(cp=4), dict(dp_replicate=2, dp_shard=2, cp=2),
                                      dict(tp=2), dict(dp_shard=2, tp=2), dict(cp=2, tp=2),
-                                     dict(dp_replicate=2, dp_shard=2, tp=2)],
+                                     dict(dp_replicate=2, dp_shard=2, tp=2), dict(pp=2), dict(pp=2, dp_shard=2, tp=2),
+                                     dict(pp=2, dp_shard=2, cp=2), dict(pp=4, dp_replicate=2)],
                          ids=lambda d: "-".join(f"{k}{v}" for k, v in d.items()))
 def test_the_axes_and_each_ranks_coordinates_are_the_jax_meshs(degrees):
     world = int(np.prod(list(degrees.values())))
     kw = dict(data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
               data_parallel_shard_degree=degrees.get("dp_shard", 1), context_parallel_degree=degrees.get("cp", 1),
-              tensor_parallel_degree=degrees.get("tp", 1))
+              tensor_parallel_degree=degrees.get("tp", 1), pipeline_parallel_degree=degrees.get("pp", 1))
     port = DeviceMesh(world_size=world, **kw)
     handle = get_device_mesh(device_type="cpu", world_size=world, devices=jax.devices()[:world], **kw)
     mesh = handle.mesh
@@ -79,6 +83,13 @@ def test_the_axes_and_each_ranks_coordinates_are_the_jax_meshs(degrees):
         for name in ("dp_replicate", "dp_shard", "cp", "tp", "pp"):
             assert get_parallel_rank(port, name, rank) == want.get(name, 0)
             assert get_parallel_degree(port, name) == handle.get_parallel_degree(name)
+        # the JAX loader's rows for device `rank` (get_data_loading_info's flat dp coordinate)
+        dp_axes = [n for n in ("dp_replicate", "dp_shard") if n in mesh.axis_names]
+        flat = 0
+        for n in dp_axes:
+            flat = flat * mesh.shape[n] + want[n]
+        assert get_data_loading_info(port, rank) == (int(np.prod([mesh.shape[n] for n in dp_axes])), flat)
+        assert port.pp_rank(rank) == want.get("pp", 0)
 
 
 def test_the_data_loading_info_gives_cp_ranks_the_same_samples():
@@ -99,7 +110,7 @@ def test_the_data_loading_info_gives_tp_ranks_the_same_samples():
 
 
 @pytest.mark.parametrize("edits,match", [
-    (dict(world_size=2, pipeline_parallel_degree=2, data_parallel_shard_degree=1), "pipeline parallelism"),
+    (dict(world_size=2, pipeline_parallel_degree=2, data_parallel_shard_degree=1, zero_stage=1), "ZeRO"),
     (dict(world_size=2, dcn_parallel_degree=2, data_parallel_shard_degree=1), "DCN"),
     (dict(world_size=2, zero_stage=1), "ZeRO"),
 ], ids=["pp", "dcn", "zero"])

@@ -80,8 +80,8 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
     """A tiny GPT2 `TrainStep` over the mesh of `spec["degrees"]`, from the
     parameters `spec["params"]`; each rank feeds its data-parallel rows of
     the global batches (strided, as the sampler deals them). Returns each
-    step's (loss, grad_norm, lr) and, on rank 0, the parameters after the
-    steps."""
+    step's (loss, grad_norm, lr) and the parameters after the steps (on rank
+    0; under pp on the first rank of each stage, which holds its share)."""
     from modalities_tpu_torch.running_env import env
     from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
 
@@ -95,7 +95,8 @@ def train_worker(rank: int, world: int, spec: dict) -> dict:
             m = step(local)
             metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
         state = _numpy(step.state_dict())
-    return {"metrics": metrics, "state": state if rank == 0 else None}
+        first_of_stage = mesh is None or not any(v for k, v in mesh.coordinates(rank).items() if k != "pp")
+    return {"metrics": metrics, "state": state if first_of_stage else None}
 
 
 def _tiny_step(spec: dict, world: int):
@@ -112,8 +113,11 @@ def _tiny_step(spec: dict, world: int):
     mesh = DeviceMesh(world_size=world, data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
                       data_parallel_shard_degree=degrees.get("dp_shard", 1),
                       context_parallel_degree=degrees.get("cp", 1), tensor_parallel_degree=degrees.get("tp", 1),
+                      pipeline_parallel_degree=degrees.get("pp", 1),
                       enable_loss_parallel=spec.get("loss_parallel", False)) if degrees is not None else None
     model = GPT2LLM(**spec["model"])
+    if spec.get("pipeline"):  # {"pp_schedule": ..., "pp_num_microbatches": ..., "pp_num_virtual": ...}
+        model.with_spec_updates(**spec["pipeline"])
     model.update_train_spec(mixed_precision=MixedPrecisionSpec(*spec.get("dtypes", ("float32",) * 3)))
     for routine in spec.get("init_routines", ()):
         model.update_train_spec(init_routines=model.train_spec.init_routines + (routine,))
@@ -125,7 +129,7 @@ def _tiny_step(spec: dict, world: int):
     step = TrainStep(model, CLMCrossEntropyLoss("target_ids", "logits"), opt, sched, device="cpu",
                      gradient_acc_steps=spec["acc"], grad_clipper=GradientClipper(max_norm=spec["clip"]),
                      params=None if params is None else {k: torch.from_numpy(v.copy()) for k, v in params.items()},
-                     seed=spec.get("seed"), device_mesh=mesh)
+                     seed=spec.get("seed"), device_mesh=mesh, pp_in_process=spec.get("pp_in_process"))
     return step, mesh
 
 

@@ -46,11 +46,11 @@ WORLDS = {
 }
 
 
-def _batches(mask: bool) -> list[dict]:
+def _batches(mask: bool, mb: int = MB) -> list[dict]:
     rng = np.random.default_rng(23)
     out = []
     for _ in range(STEPS):
-        tokens = rng.integers(0, 128, size=(ACC, MB, SEQ + 1))
+        tokens = rng.integers(0, 128, size=(ACC, mb, SEQ + 1))
         targets = tokens[..., 1:].astype(np.int32)
         if mask:  # unequal counts: row 0 keeps its first quarter, row 1 loses its last 5 tokens
             targets[:, 0, SEQ // 4:] = -100
@@ -61,8 +61,11 @@ def _batches(mask: bool) -> list[dict]:
 
 def _jax_run(world: dict, batches: list[dict]):
     chunk, remat = world.get("chunk"), world.get("remat", False)
-    model = tiny_gpt2("dao_flash", use_weight_tying=chunk is not None, lm_head_chunk_size=chunk).update_train_spec(
+    model = tiny_gpt2("dao_flash", use_weight_tying=chunk is not None or world.get("tied", False),
+                      lm_head_chunk_size=chunk, n_layer=world.get("n_layer", 2)).update_train_spec(
         mixed_precision=JaxMixedPrecision(param_dtype="float32", compute_dtype="float32", reduce_dtype="float32"))
+    if world.get("pipeline"):
+        model.with_spec_updates(**world["pipeline"])
     if remat:
         JaxActivationCheckpointing.apply(model, "full_activation_checkpointing")
     degrees = world["degrees"]
@@ -70,6 +73,7 @@ def _jax_run(world: dict, batches: list[dict]):
     mesh = get_device_mesh(device_type="cpu", data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
                            data_parallel_shard_degree=degrees.get("dp_shard", 1),
                            context_parallel_degree=degrees.get("cp", 1), tensor_parallel_degree=degrees.get("tp", 1),
+                           pipeline_parallel_degree=degrees.get("pp", 1),
                            enable_loss_parallel=world.get("loss_parallel", False), world_size=size,
                            devices=jax.devices()[:size])
     opt = JaxOptimizers.get_adam_w(wrapped_model=model, **OPT)
@@ -88,11 +92,12 @@ def _jax_run(world: dict, batches: list[dict]):
 
 def _spec(world: dict, params: dict, batches: list[dict], degrees) -> dict:
     chunk = world.get("chunk")
-    model = port_config(attention_implementation="dao_flash", use_weight_tying=chunk is not None,
-                        lm_head_chunk_size=chunk, lm_head_fused_ce="auto")
+    model = port_config(attention_implementation="dao_flash", use_weight_tying=chunk is not None or world.get("tied", False),
+                        lm_head_chunk_size=chunk, lm_head_fused_ce="auto", n_layer=world.get("n_layer", 2))
     return {"degrees": degrees, "model": model, "remat": world.get("remat", False), "opt": OPT, "sched": SCHED,
             "clip": CLIP, "acc": ACC, "params": params, "batches": batches,
-            "loss_parallel": world.get("loss_parallel", False) and degrees is not None}
+            "loss_parallel": world.get("loss_parallel", False) and degrees is not None,
+            "pipeline": world.get("pipeline") if degrees is not None else None}
 
 
 @pytest.mark.parametrize("name", list(WORLDS))
@@ -103,7 +108,7 @@ def test_the_gloo_world_matches_the_jax_mesh_step_and_the_world_1_step(name):
 def check_world(world: dict) -> None:
     """The gloo world of `world["degrees"]` against the JAX mesh step and the
     port's world-1 step."""
-    batches = _batches(world.get("mask", False))
+    batches = _batches(world.get("mask", False), world.get("mb", MB))
     params0, jax_metrics, jax_final, size = _jax_run(world, batches)
     port_model = GPT2LLM(**_spec(world, None, batches, None)["model"])
     params = {k: v.numpy() for k, v in params_from_jax(params0, port_model).items()}
@@ -116,12 +121,15 @@ def check_world(world: dict) -> None:
         m = single({part: {k: torch.from_numpy(v) for k, v in d.items()} for part, d in batch.items()})
         single_metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
 
+    # `jax_grad_norm_factor`: the JAX step's reported norm is that many times the world's (a reference caveat)
+    jax_metrics = (np.asarray(jax_metrics) / [1.0, world.get("jax_grad_norm_factor", 1.0), 1.0]).tolist()
     for r in ranks:  # every rank reports the global metrics
         np.testing.assert_allclose(r["metrics"], jax_metrics, err_msg="gloo world vs JAX mesh", **TOL)
         np.testing.assert_allclose(r["metrics"], single_metrics, err_msg="gloo world vs world 1", **TOL)
     assert jax_metrics[0][1] > 0 and jax_metrics[-1][2] > 0
     want = {k: v.numpy() for k, v in params_from_jax(jax_final, port_model).items()}
-    got, got_single = ranks[0]["state"], {k: v.detach().numpy() for k, v in single.state_dict().items()}
+    got = {k: v for r in ranks if r["state"] is not None for k, v in r["state"].items()}  # pp: each stage's share
+    got_single = {k: v.detach().numpy() for k, v in single.state_dict().items()}
     assert set(got) == set(want) == set(got_single)
     for key in want:
         np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)

@@ -43,7 +43,7 @@ def test_the_port_registers_exactly_the_jax_catalogs_pairs():
 
 
 def test_each_unported_pair_names_a_queue_1_item():
-    assert len(UNPORTED) == 53
+    assert len(UNPORTED) == 47
     for (key, variant), (item, _) in UNPORTED.items():
         assert item in (5, 6, 7)
         with pytest.raises(NotImplementedError, match=rf"{key}\.{variant} .* Queue 1 item {item}\)"):
@@ -68,3 +68,18 @@ def test_the_7b_tp_configs_variants_are_ported():
     for key, variant in pairs:
         PORT.get_component(key, variant)
     assert {("model", "gpt2_tp"), ("model_initialization", "gpt2_llama3_like")} <= pairs
+
+
+PIPELINE_PAIRS = {("model", "pipelined"), ("pipeline", "staged"), ("pipeline", "scheduled"), ("pipeline", "selector"),
+                  ("pipeline", "builder"), ("stages_generator", "gpt2_stages_generator")}
+
+
+def test_the_pipeline_pairs_are_built():
+    """The six pipeline pairs of the pp config graph are ported, and the two
+    shipped configs that name them build them (pp_tp: `model.pipelined`)."""
+    assert not PIPELINE_PAIRS & set(UNPORTED)
+    for key, variant in PIPELINE_PAIRS:
+        component = PORT.get_component(key, variant)
+        assert not isinstance(component, Unported) and callable(component), (key, variant)
+    pairs = _pairs(yaml.safe_load((ROOT / "configs" / "config_lorem_ipsum_tpu_pp_tp.yaml").read_text()), set())
+    assert ("model", "pipelined") in pairs

@@ -113,7 +113,7 @@ def test_the_default_device_raises_without_a_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "edits,error,match",
     [
-        ({"device_mesh.config.pipeline_parallel_degree": 2, "device_mesh.config.world_size": 2}, NotImplementedError,
+        ({"device_mesh.config.dcn_parallel_degree": 2, "device_mesh.config.world_size": 2}, NotImplementedError,
          "Queue 1 item 5"),
         ({"device_mesh.config.zero_stage": 1}, NotImplementedError, "ZeRO"),
         ({"model_raw.config.dropout": 0.1}, ValueError, "dropout"),
