@@ -170,15 +170,35 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      pass runs the backward kernels again); each schedule's step ms, peak
      memory and busy share; the 1F1B tables with two microbatches' B ops
      swapped refused before any launch.
- 10. one JSON line naming the kernels (launches summed over the paths, and
+ 10. ZeRO-1, cross-slice data parallelism and the row-parallel bias, each
+     path's launches counted from 0 just before it: (a) the 2.7B with
+     `zero_stage: 1` and `dcn_parallel_degree: -1` through Main, 3 steps
+     bitwise phase 4's (inert at dp_replicate 1, one slice); (b) one 2.7B
+     step with ZeRO-1 over 4 replicas in this process
+     (`TrainStep(zero_in_process=4)`: parallel/zero.py's `Zero1`, the
+     train step's ZeRO path, over `InProcessReplicas`) against the stage-0
+     step on the same batch: the loss bitwise, every replica's moment
+     chunks and the gathered parameters bitwise the unsplit AdamW on the
+     same clipped gradient, the norm within NORM_REL of stage 0's, against
+     stage 0 bitwise when the norm bits agree and else within one bf16 ulp;
+     the moment bytes a replica holds at stage 0 and at R 4, the peak
+     memory; (c) one 2.7B step over 2
+     slices in this process (`TrainStep(dcn_in_process=2)`), slice 0's rows
+     masked to a quarter, against a per-slice reference by autograd on the
+     same model (loss and norm within NORM_REL, parameters within one bf16
+     ulp), the gap between the per-slice mean and the global token mean
+     printed; (d) phase 8b's 7B block with `bias: true` (biases drawn from
+     N(0, 0.02)) at tp 8 within the same row bounds.
+ 11. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, train_2p7b, train_32k, train_32k_resume, ring_cp4,
      train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
-     pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, serve_ckpt; the fused-CE
+     pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
+     zero4_in_process, dcn2_in_process, tp8_bias, serve_ckpt; the fused-CE
      kernels' times at every shape of phase 1 under `shapes`), then the
      card's name and power limit, then the device line (last line).
      `[timing]` lines give the script's wall time after each phase.
 
-Phases 4-9 run on the world-1 NCCL process group that `run` builds without
+Phases 4-10 run on the world-1 NCCL process group that `run` builds without
 a launcher (held across them), so every training run goes through
 `fully_shard` (the configs' `fsdp2_wrapped`); phases 4, 5 and 8a also run
 their 3 steps with the train step built without a mesh and hold every
@@ -1788,8 +1808,9 @@ def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, voca
         raise AssertionError(f"lr witness: kernels {k} and plain path {p} differ by {diff:g}")
 
 
-def phase_train(torch, smi: str) -> dict[str, int]:
-    """The 2.7B training path through Main; returns its kernel launch counts."""
+def phase_train(torch, smi: str) -> tuple[dict[str, int], dict]:
+    """The 2.7B training path through Main; returns its kernel launch counts
+    and its steps' (loss, grad norm, lr)."""
     from modalities_tpu_torch.main import Main
 
     rng = np.random.default_rng(2027)
@@ -1862,7 +1883,7 @@ def phase_train(torch, smi: str) -> dict[str, int]:
         for n_layer, wseq in LR_WITNESS:
             lr_witness(torch, tmp, rng, n_layer, wseq, lr=0.00016, vocab=MODEL_2P7B["vocab_size"], keys=TRAIN_KERNELS,
                        phase="phase 4", plain_extra={}, fp32_arm=(n_layer, wseq) == LR_WITNESS[0])
-    return counts
+    return counts, _step_metrics(sharded_results)
 
 
 def phase_train_long(torch, smi: str) -> dict[str, int]:
@@ -2550,9 +2571,13 @@ def phase_train_7b(torch, smi: str, tmp: Path) -> tuple[dict[str, int], dict]:
     return counts, {"params": saved, "steps": steps, "tokens": steps * micro * seq, "loss": losses[-1]}
 
 
-def phase_tp_block(torch, smi: str) -> dict[str, int]:
+def phase_tp_block(torch, smi: str, bias: bool = False, phase: str = "phase 8b") -> dict[str, int]:
     """8b: one 7B block (E 4096, 32/8 heads of 128, SwiGLU 14336, bf16, the
-    Llama3 init) on x [1, 4096, 4096] at tp 8, driven rank by rank in this
+    Llama3 init; with `bias` (10d) `bias: true`, the default N(0, 0.02) init,
+    which the Llama3 one refuses with biases, and every dense bias drawn
+    from N(0, 0.02), so that a row-parallel bias added once per rank before
+    the sum, not once after it, moves the output) on x [1, 4096, 4096] at
+    tp 8, driven rank by rank in this
     process through parallel/tensor_parallel.py's `tp_in_process`: each
     rank's norms on its 512 rows (SP), its 4/1 heads and its 1/8 of the MLP;
     the partial outputs summed in rank order in fp32, as the reduce-scatter
@@ -2566,11 +2591,18 @@ def phase_tp_block(torch, smi: str) -> dict[str, int]:
     from modalities_tpu_torch.ops import flash_attention as fa
     from modalities_tpu_torch.parallel import tensor_parallel as tpm
 
-    model = GPT2LLM(**MODEL_7B_BLOCK)
+    model = GPT2LLM(**{**MODEL_7B_BLOCK, "bias": bias})
     model.with_spec_updates(param_dtype="bfloat16", compute_dtype="bfloat16")
-    model.update_train_spec(init_routines=(Llama3Initializer(num_layers=1, n_embd=4096),))
+    if not bias:  # the Llama3 init refuses biases (as the JAX one does): the default N(0, 0.02) init then
+        model.update_train_spec(init_routines=(Llama3Initializer(num_layers=1, n_embd=4096),))
     module = model.build_train_module(model.init_train_params(torch.Generator(device="cuda").manual_seed(11)))
     block = module.blocks[0]
+    if bias:
+        g = torch.Generator(device="cuda").manual_seed(17)
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if name.endswith(".bias") and "norm" not in name:
+                    p.copy_(0.02 * torch.randn(p.shape, generator=g, device="cuda"))
     s, e = MODEL_7B_BLOCK["sequence_length"], MODEL_7B_BLOCK["n_embd"]
     g = torch.Generator(device="cuda").manual_seed(13)
     x = torch.randn(1, s, e, generator=g, device="cuda").to(torch.bfloat16)
@@ -2603,7 +2635,7 @@ def phase_tp_block(torch, smi: str) -> dict[str, int]:
     if counts != want or shapes != want_shapes:
         raise AssertionError(f"tp {TP_DEGREE} block: launches {counts} (expected {want}), flash shapes {shapes}")
     rel = FLASH_ROW_REL["bfloat16"]
-    what = f"7B block at tp {TP_DEGREE}, x [1, {s}, {e}] bf16"
+    what = f"7B block{' with biases' if bias else ''} at tp {TP_DEGREE}, x [1, {s}, {e}] bf16"
     grads = tpm.gather_rank_grads(block, ranks)
     pairs = {"out": (out, out_ref), "dx": (x_tp.grad, x_ref.grad),
              **{f"d {name}": (grads[name], p.grad) for name, p in block.named_parameters()}}
@@ -2616,7 +2648,7 @@ def phase_tp_block(torch, smi: str) -> dict[str, int]:
     if failed:
         raise AssertionError("; ".join(failed) + f" (the others: {seen})")
     worst = max(seen.items(), key=lambda kv: kv[1][1])
-    log(f"[phase 8b] {what}, driven rank by rank through tensor_parallel.tp_in_process: launches {counts} (flash "
+    log(f"[{phase}] {what}, driven rank by rank through tensor_parallel.tp_in_process: launches {counts} (flash "
         f"q/k {shapes[0]} a rank; RMSNorm on {s // TP_DEGREE}-row chunks under SP); against the unsharded block, "
         f"worst row rel err (share of allowance used, max abs err) "
         f"{', '.join(f'{n} {r[0]:.3g} ({r[1]:.2f}, {r[2]:.3g})' for n, r in seen.items())}; most used: "
@@ -2993,6 +3025,357 @@ def phase_pipeline_7b(torch, smi: str, tmp: Path) -> dict[str, dict[str, int]]:
     return counts
 
 
+# ---------------------------------------------------------------- phase 10
+# ZeRO-1, cross-slice data parallelism and the row-parallel bias, on configs/config_2p7b_dp.yaml at full width and
+# depth (2 microbatches of 2 x 4096, as phase 4 runs it). 10b and 10c take one step at the warmup-free rates of
+# phase 4's repeated-batch run (lr 1.6e-5 at step 1; the config's own schedule starts at 0, which would leave the
+# parameters where they were)
+ZERO_REPLICAS = 4
+DCN_SLICES = 2
+ONE_STEP_RATES = {"scheduler.config.warmup_steps": 1, "scheduler.config.initial_lr": 0.000016,
+                  "scheduler.config.max_lr": 0.000016, "scheduler.config.final_lr": 0.0000016}
+# The global p2 norm summed over ZeRO chunks (or over the slices' averaged gradients) against one summed over the
+# whole leaves: the same fp32 squares added in another order, each leaf's sum of up to 1.3e8 squares; 1e-5
+# relative is ~100 fp32 ulps, and a chunk or slice that was lost or counted twice moves it by O(1)
+NORM_REL = 1e-5
+# A bf16 parameter or moment updated with a clip coefficient or gradient that differs in its last fp32 bits can
+# round to the neighbouring bf16 value: one bf16 ulp, at most 2^-7 of the value (2^-133 absolute near 0 is below
+# every element here). A wrong chunk, a stale chunk or an update applied twice is off by ~lr or more
+BF16_ULP_REL = 2.0 ** -7
+
+
+def _ulp_check(torch, got, want, what: str) -> float:
+    """Largest |got - want| / |want| (elements equal count 0); raises when an
+    element differs by more than one bf16 ulp of |want|."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs()
+    bad = diff > BF16_ULP_REL * scale
+    if bad.any():
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"{what}: {int(bad.sum())} elements differ by more than one bf16 ulp (first: "
+                             f"{got.flatten()[i].item()} vs {want.flatten()[i].item()})")
+    return float((diff / scale.clamp_min(1e-30)).max()) if diff.numel() else 0.0
+
+
+def _expect_launches(counts: dict[str, int], per_pass: dict[str, int], passes: int, what: str) -> None:
+    """Exact launches of `passes` forward/backward passes of a path."""
+    want = {k: v * passes for k, v in per_pass.items()}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} ({passes} passes of {per_pass})")
+
+
+# one forward/backward pass of the 2.7B (32 blocks, 65 RMSNorms: two a block and the head's)
+PASS_2P7B = {"flash_fwd": 32, "flash_dq": 32, "flash_dkv": 32, "rms_fwd": 65, "rms_bwd": 65}
+
+
+def _one_step_batch(torch, main, components, acc: int):
+    from modalities_tpu_torch.trainer import stack_microbatches
+
+    loader = iter(components.train_dataloader)
+    return stack_microbatches([next(loader) for _ in range(acc)], torch.device("cuda"))
+
+
+def phase_zero_inert(torch, smi: str, tmp: Path, want: dict) -> dict[str, int]:
+    """10a: the 2.7B config with `zero_stage: 1` and `dcn_parallel_degree:
+    -1` through Main, phase 4's corpus and 3 steps: at dp_replicate 1 ZeRO-1
+    is the stage-0 program (JAX train_step.py:268-272) and -1 is one slice,
+    so every step's (loss, grad norm, lr) is bitwise phase 4's; the same
+    launches a step."""
+    from modalities_tpu_torch.main import Main
+
+    seq, steps = 4096, 3
+    corpus = np.random.default_rng(2027).integers(0, MODEL_2P7B["vocab_size"], size=seq + 1 + (4 * steps + 3) * seq)
+    cfg = _train_config(tmp, "train_zero1", corpus, steps, {"device_mesh.config.zero_stage": 1,
+                                                             "device_mesh.config.dcn_parallel_degree": -1},
+                        phase="phase 10a")
+    main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+    main.components = main.build_components()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = main.run(main.components)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    got = _step_metrics(results)
+    if main.train_step.zero is not None or main.train_step.mesh.mesh_axes != {"dp_shard": 1}:
+        raise AssertionError(f"zero_stage 1 at world 1: ZeRO active or mesh {main.train_step.mesh.mesh_axes}")
+    if got != want:
+        raise AssertionError(f"zero_stage 1 at dp_replicate 1: steps {got} != phase 4's {want}")
+    _expect_launches(counts, PASS_2P7B, 2 * steps, "zero_stage 1 at world 1")
+    ms = [1e3 / r["throughput_metrics"]["train steps/s"] for r in results[1:]]
+    log(f"[phase 10a] 2.7B with zero_stage 1, dcn_parallel_degree -1 through Main (mesh {{'dp_shard': 1}}, ZeRO "
+        f"inert at dp_replicate 1): steps 1-{steps} (loss, grad norm, lr) {[got[k] for k in sorted(got)]} bitwise "
+        f"phase 4's; launches {counts} ({ {k: v // steps for k, v in counts.items()} } a step); step ms "
+        f"{[round(x, 1) for x in ms]} ({smi}); {wall:.1f} s")
+    del main, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _phase10_step(main, components, **kw):
+    """A world-1 TrainStep of `components`, built as Main builds it, from the
+    model's seeded initial parameters (the same in every step so built)."""
+    from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    app_state = components.app_state
+    return TrainStep(app_state.model, components.loss_fn, app_state.optimizer, app_state.lr_scheduler,
+                     device=main.device, gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
+                     grad_clipper=components.gradient_clipper, device_mesh=DeviceMesh(world_size=1), **kw)
+
+
+def phase_zero4_in_process(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """10b: one step of the 2.7B with ZeRO-1 over 4 dp_replicate replicas in
+    this process (`TrainStep(zero_in_process=4)` on the world-1 group: the
+    train step's ZeRO path, parallel/zero.py's `Zero1` over
+    `InProcessReplicas`: the rule on the parameters' placements, the chunk
+    buffers refreshed from the parameters, the reduce-scatter (the replicas'
+    chunks of the one accumulator, which holds every replica's rows), the
+    norm over the chunks, clipping, the chunks' AdamW, the gather back into
+    the parameters; its launches counted), against the stage-0 step of the
+    same config from the same initial parameters on the same batch, run
+    first, whose accumulated gradient, parameters before the update and
+    results are kept on the host. Held: the loss bitwise; the norm within
+    NORM_REL of stage 0's; every replica's moment chunks and the gathered
+    parameters bitwise an unsplit AdamW on the stage-0 gradient clipped by
+    the chunks' norm (leaf by leaf); against the stage-0 step itself bitwise
+    where the two norms' bits agree, else within one bf16 ulp (BF16_ULP_REL).
+    The NCCL reduce-scatter and all-gather of `ReplicaGroup` do not run: one
+    card. Prints the moment bytes a replica holds at stage 0 and at R = 4,
+    and the ZeRO step's peak memory."""
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.parallel.zero import chunk
+    from modalities_tpu_torch.training import train_step as ts
+
+    seq = 4096
+    corpus = np.random.default_rng(2031).integers(0, MODEL_2P7B["vocab_size"], size=seq + 1 + 6 * seq)
+    cfg = _train_config(tmp, "zero4", corpus, 1, ONE_STEP_RATES, phase="phase 10b")
+    main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+    components = main.build_components()
+    spec, max_norm = components.app_state.optimizer, components.gradient_clipper.max_norm
+    step = _phase10_step(main, components)
+    batch = _one_step_batch(torch, main, components, step.acc_steps)
+    names = [n for n, _ in step.module.named_parameters()]
+    host = {}
+    clip = ts.clip_
+
+    def recording(grads, norm, max_norm, mode):  # the stage-0 gradient and parameters before it clips and updates
+        host.update(grads=[ts._local(g).detach().cpu() for g in grads],
+                    before=[ts._local(p).detach().cpu() for p in step.params])
+        return clip(grads, norm, max_norm, mode)
+
+    ts.clip_ = recording
+    try:
+        want = step(batch)
+    finally:
+        ts.clip_ = clip
+    stage0_norm = want["grad_norm"].clone()
+    host["after"] = [ts._local(p).detach().cpu() for p in step.params]
+    host["moments"] = [{k: ts._local(v).cpu() for k, v in step.optimizer.state[p].items() if k != "step"}
+                       for p in step.params]
+    stage0_bytes = sum(t.numel() * t.element_size() for m in host["moments"] for t in m.values())
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    step = _phase10_step(main, components, zero_in_process=ZERO_REPLICAS)
+    zero = step.zero
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _expect_launches(counts, PASS_2P7B, step.acc_steps, "zero4 in process")
+    lr, norm = float(metrics["lr"]), metrics["grad_norm"]
+    if not torch.equal(metrics["loss"], want["loss"]) or lr != float(want["lr"]):
+        raise AssertionError(f"zero4: loss {float(metrics['loss'])}, lr {lr} vs stage 0's {float(want['loss'])}, "
+                             f"{float(want['lr'])}")
+    rank_bytes = [sum(t.numel() * t.element_size() for (i, r), b in zip(zero.slots, zero.buffers) if r in (None, rep)
+                      for k, t in step.optimizer.state[b].items() if k != "step") for rep in range(ZERO_REPLICAS)]
+    norm_rel = abs(float(norm) - float(stage0_norm)) / float(stage0_norm)
+    if norm_rel > NORM_REL:
+        raise AssertionError(f"zero4: the chunks' norm {float(norm)} vs stage 0's {float(stage0_norm)}")
+    bits_agree = torch.equal(norm, stage0_norm)
+    step._acc = None  # the accumulators: room for the references
+    slots_of: dict[int, list] = {}
+    for (i, r), b in zip(zero.slots, zero.buffers):
+        slots_of.setdefault(i, []).append((r, b))
+    worst = 0.0
+    for i, (name, d) in enumerate(zip(names, zero.dims)):
+        # the unsplit update on the stage-0 gradient, clipped by the chunks' norm: bitwise the gathered chunks
+        whole = host["before"][i].cuda()
+        whole.grad = host["grads"][i].cuda()
+        clip([whole.grad], norm, max_norm, ts.GradientClippingMode.P2_NORM)
+        reference = spec.build([(name, whole)])
+        for group in reference.param_groups:
+            group["lr"] = lr
+        reference.step()
+        got = ts._local(step.params[i]).detach()
+        if not torch.equal(got, whole):
+            raise AssertionError(f"zero4 {name}: the gathered chunks differ from the unsplit update")
+        for key in ("exp_avg", "exp_avg_sq"):
+            ref = reference.state[whole][key]
+            stage0 = host["moments"][i][key].cuda()
+            for r, b in slots_of[i]:
+                mine = step.optimizer.state[b][key]
+                if not torch.equal(mine, ref if r is None else chunk(ref, d, ZERO_REPLICAS, r)):
+                    raise AssertionError(f"zero4 {name} {key}: replica {r}'s chunk differs from the unsplit moment")
+            if bits_agree and not torch.equal(ref, stage0):
+                raise AssertionError(f"zero4 {name} {key}: differs from stage 0's with the same norm bits")
+            worst = max(worst, _ulp_check(torch, ref, stage0, f"zero4 {name} {key} vs stage 0"))
+        after = host["after"][i].cuda()
+        if bits_agree and not torch.equal(got, after):
+            raise AssertionError(f"zero4 {name}: differs from stage 0's parameter with the same norm bits")
+        worst = max(worst, _ulp_check(torch, got, after, f"zero4 {name} vs stage 0"))
+        del whole, reference, stage0, after
+    split = sum(d is not None for d in zero.dims)
+    log(f"[phase 10b] ZeRO-1 over {ZERO_REPLICAS} replicas in this process (TrainStep(zero_in_process="
+        f"{ZERO_REPLICAS}), one 2.7B step, lr {lr:g}): {split} of {len(zero.dims)} leaves split (the others keep the "
+        f"whole leaf on every replica); loss {float(metrics['loss']):.6f} bitwise stage 0's; grad norm "
+        f"{float(norm):.6f} over the chunks vs {float(stage0_norm):.6f} at stage 0 (rel {norm_rel:.2e}, bound "
+        f"{NORM_REL:g}; bits {'agree' if bits_agree else 'differ'}); every replica's moment chunks and the gathered "
+        f"parameters bitwise the unsplit AdamW on the same clipped gradient; against stage 0 largest rel diff "
+        f"{worst:.3g} (bound one bf16 ulp, {BF16_ULP_REL:g}; bitwise required when the norm bits agree); moment "
+        f"bytes a replica holds: {stage0_bytes / 1e9:.3f} GB at stage 0, {max(rank_bytes) / 1e9:.3f} GB at R = "
+        f"{ZERO_REPLICAS} ({max(rank_bytes) / stage0_bytes:.4f} of stage 0); peak memory {peak_gb:.1f} GB with the "
+        f"4 replicas' state in one process; launches {counts}, {step_ms:.1f} ms with its first-call warmup ({smi})")
+    del step, zero, main, components, batch, host, slots_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dcn2_in_process(torch, smi: str, tmp: Path) -> dict[str, int]:
+    """10c: one step of the 2.7B with its 2 microbatches of 2 rows split over
+    2 slices in this process (`TrainStep(dcn_in_process=2)` on the world-1
+    group: slice k takes row k of each microbatch), slice 0's rows keeping
+    only the first quarter of their targets, so the slices' token counts
+    differ and each slice's loss is normalized by its own. Against a
+    reference built on the card from the same model and initial parameters:
+    each slice's rows run through the unsharded module as a world-1 step of
+    their own (loss = its sum over its count, gradients by autograd,
+    accumulated in fp32 over the microbatches), the slices' gradients
+    averaged by hand, divided by the microbatches, the p2 norm, clipping and
+    an AdamW of the config's at the step's rate. Held: loss and grad norm
+    within NORM_REL, every parameter within one bf16 ulp (BF16_ULP_REL;
+    bitwise is printed when it holds). Prints the mean of the slices'
+    losses against the global token mean of the same rows."""
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.training.gradient_clipping import GradientClippingMode, clip_
+    from modalities_tpu_torch.training.train_step import _local
+
+    seq = 4096
+    corpus = np.random.default_rng(2033).integers(0, MODEL_2P7B["vocab_size"], size=seq + 1 + 6 * seq)
+    cfg = _train_config(tmp, "dcn2", corpus, 1, ONE_STEP_RATES, phase="phase 10c")
+    main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+    components = main.build_components()
+    app_state = components.app_state
+    acc = components.settings.step_profile.gradient_accumulation_steps
+    step = _phase10_step(main, components, dcn_in_process=DCN_SLICES)
+    batch = _one_step_batch(torch, main, components, acc)
+    target_key = components.loss_fn.target_key
+    kept = batch["targets"][target_key].shape[-1] // 4
+    batch["targets"][target_key][:, 0, kept:] = components.loss_fn.ignore_index  # slice 0: a quarter of its tokens
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = _launch_counts()
+    _expect_launches(counts, PASS_2P7B, acc * DCN_SLICES, "dcn2 in process (a pass a slice a microbatch)")
+    loss, norm, lr = (float(metrics[k]) for k in ("loss", "grad_norm", "lr"))
+    after = {name: _local(p).detach() for name, p in step.module.named_parameters()}
+    model, loss_fn, spec = app_state.model, components.loss_fn, app_state.optimizer
+    max_norm = components.gradient_clipper.max_norm
+    del step, main, components, app_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reference: the same model's module, unsharded, from the same seeded initial parameters
+    module = model.build_train_module(model.init_train_params(torch.Generator(device="cuda").manual_seed(model.seed)))
+    named = list(module.named_parameters())
+    params = [p for _, p in named]
+    total = [torch.zeros(p.shape, dtype=torch.float32, device="cuda") for p in params]
+    slice_losses, sums, token_counts = [], [], []
+    for k in range(DCN_SLICES):
+        mine = [torch.zeros_like(t) for t in total]
+        slice_loss = torch.zeros((), device="cuda")
+        for i in range(acc):
+            rows = slice(k * 2 // DCN_SLICES, (k + 1) * 2 // DCN_SLICES)
+            total_k, count_k = loss_fn.sum_and_count(module(batch["samples"][model.sample_key][i, rows]),
+                                                     batch["targets"][target_key][i, rows])
+            mb_loss = total_k / torch.clamp(count_k.float(), min=1.0)
+            for a, g in zip(mine, torch.autograd.grad(mb_loss, params)):
+                a.add_(g.float())
+            slice_loss = slice_loss + mb_loss.detach()
+            sums.append(float(total_k.detach()))
+            token_counts.append(float(count_k))
+        for t, a in zip(total, mine):
+            t.add_(a)
+        slice_losses.append(float(slice_loss) / acc)
+        del mine
+    grads = [((t / DCN_SLICES) / acc).to(p.dtype) for t, p in zip(total, params)]
+    del total
+    ref_norm = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]).sum().sqrt()
+    clip_(grads, ref_norm, max_norm, GradientClippingMode.P2_NORM)
+    optimizer = spec.build(named)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    for p, g in zip(params, grads):
+        p.grad = g
+    optimizer.step()
+    ref_loss = sum(slice_losses) / DCN_SLICES
+    for what, got, want in (("loss", loss, ref_loss), ("grad norm", norm, float(ref_norm))):
+        if abs(got - want) > NORM_REL * abs(want):
+            raise AssertionError(f"dcn2 in process: {what} {got} vs the per-slice reference {want}")
+    worst, bitwise = 0.0, True
+    for name, p in named:
+        worst = max(worst, _ulp_check(torch, after[name], p.detach(), f"dcn2 {name} vs the reference"))
+        bitwise = bitwise and torch.equal(after[name], p.detach())
+    global_mean = sum(sums) / sum(token_counts)
+    if abs(ref_loss - global_mean) < 1e-4:
+        raise AssertionError(f"dcn2: the mask did not bite: mean of slices {ref_loss} vs global {global_mean}")
+    log(f"[phase 10c] dcn_in_process at {DCN_SLICES} slices, one 2.7B step (2 microbatches of 2 x {seq}, slice k "
+        f"row k; slice 0 keeps {kept} targets a row): slices' losses {[round(x, 6) for x in slice_losses]}, "
+        f"their mean {loss:.6f} vs the reference's {ref_loss:.6f}; grad norm {norm:.6f} vs {float(ref_norm):.6f} "
+        f"(bound rel {NORM_REL:g}); parameters {'bitwise' if bitwise else 'within one bf16 ulp'} the reference's "
+        f"(largest rel diff {worst:.3g}, bound {BF16_ULP_REL:g}); the global token mean of the same rows "
+        f"{global_mean:.6f}: the per-slice mean is {ref_loss - global_mean:+.6f} from it; launches {counts}, "
+        f"{step_ms:.1f} ms with its first-call warmup ({smi})")
+    del module, named, params, grads, optimizer, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parallel_knobs(torch, smi: str, phase4_steps: dict) -> dict[str, dict[str, int]]:
+    """Phase 10: ZeRO-1 inert at world 1 through Main (10a), ZeRO-1's chunked
+    update for 4 virtual replicas (10b), two dcn slices in one process (10c),
+    a 7B block with biases at tp 8 (10d); each path's launches counted from
+    0 just before it."""
+    scratch = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        counts = {"train_2p7b_zero1": phase_zero_inert(torch, smi, tmp, phase4_steps)}
+        mark("phase 10a")
+        counts["zero4_in_process"] = phase_zero4_in_process(torch, smi, tmp)
+        mark("phase 10b")
+        counts["dcn2_in_process"] = phase_dcn2_in_process(torch, smi, tmp)
+        mark("phase 10c")
+    counts["tp8_bias"] = phase_tp_block(torch, smi, bias=True, phase="phase 10d")
+    mark("phase 10d")
+    for path, c in counts.items():
+        if any(v == 0 for v in c.values()):
+            raise AssertionError(f"phase 10: a kernel of the {path} path was never launched: {c}")
+    return counts
+
+
 def _busy_share(torch, fn) -> tuple[float, float, float]:
     """fn() under torch.profiler: (device busy share, kernels' ms, wall ms)."""
     _, device_ms, wall_ms = _profiled(torch, fn)
@@ -3136,7 +3519,7 @@ def training_phases(torch):
     # phase 4: the training path. Counts start from 0 inside phase_train.
     smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    train_counts = phase_train(torch, smi_now)
+    train_counts, train_steps = phase_train(torch, smi_now)
     mark("phase 4")
     if any(v == 0 for v in train_counts.values()):
         raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
@@ -3198,8 +3581,12 @@ def training_phases(torch):
         mark("phase 9")
         if any(v == 0 for counts in pp_counts.values() for v in counts.values()):
             raise AssertionError(f"a kernel of the pipelined 7B path was never launched: {pp_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 10: ZeRO-1, dcn and the row-parallel bias (each path counted from 0 inside)
+    knob_counts = phase_parallel_knobs(torch, smi_now, train_steps)
     return (train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts,
-            warm_counts, pp_counts)
+            warm_counts, pp_counts, knob_counts)
 
 
 def main() -> int:
@@ -3306,7 +3693,7 @@ def main() -> int:
     with process_group(torch.device("cuda")):
         paths = training_phases(torch)
     (train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts,
-     pp_counts) = paths
+     pp_counts, knob_counts) = paths
 
     # the kernels line. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
@@ -3314,7 +3701,7 @@ def main() -> int:
                  "train_32k_resume": ckpt_counts["train_32k_resume"], "ring_cp4": ring_counts,
                  "train_32k_torchrun": launcher_counts, "train_7b": seven_b_counts, "tp8": tp8_counts,
                  "train_7b_32k_warmstart": warm_counts,
-                 **{f"pp2_{name}": counts for name, counts in pp_counts.items()}}
+                 **{f"pp2_{name}": counts for name, counts in pp_counts.items()}, **knob_counts}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
 
 

@@ -15,6 +15,10 @@ their `Stateful` face for `torch.distributed.checkpoint` (DCP):
   group's list of names saved under one key for every rank would keep one
   rank's list; by name, every rank's entries are its own and a folder loads
   at any pp degree;
+  Under ZeRO-1 the optimizer holds chunks, not the module's parameters: its
+  state comes from the train step's `zero.state_dict()` in the same flat
+  layout, the moments as DTensors of the parameters' full shapes over each
+  rank's chunk (parallel/zero.py), so a folder loads at either stage;
 - "lr_scheduler": the `LambdaLR` position (`last_epoch`, the last rates, the
   base rates). The schedule function is config, not state, and is never
   saved;
@@ -29,7 +33,13 @@ copies into the parameters the optimizer holds), so no reference goes stale.
 from __future__ import annotations
 
 import torch
-from torch.distributed.checkpoint.state_dict import StateDictOptions, get_state_dict, set_state_dict
+from torch.distributed.checkpoint.state_dict import (
+    StateDictOptions,
+    get_model_state_dict,
+    get_state_dict,
+    set_model_state_dict,
+    set_state_dict,
+)
 from torch.distributed.checkpoint.stateful import Stateful
 
 
@@ -66,15 +76,22 @@ class AppState(Stateful):
 
     def state_dict(self) -> dict:
         step = self.train_step
-        model_sd, optim_sd = get_state_dict(step.module, step.optimizer, options=OPTIONS)
+        if step.zero is not None:
+            model_sd, optim_sd = get_model_state_dict(step.module, options=OPTIONS), step.zero.state_dict()
+        else:
+            model_sd, optim_sd = get_state_dict(step.module, step.optimizer, options=OPTIONS)
         scheduler_sd = {k: v for k, v in step.scheduler.state_dict().items() if k != "lr_lambdas"}
         return {"model": model_sd, "optimizer": optim_sd, "lr_scheduler": scheduler_sd,
                 "step": torch.tensor(self.step_count, dtype=torch.int64)}
 
     def load_state_dict(self, state_dict: dict) -> None:
         step = self.train_step
-        set_state_dict(step.module, step.optimizer, model_state_dict=state_dict["model"],
-                       optim_state_dict=state_dict["optimizer"], options=OPTIONS)
+        if step.zero is not None:
+            set_model_state_dict(step.module, state_dict["model"], options=OPTIONS)
+            step.zero.load_state_dict(state_dict["optimizer"])
+        else:
+            set_state_dict(step.module, step.optimizer, model_state_dict=state_dict["model"],
+                           optim_state_dict=state_dict["optimizer"], options=OPTIONS)
         scheduler = step.scheduler
         scheduler.load_state_dict({**state_dict["lr_scheduler"], "lr_lambdas": [None] * len(scheduler.lr_lambdas)})
         num_steps = int(state_dict["step"])

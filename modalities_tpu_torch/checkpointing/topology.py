@@ -7,7 +7,11 @@ the sampler-state layout. It is written before the manifest, so the
 manifest's digests seal it too. A leaf's sharding is spelled as the JAX
 package spells a PartitionSpec, one entry a dim: an FSDP2 shard over the
 flattened (dp_shard, cp) group is "(('dp_shard', 'cp'), None)", a whole
-leaf "()". `diff_topology` is what a resume at another world compares.
+leaf "()"; a ZeRO-1 moment names dp_replicate on its ZeRO dim (before the
+FSDP axes where it splits the FSDP shard: "(('dp_replicate', 'dp_shard'),
+None)"), so a change of stage shows as a `leaf_specs` difference. The slice
+block and the sampler's dp degree count the dcn axis, as the JAX record
+does. `diff_topology` is what a resume at another world compares.
 
 Unlike the JAX package's `write_topology`, a failure to write the record
 raises: a save's seal does not carry on past a failed step.
@@ -54,7 +58,8 @@ def describe_topology(device_mesh, state_dict: dict) -> dict:
     from modalities_tpu_torch.running_env import env
 
     mesh_axes = dict(device_mesh.mesh_axes) if device_mesh is not None else {"dp_shard": 1}
-    dp_degree = mesh_axes.get("dp_replicate", 1) * mesh_axes.get("dp_shard", 1)
+    num_slices = mesh_axes.get("dcn", 1)
+    dp_degree = num_slices * mesh_axes.get("dp_replicate", 1) * mesh_axes.get("dp_shard", 1)
     device_count = 1
     for degree in mesh_axes.values():
         device_count *= degree
@@ -63,7 +68,7 @@ def describe_topology(device_mesh, state_dict: dict) -> dict:
         "mesh_axes": mesh_axes,
         "process_count": env.world_size(),
         "device_count": device_count,
-        "slices": {"num_slices": 1, "devices_per_slice": device_count},
+        "slices": {"num_slices": num_slices, "devices_per_slice": device_count // num_slices},
         "leaf_specs": {name: leaf_spec(t) for name, t in flatten_tensors(state_dict).items()},
         "sampler_state": {"dp_degree": dp_degree, "skip_semantics": "global"},
     }

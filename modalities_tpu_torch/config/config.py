@@ -35,14 +35,17 @@ def validate_config(config_type, data: Any):
     return config_type(**data)
 
 
-def check_int(name: str, value, *, ge: Optional[int] = None, optional: bool = False) -> Optional[int]:
-    """Strict int (a bool or a float is refused), optionally bounded below."""
+def check_int(name: str, value, *, ge: Optional[int] = None, le: Optional[int] = None,
+              optional: bool = False) -> Optional[int]:
+    """Strict int (a bool or a float is refused), optionally bounded."""
     if value is None and optional:
         return None
     if isinstance(value, bool) or not isinstance(value, int):
         raise ValueError(f"{name}: expected an int, got {value!r}")
     if ge is not None and value < ge:
         raise ValueError(f"{name}: must be >= {ge}, got {value}")
+    if le is not None and value > le:
+        raise ValueError(f"{name}: must be <= {le}, got {value}")
     return value
 
 

@@ -4,9 +4,12 @@ modalities_tpu/dataloader/samplers.py and sampler_factory.py.
 `ResumableDistributedSampler` shuffles with numpy PCG64(seed + epoch), as the
 JAX sampler does, so the port reads the JAX package's sample order; the
 `resumable_distributed_multi_dim_sampler` variant takes its replica count
-(dp_replicate * dp_shard) and rank (this rank's flat dp coordinate) from the
-device mesh, so the cp ranks of one dp coordinate read the same samples and
-each takes its chunk of their sequence in the train step.
+(dcn * dp_replicate * dp_shard) and rank (this rank's flat dp coordinate,
+dcn outermost) from the device mesh, so the cp ranks of one dp coordinate
+read the same samples and each takes its chunk of their sequence in the
+train step. The ranks of a slice read a contiguous block of coordinates, as
+the processes of a JAX slice do (the JAX loader deals samples to processes
+the same way and a slice owns its processes' block of the global batch).
 """
 
 from __future__ import annotations

@@ -303,7 +303,12 @@ def masked_attention(q, k, v, mask):
 
 
 class Linear(nn.Module):
-    """Dense layer over a 2-D [in, out] kernel (flax DenseGeneral, flattened)."""
+    """Dense layer over a 2-D [in, out] kernel (flax DenseGeneral, flattened).
+    A row-parallel layer under tensor parallelism (`bias_after_sum`) returns
+    its partial product without the bias: whoever sums the partials adds the
+    bias once, after the sum (parallel/tensor_parallel.py)."""
+
+    bias_after_sum = False
 
     def __init__(self, in_features: int, out_features: int, bias: bool, device=None):
         super().__init__()
@@ -316,7 +321,7 @@ class Linear(nn.Module):
         where kernels are cast once at load). Under tensor parallelism, this
         rank's shard."""
         y = torch.matmul(x, local(self.kernel).to(x.dtype))
-        return y + local(self.bias).to(y.dtype) if self.bias is not None else y
+        return y if self.bias is None or self.bias_after_sum else y + local(self.bias).to(y.dtype)
 
     def cast_(self, dtype):
         self.kernel.data = self.kernel.data.to(dtype)

@@ -17,6 +17,11 @@ whose parameters are in another dtype than most of its unit's is therefore
 sharded as a unit of its own, inside its unit (in the GPT2 model: every
 norm).
 
+Under ZeRO-1 the mesh holds the FSDP dim only (`DeviceMesh.fsdp_mesh`):
+each microbatch's gradients are reduce-scattered within a replica, and the
+sum over dp_replicate happens once a step, as ZeRO's reduce-scatter
+(parallel/zero.py).
+
 Gradients: the reduction sums (divide factor 1, sum-only collectives) in the
 policy's `reduce_dtype`; the train step divides each rank's loss by the
 global token count, so the sum is the gradient of the global loss. Forward

@@ -8,7 +8,8 @@ The plan, as the JAX rules place the model's logical axes:
   W, V and c_fc; a flax-layout [in, out] kernel is sharded on dim 1;
 - row-parallel: c_proj and W_2, the kernel sharded on dim 0; the partial
   outputs are reduce-scattered over the sequence (summed in fp32, rounded
-  once);
+  once), and a bias (replicated over tp) is added to this rank's rows after
+  the sum, once, as GSPMD places it after the reduction;
 - vocab-parallel (`vocab` on tp): wte's rows (a masked local lookup, then a
   reduce-scatter, which sums the ranks' lookups) and the lm_head kernel's
   columns. The head's fp32 logits stay sharded over the vocab under loss
@@ -18,12 +19,13 @@ The plan, as the JAX rules place the model's logical axes:
   attention_norm, ffn_norm and lm_head_norm run on those rows and their
   outputs are all-gathered before q/k/v, W/V and the head.
 
-Every parameter the plan does not shard (the norms, wpe, the qk norms) is a
-Replicate DTensor over tp. Each of them is used on this rank's share of the
-work only (its rows, or its heads for the qk norms), so its gradient on a
-rank is a partial sum: the train step adds them over tp
-(`sum_replicated_grads`). The JAX package's GSPMD places its activations
-itself (its `seq_sp` rule constrains no activation); SP changes no value.
+Every parameter the plan does not shard (the norms, wpe, the qk norms, the
+row-parallel biases) is a Replicate DTensor over tp. Each of them is used on
+this rank's share of the work only (its rows, or its heads for the qk
+norms), so its gradient on a rank is a partial sum: the train step adds them
+over tp (`sum_replicated_grads`). The JAX package's GSPMD places its
+activations itself (its `seq_sp` rule constrains no activation); SP changes
+no value.
 
 Module bodies compute on local tensors (`local`): no DTensor reaches a
 kernel's autograd.Function. FSDP2 then shards the tp DTensors over the dp
@@ -43,6 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.parallel import ParallelStyle
+
+from modalities_tpu_torch.running_env import env
 
 SEQUENCE_PARALLEL_NORMS = ("attention_norm", "ffn_norm")  # and the model's lm_head_norm
 
@@ -203,16 +207,22 @@ class ColwiseParallel(_Style):
 
 class RowwiseParallel(_Style):
     """A [in, out] dense layer over this rank's input columns: its partial
-    outputs are reduce-scattered over the sequence."""
+    outputs are reduce-scattered over the sequence, then its bias (whole on
+    every rank) is added to this rank's rows."""
 
     shard_dims = {"kernel": 0}
-    _output_fn = staticmethod(reduce_scatter_sequence)
 
     def _apply(self, module: nn.Module, device_mesh) -> nn.Module:
-        if getattr(module, "bias", None) is not None:
-            raise NotImplementedError("a row-parallel layer with a bias (bias: true under tensor parallelism) is not "
-                                      "ported yet (ROADMAP.md, Queue 1 item 5)")
-        return super()._apply(module, device_mesh)
+        _distribute_own(module, device_mesh, self.shard_dims)
+        module.bias_after_sum = True
+        group = device_mesh.get_group()
+
+        def summed(mod, inputs, out):
+            out = reduce_scatter_sequence(out, group)
+            return out if mod.bias is None else out + local(mod.bias).to(out.dtype)
+
+        module.register_forward_hook(summed)
+        return module
 
 
 class SequenceParallelNorm(_Style):
@@ -286,14 +296,8 @@ def sum_replicated_grads(params, grads, group) -> None:
     parameters that are replicated over tp: each rank's is a partial sum over
     its share of the rows or heads. One all-reduce of their concatenation."""
     mine = [g for p, g in zip(params, grads) if _is_tp_replicated(p)]
-    if not mine:
-        return
-    flat = torch.cat([g.reshape(-1) for g in mine])
-    dist.all_reduce(flat, group=group)
-    offset = 0
-    for g in mine:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    if mine:
+        env.all_reduce_flat(mine, group)
 
 
 # ------------------------------------------------- the tp ranks in one process
@@ -318,6 +322,8 @@ def local_block(block: nn.Module, rank: int, tp: int) -> nn.Module:
         t = p.detach() if dim is None else p.detach().chunk(tp, dim=dim)[rank]
         owner, leaf = name.rsplit(".", 1)
         setattr(copy.get_submodule(owner), leaf, nn.Parameter(t.clone(memory_format=torch.contiguous_format)))
+        if isinstance(plan(spec).get(f"blocks.*.{owner}"), RowwiseParallel):
+            copy.get_submodule(owner).bias_after_sum = True  # tp_in_process adds it after the sum
     return copy.train(block.training)
 
 
@@ -354,17 +360,24 @@ def tp_in_process(block: nn.Module, x, cos, sin, tp: int):
     under SP. Each rank's norms run on its rows, the gathers concatenate in
     rank order, each rank's attention and MLP run on its shards
     (`local_block`) and give partial outputs, summed as the reduce-scatter
-    sums them (and so are the ranks' gradients of the gathered input).
+    sums them (and so are the ranks' gradients of the gathered input); a
+    row-parallel bias is added after the sum, each rank's to its rows.
     Returns (the block's output [B, S, E], the ranks' blocks),
     differentiable through x and every rank's shards."""
     ranks = [local_block(block, r, tp) for r in range(tp)]
+    rows_out = [name for name, style in plan(block.attn.spec).items() if isinstance(style, RowwiseParallel)]
 
-    def sublayer(x, norm, body):
+    def sublayer(x, norm, body, out_layer):
         normed = torch.cat([getattr(ranks[r], norm)(rows) for r, rows in enumerate(x.chunk(tp, dim=1))], dim=1)
-        return x + _reduce([body(ranks[r], h) for r, h in enumerate(_ToRanks.apply(normed, tp))])
+        y = _reduce([body(ranks[r], h) for r, h in enumerate(_ToRanks.apply(normed, tp))])
+        biases = [getattr(r.get_submodule(out_layer), "bias", None) for r in ranks]
+        if biases[0] is not None:  # each rank's bias on its own rows, after the sum
+            y = torch.cat([rows + b.to(rows.dtype) for rows, b in zip(y.chunk(tp, dim=1), biases)], dim=1)
+        return x + y
 
-    x = sublayer(x, "attention_norm", lambda blk, h: blk.attn.train_forward(h, cos, sin))
-    return sublayer(x, "ffn_norm", lambda blk, h: blk.mlp(h)), ranks
+    attn_out, mlp_out = (name[len("blocks.*."):] for name in rows_out)
+    x = sublayer(x, "attention_norm", lambda blk, h: blk.attn.train_forward(h, cos, sin), attn_out)
+    return sublayer(x, "ffn_norm", lambda blk, h: blk.mlp(h), mlp_out), ranks
 
 
 def gather_rank_grads(block: nn.Module, ranks: list[nn.Module]) -> dict[str, torch.Tensor]:

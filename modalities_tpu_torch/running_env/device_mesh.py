@@ -3,20 +3,31 @@
 The `device_mesh` component validates the degrees as the JAX
 `DeviceMeshConfig` does (-1 infers data_parallel_shard_degree or
 data_parallel_replicate_degree from the world size; the product of the
-degrees must be the world size) and, once the process group exists, builds a
-torch `DeviceMesh` whose axes follow the JAX order [pp, dp_replicate,
-dp_shard, cp, tp]. An axis exists only when its degree is above 1, except
-dp_shard, which always exists. Rank r sits at the row-major coordinate of r,
-as device r does in the JAX mesh.
+degrees must be the world size; `zero_stage` is 0 or 1) and, once the
+process group exists, builds a torch `DeviceMesh` whose axes follow the JAX
+order [dcn, pp, dp_replicate, dp_shard, cp, tp]. An axis exists only when
+its degree is above 1, except dp_shard, which always exists. Rank r sits at
+the row-major coordinate of r, as device r does in the JAX mesh.
 
-Pipeline parallelism (pp, the outermost axis: `pp_group`, `pp_rank`; which
-stages a pp rank runs, and so whether it holds the first or the last, its
-schedule says: parallel/pipeline.py), data parallelism (dp_replicate, dp_shard),
-context parallelism (cp) and tensor parallelism (tp, the innermost axis,
-with loss parallelism over it) run; DCN degrees above 1 and ZeRO raise
-NotImplementedError (-1 for dcn resolves to 1: a GPU host is one slice).
-Loss parallelism needs tp > 1, as the JAX validator says. The pp ranks of
-one dp coordinate read the same rows (`get_data_loading_info`).
+Cross-slice data parallelism (dcn, the outermost axis: `dcn_group`) splits
+the world into slices. Every other group is built within a slice (a
+sub-mesh over the other axes), so FSDP2 shards and tp/cp/pp exchange inside
+a slice and parameters are replicated over dcn by construction; the train
+step reduces the gradients over dcn once a step. -1 for dcn resolves to 1,
+the JAX GPU behaviour (a GPU host reports no slices); an explicit degree
+above 1 builds the axis. Pipeline parallelism (pp: `pp_group`, `pp_rank`;
+which stages a pp rank runs, its schedule says: parallel/pipeline.py), data
+parallelism (dp_replicate, dp_shard), context parallelism (cp) and tensor
+parallelism (tp, the innermost axis, with loss parallelism over it) run.
+ZeRO-1 (`zero_active`: stage 1 with dp_replicate > 1) shards the optimizer
+state over dp_replicate (parallel/zero.py). Loss parallelism needs tp > 1,
+as the JAX validator says. The pp ranks of one dp coordinate read the same
+rows (`get_data_loading_info`, which folds dcn into the data split).
+
+Compositions the JAX `TrainStepBuilder` does not build are refused with
+NotImplementedError: dcn with pp or with cp (its per-slice vmap cannot lower
+the pipeline's or the ring's shard_map), and an active ZeRO-1 with pp (its
+partitioner aborts).
 """
 
 from __future__ import annotations
@@ -29,8 +40,8 @@ import torch
 from modalities_tpu_torch.config.config import check_bool, check_int, check_str
 
 PARALLEL_METHODS = ("dp_replicate", "dp_shard", "tp", "pp", "cp", "dcn")  # the JAX mesh's axis names
-AXIS_ORDER = ("pp", "dp_replicate", "dp_shard", "cp", "tp")  # the JAX mesh's order (dcn outermost, never built here)
-_MULTI_GPU = "is not ported yet (ROADMAP.md, Queue 1 item 5)"
+AXIS_ORDER = ("dcn", "pp", "dp_replicate", "dp_shard", "cp", "tp")  # the JAX mesh's order
+_NOT_BUILT = "the reference (the JAX TrainStepBuilder) does not build it"
 
 
 @dataclasses.dataclass
@@ -56,17 +67,28 @@ class DeviceMesh:
         for name in ("tensor_parallel_degree", "pipeline_parallel_degree", "context_parallel_degree"):
             check_int(name, getattr(self, name), ge=1)
         check_bool("enable_loss_parallel", self.enable_loss_parallel, optional=True)
-        check_int("zero_stage", self.zero_stage, ge=0)
-        if self.dcn_parallel_degree > 1:
-            raise NotImplementedError(f"dcn_parallel_degree {self.dcn_parallel_degree}: cross-slice (DCN) data "
-                                      f"parallelism {_MULTI_GPU}")
-        if self.zero_stage:
-            raise NotImplementedError(f"zero_stage {self.zero_stage}: ZeRO optimizer-state sharding {_MULTI_GPU}")
-        self.dcn_parallel_degree = 1
+        check_int("zero_stage", self.zero_stage, ge=0, le=1)
+        if self.dcn_parallel_degree == -1:
+            self.dcn_parallel_degree = 1  # a GPU host is one slice (JAX infer_num_slices: no slice_index)
         self._validate_product()
         if self.enable_loss_parallel and self.tensor_parallel_degree <= 1:
             raise ValueError(f"enable_loss_parallel={self.enable_loss_parallel} requires tensor_parallel_degree > 1")
+        self._refuse_what_the_reference_does_not_build()
         self._torch_mesh = None
+
+    def _refuse_what_the_reference_does_not_build(self) -> None:
+        """Compositions the JAX TrainStepBuilder fails to build on its 8-device
+        CPU mesh: NotImplementedError, naming the reference."""
+        dcn = self.dcn_parallel_degree
+        for name, degree in (("pipeline_parallel_degree", self.pipeline_parallel_degree),
+                             ("context_parallel_degree", self.context_parallel_degree)):
+            if dcn > 1 and degree > 1:
+                raise NotImplementedError(f"dcn_parallel_degree {dcn} with {name} {degree}: {_NOT_BUILT} "
+                                          "(ROADMAP.md, Queue 1 item 5)")
+        if self.zero_active and self.pipeline_parallel_degree > 1:
+            raise NotImplementedError(f"zero_stage 1 over data_parallel_replicate_degree "
+                                      f"{self.data_parallel_replicate_degree} with pipeline_parallel_degree "
+                                      f"{self.pipeline_parallel_degree}: {_NOT_BUILT} (ROADMAP.md, Queue 1 item 5)")
 
     def _validate_product(self) -> None:
         """The JAX validator (device_mesh.py:98-127): at most one -1, inferred
@@ -106,7 +128,14 @@ class DeviceMesh:
 
     @property
     def dp_degree(self) -> int:
+        """The data-parallel degree within a slice."""
         return self.data_parallel_replicate_degree * self.data_parallel_shard_degree
+
+    @property
+    def zero_active(self) -> bool:
+        """ZeRO-1 shards anything: stage 1 over more than one replica (JAX
+        train_step.py:268-272; at dp_replicate 1 stage 1 is the stage-0 program)."""
+        return self.zero_stage >= 1 and self.data_parallel_replicate_degree > 1
 
     def get_parallel_degree(self, method: str) -> int:
         if method not in PARALLEL_METHODS:
@@ -143,10 +172,13 @@ class DeviceMesh:
 
     def fsdp_mesh(self, device: torch.device):
         """The mesh FSDP2 shards over: dp_shard and cp flattened into one dim
-        (`dp_shard_cp`), beside dp_replicate when that axis is built (HSDP)."""
+        (`dp_shard_cp`), beside dp_replicate when that axis is built (HSDP)
+        and ZeRO-1 is not active (ZeRO-1 sums over the replicas itself, once
+        a step). A sub-mesh within this rank's slice: parameters are
+        replicated over dcn."""
         mesh = self.torch_mesh(device)
         shard = "dp_shard_cp" if "cp" in self.mesh_axes else "dp_shard"
-        return mesh["dp_replicate", shard] if "dp_replicate" in self.mesh_axes else mesh[shard]
+        return mesh["dp_replicate", shard] if "dp_replicate" in self.mesh_axes and not self.zero_active else mesh[shard]
 
     def cp_group(self, device: torch.device):
         """The process group of this rank's cp ring (None without a cp axis)."""
@@ -157,22 +189,28 @@ class DeviceMesh:
         return self.torch_mesh(device)["tp"] if "tp" in self.mesh_axes else None
 
     def _batch_axes(self) -> Optional[tuple[str, ...]]:
-        """The built axes whose ranks hold other rows of the global batch:
-        all but tp (its ranks hold the same rows) and pp (its ranks hold other
-        layers); None when that is every axis."""
+        """The built axes whose ranks hold other rows of the slice's batch:
+        all but tp (its ranks hold the same rows), pp (its ranks hold other
+        layers) and dcn (other slices); None when that is every axis."""
         axes = tuple(self.mesh_axes)
-        batch = tuple(name for name in axes if name not in ("tp", "pp"))
+        batch = tuple(name for name in axes if name not in ("tp", "pp", "dcn"))
         return None if batch == axes else batch
 
     def batch_group(self, device: torch.device):
-        """The ranks that hold other rows of the global batch (every built
-        axis but tp and pp): the process group the loss's (sum, count) is
-        summed over. None without a tp or pp axis (then it is every rank)."""
+        """The ranks of this slice that hold other rows of its batch (every
+        built axis but tp, pp and dcn): the process group the loss's (sum,
+        count) is summed over. None without a tp, pp or dcn axis (then it is
+        every rank)."""
         batch = self._batch_axes()
         if batch is None:
             return None
         name = batch[0] if len(batch) == 1 else "dp_shard_cp" if batch == ("dp_shard", "cp") else "batch"
         return self.torch_mesh(device)[name].get_group()
+
+    def dcn_group(self, device: torch.device):
+        """The process group of this rank's counterparts in the other slices
+        (None without a dcn axis): the one cross-slice reduction a step."""
+        return self.torch_mesh(device)["dcn"].get_group() if "dcn" in self.mesh_axes else None
 
     def pp_group(self, device: torch.device):
         """The process group of this rank's pipeline (None without a pp axis);
@@ -201,12 +239,16 @@ def get_parallel_rank(device_mesh: Optional[DeviceMesh], method: str, rank: Opti
 
 
 def get_data_loading_info(device_mesh: Optional[DeviceMesh], rank: Optional[int] = None) -> tuple[int, int]:
-    """(number of data-parallel replicas, this rank's flat dp coordinate):
-    dp_replicate * dp_shard replicas, coordinate dp_replicate_rank * dp_shard +
-    dp_shard_rank. The cp, tp and pp ranks of one dp coordinate read the same
+    """(number of data-parallel replicas, this rank's flat dp coordinate) over
+    (dcn, dp_replicate, dp_shard), as the JAX function folds dcn into the
+    batch split (device_mesh.py:342): dcn * dp_replicate * dp_shard replicas,
+    coordinate (dcn_rank * dp_replicate + dp_replicate_rank) * dp_shard +
+    dp_shard_rank, so the ranks of slice k hold the k-th block of
+    coordinates. The cp, tp and pp ranks of one dp coordinate read the same
     samples."""
     if device_mesh is None:
         return 1, 0
-    rep = get_parallel_rank(device_mesh, "dp_replicate", rank)
-    shard = get_parallel_rank(device_mesh, "dp_shard", rank)
-    return device_mesh.dp_degree, rep * device_mesh.data_parallel_shard_degree + shard
+    flat = 0
+    for name in ("dcn", "dp_replicate", "dp_shard"):
+        flat = flat * device_mesh.degrees[name] + get_parallel_rank(device_mesh, name, rank)
+    return device_mesh.dcn_parallel_degree * device_mesh.dp_degree, flat

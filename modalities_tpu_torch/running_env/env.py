@@ -115,6 +115,18 @@ def barrier() -> None:
         dist.barrier()
 
 
+def all_reduce_flat(tensors: list[torch.Tensor], group) -> None:
+    """Sum `tensors` (of one dtype) over `group` in place, in one all-reduce
+    of their concatenation (the dcn reduction of a step's gradients, the tp
+    sum of the replicated ones)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def broadcast_object(value):
     """Rank 0's `value` on every rank (the value itself without a group of more than one)."""
     if not dist.is_initialized() or dist.get_world_size() == 1:

@@ -6,7 +6,11 @@ clipping. Gradients sharded over the device mesh (DTensors) give the whole
 model's norm: each rank reduces its shards, then the squares (p2), the sums
 (p1) or the maxima are reduced over the mesh dims each gradient is sharded on
 (not over a dim that holds copies: dp_replicate, and tp for the gradients
-the tensor-parallel plan replicates), so every rank gets the world-1 norm;
+the tensor-parallel plan replicates), so every rank gets the world-1 norm.
+Under ZeRO-1 a gradient is a DTensor over this rank's chunk, sharded over
+dp_replicate as well (parallel/zero.py), so each element counts once; no
+gradient is placed over dcn (its slices hold copies), so nothing is summed
+over it;
 under pipeline parallelism the stages' totals are reduced over pp too, and
 the train step leaves the tied weight's last-stage copy out, so it counts
 once.

@@ -59,8 +59,41 @@ summed over pp once a step, counted once in the norm, and takes the same
 step on both. The norm's sum of squares is reduced over pp as well; the
 loss of the last stage is broadcast over pp, so every rank reports it.
 
+Cross-slice data parallelism (the mesh's dcn axis, JAX train_step.py:
+277-335, 563-625, 706-715): each slice's ranks hold the slice's rows (a
+contiguous block of each global microbatch, as JAX `to_dcn_groups` cuts
+it: the sampler deals by the flat dp coordinate of `get_data_loading_info`,
+dcn outermost), the
+token count and the loss's sum run over the slice's batch group, and FSDP2,
+tp and cp exchange within the slice, so each slice computes its own loss,
+normalized by its own tokens, and its own gradient, with no cross-slice
+traffic in the microbatch loop. After the loop the accumulators (and the
+loss sums) are summed over the dcn group in one flat all-reduce and divided
+by the number of slices, then by the number of microbatches: the loss is the
+mean of the slices' losses, which with unequal token counts is not the
+global token mean, as in the JAX step.
+
+ZeRO-1 (stage 1 over dp_replicate > 1, parallel/zero.py): FSDP2 shards
+within a replica and reduces each microbatch over the FSDP dim only; after
+the loop each accumulator is reduce-scattered over dp_replicate onto this
+rank's chunk of its ZeRO dim (the dcn reduction then runs on the chunks, as
+the JAX step reduces over dcn in the ZeRO layout), the norm sums each chunk
+once, the optimizer updates the chunks and one all-gather a leaf restores
+the parameters.
+
+`dcn_in_process` runs that many slices in this process (without a mesh or
+on a 1-rank one), for the card's one-GPU check: each microbatch's rows are
+cut into the slices' contiguous blocks, each slice's loss is normalized by
+its own tokens and its gradients go into accumulators of its own, which are
+summed in slice order after the loop, as the dcn all-reduce sums them.
+`zero_in_process` runs ZeRO-1 for that many dp_replicate replicas in this
+process (`Zero1` over `InProcessReplicas`): the one accumulator already
+sums every replica's rows, each replica's chunks take the update, and the
+chunks are gathered back into the parameters.
+
 `eval_step` is the forward alone on one batch ([mb, S]): the global token
-mean of the loss, every head route, under pp the F ops of the tables.
+mean of the loss, every head route, under pp the F ops of the tables; over
+dcn, the mean of the slices' token means.
 
 Knobs of the JAX builder that this branch does not handle raise
 NotImplementedError naming their ROADMAP.md item.
@@ -78,6 +111,8 @@ from modalities_tpu_torch.parallel.pipeline import PipelineStage, build_stage_mo
 from modalities_tpu_torch.parallel.pipeline_scheduled import InProcess, P2PTransport, run_schedule
 from modalities_tpu_torch.parallel.pipeline_schedules import build_schedule_tables
 from modalities_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel, sum_replicated_grads
+from modalities_tpu_torch.parallel.zero import Zero1
+from modalities_tpu_torch.running_env import env
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed
 from modalities_tpu_torch.training.gradient_clipping import GradientClippingMode, clip_, global_norm
 
@@ -92,11 +127,14 @@ class TrainStep:
     `device_mesh`: the mesh component (its process group must exist).
     `pp_in_process`: run that many pipeline stages in this process (the
     in-process transport), without a mesh or on a 1-rank one (each stage
-    then a root of FSDP2 of its own)."""
+    then a root of FSDP2 of its own). `dcn_in_process`: run that many dcn
+    slices in this process, likewise. `zero_in_process`: ZeRO-1 over that
+    many dp_replicate replicas in this process, likewise."""
 
     def __init__(self, model, loss_fn, optimizer_spec, scheduler_spec=None, *, device,
                  gradient_acc_steps: int = 1, grad_clipper=None, params: Optional[dict] = None,
-                 seed: Optional[int] = None, device_mesh=None, pp_in_process: Optional[int] = None):
+                 seed: Optional[int] = None, device_mesh=None, pp_in_process: Optional[int] = None,
+                 dcn_in_process: Optional[int] = None, zero_in_process: Optional[int] = None):
         spec = model.config_spec
         self.head_chunk = spec.lm_head_chunk_size
         if self.head_chunk is not None and not hasattr(loss_fn, "sum_and_count"):
@@ -121,7 +159,19 @@ class TrainStep:
         else:
             params = {k: v.to(self.device) for k, v in params.items()}
         self.mesh = device_mesh
-        self.cp_group = self.tp_group = self.batch_group = self.logits_group = self.pp_group = None
+        self.cp_group = self.tp_group = self.batch_group = self.logits_group = self.pp_group = self.dcn_group = None
+        self.dcn = device_mesh.dcn_parallel_degree if device_mesh is not None else 1
+        self.slices = 1  # the slices this process runs
+        if dcn_in_process:
+            if device_mesh is not None and dist.get_world_size() > 1 or pp_in_process:
+                raise ValueError("dcn_in_process runs every slice in this process: without pp_in_process, and "
+                                 "without a device mesh or on a 1-rank one")
+            self.dcn = self.slices = int(dcn_in_process)
+        zero = device_mesh is not None and device_mesh.zero_active
+        if zero_in_process and (device_mesh is not None and dist.get_world_size() > 1 or pp_in_process
+                                or dcn_in_process):
+            raise ValueError("zero_in_process holds every replica in this process: without pp_in_process or "
+                             "dcn_in_process, and without a device mesh or on a 1-rank one")
         pp = device_mesh.pipeline_parallel_degree if device_mesh is not None else 1
         if pp_in_process:
             if device_mesh is not None and dist.get_world_size() > 1:
@@ -166,6 +216,7 @@ class TrainStep:
                 shard_model(module, device_mesh.fsdp_mesh(self.device), layers_per_fsdp_unit=fsdp.layers_per_fsdp_unit,
                             reshard_after_forward=fsdp.reshard_after_forward, reduce_dtype=self.reduce_dtype)
                 module.set_context_parallel(self.cp_group)
+            self.dcn_group = device_mesh.dcn_group(self.device)
             self.pp_group = device_mesh.pp_group(self.device)
             if self.pp_group is not None:  # NCCL: a group's first call must include all its ranks; the
                 dist.barrier(group=self.pp_group)  # schedule's P2P calls pair two
@@ -181,27 +232,36 @@ class TrainStep:
                     self._tied_first = index
                 elif st.is_last:
                     self._tied_copy = index
-        self.optimizer = optimizer_spec.build(named)
+        self.zero = (Zero1(named, optimizer_spec, device_mesh.torch_mesh(self.device)) if zero
+                     else Zero1(named, optimizer_spec, replicas=int(zero_in_process)) if zero_in_process else None)
+        self.optimizer = self.zero.optimizer if self.zero is not None else optimizer_spec.build(named)
         fn = scheduler_spec.schedule() if scheduler_spec is not None else (lambda step: 1.0)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, fn)
         self._acc: Optional[list[torch.Tensor]] = None
+        self._slice_acc: list[list[torch.Tensor]] = []  # the other in-process slices' accumulators
 
     @property
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.params)
 
     def _zero_accumulators(self) -> list[torch.Tensor]:
+        """The step's accumulators, zeroed (and, under dcn_in_process, the
+        other slices' in `_slice_acc`)."""
         if self._acc is None:
-            self._acc = [torch.zeros(_local(p).shape, dtype=self.reduce_dtype, device=p.device) for p in self.params]
+            self._acc, *self._slice_acc = [
+                [torch.zeros(_local(p).shape, dtype=self.reduce_dtype, device=p.device) for p in self.params]
+                for _ in range(self.slices)]
         else:
-            for a in self._acc:
-                a.zero_()
+            for acc in [self._acc, *self._slice_acc]:
+                for a in acc:
+                    a.zero_()
         return self._acc
 
     @torch.no_grad()
-    def _accumulate(self) -> None:
-        """Each parameter's (sharded) gradient into its fp32 accumulator, cleared."""
-        for p, a in zip(self.params, self._acc):
+    def _accumulate(self, acc: Optional[list[torch.Tensor]] = None) -> None:
+        """Each parameter's (sharded) gradient into its fp32 accumulator (of
+        `acc`, default the step's), cleared."""
+        for p, a in zip(self.params, self._acc if acc is None else acc):
             if p.grad is not None:
                 a.add_(_local(p.grad))
                 p.grad = None
@@ -335,6 +395,16 @@ class TrainStep:
         total = acc[mine] + theirs if mine == self._tied_first else theirs + acc[mine]
         acc[mine].copy_(total)
 
+    def _slice_rows(self, t: torch.Tensor, k: int) -> torch.Tensor:
+        """[mb, S] -> in-process slice k's contiguous block of rows (JAX
+        `to_dcn_groups`); the rows themselves with one slice."""
+        if self.slices == 1:
+            return t
+        if t.shape[0] % self.slices:
+            raise ValueError(f"a microbatch's {t.shape[0]} rows are not divisible by {self.slices} slices: every "
+                             "slice must own an equal share of each microbatch")
+        return t.chunk(self.slices)[k]
+
     def _local_rows(self, t: torch.Tensor) -> torch.Tensor:
         """[mb, S] -> this rank's contiguous sequence chunk [mb, S / cp] under cp."""
         if self.cp_group is None:
@@ -352,37 +422,58 @@ class TrainStep:
         sample_key = self.model.sample_key
         if samples[sample_key].shape[0] != self.acc_steps:
             raise ValueError(f"batch holds {samples[sample_key].shape[0]} microbatches, the step takes {self.acc_steps}")
-        acc = self._zero_accumulators()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        slice_accs = [self._zero_accumulators(), *self._slice_acc]
+        loss_sums = [torch.zeros((), dtype=torch.float32, device=self.device) for _ in slice_accs]
         for i in range(self.acc_steps):
-            inputs = self._local_rows(samples[sample_key][i])
-            mb_targets = {k: self._local_rows(v[i]) for k, v in targets.items()}
-            if self.stages:
-                loss, _ = self._pp_run(inputs, mb_targets[self.loss_fn.target_key])
-            else:
-                loss = self._loss(inputs, mb_targets)
-                loss.backward()
-                self._accumulate()
-            loss_sum += loss.detach()
+            for k, acc in enumerate(slice_accs):
+                inputs = self._local_rows(self._slice_rows(samples[sample_key][i], k))
+                mb_targets = {key: self._local_rows(self._slice_rows(v[i], k)) for key, v in targets.items()}
+                if self.stages:
+                    loss, _ = self._pp_run(inputs, mb_targets[self.loss_fn.target_key])
+                else:
+                    loss = self._loss(inputs, mb_targets)
+                    loss.backward()
+                    self._accumulate(acc)
+                loss_sums[k] += loss.detach()
+        acc, loss_sum = slice_accs[0], loss_sums[0]
+        with torch.no_grad():
+            for other, other_loss in zip(slice_accs[1:], loss_sums[1:]):  # in-process slices, summed in slice order
+                for a, b in zip(acc, other):
+                    a.add_(b)
+                loss_sum = loss_sum + other_loss
         if self.mesh is not None:
             dist.all_reduce(loss_sum, group=self.batch_group)
         loss_sum = self._last_stage_broadcast(loss_sum)
         if self.tp_group is not None:
             sum_replicated_grads(self.params, acc, self.tp_group)
         self._sum_tied(acc)
+        if self.zero is not None:
+            acc = self.zero.reduce_scatter(acc)
+        if self.dcn_group is not None:  # the step's one cross-slice reduction: the slices' gradients, then losses
+            env.all_reduce_flat(acc, self.dcn_group)
+            dist.all_reduce(loss_sum, group=self.dcn_group)
+        if self.dcn > 1:
+            loss_sum = loss_sum / self.dcn
         lr = torch.tensor(self.optimizer.param_groups[0]["lr"], dtype=torch.float32)
         with torch.no_grad():
-            for p, a in zip(self.params, acc):
-                g = (a / self.acc_steps).to(p.dtype)
-                p.grad = (DTensor.from_local(g, p.device_mesh, p.placements, shape=p.shape, stride=p.stride())
-                          if isinstance(p, DTensor) else g)
-        grads = [p.grad for p in self.params]
+            owners = self.zero.owners if self.zero is not None else self.params  # each accumulator's parameter
+            local = [((a / self.dcn if self.dcn > 1 else a) / self.acc_steps).to(p.dtype) for p, a in zip(owners, acc)]
+            if self.zero is not None:
+                grads = self.zero.set_grads(local)
+            else:
+                for p, g in zip(self.params, local):
+                    p.grad = (DTensor.from_local(g, p.device_mesh, p.placements, shape=p.shape, stride=p.stride())
+                              if isinstance(p, DTensor) else g)
+                grads = [p.grad for p in self.params]
         mode = self.clipper.norm_type if self.clipper is not None else GradientClippingMode.P2_NORM
         counted = [g for i, g in enumerate(grads) if i != self._tied_copy]  # a tied weight counts once
         grad_norm = global_norm(counted, mode, across=self.pp_group)
         if self.clipper is not None and self.clipper.max_norm is not None:
             clip_(grads, grad_norm, self.clipper.max_norm, mode)
-        self.optimizer.step()
+        if self.zero is not None:
+            self.zero.step()
+        else:
+            self.optimizer.step()
         self.scheduler.step()
         for p in self.params:
             p.grad = None
@@ -392,18 +483,28 @@ class TrainStep:
         """batch: {"samples": {key: [mb, S]}, "targets": {key: [mb, S]}} (this
         rank's rows) -> {"loss": the global token mean of the loss} (JAX
         train_step.py:702-720), without a graph."""
-        inputs = self._local_rows(batch["samples"][self.model.sample_key])
-        targets = {k: self._local_rows(v) for k, v in batch["targets"].items()}
+        losses = []
         with torch.no_grad():
-            if self.stages:
-                total, count = self._pp_run(inputs, targets[self.loss_fn.target_key], forward_only=True)
-            else:
-                total, count = self._sum_count(inputs, targets)
-                total, count = total.float(), self._global_count(count)
-            if self.mesh is not None:
-                dist.all_reduce(total, group=self.batch_group)
-            total = self._last_stage_broadcast(total)
-        return {"loss": total / torch.clamp(count, min=1.0)}
+            for k in range(self.slices):
+                inputs = self._local_rows(self._slice_rows(batch["samples"][self.model.sample_key], k))
+                targets = {key: self._local_rows(self._slice_rows(v, k)) for key, v in batch["targets"].items()}
+                if self.stages:
+                    total, count = self._pp_run(inputs, targets[self.loss_fn.target_key], forward_only=True)
+                else:
+                    total, count = self._sum_count(inputs, targets)
+                    total, count = total.float(), self._global_count(count)
+                if self.mesh is not None:
+                    dist.all_reduce(total, group=self.batch_group)
+                total = self._last_stage_broadcast(total)
+                losses.append(total / torch.clamp(count, min=1.0))
+            loss = losses[0]
+            for other in losses[1:]:
+                loss = loss + other
+            if self.dcn_group is not None:  # the mean of the slices' token means
+                dist.all_reduce(loss, group=self.dcn_group)
+            if self.dcn > 1:
+                loss = loss / self.dcn
+        return {"loss": loss}
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         """The module's parameters, whole: sharded ones are gathered from every

@@ -76,27 +76,102 @@ def ring_worker(rank: int, world: int, cases: list[dict]) -> list[dict]:
     return results
 
 
+def batch_rows(device_mesh, rows: int, rank=None) -> list[int]:
+    """The rows of a global microbatch of `rows` rows that rank `rank` feeds,
+    for a test that holds the whole microbatch: slice k's contiguous block of
+    rows / dcn (JAX `to_dcn_groups`, train_step.py:313-335), then within the
+    slice rows dp, dp + n, ... of the block for the rank's flat dp
+    coordinate dp among the slice's n (as the sampler deals a run's samples
+    to ranks)."""
+    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
+
+    n_dp, dp = get_data_loading_info(device_mesh, rank)
+    dcn = device_mesh.dcn_parallel_degree if device_mesh is not None else 1
+    if rows % dcn:
+        raise ValueError(f"a microbatch's {rows} rows are not divisible by dcn_parallel_degree {dcn}: every slice "
+                         "must own an equal share of each microbatch")
+    block, inner = rows // dcn, n_dp // dcn
+    start = (dp // inner) * block
+    return list(range(start + dp % inner, start + block, inner))
+
+
+def local_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch ({part: {key: [acc, mb, S]}}, numpy)
+    as tensors: under dcn its slice's contiguous block, and within the slice
+    rows dp, dp + n, ... (`batch_rows`)."""
+    return {part: {k: torch.from_numpy(np.ascontiguousarray(v[:, batch_rows(mesh, v.shape[1])])) for k, v in d.items()}
+            for part, d in batch.items()}
+
+
 def train_worker(rank: int, world: int, spec: dict) -> dict:
     """A tiny GPT2 `TrainStep` over the mesh of `spec["degrees"]`, from the
     parameters `spec["params"]`; each rank feeds its data-parallel rows of
-    the global batches (strided, as the sampler deals them). Returns each
-    step's (loss, grad_norm, lr) and the parameters after the steps (on rank
-    0; under pp on the first rank of each stage, which holds its share)."""
+    the global batches (`local_batch`). Returns each step's (loss,
+    grad_norm, lr) and the parameters after the steps (on rank 0; under pp
+    on the first rank of each stage, which holds its share); with
+    `spec["moments"]` each leaf's (local moment elements, local parameter
+    elements); with `spec["count_dcn"]` the collectives on the dcn group
+    (`_dcn_collectives`)."""
     from modalities_tpu_torch.running_env import env
-    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
 
     with env.process_group(torch.device("cpu")):
         step, mesh = _tiny_step(spec, world)
-        n_dp, dp_rank = get_data_loading_info(mesh)
+        events = _dcn_collectives(mesh) if spec.get("count_dcn") else None
         metrics = []
         for batch in spec["batches"]:
-            local = {part: {k: torch.from_numpy(np.ascontiguousarray(v[:, dp_rank::n_dp])) for k, v in d.items()}
-                     for part, d in batch.items()}
-            m = step(local)
+            m = step(local_batch(batch, mesh))
             metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
         state = _numpy(step.state_dict())
         first_of_stage = mesh is None or not any(v for k, v in mesh.coordinates(rank).items() if k != "pp")
-    return {"metrics": metrics, "state": state if first_of_stage else None}
+        moments = _moment_sizes(step) if spec.get("moments") else None
+        zero_dims = dict(zip(step.zero.names, step.zero.dims)) if step.zero is not None else None
+    return {"metrics": metrics, "state": state if first_of_stage else None, "moments": moments, "dcn": events,
+            "zero_dims": zero_dims}
+
+
+def _moment_sizes(step) -> dict[str, tuple[int, int]]:
+    """Each parameter's (local exp_avg elements, local parameter elements)."""
+    from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
+    from modalities_tpu_torch.training.train_step import _local
+
+    optim = AppState(step).state_dict()["optimizer"]
+    named = [item for module in [st.module for st in step.stages] or [step.module] for item in module.named_parameters()]
+    return {name: (_local(optim[f"state.{name}.exp_avg"]).numel(), _local(p).numel()) for name, p in named}
+
+
+def _dcn_collectives(mesh) -> list:
+    """Record, in order, each train step's start ("step"), the end of each
+    microbatch's backward ("microbatch") and every collective called on this
+    rank's dcn group (its name), through `torch.distributed`."""
+    import inspect
+
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d
+
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    dcn_ranks = dist.get_process_group_ranks(mesh.dcn_group(torch.device("cpu")))
+    events: list = []
+
+    def recorded(name, fn):
+        signature = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            group = signature.bind(*args, **kwargs).arguments.get("group")
+            if group is not None and dist.get_process_group_ranks(group) == dcn_ranks:
+                events.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for name in ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor", "all_gather", "broadcast",
+                 "reduce_scatter", "all_to_all", "all_to_all_single", "send", "recv", "isend", "irecv", "barrier"):
+        wrapped = recorded(name, getattr(dist, name))
+        setattr(dist, name, wrapped)
+        setattr(distributed_c10d, name, wrapped)
+    call, accumulate = TrainStep.__call__, TrainStep._accumulate
+    TrainStep.__call__ = lambda self, batch: (events.append("step"), call(self, batch))[1]
+    TrainStep._accumulate = lambda self, acc=None: (accumulate(self, acc), events.append("microbatch"))[0]
+    return events
 
 
 def _tiny_step(spec: dict, world: int):
@@ -113,8 +188,9 @@ def _tiny_step(spec: dict, world: int):
     mesh = DeviceMesh(world_size=world, data_parallel_replicate_degree=degrees.get("dp_replicate", 1),
                       data_parallel_shard_degree=degrees.get("dp_shard", 1),
                       context_parallel_degree=degrees.get("cp", 1), tensor_parallel_degree=degrees.get("tp", 1),
-                      pipeline_parallel_degree=degrees.get("pp", 1),
-                      enable_loss_parallel=spec.get("loss_parallel", False)) if degrees is not None else None
+                      pipeline_parallel_degree=degrees.get("pp", 1), dcn_parallel_degree=degrees.get("dcn", 1),
+                      enable_loss_parallel=spec.get("loss_parallel", False),
+                      zero_stage=spec.get("zero", 0)) if degrees is not None else None
     model = GPT2LLM(**spec["model"])
     if spec.get("pipeline"):  # {"pp_schedule": ..., "pp_num_microbatches": ..., "pp_num_virtual": ...}
         model.with_spec_updates(**spec["pipeline"])
@@ -129,7 +205,8 @@ def _tiny_step(spec: dict, world: int):
     step = TrainStep(model, CLMCrossEntropyLoss("target_ids", "logits"), opt, sched, device="cpu",
                      gradient_acc_steps=spec["acc"], grad_clipper=GradientClipper(max_norm=spec["clip"]),
                      params=None if params is None else {k: torch.from_numpy(v.copy()) for k, v in params.items()},
-                     seed=spec.get("seed"), device_mesh=mesh, pp_in_process=spec.get("pp_in_process"))
+                     seed=spec.get("seed"), device_mesh=mesh, pp_in_process=spec.get("pp_in_process"),
+                     dcn_in_process=spec.get("dcn_in_process"), zero_in_process=spec.get("zero_in_process"))
     return step, mesh
 
 
@@ -146,15 +223,12 @@ def checkpoint_worker(rank: int, world: int, spec: dict, folder_root: str) -> di
     from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_saving import DCPCheckpointSaving, checkpoint_folder_path
     from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
     from modalities_tpu_torch.running_env import env
-    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
     from modalities_tpu_torch.training.training_progress import TrainingProgress
 
     def run(step, batches, mesh):
-        n_dp, dp_rank = get_data_loading_info(mesh)
         out = []
         for batch in batches:
-            m = step({part: {k: torch.from_numpy(np.ascontiguousarray(v[:, dp_rank::n_dp])) for k, v in d.items()}
-                      for part, d in batch.items()})
+            m = step(local_batch(batch, mesh))
             out.append(torch.stack([m[k].detach().float() for k in ("loss", "grad_norm", "lr")]).numpy())
         return out
 
@@ -189,16 +263,13 @@ def resume_worker(rank: int, world: int, spec: dict, folder: str) -> list:
     from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
     from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
     from modalities_tpu_torch.running_env import env
-    from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
 
     with env.process_group(torch.device("cpu")):
         step, mesh = _tiny_step({**spec, "params": None, "seed": 1}, world)
         DCPCheckpointLoading(global_rank=rank).load_app_state(AppState(step, device_mesh=mesh), Path(folder))
-        n_dp, dp_rank = get_data_loading_info(mesh)
         metrics = []
         for batch in spec["batches"]:
-            m = step({part: {k: torch.from_numpy(np.ascontiguousarray(v[:, dp_rank::n_dp])) for k, v in d.items()}
-                      for part, d in batch.items()})
+            m = step(local_batch(batch, mesh))
             metrics.append([float(m[k]) for k in ("loss", "grad_norm", "lr")])
     return metrics
 

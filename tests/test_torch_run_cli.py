@@ -113,9 +113,9 @@ def test_the_default_device_raises_without_a_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "edits,error,match",
     [
-        ({"device_mesh.config.dcn_parallel_degree": 2, "device_mesh.config.world_size": 2}, NotImplementedError,
-         "Queue 1 item 5"),
-        ({"device_mesh.config.zero_stage": 1}, NotImplementedError, "ZeRO"),
+        ({"device_mesh.config.dcn_parallel_degree": 2}, ValueError,
+         r"dcn_parallel_degree\(2\) != WORLD_SIZE\(1\)"),
+        ({"device_mesh.config.zero_stage": 2}, ValueError, "zero_stage: must be <= 1"),
         ({"model_raw.config.dropout": 0.1}, ValueError, "dropout"),
         ({"model_raw.config.lm_head_chunk_size": 16, "model_raw.config.lm_head_fused_ce": "always"}, ValueError,
          "lm_head_fused_ce"),

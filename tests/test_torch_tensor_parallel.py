@@ -46,10 +46,15 @@ def _block(**overrides):
     return module, module.blocks[0]
 
 
-@pytest.mark.parametrize("tp,gelu", [(2, False), (2, True)], ids=["swiglu-tp2", "gelu-tp2"])
-def test_tp_in_process_equals_the_unsharded_block(tp, gelu):
-    module, block = _block(**({"activation_type": "gelu"} if gelu else {}))
+@pytest.mark.parametrize("tp,gelu,bias", [(2, False, False), (2, True, False), (2, False, True), (2, True, True)],
+                         ids=["swiglu-tp2", "gelu-tp2", "swiglu-bias-tp2", "gelu-bias-tp2"])
+def test_tp_in_process_equals_the_unsharded_block(tp, gelu, bias):
+    module, block = _block(**({"activation_type": "gelu"} if gelu else {}), bias=bias)
     g = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # biases drawn away from their zero init: one added per rank would move the output
+        for name, p in block.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
     x = torch.randn(2, 32, 128, generator=g)
     dy = torch.randn(2, 32, 128, generator=g)
     cos, sin = module._rope_tables(32)
