@@ -60,6 +60,25 @@ Phases (each raises on failure, so any failed phase exits non-zero):
   3. the same weights quantized to int8 and to fp8: every request finishes and
      the dequant-matmul kernel ran 225 times per forward; the profiled decode
      step gives the dequant-matmul's device ms a step.
+ 3b. the paged engine on the same weights, 8 slots, blocks of 16, max_len
+     2048 (a table of 128 blocks), every run's launches counted from 0 and
+     held to 65 RMSNorm and (int8 weights) 225 dequant-matmul launches per
+     forward, packed prefill, decode and verify alike: (a) phase 2's
+     requests from the default pool of 1024 blocks, bf16 and int8 weights,
+     every request finishing "budget" or "eod", request 0 alone bitwise its
+     batched tokens, the tokens against phase 2's ring tokens and a profiled
+     paged decode step beside the ring's; (b) the same through a pool of 128
+     blocks (the smallest the engine takes at that max_len): preemptions,
+     tokens bitwise (a)'s; (c) four requests sharing a donor's 256-token
+     prefix, arriving after its prefill (one whose whole window matches):
+     prefix hits and a copy-on-write copy, tokens bitwise those with sharing
+     off; (d) n-gram speculative decoding at k = 4 on prompts that repeat a
+     pattern, bf16 and int8 weights, against spec off: proposals, two
+     decode-side shapes, the greedy tokens bitwise spec off's (a divergence
+     would print the plain path's top-2 logit gap there), the accepted share
+     and the tokens per forward; (e) int8 weights and int8 KV: the pool's data
+     half of bf16's (scales apart), the tokens against (a)'s int8 run, and
+     its preemption replay on 128 blocks bitwise.
   4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
      `python -m modalities_tpu_torch run` calls) from a copy of
      configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
@@ -190,7 +209,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      printed; (d) phase 8b's 7B block with `bias: true` (biases drawn from
      N(0, 0.02)) at tp 8 within the same row bounds.
  11. one JSON line naming the kernels (launches summed over the paths, and
-     per path: serve, train_2p7b, train_32k, train_32k_resume, ring_cp4,
+     per path: serve, serve_paged, serve_paged_int8kv, serve_spec, train_2p7b, train_32k, train_32k_resume, ring_cp4,
      train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
      pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
      zero4_in_process, dcn2_in_process, tp8_bias, serve_ckpt; the fused-CE
@@ -3513,6 +3532,286 @@ def greedy_agreement(reqs, base, other) -> float:
     return same / total
 
 
+# ---------------------------------------------------------------- phase 3b
+PAGED_BLOCK = 16  # block size of phase 3b's pools; max_len CAPACITY (2048): a table of 128 blocks
+# (b): the smallest pool the engine takes at max_len 2048 (one table of 128 blocks; the JAX guard refuses fewer)
+PAGED_TIGHT_BLOCKS = 128
+SPEC_K = 4
+SHARED_PREFIX = 256  # (c): tokens the sharing requests have in common, 16 full blocks
+SIDE_NEW_TOKENS = 32  # (c), (d): budgets of the sharing and speculation requests
+PER_FORWARD = {"rms": 65, "qmm": 225}  # 32 layers x 2 + lm_head_norm; 32 x 7 dense layers + the head
+
+
+def paged_engine(torch, model, params, quant: str, kv: str = "none", **knobs):
+    """The paged engine at phase 2's slots and max_len, through the `serve` component's knobs."""
+    from modalities_tpu_torch.serving.serve import ServingComponent
+
+    component = ServingComponent(model, _IdTok(), max_batch_slots=SLOTS, cache_capacity=CAPACITY,
+                                 max_new_tokens=NEW_TOKENS, kv_cache="paged", paged_block_size=PAGED_BLOCK,
+                                 quant={"weights": quant, "kv": kv}, **knobs)
+    component.device, component.params = torch.device("cuda"), params
+    return component.build_engine()
+
+
+def paged_run(torch, engine, quant: str, reqs: list[dict], budget: int, late=(), alone: bool = False,
+              profile: bool = False) -> dict:
+    """Serve `reqs` (then `late`, submitted once the first request decodes) on
+    `engine`, with the kernels' launch counters set to 0 just before and read
+    just after: each must have launched its per-forward count on every
+    forward (prefill, decode and verify alike). Every request must finish
+    "budget" or "eod"."""
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+
+    rms_norm.launches = quant_matmul.launches = 0
+    t0 = time.perf_counter()
+    rids = [engine.submit(r["prompt"], budget, temperature=r["temperature"], seed=r["seed"]) for r in reqs]
+    if late:
+        tick = engine._now()
+        while not any(s is not None and s.phase == "decode" for s in engine._slot_states):
+            engine.step(tick)
+        rids += [engine.submit(r["prompt"], budget, temperature=r["temperature"], seed=r["seed"]) for r in late]
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = [results[r] for r in rids]
+    bad = [(i, r.finish_reason) for i, r in enumerate(res) if r.finish_reason not in ("budget", "eod")]
+    if bad:
+        raise AssertionError(f"paged serving: requests finished {bad}")
+    out = {"tokens": [r.tokens for r in res], "stats": dict(engine.stats()), "wall_s": wall}
+    if alone:  # batch invariance: a greedy request alone == its batched tokens
+        rid = engine.submit(reqs[0]["prompt"], budget, temperature=0.0, seed=reqs[0]["seed"])
+        if engine.run()[rid].tokens != res[0].tokens:
+            raise AssertionError("paged batch invariance: request 0 alone differs from its batched tokens")
+    if profile:
+        out["profile"] = profile_paged_decode(torch, engine, reqs)
+    forwards = engine.stats()["forward_calls"]
+    out.update(forward_calls=forwards, rms_launches=rms_norm.launches, qmm_launches=quant_matmul.launches)
+    want = {"rms": PER_FORWARD["rms"] * forwards, "qmm": PER_FORWARD["qmm"] * forwards if quant != "none" else 0}
+    if (out["rms_launches"], out["qmm_launches"]) != (want["rms"], want["qmm"]):
+        raise AssertionError(f"paged {quant}: launches rms_norm {out['rms_launches']}, quant_matmul "
+                             f"{out['qmm_launches']} over {forwards} forwards; expected {want}")
+    return out
+
+
+def profile_paged_decode(torch, engine, reqs: list[dict], steps: int = 8) -> dict:
+    """profile_decode's window on the paged engine: 8 requests (prompts cut to
+    64 tokens) are prefilled first, then `steps` decode steps with every slot
+    busy run under torch.profiler."""
+    for r in reqs[:SLOTS]:
+        engine.submit(r["prompt"][:64], steps + 8, temperature=0.0, seed=r["seed"])
+    t0 = engine._now()
+    while engine._queue or engine._prefilling_slots():
+        engine.step(t0)
+    rows, device_ms, wall_ms = _profiled(torch, lambda: [engine.step(t0) for _ in range(steps)])
+    engine.run()
+    rows = [(ms / steps, count / steps, key) for ms, count, key in rows]
+    return {"wall_ms": wall_ms / steps, "device_ms": device_ms / steps, "launches": sum(r[1] for r in rows),
+            "top": rows[:6]}
+
+
+def _agreement(base: list, other: list) -> tuple[int, str]:
+    """(requests whose tokens are equal, where the first other one diverges)."""
+    same = sum(a == b for a, b in zip(base, other))
+    for i, (a, b) in enumerate(zip(base, other)):
+        if a != b:
+            at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            return same, f"request {i} at token {at}"
+    return same, "none"
+
+
+def _top2_gap(torch, module, prompt: list, tokens: list, at: int) -> float:
+    """The plain path's top-2 logit gap where a run diverged: the logits after
+    prompt + tokens[:at] from one ring prefill."""
+    ids = torch.tensor([prompt + tokens[:at]], device=module.device)
+    with torch.inference_mode():
+        cache = module.init_slot_cache(1, ids.shape[1])
+        top = module.prefill_slot(cache, ids, 0, 0)[0, -1].topk(2).values
+    return float(top[0] - top[1])
+
+
+def make_shared_requests() -> tuple[dict, list[dict]]:
+    """(c): a donor with a 256-token prefix and four requests arriving after
+    its prefill: the prefix alone (its whole window matches: copy-on-write of
+    its last block, one re-forwarded token), the prefix with tails of 40 and
+    3 tokens, and half the prefix with a tail of 100."""
+    rng = np.random.default_rng(7)
+    v = MODEL_2P7B["vocab_size"]
+    prefix = rng.integers(0, v, size=SHARED_PREFIX).tolist()
+    tail = lambda n: rng.integers(0, v, size=n).tolist()  # noqa: E731
+    donor = {"prompt": prefix + tail(32), "temperature": 0.0, "seed": 300}
+    late = [prefix, prefix + tail(40), prefix + tail(3), prefix[:128] + tail(100)]
+    return donor, [{"prompt": p, "temperature": 0.0, "seed": 301 + i} for i, p in enumerate(late)]
+
+
+def make_spec_requests() -> list[dict]:
+    """(d): 7 greedy requests whose prompts repeat a random pattern of 4-11
+    tokens (the drafter has something to propose) and one sampled rider."""
+    rng = np.random.default_rng(11)
+    reqs = []
+    for i in range(SLOTS):
+        pattern = rng.integers(0, MODEL_2P7B["vocab_size"], size=int(rng.integers(4, 12))).tolist()
+        length = int(rng.integers(64, 257))
+        reqs.append({"prompt": (pattern * (length // len(pattern) + 1))[:length],
+                     "temperature": 0.8 if i == 5 else 0.0, "seed": 400 + i})
+    return reqs
+
+
+def phase_serve_paged(torch, model, params, reqs: list[dict], ring_tokens: dict, smi: str) -> dict[str, dict]:
+    """Phase 3b: the paged engine on the 2.7B weights at phase 2's 8 slots and
+    max_len 2048 (blocks of 16, a table of 128). (a) phase 2's requests from
+    the default pool of 1024 blocks, bf16 and int8 weights; (b) the same
+    through a pool of 128 blocks (preemption), bitwise (a); (c) prefix
+    sharing on and off, bitwise; (d) speculative decoding at k = 4 against
+    spec off, bf16 and int8 weights; (e) int8 weights and KV, and its
+    preemption replay, bitwise. Returns each path's launches: serve_paged,
+    serve_paged_int8kv, serve_spec (each run counted from 0)."""
+    counts = {path: {"rms_fwd": 0, "quant_matmul": 0} for path in ("serve_paged", "serve_paged_int8kv", "serve_spec")}
+
+    def count(path, r):
+        counts[path]["rms_fwd"] += r["rms_launches"]
+        counts[path]["quant_matmul"] += r["qmm_launches"]
+
+    def report(name, r):
+        s = r["stats"]
+        log(f"[phase 3b] {name}: {s['decode_tokens']} decode tokens in {s['decode_steps']} decode-side forwards "
+            f"({s['verify_steps']} verify), {s['prefill_chunk_count']} prefill rows in "
+            f"{s['forward_calls'] - s['decode_steps']} packed dispatches, preemptions {s['preemptions']}, prefix hits {s['prefix_hit_requests']} "
+            f"({s['prefix_hit_tokens']} tokens), copy-on-write {s['cow_copies']}; launches rms_norm "
+            f"{r['rms_launches']}, quant_matmul {r['qmm_launches']} over {r['forward_calls']} forwards; "
+            f"run {r['wall_s']:.2f} s ({smi})")
+
+    runs = {}
+    # (a) phase 2's requests from the default pool, bf16 and int8 weights
+    for quant in ("none", "int8"):
+        engine = paged_engine(torch, model, params, quant)
+        if engine.num_blocks != SLOTS * CAPACITY // PAGED_BLOCK:
+            raise AssertionError(f"default pool {engine.num_blocks} blocks")
+        r = runs[quant] = paged_run(torch, engine, quant, reqs, NEW_TOKENS, alone=quant == "none", profile=True)
+        count("serve_paged", r)
+        name = "bf16" if quant == "none" else quant
+        report(f"(a) {name}", r)
+        same, where = _agreement(ring_tokens[quant], r["tokens"])
+        gap = ""
+        if same < len(reqs):  # the ring path's top-2 logit gap where the first request diverges
+            i = next(i for i, (a, b) in enumerate(zip(ring_tokens[quant], r["tokens"])) if a != b)
+            at = next((j for j, (x, y) in enumerate(zip(ring_tokens[quant][i], r["tokens"][i])) if x != y),
+                      min(len(ring_tokens[quant][i]), len(r["tokens"][i])))
+            gap = f" (top-2 logit gap there {_top2_gap(torch, engine.module, reqs[i]['prompt'], ring_tokens[quant][i], at):.6g})"
+        log(f"[phase 3b] (a) {name}: paged tokens against phase 2's ring tokens: {same} of {len(reqs)} requests "
+            f"equal; first divergence: {where}{gap}")
+        p, ring_p = r["profile"], ring_tokens[f"{quant}_profile"]
+        log(f"[phase 3b] (a) {name}: one paged decode step {p['device_ms']:.3f} ms of kernels in "
+            f"{p['launches']:.0f} launches (profiled window {p['wall_ms']:.2f} ms/step); phase 2's ring step "
+            f"{ring_p['device_ms']:.3f} ms in {ring_p['launches']:.0f} launches ({smi})")
+        for ms, n, key in p["top"]:
+            log(f"[phase 3b]   {ms:.4f} ms/step in {n:.0f} x {key[:90]}")
+        del engine
+        torch.cuda.empty_cache()
+    log("[phase 3b] (a) batch invariance: request 0 served alone matches its batched tokens bitwise")
+    bf16_data = runs["none"]["stats"]["kv_pool_bytes"]
+
+    # (b) preemption: the smallest pool the engine takes
+    engine = paged_engine(torch, model, params, "none", paged_num_blocks=PAGED_TIGHT_BLOCKS)
+    r = paged_run(torch, engine, "none", reqs, NEW_TOKENS)
+    count("serve_paged", r)
+    report(f"(b) bf16, {PAGED_TIGHT_BLOCKS} blocks", r)
+    if r["stats"]["preemptions"] == 0:
+        raise AssertionError("(b): the tight pool preempted nothing")
+    if r["tokens"] != runs["none"]["tokens"]:
+        raise AssertionError(f"(b): tokens under preemption differ from (a): {_agreement(runs['none']['tokens'], r['tokens'])}")
+    log(f"[phase 3b] (b) {r['stats']['preemptions']} preemptions; every request's tokens bitwise (a)'s")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) prefix sharing on and off
+    donor, late = make_shared_requests()
+    shared = {}
+    for sharing in (True, False):
+        engine = paged_engine(torch, model, params, "none", prefix_sharing=sharing)
+        r = shared[sharing] = paged_run(torch, engine, "none", [donor], SIDE_NEW_TOKENS, late=late)
+        count("serve_paged", r)
+        report(f"(c) prefix sharing {'on' if sharing else 'off'}", r)
+        del engine
+        torch.cuda.empty_cache()
+    on = shared[True]["stats"]
+    if on["prefix_hit_requests"] == 0 or on["cow_copies"] == 0:
+        raise AssertionError(f"(c): prefix hits {on['prefix_hit_requests']}, copy-on-write {on['cow_copies']}")
+    if shared[True]["tokens"] != shared[False]["tokens"]:
+        raise AssertionError(f"(c): tokens with sharing differ: {_agreement(shared[False]['tokens'], shared[True]['tokens'])}")
+    log(f"[phase 3b] (c) {on['prefix_hit_requests']} prefix hits, {on['prefix_hit_blocks']} blocks, "
+        f"{on['cow_copies']} copy-on-write; tokens bitwise those with sharing off")
+
+    # (d) speculative decoding against spec off, bf16 and int8 weights
+    spec_reqs = make_spec_requests()
+    spec = {}
+    for quant in ("none", "int8"):
+        name = "bf16" if quant == "none" else quant
+        plain_engine = paged_engine(torch, model, params, quant)
+        plain = paged_run(torch, plain_engine, quant, spec_reqs, SIDE_NEW_TOKENS)
+        count("serve_paged", plain)
+        engine = paged_engine(torch, model, params, quant, spec_decode={"k": SPEC_K})
+        r = spec[quant] = paged_run(torch, engine, quant, spec_reqs, SIDE_NEW_TOKENS)
+        count("serve_spec", r)
+        report(f"(d) spec k={SPEC_K} {name}", r)
+        s = r["stats"]
+        if s["spec_proposed"] == 0 or s["decode_executables"] + s["verify_executables"] != 2:
+            raise AssertionError(f"(d) {name}: proposed {s['spec_proposed']}, decode-side shapes "
+                                 f"{s['decode_executables']} + {s['verify_executables']}")
+        greedy = [i for i, q in enumerate(spec_reqs) if q["temperature"] == 0.0]
+        diverged = [i for i in greedy if r["tokens"][i] != plain["tokens"][i]]
+        r["diverged"], r["gap"] = diverged, None
+        if diverged:
+            i = diverged[0]
+            at = next((j for j, (x, y) in enumerate(zip(plain["tokens"][i], r["tokens"][i])) if x != y),
+                      min(len(plain["tokens"][i]), len(r["tokens"][i])))
+            r["gap"] = _top2_gap(torch, plain_engine.module, spec_reqs[i]["prompt"], plain["tokens"][i], at)
+            r["diverged_at"] = (i, at)
+        rider = [i for i, q in enumerate(spec_reqs) if q["temperature"] > 0.0]
+        log(f"[phase 3b] (d) {name}: greedy requests diverging from spec off: {len(diverged)} of {len(greedy)}"
+            + (f" (first: request {r['diverged_at'][0]} at token {r['diverged_at'][1]}, the plain path's top-2 "
+               f"logit gap there {r['gap']:.6g})" if diverged else "")
+            + f"; the sampled rider equal: {all(r['tokens'][i] == plain['tokens'][i] for i in rider)}; accepted "
+            f"{s['spec_accepted']} of {s['spec_proposed']} proposed ({s['spec_accepted'] / s['spec_proposed']:.3f}); "
+            f"{s['decode_tokens'] / s['decode_steps']:.3f} tokens per decode-side forward ({s['decode_steps']} "
+            f"forwards) against {plain['stats']['decode_tokens'] / plain['stats']['decode_steps']:.3f} with spec "
+            f"off ({plain['stats']['decode_steps']} forwards)")
+        if diverged:  # bitwise on the H100, bf16 and int8 weights (PERF.md, section 6): held as a gate
+            raise AssertionError(f"(d) {name}: greedy spec tokens differ from spec off in requests {diverged}")
+        del engine, plain_engine
+        torch.cuda.empty_cache()
+
+    # (e) int8 weights and int8 KV, then its preemption replay
+    engine = paged_engine(torch, model, params, "int8", kv="int8")
+    r = paged_run(torch, engine, "int8", reqs, NEW_TOKENS)
+    count("serve_paged_int8kv", r)
+    report("(e) int8 weights, int8 KV", r)
+    s = r["stats"]
+    data = s["kv_pool_bytes"] - s["kv_scale_bytes"]
+    if data * 2 != bf16_data:
+        raise AssertionError(f"(e): int8 pool data {data} B is not half of bf16's {bf16_data} B")
+    same, where = _agreement(runs["int8"]["tokens"], r["tokens"])
+    log(f"[phase 3b] (e) pool {s['kv_pool_bytes'] / 1e9:.4f} GB: data {data / 1e9:.4f} GB = "
+        f"{data / bf16_data:.2f} of bf16's {bf16_data / 1e9:.4f} GB, scales {s['kv_scale_bytes'] / 1e9:.4f} GB apart; "
+        f"tokens against bf16 KV (int8 weights, (a)): {same} of {len(reqs)} requests equal, first divergence: {where}")
+    del engine
+    torch.cuda.empty_cache()
+    engine = paged_engine(torch, model, params, "int8", kv="int8", paged_num_blocks=PAGED_TIGHT_BLOCKS)
+    tight = paged_run(torch, engine, "int8", reqs, NEW_TOKENS)
+    count("serve_paged_int8kv", tight)
+    report(f"(e) int8 KV, {PAGED_TIGHT_BLOCKS} blocks", tight)
+    if tight["stats"]["preemptions"] == 0 or tight["tokens"] != r["tokens"]:
+        raise AssertionError(f"(e): preemptions {tight['stats']['preemptions']}, replay "
+                             f"{_agreement(r['tokens'], tight['tokens'])}")
+    log(f"[phase 3b] (e) {tight['stats']['preemptions']} preemptions on the int8 pool; tokens bitwise (e)'s")
+    del engine
+    torch.cuda.empty_cache()
+    log(f"[phase 3b] launches by path: {counts}")
+    if any(v == 0 for c in counts.values() for v in c.values()):
+        raise AssertionError(f"a kernel of a paged serving path was never launched: {counts}")
+    return counts
+
+
 # ---------------------------------------------------------------- main
 def training_phases(torch):
     """Phases 4-9 on the process group; returns each path's launch counts."""
@@ -3682,6 +3981,11 @@ def main() -> int:
     rms_total, qmm_total = rms_norm.launches, quant_matmul.launches
     if rms_total == 0 or qmm_total == 0:
         raise AssertionError("a kernel of the serving path was never launched")
+
+    # phase 3b: the paged engine on the same weights (each run's counts from 0 inside)
+    ring = {**{q: runs[q]["tokens"] for q in ("none", "int8")}, **{f"{q}_profile": runs[q]["profile"] for q in ("none", "int8")}}
+    paged_counts = phase_serve_paged(torch, model, params, reqs, ring, smi)
+    mark("phase 3b")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3723,7 +4027,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_rmsnorm_fwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
               "modalities_tpu/ops/pallas/fused_rmsnorm.py:34",
-              {"serve": rms_total, **by_path("rms_fwd"), "serve_ckpt": ckpt_counts["serve_ckpt"]["rms_fwd"]}, "rmsnorm"),
+              {"serve": rms_total, **{k: c["rms_fwd"] for k, c in paged_counts.items()}, **by_path("rms_fwd"),
+               "serve_ckpt": ckpt_counts["serve_ckpt"]["rms_fwd"]}, "rmsnorm"),
         entry("fused_rmsnorm_bwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
               "modalities_tpu/ops/pallas/fused_rmsnorm.py:43", by_path("rms_bwd"), "rmsnorm_bwd"),
         entry("flash_attention_fwd", flash_src, f"{flash_tpu}:43", by_path("flash_fwd"), "flash_fwd"),
@@ -3734,7 +4039,8 @@ def main() -> int:
         entry("fused_ce_bwd_dw", ce_src, f"{ce_tpu}:158", by_path("ce_dw"), "fused_ce_dw"),
         entry("quant_matmul", "modalities_tpu_torch/csrc/quant_matmul.cu",
               "modalities_tpu/ops/pallas/quant_matmul.py:31",
-              {"serve": qmm_total, "serve_ckpt": ckpt_counts["serve_ckpt"]["quant_matmul"]}, "quant_matmul",
+              {"serve": qmm_total, **{k: c["quant_matmul"] for k, c in paged_counts.items()},
+               "serve_ckpt": ckpt_counts["serve_ckpt"]["quant_matmul"]}, "quant_matmul",
               lambda ts: next(t for t in ts if t["m"] == 8 and (t["k"], t["n"]) == (2560, 7680) and t["mode"] == "int8")),
     ]}))
     print(smi)

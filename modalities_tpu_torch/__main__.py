@@ -66,7 +66,7 @@ def main(argv=None) -> int:
     warm_p.add_argument("--last_checkpoint_info_file_path", type=Path, required=True)
     warm_p.add_argument("--experiments_root_path", type=Path, default=None)
     warm_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    serve_p = sub.add_parser("serve", help="continuous-batching text serving from the ring KV cache")
+    serve_p = sub.add_parser("serve", help="continuous-batching text serving from the ring or the paged KV cache")
     serve_p.add_argument("--config_file_path", type=Path, required=True)
     serve_p.add_argument("--requests_file_path", type=Path, required=True, help="JSONL of requests to replay")
     serve_p.add_argument("--output_file_path", type=Path, default=None)

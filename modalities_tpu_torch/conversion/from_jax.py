@@ -13,6 +13,10 @@ becomes the layer index; DenseGeneral kernels [E, H, D] (q/k/v) and
 [H, D, E] (attention c_proj) flatten to the port's 2-D [in, out] kernels, and
 their scales [H, D] / [E] flatten to [out].
 
+`paged_cache_from_jax` carries a JAX paged KV cache tree (its pools, and the
+scale pools of an int8 cache) into the port's `PagedCache`, so the contents of
+the two pools can be compared after the same dispatches.
+
 `app_state_from_jax` carries a whole JAX training state {params, opt_state,
 step} (as numpy, e.g. from the JAX package's `restore_tree_single_device`)
 into a train step's app-state dict (checkpointing/stateful/app_state.py).
@@ -88,6 +92,32 @@ def params_from_jax(tree: Mapping, config) -> dict[str, torch.Tensor]:
     if not spec.use_weight_tying:
         flat.update(_dense_2d(p["lm_head"], "lm_head", 1))
     return {k: to_torch(v) for k, v in flat.items()}
+
+
+_PAGED_LEAVES = ("cached_key", "cached_value", "cached_key_scale", "cached_value_scale")
+
+
+def paged_cache_from_jax(tree: Mapping):
+    """The port's PagedCache from a JAX paged cache tree (numpy leaves): the
+    scan-stacked `blocks/block/attn/<leaf>` [L, NB, bs, Hkv, D | 1], or the
+    unrolled `h_<i>/attn/<leaf>` [NB, ...] stacked in layer order. The port's
+    pools carry one more block, the scratch block of dropped writes, zeroed."""
+    from modalities_tpu_torch.models.gpt2.gpt2_model import PagedCache
+
+    if "blocks" in tree:
+        attn = tree["blocks"]["block"]["attn"]
+        leaves = {name: np.asarray(attn[name]) for name in _PAGED_LEAVES if name in attn}
+    else:
+        layers = sorted((k for k in tree if k.startswith("h_")), key=lambda k: int(k[2:]))
+        leaves = {name: np.stack([np.asarray(tree[k]["attn"][name]) for k in layers])
+                  for name in _PAGED_LEAVES if name in tree[layers[0]]["attn"]}
+
+    def with_scratch(a):
+        t = to_torch(a)
+        return torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+
+    pools = [with_scratch(leaves[name]) if name in leaves else None for name in _PAGED_LEAVES]
+    return PagedCache(k=pools[0], v=pools[1], k_scale=pools[2], v_scale=pools[3])
 
 
 def _find_adam_state(node):

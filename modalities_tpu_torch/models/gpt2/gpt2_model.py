@@ -5,8 +5,10 @@ cache and for training.
 Kept from the JAX model: the config surface and its validation
 (`GPT2LLMConfig`), GQA attention with RoPE, SwiGLU or GELU MLPs, pre-norm
 blocks, NOPE/ABSOLUTE positions, tied or untied fp32 heads, weight-only
-quantized dense layers, the slot-cache API (`init_slot_cache`,
-`prefill_slot`, `decode_slots`) and the full-sequence training forward
+quantized dense layers, the slot-cache API over the ring (`init_slot_cache`,
+`prefill_slot`, `decode_slots`), the same over the paged block pool
+(`init_paged_cache`, `prefill_paged`, `decode_paged`, `verify_paged`; bf16 or
+int8 KV) and the full-sequence training forward
 (`GPT2Module.forward`, logits [B, S, V] fp32; `forward_hidden` stops after
 `lm_head_norm` for the chunked and fused-CE heads), with the same numerics at
 every cast point. Attention in training follows `attention_implementation`:
@@ -22,8 +24,8 @@ parameters are DTensors over tp and every body computes on its local shard:
 attention on this rank's heads, the vocab-parallel lookup and head, the
 residual stream on this rank's rows of the sequence. Blocks chosen by the
 spec's remat variant run under `torch.utils.checkpoint`
-(training/activation_checkpointing.py). Not here yet: the paged cache,
-speculative verify, selective-op remat and dropout. Pipeline parallelism
+(training/activation_checkpointing.py). Not here yet: selective-op remat and
+dropout. Pipeline parallelism
 runs a stage's share of the blocks (`stage_forward`) on a module that holds
 only that share (parallel/pipeline.py).
 
@@ -69,6 +71,7 @@ from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_
 from modalities_tpu_torch.ops.quant_matmul import PreparedWeight, quant_matmul
 from modalities_tpu_torch.parallel.ring_attention import ring_attention
 from modalities_tpu_torch.parallel.tensor_parallel import gather_vocab, local, vocab_parallel_embedding
+from modalities_tpu_torch.quant.core import quantize_per_channel
 from modalities_tpu_torch.quant.weights import quant_storage_dtype
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed, layer_remats
 
@@ -368,7 +371,8 @@ def _dense(spec: GPT2ModelSpec, in_f: int, out_f: int, bias: bool, device):
 
 class CausalSelfAttention(nn.Module):
     """GQA attention over the ring KV cache (JAX `_slot_attention`,
-    gpt2_model.py:724-787)."""
+    gpt2_model.py:724-787) or the paged block pool (JAX
+    `_paged_slot_attention`, gpt2_model.py:614-722)."""
 
     def __init__(self, spec: GPT2ModelSpec, device=None):
         super().__init__()
@@ -384,9 +388,10 @@ class CausalSelfAttention(nn.Module):
             self.k_norm = build_norm(spec.qk_norm, dtype=cd, device=device)
         self.cp_group = None  # the cp ring's process group under context parallelism
 
-    def forward(self, x, cache_k, cache_v, step):
-        """x: [B, S, E]; cache_k/cache_v: this layer's [slots, capacity, Hkv, D]
-        ring, written IN PLACE at the step's positions before it is read."""
+    def forward(self, x, cache, layer: int, step):
+        """x: [B, S, E]; `cache` the ring (SlotCache, this layer's [slots,
+        capacity, Hkv, D]) or the block pool (PagedCache), written IN PLACE at
+        the step's positions before it is read."""
         spec = self.spec
         b, s, _ = x.shape
         hd = spec.head_dim
@@ -398,12 +403,16 @@ class CausalSelfAttention(nn.Module):
         if step.cos is not None:
             q = apply_rope(q, step.cos, step.sin)
             k = apply_rope(k, step.cos, step.sin)
-        if step.slot is not None:  # prefill: one chunk into row `slot` at step.start
+        if step.tables is not None:
+            k_all, v_all = cache.write_and_gather(layer, k, v, step)
+        elif step.slot is not None:  # prefill: one chunk into row `slot` at step.start
+            cache_k, cache_v = cache.k[layer], cache.v[layer]
             cache_k[step.slot, step.start : step.start + s] = k[0]
             cache_v[step.slot, step.start : step.start + s] = v[0]
             k_all = cache_k[step.slot : step.slot + 1]
             v_all = cache_v[step.slot : step.slot + 1]
         else:  # decode: one token per slot at its own position
+            cache_k, cache_v = cache.k[layer], cache.v[layer]
             rows = torch.arange(b, device=x.device)
             cache_k[rows, step.positions] = k[:, 0]
             cache_v[rows, step.positions] = v[:, 0]
@@ -468,8 +477,8 @@ class GPT2Block(nn.Module):
         self.ffn_norm = build_norm(spec.ffn_norm, dtype=cd, device=device)
         self.mlp = MLP(spec, device=device)
 
-    def forward(self, x, cache_k, cache_v, step):
-        x = x + self.attn(self.attention_norm(x), cache_k, cache_v, step)
+    def forward(self, x, cache, layer: int, step):
+        x = x + self.attn(self.attention_norm(x), cache, layer, step)
         return x + self.mlp(self.ffn_norm(x))
 
     def train_forward(self, x, cos, sin):
@@ -496,9 +505,93 @@ class SlotCache:
 
 
 @dataclasses.dataclass
+class PagedCache:
+    """The serving engine's paged KV cache (JAX `init_paged_cache`,
+    gpt2_model.py:1385-1409): ONE block pool per layer, [layers, num_blocks +
+    1, block_size, kv_heads, head_dim], in the compute dtype, or int8 with
+    float32 scale pools [layers, num_blocks + 1, block_size, kv_heads, 1]
+    beside them (one scale per written row and kv head: quantized on write,
+    dequantized at the gather). Block `num_blocks` is scratch: the write
+    coordinates of a cell that writes nowhere (an idle slot, a padded
+    prefill cell, a verify column past the budget) point there, as the JAX
+    scatter's `mode="drop"` drops them, and no table ever gathers it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.k.shape[1]) - 1
+
+    @property
+    def block_size(self) -> int:
+        return int(self.k.shape[2])
+
+    @property
+    def kv_quant(self) -> str:
+        return "int8" if self.k_scale is not None else "none"
+
+    def _tensors(self) -> list[torch.Tensor]:
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale) if t is not None]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the num_blocks blocks (pools and scales; the scratch block
+        left out): the JAX engine's `kv_pool_bytes`."""
+        return sum(t[:, : self.num_blocks].numel() * t.element_size() for t in self._tensors())
+
+    @property
+    def scale_bytes(self) -> int:
+        return sum(t[:, : self.num_blocks].numel() * 4 for t in (self.k_scale, self.v_scale) if t is not None)
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write's device row copy: block `src` -> `dst` in every
+        layer's pools and scales (JAX engine `cow_fn`, engine.py:975-986)."""
+        for t in self._tensors():
+            t[:, dst] = t[:, src]
+
+    def write_and_gather(self, layer: int, k, v, step):
+        """Scatter this step's k/v [R, C, Hkv, D] into layer `layer`'s pool at
+        the step's (block, offset) coordinates, ALL rows before any gather (so
+        the rows of one packed dispatch see each other's writes), then gather
+        each row's K/V through its block table, position-ordered: [R,
+        table_width * block_size, Hkv, D] in k's dtype. V rows that no query
+        of the row references are zeroed: a recycled block keeps its last
+        owner's bytes, and 0 x NaN would poison P.V (masked K logits are
+        replaced, not added to, inside `masked_attention`)."""
+        hkv, d = k.shape[-2], k.shape[-1]
+        k_flat, v_flat = k.reshape(-1, hkv, d), v.reshape(-1, hkv, d)
+        blk, off = step.wblk, step.woff
+        k_pool, v_pool = self.k[layer], self.v[layer]
+        if self.k_scale is not None:
+            k_flat, k_s = quantize_per_channel(k_flat, dim=-1)
+            v_flat, v_s = quantize_per_channel(v_flat, dim=-1)
+            ks_pool, vs_pool = self.k_scale[layer], self.v_scale[layer]
+            ks_pool[blk, off] = k_s
+            vs_pool[blk, off] = v_s
+        k_pool[blk, off] = k_flat
+        v_pool[blk, off] = v_flat
+        rows, width = step.tables.shape
+
+        def gather(pool):
+            return pool[step.tables].reshape(rows, width * self.block_size, hkv, pool.shape[-1])
+
+        if self.k_scale is not None:
+            k_all = (gather(k_pool).float() * gather(ks_pool)).to(k.dtype)
+            v_all = (gather(v_pool).float() * gather(vs_pool)).to(v.dtype)
+        else:
+            k_all, v_all = gather(k_pool), gather(v_pool)
+        return k_all, v_all.masked_fill(~step.valid[:, :, None, None], 0)
+
+
+@dataclasses.dataclass
 class _Step:
     """What every layer of one forward shares: RoPE rows, the attention mask,
-    and where the new K/V land (slot+start for prefill, positions for decode)."""
+    and where the new K/V land (ring: slot+start for prefill, positions for
+    decode; paged: the block tables, the flat write coordinates and the key
+    rows any query references)."""
 
     mask: torch.Tensor
     cos: Optional[torch.Tensor]
@@ -506,11 +599,16 @@ class _Step:
     slot: Optional[int] = None
     start: int = 0
     positions: Optional[torch.Tensor] = None
+    tables: Optional[torch.Tensor] = None
+    wblk: Optional[torch.Tensor] = None
+    woff: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
 
 
 class GPT2Module(nn.Module):
     """wte (+wpe) -> blocks -> lm_head_norm -> fp32 head: the full-sequence
-    training forward (`forward`) and the serving API over the ring cache."""
+    training forward (`forward`) and the serving API over the ring cache and
+    the paged block pool."""
 
     def __init__(self, spec: GPT2ModelSpec, device=None):
         super().__init__()
@@ -715,12 +813,74 @@ class GPT2Module(nn.Module):
             x = x + self.wpe[pos].to(self.compute_dtype)
         return x
 
-    def _forward(self, x, cache: SlotCache, step: _Step):
+    # ------------------------------------------------------- paged cache API
+    def init_paged_cache(self, num_blocks: int, block_size: int, kv_quant: str = "none") -> PagedCache:
+        """Zeroed block pool of `num_blocks` blocks of `block_size` positions
+        (plus the scratch block), in the compute dtype, or int8 with float32
+        scale pools for kv_quant="int8"."""
+        nb, bs = int(num_blocks), int(block_size)
+        if nb < 1 or bs < 1:
+            raise ValueError(f"paged cache needs num_blocks >= 1 and block_size >= 1, got {nb}/{bs}")
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r} (expected none|int8)")
+        spec = self.spec
+        shape = (spec.n_layer, nb + 1, bs, spec.n_head_kv, spec.head_dim)
+        dtype = torch.int8 if kv_quant == "int8" else self.compute_dtype
+        cache = PagedCache(k=torch.zeros(shape, dtype=dtype, device=self.device),
+                           v=torch.zeros(shape, dtype=dtype, device=self.device))
+        if kv_quant == "int8":
+            cache.k_scale = torch.zeros(shape[:-1] + (1,), device=self.device)
+            cache.v_scale = torch.zeros(shape[:-1] + (1,), device=self.device)
+        return cache
+
+    def prefill_paged(self, cache: PagedCache, tokens, positions, tables, wblk, woff):
+        """Cross-request packed prefill (JAX `prefill_paged`,
+        gpt2_model.py:1411-1428): row r of `tokens` [R, C] is a chunk of some
+        request at absolute positions `positions` [R, C], gathered through the
+        row's block table `tables` [R, MB], its K/V written at wblk/woff [R, C]
+        (block `cache.num_blocks` writes nowhere). All int64 tensors on the
+        module's device. Returns logits [R, C, V] in fp32."""
+        return self._paged_forward(cache, tokens, positions, tables, wblk.reshape(-1), woff.reshape(-1))
+
+    def decode_paged(self, cache: PagedCache, tokens, positions, tables, wblk, woff):
+        """ONE batched paged decode step (JAX `decode_paged`,
+        gpt2_model.py:1430-1446): tokens [S, 1] at per-slot `positions` [S],
+        K/V through the tables [S, MB], written at wblk/woff [S]. Returns
+        logits [S, 1, V] in fp32."""
+        return self._paged_forward(cache, tokens, positions[:, None], tables, wblk, woff)
+
+    def verify_paged(self, cache: PagedCache, tokens, positions, tables, wblk, woff):
+        """The speculative-decoding verify forward (JAX `verify_paged`,
+        gpt2_model.py:1448-1461): row s of `tokens` [S, k+1] is the fed token
+        and the drafts at positions [S, k+1]; the packed prefill's math, so a
+        draft column attends exactly the K/V a sequential decode at that
+        position would."""
+        return self.prefill_paged(cache, tokens, positions, tables, wblk, woff)
+
+    def _paged_forward(self, cache: PagedCache, tokens, pos, tables, wblk, woff):
+        width = int(tables.shape[1]) * cache.block_size
+        key_pos = torch.arange(width, device=self.device)
+        mask = key_pos[None, None, :] <= pos[:, :, None]  # [R, C, L]
+        # a verify column past the table ceiling (drafts beyond the budget,
+        # never emitted, their writes dropped) reads its tables at the last
+        # row and references no key rows for the V scrub
+        limit = width if self.spec.poe_type != PositionTypes.ABSOLUTE.value else min(width, self.wpe.shape[0])
+        inside = pos < limit
+        lookup = pos.clamp(max=limit - 1)
+        cos = sin = None
+        if self.spec.use_rope:  # tables at the table ceiling, which may pass sequence_length
+            cos_t, sin_t = self._rope_tables(width)
+            cos, sin = cos_t[lookup], sin_t[lookup]
+        valid = (mask & inside[:, :, None]).any(dim=1)
+        step = _Step(mask=mask, cos=cos, sin=sin, tables=tables, wblk=wblk, woff=woff, valid=valid)
+        return self._forward(self._embed(tokens, lookup), cache, step)
+
+    def _forward(self, x, cache, step: _Step):
         if self.tp is not None:
             raise NotImplementedError("serving a tensor-parallel module is not ported yet (ROADMAP.md, Queue 1 "
                                       "item 3)")
         for i, block in enumerate(self.blocks):
-            x = block(x, cache.k[i], cache.v[i], step)
+            x = block(x, cache, i, step)
         h = self.lm_head_norm(x).float()
         if self.spec.use_weight_tying:
             return torch.matmul(h, self.wte.float().t())

@@ -15,25 +15,33 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 
 import torch
 
 from modalities_tpu_torch.quant.core import quantize_fp8, quantize_per_channel
 
 WEIGHT_MODES = ("none", "int8", "fp8")
+_ENV_VAR = "MODALITIES_TPU_QUANT_WEIGHTS"
 
 
 def resolve_quant_weights_mode(setting=None) -> str:
-    """config `quant.weights` -> mode. Malformed values raise — a typo'd mode
-    must never silently serve unquantized weights."""
-    if setting is None:
+    """Env > config > "none", as the JAX function resolves it. Malformed
+    values raise naming the source: a typo'd mode must never silently serve
+    unquantized weights."""
+    env = os.environ.get(_ENV_VAR)
+    if env is not None:
+        source, value = f"env {_ENV_VAR}", env
+    else:
+        source, value = "config quant.weights", setting
+    if value is None:
         return "none"
-    v = str(setting).strip().lower()
+    v = str(value).strip().lower()
     if v in ("", "none", "off", "0", "no", "false"):
         return "none"
     if v in WEIGHT_MODES:
         return v
-    raise ValueError(f"config quant.weights: invalid weight quant mode {setting!r} (expected none|int8|fp8)")
+    raise ValueError(f"{source}: invalid weight quant mode {value!r} (expected none|int8|fp8)")
 
 
 def quant_storage_dtype(mode: str) -> torch.dtype:

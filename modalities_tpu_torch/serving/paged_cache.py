@@ -1,0 +1,363 @@
+"""Host-side block-table memory manager for the paged KV cache: the port of
+modalities_tpu/serving/paged_cache.py (pure Python, kept as its own copy).
+
+The device side is ONE preallocated pool per layer (`[layers, num_blocks + 1,
+block_size, kv_heads, head_dim]`, models/gpt2/gpt2_model.py `init_paged_cache`
+/ `prefill_paged` / `decode_paged` / `verify_paged`); everything here is plain
+Python bookkeeping that decides WHICH pool block each logical position of each
+request maps to. Block tables reach the forward as int64 tensors of a fixed
+width, so allocation never changes a shape (the vLLM argument: block tables
+turn KV memory into paging, and admission gates on free blocks instead of a
+per-slot ring capacity).
+
+Copy-on-write prefix sharing: blocks are REFCOUNTED, and a prefix index maps
+the exact token-id prefix covered by each full block to the resident block
+holding its K/V. A request whose prompt prefix matches forks the matched
+blocks into its own table by bumping refcounts (no re-prefill), and the first
+write into a shared block copies it first (CoW), so sharing is invisible to
+the device math.
+
+Invariants (tests/test_torch_paged_cache.py replays them against the JAX
+module):
+- a block is either on the free list or refcounted >= 1 and referenced by
+  exactly `refcount` table entries across all requests,
+- `free + distinct_owned == num_blocks` at all times (no leaks),
+- tables are position-ordered: table entry m holds logical positions
+  m*block_size .. (m+1)*block_size - 1, which is what keeps the gathered K/V
+  row position-ordered and the paged softmax bitwise equal to the ring row,
+- a prefix-index entry always points to a live block whose K/V holds exactly
+  the keyed token prefix; entries are pruned the moment the block's refcount
+  hits 0 (a recycled block can never serve a stale prefix hit).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+def blocks_for_tokens(num_tokens: int, block_size: int) -> int:
+    """Pool blocks needed to hold `num_tokens` positions."""
+    return -(-max(int(num_tokens), 0) // int(block_size))
+
+
+class BlockPool:
+    """Refcounting free-list allocator over the global pool's block ids
+    [0, num_blocks).
+
+    Block id `num_blocks` is the reserved WRITE-NOWHERE sentinel (the pool
+    tensor's extra scratch block, which takes every dropped write and is
+    never gathered), so the pool itself never hands it out.
+    `allocate()` returns a block at refcount 1, `fork()` bumps the count for a
+    prefix-sharing table fork, and `free()` decrements — the block returns to
+    the free list only when the LAST reference drops.
+    """
+
+    def __init__(self, num_blocks: int):
+        if int(num_blocks) < 1:
+            raise ValueError(f"BlockPool needs num_blocks >= 1, got {num_blocks}")
+        self.num_blocks = int(num_blocks)
+        # LIFO free list: freshly freed blocks are reused first (keeps the hot
+        # working set small; allocation order is irrelevant to correctness
+        # because tables, not block ids, carry position order)
+        self._free: list[int] = list(range(self.num_blocks - 1, -1, -1))
+        self._refcount: dict[int, int] = {}  # block id -> references >= 1
+        # observers see block LIVENESS transitions (0 -> 1 ref on allocate,
+        # last ref -> 0 on free; fork/partial-free are invisible) — the
+        # quantized pool's scale mirror (quant/kv.py KVScaleMirror) rides these
+        # so scale-slot allocation tracks block allocation exactly
+        self._observers: list = []
+
+    def add_observer(self, observer) -> None:
+        """Register an object with `on_allocate(block)` / `on_free(block)`
+        callbacks, fired on liveness transitions only."""
+        self._observers.append(observer)
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        """Distinct allocated blocks (each counts once however shared)."""
+        return len(self._refcount)
+
+    @property
+    def shared_count(self) -> int:
+        """Blocks currently referenced by more than one table."""
+        return sum(1 for c in self._refcount.values() if c > 1)
+
+    def allocate(self) -> int | None:
+        """Pop a free block at refcount 1; None when the pool is exhausted
+        (the scheduler preempts rather than corrupting a table)."""
+        if not self._free:
+            return None
+        block = self._free.pop()
+        self._refcount[block] = 1
+        for obs in self._observers:
+            obs.on_allocate(block)
+        return block
+
+    def fork(self, block: int) -> None:
+        """Add a reference to an already-allocated block (prefix-sharing table
+        fork)."""
+        if block not in self._refcount:
+            raise ValueError(f"fork of unallocated block {block}")
+        self._refcount[block] += 1
+
+    def free(self, block: int) -> bool:
+        """Drop one reference. Returns True when the block actually returned
+        to the free list (refcount hit 0)."""
+        count = self._refcount.get(block)
+        if count is None:
+            raise ValueError(f"double free / foreign block {block}")
+        if count > 1:
+            self._refcount[block] = count - 1
+            return False
+        del self._refcount[block]
+        self._free.append(block)
+        for obs in self._observers:
+            obs.on_free(block)
+        return True
+
+    def refcount(self, block: int) -> int:
+        return self._refcount.get(block, 0)
+
+    def allocated_blocks(self) -> list[int]:
+        """Sorted ids of currently-allocated blocks (audit surface for the
+        scale mirror's check)."""
+        return sorted(self._refcount)
+
+    def check(self) -> None:
+        """Leak/corruption audit: free + refcounted must tile [0, num_blocks)
+        with every live refcount >= 1."""
+        ids = sorted(self._free) + sorted(self._refcount)
+        if sorted(ids) != list(range(self.num_blocks)):
+            raise AssertionError(
+                f"block pool corrupt: free={sorted(self._free)} "
+                f"owned={sorted(self._refcount)}"
+            )
+        bad = {b: c for b, c in self._refcount.items() if c < 1}
+        if bad:
+            raise AssertionError(f"non-positive refcounts: {bad}")
+
+
+@dataclass
+class _RequestBlocks:
+    blocks: list[int] = field(default_factory=list)  # position-ordered
+
+
+class BlockTableState:
+    """Per-request block tables over one BlockPool, with a prefix index.
+
+    `table_width` is the FIXED width of the table tensor the forward gets — it
+    caps request length at table_width * block_size and never changes after
+    construction (one decode shape).
+
+    The prefix index keys the EXACT token-id prefix covered by a full block
+    (`tuple(tokens[: (i+1) * block_size])`) to the resident block id, so a
+    longest-match lookup at admission walks block-sized prefixes until the
+    first miss. Only full PROMPT blocks are registered — generated tokens
+    differ per request and are never shared."""
+
+    def __init__(self, num_blocks: int, block_size: int, table_width: int):
+        if int(block_size) < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if int(table_width) < 1:
+            raise ValueError(f"table_width must be >= 1, got {table_width}")
+        self.pool = BlockPool(num_blocks)
+        self.block_size = int(block_size)
+        self.table_width = int(table_width)
+        self._requests: dict[int, _RequestBlocks] = {}
+        self._prefix_index: dict[tuple[int, ...], int] = {}
+        self._block_key: dict[int, tuple[int, ...]] = {}  # reverse, for pruning
+
+    @property
+    def max_len(self) -> int:
+        """Per-request position ceiling imposed by the static table width."""
+        return self.table_width * self.block_size
+
+    @property
+    def prefix_index_size(self) -> int:
+        return len(self._prefix_index)
+
+    # ------------------------------------------------------------------ #
+    # allocation / growth                                                 #
+    # ------------------------------------------------------------------ #
+
+    def ensure(self, rid: int, num_tokens: int) -> bool:
+        """Grow `rid`'s table to cover positions [0, num_tokens). True on
+        success; False when the pool ran dry (NOTHING was allocated — the
+        caller preempts and retries, so partial growth must not leak)."""
+        state = self._requests.setdefault(int(rid), _RequestBlocks())
+        need = blocks_for_tokens(num_tokens, self.block_size) - len(state.blocks)
+        if need <= 0:
+            return True
+        if len(state.blocks) + need > self.table_width:
+            raise ValueError(
+                f"request {rid} needs {len(state.blocks) + need} blocks but the "
+                f"static table width is {self.table_width} "
+                f"(max_len {self.max_len}): admission should have clamped the budget"
+            )
+        if self.pool.free_count < need:
+            if not state.blocks:
+                del self._requests[int(rid)]
+            return False
+        for _ in range(need):
+            state.blocks.append(self.pool.allocate())
+        return True
+
+    # ------------------------------------------------------------------ #
+    # prefix sharing                                                      #
+    # ------------------------------------------------------------------ #
+
+    def match_prefix(self, tokens: list[int]) -> list[int]:
+        """Longest-match lookup: resident blocks covering the leading full
+        blocks of `tokens`, in position order. Walks block-sized prefixes and
+        stops at the first index miss (prefix keys are cumulative, so a hit at
+        block i implies hits at 0..i-1 were possible when it was registered)."""
+        matched: list[int] = []
+        bs = self.block_size
+        for i in range(len(tokens) // bs):
+            block = self._prefix_index.get(tuple(tokens[: (i + 1) * bs]))
+            if block is None:
+                break
+            matched.append(block)
+        return matched
+
+    def fork_prefix(self, rid: int, blocks: list[int]) -> None:
+        """Seed a NEW request's table with shared prefix blocks (one refcount
+        bump each). The rid must not already hold blocks."""
+        rid = int(rid)
+        existing = self._requests.get(rid)
+        if existing is not None and existing.blocks:
+            raise ValueError(f"fork_prefix into non-empty table for rid {rid}")
+        for block in blocks:
+            self.pool.fork(block)
+        self._requests[rid] = _RequestBlocks(list(blocks))
+
+    def register_prefix(self, rid: int, tokens: list[int], upto: int) -> int:
+        """Publish `rid`'s blocks that fully cover prompt positions < `upto`
+        into the prefix index (first writer wins — forked/CoW'd duplicates are
+        left out). Returns how many new index entries were created."""
+        state = self._requests[int(rid)]
+        registered = 0
+        bs = self.block_size
+        for i, block in enumerate(state.blocks):
+            end = (i + 1) * bs
+            if end > int(upto):
+                break
+            key = tuple(tokens[:end])
+            if key in self._prefix_index:
+                continue
+            self._prefix_index[key] = block
+            self._block_key[block] = key
+            registered += 1
+        return registered
+
+    def flush_prefix_index(self) -> int:
+        """Drop every prefix-index entry (hot weight swap: resident KV was
+        computed under the OLD weights, so forking it into a new-generation
+        request would splice stale activations into a fresh trajectory).
+        Live holders keep their blocks — only future admissions stop matching.
+        Returns how many entries were dropped."""
+        dropped = len(self._prefix_index)
+        self._prefix_index.clear()
+        self._block_key.clear()
+        return dropped
+
+    def ensure_writable(self, rid: int, position: int):
+        """Copy-on-write gate before writing logical `position` of `rid`.
+
+        Returns:
+        - None            — the covering block is exclusively owned; write away.
+        - (src, dst)      — the block was shared: a fresh block `dst` now sits
+                            in the table and the CALLER must copy pool rows
+                            src -> dst on device before the write lands.
+        - False           — the block was shared and the pool is dry (caller
+                            preempts; the table is untouched).
+        """
+        state = self._requests[int(rid)]
+        idx = int(position) // self.block_size
+        src = state.blocks[idx]
+        if self.pool.refcount(src) == 1:
+            return None
+        dst = self.pool.allocate()
+        if dst is None:
+            return False
+        state.blocks[idx] = dst
+        # drop OUR reference to the donor; other holders keep it alive, so the
+        # donor (and its prefix-index entry) survives — CoW never frees
+        freed = self.pool.free(src)
+        assert not freed, "CoW freed its donor — refcount accounting broken"
+        return src, dst
+
+    # ------------------------------------------------------------------ #
+    # lookups / teardown                                                  #
+    # ------------------------------------------------------------------ #
+
+    def table(self, rid: int) -> list[int]:
+        """Fixed-width table row for the forward: owned blocks in position
+        order, padded with 0 (padded entries are masked by `pos`)."""
+        blocks = self._requests[int(rid)].blocks
+        return blocks + [0] * (self.table_width - len(blocks))
+
+    def write_coords(self, rid: int, position: int) -> tuple[int, int]:
+        """(physical block, offset) for writing logical `position`."""
+        blocks = self._requests[int(rid)].blocks
+        return blocks[position // self.block_size], position % self.block_size
+
+    def blocks_held(self, rid: int) -> int:
+        state = self._requests.get(int(rid))
+        return len(state.blocks) if state is not None else 0
+
+    def release(self, rid: int) -> int:
+        """Drop `rid`'s reference on every block it holds (finish or
+        preemption). Returns how many blocks actually went back to the free
+        list — shared blocks survive their other holders, so this may be less
+        than the table length (even 0). Releasing an unknown rid is a no-op."""
+        state = self._requests.pop(int(rid), None)
+        if state is None:
+            return 0
+        freed = 0
+        for block in state.blocks:
+            if self.pool.free(block):
+                freed += 1
+                self._prune_index(block)
+        return freed
+
+    def _prune_index(self, block: int) -> None:
+        """Remove the prefix-index entry of a block that just hit refcount 0
+        (it is about to be recycled and must never serve a prefix hit)."""
+        key = self._block_key.pop(block, None)
+        if key is not None:
+            del self._prefix_index[key]
+
+    def active_requests(self) -> list[int]:
+        return sorted(self._requests)
+
+    def check(self) -> None:
+        """Audit: pool consistency + every block's refcount equals the number
+        of table entries referencing it + the prefix index only points at live
+        blocks."""
+        self.pool.check()
+        refs: dict[int, int] = {}
+        for state in self._requests.values():
+            for block in state.blocks:
+                refs[block] = refs.get(block, 0) + 1
+        for block, n in refs.items():
+            if self.pool.refcount(block) != n:
+                raise AssertionError(
+                    f"block {block}: {n} table references but pool refcount "
+                    f"{self.pool.refcount(block)}"
+                )
+        if len(refs) != self.pool.used_count:
+            raise AssertionError(
+                f"{self.pool.used_count} blocks allocated but {len(refs)} in tables"
+            )
+        for key, block in self._prefix_index.items():
+            if self.pool.refcount(block) < 1:
+                raise AssertionError(f"prefix index points at dead block {block}")
+            if self._block_key.get(block) != key:
+                raise AssertionError(f"prefix index / block_key mismatch on {block}")
+        if len(self._prefix_index) != len(self._block_key):
+            raise AssertionError("prefix index / block_key size mismatch")

@@ -1,16 +1,22 @@
-"""`serve` entry: the DI component and config surface for the ring-cache
-engine, the port of modalities_tpu/serving/serve.py.
+"""`serve` entry: the DI component and config surface of the serving engine,
+the port of modalities_tpu/serving/serve.py.
+
+The engine's knobs pass through: the ring or the paged KV cache
+(`kv_cache`, the `paged_*` sizes), prefix sharing, speculative decoding
+(`spec_decode`) and `quant` {weights, kv}; a knob left null takes its JAX
+environment switch inside the engine (MODALITIES_TPU_SERVE_KV_CACHE,
+_PREFILL_CHUNKS, _SPEC_K, _PREFIX_SHARING, MODALITIES_TPU_QUANT_WEIGHTS,
+MODALITIES_TPU_QUANT_KV). `prefix_sharing` and the `paged_*` sizes are ignored
+on the ring cache, as the JAX engine ignores them there.
 
 Knobs of engine features that this package does not have yet are refused when
-set to anything but their default (paged cache, speculative decoding, int8 KV,
-deadlines, brownout, tenants, an SLO block, a bounded queue, a device mesh, the
-HTTP front end), and so are the JAX serving environment switches that would
-change what is served or what is written beside it (`_refuse_unported_env`).
-So `configs/config_serve.yaml` does not load unchanged: its `slo` block arms
-the JAX engine's brownout shedder, and the port refuses it (set `slo: null`).
-`prefix_sharing` (knob and `MODALITIES_TPU_SERVE_PREFIX_SHARING`) and the
-`paged_*` sizes are ignored on the ring cache, as the JAX engine ignores them
-there.
+set to anything but their default (deadlines, brownout, tenants, a bounded
+queue, a device mesh and the HTTP front end: ROADMAP.md Queue 1 item 3; the
+SLO block and telemetry: item 6), and so are the JAX serving environment
+switches that would change what is served or what is written beside it
+(`_refuse_unported_env`). So `configs/config_serve.yaml` does not load
+unchanged: its `slo` block arms the JAX engine's brownout shedder, and the
+port refuses it (set `slo: null`).
 """
 
 from __future__ import annotations
@@ -52,13 +58,13 @@ class ServingComponentConfig:
     seed: int = 0
     prompt_template: str = "{prompt}"
     eod_token: Optional[str] = "<eod>"
-    kv_cache: Optional[str] = None  # only the ring cache here
+    kv_cache: Optional[str] = None  # "ring" | "paged"; None = env / ring
     paged_block_size: int = 16
     paged_num_blocks: Optional[int] = None
     paged_max_len: Optional[int] = None
     prefix_sharing: Optional[bool] = None
     spec_decode: Optional[dict] = None
-    quant: Optional[dict] = None  # {"weights": none|int8|fp8}
+    quant: Optional[dict] = None  # {"weights": none|int8|fp8, "kv": none|int8}; None = env / off
     http_host: str = "127.0.0.1"
     http_port: Optional[int] = None
     slo: Optional[dict] = None
@@ -91,15 +97,13 @@ class ServingComponentConfig:
         check_dict("tenants", self.tenants, optional=True)
 
 
-# The JAX serving environment switches, each with the values that leave the
-# port's result unchanged (the JAX defaults) and the ROADMAP.md Queue 1 item
-# that ports its feature. MODALITIES_TPU_SERVE_PREFIX_SHARING is not here: the
-# JAX engine ignores it on the ring cache too.
+# The JAX serving environment switches the port does not apply yet, each with
+# the values that leave the port's result unchanged (the JAX defaults) and
+# the ROADMAP.md Queue 1 item that ports its feature. The engine applies
+# MODALITIES_TPU_SERVE_KV_CACHE, _PREFILL_CHUNKS, _SPEC_K and _PREFIX_SHARING
+# itself, as the JAX engine does.
 _ENV_DEFAULTS = {
-    "MODALITIES_TPU_SERVE_KV_CACHE": (lambda v: v == "ring", 3),
-    "MODALITIES_TPU_SERVE_PREFILL_CHUNKS": (lambda v: [c.strip() for c in v.split(",")] == ["64", "16", "4", "1"], 3),
     "MODALITIES_TPU_SERVE_QUEUE_LIMIT": (lambda v: float(v) <= 0, 3),
-    "MODALITIES_TPU_SERVE_SPEC_K": (lambda v: float(v) == 0, 3),
     "MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS": (lambda v: float(v) <= 0, 3),
     "MODALITIES_TPU_SERVE_TENANT_DEFAULT": (lambda v: v.strip() == "default", 3),
     "MODALITIES_TPU_SERVE_TELEMETRY_DIR": (lambda v: False, 6),
@@ -131,23 +135,21 @@ class ServingComponent:
 
     def __init__(self, model, tokenizer, **knobs):
         cfg = ServingComponentConfig(model=model, tokenizer=tokenizer, **knobs)  # names and types checked
-        unported = {
-            "device_mesh": cfg.device_mesh is not None,
-            "kv_cache": cfg.kv_cache not in (None, "ring"),
-            "spec_decode": bool(cfg.spec_decode),
-            "quant.kv": str((cfg.quant or {}).get("kv") or "none").lower() not in ("none", "off"),
-            "http_port": cfg.http_port is not None,
-            "deadline_default_ms": cfg.deadline_default_ms is not None,
-            "brownout_queue_high": cfg.brownout_queue_high is not None,
-            "tenants": bool(cfg.tenants),
-            "slo": cfg.slo is not None,  # the JAX serve() arms brownout shedding from it
-            "max_queue_depth": cfg.max_queue_depth is not None,
+        unported = {  # knob -> (set to a non-default value, the ROADMAP.md Queue 1 item that ports it)
+            "device_mesh": (cfg.device_mesh is not None, 3),
+            "http_port": (cfg.http_port is not None, 3),
+            "deadline_default_ms": (cfg.deadline_default_ms is not None, 3),
+            "brownout_queue_high": (cfg.brownout_queue_high is not None, 3),
+            "tenants": (bool(cfg.tenants), 3),
+            "max_queue_depth": (cfg.max_queue_depth is not None, 3),
+            "slo": (cfg.slo is not None, 6),  # the JAX serve() arms brownout shedding and SLO telemetry from it
         }
-        refused = [k for k, v in unported.items() if v]
+        refused = {k: item for k, (is_set, item) in unported.items() if is_set}
         if refused:
             raise NotImplementedError(
-                f"serving_component knobs {refused} need engine features the port does not have yet "
-                "(it serves the ring KV cache only; ROADMAP.md, Queue 1 item 3)"
+                f"serving_component knobs {sorted(refused)} need engine features the port does not have yet "
+                f"(ROADMAP.md, Queue 1 item{'s' if len(set(refused.values())) > 1 else ''} "
+                f"{' and '.join(str(i) for i in sorted(set(refused.values())))})"
             )
         _refuse_unported_env()
         self.model = model
@@ -159,7 +161,14 @@ class ServingComponent:
         self.seed = cfg.seed
         self.prompt_template = cfg.prompt_template
         self.eod_token = cfg.eod_token
+        self.kv_cache = cfg.kv_cache
+        self.paged_block_size = cfg.paged_block_size
+        self.paged_num_blocks = cfg.paged_num_blocks
+        self.paged_max_len = cfg.paged_max_len
+        self.prefix_sharing = cfg.prefix_sharing
+        self.spec_decode = cfg.spec_decode
         self.quant_weights_setting = (cfg.quant or {}).get("weights")
+        self.quant_kv_setting = (cfg.quant or {}).get("kv")
         self.params: Optional[dict] = None
         self.device: Optional[torch.device] = None
         self._engine = None
@@ -186,7 +195,14 @@ class ServingComponent:
                 cache_capacity=self.cache_capacity,
                 eod_token_id=self._eod_id(),
                 default_temperature=self.temperature,
+                kv_cache=self.kv_cache,
+                paged_block_size=self.paged_block_size,
+                paged_num_blocks=self.paged_num_blocks,
+                paged_max_len=self.paged_max_len,
+                prefix_sharing=self.prefix_sharing,
+                spec_decode=self.spec_decode,
                 quant_weights=self.quant_weights_setting,
+                quant_kv=self.quant_kv_setting,
             )
         return self._engine
 
@@ -237,7 +253,8 @@ def build_serving_components(config_dict: dict):
 
 def serving_entities() -> list:
     """The `inference_component` variants of the JAX serve(): `serve`, and the
-    fleet and disaggregated tiers, which wait on ROADMAP.md Queue 1 item 3."""
+    fleet and disaggregated tiers, which wait on ROADMAP.md Queue 1 item 3
+    (its last part)."""
     from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
 
     return [ComponentEntity("inference_component", "serve", ServingComponent, ServingComponentConfig),
@@ -250,7 +267,8 @@ def load_serving_params(checkpoint_folder_path, device=None, quant_weights=None)
     `load_serving_params`): the folder must pass its manifest, then the
     model's parameters alone are read onto `device` (default: the CUDA card;
     raises without one) in the dtypes they were trained in, then quantized as
-    `quant_weights` (none|int8|fp8; unset: none) says."""
+    `resolve_quant_weights_mode(quant_weights)` says (the environment before
+    the config; unset: none)."""
     from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import restore_tree_single_device
     from modalities_tpu_torch.quant.weights import quantize_params, resolve_quant_weights_mode
     from modalities_tpu_torch.resilience.manifest import verify_manifest
