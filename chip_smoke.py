@@ -79,6 +79,27 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      and the tokens per forward; (e) int8 weights and int8 KV: the pool's data
      half of bf16's (scales apart), the tokens against (a)'s int8 run, and
      its preemption replay on 128 blocks bitwise.
+ 3c. the serving front end on the same weights, int8, the paged cache: one
+     engine with two tenants (interactive: weight 3, max_slots 6; bulk:
+     weight 1, 16 tokens/s, burst 64) behind the port's ServingHTTPServer on
+     an ephemeral loopback port, its launches counted from 0 and held to 65
+     and 225 a forward: (a) phase 2's 9 requests POSTed at once, each
+     request's SSE tokens bitwise its JSONL-replay tokens (run_requests on the
+     same engine); /healthz, /stats and /metrics answer and /metrics'
+     counters equal stats(); (b) 24 requests of both tenants queued at once
+     on a stepped clock: the order they get their first token equals the
+     port's scheduler on the CPU (a 2-layer model of the same config: with
+     eod off the order is the model's business nowhere), and with the clock
+     held a bulk request over its token rate gets 429 with Retry-After its
+     bucket's refill time; (c) a request whose 300 ms deadline is shorter
+     than its decode finishes "deadline" and the pool audit holds; (d) with
+     `max_queue_depth` and then a queue brownout, new POSTs get 429 with
+     Retry-After >= 1, the brownout sheds queued work ("shed") and the shed
+     counter matches; (e) the same weights swapped in mid-flight through
+     request_swap: every SSE token bitwise (a)'s, nothing dropped, one decode
+     shape; a NaN generation finishes requests "error", and the donor's
+     weights swapped back serve (a)'s tokens again; (f) stop() lets the
+     in-flight requests finish and a new POST gets 503.
   4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
      `python -m modalities_tpu_torch run` calls) from a copy of
      configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
@@ -3401,7 +3422,9 @@ def _busy_share(torch, fn) -> tuple[float, float, float]:
     return device_ms / wall_ms, device_ms, wall_ms
 
 
-def build_model():
+def build_model(overrides: dict | None = None):
+    """The 2.7B GPT2 of MODEL_2P7B, or with `overrides` (widths, depth,
+    vocabulary; the norms and RoPE follow the width and heads)."""
     from modalities_tpu_torch.config.component_factory import ComponentFactory
     from modalities_tpu_torch.registry.components import COMPONENTS
     from modalities_tpu_torch.registry.registry import Registry
@@ -3410,7 +3433,14 @@ def build_model():
     class _ModelOnly:
         model: Any
 
-    node = {"component_key": "model", "variant_key": "gpt2", "config": MODEL_2P7B}
+    config = json.loads(json.dumps(MODEL_2P7B))
+    if overrides:
+        config.update(overrides)
+        width, heads = config["n_embd"], config["n_head_q"]
+        config["attention_config"]["qkv_transforms"][0]["config"].update(n_embd=width, n_head=heads)
+        for norm in ("attention_norm_config", "ffn_norm_config", "lm_head_norm_config"):
+            config[norm]["config"]["ndim"] = width
+    node = {"component_key": "model", "variant_key": "gpt2", "config": config}
     return ComponentFactory(Registry(COMPONENTS)).build_components({"model": node}, _ModelOnly).model
 
 
@@ -3812,6 +3842,323 @@ def phase_serve_paged(torch, model, params, reqs: list[dict], ring_tokens: dict,
     return counts
 
 
+# ---------------------------------------------------------------- phase 3c
+HTTP_TENANTS = {"interactive": {"class": "interactive", "weight": 3, "max_slots": 6},
+                "bulk": {"class": "bulk", "weight": 1, "rate": 16.0, "burst": 64.0}}
+ORDER_REQUESTS = 24  # (b): the saturated queue, both tenants
+HTTP_DEADLINE_MS = 300.0  # (c): far shorter than a 1000-token decode at tens of ms a step
+
+
+class _IntTok:
+    """Space-separated token ids: the HTTP prompts' text."""
+
+    def tokenize(self, text):
+        return [int(t) for t in text.split()]
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+    def get_token_id(self, token):
+        return -1  # eod off: every request runs its budget
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None):
+    """(status, the SSE events or the JSON body or the text, the headers)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=json.dumps(body) if body is not None else None,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        raw, got = resp.read(), dict(resp.getheaders())
+        ctype = got.get("Content-Type", "")
+        if ctype.startswith("text/event-stream"):
+            return resp.status, [json.loads(c[6:]) for c in raw.split(b"\n\n") if c.startswith(b"data: ")], got
+        return resp.status, json.loads(raw) if ctype.startswith("application/json") else raw.decode(), got
+    finally:
+        conn.close()
+
+
+def _post_all(port: int, bodies: list, headers=None) -> list:
+    """POST every body at once from threads; the outcomes in body order."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def post(i):
+        out[i] = _http(port, "POST", "/generate", bodies[i], headers)
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def _wait(predicate, what: str, seconds: float = 300.0) -> None:
+    end = time.monotonic() + seconds
+    while not predicate():
+        if time.monotonic() > end:
+            raise AssertionError(f"phase 3c: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _done(outcome, what: str) -> dict:
+    status, events, _ = outcome
+    if status != 200 or not events or not events[-1].get("done"):
+        raise AssertionError(f"phase 3c {what}: HTTP {status}, last event {events[-1] if events else None}")
+    done = events[-1]
+    if [e["token_id"] for e in events if "token_id" in e] != done["token_ids"]:
+        raise AssertionError(f"phase 3c {what}: the streamed token events differ from the done event's token_ids")
+    return done
+
+
+def order_requests() -> list[dict]:
+    """(b): 24 short requests alternating interactive and bulk, ids < 256."""
+    rng = np.random.default_rng(33)
+    return [{"prompt": rng.integers(0, 256, size=int(rng.integers(4, 21))).tolist(),
+             "budget": int(rng.integers(2, 9)), "tenant": "interactive" if i % 2 == 0 else "bulk"}
+            for i in range(ORDER_REQUESTS)]
+
+
+def tenant_order(engine, reqs: list[dict]) -> list[int]:
+    """Queue `reqs` at once on `engine` (its clock a counter stepping 10 ms a
+    read), run it, and return the request indices in the order they got
+    their first token."""
+    clock = {"t": 0.0}
+
+    def tick():
+        clock["t"] += 0.01
+        return clock["t"]
+
+    firsts, prior_now, prior_token = [], engine._now, engine._on_token
+    engine._now = tick
+    engine._on_token = lambda rid, tok: firsts.append(rid) if rid not in firsts else None
+    rids = [engine.submit(r["prompt"], r["budget"], temperature=0.0, seed=i, tenant=r["tenant"])
+            for i, r in enumerate(reqs)]
+    results = engine.run()
+    engine._now, engine._on_token = prior_now, prior_token
+    if any(results[r].finish_reason != "budget" for r in rids):
+        raise AssertionError("phase 3c (b): a queued tenant request did not finish its budget")
+    index = {rid: i for i, rid in enumerate(rids)}
+    return [index[r] for r in firsts]
+
+
+def http_component(torch, model, params, device: str):
+    from modalities_tpu_torch.serving.serve import ServingComponent
+
+    component = ServingComponent(model, _IntTok(), max_batch_slots=SLOTS, cache_capacity=CAPACITY,
+                                 max_new_tokens=NEW_TOKENS, kv_cache="paged", paged_block_size=PAGED_BLOCK,
+                                 quant={"weights": "int8"}, tenants=HTTP_TENANTS)
+    component.device, component.params = torch.device(device), params
+    return component
+
+
+def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> dict[str, dict[str, int]]:
+    """Phase 3c (see the module docstring): the HTTP front end over one
+    int8 paged engine with tenants. Returns the path's launches, counted
+    from 0 just before its first forward and read after its last."""
+    import threading
+
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+    from modalities_tpu_torch.quant.weights import quantize_params
+    from modalities_tpu_torch.serving.resilience import BrownoutController
+    from modalities_tpu_torch.serving.server import ServingHTTPServer
+    from modalities_tpu_torch.telemetry.metrics import parse_prometheus_text
+
+    tok = _IntTok()
+    rows = [{"prompt": tok.decode(r["prompt"]), "max_new_tokens": NEW_TOKENS, "temperature": r["temperature"],
+             "seed": r["seed"]} for r in reqs]
+    t_phase = time.perf_counter()
+    rms_norm.launches = quant_matmul.launches = 0
+    component = http_component(torch, model, params, "cuda")
+    engine = component.build_engine()
+    # (b) the tenants' admission order on a stepped clock, against the port's scheduler on the CPU; first, while
+    # the engine's DRR rotation is as fresh as the CPU engine's
+    order_reqs = order_requests()
+    card_order = tenant_order(engine, order_reqs)
+    cpu_model = build_model({"n_layer": 2, "n_head_q": 4, "n_head_kv": 2, "n_embd": 128, "ffn_hidden": 128,
+                             "vocab_size": 256})
+    cpu_component = http_component(torch, cpu_model, cpu_model.init_params(torch.Generator().manual_seed(0)), "cpu")
+    cpu_order = tenant_order(cpu_component.build_engine(), order_reqs)
+    tenant_of = [r["tenant"] for r in order_reqs]
+    if card_order != cpu_order:
+        raise AssertionError(f"phase 3c (b): admission order {card_order} != the CPU scheduler's {cpu_order}")
+    first8 = [tenant_of[i] for i in card_order[:8]]
+    log(f"[phase 3c] (b) {ORDER_REQUESTS} queued requests: first-token order equal to the port's scheduler on the "
+        f"CPU; tenants of the first 8: {first8.count('interactive')} interactive, {first8.count('bulk')} bulk")
+
+    # (a) the JSONL replay on this engine: the tokens every SSE stream is held to
+    t0 = time.perf_counter()
+    replay = [row["tokens"] for row in component.run_requests(rows)]
+    log(f"[phase 3c] (a) JSONL replay of phase 2's 9 requests: {time.perf_counter() - t0:.2f} s ({smi})")
+
+    # every remaining check goes through HTTP; the shut gate holds the engine between steps (a known queue)
+    gate = threading.Event()
+    gate.set()
+    step = engine.step
+    engine.step = lambda t: step(t) if gate.is_set() else False
+    server = ServingHTTPServer(engine, encode=component._encode, decode=tok.decode, port=0,
+                               default_max_new_tokens=NEW_TOKENS)
+    server.start()
+    stats0 = engine.stats()
+    executables = (stats0["decode_executables"], stats0["prefill_executables"])
+
+    # (a) phase 2's requests at once over SSE
+    t0 = time.perf_counter()
+    threads, outs = _post_all(server.port, rows)
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    dones = [_done(o, f"(a) request {i}") for i, o in enumerate(outs)]
+    same, where = _agreement(replay, [d["token_ids"] for d in dones])
+    if same != len(reqs):
+        raise AssertionError(f"phase 3c (a): SSE tokens against the JSONL replay: {same} of {len(reqs)}, {where}")
+    ttft = np.asarray([d["ttft_s"] for d in dones]) * 1e3
+    status, health, _ = _http(server.port, "GET", "/healthz")
+    status_s, stats, _ = _http(server.port, "GET", "/stats")
+    status_m, text, _ = _http(server.port, "GET", "/metrics")
+    if (status, health["status"], status_s, status_m) != (200, "ok", 200, 200):
+        raise AssertionError(f"phase 3c (a): /healthz {status} {health}, /stats {status_s}, /metrics {status_m}")
+    parsed = parse_prometheus_text(text)
+    pairs = {"serve_decode_steps_total": stats["decode_steps"],
+             "serve_prefill_chunks_total": stats["prefill_chunk_count"],
+             "serve_preemptions_total": stats["preemptions"]}
+    bad = {k: (parsed[k][()], v) for k, v in pairs.items() if parsed[k][()] != v}
+    finished = sum(parsed["serve_requests_finished_total"].values())
+    if bad or finished != len(rows) * 2 + ORDER_REQUESTS:
+        raise AssertionError(f"phase 3c (a): /metrics against stats(): {bad}, finished {finished}")
+    log(f"[phase 3c] (a) 9 SSE streams bitwise the replay's tokens in {wall:.2f} s; TTFT ms p50 "
+        f"{np.percentile(ttft, 50):.1f} max {ttft.max():.1f} (9 at once into 8 slots); host "
+        f"{1e3 * stats['decode_seconds'] / stats['decode_steps']:.2f} ms a decode step over the phase so far; "
+        f"/metrics counters equal stats() ({smi})")
+
+    # (b) the bulk tenant's token bucket over HTTP, the engine's clock held so nothing refills
+    held = time.monotonic()
+    engine._now = lambda: held
+    bulk = {"prompt": rows[0]["prompt"], "max_new_tokens": 64}
+    first = _http(server.port, "POST", "/generate", bulk, {"X-Tenant-Id": "bulk"})
+    status, err, headers = _http(server.port, "POST", "/generate", bulk, {"X-Tenant-Id": "bulk"})
+    want = max(1, math.ceil(engine._tenants._buckets["bulk"].retry_after_s(64.0, held)))
+    inter = _http(server.port, "POST", "/generate", dict(bulk, max_new_tokens=4), {"X-Tenant-Id": "interactive"})
+    engine._now = time.monotonic
+    _done(first, "(b) bulk within its burst")
+    _done(inter, "(b) interactive beside the limited bulk tenant")
+    if (status, err.get("reason"), headers.get("Retry-After")) != (429, "rate_limited", str(want)) or want != 4:
+        raise AssertionError(f"phase 3c (b): bulk over its rate: HTTP {status} {err}, Retry-After "
+                             f"{headers.get('Retry-After')} (its bucket's refill: {want} s)")
+    log(f"[phase 3c] (b) bulk over its 16 tokens/s: 429 rate_limited, Retry-After {headers['Retry-After']} s = the "
+        f"bucket's refill time for 64 tokens")
+
+    # (c) a deadline shorter than its decode
+    done = _done(_http(server.port, "POST", "/generate", {"prompt": rows[1]["prompt"], "max_new_tokens": 1000},
+                       {"X-Deadline-Ms": str(HTTP_DEADLINE_MS)}), "(c)")
+    _wait(lambda: engine._active_count() == 0, "the engine to go idle")
+    s = engine.stats()
+    engine._table_state.check()  # free + the blocks the tables own == num_blocks
+    if done["finish_reason"] != "deadline" or len(done["token_ids"]) >= 1000 or s["free_blocks"] != s["num_blocks"]:
+        raise AssertionError(f"phase 3c (c): finish {done['finish_reason']}, {len(done['token_ids'])} tokens, "
+                             f"free blocks {s['free_blocks']} of {s['num_blocks']}")
+    log(f"[phase 3c] (c) a {HTTP_DEADLINE_MS:.0f} ms deadline on a 1000-token request: finish \"deadline\" after "
+        f"{len(done['token_ids'])} tokens; free {s['free_blocks']} of {s['num_blocks']} blocks, the audit exact")
+
+    # (d) overload: a full queue, then a brownout
+    shed0 = engine.stats()["shed_requests"]
+    long_body = lambda i: {"prompt": rows[i]["prompt"], "max_new_tokens": 8, "priority": i % 2}  # noqa: E731
+    gate.clear()
+    engine.max_queue_depth = 2
+    queued = []
+    for i in range(2):
+        depth = len(engine._queue)
+        queued.append(_post_all(server.port, [long_body(i)]))
+        _wait(lambda: len(engine._queue) == depth + 1, "a request to queue")
+    status_q, err_q, headers_q = _http(server.port, "POST", "/generate", long_body(2))
+    engine.max_queue_depth = None
+    engine.brownout = BrownoutController(queue_high=3)
+    queued.append(_post_all(server.port, [long_body(3)]))
+    _wait(lambda: len(engine._queue) == 3, "a third request to queue")
+    engine.brownout.update(len(engine._queue))  # the queue sweep the shut gate holds back
+    status_b, err_b, headers_b = _http(server.port, "POST", "/generate", long_body(4))
+    gate.set()
+    finishes = []
+    for threads, out in queued:
+        threads[0].join()
+        finishes.append(_done(out[0], "(d) queued")["finish_reason"])
+    _wait(lambda: engine._active_count() == 0, "the engine to go idle")
+    engine.brownout = None
+    shed = engine.stats()["shed_requests"] - shed0
+    metrics = parse_prometheus_text(engine.metrics.render())["serve_shed_total"]
+    checks = [(status_q, err_q.get("reason")) == (429, "queue_full"), int(headers_q.get("Retry-After", 0)) >= 1,
+              (status_b, err_b.get("reason")) == (429, "brownout_reject"), int(headers_b.get("Retry-After", 0)) >= 1,
+              finishes.count("shed") == 2, shed == 4, metrics.get((("reason", "brownout"),)) == 2.0]
+    if not all(checks):
+        raise AssertionError(f"phase 3c (d): checks {checks}: queue_full {status_q} {err_q} {headers_q}, brownout "
+                             f"{status_b} {err_b} {headers_b}, queued finishes {finishes}, shed {shed}, {metrics}")
+    log(f"[phase 3c] (d) max_queue_depth 2: 429 queue_full, Retry-After {headers_q['Retry-After']} s; brownout "
+        f"(high 3, low 1): 429 brownout_reject, Retry-After {headers_b['Retry-After']} s; the queued finished "
+        f"{finishes}; shed counter +{shed} (2 shed, 2 refused)")
+
+    # (e) hot swap: the same weights mid-flight, then a NaN generation, then the donor back
+    donor = quantize_params(params, "int8")
+    steps0 = engine.stats()["decode_steps"]
+    threads, outs = _post_all(server.port, rows)
+    _wait(lambda: engine.stats()["decode_steps"] > steps0 + 20, "20 decode steps of the swap's requests")
+    swap_event = engine.request_swap(donor)
+    for t in threads:
+        t.join()
+    if not swap_event.is_set() or engine.swap_history[-1]["in_flight"] == 0:
+        raise AssertionError(f"phase 3c (e): the swap was not installed mid-flight: {engine.swap_history}")
+    in_flight, latency = engine.swap_history[-1]["in_flight"], engine.swap_history[-1]["latency_s"]
+    swapped = [_done(o, f"(e) request {i}") for i, o in enumerate(outs)]
+    same, where = _agreement(replay, [d["token_ids"] for d in swapped])
+    if same != len(reqs) or any(d["finish_reason"] != "budget" for d in swapped):
+        raise AssertionError(f"phase 3c (e): tokens across the swap: {same} of {len(reqs)}, {where}")
+    engine.request_swap({k: torch.full_like(v, float("nan")) if v.is_floating_point() else v
+                         for k, v in donor.items()}).wait()
+    poisoned = _done(_http(server.port, "POST", "/generate", rows[0]), "(e) NaN generation")
+    engine.request_swap(donor, generation=1).wait()
+    restored = _done(_http(server.port, "POST", "/generate", rows[0]), "(e) donor back")
+    s = engine.stats()
+    if (poisoned["finish_reason"], poisoned["token_ids"], restored["token_ids"], restored["weights_generation"],
+            (s["decode_executables"], s["prefill_executables"])) != ("error", [], replay[0], 1, executables):
+        raise AssertionError(f"phase 3c (e): NaN generation {poisoned['finish_reason']}, restored tokens equal "
+                             f"{restored['token_ids'] == replay[0]}, shapes {s['decode_executables']}, "
+                             f"{s['prefill_executables']} against {executables}")
+    del donor
+    log(f"[phase 3c] (e) the same weights swapped in with {in_flight} requests "
+        f"in flight ({latency * 1e3:.1f} ms to copy 2.7B int8 weights in): 9 of 9 streams bitwise, none dropped; "
+        f"a NaN generation finished \"error\"; the donor back (generation 1) serves request 0 bitwise; "
+        f"{s['decode_executables']} decode shape ({smi})")
+
+    # (f) drain
+    threads, outs = _post_all(server.port, rows[:2])
+    _wait(lambda: engine._active_count() == 2, "two requests in flight")
+    server.stop()
+    status_d, err_d, headers_d = _http(server.port, "POST", "/generate", rows[2])
+    for t in threads:
+        t.join()
+    drained = [_done(o, "(f)")["finish_reason"] for o in outs]
+    final = server.serve_forever()
+    if (status_d, headers_d.get("Retry-After"), drained) != (503, "1", ["budget", "budget"]) \
+            or final["free_blocks"] != final["num_blocks"]:
+        raise AssertionError(f"phase 3c (f): drain: new POST {status_d} {err_d}, in flight {drained}, "
+                             f"free {final['free_blocks']} of {final['num_blocks']}")
+    forwards = final["forward_calls"]
+    counts = {"rms_fwd": rms_norm.launches, "quant_matmul": quant_matmul.launches}
+    want = {"rms_fwd": PER_FORWARD["rms"] * forwards, "quant_matmul": PER_FORWARD["qmm"] * forwards}
+    if counts != want:
+        raise AssertionError(f"phase 3c: launches {counts} over {forwards} forwards; expected {want}")
+    log(f"[phase 3c] (f) stop(): the 2 in-flight requests finished {drained}, a new POST got 503; final "
+        f"{final['decode_steps']} decode steps, {final['decode_tokens']} decode tokens, host "
+        f"{1e3 * final['decode_seconds'] / final['decode_steps']:.2f} ms a decode step")
+    log(f"[phase 3c] launches: rms_norm {counts['rms_fwd']} = 65 x {forwards} forwards, quant_matmul "
+        f"{counts['quant_matmul']} = 225 x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    del engine, component, server
+    torch.cuda.empty_cache()
+    return {"serve_http": counts}
+
+
 # ---------------------------------------------------------------- main
 def training_phases(torch):
     """Phases 4-9 on the process group; returns each path's launch counts."""
@@ -3986,6 +4333,9 @@ def main() -> int:
     ring = {**{q: runs[q]["tokens"] for q in ("none", "int8")}, **{f"{q}_profile": runs[q]["profile"] for q in ("none", "int8")}}
     paged_counts = phase_serve_paged(torch, model, params, reqs, ring, smi)
     mark("phase 3b")
+    # phase 3c: the HTTP front end on the same weights (its counts from 0 inside)
+    paged_counts.update(phase_serve_http(torch, model, params, reqs, smi))
+    mark("phase 3c")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -5,9 +5,15 @@
     python -m modalities_tpu_torch warmstart --config_file_path <yaml>
         --last_checkpoint_info_file_path <json> [--experiments_root_path <dir>] [--device cuda|cpu]
     python -m modalities_tpu_torch serve --config_file_path <yaml>
-        --requests_file_path <jsonl> [--output_file_path <jsonl>] [--device cuda|cpu]
+        [--requests_file_path <jsonl> [--output_file_path <jsonl>] | --http_port <port>]
+        [--device cuda|cpu]
 
-All run on the CUDA card unless `--device cpu`. `run` and `warmstart` set
+`serve` replays a JSONL file, serves HTTP (`--http_port`, or the config's
+`http_port`; 0 = an ephemeral port) until SIGTERM/SIGINT drains it, or with
+neither reads prompts from stdin.
+
+All run on the CUDA card unless `--device cpu`. MODALITIES_TPU_LOG_LEVEL sets
+the level of the package's logger (default INFO), as in the JAX CLI. `run` and `warmstart` set
 PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True unless the caller set it.
 `warmstart` resumes from the folder a `last_checkpoint_info.json` names
 (`warmstart`, below).
@@ -68,11 +74,15 @@ def main(argv=None) -> int:
     warm_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     serve_p = sub.add_parser("serve", help="continuous-batching text serving from the ring or the paged KV cache")
     serve_p.add_argument("--config_file_path", type=Path, required=True)
-    serve_p.add_argument("--requests_file_path", type=Path, required=True, help="JSONL of requests to replay")
+    serve_p.add_argument("--requests_file_path", type=Path, default=None, help="JSONL of requests to replay")
     serve_p.add_argument("--output_file_path", type=Path, default=None)
+    serve_p.add_argument("--http_port", type=int, default=None,
+                         help="serve the streaming HTTP front end on this port (0 = ephemeral)")
     serve_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    # the JAX package's logger level switch (a name logging does not know raises)
+    logging.getLogger("modalities_tpu_torch").setLevel(os.environ.get("MODALITIES_TPU_LOG_LEVEL", "INFO").upper())
 
     if args.command in ("run", "warmstart"):
         # before the first allocation on the card: a training step's activations come and go in many sizes,
@@ -89,7 +99,8 @@ def main(argv=None) -> int:
 
     from modalities_tpu_torch.serving.serve import serve
 
-    serve(args.config_file_path, args.requests_file_path, args.output_file_path, device=args.device)
+    serve(args.config_file_path, args.requests_file_path, args.output_file_path, device=args.device,
+          http_port=args.http_port)
     return 0
 
 

@@ -43,6 +43,11 @@ from modalities_tpu_torch.running_env import env
 
 logger = logging.getLogger(__name__)
 
+# the JAX trainer's env-armed captures (modalities_tpu/trainer.py:215-225):
+# perfscope's profiler window and memscope's snapshots and fits check
+CAPTURE_SWITCHES = ("MODALITIES_TPU_PROFILE_AT_STEP", "MODALITIES_TPU_PROFILE_DIR", "MODALITIES_TPU_MEMSCOPE_AT_STEP",
+                    "MODALITIES_TPU_MEMSCOPE_DIR", "MODALITIES_TPU_MEMSCOPE_FITS_CHECK")
+
 
 def experiment_id_of_run(config_path: Path) -> str:
     """<UTC time>_<first 8 hex digits of the config's sha256>."""
@@ -57,6 +62,13 @@ class Main:
         if os.environ.get("MODALITIES_TPU_FAULTS"):
             raise NotImplementedError(
                 "fault injection (MODALITIES_TPU_FAULTS) is not ported (ROADMAP.md, Queue 1 item 7)"
+            )
+        armed = [name for name in CAPTURE_SWITCHES if os.environ.get(name, "").strip()]
+        if armed:
+            raise NotImplementedError(
+                f"{', '.join(armed)}: the JAX trainer arms a profiler or memory capture from "
+                f"{'these switches' if len(armed) > 1 else 'this switch'}; the port has neither yet "
+                "(ROADMAP.md, Queue 1 item 6); unset them"
             )
         self.config_path = Path(config_path)
         self.device = resolve_device(device)

@@ -69,6 +69,7 @@ from modalities_tpu_torch.config.config import (
 from modalities_tpu_torch.models.components.layer_norms import NormSpec, build_norm
 from modalities_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from modalities_tpu_torch.ops.quant_matmul import PreparedWeight, quant_matmul
+from modalities_tpu_torch.ops.tiers import check_kernel_switches
 from modalities_tpu_torch.parallel.ring_attention import ring_attention
 from modalities_tpu_torch.parallel.tensor_parallel import gather_vocab, local, vocab_parallel_embedding
 from modalities_tpu_torch.quant.core import quantize_per_channel
@@ -612,6 +613,7 @@ class GPT2Module(nn.Module):
 
     def __init__(self, spec: GPT2ModelSpec, device=None):
         super().__init__()
+        check_kernel_switches()  # the JAX RMSNorm and dequant-matmul tier switches (ops/tiers.py)
         self.spec = spec
         self.wte = nn.Parameter(torch.empty(spec.vocab_size, spec.n_embd, device=device))
         if spec.poe_type == PositionTypes.ABSOLUTE.value:

@@ -43,6 +43,7 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 
 from modalities_tpu_torch.ops.flash_attention import NEG_INF, flash_bwd_dkv, flash_bwd_dq, flash_fwd_out_lse
+from modalities_tpu_torch.ops.tiers import check_ring_impl
 
 BLOCK_K = 1024  # the dense tier's key block above which a hop is k-blocked with recompute
 FULL, CAUSAL, SKIP = 0, 1, 2  # a hop's branch (JAX `_branch_index`)
@@ -283,7 +284,10 @@ def ring_dense(q, k, v, group, causal: bool, sm_scale: float):
 def ring_attention(q, k, v, group, *, causal: bool = True, sm_scale: Optional[float] = None, impl: str = "flash"):
     """Context-parallel attention: q [B, S_local, Hq, D], k/v [B, S_local,
     Hkv, D], this rank's contiguous chunk of the sequence over `group` (the cp
-    ring) -> [B, S_local, Hq, D]. `impl`: "flash" or "dense"."""
+    ring) -> [B, S_local, Hq, D]. `impl`: "flash" or "dense" (the model's
+    attention implementation picks it; MODALITIES_TPU_RING_IMPL may only name
+    the flash tier, ops/tiers.py)."""
+    check_ring_impl()
     sm_scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else float(sm_scale)
     if impl == "flash":
         return RingFlashAttention.apply(q, k, v, group, bool(causal), sm_scale)

@@ -55,18 +55,49 @@ rows, the ring's prefill chunks, the packed [slots, block_size] prefill, the
 [slots, k+1] verify) is the same whether it runs alone or beside others, and
 no op mixes rows, so a request's tokens are bitwise the same either way.
 
-Not here (ROADMAP.md Queue 1 item 3, later parts): tenants, deadlines,
-brownout, the HTTP front end, telemetry, hot swap, fleet and disaggregation.
+Admission control (serving/resilience.py), each off by default, where the
+engine's tokens, finish reasons and counters are those of the plain FIFO
+scheduler:
+- deadlines (`ServeRequest.deadline_ms`, from the request's arrival): a
+  lapsed request is cancelled at the next seam, finish reason "deadline":
+  seam 1 in the queue sweep before every admission round, seam 2 at every
+  prefill chunk boundary (the ring's ladder, the packed prefill), seam 3 at
+  every decode or verify step boundary. A cancelled slot frees its blocks.
+- a bounded queue (`max_queue_depth`, MODALITIES_TPU_SERVE_QUEUE_LIMIT) and a
+  brownout controller: `overload_reason` tells the HTTP layer to answer 429,
+  with `retry_after_s` derived from the queue; a browned-out engine sheds
+  queued work (finish reason "shed") down to the controller's low mark.
+- tenants (`TenantRegistry`): weighted deficit-round-robin admission across
+  tenants within a priority class, per-tenant slot quotas, token-rate limits
+  at the HTTP ingress, and burn-aware victims for shedding and preemption.
+- drain (`stop_fn`): admission stops, in-flight requests finish.
+
+`on_token(rid, tok)` fires once per final token position (a preempted
+request's regenerated tokens are not streamed twice), `on_finish(rid,
+result)` once per request, and then the engine keeps no result of its
+own (a long-running server's memory stays bounded). Every counter the JAX
+engine exports is in `metrics` (telemetry/metrics.py) under the JAX names.
+
+Hot swap: `request_swap(params)` from any thread, installed by the engine
+thread at the next step boundary (`swap_weights`): the new weights are
+copied into the installed tensors, so every shape and address stays fixed,
+and the prefix index is flushed. The engine owns its tensors: a parameter it
+would share with the caller's dict is copied at construction.
+
+Not here (ROADMAP.md Queue 1 item 3, later parts; item 6): the SLO signal of
+the brownout controller, request tracing and telemetry, the fleet and
+disaggregation.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -83,7 +114,9 @@ from modalities_tpu_torch.quant.weights import (
     weights_bytes_saved,
 )
 from modalities_tpu_torch.serving.paged_cache import BlockTableState, blocks_for_tokens
+from modalities_tpu_torch.serving.resilience import TenantRegistry, deadline_expired, resolve_tenant
 from modalities_tpu_torch.serving.spec_decode import propose_ngram, resolve_spec_config
+from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
 
 _DEFAULT_PREFILL_CHUNKS = (64, 16, 4, 1)  # descending, ending in 1: every prompt length fits
 
@@ -133,19 +166,28 @@ class ServeRequest:
     temperature: Optional[float] = None
     seed: int = 0
     arrival_offset_s: float = 0.0
+    # admission control: `deadline_ms` is the budget from arrival (None: no
+    # deadline); `priority` orders brownout shedding (higher number = shed
+    # first, FIFO within a class); `tenant` is the tenant charged ("" = the
+    # engine runs without tenants: one implicit tenant, plain FIFO)
+    deadline_ms: Optional[float] = None
+    priority: int = 0
+    tenant: str = ""
 
 
 @dataclass
 class ServeResult:
     rid: int
     tokens: list[int] = field(default_factory=list)
-    finish_reason: str = ""  # "eod" | "budget" | "capacity" | "error"
+    finish_reason: str = ""  # "eod" | "budget" | "capacity" | "error" | "deadline" | "shed"
     prompt_len: int = 0
+    weights_generation: int = 0  # the generation serving when the request finished
     truncated: bool = False  # prompt window-clipped at admission
     prefix_hit_tokens: int = 0  # prompt tokens served from shared blocks (paged)
     arrival_s: float = 0.0  # engine-clock arrival
     first_token_s: float = 0.0  # engine-clock time the first token was available
     finish_s: float = 0.0
+    last_token_s: Optional[float] = None  # engine-clock time of the latest token (TPOT)
 
     @property
     def ttft_s(self) -> float:
@@ -193,7 +235,9 @@ class ServingEngine:
     Everything runs on `device` (default: the CUDA card; raises without one).
     A knob left None takes its environment switch, as in the JAX engine.
     `time_fn` replaces the engine clock (`time.monotonic`), as the JAX
-    engine's does: a fake clock makes arrival-gated runs deterministic."""
+    engine's does: a fake clock makes arrival-gated runs deterministic.
+    `metrics` is the registry the engine's series go into (default: a
+    registry of its own)."""
 
     def __init__(
         self,
@@ -214,10 +258,21 @@ class ServingEngine:
         spec_decode=None,
         quant_weights: Optional[str] = None,
         quant_kv: Optional[str] = None,
+        max_queue_depth: Optional[int] = None,
+        brownout=None,
+        tenants: Optional[TenantRegistry] = None,
+        tenant_budget_fn: Optional[Callable[[str], float]] = None,
+        stop_fn: Optional[Callable[[], bool]] = None,
+        on_token: Optional[Callable[[int, int], None]] = None,
+        on_finish: Optional[Callable[[int, ServeResult], None]] = None,
         time_fn=None,
+        metrics: Optional[MetricsRegistry] = None,
     ):
         self.device = resolve_device(device)
         self._now = time_fn if time_fn is not None else time.monotonic
+        self._stop_fn = stop_fn
+        self._on_token = on_token
+        self._on_finish = on_finish
         self.kv_cache = kv_cache if kv_cache is not None else _kv_cache_from_env()
         if self.kv_cache not in ("ring", "paged"):
             raise ValueError(f"kv_cache={self.kv_cache!r}: must be 'ring' or 'paged'")
@@ -234,6 +289,7 @@ class ServingEngine:
                 f"params arrive quantized as {pre_mode!r} but the engine is configured for "
                 f"quant_weights={self.quant_weights!r}"
             )
+        callers = {t.untyped_storage().data_ptr() for t in params.values()}
         params = {k: v.to(self.device) for k, v in params.items()}
         self.quant_bytes_saved = 0
         if self.quant_weights != "none":
@@ -242,6 +298,16 @@ class ServingEngine:
             self.quant_bytes_saved = weights_bytes_saved(params)
         self.model = model
         self.module = model.build_module(params)
+        # the engine owns what it serves: a hot swap copies into these tensors,
+        # so none may be the caller's
+        for t in [*self.module.parameters(), *self.module.buffers()]:
+            if t.untyped_storage().data_ptr() in callers:
+                t.data = t.data.clone()
+        # what swap_weights holds a new generation to: the installed tensors
+        # and the names, shapes and dtypes of the parameters as given
+        self._installed = dict(self.module.state_dict())
+        self._param_avals = {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
+        del params
 
         spec = model.config_spec
         spec_len = int(spec.sequence_length)
@@ -328,6 +394,25 @@ class ServingEngine:
         self._results: dict[int, ServeResult] = {}
         self._next_rid = 0
         self._admit_seq = 0
+        # overload protection: a bounded queue (the HTTP layer's 429) and the
+        # brownout controller the scheduler consults once a round; both off
+        # by default
+        if max_queue_depth is None:
+            env_depth = int(os.environ.get("MODALITIES_TPU_SERVE_QUEUE_LIMIT", "0"))
+            max_queue_depth = env_depth if env_depth > 0 else None
+        self.max_queue_depth = max_queue_depth
+        self.brownout = brownout
+        # tenants: weighted deficit-round-robin admission (within each priority
+        # class, FIFO within a tenant) and burn-aware shedding and preemption;
+        # None keeps the plain FIFO scheduler
+        self._tenants = tenants
+        self._tenant_budget_fn = tenant_budget_fn
+        self._drr_deficit: dict[str, float] = {}
+        self._drr_cursor = ""
+        self._tenant_stats: dict[str, dict] = {}
+        self._streamed: dict[int, int] = {}  # rid -> tokens already passed to on_token
+        self._wait_from: dict[int, float] = {}  # rid -> start of its current queue wait
+        self._ttft_observed: set[int] = set()
         self._truncated_rids: set[int] = set()  # counted once, even across preemption
         # the distinct fixed shapes each forward ran at: the JAX engine's
         # executables (one per compiled shape), what a graph capture would hold
@@ -354,6 +439,187 @@ class ServingEngine:
         # host wall time of the dispatches, each ending in its device fetch
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        self.deadline_expired_requests = 0  # finishes with reason "deadline"
+        self.shed_requests = 0  # finishes with reason "shed" and refused arrivals
+        # counters above change at dispatch ends under this lock, and stats()
+        # reads under it: /stats sees one snapshot, never half a dispatch
+        self._stats_lock = threading.Lock()
+        # the scheduler state other threads read (/stats, the scrape-time
+        # gauges): published under the lock by the engine thread once submit,
+        # step or swap_weights has changed it, never walked live
+        self._live: dict = {}
+        # hot swap: request_swap() queues weights from any thread; step()
+        # installs them at the next boundary
+        self.weights_generation = 0
+        self.weight_swaps = 0
+        self.swap_history: list[dict] = []
+        self._swap_lock = threading.Lock()
+        self._pending_swap: Optional[tuple] = None
+        self._register_metrics(metrics if metrics is not None else MetricsRegistry())
+        self._publish_live()
+
+    def _register_metrics(self, reg: MetricsRegistry) -> None:
+        """The JAX engine's metric families, names, help and labels. The
+        request-tracing and disaggregation families are registered and stay
+        empty, as on a JAX engine that has none of that traffic."""
+        self.metrics = reg
+        self._m_ttft = reg.histogram("serve_ttft_seconds", "Time from request arrival to its first token")
+        self._m_tpot = reg.histogram("serve_tpot_seconds", "Latency between consecutive generated tokens")
+        self._m_queue_wait = reg.histogram("serve_queue_wait_seconds", "Time from enqueue/requeue to slot admission")
+        self._m_e2e = reg.histogram("serve_e2e_latency_seconds", "Time from request arrival to finish")
+        self._m_submitted = reg.counter("serve_requests_submitted_total", "Requests accepted by submit()")
+        self._m_finished = reg.counter("serve_requests_finished_total", "Finished requests by finish reason")
+        self._m_tokens = reg.counter("serve_tokens_generated_total", "Generated tokens emitted to clients")
+        self._m_prompt_tokens = reg.counter("serve_prompt_tokens_total", "Prompt tokens accepted at submit()")
+        self._m_prefill_chunks = reg.counter("serve_prefill_chunks_total",
+                                             "Prefill chunk dispatches (ring) / packed rows (paged)")
+        self._m_decode_steps = reg.counter("serve_decode_steps_total", "Batched decode dispatches")
+        self._m_preempt = reg.counter("serve_preemptions_total", "Slots preempted on paged pool exhaustion")
+        self._m_trunc = reg.counter("serve_truncated_requests_total", "Requests whose prompt was window-clipped")
+        # scheduler gauges read, at scrape time, the engine thread's latest snapshot
+        reg.gauge("serve_active_slots", "Slots holding a live request").set_fn(lambda: self._live_value("active_slots"))
+        reg.gauge("serve_queue_depth", "Requests waiting in the FIFO queue").set_fn(
+            lambda: self._live_value("queue_depth"))
+        reg.gauge("serve_slot_occupancy_ratio",
+                  "Decoding slots over total slots, cumulative mean").set_fn(self._occupancy_ratio)
+        reg.gauge("serve_slots_total", "Configured max_batch_slots").set(self.slots)
+        self._m_prefix_hit_blocks = reg.counter("serve_prefix_hit_blocks_total",
+                                                "Prompt blocks served from the prefix index")
+        self._m_prefix_hit_requests = reg.counter("serve_prefix_hit_requests_total",
+                                                  "Admissions that forked shared prefix blocks")
+        self._m_cow = reg.counter("serve_cow_copies_total", "Copy-on-write block copies (shared block first write)")
+        self._m_spec_proposed = reg.counter("serve_spec_proposed_total",
+                                            "Draft tokens proposed to the spec-decode verifier")
+        self._m_spec_accepted = reg.counter("serve_spec_accepted_total",
+                                            "Draft tokens accepted by the spec-decode verifier")
+        self._m_swaps = reg.counter("serve_weight_swaps_total", "Hot weight swaps installed by the engine")
+        self._m_req_errors = reg.counter("serve_request_errors_total",
+                                         "Requests finished with reason=error (non-finite logits)")
+        self._m_deadline_expired = reg.counter(
+            "serve_deadline_expired_total", "Requests cancelled at a scheduler seam after their deadline expired")
+        self._m_shed = reg.counter(
+            "serve_shed_total",
+            "Requests shed under overload, by reason (brownout = queued work "
+            "dropped by the SLO shedder, queue_full/brownout_reject = new "
+            "arrivals refused with 429 at the HTTP layer)",
+        )
+        # every tenant series carries a tenant label; the families exist on a
+        # tenant-off engine, their series once tenants move traffic
+        self._m_tenant_requests = reg.counter("serve_tenant_requests_total", "Requests accepted by submit(), by tenant")
+        self._m_tenant_tokens = reg.counter("serve_tenant_tokens_total", "Generated tokens delivered, by tenant")
+        self._m_tenant_shed = reg.counter(
+            "serve_tenant_shed_total",
+            "Requests shed under overload, by tenant (brownout sheds + HTTP-layer 429 rejections)",
+        )
+        self._m_tenant_preempt = reg.counter("serve_tenant_preemptions_total",
+                                             "Slots preempted on pool exhaustion, by tenant")
+        self._m_tenant_rate_limited = reg.counter("serve_tenant_rate_limited_total",
+                                                  "Requests refused 429 by the per-tenant token-rate bucket")
+        self._m_tenant_active = reg.gauge("serve_tenant_active_slots", "Slots holding a live request, by tenant")
+        if self._tenants is not None:
+            for name in self._tenants.names():
+                self._m_tenant_active.set_fn(
+                    lambda n=name: self._live_value("tenant_slots").get(n, 0), tenant=name)
+        self._m_generation = reg.gauge("serve_weights_generation", "Weights generation currently installed")
+        self._m_generation.set(0)
+        reg.gauge("serve_kv_pool_bytes",
+                  "Device bytes held by the serving KV cache (pools + quant scales)").set(self.kv_pool_bytes)
+        reg.gauge("serve_quant_weights_bytes_saved",
+                  "Param bytes saved by weight-only quantization (net of scale arrays)").set(self.quant_bytes_saved)
+        reg.gauge("serve_quant_mode_info",
+                  "Active quantization modes as labels (weights=, kv=); value is always 1").set(
+            1.0, weights=self.quant_weights, kv=self.quant_kv)
+        if self.kv_cache == "paged":
+            reg.gauge("serve_paged_free_blocks", "Free blocks in the paged KV pool").set_fn(
+                lambda: self._live_value("free_blocks"))
+            reg.gauge("serve_paged_total_blocks", "Configured paged KV pool size").set(self.num_blocks)
+            reg.gauge("serve_shared_blocks", "Pool blocks referenced by more than one table").set_fn(
+                lambda: self._live_value("shared_blocks"))
+        reg.counter("disagg_handoffs_total", "KV handoff records exported by the prefill tier")
+        reg.counter("disagg_handoff_failures_total",
+                    "Handoff imports rejected or requeued, by reason "
+                    "(pool_full, digest_mismatch, generation_mismatch, peer_down, ...)")
+        reg.counter("disagg_kv_bytes_shipped_total",
+                    "KV payload bytes shipped across the prefill->decode tier boundary")
+        reg.histogram("disagg_handoff_seconds",
+                      "Handoff latency: prefill-side export (or import arrival) to the "
+                      "decode-tier slot being seeded")
+
+    # ---------------------------------------------------------------- hot swap
+    def request_swap(self, params: dict, generation: Optional[int] = None) -> threading.Event:
+        """Queue a weight swap from any thread; the engine thread installs it
+        at the next step() boundary (between dispatches, never mid-token).
+        Returns an event set once the swap is installed. Only the latest
+        pending swap survives: a superseded one has its event set unapplied."""
+        done = threading.Event()
+        with self._swap_lock:
+            if self._pending_swap is not None:
+                self._pending_swap[2].set()
+            self._pending_swap = (params, generation, done)
+        return done
+
+    def _maybe_apply_swap(self) -> None:
+        with self._swap_lock:
+            pending, self._pending_swap = self._pending_swap, None
+        if pending is None:
+            return
+        params, generation, done = pending
+        try:
+            self.swap_weights(params, generation)
+        finally:
+            done.set()
+
+    def swap_weights(self, params: dict, generation: Optional[int] = None) -> dict:
+        """Install new weights between steps. Slots, cache and queue are
+        untouched: in-flight requests continue under the new weights. `params`
+        must be what the engine was built from (the same names, shapes and
+        dtypes, quantized the same way, as `load_serving_params` gives); each
+        is copied into the installed tensor, cast to its dtype as the
+        constructor casts, so no shape, dtype or address changes. The prefix
+        index is flushed: resident KV was computed under the old weights.
+        `generation` may move backward (a rollback re-installs the donor).
+        Call from the engine thread; other threads go through request_swap()."""
+        start = self._now()
+        gen = int(generation) if generation is not None else self.weights_generation + 1
+        # quantization drift first: a generation quantized otherwise than the
+        # installed one would change serving numerics mid-flight
+        offered = infer_quant_mode(params)
+        if offered != self.quant_weights:
+            raise ValueError(
+                f"swap_weights: quantization mode drift (installed {self.quant_weights!r}, offered {offered!r}) "
+                "— every generation must be quantized through the same load_serving_params seam"
+            )
+        if set(params) != set(self._param_avals):
+            raise ValueError(
+                f"swap_weights: param tree changed ({sorted(set(params) ^ set(self._param_avals))} differ) — "
+                "a hot swap must keep the architecture identical"
+            )
+        for name, (shape, dtype) in self._param_avals.items():
+            new = params[name]
+            if (tuple(new.shape), new.dtype) != (shape, dtype):
+                raise ValueError(
+                    f"swap_weights: {name} {tuple(new.shape)}/{new.dtype} does not match the installed "
+                    f"{shape}/{dtype} — the installed tensors keep their shapes and addresses"
+                )
+        with torch.no_grad():
+            for name, dst in self._installed.items():
+                dst.copy_(params[name])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        in_flight = self._active_count()
+        flushed = 0
+        if self._table_state is not None and self.prefix_sharing:
+            flushed = self._table_state.flush_prefix_index()
+        self.weights_generation = gen
+        latency = self._now() - start
+        with self._stats_lock:
+            self.weight_swaps += 1
+        self._m_swaps.inc()
+        self._m_generation.set(gen)
+        record = {"generation": gen, "latency_s": latency, "in_flight": in_flight, "prefix_entries_flushed": flushed}
+        self.swap_history.append(record)
+        self._publish_live()
+        return record
 
     # ---------------------------------------------------------------- sampling
     def _sample(self, rows, slots: list):
@@ -381,6 +647,9 @@ class ServingEngine:
         temperature: Optional[float] = ...,
         seed: int = 0,
         arrival_offset_s: float = 0.0,
+        deadline_ms: Optional[float] = None,
+        priority: int = 0,
+        tenant: str = "",
     ) -> int:
         if not prompt_tokens:
             raise ValueError("empty prompt: the engine needs at least one prompt token")
@@ -395,17 +664,73 @@ class ServingEngine:
                 temperature=temp,
                 seed=int(seed),
                 arrival_offset_s=float(arrival_offset_s),
+                deadline_ms=float(deadline_ms) if deadline_ms else None,
+                priority=int(priority),
+                tenant=str(tenant or ""),
             )
         )
+        self._wait_from[rid] = max(float(arrival_offset_s), 0.0)
+        self._m_submitted.inc()
+        self._m_prompt_tokens.inc(len(prompt_tokens))
+        if tenant:
+            self._m_tenant_requests.inc(tenant=tenant)
+            self._tenant_stat(tenant, "submitted")
+        self._publish_live()
         return rid
 
     # -------------------------------------------------------------- scheduling
-    def _record_result(self, result: ServeResult, reason: str, now: float) -> None:
+    def _stopping(self) -> bool:
+        return self._stop_fn is not None and bool(self._stop_fn())
+
+    def _note_admit(self, rid: int, now: float) -> None:
+        """Admission closes the request's current queue wait (from arrival, or
+        from its last preemption)."""
+        self._m_queue_wait.observe(max(0.0, now - self._wait_from.get(rid, now)))
+
+    def _record_first_token(self, result: ServeResult, now: float) -> None:
+        """TTFT is observed once a request: a preempted request's replay
+        makes its first token again, but the client saw the first one."""
+        if result.rid not in self._ttft_observed:
+            self._ttft_observed.add(result.rid)
+            self._m_ttft.observe(max(0.0, now - result.arrival_s))
+
+    def _emit_token(self, result: ServeResult, tok: int, now: float) -> None:
+        """Append and stream a token. `_streamed` survives preemption (the
+        replay regenerates the same tokens), so `on_token` fires exactly once
+        per final token position."""
+        if result.last_token_s is not None:
+            self._m_tpot.observe(max(0.0, now - result.last_token_s))
+        result.tokens.append(tok)
+        result.last_token_s = now
+        n = len(result.tokens)
+        if n > self._streamed.get(result.rid, 0):
+            self._streamed[result.rid] = n
+            self._m_tokens.inc()
+            if self._on_token is not None:
+                self._on_token(result.rid, tok)
+
+    def _record_result(self, result: ServeResult, reason: str, now: float, tenant: str = "") -> None:
         result.finish_reason = reason
         result.finish_s = now
+        result.weights_generation = self.weights_generation
         if reason == "error":
-            self.request_errors += 1
-        self._results[result.rid] = result
+            with self._stats_lock:
+                self.request_errors += 1
+            self._m_req_errors.inc()
+        if tenant:
+            self._tenant_stat(tenant, "finished")
+            if result.tokens:
+                self._m_tenant_tokens.inc(len(result.tokens), tenant=tenant)
+                self._tenant_stat(tenant, "tokens", len(result.tokens))
+        if self._on_finish is None:  # else the callback takes it: a server keeps no result
+            self._results[result.rid] = result
+        self._streamed.pop(result.rid, None)
+        self._wait_from.pop(result.rid, None)
+        self._ttft_observed.discard(result.rid)
+        self._m_finished.inc(reason=reason)
+        self._m_e2e.observe(max(0.0, now - result.arrival_s))
+        if self._on_finish is not None:
+            self._on_finish(result.rid, result)
 
     def _clear_slot(self, slot: int) -> None:
         self._slot_states[slot] = None
@@ -422,8 +747,247 @@ class ServingEngine:
         state = self._slot_states[slot]
         if self._table_state is not None:
             self._table_state.release(state.request.rid)
-        self._record_result(state.result, reason, now)
+        self._record_result(state.result, reason, now, state.request.tenant)
         self._clear_slot(slot)
+
+    # ---------------------------------------------------- admission control
+    def _deadline_expired(self, req: ServeRequest, now: float) -> bool:
+        return deadline_expired(req.arrival_offset_s, req.deadline_ms, now)
+
+    def overload_reason(self) -> Optional[str]:
+        """Why new work should be refused right now (None = admit): the HTTP
+        layer turns it into a 429 with Retry-After."""
+        if self.max_queue_depth is not None and len(self._queue) >= self.max_queue_depth:
+            return "queue_full"
+        if self.brownout is not None and self.brownout.active:
+            return "brownout_reject"
+        return None
+
+    def note_rejected(self, reason: str, tenant: str = "") -> None:
+        """Count one refused arrival (the HTTP layer's 429) on the shed
+        counter, so shedding has one metric family whatever the seam."""
+        with self._stats_lock:
+            self.shed_requests += 1
+        self._m_shed.inc(reason=reason)
+        if tenant:
+            self._m_tenant_shed.inc(tenant=tenant)
+            self._tenant_stat(tenant, "shed")
+            if reason == "rate_limited":
+                self._m_tenant_rate_limited.inc(tenant=tenant)
+                self._tenant_stat(tenant, "rate_limited")
+
+    def _tenant_stat(self, tenant: str, key: str, amount: int = 1) -> None:
+        with self._stats_lock:
+            bucket = self._tenant_stats.setdefault(
+                tenant, {"submitted": 0, "finished": 0, "tokens": 0, "shed": 0, "preemptions": 0, "rate_limited": 0})
+            bucket[key] += amount
+
+    def _tenant_slot_counts(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for s in self._slot_states:
+            if s is not None:
+                counts[s.request.tenant] = counts.get(s.request.tenant, 0) + 1
+        return counts
+
+    def _tenant_budget_remaining(self, tenant: str) -> float:
+        """This tenant's error budget still unburned (1 = untouched): the
+        tenant with more left is the preferred victim."""
+        if self._tenant_budget_fn is None:
+            return 1.0
+        try:
+            return float(self._tenant_budget_fn(tenant))
+        except Exception:
+            return 1.0
+
+    def _demand_weight(self, slot_counts: dict[str, int]) -> float:
+        names = set(slot_counts) | {r.tenant for r in self._queue}
+        return sum(self._tenants.spec(n).weight for n in names if n)
+
+    def _victim_key(self, tenant: str, slot_counts: dict[str, int], total_weight: float) -> tuple:
+        """Burn-aware victim order (max = preferred victim): over-quota or
+        over-fair-share tenants first, then bulk before interactive, then the
+        least-burned error budget."""
+        spec = self._tenants.spec(tenant)
+        count = slot_counts.get(tenant, 0)
+        fair = self.slots * spec.weight / total_weight if total_weight > 0 else self.slots
+        over_quota = spec.max_slots is not None and count > spec.max_slots
+        over = over_quota or count > fair
+        return (1 if over else 0, 1 if spec.is_bulk else 0, self._tenant_budget_remaining(tenant))
+
+    def resolve_submit_tenant(self, value) -> str:
+        """Ingress tenant resolution, shared by both front ends: with tenants
+        a missing or blank id maps to the default tenant; without, every id
+        collapses to the implicit "" tenant."""
+        if self._tenants is None:
+            return ""
+        return resolve_tenant(value)
+
+    def tenant_reject_reason(self, tenant: str, max_new_tokens: int):
+        """Per-tenant admission gate for the HTTP layer, before submit():
+        None to admit (the token bucket was charged `max_new_tokens`), else
+        ("rate_limited", retry_after_s) with the refill-derived wait."""
+        if self._tenants is None or not tenant:
+            return None
+        retry_after = self._tenants.rate_limit_retry_after_s(tenant, float(max_new_tokens), self._now())
+        if retry_after is None:
+            return None
+        return ("rate_limited", retry_after)
+
+    def retry_after_s(self, reason: str) -> float:
+        """Derived Retry-After for an overload rejection: the requests in
+        excess of where the reason clears, over the parallel drain width (one
+        slot retires about one request a recovery interval). At least 1 s."""
+        depth = len(self._queue)
+        if reason == "queue_full" and self.max_queue_depth is not None:
+            excess = depth - self.max_queue_depth + 1
+        elif reason == "brownout_reject" and self.brownout is not None:
+            excess = depth - int(self.brownout.queue_low)  # recovery needs the queue at queue_low
+        else:
+            return 1.0
+        return float(max(1, -(-max(excess, 0) // max(self.slots, 1))))
+
+    def _next_admittable(self, now: float) -> Optional[ServeRequest]:
+        """Pop the next request to admit (None = nothing admissible). Without
+        tenants: the FIFO head, arrival-gated (later requests never jump an
+        unarrived head). With tenants: weighted deficit-round-robin."""
+        if self._tenants is None:
+            if not self._queue:
+                return None
+            req = self._queue[0]
+            if req.arrival_offset_s > now:
+                return None
+            self._queue.popleft()
+            return req
+        req = self._drr_pick(self._drr_candidates(now, set()))
+        if req is not None:
+            self._queue.remove(req)
+        return req
+
+    def _drr_candidates(self, now: float, blocked: set) -> dict[str, ServeRequest]:
+        """Per-tenant admission heads: for each tenant (not `blocked`, not at
+        its slot quota) the first queued arrived request of the best (lowest
+        number) priority class present: DRR works within one class at a
+        time, FIFO within (tenant, class)."""
+        counts = self._tenant_slot_counts()
+        eligible = []
+        for r in self._queue:
+            if r.arrival_offset_s > now or r.tenant in blocked:
+                continue
+            spec = self._tenants.spec(r.tenant)
+            if spec.max_slots is not None and counts.get(r.tenant, 0) >= spec.max_slots:
+                continue
+            eligible.append(r)
+        if not eligible:
+            return {}
+        best = min(r.priority for r in eligible)
+        heads: dict[str, ServeRequest] = {}
+        for r in eligible:
+            if r.priority == best and r.tenant not in heads:
+                heads[r.tenant] = r
+        return heads
+
+    def _drr_pick(self, heads: dict[str, ServeRequest]) -> Optional[ServeRequest]:
+        """One weighted deficit-round-robin choice over the per-tenant heads:
+        unit cost a request, quantum = weight, so under saturation admissions
+        converge to the weight ratio. A tenant with no eligible work loses its
+        deficit; the cursor keeps the rotation's place across rounds."""
+        if not heads:
+            return None
+        for name in list(self._drr_deficit):
+            if name not in heads:
+                del self._drr_deficit[name]
+        names = sorted(heads)
+        idx = 0
+        for i, n in enumerate(names):
+            if n >= self._drr_cursor:
+                idx = i
+                break
+        name = names[idx]
+        deficit = self._drr_deficit.get(name, 0.0)
+        if deficit < 1.0:
+            deficit += self._tenants.spec(name).weight
+        deficit -= 1.0
+        self._drr_deficit[name] = deficit
+        # stay on this tenant while it has credit, else advance the rotation
+        self._drr_cursor = name if deficit >= 1.0 else names[(idx + 1) % len(names)]
+        return heads[name]
+
+    def _finish_queued(self, req: ServeRequest, reason: str, now: float) -> None:
+        """Drop one queued request (deadline or shed): it holds no slot and no
+        blocks, so this is a dequeue and a result."""
+        result = self._new_result(req)
+        result.first_token_s = now
+        if reason == "deadline":
+            with self._stats_lock:
+                self.deadline_expired_requests += 1
+            self._m_deadline_expired.inc()
+        else:
+            with self._stats_lock:
+                self.shed_requests += 1
+            self._m_shed.inc(reason="brownout")
+            if req.tenant:
+                self._m_tenant_shed.inc(tenant=req.tenant)
+                self._tenant_stat(req.tenant, "shed")
+        self._record_result(result, reason, now, req.tenant)
+
+    def _sweep_queue(self, t0: float) -> None:
+        """Seam 1 (queue admission): expire lapsed queued work, then let the
+        brownout controller shed queued requests. Runs before every
+        admission round; a queue with no deadlines and no controller passes
+        through untouched."""
+        now = self._now() - t0
+        if any(req.deadline_ms is not None for req in self._queue):
+            kept: deque[ServeRequest] = deque()
+            for req in self._queue:
+                if self._deadline_expired(req, now):
+                    self._finish_queued(req, "deadline", now)
+                else:
+                    kept.append(req)
+            self._queue = kept
+        if self.brownout is None:
+            return
+        self.brownout.update(len(self._queue))
+        for _ in range(self.brownout.shed_target(len(self._queue))):
+            victim = None
+            if self._tenants is None:
+                # the youngest request of the lowest-priority class: older
+                # work and higher classes keep their FIFO places
+                for req in self._queue:
+                    if victim is None or req.priority >= victim.priority:
+                        victim = req
+            else:
+                # burn-aware: over-quota tenants first, bulk before
+                # interactive, least-burned budget next; priority and the
+                # youngest within a class break ties (`>=`)
+                slot_counts = self._tenant_slot_counts()
+                total_w = self._demand_weight(slot_counts)
+                victim_key = None
+                for req in self._queue:
+                    key = self._victim_key(req.tenant, slot_counts, total_w) + (req.priority,)
+                    if victim is None or key >= victim_key:
+                        victim, victim_key = req, key
+            if victim is None:
+                break
+            self._queue.remove(victim)
+            self._finish_queued(victim, "shed", now)
+
+    def _expire_active(self, t0: float) -> None:
+        """Seams 2 and 3 (chunk and step boundaries): cancel lapsed slots
+        between dispatches. `_finish` releases the block table, so the pool
+        audit (free + unique owned == num_blocks) stays exact, and the
+        cancelled request takes no further device step."""
+        now = self._now() - t0
+        for slot in range(self.slots):
+            state = self._slot_states[slot]
+            if state is None or state.request.deadline_ms is None:
+                continue
+            if self._deadline_expired(state.request, now):
+                with self._stats_lock:
+                    self.deadline_expired_requests += 1
+                self._m_deadline_expired.inc()
+                if not state.result.tokens:
+                    state.result.first_token_s = now  # never streamed: TTFT reads as time to cancellation
+                self._finish(slot, "deadline", now)
 
     def _truncate_window(self, req: ServeRequest, result: ServeResult) -> list[int]:
         """Clip the prompt to max_len-1 tokens (the ring's capacity-1) so at
@@ -434,16 +998,23 @@ class ServingEngine:
             result.truncated = True
             if req.rid not in self._truncated_rids:
                 self._truncated_rids.add(req.rid)
-                self.truncated_requests += 1
+                with self._stats_lock:
+                    self.truncated_requests += 1
+                self._m_trunc.inc()
         return window
 
     def _new_result(self, req: ServeRequest) -> ServeResult:
         return ServeResult(rid=req.rid, prompt_len=len(req.prompt_tokens), arrival_s=max(req.arrival_offset_s, 0.0))
 
     def _admit(self, t0: float) -> None:
-        """Fill idle slots from the queue (FIFO, arrival-gated). Ring: chunked
-        prefill into the freed slot right here, the first token taken from the
-        last chunk's logits. Paged: `_admit_paged`."""
+        """Fill idle slots from the queue (FIFO, arrival-gated; DRR with
+        tenants) after the queue sweep (seam 1). Ring: chunked prefill into
+        the freed slot right here, the first token taken from the last
+        chunk's logits, the deadline checked between chunks (seam 2). Paged:
+        `_admit_paged`. A draining engine (`stop_fn`) admits nothing."""
+        if self._stopping():
+            return
+        self._sweep_queue(t0)
         if self.kv_cache == "paged":
             self._admit_paged(t0)
             return
@@ -453,20 +1024,21 @@ class ServingEngine:
             if self._slot_states[slot] is not None:
                 continue
             now = self._now() - t0
-            req = self._queue[0]
-            if req.arrival_offset_s > now:
+            req = self._next_admittable(now)
+            if req is None:
                 break  # FIFO: later requests can't jump an unarrived head
-            self._queue.popleft()
             temp = req.temperature if req.temperature is not None else 0.0
             result = self._new_result(req)
+            self._note_admit(req.rid, now)
             window = self._truncate_window(req, result)
             if req.max_new_tokens <= 0:
                 result.first_token_s = self._now() - t0
-                self._record_result(result, "budget", result.first_token_s)
+                self._record_result(result, "budget", result.first_token_s, req.tenant)
                 continue
             self._temps[slot] = temp
             self._gens[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
             pos = 0
+            expired = False
             start = time.perf_counter()
             with torch.inference_mode():
                 while pos < len(window):
@@ -474,29 +1046,48 @@ class ServingEngine:
                     toks = torch.tensor([window[pos : pos + chunk]], dtype=torch.long).to(self.device)
                     logits = self.module.prefill_slot(self.cache, toks, slot, pos)
                     self._prefill_shapes.add((1, chunk))
-                    self.prefill_chunk_count += 1
-                    self.prefill_dispatches += 1
+                    with self._stats_lock:
+                        self.prefill_chunk_count += 1
+                        self.prefill_dispatches += 1
+                    self._m_prefill_chunks.inc()
                     pos += chunk
-                last = logits[:, -1, :]  # [1, V]
-                first = self._sample(last, [slot])
-                fetched = torch.stack([first[0], torch.isfinite(last).all().long()]).cpu()
-            first_tok, ok = int(fetched[0]), bool(fetched[1])  # device sync: the TTFT point
+                    # seam 2 (chunk boundary): a lapsed request stops taking
+                    # prefill chunks; the ring slot holds nothing pooled
+                    if pos < len(window) and self._deadline_expired(req, self._now() - t0):
+                        expired = True
+                        break
+                if not expired:
+                    last = logits[:, -1, :]  # [1, V]
+                    first = self._sample(last, [slot])
+                    fetched = torch.stack([first[0], torch.isfinite(last).all().long()]).cpu()
             self.prefill_seconds += time.perf_counter() - start
+            if expired:
+                self._temps[slot] = 0.0
+                self._gens[slot] = None
+                now2 = self._now() - t0
+                result.first_token_s = now2
+                with self._stats_lock:
+                    self.deadline_expired_requests += 1
+                self._m_deadline_expired.inc()
+                self._record_result(result, "deadline", now2, req.tenant)
+                continue
+            first_tok, ok = int(fetched[0]), bool(fetched[1])  # device sync: the TTFT point
             now2 = self._now() - t0
             result.first_token_s = now2
             if not ok:  # non-finite logits: no token to trust
                 self._temps[slot] = 0.0
                 self._gens[slot] = None
-                self._record_result(result, "error", now2)
+                self._record_result(result, "error", now2, req.tenant)
                 continue
+            self._record_first_token(result, now2)
             if first_tok == self.eod_token_id or req.max_new_tokens == 1:
                 if first_tok != self.eod_token_id:
-                    result.tokens.append(first_tok)
+                    self._emit_token(result, first_tok, now2)
                 self._temps[slot] = 0.0
                 self._gens[slot] = None
-                self._record_result(result, "eod" if first_tok == self.eod_token_id else "budget", now2)
+                self._record_result(result, "eod" if first_tok == self.eod_token_id else "budget", now2, req.tenant)
                 continue
-            result.tokens.append(first_tok)
+            self._emit_token(result, first_tok, now2)
             # arm the slot: the admitted request joins the next decode step
             self._slot_states[slot] = _SlotState(request=req, result=result, remaining=req.max_new_tokens - 1,
                                                  temp=temp, seq=self._admit_seq)
@@ -521,9 +1112,10 @@ class ServingEngine:
 
     def _admit_paged(self, t0: float) -> None:
         """Admission onto the block pool: the head's free-block demand must fit
-        BEFORE it leaves the queue; matched prefix blocks are forked into its
-        table, and the slot joins the packed prefill from the first unmatched
-        position."""
+        BEFORE it leaves the queue (with tenants, a tenant whose head does not
+        fit is passed over for this round only); matched prefix blocks are
+        forked into its table, and the slot joins the packed prefill from the
+        first unmatched position."""
         ts = self._table_state
         for slot in range(self.slots):
             if not self._queue:
@@ -531,19 +1123,37 @@ class ServingEngine:
             if self._slot_states[slot] is not None:
                 continue
             now = self._now() - t0
-            req = self._queue[0]
-            if req.arrival_offset_s > now:
-                break  # FIFO: later requests can't jump an unarrived head
-            window, matched, full_match, need = self._paged_admission_need(req)
-            if ts.pool.free_count < need:
-                break  # the head stays queued; decoders will free blocks
-            self._queue.popleft()
+            if self._tenants is None:
+                req = self._queue[0]
+                if req.arrival_offset_s > now:
+                    break  # FIFO: later requests can't jump an unarrived head
+                window, matched, full_match, need = self._paged_admission_need(req)
+                if ts.pool.free_count < need:
+                    break  # the head stays queued; decoders will free blocks
+                self._queue.popleft()
+            else:
+                # a tenant whose head does not fit the pool is blocked for
+                # this round only: its big prompt never stalls the others
+                blocked: set = set()
+                while True:
+                    heads = self._drr_candidates(now, blocked)
+                    unfit = {name for name, cand in heads.items()
+                             if ts.pool.free_count < self._paged_admission_need(cand)[3]}
+                    if not unfit:
+                        break
+                    blocked |= unfit
+                req = self._drr_pick(heads)
+                if req is None:
+                    break  # nothing arrived, under quota and admissible
+                window, matched, full_match, need = self._paged_admission_need(req)
+                self._queue.remove(req)
             temp = req.temperature if req.temperature is not None else 0.0
             result = self._new_result(req)
+            self._note_admit(req.rid, now)
             window = self._truncate_window(req, result)
             if req.max_new_tokens <= 0:
                 result.first_token_s = self._now() - t0
-                self._record_result(result, "budget", result.first_token_s)
+                self._record_result(result, "budget", result.first_token_s, req.tenant)
                 continue
             if matched:
                 ts.fork_prefix(req.rid, matched)
@@ -559,9 +1169,12 @@ class ServingEngine:
                 self._cow_copy(*cow)
             if matched:
                 result.prefix_hit_tokens = tail_start
-                self.prefix_hit_requests += 1
-                self.prefix_hit_blocks += len(matched)
-                self.prefix_hit_tokens += tail_start
+                with self._stats_lock:
+                    self.prefix_hit_requests += 1
+                    self.prefix_hit_blocks += len(matched)
+                    self.prefix_hit_tokens += tail_start
+                self._m_prefix_hit_requests.inc()
+                self._m_prefix_hit_blocks.inc(len(matched))
             self._slot_states[slot] = _SlotState(request=req, result=result, remaining=0, phase="prefill",
                                                  window=window, prefill_pos=tail_start, temp=temp,
                                                  seq=self._admit_seq)
@@ -573,7 +1186,9 @@ class ServingEngine:
         """Device row copy backing a copy-on-write: pool block `src` -> `dst`."""
         with torch.inference_mode():
             self.cache.copy_block(src, dst)
-        self.cow_copies += 1
+        with self._stats_lock:
+            self.cow_copies += 1
+        self._m_cow.inc()
 
     def _active_count(self) -> int:
         return sum(s is not None for s in self._slot_states)
@@ -585,23 +1200,32 @@ class ServingEngine:
         order = [(s.seq, i) for i, s in enumerate(self._slot_states) if s is not None and s.phase == "prefill"]
         return [i for _, i in sorted(order)]
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, t0: float) -> None:
         """Pool exhausted: push this slot's request back to the FRONT of the
         queue (it is older than everything queued) and release its blocks. It
-        restarts from its prompt on re-admission, its sampler seeded anew."""
+        restarts from its prompt on re-admission, its sampler seeded anew;
+        `_streamed` keeps `on_token` exactly once a token position."""
         state = self._slot_states[slot]
-        self._table_state.release(state.request.rid)
-        self.preemptions += 1
-        self._queue.appendleft(state.request)
+        req = state.request
+        self._table_state.release(req.rid)
+        with self._stats_lock:
+            self.preemptions += 1
+        self._m_preempt.inc()
+        if req.tenant:
+            self._m_tenant_preempt.inc(tenant=req.tenant)
+            self._tenant_stat(req.tenant, "preemptions")
+        self._wait_from[req.rid] = self._now() - t0  # re-admission closes a new queue wait
+        self._queue.appendleft(req)
         self._clear_slot(slot)
 
-    def _ensure_decode_blocks(self, widths: Optional[dict] = None) -> None:
+    def _ensure_decode_blocks(self, t0: float, widths: Optional[dict] = None) -> None:
         """Before a paged decode or verify forward: every decoding slot needs
         the blocks covering its write range [p, p + w - 1] (`widths` maps slot
         -> w, default 1), each exclusively owned (a shared block is copied
         first). A dry pool preempts the YOUNGEST active slot, never an older
         one: the pool admits at least one max-length request by construction,
-        so this cannot livelock."""
+        so this cannot livelock. With tenants the burn-aware `_victim_key`
+        orders the victims first, the youngest within a key."""
         ts = self._table_state
         for slot in range(self.slots):
             state = self._slot_states[slot]
@@ -625,8 +1249,15 @@ class ServingEngine:
                             self._cow_copy(*res)
                     if not dry:
                         break
-                _, victim = max((s.seq, i) for i, s in enumerate(self._slot_states) if s is not None)
-                self._preempt(victim)
+                if self._tenants is None:
+                    victims = [(s.seq, i) for i, s in enumerate(self._slot_states) if s is not None]
+                else:
+                    slot_counts = self._tenant_slot_counts()
+                    total_w = self._demand_weight(slot_counts)
+                    victims = [(self._victim_key(s.request.tenant, slot_counts, total_w) + (s.seq,), i)
+                               for i, s in enumerate(self._slot_states) if s is not None]
+                _, victim = max(victims)
+                self._preempt(victim, t0)
                 if victim == slot:
                     break
             if self._slot_states[slot] is None:
@@ -640,6 +1271,7 @@ class ServingEngine:
         prefilling slots (a long prompt takes several consecutive rows; every
         row's K/V is written before any row gathers, so this is exact). Rows
         whose chunk ends its prompt sample the request's first token."""
+        self._expire_active(t0)  # seam 2: no chunk for a lapsed request
         R, C = self.slots, self.block_size
         rows: list[tuple[int, int, int, bool]] = []  # (slot, start, ntok, is_last)
         for slot in self._prefilling_slots():
@@ -681,10 +1313,12 @@ class ServingEngine:
             toks = self._sample(last, samplers)
             fetched = torch.stack([toks, torch.isfinite(last).all(dim=-1).long()]).cpu()
         out_toks, out_ok = fetched.numpy()
-        self.prefill_seconds += time.perf_counter() - start_t
         self._prefill_shapes.add((R, C))
-        self.prefill_dispatches += 1
-        self.prefill_chunk_count += len(rows)
+        with self._stats_lock:
+            self.prefill_seconds += time.perf_counter() - start_t
+            self.prefill_dispatches += 1
+            self.prefill_chunk_count += len(rows)
+        self._m_prefill_chunks.inc(len(rows))
         now = self._now() - t0
         for r, (slot, start, ntok, is_last) in enumerate(rows):
             state = self._slot_states[slot]
@@ -706,10 +1340,11 @@ class ServingEngine:
                 # owner and copy-guarded for everyone else
                 self._table_state.register_prefix(req.rid, state.window, upto=wl)
             first_tok = int(out_toks[r])
+            self._record_first_token(result, now)
             if first_tok == self.eod_token_id:
                 self._finish(slot, "eod", now)
                 continue
-            result.tokens.append(first_tok)
+            self._emit_token(result, first_tok, now)
             # budget clamped to the table ceiling: the last emitted token needs
             # no cache write, so max_len - wl + 1 tokens fit, and the stop is
             # always "budget" or "eod", never "capacity"
@@ -728,11 +1363,14 @@ class ServingEngine:
         """ONE batched forward for every slot, then host bookkeeping on the
         single (tokens, finished, ok) fetch. Paged: blocks for the writes
         first (preempting on a dry pool), and a verify forward instead when
-        any slot has drafts."""
+        any slot has drafts. Lapsed requests are cancelled first (seam 3)."""
+        self._expire_active(t0)
+        if self._decoding_count() == 0:
+            return  # every decoder just expired
         if self.kv_cache == "paged":
             props = self._collect_proposals() if self.spec.enabled else {}
             widths = {slot: min(len(d) + 1, self._slot_states[slot].remaining) for slot, d in props.items()}
-            self._ensure_decode_blocks(widths or None)
+            self._ensure_decode_blocks(t0, widths or None)
             if self._decoding_count() == 0:
                 return  # every decoder was preempted into the queue
             props = {slot: d for slot, d in props.items()
@@ -767,7 +1405,7 @@ class ServingEngine:
             ok = torch.isfinite(rows).all(dim=-1)
             fetched = torch.stack([toks, finished.long(), ok.long()]).cpu()
         toks_h, finished_h, ok_h = fetched.numpy()
-        self.decode_seconds += time.perf_counter() - start
+        seconds = time.perf_counter() - start
         self._decode_shapes.add((self.slots, 1))
         now = self._now() - t0
         active = self._decoding_count()
@@ -784,7 +1422,7 @@ class ServingEngine:
             if tok == self.eod_token_id:
                 self._finish(slot, "eod", now)
                 continue
-            state.result.tokens.append(tok)
+            self._emit_token(state.result, tok, now)
             emitted += 1
             if finished_h[slot]:  # budget exhausted (eod handled above)
                 self._finish(slot, "budget", now)
@@ -796,10 +1434,13 @@ class ServingEngine:
                 # ring full: the request finishes (the paged cache never takes
                 # this exit: the admission clamp keeps positions below max_len)
                 self._finish(slot, "capacity", now)
-        self.decode_steps += 1
-        self._occupancy_sum += active
-        self.max_concurrent = max(self.max_concurrent, active)
-        self.decode_token_count += emitted
+        with self._stats_lock:
+            self.decode_seconds += seconds
+            self.decode_steps += 1
+            self._occupancy_sum += active
+            self.max_concurrent = max(self.max_concurrent, active)
+            self.decode_token_count += emitted
+        self._m_decode_steps.inc()
 
     def _collect_proposals(self) -> dict:
         """Prompt-lookup drafts per decoding slot: greedy slots only (a sampled
@@ -869,7 +1510,7 @@ class ServingEngine:
             # and may legitimately be non-finite
             ok = torch.isfinite(logits[:, 0, :]).all(dim=-1)
             fetched = torch.cat([g, toks0[:, None], acc[:, None], ok[:, None].long()], dim=1).cpu().numpy()
-        self.decode_seconds += time.perf_counter() - start
+        seconds = time.perf_counter() - start
         self._verify_shapes.add((S, K1))
         g, toks0, acc, ok = fetched[:, :K1], fetched[:, K1], fetched[:, K1 + 1], fetched[:, K1 + 2]
         now = self._now() - t0
@@ -897,7 +1538,7 @@ class ServingEngine:
                 if tok == self.eod_token_id:
                     fin = "eod"
                     break
-                state.result.tokens.append(tok)
+                self._emit_token(state.result, tok, now)
                 n_emit += 1
                 if rem <= 1:
                     fin = "budget"
@@ -911,18 +1552,27 @@ class ServingEngine:
             self._remaining[slot] = rem
             self._positions[slot] = p + n_emit
             self._tokens[slot] = emitted_seq[-1]
-        self.decode_steps += 1
-        self.verify_steps += 1
-        self._occupancy_sum += active
-        self.max_concurrent = max(self.max_concurrent, active)
-        self.decode_token_count += emitted_total
-        self.spec_proposed += proposed_total
-        self.spec_accepted += accepted_total
-        self.spec_emitted += emitted_total
+        with self._stats_lock:
+            self.decode_seconds += seconds
+            self.decode_steps += 1
+            self.verify_steps += 1
+            self._occupancy_sum += active
+            self.max_concurrent = max(self.max_concurrent, active)
+            self.decode_token_count += emitted_total
+            self.spec_proposed += proposed_total
+            self.spec_accepted += accepted_total
+            self.spec_emitted += emitted_total
+        self._m_decode_steps.inc()
+        if proposed_total:
+            self._m_spec_proposed.inc(proposed_total)
+        if accepted_total:
+            self._m_spec_accepted.inc(accepted_total)
 
     def step(self, t0: float) -> bool:
         """One scheduler round: admit, (paged) one packed prefill, then one
-        decode-side forward. Returns True if any device work was dispatched."""
+        decode-side forward. A weight swap queued by request_swap() is
+        installed first. Returns True if any device work was dispatched."""
+        self._maybe_apply_swap()
         dispatches_before = self.prefill_dispatches
         self._admit(t0)
         did = self.prefill_dispatches != dispatches_before
@@ -932,13 +1582,25 @@ class ServingEngine:
         if self._decoding_count():
             self._decode_dispatch(t0)
             did = True
+        self._publish_live()
         return did
 
     def run(self) -> dict[int, ServeResult]:
-        """Serve until queue and slots drain. Returns rid -> ServeResult."""
+        """Serve until queue and slots drain, or, once `stop_fn` trips, until
+        the in-flight slots finish (a drain: no new admissions, queued
+        requests are left unserved). Returns rid -> ServeResult, every result
+        since the engine was built (none where `on_finish` takes them)."""
         t0 = self._now()
-        while self._queue or self._active_count():
-            if not self.step(t0) and self._queue:
+        while True:
+            stopping = self._stopping()
+            if stopping:
+                if self._active_count() == 0:
+                    break
+            elif not self._queue and self._active_count() == 0:
+                break
+            if not self.step(t0):
+                if stopping or not self._queue:
+                    break
                 # nothing running and the head hasn't arrived: wait for it
                 wait = self._queue[0].arrival_offset_s - (self._now() - t0)
                 if wait > 0:
@@ -946,56 +1608,104 @@ class ServingEngine:
         return self._results
 
     # ------------------------------------------------------------------- stats
+    def _publish_live(self) -> None:
+        """Snapshot the scheduler state that /stats and the gauges read from
+        other threads. Engine thread only: it walks the queue, the slots and
+        the pool's refcounts, which only this thread changes."""
+        slot_counts = self._tenant_slot_counts()
+        live = {"queue_depth": len(self._queue), "active_slots": sum(slot_counts.values()),
+                "tenant_slots": slot_counts, "tenant_queued": {}}
+        if self._tenants is not None:
+            for r in self._queue:
+                live["tenant_queued"][r.tenant] = live["tenant_queued"].get(r.tenant, 0) + 1
+        if self._table_state is not None:
+            live.update(free_blocks=self._table_state.pool.free_count,
+                        shared_blocks=self._table_state.pool.shared_count,
+                        prefix_index_size=self._table_state.prefix_index_size)
+        with self._stats_lock:
+            self._live = live
+
+    def _live_value(self, key: str):
+        with self._stats_lock:
+            return self._live[key]
+
+    def _occupancy_ratio(self) -> float:
+        with self._stats_lock:
+            if not self.decode_steps:
+                return 0.0
+            return self._occupancy_sum / (self.decode_steps * self.slots)
+
     def stats(self) -> dict:
-        occupancy = self._occupancy_sum / (self.decode_steps * self.slots) if self.decode_steps else 0.0
-        out = {
-            "kv_cache": self.kv_cache,
-            "device": str(self.device),
-            "decode_steps": self.decode_steps,
-            "decode_tokens": self.decode_token_count,
-            "prefill_chunks": self.prefill_chunk_count,
-            "forward_calls": self.decode_steps + self.prefill_dispatches,
-            "decode_executables": len(self._decode_shapes),
-            "prefill_executables": len(self._prefill_shapes),
-            "slot_occupancy": occupancy,
-            "max_concurrent": self.max_concurrent,
-            "slots": self.slots,
-            "capacity": self.capacity,
-            "preemptions": self.preemptions,
-            "truncated_requests": self.truncated_requests,
-            "queue_depth": len(self._queue),
-            "active_slots": self._active_count(),
-            "request_errors": self.request_errors,
-            "prefill_seconds": self.prefill_seconds,
-            "decode_seconds": self.decode_seconds,
-            "quant_weights": self.quant_weights,
-            "quant_kv": self.quant_kv,
-            "kv_pool_bytes": self.kv_pool_bytes,
-            "weights_bytes": self.weights_bytes,
-            "quant_bytes_saved": self.quant_bytes_saved,
-        }
-        if self.kv_cache == "paged":
-            pool = self._table_state.pool
-            out.update(
-                max_len=self.max_len,
-                block_size=self.block_size,
-                num_blocks=self.num_blocks,
-                free_blocks=pool.free_count,
-                kv_scale_bytes=self.kv_scale_bytes,
-                prefix_sharing=self.prefix_sharing,
-                prefix_hit_requests=self.prefix_hit_requests,
-                prefix_hit_blocks=self.prefix_hit_blocks,
-                prefix_hit_tokens=self.prefix_hit_tokens,
-                cow_copies=self.cow_copies,
-                cow_executables=int(self.cow_copies > 0),
-                shared_blocks=pool.shared_count,
-                prefix_index_size=self._table_state.prefix_index_size,
-                spec_k=self.spec.k,
-                verify_steps=self.verify_steps,
-                verify_executables=len(self._verify_shapes),
-                spec_proposed=self.spec_proposed,
-                spec_accepted=self.spec_accepted,
-                spec_emitted=self.spec_emitted,
-                prefill_chunk_count=self.prefill_chunk_count,
-            )
+        """One consistent snapshot: the counters are read under the lock their
+        dispatch-end updates hold, so a concurrent /stats never sees half a
+        dispatch (decode_tokens without its decode_steps), and the queue,
+        slot and pool figures are the engine thread's latest published ones,
+        so no other thread walks state the engine thread is changing."""
+        with self._stats_lock:
+            occupancy = self._occupancy_sum / (self.decode_steps * self.slots) if self.decode_steps else 0.0
+            out = {
+                "kv_cache": self.kv_cache,
+                "device": str(self.device),
+                "decode_steps": self.decode_steps,
+                "decode_tokens": self.decode_token_count,
+                "prefill_chunks": self.prefill_chunk_count,
+                "forward_calls": self.decode_steps + self.prefill_dispatches,
+                "decode_executables": len(self._decode_shapes),
+                "prefill_executables": len(self._prefill_shapes),
+                "slot_occupancy": occupancy,
+                "max_concurrent": self.max_concurrent,
+                "slots": self.slots,
+                "capacity": self.capacity,
+                "preemptions": self.preemptions,
+                "truncated_requests": self.truncated_requests,
+                "queue_depth": self._live["queue_depth"],
+                "active_slots": self._live["active_slots"],
+                "weights_generation": self.weights_generation,
+                "weight_swaps": self.weight_swaps,
+                "request_errors": self.request_errors,
+                "deadline_expired_requests": self.deadline_expired_requests,
+                "shed_requests": self.shed_requests,
+                "prefill_seconds": self.prefill_seconds,
+                "decode_seconds": self.decode_seconds,
+                "quant_weights": self.quant_weights,
+                "quant_kv": self.quant_kv,
+                "kv_pool_bytes": self.kv_pool_bytes,
+                "weights_bytes": self.weights_bytes,
+                "quant_bytes_saved": self.quant_bytes_saved,
+            }
+            if self.kv_cache == "paged":
+                out.update(
+                    max_len=self.max_len,
+                    block_size=self.block_size,
+                    num_blocks=self.num_blocks,
+                    free_blocks=self._live["free_blocks"],
+                    kv_scale_bytes=self.kv_scale_bytes,
+                    prefix_sharing=self.prefix_sharing,
+                    prefix_hit_requests=self.prefix_hit_requests,
+                    prefix_hit_blocks=self.prefix_hit_blocks,
+                    prefix_hit_tokens=self.prefix_hit_tokens,
+                    cow_copies=self.cow_copies,
+                    cow_executables=int(self.cow_copies > 0),
+                    shared_blocks=self._live["shared_blocks"],
+                    prefix_index_size=self._live["prefix_index_size"],
+                    spec_k=self.spec.k,
+                    verify_steps=self.verify_steps,
+                    verify_executables=len(self._verify_shapes),
+                    spec_proposed=self.spec_proposed,
+                    spec_accepted=self.spec_accepted,
+                    spec_emitted=self.spec_emitted,
+                    prefill_chunk_count=self.prefill_chunk_count,
+                )
+            tenant_stats = {t: dict(b) for t, b in self._tenant_stats.items()}
+            slot_counts, queued = self._live["tenant_slots"], self._live["tenant_queued"]
+        if self._tenants is not None:
+            tenants_out = {}
+            for name in sorted(set(self._tenants.names()) | set(tenant_stats) | set(queued)):
+                spec = self._tenants.spec(name)
+                row = dict(tenant_stats.get(name, {"submitted": 0, "finished": 0, "tokens": 0, "shed": 0,
+                                                   "preemptions": 0, "rate_limited": 0}))
+                row.update(tenant_class=spec.tenant_class, weight=spec.weight, max_slots=spec.max_slots,
+                           active_slots=slot_counts.get(name, 0), queued=queued.get(name, 0))
+                tenants_out[name] = row
+            out["tenants"] = tenants_out
         return out

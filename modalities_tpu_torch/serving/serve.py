@@ -9,14 +9,19 @@ _PREFILL_CHUNKS, _SPEC_K, _PREFIX_SHARING, MODALITIES_TPU_QUANT_WEIGHTS,
 MODALITIES_TPU_QUANT_KV). `prefix_sharing` and the `paged_*` sizes are ignored
 on the ring cache, as the JAX engine ignores them there.
 
-Knobs of engine features that this package does not have yet are refused when
-set to anything but their default (deadlines, brownout, tenants, a bounded
-queue, a device mesh and the HTTP front end: ROADMAP.md Queue 1 item 3; the
-SLO block and telemetry: item 6), and so are the JAX serving environment
-switches that would change what is served or what is written beside it
-(`_refuse_unported_env`). So `configs/config_serve.yaml` does not load
-unchanged: its `slo` block arms the JAX engine's brownout shedder, and the
-port refuses it (set `slo: null`).
+Admission control: `tenants` (weighted DRR, quotas, token-rate limits),
+`deadline_default_ms` (env MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS before
+it), `brownout_queue_high` (the queue-pressure brownout), `max_queue_depth`
+(MODALITIES_TPU_SERVE_QUEUE_LIMIT) and MODALITIES_TPU_SERVE_TENANT_DEFAULT.
+`http_port` (or `serve --http_port`) starts the streaming HTTP front end
+(serving/server.py) on `http_host`.
+
+Refused, naming their ROADMAP.md item: `slo` (the SLO engine and its burn
+signal, Queue 1 item 6), `device_mesh` (the engine's mesh shardings, item 3)
+and the JAX serving switches MODALITIES_TPU_SERVE_TELEMETRY_DIR and _WATCHDOG_S
+(item 6) at a value the port would not apply (`_refuse_unported_env`). So
+`configs/config_serve.yaml` does not load unchanged: its `slo` block arms the
+JAX engine's SLO judge, and the port refuses it (set `slo: null`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from modalities_tpu_torch.config.config import (
 )
 from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
 from modalities_tpu_torch.device import resolve_device
+from modalities_tpu_torch.serving.resilience import BrownoutController, TenantRegistry, resolve_deadline_ms
+from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
 
 logger = logging.getLogger(__name__)
 
@@ -100,12 +107,10 @@ class ServingComponentConfig:
 # The JAX serving environment switches the port does not apply yet, each with
 # the values that leave the port's result unchanged (the JAX defaults) and
 # the ROADMAP.md Queue 1 item that ports its feature. The engine applies
-# MODALITIES_TPU_SERVE_KV_CACHE, _PREFILL_CHUNKS, _SPEC_K and _PREFIX_SHARING
-# itself, as the JAX engine does.
+# MODALITIES_TPU_SERVE_KV_CACHE, _PREFILL_CHUNKS, _SPEC_K, _PREFIX_SHARING and
+# _QUEUE_LIMIT itself, and serving/resilience.py _DEADLINE_DEFAULT_MS and
+# _TENANT_DEFAULT, as the JAX package does.
 _ENV_DEFAULTS = {
-    "MODALITIES_TPU_SERVE_QUEUE_LIMIT": (lambda v: float(v) <= 0, 3),
-    "MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS": (lambda v: float(v) <= 0, 3),
-    "MODALITIES_TPU_SERVE_TENANT_DEFAULT": (lambda v: v.strip() == "default", 3),
     "MODALITIES_TPU_SERVE_TELEMETRY_DIR": (lambda v: False, 6),
     "MODALITIES_TPU_SERVE_WATCHDOG_S": (lambda v: float(v) == 300, 6),
 }
@@ -137,12 +142,7 @@ class ServingComponent:
         cfg = ServingComponentConfig(model=model, tokenizer=tokenizer, **knobs)  # names and types checked
         unported = {  # knob -> (set to a non-default value, the ROADMAP.md Queue 1 item that ports it)
             "device_mesh": (cfg.device_mesh is not None, 3),
-            "http_port": (cfg.http_port is not None, 3),
-            "deadline_default_ms": (cfg.deadline_default_ms is not None, 3),
-            "brownout_queue_high": (cfg.brownout_queue_high is not None, 3),
-            "tenants": (bool(cfg.tenants), 3),
-            "max_queue_depth": (cfg.max_queue_depth is not None, 3),
-            "slo": (cfg.slo is not None, 6),  # the JAX serve() arms brownout shedding and SLO telemetry from it
+            "slo": (cfg.slo is not None, 6),  # the JAX serve() arms the SLO judge and its brownout signal from it
         }
         refused = {k: item for k, (is_set, item) in unported.items() if is_set}
         if refused:
@@ -169,6 +169,15 @@ class ServingComponent:
         self.spec_decode = cfg.spec_decode
         self.quant_weights_setting = (cfg.quant or {}).get("weights")
         self.quant_kv_setting = (cfg.quant or {}).get("kv")
+        self.http_host = cfg.http_host
+        self.http_port = cfg.http_port
+        self.max_queue_depth = cfg.max_queue_depth
+        self.deadline_default_ms = cfg.deadline_default_ms
+        self.brownout_queue_high = cfg.brownout_queue_high
+        # None keeps the engine on its single implicit tenant (plain FIFO); a malformed block fails here
+        self.tenants = TenantRegistry.from_config(cfg.tenants) if cfg.tenants else None
+        self.metrics = MetricsRegistry()  # the engine's series; serve() adds the process gauges
+        self.stop_fn = None  # graceful drain: serve() wires the SIGTERM flag here
         self.params: Optional[dict] = None
         self.device: Optional[torch.device] = None
         self._engine = None
@@ -181,12 +190,19 @@ class ServingComponent:
         except (ValueError, KeyError):
             return -1
 
+    def _seed_deadline_env(self) -> None:
+        """env > config, as for every other serving knob: the config default
+        lands only when no env value is present."""
+        if self.deadline_default_ms is not None and not os.environ.get("MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS"):
+            os.environ["MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS"] = str(self.deadline_default_ms)
+
     def build_engine(self):
         from modalities_tpu_torch.serving.engine import ServingEngine
 
         if self._engine is None:
             if self.params is None:
                 raise ValueError("params not resolved — serve() initializes or loads them first")
+            self._seed_deadline_env()
             self._engine = ServingEngine(
                 self.model,
                 self.params,
@@ -203,29 +219,47 @@ class ServingComponent:
                 spec_decode=self.spec_decode,
                 quant_weights=self.quant_weights_setting,
                 quant_kv=self.quant_kv_setting,
+                max_queue_depth=self.max_queue_depth,
+                # the queue-pressure brownout only: the JAX component also trips it on the SLO burn
+                # signal, and `slo` is refused until ROADMAP.md Queue 1 item 6
+                brownout=(BrownoutController(queue_high=self.brownout_queue_high)
+                          if self.brownout_queue_high is not None else None),
+                tenants=self.tenants,
+                stop_fn=self.stop_fn,
+                metrics=self.metrics,
             )
         return self._engine
 
+    def _encode(self, prompt: str) -> list[int]:
+        text = self.prompt_template.format(prompt=prompt) if self.prompt_template else prompt
+        return list(self.tokenizer.tokenize(text))
+
     def run_requests(self, requests: list[dict]) -> list[dict]:
         """Replay parsed requests ({"prompt", "max_new_tokens"?, "temperature"?,
-        "seed"?, "arrival_offset_s"?}); returns the JSONL rows of the JAX serve
-        path."""
+        "seed"?, "arrival_offset_s"?, "deadline_ms"?, "tenant"?}); returns the
+        JSONL rows of the JAX serve path. A row's deadline and tenant resolve
+        as the HTTP server resolves them (the row's value, else the env or
+        config default); a request a drain left unserved gets no row."""
         engine = self.build_engine()
         rid_to_req = {}
         for req in requests:
-            text = self.prompt_template.format(prompt=req["prompt"])
             rid = engine.submit(
-                list(self.tokenizer.tokenize(text)),
+                list(self.tokenizer.tokenize(self.prompt_template.format(prompt=req["prompt"]))),
                 int(req.get("max_new_tokens", self.max_new_tokens)),
                 temperature=req.get("temperature", self.temperature),
                 seed=int(req.get("seed", self.seed)),
                 arrival_offset_s=float(req.get("arrival_offset_s", 0.0)),
+                deadline_ms=resolve_deadline_ms(req.get("deadline_ms")),
+                tenant=engine.resolve_submit_tenant(req.get("tenant")),
             )
             rid_to_req[rid] = req
         results = engine.run()
         rows = []
         for rid, req in rid_to_req.items():
-            res = results[rid]
+            res = results.get(rid)
+            if res is None:  # a drain stopped admission before this request
+                logger.warning("serve: request %d left unserved by drain", rid)
+                continue
             rows.append(
                 {
                     "rid": rid,
@@ -239,6 +273,35 @@ class ServingComponent:
                 }
             )
         return rows
+
+    def run_http(self) -> dict:
+        """Serve HTTP (serving/server.py) until drained (SIGTERM/SIGINT through
+        `stop_fn`, or the server's stop()). Returns the final stats."""
+        from modalities_tpu_torch.serving.server import ServingHTTPServer
+
+        server = ServingHTTPServer(self.build_engine(), encode=self._encode, decode=self.tokenizer.decode,
+                                   host=self.http_host, port=self.http_port or 0,
+                                   default_max_new_tokens=self.max_new_tokens)
+        server.start()
+        logger.info("serving HTTP on %s:%d (POST /generate, GET /healthz, GET /stats, GET /metrics)",
+                    self.http_host, server.port)
+        return server.serve_forever()
+
+    def run(self) -> None:
+        """Interactive loop: one prompt a line from stdin, its completion
+        printed (the JAX component's `run`). Ctrl-C or EOF ends it."""
+        engine = self.build_engine()
+        while True:
+            try:
+                prompt = input("serve> ").strip()
+            except (EOFError, KeyboardInterrupt):
+                print()
+                break
+            if not prompt:
+                continue
+            rid = engine.submit(self._encode(prompt), self.max_new_tokens, temperature=self.temperature,
+                                seed=self.seed)
+            print(self.tokenizer.decode(engine.run().pop(rid).tokens))
 
 
 def build_serving_components(config_dict: dict):
@@ -300,28 +363,53 @@ def resolve_params(component: ServingComponent, checkpoint_folder_path, seed: in
 
 def serve(
     config_file_path: Path,
-    requests_file_path: Path,
+    requests_file_path: Optional[Path] = None,
     output_file_path: Optional[Path] = None,
     device: Optional[str] = None,
+    http_port: Optional[int] = None,
 ) -> dict:
-    """Entry point behind `python -m modalities_tpu_torch serve`: replay a
-    JSONL requests file and write result rows (to `output_file_path`, or
-    stdout). Runs on the CUDA card unless `device="cpu"`. Returns the engine's
-    stats. (The JAX CLI's interactive loop is not ported.)"""
+    """Entry point behind `python -m modalities_tpu_torch serve`. With
+    `http_port` (the flag or the config knob; 0 = an ephemeral port): the
+    streaming HTTP front end until SIGTERM/SIGINT drains it. With a JSONL
+    requests file: replay it and write the result rows (to
+    `output_file_path`, or stdout). With neither: the interactive loop. Runs
+    on the CUDA card unless `device="cpu"`. While HTTP or a replay serves,
+    SIGTERM/SIGINT drain gracefully (admission stops, in-flight requests
+    finish); the interactive loop keeps Ctrl-C, which ends it. Returns the
+    engine's final stats."""
+    from modalities_tpu_torch import __version__
+    from modalities_tpu_torch.resilience.preemption import PreemptionHandler
+    from modalities_tpu_torch.telemetry.metrics import config_hash_of, register_process_metrics
+
     config_dict = load_app_config_dict(config_file_path)
     components = build_serving_components(config_dict)
     component = components.serving_component
     component.device = resolve_device(device)
+    register_process_metrics(component.metrics, version=__version__, config_hash=config_hash_of(config_file_path))
     resolve_params(component, components.settings.checkpoint_folder_path)
-    with open(requests_file_path) as f:
-        requests = [json.loads(line) for line in f if line.strip()]
-    rows = component.run_requests(requests)
-    out_lines = [json.dumps(row) for row in rows]
-    if output_file_path is not None:
-        Path(output_file_path).write_text("\n".join(out_lines) + "\n")
-    else:
-        for line in out_lines:
-            print(line)
-    stats = component.build_engine().stats()
-    logger.info("serve stats: %s", json.dumps(stats))
-    return stats
+    if http_port is not None:
+        component.http_port = int(http_port)
+    if component.http_port is None and requests_file_path is None:
+        component.run()
+        return component.build_engine().stats()
+    handler = PreemptionHandler().install()
+    component.stop_fn = handler.should_stop
+    try:
+        if component.http_port is not None:
+            stats = component.run_http()
+            logger.info("serve stats: %s", json.dumps(stats))
+            return stats
+        with open(requests_file_path) as f:
+            requests = [json.loads(line) for line in f if line.strip()]
+        rows = component.run_requests(requests)
+        out_lines = [json.dumps(row) for row in rows]
+        if output_file_path is not None:
+            Path(output_file_path).write_text("\n".join(out_lines) + "\n")
+        else:
+            for line in out_lines:
+                print(line)
+        stats = component.build_engine().stats()
+        logger.info("serve stats: %s", json.dumps(stats))
+        return stats
+    finally:
+        handler.uninstall()

@@ -16,7 +16,8 @@ One optimizer step over `gradient_accumulation_steps` microbatches: for each,
 the forward, the loss and its backward. The head and loss take one of three
 routes, as in the JAX builder:
 - no `lm_head_chunk_size`: logits [B, S, V] fp32, then the loss over them;
-- a chunk size and `lm_head_fused_ce` auto/on: the backbone's hidden states
+- a chunk size and `lm_head_fused_ce` auto/on (MODALITIES_TPU_FUSED_CE before
+  it, as in JAX: ops/tiers.py): the backbone's hidden states
   and the head weight go to the loss's `fused_sum_and_count`, the fused-CE
   kernels (ops/fused_ce.py), and no logits exist;
 - a chunk size and `off`: the chunked scan, chunk logits and their loss under
@@ -107,6 +108,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from modalities_tpu_torch.ops.tiers import fused_ce_enabled
 from modalities_tpu_torch.parallel.pipeline import PipelineStage, build_stage_module
 from modalities_tpu_torch.parallel.pipeline_scheduled import InProcess, P2PTransport, run_schedule
 from modalities_tpu_torch.parallel.pipeline_schedules import build_schedule_tables
@@ -143,7 +145,7 @@ class TrainStep:
                 f"lm_head_chunk_size={self.head_chunk} requires a loss with the sum_and_count accumulation form "
                 f"(got loss {type(loss_fn).__name__}); unset the chunk size or use a CLM-style loss"
             )
-        self.fused_ce = (self.head_chunk is not None and spec.lm_head_fused_ce in ("auto", "on")
+        self.fused_ce = (self.head_chunk is not None and fused_ce_enabled(spec.lm_head_fused_ce)
                          and hasattr(loss_fn, "fused_sum_and_count"))
         mp = model.train_spec.mixed_precision
         model.with_spec_updates(param_dtype=mp.param_dtype, compute_dtype=mp.compute_dtype)
