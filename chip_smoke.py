@@ -100,6 +100,38 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      shape; a NaN generation finishes requests "error", and the donor's
      weights swapped back serve (a)'s tokens again; (f) stop() lets the
      in-flight requests finish and a new POST gets 503.
+ 3d. the serving fleet on the same weights (int8, paged): two workers behind
+     the port's FleetRouter on loopback, booted by FleetServingComponent's
+     run_fleet, every launch of both counted from 0 and held to 65 and 225
+     a forward: (a) phase 2's 9 requests POSTed to the router at once,
+     tokens bitwise 3c's replay, both workers picked; (d) /fleet and the
+     router's /metrics against the workers' stats(); (c) a rollout of the
+     donor weights as generation 1 through RolloutController.deploy with
+     requests in flight (the canary swapped mid-flight, then promoted to
+     both workers; tokens bitwise the replay), then a NaN generation whose
+     canary request finishes "error" and is rolled back (the donor serves
+     the replay's tokens again); (b) last, since it kills a worker: a
+     worker's server closed mid-stream, and the client gets one answer
+     bitwise the replay with fleet_failovers_total up by 1.
+ 3e. disaggregated prefill/decode on the same weights (int8, paged): (a) a
+     DisaggPair (a prefill and a decode engine in process) on phase 2's 9
+     requests at bf16 KV and at int8 KV, tokens bitwise the combined
+     engine's (3c's replay; 3b (e)'s int8-KV run), 9 handoffs exported and
+     imported, no decode shape on the prefill tier and no prefill shape on
+     the decode tier; (b) every record's payload exactly n_blocks x 32 x 16
+     x 8 x (2 x 80 x 2) bytes at bf16 KV and x (80 + 4) x 2 at int8 KV; (c)
+     DisaggServingComponent's tiers behind the DisaggRouter over HTTP: the
+     requests whose import body fits the server's 16 MiB body limit bitwise
+     the replay; one over the limit takes the path the CPU test found (the
+     decode worker closes the connection, counts as dead, one replay through
+     a fresh prefill, an SSE error "no healthy decode workers"), then the
+     health loop brings the worker back; (d) a record with one flipped byte
+     rejected as digest_mismatch and a cross-generation record as
+     generation_mismatch at the decode worker, and a corrupted export
+     through the router replayed bitwise with the decode worker kept in
+     rotation; (e) the handoff's export, wire and import seconds (p50, max)
+     and each tier's host ms a forward. Launches held to 65 and 225 a
+     forward over every engine of the phase.
   4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
      `python -m modalities_tpu_torch run` calls) from a copy of
      configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
@@ -3687,7 +3719,8 @@ def make_spec_requests() -> list[dict]:
     return reqs
 
 
-def phase_serve_paged(torch, model, params, reqs: list[dict], ring_tokens: dict, smi: str) -> dict[str, dict]:
+def phase_serve_paged(torch, model, params, reqs: list[dict], ring_tokens: dict, smi: str,
+                      replays: dict) -> dict[str, dict]:
     """Phase 3b: the paged engine on the 2.7B weights at phase 2's 8 slots and
     max_len 2048 (blocks of 16, a table of 128). (a) phase 2's requests from
     the default pool of 1024 blocks, bf16 and int8 weights; (b) the same
@@ -3695,7 +3728,8 @@ def phase_serve_paged(torch, model, params, reqs: list[dict], ring_tokens: dict,
     sharing on and off, bitwise; (d) speculative decoding at k = 4 against
     spec off, bf16 and int8 weights; (e) int8 weights and KV, and its
     preemption replay, bitwise. Returns each path's launches: serve_paged,
-    serve_paged_int8kv, serve_spec (each run counted from 0)."""
+    serve_paged_int8kv, serve_spec (each run counted from 0). (e)'s tokens go
+    into `replays["int8kv"]` (phase 3e is held to them)."""
     counts = {path: {"rms_fwd": 0, "quant_matmul": 0} for path in ("serve_paged", "serve_paged_int8kv", "serve_spec")}
 
     def count(path, r):
@@ -3816,6 +3850,7 @@ def phase_serve_paged(torch, model, params, reqs: list[dict], ring_tokens: dict,
     r = paged_run(torch, engine, "int8", reqs, NEW_TOKENS)
     count("serve_paged_int8kv", r)
     report("(e) int8 weights, int8 KV", r)
+    replays["int8kv"] = r["tokens"]
     s = r["stats"]
     data = s["kv_pool_bytes"] - s["kv_scale_bytes"]
     if data * 2 != bf16_data:
@@ -3895,21 +3930,23 @@ def _post_all(port: int, bodies: list, headers=None) -> list:
     return threads, out
 
 
-def _wait(predicate, what: str, seconds: float = 300.0) -> None:
+def _wait(predicate, what: str, seconds: float = 300.0, phase: str = "3c") -> None:
     end = time.monotonic() + seconds
     while not predicate():
         if time.monotonic() > end:
-            raise AssertionError(f"phase 3c: timed out waiting for {what}")
+            raise AssertionError(f"phase {phase}: timed out waiting for {what}")
         time.sleep(0.005)
 
 
-def _done(outcome, what: str) -> dict:
+def _done(outcome, what: str, phase: str = "3c") -> dict:
     status, events, _ = outcome
-    if status != 200 or not events or not events[-1].get("done"):
-        raise AssertionError(f"phase 3c {what}: HTTP {status}, last event {events[-1] if events else None}")
+    if status != 200 or not isinstance(events, list) or not events or not events[-1].get("done"):
+        last = events[-1] if isinstance(events, list) and events else events
+        raise AssertionError(f"phase {phase} {what}: HTTP {status}, last event {last}")
     done = events[-1]
     if [e["token_id"] for e in events if "token_id" in e] != done["token_ids"]:
-        raise AssertionError(f"phase 3c {what}: the streamed token events differ from the done event's token_ids")
+        raise AssertionError(f"phase {phase} {what}: the streamed token events differ from the done event's "
+                             "token_ids")
     return done
 
 
@@ -3954,10 +3991,11 @@ def http_component(torch, model, params, device: str):
     return component
 
 
-def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> dict[str, dict[str, int]]:
+def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> tuple[dict[str, dict[str, int]], list]:
     """Phase 3c (see the module docstring): the HTTP front end over one
     int8 paged engine with tenants. Returns the path's launches, counted
-    from 0 just before its first forward and read after its last."""
+    from 0 just before its first forward and read after its last, and the
+    JSONL replay's tokens (what phases 3d and 3e are held to)."""
     import threading
 
     from modalities_tpu_torch.ops.quant_matmul import quant_matmul
@@ -4156,7 +4194,389 @@ def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> dict[s
         f"{counts['quant_matmul']} = 225 x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
     del engine, component, server
     torch.cuda.empty_cache()
-    return {"serve_http": counts}
+    return {"serve_http": counts}, replay
+
+
+# ---------------------------------------------------------------- phase 3d
+FLEET_WORKERS = 2
+FLEET_PROBATION_S = 2.0  # (c): the canary's probation window
+SERVE_DEVICE = "cuda"  # phases 3d and 3e (a CPU rehearsal of their logic sets "cpu")
+FAILOVER_AFTER = 16  # (b): tokens the doomed stream has emitted when its worker's server closes
+
+
+def _launches_held(torch, engines: list, phase: str, forwards: int = 0) -> dict[str, int]:
+    """The kernels' launches since their reset, held to 65 and 225 a forward
+    over every forward of `engines` (each idle first) and `forwards` more
+    (those of the phase's engines already gone)."""
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+
+    for e in engines:
+        _wait(lambda e=e: e.stats()["active_slots"] == 0 and e.stats()["queue_depth"] == 0, "the engines to go idle",
+              phase=phase)
+    torch.cuda.synchronize()
+    forwards += sum(e.stats()["forward_calls"] for e in engines)
+    counts = {"rms_fwd": rms_norm.launches, "quant_matmul": quant_matmul.launches}
+    want = {"rms_fwd": PER_FORWARD["rms"] * forwards, "quant_matmul": PER_FORWARD["qmm"] * forwards}
+    if counts != want:
+        raise AssertionError(f"phase {phase}: launches {counts} over {forwards} forwards; expected {want}")
+    log(f"[phase {phase}] launches: rms_norm {counts['rms_fwd']} = 65 x {forwards} forwards, quant_matmul "
+        f"{counts['quant_matmul']} = 225 x {forwards}")
+    return counts
+
+
+def _start_fleet(torch, component, params, phase: str):
+    """run_fleet() of `component` on a thread; returns (stop event, thread, result list) once its router is up."""
+    import threading
+
+    component.device, component.params = torch.device(SERVE_DEVICE), params
+    stop = threading.Event()
+    component.stop_fn = stop.is_set
+    out = []
+    thread = threading.Thread(target=lambda: out.append(component.run_fleet()), name="fleet", daemon=True)
+    thread.start()
+    _wait(lambda: getattr(component, "router", None) is not None or not thread.is_alive(), "the router",
+          phase=phase)
+    if not thread.is_alive():
+        raise AssertionError(f"phase {phase}: run_fleet ended before its router came up")
+    return stop, thread, out
+
+
+def phase_serve_fleet(torch, model, params, reqs: list[dict], replay: list, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 3d (see the module docstring): two workers behind the router.
+    Returns the path's launches, counted from 0 just before the workers
+    boot and read once every worker is idle."""
+    import threading
+
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+    from modalities_tpu_torch.quant.weights import quantize_params
+    from modalities_tpu_torch.serving.fleet.component import FleetServingComponent
+    from modalities_tpu_torch.telemetry.metrics import parse_prometheus_text
+
+    tok = _IntTok()
+    rows = [{"prompt": tok.decode(r["prompt"]), "max_new_tokens": NEW_TOKENS, "temperature": r["temperature"],
+             "seed": r["seed"]} for r in reqs]
+    t_phase = time.perf_counter()
+    rms_norm.launches = quant_matmul.launches = 0
+    component = FleetServingComponent(model, tok, num_workers=FLEET_WORKERS, max_batch_slots=SLOTS,
+                                      cache_capacity=CAPACITY, max_new_tokens=NEW_TOKENS, kv_cache="paged",
+                                      paged_block_size=PAGED_BLOCK, quant={"weights": "int8"},
+                                      probation_s=FLEET_PROBATION_S, probation_tick_s=0.05, health_interval_s=0.2)
+    stop, thread, out = _start_fleet(torch, component, params, "3d")
+    router, controller, workers = component.router, component.controller, component.workers
+    engines = [w.engine for w in workers]
+    log(f"[phase 3d] {FLEET_WORKERS} workers (int8 weights, paged, {SLOTS} slots each) behind the router on port "
+        f"{router.port}, booted in {time.perf_counter() - t_phase:.1f} s")
+
+    def through_router(what: str) -> list:
+        threads, outs = _post_all(router.port, rows)
+        for t in threads:
+            t.join()
+        dones = [_done(o, f"{what} request {i}", "3d") for i, o in enumerate(outs)]
+        same, where = _agreement(replay, [d["token_ids"] for d in dones])
+        if same != len(rows):
+            raise AssertionError(f"phase 3d {what}: tokens against 3c's replay: {same} of {len(rows)}, {where}")
+        return dones
+
+    # (a) phase 2's requests through the router, both workers picked
+    t0 = time.perf_counter()
+    through_router("(a)")
+    picks = {w.name: w.picks for w in router.workers}
+    if min(picks.values()) == 0:
+        raise AssertionError(f"phase 3d (a): the router picked one worker only: {picks}")
+    log(f"[phase 3d] (a) 9 requests through the router bitwise 3c's replay in {time.perf_counter() - t0:.2f} s; "
+        f"picks {picks} ({smi})")
+
+    # (d) /fleet and the router's /metrics against the workers' stats()
+    router.health_round()
+    _, table, _ = _http(router.port, "GET", "/fleet")
+    _, text, _ = _http(router.port, "GET", "/metrics")
+    parsed = parse_prometheus_text(text)
+    rows_by = {w["name"]: w for w in table["workers"]}
+    bad = []
+    for w in workers:
+        s = w.engine.stats()
+        row = rows_by[w.name]
+        if (row["healthy"], row["weights_generation"], row["load"]) != (True, s["weights_generation"],
+                                                                      s["active_slots"] + s["queue_depth"]):
+            bad.append((w.name, row, s["weights_generation"]))
+        _, wtext, _ = _http(w.server.port, "GET", "/metrics")
+        wp = parse_prometheus_text(wtext)
+        if (wp["serve_decode_steps_total"][()], wp["serve_prefill_chunks_total"][()]) != (
+                s["decode_steps"], s["prefill_chunk_count"]):
+            bad.append((w.name, "metrics", wp["serve_decode_steps_total"][()], s["decode_steps"]))
+    if bad or parsed["fleet_workers_healthy"][()] != FLEET_WORKERS or parsed["fleet_failovers_total"][()] != 0:
+        raise AssertionError(f"phase 3d (d): /fleet or /metrics against stats(): {bad}, {parsed['fleet_workers_healthy']}")
+    log(f"[phase 3d] (d) /fleet (health, generation, load) and every worker's /metrics equal its stats(); the "
+        f"router's fleet_workers_healthy {parsed['fleet_workers_healthy'][()]:.0f}")
+
+    # (c) a rollout of the donor weights as generation 1, requests in flight, then a NaN generation
+    donor = quantize_params(params, "int8")
+    steps0 = sum(e.stats()["decode_steps"] for e in engines)
+    threads, outs = _post_all(router.port, rows)
+    _wait(lambda: sum(e.stats()["decode_steps"] for e in engines) > steps0 + 10, "decode steps before the deploy",
+          phase="3d")
+    verdict = []
+    t0 = time.perf_counter()
+    deploy = threading.Thread(target=lambda: verdict.append(controller.deploy(donor, step=1)))
+    deploy.start()
+    for t in threads:
+        t.join()
+    deploy.join()
+    dones = [_done(o, f"(c) request {i}", "3d") for i, o in enumerate(outs)]
+    same, where = _agreement(replay, [d["token_ids"] for d in dones])
+    gens = [e.weights_generation for e in engines]
+    swaps = [e.swap_history[-1] for e in engines]
+    if verdict != [True] or gens != [1] * FLEET_WORKERS or same != len(rows):
+        raise AssertionError(f"phase 3d (c): deploy {verdict}, generations {gens}, tokens across it {same} of "
+                             f"{len(rows)} {where}")
+    through_router("(c) generation 1")
+    swapped = ", ".join("%.1f ms with %d in flight" % (r["latency_s"] * 1e3, r["in_flight"]) for r in swaps)
+    log(f"[phase 3d] (c) generation 1 promoted to both workers in {time.perf_counter() - t0:.2f} s (probation "
+        f"{FLEET_PROBATION_S} s): swaps {swapped}; the 9 in-flight streams and 9 more bitwise the replay ({smi})")
+    nan = {k: torch.full_like(v, float("nan")) if v.is_floating_point() else v for k, v in donor.items()}
+    verdict = []
+    deploy = threading.Thread(target=lambda: verdict.append(controller.deploy(nan, step=2)))
+    deploy.start()
+    _wait(lambda: any(e.weights_generation == 2 for e in engines) or not deploy.is_alive(), "the NaN canary",
+          phase="3d")
+    canary = next((w for w in workers if w.engine.weights_generation == 2), None)
+    poisoned = _done(_http(canary.server.port, "POST", "/generate", rows[0]), "(c) NaN canary", "3d") \
+        if canary is not None else None
+    deploy.join()
+    restored = _done(_http(canary.server.port, "POST", "/generate", rows[0]), "(c) donor back", "3d") \
+        if canary is not None else None
+    if (canary is None or verdict != [False] or poisoned["finish_reason"] != "error"
+            or restored["token_ids"] != replay[0] or restored["weights_generation"] != 1
+            or controller.generation != 1):
+        raise AssertionError(f"phase 3d (c): NaN generation: canary {canary and canary.name}, deploy {verdict}, "
+                             f"finish {poisoned and poisoned['finish_reason']}, restored "
+                             f"{restored and restored['token_ids'] == replay[0]}")
+    _, text, _ = _http(router.port, "GET", "/metrics")
+    parsed = parse_prometheus_text(text)
+    if (parsed["fleet_rollouts_total"][()], parsed["fleet_rollbacks_total"][()]) != (1.0, 1.0):
+        raise AssertionError(f"phase 3d (c): rollouts/rollbacks {parsed['fleet_rollouts_total']} "
+                             f"{parsed['fleet_rollbacks_total']}")
+    log(f"[phase 3d] (c) NaN generation 2 on canary {canary.name}: its request finished \"error\", rolled back "
+        f"({canary.engine.swap_history[-1]['latency_s'] * 1e3:.1f} ms swap back); the donor serves request 0 "
+        f"bitwise; fleet_rollouts_total 1, fleet_rollbacks_total 1")
+    del donor, nan
+
+    # (b) last: a worker's server closed mid-stream, the answer spliced from a peer
+    tokens0 = [e.stats()["decode_tokens"] for e in engines]
+    threads, outs = _post_all(router.port, rows[:1])
+    _wait(lambda: any(e.stats()["decode_tokens"] - t0_ >= FAILOVER_AFTER for e, t0_ in zip(engines, tokens0)),
+          "tokens of the doomed stream", phase="3d")
+    victim = next(w for w, e, t0_ in zip(workers, engines, tokens0)
+                  if e.stats()["decode_tokens"] - t0_ >= FAILOVER_AFTER)
+    victim.server.close()
+    threads[0].join()
+    done = _done(outs[0], "(b) across the failover", "3d")
+    _, text, _ = _http(router.port, "GET", "/metrics")
+    failovers = parse_prometheus_text(text)["fleet_failovers_total"][()]
+    if done["token_ids"] != replay[0] or router.failovers != 1 or failovers != 1.0:
+        raise AssertionError(f"phase 3d (b): tokens {done['token_ids'] == replay[0]}, failovers {router.failovers} "
+                             f"(metric {failovers})")
+    log(f"[phase 3d] (b) {victim.name}'s server closed after >= {FAILOVER_AFTER} decoded tokens: one answer bitwise the replay, "
+        f"spliced on the peer; fleet_failovers_total {failovers:.0f}")
+    counts = _launches_held(torch, engines, "3d")
+    stop.set()
+    thread.join(120)
+    if thread.is_alive() or not out:
+        raise AssertionError("phase 3d: run_fleet did not drain")
+    log(f"[phase 3d] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    del component, router, controller, workers, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve_fleet": counts}
+
+
+# ---------------------------------------------------------------- phase 3e
+HEAD_DIM, KV_HEADS, N_LAYERS = 80, 8, 32  # the 2.7B's K/V rows
+BODY_LIMIT = 16 << 20  # serving/server.py _MAX_BODY_BYTES
+WIRE_MARGIN = 64 << 10  # (c): an import body's bytes besides its payload's base64 (the window, the key), at most
+
+
+def _block_bytes(kv: str) -> int:
+    """One KV block's payload bytes: K and V, 32 layers x 16 positions x 8 heads."""
+    row = HEAD_DIM * 2 if kv == "none" else HEAD_DIM + 4  # bf16, or int8 + the row's float32 scale
+    return N_LAYERS * PAGED_BLOCK * KV_HEADS * row * 2
+
+
+def _disagg_engine(torch, model, params, role: str, kv: str):
+    from modalities_tpu_torch.serving.engine import ServingEngine
+
+    return ServingEngine(model, params, device=SERVE_DEVICE, max_batch_slots=SLOTS, cache_capacity=CAPACITY, eod_token_id=-1,
+                         kv_cache="paged", paged_block_size=PAGED_BLOCK, quant_weights="int8", quant_kv=kv,
+                         role=role, spec_decode={"k": 0})
+
+
+def phase_serve_disagg(torch, model, params, reqs: list[dict], replays: dict, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 3e (see the module docstring): the tiers in process, then behind
+    the DisaggRouter. Returns the path's launches (every engine of the phase,
+    counted from 0 just before the first and read once all are idle)."""
+    import base64
+
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+    from modalities_tpu_torch.serving.disagg.component import DisaggServingComponent
+    from modalities_tpu_torch.serving.disagg.handoff import HandoffRecord
+    from modalities_tpu_torch.serving.disagg.pair import DisaggPair
+    from modalities_tpu_torch.telemetry.metrics import parse_prometheus_text
+
+    t_phase = time.perf_counter()
+    rms_norm.launches = quant_matmul.launches = 0
+    forwards, records = 0, {}
+    timings = {"export": [], "wire": [], "import": []}
+    for kv, want in (("none", replays["int8"]), ("int8", replays["int8kv"])):
+        name = "bf16" if kv == "none" else "int8"
+        prefill, decode = _disagg_engine(torch, model, params, "prefill", kv), _disagg_engine(torch, model, params,
+                                                                                             "decode", kv)
+        pair = DisaggPair(prefill, decode)
+        rids = [pair.submit(r["prompt"], NEW_TOKENS, temperature=r["temperature"], seed=r["seed"]) for r in reqs]
+        t0 = time.perf_counter()
+        with _timed(prefill, "_export_handoff", timings["export"]), _timed(decode, "_scatter_import",
+                                                                               timings["import"]):
+            results = pair.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [results[r] for r in rids]
+        same, where = _agreement(want, [r.tokens for r in got])
+        ps, ds = prefill.stats(), decode.stats()
+        shapes = (ps["decode_executables"], ds["prefill_executables"])
+        if same != len(reqs) or pair.handoff_failures or (ps["handoffs_exported"], ds["handoffs_imported"]) != (9, 9) \
+                or shapes != (0, 0):
+            raise AssertionError(f"phase 3e (a) {name} KV: tokens {same} of {len(reqs)} {where}, failures "
+                                 f"{pair.handoff_failures}, exported {ps['handoffs_exported']} imported "
+                                 f"{ds['handoffs_imported']}, shapes {shapes}")
+        # (b) the payload bytes, block for block
+        recs = records[kv] = [r.prefill.handoff for r in got]
+        wrong = [(i, rec.kv_bytes, rec.num_blocks) for i, rec in enumerate(recs)
+                 if rec.kv_bytes != rec.num_blocks * _block_bytes(kv)]
+        if wrong or sum(rec.kv_bytes for rec in recs) != ps["handoff_bytes_shipped"]:
+            raise AssertionError(f"phase 3e (b) {name} KV: payload bytes {wrong}")
+        forwards += ps["forward_calls"] + ds["forward_calls"]
+        log(f"[phase 3e] (a) {name} KV: DisaggPair on 9 requests in {wall:.2f} s, tokens bitwise the combined "
+            f"engine's; 9 handoffs exported and imported; decode shapes on the prefill tier {shapes[0]}, prefill "
+            f"shapes on the decode tier {shapes[1]}; host ms a forward: prefill tier "
+            f"{1e3 * ps['prefill_seconds'] / max(ps['forward_calls'], 1):.2f} ({ps['forward_calls']} packed "
+            f"prefills), decode tier {1e3 * ds['decode_seconds'] / max(ds['decode_steps'], 1):.2f} "
+            f"({ds['decode_steps']} decode steps) ({smi})")
+        del prefill, decode, pair, results, got
+        torch.cuda.empty_cache()
+    for rec in records["none"]:  # the wire leg alone: the record to JSON text and back
+        t0 = time.perf_counter()
+        HandoffRecord.from_wire(json.loads(json.dumps(rec.to_wire()))).verify_digest()
+        timings["wire"].append(time.perf_counter() - t0)
+    ratio = sum(r.kv_bytes for r in records["int8"]) / sum(r.kv_bytes for r in records["none"])
+    blocks = [r.num_blocks for r in records["none"]]
+    if abs(ratio - _block_bytes("int8") / _block_bytes("none")) > 1e-12:  # (80 + 4) / 160 = 0.525 at head_dim 80
+        raise AssertionError(f"phase 3e (b): int8 KV ships {ratio} of bf16's bytes")
+    log(f"[phase 3e] (b) payloads: {blocks} blocks; {_block_bytes('none')} B a block at bf16 KV, "
+        f"{_block_bytes('int8')} B at int8 KV: int8 ships {ratio:.3f} of bf16's bytes")
+    for what, ts in timings.items():
+        ms = np.asarray(ts) * 1e3
+        log(f"[phase 3e] (e) handoff {what} ms over {len(ms)} records: p50 {np.percentile(ms, 50):.2f} max "
+            f"{ms.max():.2f}" + (" (bf16 KV: to_wire, JSON text and back, digest)" if what == "wire" else ""))
+
+    # (c) the tiers behind the DisaggRouter over HTTP, bf16 KV
+    tok = _IntTok()
+    rows = [{"prompt": tok.decode(r["prompt"]), "max_new_tokens": NEW_TOKENS, "temperature": r["temperature"],
+             "seed": r["seed"]} for r in reqs]
+    wire_bytes = [4 * -(-r.kv_bytes // 3) for r in records["none"]]  # the base64 of the payload alone
+    fits = [i for i, b in enumerate(wire_bytes) if b + WIRE_MARGIN < BODY_LIMIT]
+    over = [i for i, b in enumerate(wire_bytes) if b > BODY_LIMIT]
+    if not fits or not over:
+        raise AssertionError(f"phase 3e (c): import bodies {wire_bytes}: no request on one side of the limit")
+    component = DisaggServingComponent(model, tok, max_batch_slots=SLOTS, cache_capacity=CAPACITY,
+                                       max_new_tokens=NEW_TOKENS, kv_cache="paged", paged_block_size=PAGED_BLOCK,
+                                       quant={"weights": "int8"}, health_interval_s=3600.0)
+    # the health loop's first round runs at boot; later ones are this phase's own (router.health_round), so a
+    # probe cannot revive the decode worker between the over-limit import and its replay
+    stop, thread, out = _start_fleet(torch, component, params, "3e")
+    router = component.router
+    pworker, dworker = component.workers
+    threads, outs = _post_all(router.port, [rows[i] for i in fits])
+    for t in threads:
+        t.join()
+    dones = [_done(o, f"(c) request {i}", "3e") for i, o in zip(fits, outs)]
+    same, where = _agreement([replays["int8"][i] for i in fits], [d["token_ids"] for d in dones])
+    if same != len(fits) or router.failovers != 0:
+        raise AssertionError(f"phase 3e (c): {same} of {len(fits)} requests bitwise over HTTP, {where}; failovers "
+                             f"{router.failovers}")
+    i = max(over, key=lambda j: wire_bytes[j])
+    exported0 = pworker.engine.stats()["handoffs_exported"]
+    status, events, _ = _http(router.port, "POST", "/generate", rows[i])
+    healthy = {w.name: w.healthy for w in router.workers}
+    router.health_round()  # the probe that brings the decode worker back
+    _, text, _ = _http(router.port, "GET", "/metrics")
+    peer_down = parse_prometheus_text(text)["disagg_handoff_failures_total"].get((("reason", "peer_down"),))
+    path = [e.get("token_id", e.get("error")) for e in events] if isinstance(events, list) else events
+    if (status, path, router.failovers, peer_down, healthy["decode0"],
+            pworker.engine.stats()["handoffs_exported"] - exported0) != (
+            200, [replays["int8"][i][0], "no healthy decode workers"], 1, 1.0, False, 2):
+        raise AssertionError(f"phase 3e (c): the over-limit request: HTTP {status}, events {path}, failovers "
+                             f"{router.failovers}, peer_down {peer_down}, healthy {healthy}, exported "
+                             f"{pworker.engine.stats()['handoffs_exported'] - exported0}")
+    if not all(w.healthy for w in router.workers):
+        raise AssertionError(f"phase 3e (c): a health round left the decode worker out: {router.fleet_table()}")
+    log(f"[phase 3e] (c) {len(fits)} requests whose import body fits 16 MiB (<= {max(blocks[j] for j in fits)} "
+        f"blocks) bitwise the replay over HTTP; request {i} ({blocks[i]} blocks, import body "
+        f"{wire_bytes[i] / 2**20:.1f} MiB of base64): token #1, then the decode worker closed the connection: "
+        f"counted dead (peer_down 1, failovers 1), one replay through a fresh prefill, SSE error \"no healthy "
+        f"decode workers\"; the next health round put it back in rotation ({smi})")
+
+    # (d) rejections at the decode worker, then a corrupted export replayed through the router
+    short = min(fits, key=lambda j: blocks[j])
+    status, pbody, _ = _http(pworker.server.port, "POST", "/disagg/prefill", rows[short])
+    wire = pbody["record"]
+    flipped = json.loads(json.dumps(wire))
+    raw = bytearray(base64.b64decode(flipped["payload"][0]["data"]))
+    raw[0] ^= 0xFF
+    flipped["payload"][0]["data"] = base64.b64encode(bytes(raw)).decode("ascii")
+    skewed = HandoffRecord.from_wire(wire)
+    skewed.generation += 1
+    reasons = []
+    for bad in (flipped, skewed.seal().to_wire()):
+        status, events, _ = _http(dworker.server.port, "POST", "/disagg/import", {"record": bad})
+        reasons.append((status, events[-1].get("reason"), events[-1].get("retryable")))
+    if reasons != [(200, "digest_mismatch", True), (200, "generation_mismatch", True)]:
+        raise AssertionError(f"phase 3e (d): rejections {reasons}")
+    engine = pworker.engine
+    export = engine._export_handoff
+    corrupted = []
+
+    def corrupt_once(*args, **kwargs):
+        record = export(*args, **kwargs)
+        if not corrupted:  # after the seal: the decode worker's digest check must catch it
+            record.payload[0].view(torch.uint8).view(-1)[0] ^= 0xFF
+            corrupted.append(record.rid)
+        return record
+
+    engine._export_handoff = corrupt_once
+    failovers0 = router.failovers
+    done = _done(_http(router.port, "POST", "/generate", rows[short]), "(d) a corrupted export", "3e")
+    engine._export_handoff = export
+    _, text, _ = _http(router.port, "GET", "/metrics")
+    digest = parse_prometheus_text(text)["disagg_handoff_failures_total"].get((("reason", "digest_mismatch"),))
+    if done["token_ids"] != replays["int8"][short] or router.failovers != failovers0 or digest != 1.0 \
+            or not all(w.healthy for w in router.workers):
+        raise AssertionError(f"phase 3e (d): replay tokens {done['token_ids'] == replays['int8'][short]}, failovers "
+                             f"{router.failovers - failovers0}, digest_mismatch {digest}")
+    log(f"[phase 3e] (d) a flipped payload byte: digest_mismatch; generation + 1 resealed: generation_mismatch "
+        f"(both retryable); a corrupted export through the router: rejected, replayed through a fresh prefill, "
+        f"tokens bitwise, the decode worker in rotation, no failover")
+    counts = _launches_held(torch, [w.engine for w in component.workers], "3e", forwards)
+    stop.set()
+    thread.join(120)
+    if thread.is_alive() or not out:
+        raise AssertionError("phase 3e: run_fleet did not drain")
+    log(f"[phase 3e] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    del component, router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve_disagg": counts}
 
 
 # ---------------------------------------------------------------- main
@@ -4331,11 +4751,18 @@ def main() -> int:
 
     # phase 3b: the paged engine on the same weights (each run's counts from 0 inside)
     ring = {**{q: runs[q]["tokens"] for q in ("none", "int8")}, **{f"{q}_profile": runs[q]["profile"] for q in ("none", "int8")}}
-    paged_counts = phase_serve_paged(torch, model, params, reqs, ring, smi)
+    replays = {}
+    paged_counts = phase_serve_paged(torch, model, params, reqs, ring, smi, replays)
     mark("phase 3b")
     # phase 3c: the HTTP front end on the same weights (its counts from 0 inside)
-    paged_counts.update(phase_serve_http(torch, model, params, reqs, smi))
+    http_counts, replays["int8"] = phase_serve_http(torch, model, params, reqs, smi)
+    paged_counts.update(http_counts)
     mark("phase 3c")
+    # phases 3d and 3e: the fleet and disaggregation on the same weights (each path's counts from 0 inside)
+    paged_counts.update(phase_serve_fleet(torch, model, params, reqs, replays["int8"], smi))
+    mark("phase 3d")
+    paged_counts.update(phase_serve_disagg(torch, model, params, reqs, replays, smi))
+    mark("phase 3e")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -6,11 +6,13 @@
         --last_checkpoint_info_file_path <json> [--experiments_root_path <dir>] [--device cuda|cpu]
     python -m modalities_tpu_torch serve --config_file_path <yaml>
         [--requests_file_path <jsonl> [--output_file_path <jsonl>] | --http_port <port>]
-        [--device cuda|cpu]
+        [--fleet] [--device cuda|cpu]
 
 `serve` replays a JSONL file, serves HTTP (`--http_port`, or the config's
 `http_port`; 0 = an ephemeral port) until SIGTERM/SIGINT drains it, or with
-neither reads prompts from stdin.
+neither reads prompts from stdin. A `fleet` or `disagg` config
+(configs/config_fleet.yaml, configs/config_disagg.yaml; `--fleet` refuses
+any other) serves its workers behind a router on `--http_port`.
 
 All run on the CUDA card unless `--device cpu`. MODALITIES_TPU_LOG_LEVEL sets
 the level of the package's logger (default INFO), as in the JAX CLI. `run` and `warmstart` set
@@ -78,6 +80,10 @@ def main(argv=None) -> int:
     serve_p.add_argument("--output_file_path", type=Path, default=None)
     serve_p.add_argument("--http_port", type=int, default=None,
                          help="serve the streaming HTTP front end on this port (0 = ephemeral)")
+    serve_p.add_argument("--fleet", action="store_true",
+                         help="fleet mode: N workers (or a prefill and a decode tier) behind a router; the config's "
+                              "serving_component.variant_key must be 'fleet' or 'disagg'; --http_port sets the "
+                              "ROUTER port")
     serve_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
@@ -100,7 +106,7 @@ def main(argv=None) -> int:
     from modalities_tpu_torch.serving.serve import serve
 
     serve(args.config_file_path, args.requests_file_path, args.output_file_path, device=args.device,
-          http_port=args.http_port)
+          http_port=args.http_port, fleet=args.fleet)
     return 0
 
 

@@ -84,9 +84,20 @@ copied into the installed tensors, so every shape and address stays fixed,
 and the prefix index is flushed. The engine owns its tensors: a parameter it
 would share with the caller's dict is copied at construction.
 
-Not here (ROADMAP.md Queue 1 item 3, later parts; item 6): the SLO signal of
-the brownout controller, request tracing and telemetry, the fleet and
-disaggregation.
+Disaggregated roles (`role`, serving/disagg/): a "prefill" engine prefills
+a request to its first token, then exports the request's pool blocks and
+sampler state as a sealed `HandoffRecord` (serving/disagg/handoff.py) and
+finishes it "handoff"; a "decode" engine takes work only through
+`import_handoff`, which validates a record (version, pool configuration,
+window, digest, weights generation, sampler), queues it, and at admission
+scatters its blocks into local pool blocks and arms the slot straight into
+the decode step. Both roles need the paged cache; the prefill tier takes no
+speculation. The export's gather and the import's scatter are plain
+PyTorch, as they are plain jnp in the JAX engine.
+
+Not here (ROADMAP.md Queue 1 item 6): the SLO signal of the brownout
+controller, request tracing and telemetry (a request's `trace_id` and
+`trace_hop` ride it and its handoff record, and nothing records them).
 """
 
 from __future__ import annotations
@@ -173,13 +184,17 @@ class ServeRequest:
     deadline_ms: Optional[float] = None
     priority: int = 0
     tenant: str = ""
+    # the fleet's trace id and hop, carried from the HTTP leg into a handoff
+    # record (no trace records yet: ROADMAP.md Queue 1 item 6)
+    trace_id: str = ""
+    trace_hop: int = 0
 
 
 @dataclass
 class ServeResult:
     rid: int
     tokens: list[int] = field(default_factory=list)
-    finish_reason: str = ""  # "eod" | "budget" | "capacity" | "error" | "deadline" | "shed"
+    finish_reason: str = ""  # "eod" | "budget" | "capacity" | "error" | "handoff" | "deadline" | "shed"
     prompt_len: int = 0
     weights_generation: int = 0  # the generation serving when the request finished
     truncated: bool = False  # prompt window-clipped at admission
@@ -188,10 +203,25 @@ class ServeResult:
     first_token_s: float = 0.0  # engine-clock time the first token was available
     finish_s: float = 0.0
     last_token_s: Optional[float] = None  # engine-clock time of the latest token (TPOT)
+    trace_id: str = ""
+    trace_hop: int = 0
+    # a prefill-tier engine finishes "handoff" and parks the sealed record
+    # here for its caller (HTTP /disagg/prefill, the in-process pair)
+    handoff: Optional[object] = None
 
     @property
     def ttft_s(self) -> float:
         return self.first_token_s - self.arrival_s
+
+
+@dataclass
+class _ImportRequest(ServeRequest):
+    """A queued KV import on a decode-tier engine. It rides the queue and the
+    preemption path of a plain request: a preempted import is requeued at
+    the front and re-imported from its retained record."""
+
+    record: object = None  # HandoffRecord
+    pool_full_seen: bool = False  # the pool_full failure is counted once an import
 
 
 @dataclass
@@ -204,6 +234,7 @@ class _SlotState:
     prefill_pos: int = 0  # paged: prompt tokens already forwarded
     temp: float = 0.0
     seq: int = 0  # admission order: preemption picks the max (youngest)
+    imported: bool = False  # seeded from a handoff: its TTFT is its first local token
 
 
 class _Staging:
@@ -267,7 +298,11 @@ class ServingEngine:
         on_finish: Optional[Callable[[int, ServeResult], None]] = None,
         time_fn=None,
         metrics: Optional[MetricsRegistry] = None,
+        role: str = "combined",
     ):
+        if role not in ("combined", "prefill", "decode"):
+            raise ValueError(f"role={role!r}: must be 'combined', 'prefill' or 'decode'")
+        self.role = role
         self.device = resolve_device(device)
         self._now = time_fn if time_fn is not None else time.monotonic
         self._stop_fn = stop_fn
@@ -327,6 +362,13 @@ class ServingEngine:
                     "spec_decode.k > 0 requires kv_cache='paged': the verify "
                     "forward runs through the paged block tables"
                 )
+        # the handoff ships pool blocks, so both tiers need the paged cache; the
+        # prefill tier never decodes, so speculation there is a config error
+        if self.role != "combined" and self.kv_cache != "paged":
+            raise ValueError(f"role={self.role!r} requires kv_cache='paged': the KV handoff ships pool blocks")
+        if self.role == "prefill" and self.spec.enabled:
+            raise ValueError("role='prefill' excludes spec_decode: the prefill tier stops at the first token and "
+                             "never runs a decode (or verify) forward")
         if self.slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
         if self.capacity < 2:
@@ -441,6 +483,12 @@ class ServingEngine:
         self.decode_seconds = 0.0
         self.deadline_expired_requests = 0  # finishes with reason "deadline"
         self.shed_requests = 0  # finishes with reason "shed" and refused arrivals
+        # disaggregated roles: the export and import accounting
+        self.handoffs_exported = 0
+        self.handoffs_imported = 0
+        self.import_requeues = 0
+        self.imported_blocks = 0
+        self.handoff_bytes_shipped = 0
         # counters above change at dispatch ends under this lock, and stats()
         # reads under it: /stats sees one snapshot, never half a dispatch
         self._stats_lock = threading.Lock()
@@ -459,9 +507,10 @@ class ServingEngine:
         self._publish_live()
 
     def _register_metrics(self, reg: MetricsRegistry) -> None:
-        """The JAX engine's metric families, names, help and labels. The
-        request-tracing and disaggregation families are registered and stay
-        empty, as on a JAX engine that has none of that traffic."""
+        """The JAX engine's metric families, names, help and labels. Both
+        tiers register the disaggregation families, so a scrape of either
+        names every series: the prefill tier moves the handoffs and bytes,
+        the decode tier the failures and the handoff latency."""
         self.metrics = reg
         self._m_ttft = reg.histogram("serve_ttft_seconds", "Time from request arrival to its first token")
         self._m_tpot = reg.histogram("serve_tpot_seconds", "Latency between consecutive generated tokens")
@@ -535,15 +584,17 @@ class ServingEngine:
             reg.gauge("serve_paged_total_blocks", "Configured paged KV pool size").set(self.num_blocks)
             reg.gauge("serve_shared_blocks", "Pool blocks referenced by more than one table").set_fn(
                 lambda: self._live_value("shared_blocks"))
-        reg.counter("disagg_handoffs_total", "KV handoff records exported by the prefill tier")
-        reg.counter("disagg_handoff_failures_total",
-                    "Handoff imports rejected or requeued, by reason "
-                    "(pool_full, digest_mismatch, generation_mismatch, peer_down, ...)")
-        reg.counter("disagg_kv_bytes_shipped_total",
-                    "KV payload bytes shipped across the prefill->decode tier boundary")
-        reg.histogram("disagg_handoff_seconds",
-                      "Handoff latency: prefill-side export (or import arrival) to the "
-                      "decode-tier slot being seeded")
+        self._m_handoffs = reg.counter("disagg_handoffs_total", "KV handoff records exported by the prefill tier")
+        self._m_handoff_failures = reg.counter(
+            "disagg_handoff_failures_total",
+            "Handoff imports rejected or requeued, by reason "
+            "(pool_full, digest_mismatch, generation_mismatch, peer_down, ...)")
+        self._m_kv_shipped = reg.counter("disagg_kv_bytes_shipped_total",
+                                         "KV payload bytes shipped across the prefill->decode tier boundary")
+        self._m_handoff_seconds = reg.histogram(
+            "disagg_handoff_seconds",
+            "Handoff latency: prefill-side export (or import arrival) to the "
+            "decode-tier slot being seeded")
 
     # ---------------------------------------------------------------- hot swap
     def request_swap(self, params: dict, generation: Optional[int] = None) -> threading.Event:
@@ -650,7 +701,12 @@ class ServingEngine:
         deadline_ms: Optional[float] = None,
         priority: int = 0,
         tenant: str = "",
+        trace_id: Optional[str] = None,
+        trace_hop: int = 0,
     ) -> int:
+        if self.role == "decode":
+            raise ValueError("role='decode' engines take work via import_handoff(), not submit(): the decode tier "
+                             "never prefills a raw prompt")
         if not prompt_tokens:
             raise ValueError("empty prompt: the engine needs at least one prompt token")
         rid = self._next_rid
@@ -667,6 +723,8 @@ class ServingEngine:
                 deadline_ms=float(deadline_ms) if deadline_ms else None,
                 priority=int(priority),
                 tenant=str(tenant or ""),
+                trace_id=str(trace_id or ""),
+                trace_hop=int(trace_hop or 0),
             )
         )
         self._wait_from[rid] = max(float(arrival_offset_s), 0.0)
@@ -677,6 +735,233 @@ class ServingEngine:
             self._tenant_stat(tenant, "submitted")
         self._publish_live()
         return rid
+
+    # ------------------------------------------------------------ disagg imports
+    def _check_import_generation(self, record) -> None:
+        """KV computed under other weights must never splice in: the decode
+        would be silently wrong in a way no digest catches. Counted as a
+        `fleet/rollback stage=generation` event, as in the JAX engine."""
+        from modalities_tpu_torch.resilience.events import record_event
+        from modalities_tpu_torch.serving.disagg.handoff import HandoffRejected
+
+        if int(record.generation) != int(self.weights_generation):
+            record_event("fleet/rollback", stage="generation", offered=int(record.generation),
+                         installed=int(self.weights_generation), trace_id=record.trace_id)
+            raise HandoffRejected(
+                "generation_mismatch",
+                f"handoff KV computed under weights generation {record.generation} cannot splice under generation "
+                f"{self.weights_generation}: re-prefill on the current generation instead")
+
+    def _sampler_words(self) -> int:
+        """uint32 words of this engine's generator state (4 on the card, 1264 on the CPU)."""
+        return torch.Generator(device=self.device).get_state().numel() // 4
+
+    def import_handoff(self, record, *, arrival_offset_s: float = 0.0, trace_id: Optional[str] = None,
+                       trace_hop: int = 0) -> int:
+        """Decode tier: validate a sealed HandoffRecord and queue it for slot
+        seeding. The checks (version, pool configuration, window, digest,
+        weights generation, and for a sampled record the sampler state) run
+        here, so a bad record fails the caller at once: raises
+        HandoffRejected and counts `disagg_handoff_failures_total{reason}`.
+        Admission (local blocks, the payload's scatter, the slot armed) runs
+        in step() under the invariants of a plain request: a full pool
+        leaves the import queued."""
+        from modalities_tpu_torch.serving.disagg.handoff import HANDOFF_VERSION, HandoffRejected
+
+        if self.role != "decode":
+            raise ValueError(f"import_handoff() needs role='decode' (engine is {self.role!r})")
+        try:
+            if int(record.version) != HANDOFF_VERSION:
+                raise HandoffRejected("version_mismatch", f"handoff version {record.version} != engine {HANDOFF_VERSION}")
+            if int(record.block_size) != self.block_size:
+                raise HandoffRejected("config_mismatch",
+                                      f"handoff block_size {record.block_size} != pool {self.block_size}")
+            if str(record.quant_kv) != self.quant_kv:
+                raise HandoffRejected("config_mismatch", f"handoff quant_kv {record.quant_kv!r} != pool {self.quant_kv!r}")
+            if len(record.window) < 1 or len(record.window) > self.max_len - 1:
+                raise HandoffRejected("config_mismatch",
+                                      f"handoff window {len(record.window)} tokens does not fit max_len {self.max_len}")
+            record.verify_digest()
+            self._check_import_generation(record)
+            if float(record.temperature) > 0.0 and len(record.key) != self._sampler_words():
+                # a Threefry key (JAX) or another device's generator: the
+                # continuation would sample from the wrong stream
+                raise HandoffRejected(
+                    "sampler_mismatch",
+                    f"a sampled record carries a {len(record.key)}-word sampler key; this engine's "
+                    f"{self.device.type} generator state has {self._sampler_words()} words")
+        except HandoffRejected as exc:
+            self._m_handoff_failures.inc(reason=exc.reason)
+            raise
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _ImportRequest(
+            rid=rid,
+            prompt_tokens=[int(t) for t in record.window],
+            max_new_tokens=int(record.remaining),
+            temperature=float(record.temperature),
+            seed=int(record.seed),
+            arrival_offset_s=float(arrival_offset_s),
+            # the deadline rides the record (outside the digest) and restarts
+            # from this tier's arrival; the tenant rides it the same way
+            deadline_ms=float(record.deadline_ms) if record.deadline_ms else None,
+            tenant=str(record.tenant or ""),
+            trace_id=str(trace_id or record.trace_id or ""),
+            trace_hop=int(trace_hop or record.trace_hop),
+            record=record,
+        )
+        self._queue.append(req)
+        self._wait_from[rid] = max(float(arrival_offset_s), 0.0)
+        self._m_submitted.inc()
+        self._publish_live()
+        return rid
+
+    def _admit_imports(self, t0: float) -> None:
+        """Decode tier: seed idle slots from queued imports (FIFO,
+        arrival-gated, the pool gate BEFORE the head leaves the queue).
+        Seeding allocates local blocks, scatters the payload in (int8 data
+        and float32 scales verbatim), registers the prompt in the prefix
+        index and arms the slot where the combined engine stands after its
+        prefill: the last token pending at position len(window), the sampler
+        past the first draw. A full pool leaves the head queued and counts
+        ONE `disagg_handoff_failures_total{reason=pool_full}` an import."""
+        from modalities_tpu_torch.serving.disagg.handoff import HandoffRejected, restore_generator
+
+        ts = self._table_state
+        for slot in range(self.slots):
+            if not self._queue:
+                break
+            if self._slot_states[slot] is not None:
+                continue
+            now = self._now() - t0
+            req = self._queue[0]
+            if req.arrival_offset_s > now:
+                break  # FIFO: later imports can't jump an unarrived head
+            record = req.record
+            window = [int(t) for t in record.window]
+            wl = len(window)
+            matched = ts.match_prefix(window) if self.prefix_sharing else []
+            nblk = blocks_for_tokens(wl, self.block_size)
+            need = nblk - len(matched)  # the first decode write past wl is _ensure_decode_blocks' job
+            if ts.pool.free_count < need:
+                if not req.pool_full_seen:  # once an import, not once a round
+                    req.pool_full_seen = True
+                    with self._stats_lock:
+                        self.import_requeues += 1
+                    self._m_handoff_failures.inc(reason="pool_full")
+                break
+            result = ServeResult(rid=req.rid, prompt_len=int(record.prompt_len) or wl,
+                                 arrival_s=max(req.arrival_offset_s, 0.0), truncated=bool(record.truncated),
+                                 trace_id=req.trace_id, trace_hop=req.trace_hop)
+            # a hot swap may have landed since import_handoff(): stale KV
+            # finishes "error" here instead of decoding garbage
+            try:
+                self._check_import_generation(record)
+            except HandoffRejected as exc:
+                self._queue.popleft()
+                self._m_handoff_failures.inc(reason=exc.reason)
+                result.first_token_s = self._now() - t0
+                self._record_result(result, "error", result.first_token_s, req.tenant)
+                continue
+            self._queue.popleft()
+            self._note_admit(req.rid, now)
+            if matched:
+                ts.fork_prefix(req.rid, matched)
+            if not ts.ensure(req.rid, wl):
+                raise AssertionError("import admission gate let a dry pool through")
+            # scatter the unmatched tail only: matched blocks hold the same
+            # KV already (same tokens, same weights generation)
+            scattered = self._scatter_import(record, ts.blocks(req.rid), len(matched), nblk)
+            if self.prefix_sharing:
+                ts.register_prefix(req.rid, window, upto=wl)
+            if matched:
+                hit_tokens = min(len(matched) * self.block_size, wl)
+                result.prefix_hit_tokens = hit_tokens
+                with self._stats_lock:
+                    self.prefix_hit_requests += 1
+                    self.prefix_hit_blocks += len(matched)
+                    self.prefix_hit_tokens += hit_tokens
+                self._m_prefix_hit_requests.inc()
+                self._m_prefix_hit_blocks.inc(len(matched))
+            # the window grows by the shipped token, so the n-gram drafter sees
+            # the combined path's context
+            temp = float(record.temperature)
+            self._slot_states[slot] = _SlotState(request=req, result=result, remaining=int(record.remaining),
+                                                 phase="decode", window=window + [int(record.last_token)],
+                                                 temp=temp, seq=self._admit_seq, imported=True)
+            self._admit_seq += 1
+            self._tokens[slot] = int(record.last_token)
+            self._positions[slot] = wl
+            self._temps[slot] = temp
+            self._eods[slot] = self.eod_token_id
+            self._remaining[slot] = int(record.remaining)
+            self._gens[slot] = torch.Generator(device=self.device).manual_seed(int(record.seed))
+            if temp > 0.0:
+                restore_generator(self._gens[slot], record.key)
+            with self._stats_lock:
+                self.handoffs_imported += 1
+                self.imported_blocks += scattered
+            self._m_handoff_seconds.observe(max(0.0, now - max(req.arrival_offset_s, 0.0)))
+
+    def _pool_leaves(self) -> list:
+        """The pool tensors in the JAX cache tree's flatten order (cached_key,
+        cached_key_scale, cached_value, cached_value_scale)."""
+        c = self.cache
+        return [t for t in (c.k, c.k_scale, c.v, c.v_scale) if t is not None]
+
+    def _scatter_import(self, record, table: list, first: int, nblk: int) -> int:
+        """Write the record's blocks first..nblk-1 into this pool at the
+        table's block ids (every leaf, from the JAX payload layout [n,
+        layers, ...] to the pool's [layers, blocks, ...]). Returns the blocks
+        written."""
+        if first >= nblk:
+            return 0
+        with torch.inference_mode():
+            idx = torch.tensor(table[first:nblk], dtype=torch.long, device=self.device)
+            for pool, leaf in zip(self._pool_leaves(), record.payload):
+                rows = leaf[first:nblk].to(self.device, non_blocking=True)
+                pool.index_copy_(1, idx, rows.transpose(0, 1))
+        return nblk - first
+
+    def _export_handoff(self, state: _SlotState, slot: int, first_tok: int, remaining: int, now: float):
+        """Prefill tier: gather the request's blocks (position order, the
+        scratch block never) to host memory in the JAX payload layout and
+        seal them with the sampler state into a HandoffRecord. An int8 pool
+        ships its int8 data and float32 scales verbatim."""
+        from modalities_tpu_torch.serving.disagg.handoff import (
+            HANDOFF_VERSION,
+            HandoffRecord,
+            generator_key,
+            greedy_key,
+        )
+
+        req, result = state.request, state.result
+        wl = len(state.window)
+        blocks = self._table_state.blocks(req.rid)[: blocks_for_tokens(wl, self.block_size)]
+        with torch.no_grad():  # not inference mode: the record's tensors are its owner's, writable anywhere
+            idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            payload = [pool.index_select(1, idx).transpose(0, 1).contiguous().cpu() for pool in self._pool_leaves()]
+        key = generator_key(self._gens[slot]) if state.temp > 0.0 else greedy_key(req.seed)
+        record = HandoffRecord(
+            version=HANDOFF_VERSION, generation=int(self.weights_generation), quant_kv=self.quant_kv,
+            block_size=self.block_size, window=list(state.window), last_token=int(first_tok), key=key,
+            temperature=float(state.temp), remaining=int(remaining), seed=int(req.seed), payload=payload,
+            trace_id=req.trace_id, trace_hop=req.trace_hop, rid=req.rid, prompt_len=len(req.prompt_tokens),
+            truncated=bool(result.truncated), deadline_ms=req.deadline_ms, tenant=req.tenant,
+        ).seal()
+        with self._stats_lock:
+            self.handoffs_exported += 1
+            self.handoff_bytes_shipped += record.kv_bytes
+        self._m_handoffs.inc()
+        self._m_kv_shipped.inc(record.kv_bytes)
+        return record
+
+    def _first_local_token(self, state: _SlotState, now: float) -> None:
+        """An imported slot's TTFT is its first LOCAL token (the request's
+        second overall: the first rode in the handoff record)."""
+        if state.imported and state.result.last_token_s is None:
+            state.result.first_token_s = now
+            self._record_first_token(state.result, now)
 
     # -------------------------------------------------------------- scheduling
     def _stopping(self) -> bool:
@@ -1004,7 +1289,8 @@ class ServingEngine:
         return window
 
     def _new_result(self, req: ServeRequest) -> ServeResult:
-        return ServeResult(rid=req.rid, prompt_len=len(req.prompt_tokens), arrival_s=max(req.arrival_offset_s, 0.0))
+        return ServeResult(rid=req.rid, prompt_len=len(req.prompt_tokens), arrival_s=max(req.arrival_offset_s, 0.0),
+                           trace_id=req.trace_id, trace_hop=req.trace_hop)
 
     def _admit(self, t0: float) -> None:
         """Fill idle slots from the queue (FIFO, arrival-gated; DRR with
@@ -1015,6 +1301,9 @@ class ServingEngine:
         if self._stopping():
             return
         self._sweep_queue(t0)
+        if self.role == "decode":
+            self._admit_imports(t0)
+            return
         if self.kv_cache == "paged":
             self._admit_paged(t0)
             return
@@ -1352,6 +1641,13 @@ class ServingEngine:
             if allowed <= 1:
                 self._finish(slot, "budget", now)
                 continue
+            if self.role == "prefill":
+                # the prefill tier stops at the first token: export the live
+                # blocks and the sampler state (before _finish releases the
+                # table) and finish "handoff"
+                result.handoff = self._export_handoff(state, slot, first_tok, allowed - 1, now)
+                self._finish(slot, "handoff", now)
+                continue
             state.phase = "decode"
             state.remaining = allowed - 1
             self._tokens[slot] = first_tok
@@ -1416,6 +1712,7 @@ class ServingEngine:
                 continue
             self._positions[slot] += 1  # the fed token landed in the cache
             tok = int(toks_h[slot])
+            self._first_local_token(state, now)
             if not ok_h[slot]:  # non-finite logits: the token is garbage
                 self._finish(slot, "error", now)
                 continue
@@ -1520,6 +1817,7 @@ class ServingEngine:
             state = self._slot_states[slot]
             if state is None or state.phase != "decode":
                 continue
+            self._first_local_token(state, now)
             if not ok[slot]:  # non-finite logits: nothing here is a token
                 self._finish(slot, "error", now)
                 continue
@@ -1644,6 +1942,7 @@ class ServingEngine:
         with self._stats_lock:
             occupancy = self._occupancy_sum / (self.decode_steps * self.slots) if self.decode_steps else 0.0
             out = {
+                "role": self.role,
                 "kv_cache": self.kv_cache,
                 "device": str(self.device),
                 "decode_steps": self.decode_steps,
@@ -1695,6 +1994,16 @@ class ServingEngine:
                     spec_accepted=self.spec_accepted,
                     spec_emitted=self.spec_emitted,
                     prefill_chunk_count=self.prefill_chunk_count,
+                )
+            if self.role != "combined":
+                out.update(
+                    handoffs_exported=self.handoffs_exported,
+                    handoffs_imported=self.handoffs_imported,
+                    import_requeues=self.import_requeues,
+                    imported_blocks=self.imported_blocks,
+                    handoff_bytes_shipped=self.handoff_bytes_shipped,
+                    handoff_executables=int(self.handoffs_exported > 0),
+                    import_executables=int(self.imported_blocks > 0),
                 )
             tenant_stats = {t: dict(b) for t, b in self._tenant_stats.items()}
             slot_counts, queued = self._live["tenant_slots"], self._live["tenant_queued"]

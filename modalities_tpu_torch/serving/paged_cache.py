@@ -310,6 +310,12 @@ class BlockTableState:
         state = self._requests.get(int(rid))
         return len(state.blocks) if state is not None else 0
 
+    def blocks(self, rid: int) -> list[int]:
+        """`rid`'s owned physical blocks in position order (block i covers
+        positions [i*block_size, (i+1)*block_size)): what the disaggregated
+        handoff gathers and scatters. Physical ids never cross the tiers."""
+        return list(self._requests[int(rid)].blocks)
+
     def release(self, rid: int) -> int:
         """Drop `rid`'s reference on every block it holds (finish or
         preemption). Returns how many blocks actually went back to the free

@@ -1,8 +1,6 @@
 """Serving-side admission control: deadlines, tenants with weighted
-deficit-round-robin, token-rate limits and brownout shedding. The port of
-modalities_tpu/serving/resilience.py:1-305 (the routers' CircuitBreaker,
-RetryBudget and ProbeBackoff come with the fleet, ROADMAP.md Queue 1 item 3
-part 4).
+deficit-round-robin, token-rate limits and brownout shedding, and the fleet
+routers' failure handling. The port of modalities_tpu/serving/resilience.py.
 
 Consumed by the engine's scheduler (serving/engine.py) and the HTTP front end
 (serving/server.py):
@@ -28,6 +26,11 @@ Consumed by the engine's scheduler (serving/engine.py) and the HTTP front end
   controller also trips on the SLO burn signal (``breaching_fn``); the port
   has no SLO engine yet (ROADMAP.md Queue 1 item 6), so its serving
   component never passes one.
+- The fleet routers' primitives (serving/fleet/router.py,
+  serving/disagg/router.py): a :class:`CircuitBreaker` per worker, one
+  shared :class:`RetryBudget` funded by successful requests
+  (``MODALITIES_TPU_FLEET_RETRY_BUDGET_RATIO``), and a :class:`ProbeBackoff`
+  per dead worker (``MODALITIES_TPU_FLEET_PROBE_BACKOFF_MAX_S``).
 
 Everything here is plain host-side Python: nothing touches a tensor.
 """
@@ -35,7 +38,9 @@ Everything here is plain host-side Python: nothing touches a tensor.
 from __future__ import annotations
 
 import os
+import random
 import threading
+import time
 from typing import Callable, Optional
 
 # header name as read_http_request lowercases it
@@ -276,3 +281,135 @@ class BrownoutController:
         if not self.active:
             return 0
         return max(0, queue_depth - self.queue_low)
+
+
+class CircuitBreaker:
+    """Per-worker circuit breaker (router side).
+
+    closed: traffic flows; ``failure_threshold`` CONSECUTIVE failures trip it
+    open. open: no traffic until a jittered exponential backoff elapses, then
+    ONE half-open probe is allowed. half_open: the probe's success closes the
+    breaker (backoff reset); its failure re-opens it with the backoff doubled."""
+
+    _STATE_VALUES = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+    def __init__(
+        self,
+        failure_threshold: int = 3,
+        open_s: float = 1.0,
+        max_open_s: float = 30.0,
+        jitter: float = 0.25,
+        time_fn: Callable[[], float] = time.monotonic,
+        rng: Callable[[], float] = random.random,
+    ):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.failure_threshold = int(failure_threshold)
+        self.base_open_s = float(open_s)
+        self.max_open_s = float(max_open_s)
+        self.jitter = float(jitter)
+        self._time_fn = time_fn
+        self._rng = rng
+        self.state = "closed"
+        self.failures = 0
+        self._open_s = self.base_open_s
+        self._until = float("-inf")
+        self._probing = False
+
+    def allow(self) -> bool:
+        """May a request go to this worker now? Moves open -> half_open once
+        the backoff has elapsed, and then admits ONE probe."""
+        if self.state == "closed":
+            return True
+        if self.state == "open":
+            if self._time_fn() < self._until:
+                return False
+            self.state = "half_open"
+            self._probing = False
+        if self._probing:
+            return False  # one probe at a time in half_open
+        self._probing = True
+        return True
+
+    def record_success(self) -> None:
+        self.state = "closed"
+        self.failures = 0
+        self._open_s = self.base_open_s
+        self._probing = False
+
+    def record_failure(self) -> None:
+        self.failures += 1
+        if self.state == "half_open" or self.failures >= self.failure_threshold:
+            self.state = "open"
+            self._until = self._time_fn() + self._open_s * (1.0 + self.jitter * self._rng())
+            self._open_s = min(self._open_s * 2.0, self.max_open_s)
+            self._probing = False
+
+    def state_value(self) -> float:
+        """The `fleet_circuit_state{worker}` gauge: 0 closed, 1 half_open, 2 open."""
+        return self._STATE_VALUES[self.state]
+
+
+def _default_retry_budget_ratio() -> float:
+    return float(os.environ.get("MODALITIES_TPU_FLEET_RETRY_BUDGET_RATIO", "0.2"))
+
+
+class RetryBudget:
+    """Token bucket capping retries at a fraction of recent successful
+    traffic: ``record_success()`` deposits ``ratio`` tokens (capped at
+    ``cap``), ``try_retry()`` withdraws one whole token or refuses. The bucket
+    starts at ``initial`` (default: full), so a cold start still has a few
+    retries before any success funded them."""
+
+    def __init__(self, ratio: Optional[float] = None, cap: float = 10.0, initial: Optional[float] = None):
+        self.ratio = _default_retry_budget_ratio() if ratio is None else float(ratio)
+        self.cap = float(cap)
+        self.tokens = self.cap if initial is None else float(initial)
+        self.exhausted = 0  # refused retries
+        self._lock = threading.Lock()
+
+    def record_success(self) -> None:
+        with self._lock:
+            self.tokens = min(self.cap, self.tokens + self.ratio)
+
+    def try_retry(self) -> bool:
+        with self._lock:
+            if self.tokens >= 1.0:
+                self.tokens -= 1.0
+                return True
+            self.exhausted += 1
+            return False
+
+
+def _default_probe_backoff_max_s() -> float:
+    return float(os.environ.get("MODALITIES_TPU_FLEET_PROBE_BACKOFF_MAX_S", "8.0"))
+
+
+class ProbeBackoff:
+    """Jittered exponential backoff for probing ONE dead worker: ``due(now)``
+    gates the probe, ``failed(now)`` reschedules it with the delay doubled
+    (jittered), ``reset()`` restores the healthy cadence. The jitter keeps
+    routers from probing a recovering worker in lockstep."""
+
+    def __init__(self, base_s: float = 0.5, max_s: Optional[float] = None, jitter: float = 0.25,
+                 rng: Callable[[], float] = random.random):
+        self.base_s = float(base_s)
+        self.max_s = _default_probe_backoff_max_s() if max_s is None else float(max_s)
+        self.jitter = float(jitter)
+        self._rng = rng
+        self._delay = self.base_s
+        self._next = float("-inf")
+        self.failures = 0
+
+    def due(self, now: float) -> bool:
+        return now >= self._next
+
+    def failed(self, now: float) -> None:
+        self.failures += 1
+        self._next = now + self._delay * (1.0 + self.jitter * self._rng())
+        self._delay = min(self._delay * 2.0, self.max_s)
+
+    def reset(self) -> None:
+        self._delay = self.base_s
+        self._next = float("-inf")
+        self.failures = 0

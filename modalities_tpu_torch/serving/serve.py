@@ -14,7 +14,10 @@ Admission control: `tenants` (weighted DRR, quotas, token-rate limits),
 it), `brownout_queue_high` (the queue-pressure brownout), `max_queue_depth`
 (MODALITIES_TPU_SERVE_QUEUE_LIMIT) and MODALITIES_TPU_SERVE_TENANT_DEFAULT.
 `http_port` (or `serve --http_port`) starts the streaming HTTP front end
-(serving/server.py) on `http_host`.
+(serving/server.py) on `http_host`. The `fleet` and `disagg` variants
+(serving/fleet/component.py, serving/disagg/component.py) run N workers, or
+a prefill and a decode tier, behind a router (`serve --fleet`; `http_port`
+is then the router's).
 
 Refused, naming their ROADMAP.md item: `slo` (the SLO engine and its burn
 signal, Queue 1 item 6), `device_mesh` (the engine's mesh shardings, item 3)
@@ -176,6 +179,7 @@ class ServingComponent:
         self.brownout_queue_high = cfg.brownout_queue_high
         # None keeps the engine on its single implicit tenant (plain FIFO); a malformed block fails here
         self.tenants = TenantRegistry.from_config(cfg.tenants) if cfg.tenants else None
+        self.tenants_config = cfg.tenants  # a fleet builds each worker's registry (its buckets) from it
         self.metrics = MetricsRegistry()  # the engine's series; serve() adds the process gauges
         self.stop_fn = None  # graceful drain: serve() wires the SIGTERM flag here
         self.params: Optional[dict] = None
@@ -315,14 +319,15 @@ def build_serving_components(config_dict: dict):
 
 
 def serving_entities() -> list:
-    """The `inference_component` variants of the JAX serve(): `serve`, and the
-    fleet and disaggregated tiers, which wait on ROADMAP.md Queue 1 item 3
-    (its last part)."""
-    from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
+    """The `inference_component` variants of the JAX serve(): `serve`, the
+    flat fleet and the disaggregated fleet."""
+    from modalities_tpu_torch.registry.registry import ComponentEntity
+    from modalities_tpu_torch.serving.disagg.component import DisaggComponentConfig, DisaggServingComponent
+    from modalities_tpu_torch.serving.fleet.component import FleetComponentConfig, FleetServingComponent
 
     return [ComponentEntity("inference_component", "serve", ServingComponent, ServingComponentConfig),
-            ComponentEntity("inference_component", "fleet", Unported(3, "the serving fleet")),
-            ComponentEntity("inference_component", "disagg", Unported(3, "disaggregated prefill/decode"))]
+            ComponentEntity("inference_component", "fleet", FleetServingComponent, FleetComponentConfig),
+            ComponentEntity("inference_component", "disagg", DisaggServingComponent, DisaggComponentConfig)]
 
 
 def load_serving_params(checkpoint_folder_path, device=None, quant_weights=None) -> dict:
@@ -367,10 +372,14 @@ def serve(
     output_file_path: Optional[Path] = None,
     device: Optional[str] = None,
     http_port: Optional[int] = None,
+    fleet: bool = False,
 ) -> dict:
-    """Entry point behind `python -m modalities_tpu_torch serve`. With
-    `http_port` (the flag or the config knob; 0 = an ephemeral port): the
-    streaming HTTP front end until SIGTERM/SIGINT drains it. With a JSONL
+    """Entry point behind `python -m modalities_tpu_torch serve`. A `fleet`
+    or `disagg` config (`fleet` says the caller expects one, and a config
+    of another variant is refused): its workers behind the router, on
+    `http_port` (0 or unset = an ephemeral port), until SIGTERM/SIGINT drains
+    them. Else with `http_port` (the flag or the config knob; 0 = an
+    ephemeral port): the streaming HTTP front end until SIGTERM/SIGINT drains it. With a JSONL
     requests file: replay it and write the result rows (to
     `output_file_path`, or stdout). With neither: the interactive loop. Runs
     on the CUDA card unless `device="cpu"`. While HTTP or a replay serves,
@@ -384,11 +393,27 @@ def serve(
     config_dict = load_app_config_dict(config_file_path)
     components = build_serving_components(config_dict)
     component = components.serving_component
+    if fleet and not hasattr(component, "run_fleet"):
+        raise ValueError("--fleet needs the fleet serving component: set the config's "
+                         "serving_component.variant_key to 'fleet' or 'disagg' (configs/config_fleet.yaml, "
+                         "configs/config_disagg.yaml)")
     component.device = resolve_device(device)
     register_process_metrics(component.metrics, version=__version__, config_hash=config_hash_of(config_file_path))
-    resolve_params(component, components.settings.checkpoint_folder_path)
+    if hasattr(component, "resolve_params"):  # the fleet may boot from its ring
+        component.resolve_params(components.settings.checkpoint_folder_path)
+    else:
+        resolve_params(component, components.settings.checkpoint_folder_path)
     if http_port is not None:
         component.http_port = int(http_port)
+    if hasattr(component, "run_fleet"):
+        handler = PreemptionHandler().install()
+        component.stop_fn = handler.should_stop
+        try:
+            stats = component.run_fleet()
+        finally:
+            handler.uninstall()
+        logger.info("fleet stats: %s", json.dumps(stats))
+        return stats
     if component.http_port is None and requests_file_path is None:
         component.run()
         return component.build_engine().stats()

@@ -18,17 +18,25 @@ Endpoints:
 - `POST /generate`: body `{"prompt": str, "max_new_tokens": int,
   "temperature": float|null, "seed": int, "deadline_ms"?: float,
   "priority"?: int, "tenant"?: str}` (the `X-Deadline-Ms` and `X-Tenant-Id`
-  headers are folded into the body; a body key wins); the answer is SSE
+  headers are folded into the body, as are the fleet's `X-Trace-Id` and
+  `X-Trace-Hop`; a body key wins); the answer is SSE
   (`text/event-stream`): one `data: {"token_id", "text"}` event a token, a
   final `data: {"done": true, "completion", "finish_reason", ...}` event,
-  then the connection closes. 400 on a bad body, 429 with a derived
-  `Retry-After` when the queue is full, the engine is browned out or the
-  tenant is over its token rate, 503 while draining.
-- `POST /disagg/prefill`, `POST /disagg/import`: 409 (this is a combined
-  engine; disaggregated tiers are ROADMAP.md Queue 1 item 3 part 4).
-- `POST /admin/swap`: 503, as JAX single-engine serving answers (no swap
-  handler is wired; the fleet's comes with ROADMAP.md Queue 1 item 3 part 4).
-  A swap goes through `engine.request_swap`.
+  then the connection closes. 400 on a bad body, 409 on a prefill- or
+  decode-tier engine (misrouted), 429 with a derived `Retry-After` when the
+  queue is full, the engine is browned out or the tenant is over its token
+  rate, 503 while draining.
+- `POST /disagg/prefill` (prefill-tier engines only, 409 otherwise): the
+  /generate body; runs the prompt to its first token and answers ONE JSON
+  document with the token ids and, on finish reason "handoff", the wire
+  form of the KV handoff record.
+- `POST /disagg/import` (decode-tier engines only, 409 otherwise): body
+  `{"record": <handoff wire dict>}`; imports the KV and streams the
+  continuation as SSE in /generate's framing. A rejected record streams one
+  error event with its `reason` and `retryable`.
+- `POST /admin/swap`: body `{"checkpoint_folder": str, "generation": int?}`,
+  forwarded to the wired `swap_handler` (the fleet's; it loads the folder
+  and swaps through `engine.request_swap`); 503 when none is wired.
 - `GET /healthz`: `{"status": "ok"|"draining", "weights_generation": int}`
   (the JAX "degraded" status needs the SLO engine, item 6).
 - `GET /stats`: one engine snapshot (taken under its stats lock) + the HTTP
@@ -144,6 +152,7 @@ class ServingHTTPServer:
         host: str = "127.0.0.1",
         port: int = 0,  # 0 = ephemeral; the bound port is self.port after start()
         default_max_new_tokens: int = 64,
+        swap_handler: Optional[Callable[[dict], dict]] = None,
     ):
         self.engine = engine
         self._encode = encode
@@ -152,6 +161,8 @@ class ServingHTTPServer:
         self._port_req = int(port)
         self.port: Optional[int] = None
         self.default_max_new_tokens = int(default_max_new_tokens)
+        # POST /admin/swap delegate: dict body -> dict result (None: 503)
+        self.swap_handler = swap_handler
 
         self._pending: queue.Queue = queue.Queue()  # (body dict, stream queue)
         self._streams: dict[int, queue.Queue] = {}  # rid -> stream (engine thread only)
@@ -196,6 +207,9 @@ class ServingHTTPServer:
                 return drained
             drained += 1
             try:
+                if "disagg_record" in body:
+                    self._import_pending(body, stream, t0)
+                    continue
                 prompt_tokens = self._encode(body["prompt"])
                 rid = self.engine.submit(
                     prompt_tokens,
@@ -206,11 +220,33 @@ class ServingHTTPServer:
                     deadline_ms=resolve_deadline_ms(body.get("deadline_ms")),
                     priority=int(body.get("priority") or 0),
                     tenant=self.engine.resolve_submit_tenant(body.get("tenant")),
+                    trace_id=body.get("trace_id") or None,
+                    trace_hop=int(body.get("trace_hop") or 0),
                 )
                 self._streams[rid] = stream
                 stream.put(("rid", rid))
             except Exception as exc:  # a bad prompt or parameter: surface it on the stream
                 stream.put(("error", f"{type(exc).__name__}: {exc}"))
+
+    def _import_pending(self, body: dict, stream: queue.Queue, t0: float) -> None:
+        """A decode-tier import (POST /disagg/import), on the engine thread. A
+        rejection streams back tagged with whether a replay through a fresh
+        prefill can fix it: one on the current weights over a sound wire
+        fixes a bad digest, a stale generation or a torn record; version,
+        configuration or sampler skew is a deployment fault no replay fixes."""
+        from modalities_tpu_torch.serving.disagg.handoff import HandoffRecord, HandoffRejected
+
+        try:
+            record = HandoffRecord.from_wire(body["disagg_record"])
+            rid = self.engine.import_handoff(record, arrival_offset_s=self.engine._now() - t0,
+                                             trace_id=body.get("trace_id") or None,
+                                             trace_hop=int(body.get("trace_hop") or 0))
+        except HandoffRejected as exc:
+            stream.put(("error", {"error": exc.detail, "reason": exc.reason,
+                                  "retryable": exc.reason in ("digest_mismatch", "generation_mismatch", "malformed")}))
+            return
+        self._streams[rid] = stream
+        stream.put(("rid", rid))
 
     def _engine_loop(self) -> None:
         engine = self.engine
@@ -284,10 +320,11 @@ class ServingHTTPServer:
                         "prompt_len": result.prompt_len,
                         "ttft_s": result.ttft_s,
                         "weights_generation": result.weights_generation,
+                        "trace_id": result.trace_id,
                     }))
                     await writer.drain()
                     return
-                else:  # "error"
+                else:  # "error": dict payloads (import rejections) pass through
                     writer.write(sse_event_bytes(value if isinstance(value, dict) else {"error": value}))
                     await writer.drain()
                     return
@@ -300,31 +337,52 @@ class ServingHTTPServer:
                                headers: Optional[dict] = None) -> None:
         self.http_requests += 1
         self._m_http.inc()
-        try:
-            body = json.loads(body_bytes or b"{}")
-            if headers and headers.get(DEADLINE_HEADER):
-                # the deadline rides header -> body -> engine, anchored to
-                # this server's arrival clock
-                body.setdefault("deadline_ms", headers[DEADLINE_HEADER])
-            if headers and headers.get(TENANT_HEADER):
-                body.setdefault("tenant", headers[TENANT_HEADER])  # the body key wins
-            prompt = body.get("prompt")
-            if not isinstance(prompt, str) or not prompt:
-                writer.write(json_response_bytes(400, {"error": "body needs a non-empty 'prompt'"}))
-                return
-        except (ValueError, json.JSONDecodeError) as exc:
-            writer.write(json_response_bytes(400, {"error": f"bad JSON body: {exc}"}))
+        body = self._prompt_body(body_bytes, writer, headers)
+        if body is None:
             return
-        if self.draining:
-            self.http_rejected += 1
-            self._m_http_rejected.inc()
-            writer.write(json_response_bytes(503, {"error": "server is draining"}, {"Retry-After": RETRY_AFTER_S}))
+        if self.engine.role != "combined":
+            # a tier worker serves its tier endpoint only: a client here is
+            # misrouted, not malformed
+            writer.write(json_response_bytes(409, {
+                "error": f"role={self.engine.role!r} worker: use /disagg/prefill (prefill tier) or /disagg/import "
+                         "(decode tier) via the disagg router"}))
             return
-        if self._reject_overload(writer, body):
+        if self._reject_draining(writer) or self._reject_overload(writer, body):
             return
         stream: queue.Queue = queue.Queue()
         self.submit_stream(body, stream)
         await self._relay_stream(stream, writer)
+
+    @staticmethod
+    def _prompt_body(body_bytes: bytes, writer: asyncio.StreamWriter, headers: Optional[dict]) -> Optional[dict]:
+        """The JSON body of a prompt request with the headers folded in
+        (the trace id and hop, the deadline, re-anchored to this server's
+        arrival clock, and the tenant; a body key wins), or None after a 400."""
+        try:
+            body = json.loads(body_bytes or b"{}")
+            if headers and headers.get("x-trace-id"):
+                body.setdefault("trace_id", headers["x-trace-id"])
+                body.setdefault("trace_hop", headers.get("x-trace-hop") or 0)
+            if headers and headers.get(DEADLINE_HEADER):
+                body.setdefault("deadline_ms", headers[DEADLINE_HEADER])
+            if headers and headers.get(TENANT_HEADER):
+                body.setdefault("tenant", headers[TENANT_HEADER])
+            prompt = body.get("prompt")
+            if not isinstance(prompt, str) or not prompt:
+                writer.write(json_response_bytes(400, {"error": "body needs a non-empty 'prompt'"}))
+                return None
+            return body
+        except (ValueError, json.JSONDecodeError, AttributeError) as exc:
+            writer.write(json_response_bytes(400, {"error": f"bad JSON body: {exc}"}))
+            return None
+
+    def _reject_draining(self, writer: asyncio.StreamWriter) -> bool:
+        if not self.draining:
+            return False
+        self.http_rejected += 1
+        self._m_http_rejected.inc()
+        writer.write(json_response_bytes(503, {"error": "server is draining"}, {"Retry-After": RETRY_AFTER_S}))
+        return True
 
     def _reject_overload(self, writer: asyncio.StreamWriter, body: dict) -> bool:
         """429 + Retry-After when the engine refuses new work: the bounded
@@ -350,13 +408,108 @@ class ServingHTTPServer:
                                          _retry_after_header(retry_after)))
         return True
 
-    def _handle_disagg(self, path: str, writer: asyncio.StreamWriter) -> None:
-        """A combined engine serves no disaggregated tier: 409, as the JAX
-        server answers a misrouted tier request."""
+    def _wrong_tier(self, path: str, tier: str, writer: asyncio.StreamWriter) -> bool:
+        if self.engine.role == tier:
+            return False
+        writer.write(json_response_bytes(409, {"error": f"role={self.engine.role!r}: {path} needs a {tier}-tier worker"}))
+        return True
+
+    async def _await_result(self, stream: queue.Queue):
+        """The engine's ("done", result) or ("error", payload) for a stream
+        whose tokens ride inside the result; None when close() gives up."""
+        while True:
+            try:
+                kind, value = stream.get_nowait()
+            except queue.Empty:
+                if self._closing:
+                    return None
+                await asyncio.sleep(0.002)
+                continue
+            if kind in ("done", "error"):
+                return kind, value
+
+    async def _handle_disagg_prefill(self, body_bytes: bytes, writer: asyncio.StreamWriter,
+                                     headers: Optional[dict] = None) -> None:
+        """The prefill-tier leg: run the prompt to its first token and answer
+        ONE JSON document: the token ids (0 or 1 of them), the finish reason
+        and, on "handoff", the wire form of the sealed record the router ships
+        to a decode worker."""
         self.http_requests += 1
         self._m_http.inc()
-        tier = "prefill" if path == "/disagg/prefill" else "decode"
-        writer.write(json_response_bytes(409, {"error": f"role='combined': {path} needs a {tier}-tier worker"}))
+        if self._wrong_tier("/disagg/prefill", "prefill", writer):
+            return
+        body = self._prompt_body(body_bytes, writer, headers)
+        if body is None or self._reject_draining(writer) or self._reject_overload(writer, body):
+            return
+        stream: queue.Queue = queue.Queue()
+        self.submit_stream(body, stream)
+        got = await self._await_result(stream)
+        if got is None:
+            return
+        kind, value = got
+        if kind == "error":
+            writer.write(json_response_bytes(500, value if isinstance(value, dict) else {"error": value}))
+            return
+        result = value
+        record = result.handoff
+        # the record's base64 is the body's bulk: encode it off the event loop
+        wire = await asyncio.get_running_loop().run_in_executor(None, record.to_wire) if record is not None else None
+        writer.write(json_response_bytes(200, {
+            "rid": result.rid,
+            "finish_reason": result.finish_reason,
+            "token_ids": list(result.tokens),
+            "completion": self._decode(result.tokens),
+            "truncated": result.truncated,
+            "prompt_len": result.prompt_len,
+            "ttft_s": result.ttft_s,
+            "weights_generation": result.weights_generation,
+            "trace_id": result.trace_id,
+            "record": wire,
+        }))
+
+    async def _handle_disagg_import(self, body_bytes: bytes, writer: asyncio.StreamWriter,
+                                    headers: Optional[dict] = None) -> None:
+        """The decode-tier leg: import the posted record and stream the
+        continuation as SSE in /generate's framing, so the router's relay
+        loop serves both. The deadline rides inside the record."""
+        self.http_requests += 1
+        self._m_http.inc()
+        if self._wrong_tier("/disagg/import", "decode", writer):
+            return
+        try:
+            body = json.loads(body_bytes or b"{}")
+            if headers and headers.get("x-trace-id"):
+                body.setdefault("trace_id", headers["x-trace-id"])
+                body.setdefault("trace_hop", headers.get("x-trace-hop") or 0)
+            record = body.get("record")
+        except (ValueError, json.JSONDecodeError, AttributeError) as exc:
+            writer.write(json_response_bytes(400, {"error": f"bad JSON body: {exc}"}))
+            return
+        if not isinstance(record, dict):
+            writer.write(json_response_bytes(400, {"error": "body needs a 'record' object"}))
+            return
+        if self._reject_draining(writer):
+            return
+        body["disagg_record"] = record
+        stream: queue.Queue = queue.Queue()
+        self.submit_stream(body, stream)
+        await self._relay_stream(stream, writer)
+
+    async def _handle_admin_swap(self, body_bytes: bytes, writer: asyncio.StreamWriter) -> None:
+        if self.swap_handler is None:
+            writer.write(json_response_bytes(503, {"error": "no swap handler wired"}))
+            return
+        try:
+            body = json.loads(body_bytes or b"{}")
+        except (ValueError, json.JSONDecodeError) as exc:
+            writer.write(json_response_bytes(400, {"error": f"bad JSON body: {exc}"}))
+            return
+        try:
+            # a checkpoint load and the swap's wait take seconds: off the loop
+            result = await asyncio.get_running_loop().run_in_executor(None, self.swap_handler, body)
+            writer.write(json_response_bytes(200, {"ok": True, **(result or {})}))
+        except Exception as exc:
+            writer.write(json_response_bytes(500, {"error": f"{type(exc).__name__}: {exc}"}))
 
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
         try:
@@ -377,10 +530,12 @@ class ServingHTTPServer:
                 writer.write(response_bytes(200, CONTENT_TYPE_LATEST, self.engine.metrics.render().encode("utf-8")))
             elif method == "POST" and path == "/generate":
                 await self._handle_generate(body_bytes, writer, headers)
-            elif method == "POST" and path in ("/disagg/prefill", "/disagg/import"):
-                self._handle_disagg(path, writer)
+            elif method == "POST" and path == "/disagg/prefill":
+                await self._handle_disagg_prefill(body_bytes, writer, headers)
+            elif method == "POST" and path == "/disagg/import":
+                await self._handle_disagg_import(body_bytes, writer, headers)
             elif method == "POST" and path == "/admin/swap":
-                writer.write(json_response_bytes(503, {"error": "no swap handler wired"}))
+                await self._handle_admin_swap(body_bytes, writer)
             else:
                 writer.write(json_response_bytes(404, {"error": f"unknown path {path}"}))
             await writer.drain()

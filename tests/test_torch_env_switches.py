@@ -11,7 +11,12 @@ apply nor refuse (ROADMAP.md Queue 3 item 17), each at a non-default value:
 - MODALITIES_TPU_PROFILE_AT_STEP, _PROFILE_DIR, _MEMSCOPE_AT_STEP,
   _MEMSCOPE_DIR and _MEMSCOPE_FITS_CHECK are refused at `run`, naming
   Queue 1 item 6;
-- MODALITIES_TPU_LOG_LEVEL sets the port's logger level, as the JAX one's."""
+- MODALITIES_TPU_LOG_LEVEL sets the port's logger level, as the JAX one's;
+- the fleet's MODALITIES_TPU_FLEET_RETRY_BUDGET_RATIO, _PROBE_BACKOFF_MAX_S,
+  _HEALTH_DEADLINE_S, _PROBATION_S, _POLL_S and
+  MODALITIES_TPU_DISAGG_HANDOFF_TIMEOUT_S are applied where the JAX package
+  applies them: the object built with its knob left None takes the env value,
+  as the JAX object does."""
 
 import logging
 
@@ -135,3 +140,43 @@ def test_log_level_switch_sets_the_ports_logger(monkeypatch, tmp_path):
             main(["run", "--config_file_path", str(tmp_path / "x.yaml"), "--device", "cpu"])
     finally:
         package.setLevel(before)
+
+
+class _Engine:
+    weights_generation = 0
+
+
+def _fleet_objects(pkg, tmp_path):
+    """The knob each switch sets, read off the object built with it left None."""
+    if pkg == "jax":
+        from modalities_tpu.serving import resilience
+        from modalities_tpu.serving.disagg.router import DisaggRouter
+        from modalities_tpu.serving.fleet import controller, router, watcher
+    else:
+        from modalities_tpu_torch.serving import resilience
+        from modalities_tpu_torch.serving.disagg.router import DisaggRouter
+        from modalities_tpu_torch.serving.fleet import controller, router, watcher
+    handle = lambda name: router.WorkerHandle(name, "127.0.0.1", 1)  # noqa: E731
+    return {
+        "MODALITIES_TPU_FLEET_RETRY_BUDGET_RATIO": resilience.RetryBudget().ratio,
+        "MODALITIES_TPU_FLEET_PROBE_BACKOFF_MAX_S": resilience.ProbeBackoff().max_s,
+        "MODALITIES_TPU_FLEET_HEALTH_DEADLINE_S": router.FleetRouter([handle("w")]).heartbeat_deadline_s,
+        "MODALITIES_TPU_FLEET_PROBATION_S": controller.RolloutController(
+            [controller.EngineWorker("w", _Engine())]).probation_s,
+        "MODALITIES_TPU_FLEET_POLL_S": watcher.CheckpointWatcher(tmp_path, lambda *a: None,
+                                                                 load_fn=lambda *a, **k: None).poll_interval_s,
+        "MODALITIES_TPU_DISAGG_HANDOFF_TIMEOUT_S": DisaggRouter([handle("p")], [handle("d")]).handoff_timeout_s,
+    }
+
+
+FLEET_SWITCHES = {"MODALITIES_TPU_FLEET_RETRY_BUDGET_RATIO": "0.35", "MODALITIES_TPU_FLEET_PROBE_BACKOFF_MAX_S": "3.5",
+                  "MODALITIES_TPU_FLEET_HEALTH_DEADLINE_S": "1.25", "MODALITIES_TPU_FLEET_PROBATION_S": "7",
+                  "MODALITIES_TPU_FLEET_POLL_S": "0.5", "MODALITIES_TPU_DISAGG_HANDOFF_TIMEOUT_S": "12.5"}
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_SWITCHES), ids=lambda n: n.removeprefix("MODALITIES_TPU_"))
+def test_fleet_switches_are_applied_as_jax(monkeypatch, tmp_path, name):
+    defaults = _fleet_objects("port", tmp_path)[name], _fleet_objects("jax", tmp_path)[name]
+    monkeypatch.setenv(name, FLEET_SWITCHES[name])
+    assert _fleet_objects("port", tmp_path)[name] == _fleet_objects("jax", tmp_path)[name] == float(FLEET_SWITCHES[name])
+    assert defaults[0] == defaults[1] != float(FLEET_SWITCHES[name])

@@ -4,7 +4,10 @@
 variants its serve() adds) is registered in the port, and every pair a
 shipped configs/*.yaml names is either built by the port or refused with
 NotImplementedError naming its ROADMAP.md Queue 1 item, never "Unknown
-variant_key". No component is built, so no data file is needed."""
+variant_key". The serving variants are all ported: configs/config_fleet.yaml
+and configs/config_disagg.yaml build with `slo: null` (their tokenizer
+stubbed), and a non-null `slo` is refused naming item 6. No data file is
+needed."""
 
 import re
 from pathlib import Path
@@ -83,3 +86,36 @@ def test_the_pipeline_pairs_are_built():
         assert not isinstance(component, Unported) and callable(component), (key, variant)
     pairs = _pairs(yaml.safe_load((ROOT / "configs" / "config_lorem_ipsum_tpu_pp_tp.yaml").read_text()), set())
     assert ("model", "pipelined") in pairs
+
+
+def test_no_serving_variant_is_unported():
+    assert all(not isinstance(e.component_type, Unported) for e in serving_entities())
+
+
+@pytest.mark.parametrize("name,variant", [("config_fleet", "fleet"), ("config_disagg", "disagg")])
+def test_the_fleet_configs_build_with_slo_null_and_refuse_an_slo(name, variant):
+    from modalities_tpu_torch.config.component_factory import ComponentFactory
+    from modalities_tpu_torch.config.instantiation_models import ServeInstantiationModel
+    from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
+    from modalities_tpu_torch.registry.components import COMPONENTS
+    from modalities_tpu_torch.registry.registry import ComponentEntity
+
+    class _Tokenizer:  # the file's tokenizer folder is not shipped
+        def get_token_id(self, token):
+            return 0
+
+    factory = ComponentFactory(Registry(COMPONENTS + serving_entities()
+                                        + [ComponentEntity("tokenizer", "stub", _Tokenizer, None)]))
+    config = load_app_config_dict(ROOT / "configs" / f"{name}.yaml")
+    node = config["serving_component"]["config"]
+    node["tokenizer"] = {"component_key": "tokenizer", "variant_key": "stub", "config": {}}
+    with pytest.raises(NotImplementedError, match=r"\['slo'\].*Queue 1 item 6"):
+        factory.build_components(config, ServeInstantiationModel)
+    node["slo"] = None
+    component = factory.build_components(config, ServeInstantiationModel).serving_component
+    assert type(component).__name__ == {"fleet": "FleetServingComponent", "disagg": "DisaggServingComponent"}[variant]
+    assert hasattr(component, "run_fleet") and component.kv_cache == "paged"
+    if variant == "fleet":
+        assert (component.num_workers, component.probation_s, component.health_interval_s) == (2, None, 0.5)
+    else:
+        assert (component.prefill_workers, component.decode_workers) == (1, 1)

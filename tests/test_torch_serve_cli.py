@@ -12,8 +12,11 @@ The admission-control knobs (`tenants`, `deadline_default_ms`,
 _DEADLINE_DEFAULT_MS, _TENANT_DEFAULT) are applied: JSONL rows with
 `deadline_ms` and `tenant` equal the JAX serving component's rows on the same
 weights (f32, each engine on a stepped clock). `http_port` and
-`--http_port` serve HTTP through the CLI. The knobs and switches the port
-lacks are refused, naming their ROADMAP.md item."""
+`--http_port` serve HTTP through the CLI. `serve --fleet` serves copies of
+configs/config_fleet.yaml and configs/config_disagg.yaml (`slo: null`) on an
+ephemeral router port: two workers, or a prefill and a decode tier, whose
+answer equals the port's paged engine on the same fresh-init weights. The
+knobs and switches the port lacks are refused, naming their ROADMAP.md item."""
 
 import json
 from pathlib import Path
@@ -442,3 +445,60 @@ def test_quant_kv_env_on_the_ring_raises_as_in_jax(served, monkeypatch, tmp_path
     with pytest.raises(ValueError, match="requires kv_cache='paged'"):
         main(["serve", "--config_file_path", str(cfg_path), "--requests_file_path", str(req_path),
               "--output_file_path", str(tmp_path / "out.jsonl"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["config_fleet", "config_disagg"])
+def test_serve_fleet_serves_the_fleet_configs(tmp_path, monkeypatch, name):
+    """`serve --fleet --http_port 0` on a copy of the shipped file (its tokenizer
+    path rewritten, `slo: null`): POST /generate on the router answers with the
+    tokens the port's paged engine gives on the same fresh-init weights, the
+    stop flag drains every worker, and the CLI returns 0."""
+    import http.client
+    import threading
+
+    from modalities_tpu_torch.resilience import preemption
+    from modalities_tpu_torch.serving.fleet import router as router_module
+    from tests.conftest import make_word_level_tokenizer
+
+    vocab = {f"t{i}": i for i in range(255)}
+    vocab["<eod>"] = 255
+    make_word_level_tokenizer(vocab, tmp_path / "tokenizer", unk_token="t0", pad_token="t0", eos_token="<eod>")
+    cfg = yaml.safe_load((Path("configs") / f"{name}.yaml").read_text())
+    cfg["serving_component"]["config"]["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(
+        tmp_path / "tokenizer")
+    cfg["serving_component"]["config"]["slo"] = None  # the SLO engine: ROADMAP.md Queue 1 item 6
+    cfg_path = tmp_path / f"{name}.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    routers, handlers = [], []
+    start, install = router_module.FleetRouter.start, preemption.PreemptionHandler.install
+    monkeypatch.setattr(router_module.FleetRouter, "start", lambda self: (start(self), routers.append(self))[0])
+    monkeypatch.setattr(preemption.PreemptionHandler, "install", lambda self: (handlers.append(self), install(self))[1])
+    result = []
+    thread = threading.Thread(target=lambda: result.append(main(
+        ["serve", "--fleet", "--config_file_path", str(cfg_path), "--device", "cpu", "--http_port", "0"])), daemon=True)
+    thread.start()
+    for _ in range(600):  # the router is up within 60 s
+        if routers:
+            break
+        thread.join(0.1)
+    router = routers[0]
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", router.port, timeout=60)
+        conn.request("POST", "/generate", body=json.dumps(REQUESTS[0]))
+        raw = conn.getresponse().read()
+        conn.close()
+        assert len(router.workers) == 2 and {w.tier for w in router.workers} == (
+            {"serve"} if name == "config_fleet" else {"prefill", "decode"})
+    finally:
+        handlers[0].request_stop()
+        thread.join(60)
+    events = [json.loads(c[len(b"data: "):]) for c in raw.split(b"\n\n") if c.startswith(b"data: ")]
+    assert events[-1]["done"] and events[-1]["finish_reason"] == "budget"
+    assert events[-1]["token_ids"] == _engine_rows(cfg_path, kv_cache="paged")[0]
+    assert result == [0]
+
+
+def test_serve_fleet_refuses_a_config_of_another_variant(served):
+    cfg_path, _ = served
+    with pytest.raises(ValueError, match="--fleet needs the fleet serving component"):
+        main(["serve", "--fleet", "--config_file_path", str(cfg_path), "--device", "cpu"])
