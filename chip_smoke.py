@@ -132,6 +132,36 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      rotation; (e) the handoff's export, wire and import seconds (p50, max)
      and each tier's host ms a forward. Launches held to 65 and 225 a
      forward over every engine of the phase.
+ 3f. serving under telemetry and SLOs on the same weights (int8), every
+     launch of the phase counted from 0 and held to 65 and 225 a forward,
+     each config a copy of the shipped file with its model node swapped
+     (MODEL_2P7B), a word-level tokenizer, int8 weights and 2048-token caches,
+     its `slo` block as shipped: (a) phase 2's 9 requests through `serve()`
+     (the CLI's JSONL replay, the ring as config_serve.yaml sets it) with
+     MODALITIES_TPU_SERVE_TELEMETRY_DIR: every request that finishes
+     "budget" bitwise phase 2's int8 ring tokens (one the SLO-only brownout
+     shed must follow an slo/breach event in the sink), 9 serve_request
+     records agreeing with the rows, stats() and the registry's exposition,
+     and `data analyze_serve` / `data check_slo` rendering that sink; (b) the
+     config's component (the paged cache) behind the HTTP front end, its SLO
+     engine (the
+     file's objectives plus `error_rate_live` over the live
+     serve_requests_submitted_total: the file's error_rate names
+     serve_requests_total, which only check_slo's replay builds) sampled on
+     a stepped clock: a NaN generation's error breaches it (slo_breaches_total
+     1, /healthz "degraded"), the SLO-only brownout sheds 100 queued arrivals
+     and answers a new POST 429, and with the donor back and the clock past
+     the slow window it recovers (/healthz "ok", the donor bitwise 3c's
+     replay); (c)
+     config_fleet.yaml's two workers, one SLO engine each: a canary fed 8
+     prompts of 2000 tokens during probation burns ttft_p99 and rolls back
+     with stage "slo", /healthz and the router mark it degraded, the donor
+     generation answers through the router bitwise 3c's replay, and `data
+     analyze_fleet` stitches one trace per routed request; (d) a decode
+     dispatch wedged past a 0.5 s watchdog deadline dumps one artifact with
+     the thread stacks, the engine's stats and the card's memory under the
+     JAX keys; (e) the host ms a decode step with telemetry on and off in
+     turns, and the sink's records and bytes a request.
   4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
      `python -m modalities_tpu_torch run` calls) from a copy of
      configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
@@ -262,7 +292,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      printed; (d) phase 8b's 7B block with `bias: true` (biases drawn from
      N(0, 0.02)) at tp 8 within the same row bounds.
  11. one JSON line naming the kernels (launches summed over the paths, and
-     per path: serve, serve_paged, serve_paged_int8kv, serve_spec, train_2p7b, train_32k, train_32k_resume, ring_cp4,
+     per path: serve, serve_paged, serve_paged_int8kv, serve_spec, serve_http, serve_fleet, serve_disagg,
+     serve_observed, train_2p7b, train_32k, train_32k_resume, ring_cp4,
      train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
      pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
      zero4_in_process, dcn2_in_process, tp8_bias, serve_ckpt; the fused-CE
@@ -2366,7 +2397,8 @@ def phase_checkpoint(torch, smi: str) -> dict[str, dict[str, int]]:
             out = tmp / f"served_{quant}.jsonl"
             rms0, qmm0 = rms_norm.launches, quant_matmul.launches
             t0 = time.perf_counter()
-            stats = serve(serve_cfg, requests, out, device=device)
+            with own_registry():  # the default registry's gauges would keep the engine (and its memory) alive
+                stats = serve(serve_cfg, requests, out, device=device)
             wall = time.perf_counter() - t0
             rms, qmm = rms_norm.launches - rms0, quant_matmul.launches - qmm0
             serve_counts["rms_fwd"] += rms
@@ -3981,6 +4013,20 @@ def tenant_order(engine, reqs: list[dict]) -> list[int]:
     return [index[r] for r in firsts]
 
 
+@contextlib.contextmanager
+def own_registry():
+    """Engines built inside write their metrics into a registry of their own
+    (a disabled Telemetry's), as the engine of each `serve` run does; without
+    it they share the process's default registry with every earlier phase's."""
+    from modalities_tpu_torch.telemetry import Telemetry, set_active_telemetry
+
+    prior = set_active_telemetry(Telemetry(enabled=False))
+    try:
+        yield
+    finally:
+        set_active_telemetry(prior)
+
+
 def http_component(torch, model, params, device: str):
     from modalities_tpu_torch.serving.serve import ServingComponent
 
@@ -4011,7 +4057,8 @@ def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> tuple[
     t_phase = time.perf_counter()
     rms_norm.launches = quant_matmul.launches = 0
     component = http_component(torch, model, params, "cuda")
-    engine = component.build_engine()
+    with own_registry():  # (a) and (d) hold /metrics to this engine's stats()
+        engine = component.build_engine()
     # (b) the tenants' admission order on a stepped clock, against the port's scheduler on the CPU; first, while
     # the engine's DRR rotation is as fresh as the CPU engine's
     order_reqs = order_requests()
@@ -4019,7 +4066,8 @@ def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> tuple[
     cpu_model = build_model({"n_layer": 2, "n_head_q": 4, "n_head_kv": 2, "n_embd": 128, "ffn_hidden": 128,
                              "vocab_size": 256})
     cpu_component = http_component(torch, cpu_model, cpu_model.init_params(torch.Generator().manual_seed(0)), "cpu")
-    cpu_order = tenant_order(cpu_component.build_engine(), order_reqs)
+    with own_registry():
+        cpu_order = tenant_order(cpu_component.build_engine(), order_reqs)
     tenant_of = [r["tenant"] for r in order_reqs]
     if card_order != cpu_order:
         raise AssertionError(f"phase 3c (b): admission order {card_order} != the CPU scheduler's {cpu_order}")
@@ -4580,6 +4628,418 @@ def phase_serve_disagg(torch, model, params, reqs: list[dict], replays: dict, sm
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 3f
+OBSERVED_WATCHDOG_S = 0.5  # (d): the deadline of a dispatch; the first one gets 4x (the JAX first-step factor)
+WEDGE_S = 3.0  # (d): how long the wedged decode dispatch stalls
+CANARY_PROMPT = 2000  # (c): tokens of each of the canary's 8 long prompts: seconds of packed prefill, TTFT >> 0.5 s
+LIVE_ERROR_RATE = ("error_rate_live", "serve_request_errors_total / serve_requests_submitted_total < 0.01")
+COST_RUNS = 2  # (e): runs a side, telemetry on and off in turns
+
+
+def _observed_config(tmp: Path, name: str, changes: dict, out: str = "") -> Path:
+    """configs/<name>.yaml with the model node at MODEL_2P7B, the phase's
+    word-level tokenizer, int8 weights, 2048-token caches and `changes`;
+    its `slo` block as shipped. Written to tmp/<out or name>.yaml."""
+    import yaml
+
+    repo = Path(__file__).resolve().parent
+    cfg = yaml.safe_load((repo / "configs" / f"{name}.yaml").read_text())
+    node = cfg["serving_component"]["config"]
+    node["model"]["config"] = json.loads(json.dumps(MODEL_2P7B))
+    node["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(tmp / "tokenizer")
+    node.update({"quant": {"weights": "int8"}, "cache_capacity": CAPACITY, **changes})
+    path = tmp / f"{out or name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _words(ids) -> str:
+    return " ".join(f"t{int(i)}" for i in ids)
+
+
+def _sink_lines(path: Path) -> list[dict]:
+    return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def _cli(argv: list) -> tuple[int, str]:
+    """`python -m modalities_tpu_torch <argv>` in process: (exit code, stdout)."""
+    import io
+
+    from modalities_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    return rc, out.getvalue()
+
+
+def phase_serve_observed(torch, model, params, reqs: list[dict], ring_int8: list, replay: list,
+                         smi: str) -> dict[str, dict[str, int]]:
+    """Phase 3f (see the module docstring): serving under telemetry and SLOs.
+    Returns the path's launches, counted from 0 just before its first
+    forward and read after its last."""
+    import threading
+
+    from modalities_tpu_torch.ops.quant_matmul import quant_matmul
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+    from modalities_tpu_torch.quant.weights import quantize_params
+    from modalities_tpu_torch.serving.serve import build_serving_components, serve
+    from modalities_tpu_torch.serving.server import ServingHTTPServer
+    from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
+    from modalities_tpu_torch.telemetry import NOOP_TELEMETRY, Telemetry, set_active_telemetry
+    from modalities_tpu_torch.telemetry.metrics import parse_prometheus_text
+    from modalities_tpu_torch.telemetry.slo import SLOEngine, load_slo_spec, parse_objective
+
+    t_phase = time.perf_counter()
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=scratch, prefix="observed_"))
+    _word_tokenizer(tmp / "tokenizer", MODEL_2P7B["vocab_size"] + 1)  # <eod> past the vocabulary: never generated
+    rows = [{"prompt": _words(r["prompt"]), "max_new_tokens": NEW_TOKENS, "temperature": r["temperature"],
+             "seed": r["seed"]} for r in reqs]
+    (tmp / "requests.jsonl").write_text("\n".join(json.dumps(r) for r in rows) + "\n")
+    forwards = 0
+    rms_norm.launches = quant_matmul.launches = 0
+    saved_env = {k: os.environ.get(k) for k in ("MODALITIES_TPU_SERVE_TELEMETRY_DIR", "MODALITIES_TPU_SERVE_KV_CACHE")}
+    os.environ.pop("MODALITIES_TPU_SERVE_KV_CACHE", None)  # the ring, as the file sets it
+
+    # (a) phase 2's requests through serve() with the telemetry dir: the CLI's replay path
+    cfg_serve = _observed_config(tmp, "config_serve", {})
+    os.environ["MODALITIES_TPU_SERVE_TELEMETRY_DIR"] = str(tmp / "sink_a")
+    import modalities_tpu_torch.telemetry as telemetry_mod
+
+    armed, set_active = [], telemetry_mod.set_active_telemetry
+    telemetry_mod.set_active_telemetry = lambda t: (armed.append(t), set_active(t))[1]
+    t0 = time.perf_counter()
+    try:
+        stats = serve(cfg_serve, tmp / "requests.jsonl", tmp / "out_a.jsonl", device=SERVE_DEVICE)
+    finally:
+        telemetry_mod.set_active_telemetry = set_active
+        os.environ.pop("MODALITIES_TPU_SERVE_TELEMETRY_DIR")
+    wall_a = time.perf_counter() - t0
+    forwards += stats["forward_calls"]
+    out_rows = _sink_lines(tmp / "out_a.jsonl")
+    sink_a = tmp / "sink_a" / "telemetry_rank_0.jsonl"
+    events_a = _sink_lines(sink_a)
+    records = {r["rid"]: r for r in events_a if r.get("event") == "serve_request"}
+    breaches = [e for e in events_a if e.get("event") == "resilience" and e.get("name") == "slo/breach"]
+    telemetry_a = next(t for t in armed if t is not None and t is not NOOP_TELEMETRY)
+    parsed = parse_prometheus_text(telemetry_a.metrics.render())
+    served, shed = [], []
+    for i, row in enumerate(out_rows):
+        if row["finish_reason"] == "shed":  # the SLO-only brownout shed it while queued: a breach came first
+            shed.append(i)
+            continue
+        if row["finish_reason"] != "budget" or row["tokens"] != ring_int8[i]:
+            raise AssertionError(f"phase 3f (a): request {i} finished {row['finish_reason']} with tokens "
+                                 f"{'equal' if row['tokens'] == ring_int8[i] else 'unequal'} to phase 2's int8 ring")
+        served.append(i)
+    by_reason = {}
+    for r in records.values():
+        by_reason[r["finish_reason"]] = by_reason.get(r["finish_reason"], 0) + 1
+    checks = {
+        "9 records": sorted(records) == [r["rid"] for r in out_rows] and len(records) == len(rows),
+        "record tokens": all(records[r["rid"]]["tokens"] == len(r["tokens"]) and
+                             records[r["rid"]]["finish_reason"] == r["finish_reason"] for r in out_rows),
+        "shed after a breach": (not shed) or bool(breaches),
+        "stats decode tokens": sum(len(r["tokens"]) for r in out_rows) == stats["decode_tokens"] + len(served),
+        "metrics tokens": parsed["serve_tokens_generated_total"][()] == sum(len(r["tokens"]) for r in out_rows),
+        "metrics finishes": {dict(k).get("reason"): v for k, v in parsed["serve_requests_finished_total"].items()}
+                            == {k: float(v) for k, v in by_reason.items()},
+        "metrics ttft": parsed["serve_ttft_seconds_count"][()] == float(len(served)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3f (a): {checks}; finishes {by_reason}")
+    same_replay, where = _agreement(replay, [out_rows[i]["tokens"] for i in range(len(rows))])
+    rc_serve, text_serve = _cli(["data", "analyze_serve", "--sink_path", str(sink_a.parent)])
+    rc_json, text_json = _cli(["data", "analyze_serve", "--sink_path", str(sink_a.parent), "--as_json"])
+    spec = tmp / "slo_serve.yaml"
+    spec.write_text(json.dumps(load_app_config_dict(cfg_serve)["serving_component"]["config"]["slo"]))
+    rc_slo, text_slo = _cli(["data", "check_slo", "--slo_path", str(spec), "--sink_path", str(sink_a.parent)])
+    summary = json.loads(text_json)
+    if (rc_serve, rc_json) != (0, 0) or rc_slo not in (0, 1) or summary["requests"] != len(rows) \
+            or "ttft_p99" not in text_slo or "requests: 9" not in text_serve:
+        raise AssertionError(f"phase 3f (a): data commands exit {rc_serve}, {rc_json}, {rc_slo}: {text_slo}")
+    lat = summary["latency"]
+    log(f"[phase 3f] (a) serve() on config_serve.yaml (ring, int8, slo block as shipped) with "
+        f"MODALITIES_TPU_SERVE_TELEMETRY_DIR: {len(served)} of 9 requests bitwise phase 2's int8 ring tokens, "
+        f"{len(shed)} shed by the SLO brownout ({len(breaches)} slo/breach events before); against 3c's replay "
+        f"{same_replay} of 9 ({where}); 9 serve_request records agree with the rows, stats() and /metrics; "
+        f"{wall_a:.2f} s ({smi})")
+    log(f"[phase 3f] (a) analyze_serve: TTFT p50 {lat['ttft_s']['p50'] * 1e3:.1f} ms p99 "
+        f"{lat['ttft_s']['p99'] * 1e3:.1f} ms, e2e p50 {lat['e2e_s']['p50']:.3f} s, queue wait p99 "
+        f"{lat['queue_wait_s']['p99'] * 1e3:.1f} ms, mean TPOT p50 {lat['tpot_mean_s']['p50'] * 1e3:.2f} ms; "
+        f"check_slo exit {rc_slo}: " + " | ".join(line.strip() for line in text_slo.strip().splitlines()))
+    n_lines, n_bytes = len(events_a), sink_a.stat().st_size
+    del armed, telemetry_a  # its registry's gauges hold the engine
+    gc.collect()
+
+    # (b) a breach: a NaN generation on the config's component, its SLO engine on a stepped clock. The paged
+    # cache: a NaN generation leaves NaN K/V in the ring rows its request wrote, and the masked attention
+    # multiplies them by zero probabilities (NaN), in both packages; the paged engine scrubs V rows
+    cfg_paged = _observed_config(tmp, "config_serve", {"kv_cache": "paged", "paged_block_size": PAGED_BLOCK},
+                                 "config_serve_paged")
+    clock = {"t": 0.0}
+    telemetry_b = Telemetry(output_folder_path=tmp / "sink_b", watchdog_deadline_s=0.0)
+    prior = set_active_telemetry(telemetry_b)
+    try:
+        comp = build_serving_components(load_app_config_dict(cfg_paged)).serving_component
+        comp.device, comp.params = torch.device(SERVE_DEVICE), params
+        objectives, options = load_slo_spec(comp.slo)
+        objectives.append(parse_objective(*LIVE_ERROR_RATE))
+        slo = SLOEngine(objectives, telemetry_b.metrics, time_fn=lambda: clock["t"], **options)  # no sampler thread
+        comp.slo_engine = slo
+        engine = comp.build_engine()
+        if engine.brownout is None or engine.brownout.queue_high is not None:
+            raise AssertionError("phase 3f (b): the SLO-only brownout is not wired")
+        gate = threading.Event()
+        gate.set()
+        step = engine.step
+        engine.step = lambda t: step(t) if gate.is_set() else False
+        server = ServingHTTPServer(engine, encode=comp._encode, decode=comp.tokenizer.decode, port=0,
+                                   default_max_new_tokens=NEW_TOKENS)
+        server.slo_status_fn = slo.breaching
+        server.start()
+        donor = quantize_params(params, "int8")
+        nan = {k: torch.full_like(v, float("nan")) if v.is_floating_point() else v for k, v in donor.items()}
+        clock["t"] += 1.0
+        first = slo.sample_once()
+        health0 = _http(server.port, "GET", "/healthz")[1]
+        engine.request_swap(nan).wait()
+        poisoned = _done(_http(server.port, "POST", "/generate", rows[0]), "(b) NaN generation", "3f")
+        # the shut gate holds the engine between steps, so no queue sweep consults the brownout until it opens
+        gate.clear()
+        clock["t"] += 1.0
+        verdicts = slo.sample_once()
+        breached = parse_prometheus_text(telemetry_b.metrics.render())["slo_breaches_total"]
+        health1 = _http(server.port, "GET", "/healthz")[1]
+        # the brownout: 100 arrivals queue behind the gate, then the first sweep sheds them
+        dilute = [{"prompt": rows[i % len(rows)]["prompt"], "max_new_tokens": 1} for i in range(100)]
+        threads, outs = _post_all(server.port, dilute)
+        _wait(lambda: len(engine._queue) == len(dilute), "100 queued arrivals", phase="3f")
+        gate.set()
+        for t in threads:
+            t.join()
+        shed_b = [_done(o, "(b) queued", "3f")["finish_reason"] for o in outs]
+        status_r, err_r, headers_r = _http(server.port, "POST", "/generate", rows[1])
+        engine.request_swap(donor).wait()
+        still = slo.breaching()
+        clock["t"] += 700.0  # past the slow window: the bad sample ages out
+        recovered = slo.sample_once()
+        health2 = _http(server.port, "GET", "/healthz")[1]
+        _wait(lambda: not engine.brownout.active, "the brownout to clear", phase="3f")
+        restored = _done(_http(server.port, "POST", "/generate", rows[0]), "(b) donor back", "3f")
+        server.stop()
+        final_b = server.serve_forever()
+    finally:
+        telemetry_b.close()
+        set_active_telemetry(prior)
+    forwards += final_b["forward_calls"]
+    events_b = [e["name"] for e in _sink_lines(tmp / "sink_b" / "telemetry_rank_0.jsonl")
+                if e.get("event") == "resilience" and e["name"].startswith("slo/")]
+    checks = {
+        "quiet start": set(first.values()) == {None} and health0["status"] == "ok" and health0["slo_breaching"] == [],
+        "NaN request error": poisoned["finish_reason"] == "error",
+        "shipped error_rate unjudgeable live": verdicts["error_rate"] is None,
+        "live error rate breaches": verdicts["error_rate_live"] is False
+                                    and breached.get((("objective", "error_rate_live"),)) == 1.0,
+        "degraded": (health1["status"], health1["slo_breaching"]) == ("degraded", ["error_rate_live"]),
+        "brownout sheds the queue": shed_b == ["shed"] * len(dilute),
+        "brownout rejects arrivals": (status_r, err_r.get("reason")) == (429, "brownout_reject"),
+        "breach holds": still == ["error_rate_live"],
+        "recovered": recovered["error_rate_live"] is True and health2["status"] == "ok"
+                     and health2["slo_breaching"] == [],
+        "donor bitwise": restored["finish_reason"] == "budget" and restored["token_ids"] == replay[0],
+        "sink events": events_b == ["slo/breach", "slo/recovered"],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3f (b): {checks}; verdicts {verdicts}, health {health1}, {health2}, 429 "
+                             f"{status_r} {err_r}, sink {events_b}")
+    log(f"[phase 3f] (b) a NaN generation's request finished \"error\": the shipped error_rate objective is "
+        f"unjudgeable live (its denominator serve_requests_total exists only in check_slo's replay); "
+        f"{LIVE_ERROR_RATE[0]} ({LIVE_ERROR_RATE[1]}) breached on sample_once(), slo_breaches_total 1, /healthz "
+        f"degraded {health1['slo_breaching']}; the SLO-only brownout shed the 100 queued arrivals and answered a new "
+        f"POST 429 brownout_reject (Retry-After {headers_r.get('Retry-After')}); the donor swapped back, the clock "
+        f"past the 600 s slow window: recovered (1 error in {1 + len(dilute)} submitted), /healthz ok, the "
+        f"brownout cleared and the donor answered request 0 bitwise 3c's replay (the paged cache)")
+    del telemetry_b, engine, comp, server, slo, donor, nan
+    gc.collect()
+
+    # (c) the fleet: two workers with config_fleet.yaml's slo block; a canary that burns ttft_p99 rolls back
+    from modalities_tpu_torch.serving.fleet.component import FleetServingComponent  # noqa: F401 (the registry's)
+
+    telemetry_c = Telemetry(output_folder_path=tmp / "sink_c", watchdog_deadline_s=0.0)
+    prior = set_active_telemetry(telemetry_c)
+    try:
+        cfg_fleet = _observed_config(tmp, "config_fleet", {})
+        fleet = build_serving_components(load_app_config_dict(cfg_fleet)).serving_component
+        stop, thread, out = _start_fleet(torch, fleet, params, "3f")
+        router, controller, workers = fleet.router, fleet.controller, fleet.workers
+        engines = [w.engine for w in workers]
+        if sorted(fleet.slo_engines) != ["worker0", "worker1"]:
+            raise AssertionError(f"phase 3f (c): SLO engines {sorted(fleet.slo_engines)}")
+        donor = quantize_params(params, "int8")
+        verdict, ended = [], []
+        deploy = threading.Thread(target=lambda: (verdict.append(controller.deploy(donor, step=1)),
+                                                  ended.append(time.perf_counter())))
+        t0 = time.perf_counter()
+        deploy.start()
+        _wait(lambda: any(e.weights_generation == 1 for e in engines) or not deploy.is_alive(), "the canary",
+              phase="3f")
+        swapped_at = time.perf_counter()
+        canary = next(w for w in workers if w.engine.weights_generation == 1)
+        rng = np.random.default_rng(3)
+        long_rows = [{"prompt": _words(rng.integers(0, MODEL_2P7B["vocab_size"], size=CANARY_PROMPT)),
+                      "max_new_tokens": 8} for _ in range(SLOTS)]
+        threads, outs = _post_all(canary.server.port, long_rows)
+        deploy.join()
+        for t in threads:
+            t.join()
+        canary_rows = [_done(o, f"(c) canary request {i}", "3f") for i, o in enumerate(outs)]
+        canary_done = [d["finish_reason"] for d in canary_rows]
+        rollback_s, probation_s = ended[0] - t0, ended[0] - swapped_at
+        health = _http(canary.server.port, "GET", "/healthz")[1]
+        _wait(lambda: next(w for w in router.workers if w.name == canary.name).degraded, "the router to see "
+              "the canary degraded", seconds=30.0, phase="3f")
+        # the fleet's answer after the rollback: the donor generation, through the router
+        threads, outs = _post_all(router.port, rows[:2])
+        for t in threads:
+            t.join()
+        routed = [_done(o, f"(c) routed request {i}", "3f") for i, o in enumerate(outs)]
+        for e in engines:
+            _wait(lambda e=e: e.stats()["active_slots"] == 0 and e.stats()["queue_depth"] == 0, "the workers idle",
+                  phase="3f")
+        forwards_c = sum(e.stats()["forward_calls"] for e in engines)
+        stop.set()
+        thread.join(120)
+        if thread.is_alive() or not out:
+            raise AssertionError("phase 3f (c): run_fleet did not drain")
+    finally:
+        telemetry_c.close()
+        set_active_telemetry(prior)
+    forwards += forwards_c
+    sink_c = tmp / "sink_c"
+    rollbacks = [e for e in _sink_lines(sink_c / "telemetry_rank_0.jsonl")
+                 if e.get("event") == "resilience" and e.get("name") == "fleet/rollback"]
+    rc_fleet, text_fleet = _cli(["data", "analyze_fleet", "--sink_path", str(sink_c), "--as_json"])
+    traces = {t["trace_id"]: t for t in json.loads(text_fleet)}
+    routed_ids = [d["trace_id"] for d in routed]
+    checks = {
+        "rolled back": verdict == [False] and controller.generation == 0 and canary.engine.weights_generation == 0,
+        "stage slo": [r.get("stage") for r in rollbacks] == ["slo"] and "ttft_p99" in rollbacks[0].get("reason", ""),
+        "canary requests": canary_done == ["budget"] * SLOTS,
+        "canary degraded": (health["status"], health["slo_breaching"]) == ("degraded", ["ttft_p99"]),
+        "donor bitwise": [d["token_ids"] for d in routed] == [replay[0], replay[1]]
+                         and all(d["weights_generation"] == 0 for d in routed),
+        "one trace a routed request": rc_fleet == 0 and all(
+            traces.get(tid, {}).get("router", {}).get("outcome") == "done"
+            and len(traces[tid]["worker_legs"]) == 1 for tid in routed_ids),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3f (c): {checks}; rollbacks {rollbacks}, health {health}")
+    log(f"[phase 3f] (c) config_fleet.yaml, 2 workers with per-worker SLO engines: canary {canary.name} took 8 "
+        f"prompts of {CANARY_PROMPT} tokens during probation, burned ttft_p99 and rolled back with stage slo "
+        f"({rollbacks[0].get('reason')}) {rollback_s:.2f} s after the deploy began ({probation_s:.2f} s after the "
+        f"canary's swap, its first TTFT {min(d['ttft_s'] for d in canary_rows) * 1e3:.1f} ms); /healthz degraded, the router "
+        f"marked it degraded; 2 requests through the router answered by the donor generation bitwise; "
+        f"analyze_fleet stitched each routed request into one trace (router record + 1 worker leg; "
+        f"{len(traces)} traces in the sink)")
+    del telemetry_c, fleet, router, controller, workers, engines, canary, donor
+    gc.collect()
+
+    # (d) the watchdog: a decode dispatch wedged on purpose dumps one artifact
+    telemetry_d = Telemetry(output_folder_path=tmp / "sink_d", watchdog_deadline_s=OBSERVED_WATCHDOG_S)
+    prior = set_active_telemetry(telemetry_d)
+    try:
+        comp = build_serving_components(load_app_config_dict(cfg_serve)).serving_component
+        comp.device, comp.params = torch.device(SERVE_DEVICE), params
+        engine = comp.build_engine()  # registers its stats() with the active telemetry's watchdog
+        calls = {"n": 0}
+        dispatch = engine._decode_dispatch
+
+        def wedged(t0):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                time.sleep(WEDGE_S)
+            return dispatch(t0)
+
+        engine._decode_dispatch = wedged
+        engine.submit(list(reqs[0]["prompt"][:64]), 8, temperature=0.0)
+        engine.run()
+        forwards += engine.stats()["forward_calls"]
+        artifacts = telemetry_d.watchdog_artifacts
+    finally:
+        telemetry_d.close()
+        set_active_telemetry(prior)
+    del telemetry_d, engine, comp
+    gc.collect()
+    artifact = json.loads(artifacts[0].read_text()) if artifacts else {}
+    memory = artifact.get("device_memory", {})
+    stacks = "".join("".join(s) for s in artifact.get("thread_stacks", {}).values())
+    want_keys = ({"bytes_in_use", "peak_bytes_in_use", "bytes_limit"} if SERVE_DEVICE == "cuda" else set())
+    checks = {
+        "one artifact": len(artifacts) == 1,
+        "keys": {"thread_stacks", "device_memory", "state", "metrics", "weights_generation", "armed_step"}
+                <= set(artifact),
+        "the wedged frame": "wedged" in stacks,
+        "engine snapshot": artifact.get("state", {}).get("serving_engine", {}).get("kv_cache") == "ring",
+        "memory keys": all(want_keys <= set(v) for v in memory.values()) and bool(memory),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3f (d): {checks}; {sorted(artifact)} {memory}")
+    mem = next(iter(memory.values()))
+    log(f"[phase 3f] (d) a decode dispatch wedged {WEDGE_S} s against a {OBSERVED_WATCHDOG_S} s deadline: one "
+        f"artifact {artifacts[0].name} (armed step {artifact['armed_step']}, overdue {artifact['overdue_s']} s) "
+        f"with {len(artifact['thread_stacks'])} thread stacks, the engine's published stats and the device "
+        f"memory under the JAX keys: " + ", ".join(f"{k} {mem.get(k)}" for k in sorted(want_keys)))
+
+    # (e) the cost: host ms a decode step with telemetry on and off, in turns on one engine
+    comp = build_serving_components(load_app_config_dict(cfg_serve)).serving_component
+    comp.device, comp.params = torch.device(SERVE_DEVICE), params
+    engine = comp.build_engine()
+    per_step = {"on": [], "off": []}
+    for i in range(COST_RUNS):
+        for mode in ("on", "off"):
+            telemetry_e = Telemetry(output_folder_path=tmp / f"sink_e{i}", watchdog_deadline_s=300.0) \
+                if mode == "on" else None
+            prior = set_active_telemetry(telemetry_e)
+            try:
+                s0 = engine.stats()
+                for r in reqs[:SLOTS]:
+                    engine.submit(list(r["prompt"][:64]), 32, temperature=0.0, seed=r["seed"])
+                engine.run()
+                s1 = engine.stats()
+            finally:
+                if telemetry_e is not None:
+                    telemetry_e.close()
+                set_active_telemetry(prior)
+            per_step[mode].append(1e3 * (s1["decode_seconds"] - s0["decode_seconds"])
+                                  / (s1["decode_steps"] - s0["decode_steps"]))
+    forwards += engine.stats()["forward_calls"]
+    del engine, comp
+    log(f"[phase 3f] (e) host ms a decode step (8 slots, int8, ring), telemetry on / off in turns: on "
+        f"{', '.join('%.2f' % v for v in per_step['on'])}; off {', '.join('%.2f' % v for v in per_step['off'])}; "
+        f"median on / off {np.median(per_step['on']) / np.median(per_step['off']):.3f}; the sink of (a): "
+        f"{n_lines / len(rows):.1f} records and {n_bytes / len(rows):.0f} bytes a request ({smi})")
+
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    counts = {"rms_fwd": rms_norm.launches, "quant_matmul": quant_matmul.launches}
+    want = {"rms_fwd": PER_FORWARD["rms"] * forwards, "quant_matmul": PER_FORWARD["qmm"] * forwards}
+    if counts != want:
+        raise AssertionError(f"phase 3f: launches {counts} over {forwards} forwards; expected {want}")
+    log(f"[phase 3f] launches: rms_norm {counts['rms_fwd']} = 65 x {forwards} forwards, quant_matmul "
+        f"{counts['quant_matmul']} = 225 x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    for k, v in saved_env.items():
+        if v is not None:
+            os.environ[k] = v
+    shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if SERVE_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"serve_observed": counts}
+
+
 def training_phases(torch):
     """Phases 4-9 on the process group; returns each path's launch counts."""
     # phase 4: the training path. Counts start from 0 inside phase_train.
@@ -4716,53 +5176,59 @@ def main() -> int:
     from modalities_tpu_torch.ops.quant_matmul import quant_matmul
     from modalities_tpu_torch.ops.rmsnorm import rms_norm
 
-    model = build_model()
-    t = time.perf_counter()
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"[phase 2] 2.7B params ({sum(p.numel() for p in params.values()) / 1e9:.3f} B, fp32) "
-        f"initialized on the card in {time.perf_counter() - t:.1f} s")
-    reqs = make_requests()
-    log(f"[phase 2] 9 requests, prompt lengths {[len(r['prompt']) for r in reqs]}, {NEW_TOKENS} new tokens each")
-    rms_norm.launches = 0
-    quant_matmul.launches = 0
-    runs = {}
-    for quant, phase in (("none", "phase 2"), ("int8", "phase 3"), ("fp8", "phase 3")):
-        r = serve_phase(torch, model, params, quant, reqs)
-        runs[quant] = r
-        fwd = r["forward_calls"]
-        if r["rms_launches"] != 65 * fwd:
-            raise AssertionError(f"{quant}: rms_norm launched {r['rms_launches']} times, expected 65 x {fwd}")
-        want_qmm = 0 if quant == "none" else 225 * fwd
-        if r["qmm_launches"] != want_qmm:
-            raise AssertionError(f"{quant}: quant_matmul launched {r['qmm_launches']} times, expected {want_qmm}")
-        report_serve(f"{phase} {quant if quant != 'none' else 'bf16'}", r)
-        report_profile(f"{phase} {quant if quant != 'none' else 'bf16'}", r)
-        log(f"[{phase}] launches: rms_norm {r['rms_launches']} = 65 x {fwd} forwards, "
-            f"quant_matmul {r['qmm_launches']}")
-        if quant != "none":
-            log(f"[{phase}] {quant}: greedy tokens agreeing with bf16 position by position: "
-                f"{greedy_agreement(reqs, runs['none']['tokens'], r['tokens']):.3f} (information only)")
-    log("[phase 2] batch invariance: request 0 served alone matches its batched tokens bitwise")
-    mark("phases 2-3")
-    rms_total, qmm_total = rms_norm.launches, quant_matmul.launches
-    if rms_total == 0 or qmm_total == 0:
-        raise AssertionError("a kernel of the serving path was never launched")
+    # the serving phases' engines write into one registry of their own, dropped with them after phase 3f
+    with own_registry():
+        model = build_model()
+        t = time.perf_counter()
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        log(f"[phase 2] 2.7B params ({sum(p.numel() for p in params.values()) / 1e9:.3f} B, fp32) "
+            f"initialized on the card in {time.perf_counter() - t:.1f} s")
+        reqs = make_requests()
+        log(f"[phase 2] 9 requests, prompt lengths {[len(r['prompt']) for r in reqs]}, {NEW_TOKENS} new tokens each")
+        rms_norm.launches = 0
+        quant_matmul.launches = 0
+        runs = {}
+        for quant, phase in (("none", "phase 2"), ("int8", "phase 3"), ("fp8", "phase 3")):
+            r = serve_phase(torch, model, params, quant, reqs)
+            runs[quant] = r
+            fwd = r["forward_calls"]
+            if r["rms_launches"] != 65 * fwd:
+                raise AssertionError(f"{quant}: rms_norm launched {r['rms_launches']} times, expected 65 x {fwd}")
+            want_qmm = 0 if quant == "none" else 225 * fwd
+            if r["qmm_launches"] != want_qmm:
+                raise AssertionError(f"{quant}: quant_matmul launched {r['qmm_launches']} times, expected {want_qmm}")
+            report_serve(f"{phase} {quant if quant != 'none' else 'bf16'}", r)
+            report_profile(f"{phase} {quant if quant != 'none' else 'bf16'}", r)
+            log(f"[{phase}] launches: rms_norm {r['rms_launches']} = 65 x {fwd} forwards, "
+                f"quant_matmul {r['qmm_launches']}")
+            if quant != "none":
+                log(f"[{phase}] {quant}: greedy tokens agreeing with bf16 position by position: "
+                    f"{greedy_agreement(reqs, runs['none']['tokens'], r['tokens']):.3f} (information only)")
+        log("[phase 2] batch invariance: request 0 served alone matches its batched tokens bitwise")
+        mark("phases 2-3")
+        rms_total, qmm_total = rms_norm.launches, quant_matmul.launches
+        if rms_total == 0 or qmm_total == 0:
+            raise AssertionError("a kernel of the serving path was never launched")
 
-    # phase 3b: the paged engine on the same weights (each run's counts from 0 inside)
-    ring = {**{q: runs[q]["tokens"] for q in ("none", "int8")}, **{f"{q}_profile": runs[q]["profile"] for q in ("none", "int8")}}
-    replays = {}
-    paged_counts = phase_serve_paged(torch, model, params, reqs, ring, smi, replays)
-    mark("phase 3b")
-    # phase 3c: the HTTP front end on the same weights (its counts from 0 inside)
-    http_counts, replays["int8"] = phase_serve_http(torch, model, params, reqs, smi)
-    paged_counts.update(http_counts)
-    mark("phase 3c")
-    # phases 3d and 3e: the fleet and disaggregation on the same weights (each path's counts from 0 inside)
-    paged_counts.update(phase_serve_fleet(torch, model, params, reqs, replays["int8"], smi))
-    mark("phase 3d")
-    paged_counts.update(phase_serve_disagg(torch, model, params, reqs, replays, smi))
-    mark("phase 3e")
+        # phase 3b: the paged engine on the same weights (each run's counts from 0 inside)
+        ring = {**{q: runs[q]["tokens"] for q in ("none", "int8")}, **{f"{q}_profile": runs[q]["profile"] for q in ("none", "int8")}}
+        replays = {}
+        paged_counts = phase_serve_paged(torch, model, params, reqs, ring, smi, replays)
+        mark("phase 3b")
+        # phase 3c: the HTTP front end on the same weights (its counts from 0 inside)
+        http_counts, replays["int8"] = phase_serve_http(torch, model, params, reqs, smi)
+        paged_counts.update(http_counts)
+        mark("phase 3c")
+        # phases 3d and 3e: the fleet and disaggregation on the same weights (each path's counts from 0 inside)
+        paged_counts.update(phase_serve_fleet(torch, model, params, reqs, replays["int8"], smi))
+        mark("phase 3d")
+        paged_counts.update(phase_serve_disagg(torch, model, params, reqs, replays, smi))
+        mark("phase 3e")
+        # phase 3f: serving under telemetry and SLOs on the same weights (its counts from 0 inside)
+        paged_counts.update(phase_serve_observed(torch, model, params, reqs, runs["int8"]["tokens"], replays["int8"],
+                                                 smi))
+        mark("phase 3f")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,29 +1,31 @@
-"""Resilience event counters: every recovery-path action of the fleet
-(failover, rollback, seal rejection, ...) is counted in-process. The port of
-modalities_tpu/resilience/events.py.
+"""Resilience event stream: every recovery-path action (failover, rollback,
+seal rejection, SLO breach, ...) is counted in-process AND emitted to the
+active telemetry sink. The port of modalities_tpu/resilience/events.py.
 
 The counters let a caller that needs a synchronous answer to "did anything
-degrade in this window?" read it without a telemetry sink. They are keyed
-by the event's first path segment (``fleet/rollback`` counts under
-``fleet``). The JAX module also emits each event to the active telemetry
-sink; the port has no sink yet (ROADMAP.md Queue 1 item 6), which is what the
-JAX package does with telemetry off: the counter still advances, the
-payload goes nowhere.
+degrade in this window?" read it without tailing the JSONL sink. They are
+keyed by the event's first path segment (``fleet/rollback`` counts under
+``fleet``). With no telemetry active the sink is the no-op: the counter
+still advances, the payload goes nowhere.
 """
 
 from __future__ import annotations
 
 import threading
 
+from modalities_tpu_torch.telemetry import get_active_telemetry
+
 _lock = threading.Lock()
 _counts: dict[str, int] = {}
 
 
 def record_event(name: str, **payload) -> None:
-    """Count the event under its first path segment (the payload has no sink yet)."""
+    """Count the event under its first path segment and emit it to the active
+    telemetry sink."""
     group = name.split("/", 1)[0]
     with _lock:
         _counts[group] = _counts.get(group, 0) + 1
+    get_active_telemetry().emit_event(name, payload)
 
 
 def snapshot_counts() -> dict[str, int]:

@@ -15,8 +15,8 @@ the sampler's skip, are parsed from it).
 
 Digests read every byte of a checkpoint; ``MODALITIES_TPU_VERIFY_DIGESTS=0``
 limits verification to sizes and existence. Where the JAX package records a
-telemetry event, the port logs at warning level (telemetry is ROADMAP.md
-Queue 1 item 6).
+telemetry event, the port logs at warning level (the trainer's telemetry is
+ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Transient storage errors (a flaky network mount) cost a retry, not the run:
 `retry_io` runs a function again after an `OSError`, with exponential backoff
 and jitter, a bounded number of times, and then re-raises the last error
 unchanged. Each retry is logged at warning level (the JAX package also records
-a telemetry event; telemetry is not ported, ROADMAP.md Queue 1 item 6).
+a telemetry span and event: the trainer's telemetry, ROADMAP.md Queue 1 item 6).
 
 The defaults are read from the environment, as in the JAX package:
 - ``MODALITIES_TPU_IO_RETRY_ATTEMPTS`` (default 4 attempts in all)

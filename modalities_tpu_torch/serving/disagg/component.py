@@ -15,9 +15,10 @@ never decodes).
 Workers keep the per-worker /admin/swap of the flat fleet, so a hot swap
 moves a worker's weights generation, and the decode tier's generation check
 at import turns a half-swapped fleet into `generation_mismatch` rejections
-and a replay, not silently wrong KV. The JAX component arms SLO objectives
-per tier (TTFT on the prefill tier, TPOT on the decode tier); `slo` stays
-refused until ROADMAP.md Queue 1 item 6.
+and a replay, not silently wrong KV. The `slo` block is armed per tier: a
+worker judges only the objectives its tier owns (`_TIER_METRICS`: TTFT on
+the prefill tier, TPOT on the decode tier, the rest on both), each over the
+worker's own registry, feeding its /healthz and its brownout.
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ from modalities_tpu_torch.serving.fleet.component import WorkerBoot, split_knobs
 from modalities_tpu_torch.serving.serve import ServingComponent, ServingComponentConfig
 
 logger = logging.getLogger(__name__)
+
+# the tier that owns an objective's metric; any other metric is judged on both
+_TIER_METRICS = {
+    "serve_ttft_seconds": "prefill",
+    "serve_tpot_seconds": "decode",
+}
 
 
 @dataclasses.dataclass
@@ -67,10 +74,11 @@ class DisaggServingComponent(WorkerBoot, ServingComponent):
         self.decode_workers = cfg.decode_workers
         self.health_interval_s = cfg.health_interval_s
         self.heartbeat_deadline_s = cfg.heartbeat_deadline_s
+        self._slo_hooks: dict = {}  # worker name -> its brownout's late-bound SLO hook
 
     def run_fleet(self) -> dict:
-        """Boot both tiers -> DisaggRouter; block until the stop flag drains
-        everything (the flat fleet's contract)."""
+        """Boot both tiers -> the per-tier SLOs -> DisaggRouter; block until
+        the stop flag drains everything (the flat fleet's contract)."""
         from modalities_tpu_torch.serving.disagg.router import DisaggRouter
         from modalities_tpu_torch.serving.fleet.router import WorkerHandle
         from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
@@ -82,12 +90,15 @@ class DisaggServingComponent(WorkerBoot, ServingComponent):
         prefill = [self._boot_worker(f"prefill{i}", "prefill", {"k": 0}, load_fn) for i in range(self.prefill_workers)]
         decode = [self._boot_worker(f"decode{i}", "decode", self.spec_decode, load_fn)
                   for i in range(self.decode_workers)]
+        slo_engines = self._arm_slos(
+            prefill + decode, lambda w, objectives: [o for o in objectives if _TIER_METRICS.get(
+                o.metric, w.engine.role) == w.engine.role])
         router = DisaggRouter([WorkerHandle(w.name, self.http_host, w.server.port) for w in prefill],
                               [WorkerHandle(w.name, self.http_host, w.server.port) for w in decode],
                               host=self.http_host, port=self.http_port or 0, metrics=MetricsRegistry(),
                               health_interval_s=self.health_interval_s,
                               heartbeat_deadline_s=self.heartbeat_deadline_s).start()
-        self.router, self.workers = router, prefill + decode
+        self.router, self.workers, self.slo_engines = router, prefill + decode, slo_engines
         logger.info("disagg serving: %d prefill + %d decode workers behind router on %s:%d", len(prefill),
                     len(decode), self.http_host, router.port)
-        return self._serve_until_stopped(router, prefill + decode)
+        return self._serve_until_stopped(router, prefill + decode, slo_engines=slo_engines)

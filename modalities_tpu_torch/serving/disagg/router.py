@@ -34,9 +34,9 @@ request body over 16 MiB by closing the connection (serving/server.py
 is the second case: the decode worker counts as dead (`peer_down`) and the
 request replays until no decode worker is left or the retry budget runs dry.
 
-The JAX router also turns sustained SLO breach into `fleet/tier_pressure`
-recommendations; the port's workers report no breach before the SLO engine
-(ROADMAP.md Queue 1 item 6), so here only a dead worker raises it.
+A tier is under pressure while one of its workers is dead or reports an
+SLO breach ("degraded"); each transition emits one `fleet/tier_pressure`
+event (grow, or hold on recovery).
 """
 
 from __future__ import annotations
@@ -146,7 +146,9 @@ class DisaggRouter(FleetRouter):
             return
         state = self._new_state(headers)
         trace_id = state["trace_id"]
+        legs: list[dict] = []
         t_arrival = time.monotonic()
+        outcome = "client_gone"
         self._active_relays += 1
 
         async def send_client(data: bytes) -> None:
@@ -159,29 +161,44 @@ class DisaggRouter(FleetRouter):
         async def no_workers(which: str) -> None:
             await self._send_error(client_writer, state, {"error": f"no healthy {which} workers", "trace_id": trace_id})
 
+        def leg_of(worker: WorkerHandle, tier: str) -> dict:
+            return {"worker": worker.name, "tier": tier, "hop": state["hop"],
+                    "t_start_s": round(time.monotonic() - t_arrival, 6)}
+
         try:
             for _attempt in range(len(self.workers) + 1):
                 # ------------------------------------------- the prefill leg
                 pworker = self._pick(set(), tier="prefill")
                 if pworker is None:
                     await no_workers("prefill")
+                    outcome = "no_healthy_workers"
                     return
+                pleg = leg_of(pworker, "prefill")
                 resp = await self._prefill_leg(pworker, body_bytes, state)
                 state["hop"] += 1
                 if resp is None:
+                    pleg["outcome"] = "failover"
+                    legs.append(pleg)
                     self._fail_worker(pworker, state, "peer_down")
                     if not await self._retry_allowed(client_writer, state, pworker.name):
+                        outcome = "retry_budget_exhausted"
                         return
                     continue
                 pbody = resp["body"]
                 if resp["status"] != 200:
                     # an engine-side refusal (a bad prompt, the wrong role, a
                     # drain): deterministic, surfaced, not retried
+                    pleg["outcome"] = "error"
+                    legs.append(pleg)
                     await send_client(sse_event_bytes(pbody) if state["headers_sent"]
                                       else json_response_bytes(resp["status"], pbody))
+                    outcome = "error"
                     return
+                pleg["outcome"] = "done"
                 self._record_worker_result(pworker, ok=True)
                 token_ids = [int(t) for t in (pbody.get("token_ids") or [])]
+                pleg["tokens"] = len(token_ids)
+                legs.append(pleg)
                 completion = pbody.get("completion") or ""
                 # token #1 to the client now (a replay skips it: the splice
                 # counter says the client has it)
@@ -201,14 +218,17 @@ class DisaggRouter(FleetRouter):
                         "finish_reason": pbody.get("finish_reason"), "truncated": bool(pbody.get("truncated")),
                         "prompt_len": int(pbody.get("prompt_len") or 0), "ttft_s": pbody.get("ttft_s"),
                         "weights_generation": int(pbody.get("weights_generation") or 0), "trace_id": trace_id}))
+                    outcome = "done"
                     return
                 # -------------------------------------------- the decode leg
                 dworker = self._pick(set(), tier="decode")
                 if dworker is None:
                     await no_workers("decode")
+                    outcome = "no_healthy_workers"
                     return
                 import_body = json.dumps({"record": pbody["record"], "trace_id": trace_id,
                                           "trace_hop": state["hop"]}).encode()
+                dleg = leg_of(dworker, "decode")
 
                 def merge_done(event, _toks=tuple(token_ids), _text=completion):
                     if event.get("retryable"):
@@ -226,24 +246,33 @@ class DisaggRouter(FleetRouter):
                 leg = await self._relay_from_worker(dworker, import_body, client_writer, state,
                                                     path="/disagg/import", stream_offset=len(token_ids),
                                                     done_transform=merge_done)
+                dleg["outcome"] = leg
+                dleg["forwarded_tokens"] = state["forwarded"]
+                legs.append(dleg)
                 state["hop"] += 1
                 if leg == "done":
+                    outcome = "done"
                     self._record_worker_result(dworker, ok=True)
                     return
                 reject = state.pop("reject_reason", None)
                 if reject is not None:
+                    dleg["outcome"] = f"rejected:{reject}"
                     self._m_handoff_failures.inc(reason=reject)
                     record_event("fleet/handoff_rejected", worker=dworker.name, reason=reject, trace_id=trace_id)
                     if not await self._retry_allowed(client_writer, state, dworker.name):
+                        outcome = "retry_budget_exhausted"
                         return
                     continue  # the decode worker stays in rotation
                 self._fail_worker(dworker, state, "peer_down")
                 if not await self._retry_allowed(client_writer, state, dworker.name):
+                    outcome = "retry_budget_exhausted"
                     return
                 # loop: a fresh prefill on a healthy pair, the SAME trace id
             await no_workers("pair")
+            outcome = "no_healthy_workers"
         except _ClientGone:
+            outcome = "client_gone"
             return
         finally:
             self._active_relays -= 1
-            self._m_e2e.observe(time.monotonic() - t_arrival, exemplar=trace_id)
+            self._record_request(state, t_arrival, outcome, legs, disagg=True)

@@ -95,9 +95,20 @@ the decode step. Both roles need the paged cache; the prefill tier takes no
 speculation. The export's gather and the import's scatter are plain
 PyTorch, as they are plain jnp in the JAX engine.
 
-Not here (ROADMAP.md Queue 1 item 6): the SLO signal of the brownout
-controller, request tracing and telemetry (a request's `trace_id` and
-`trace_hop` ride it and its handoff record, and nothing records them).
+Request tracing: every request keeps an event stream on the engine's
+clock (enqueue / import_enqueue, admit, prefix_hit, prefill_chunk,
+first_token, preempt, requeue, import_* and handoff_export, deadline or
+shed, finish), folded at its finish into ONE `serve_request` record on the
+active telemetry's sink (telemetry/__init__.py; `data analyze_serve` reads
+it) with the JAX record's fields. A request's trace id is the one the fleet
+propagated, or one minted at submit; it rides the result, the handoff record
+and the TTFT / end-to-end histogram exemplars. The engine's phases are spans
+(serve/admission, serve/prefill, serve/decode, serve/import, serve/cow,
+serve/handoff_export), and each round with pending work arms the active
+telemetry's hang watchdog (beat on a dispatched round, disarm on an idle
+one), whose artifact carries `stats()` (the published snapshot). Tracing
+reads no device value and syncs nothing: the events ride the host
+bookkeeping each dispatch already does.
 """
 
 from __future__ import annotations
@@ -106,6 +117,7 @@ import math
 import os
 import threading
 import time
+import uuid
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -127,6 +139,7 @@ from modalities_tpu_torch.quant.weights import (
 from modalities_tpu_torch.serving.paged_cache import BlockTableState, blocks_for_tokens
 from modalities_tpu_torch.serving.resilience import TenantRegistry, deadline_expired, resolve_tenant
 from modalities_tpu_torch.serving.spec_decode import propose_ngram, resolve_spec_config
+from modalities_tpu_torch.telemetry import get_active_telemetry, span
 from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
 
 _DEFAULT_PREFILL_CHUNKS = (64, 16, 4, 1)  # descending, ending in 1: every prompt length fits
@@ -184,8 +197,8 @@ class ServeRequest:
     deadline_ms: Optional[float] = None
     priority: int = 0
     tenant: str = ""
-    # the fleet's trace id and hop, carried from the HTTP leg into a handoff
-    # record (no trace records yet: ROADMAP.md Queue 1 item 6)
+    # the fleet's trace id (propagated, or minted at submit) and hop: they
+    # ride the request's records, its result and its handoff record
     trace_id: str = ""
     trace_hop: int = 0
 
@@ -202,6 +215,7 @@ class ServeResult:
     arrival_s: float = 0.0  # engine-clock arrival
     first_token_s: float = 0.0  # engine-clock time the first token was available
     finish_s: float = 0.0
+    first_emit_s: Optional[float] = None  # engine-clock time of the first emitted token (mean TPOT)
     last_token_s: Optional[float] = None  # engine-clock time of the latest token (TPOT)
     trace_id: str = ""
     trace_hop: int = 0
@@ -267,8 +281,8 @@ class ServingEngine:
     A knob left None takes its environment switch, as in the JAX engine.
     `time_fn` replaces the engine clock (`time.monotonic`), as the JAX
     engine's does: a fake clock makes arrival-gated runs deterministic.
-    `metrics` is the registry the engine's series go into (default: a
-    registry of its own)."""
+    `metrics` is the registry the engine's series go into (default: the
+    active telemetry's, one scrape surface a process)."""
 
     def __init__(
         self,
@@ -453,8 +467,10 @@ class ServingEngine:
         self._drr_cursor = ""
         self._tenant_stats: dict[str, dict] = {}
         self._streamed: dict[int, int] = {}  # rid -> tokens already passed to on_token
-        self._wait_from: dict[int, float] = {}  # rid -> start of its current queue wait
-        self._ttft_observed: set[int] = set()
+        # request tracing: rid -> its event stream and folded fields, kept
+        # across preemption and flushed as one serve_request record at finish
+        self._traces: dict[int, dict] = {}
+        self._dispatch_seq = 0  # the watchdog's heartbeat id for dispatch rounds
         self._truncated_rids: set[int] = set()  # counted once, even across preemption
         # the distinct fixed shapes each forward ran at: the JAX engine's
         # executables (one per compiled shape), what a graph capture would hold
@@ -503,8 +519,11 @@ class ServingEngine:
         self.swap_history: list[dict] = []
         self._swap_lock = threading.Lock()
         self._pending_swap: Optional[tuple] = None
-        self._register_metrics(metrics if metrics is not None else MetricsRegistry())
+        self._register_metrics(metrics if metrics is not None else get_active_telemetry().metrics)
         self._publish_live()
+        # a wedged dispatch dumps the watchdog artifact with the engine's
+        # published stats in its `state` section (never the live queue)
+        get_active_telemetry().register_watchdog_state_provider(lambda: {"serving_engine": self.stats()})
 
     def _register_metrics(self, reg: MetricsRegistry) -> None:
         """The JAX engine's metric families, names, help and labels. Both
@@ -636,6 +655,10 @@ class ServingEngine:
         # installed one would change serving numerics mid-flight
         offered = infer_quant_mode(params)
         if offered != self.quant_weights:
+            from modalities_tpu_torch.resilience.events import record_event
+
+            record_event("fleet/rollback", stage="quant", installed=self.quant_weights, offered=offered,
+                         generation=gen)
             raise ValueError(
                 f"swap_weights: quantization mode drift (installed {self.quant_weights!r}, offered {offered!r}) "
                 "— every generation must be quantized through the same load_serving_params seam"
@@ -669,6 +692,7 @@ class ServingEngine:
         self._m_generation.set(gen)
         record = {"generation": gen, "latency_s": latency, "in_flight": in_flight, "prefix_entries_flushed": flushed}
         self.swap_history.append(record)
+        get_active_telemetry().emit_event("serve/weight_swap", dict(record))
         self._publish_live()
         return record
 
@@ -712,22 +736,24 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         temp = self.default_temperature if temperature is ... else temperature
-        self._queue.append(
-            ServeRequest(
-                rid=rid,
-                prompt_tokens=[int(t) for t in prompt_tokens],
-                max_new_tokens=int(max_new_tokens),
-                temperature=temp,
-                seed=int(seed),
-                arrival_offset_s=float(arrival_offset_s),
-                deadline_ms=float(deadline_ms) if deadline_ms else None,
-                priority=int(priority),
-                tenant=str(tenant or ""),
-                trace_id=str(trace_id or ""),
-                trace_hop=int(trace_hop or 0),
-            )
+        # honour a propagated trace id (the router's X-Trace-Id), else mint
+        # one: every record this request produces carries the same id
+        req = ServeRequest(
+            rid=rid,
+            prompt_tokens=[int(t) for t in prompt_tokens],
+            max_new_tokens=int(max_new_tokens),
+            temperature=temp,
+            seed=int(seed),
+            arrival_offset_s=float(arrival_offset_s),
+            deadline_ms=float(deadline_ms) if deadline_ms else None,
+            priority=int(priority),
+            tenant=str(tenant or ""),
+            trace_id=str(trace_id or uuid.uuid4().hex[:16]),
+            trace_hop=int(trace_hop or 0),
         )
-        self._wait_from[rid] = max(float(arrival_offset_s), 0.0)
+        self._queue.append(req)
+        self._open_trace(req)
+        self._trace_event(rid, "enqueue", max(float(arrival_offset_s), 0.0))
         self._m_submitted.inc()
         self._m_prompt_tokens.inc(len(prompt_tokens))
         if tenant:
@@ -737,16 +763,16 @@ class ServingEngine:
         return rid
 
     # ------------------------------------------------------------ disagg imports
-    def _check_import_generation(self, record) -> None:
+    def _check_import_generation(self, record, trace_id: str = "") -> None:
         """KV computed under other weights must never splice in: the decode
-        would be silently wrong in a way no digest catches. Counted as a
+        would be silently wrong in a way no digest catches. Recorded as a
         `fleet/rollback stage=generation` event, as in the JAX engine."""
         from modalities_tpu_torch.resilience.events import record_event
         from modalities_tpu_torch.serving.disagg.handoff import HandoffRejected
 
         if int(record.generation) != int(self.weights_generation):
             record_event("fleet/rollback", stage="generation", offered=int(record.generation),
-                         installed=int(self.weights_generation), trace_id=record.trace_id)
+                         installed=int(self.weights_generation), trace_id=trace_id or record.trace_id)
             raise HandoffRejected(
                 "generation_mismatch",
                 f"handoff KV computed under weights generation {record.generation} cannot splice under generation "
@@ -782,7 +808,7 @@ class ServingEngine:
                 raise HandoffRejected("config_mismatch",
                                       f"handoff window {len(record.window)} tokens does not fit max_len {self.max_len}")
             record.verify_digest()
-            self._check_import_generation(record)
+            self._check_import_generation(record, trace_id or "")
             if float(record.temperature) > 0.0 and len(record.key) != self._sampler_words():
                 # a Threefry key (JAX) or another device's generator: the
                 # continuation would sample from the wrong stream
@@ -806,12 +832,14 @@ class ServingEngine:
             # from this tier's arrival; the tenant rides it the same way
             deadline_ms=float(record.deadline_ms) if record.deadline_ms else None,
             tenant=str(record.tenant or ""),
-            trace_id=str(trace_id or record.trace_id or ""),
+            trace_id=str(trace_id or record.trace_id or uuid.uuid4().hex[:16]),
             trace_hop=int(trace_hop or record.trace_hop),
             record=record,
         )
         self._queue.append(req)
-        self._wait_from[rid] = max(float(arrival_offset_s), 0.0)
+        self._open_trace(req)
+        self._trace_event(rid, "import_enqueue", max(float(arrival_offset_s), 0.0), blocks=record.num_blocks,
+                          kv_bytes=record.kv_bytes, source_rid=int(record.rid))
         self._m_submitted.inc()
         self._publish_live()
         return rid
@@ -825,9 +853,6 @@ class ServingEngine:
         prefill: the last token pending at position len(window), the sampler
         past the first draw. A full pool leaves the head queued and counts
         ONE `disagg_handoff_failures_total{reason=pool_full}` an import."""
-        from modalities_tpu_torch.serving.disagg.handoff import HandoffRejected, restore_generator
-
-        ts = self._table_state
         for slot in range(self.slots):
             if not self._queue:
                 break
@@ -837,71 +862,86 @@ class ServingEngine:
             req = self._queue[0]
             if req.arrival_offset_s > now:
                 break  # FIFO: later imports can't jump an unarrived head
-            record = req.record
-            window = [int(t) for t in record.window]
-            wl = len(window)
-            matched = ts.match_prefix(window) if self.prefix_sharing else []
-            nblk = blocks_for_tokens(wl, self.block_size)
-            need = nblk - len(matched)  # the first decode write past wl is _ensure_decode_blocks' job
-            if ts.pool.free_count < need:
-                if not req.pool_full_seen:  # once an import, not once a round
-                    req.pool_full_seen = True
-                    with self._stats_lock:
-                        self.import_requeues += 1
-                    self._m_handoff_failures.inc(reason="pool_full")
-                break
-            result = ServeResult(rid=req.rid, prompt_len=int(record.prompt_len) or wl,
-                                 arrival_s=max(req.arrival_offset_s, 0.0), truncated=bool(record.truncated),
-                                 trace_id=req.trace_id, trace_hop=req.trace_hop)
-            # a hot swap may have landed since import_handoff(): stale KV
-            # finishes "error" here instead of decoding garbage
-            try:
-                self._check_import_generation(record)
-            except HandoffRejected as exc:
-                self._queue.popleft()
-                self._m_handoff_failures.inc(reason=exc.reason)
-                result.first_token_s = self._now() - t0
-                self._record_result(result, "error", result.first_token_s, req.tenant)
-                continue
-            self._queue.popleft()
-            self._note_admit(req.rid, now)
-            if matched:
-                ts.fork_prefix(req.rid, matched)
-            if not ts.ensure(req.rid, wl):
-                raise AssertionError("import admission gate let a dry pool through")
-            # scatter the unmatched tail only: matched blocks hold the same
-            # KV already (same tokens, same weights generation)
-            scattered = self._scatter_import(record, ts.blocks(req.rid), len(matched), nblk)
-            if self.prefix_sharing:
-                ts.register_prefix(req.rid, window, upto=wl)
-            if matched:
-                hit_tokens = min(len(matched) * self.block_size, wl)
-                result.prefix_hit_tokens = hit_tokens
+            with span("serve/import"):
+                if not self._admit_import(slot, req, now, t0):
+                    break
+
+    def _admit_import(self, slot: int, req: "_ImportRequest", now: float, t0: float) -> bool:
+        """Seed `slot` from the head import `req`; False when the pool cannot
+        take it (the head stays queued)."""
+        from modalities_tpu_torch.serving.disagg.handoff import HandoffRejected, restore_generator
+
+        ts = self._table_state
+        record = req.record
+        window = [int(t) for t in record.window]
+        wl = len(window)
+        matched = ts.match_prefix(window) if self.prefix_sharing else []
+        nblk = blocks_for_tokens(wl, self.block_size)
+        need = nblk - len(matched)  # the first decode write past wl is _ensure_decode_blocks' job
+        if ts.pool.free_count < need:
+            if not req.pool_full_seen:  # once an import, not once a round
+                req.pool_full_seen = True
                 with self._stats_lock:
-                    self.prefix_hit_requests += 1
-                    self.prefix_hit_blocks += len(matched)
-                    self.prefix_hit_tokens += hit_tokens
-                self._m_prefix_hit_requests.inc()
-                self._m_prefix_hit_blocks.inc(len(matched))
-            # the window grows by the shipped token, so the n-gram drafter sees
-            # the combined path's context
-            temp = float(record.temperature)
-            self._slot_states[slot] = _SlotState(request=req, result=result, remaining=int(record.remaining),
-                                                 phase="decode", window=window + [int(record.last_token)],
-                                                 temp=temp, seq=self._admit_seq, imported=True)
-            self._admit_seq += 1
-            self._tokens[slot] = int(record.last_token)
-            self._positions[slot] = wl
-            self._temps[slot] = temp
-            self._eods[slot] = self.eod_token_id
-            self._remaining[slot] = int(record.remaining)
-            self._gens[slot] = torch.Generator(device=self.device).manual_seed(int(record.seed))
-            if temp > 0.0:
-                restore_generator(self._gens[slot], record.key)
+                    self.import_requeues += 1
+                self._m_handoff_failures.inc(reason="pool_full")
+                self._trace_event(req.rid, "import_requeue", now, free=ts.pool.free_count, need=need)
+            return False
+        result = ServeResult(rid=req.rid, prompt_len=int(record.prompt_len) or wl,
+                             arrival_s=max(req.arrival_offset_s, 0.0), truncated=bool(record.truncated),
+                             trace_id=req.trace_id, trace_hop=req.trace_hop)
+        # a hot swap may have landed since import_handoff(): stale KV
+        # finishes "error" here instead of decoding garbage
+        try:
+            self._check_import_generation(record)
+        except HandoffRejected as exc:
+            self._queue.popleft()
+            self._m_handoff_failures.inc(reason=exc.reason)
+            self._trace_event(req.rid, "import_rejected", now, reason=exc.reason)
+            result.first_token_s = self._now() - t0
+            self._record_result(result, "error", result.first_token_s, req.tenant)
+            return True
+        self._queue.popleft()
+        self._trace_admit(req.rid, now)
+        if matched:
+            ts.fork_prefix(req.rid, matched)
+        if not ts.ensure(req.rid, wl):
+            raise AssertionError("import admission gate let a dry pool through")
+        # scatter the unmatched tail only: matched blocks hold the same
+        # KV already (same tokens, same weights generation)
+        scattered = self._scatter_import(record, ts.blocks(req.rid), len(matched), nblk)
+        if self.prefix_sharing:
+            ts.register_prefix(req.rid, window, upto=wl)
+        if matched:
+            hit_tokens = min(len(matched) * self.block_size, wl)
+            result.prefix_hit_tokens = hit_tokens
             with self._stats_lock:
-                self.handoffs_imported += 1
-                self.imported_blocks += scattered
-            self._m_handoff_seconds.observe(max(0.0, now - max(req.arrival_offset_s, 0.0)))
+                self.prefix_hit_requests += 1
+                self.prefix_hit_blocks += len(matched)
+                self.prefix_hit_tokens += hit_tokens
+            self._m_prefix_hit_requests.inc()
+            self._m_prefix_hit_blocks.inc(len(matched))
+            self._trace_event(req.rid, "prefix_hit", now, blocks=len(matched), tokens=hit_tokens)
+        # the window grows by the shipped token, so the n-gram drafter sees
+        # the combined path's context
+        temp = float(record.temperature)
+        self._slot_states[slot] = _SlotState(request=req, result=result, remaining=int(record.remaining),
+                                             phase="decode", window=window + [int(record.last_token)],
+                                             temp=temp, seq=self._admit_seq, imported=True)
+        self._admit_seq += 1
+        self._tokens[slot] = int(record.last_token)
+        self._positions[slot] = wl
+        self._temps[slot] = temp
+        self._eods[slot] = self.eod_token_id
+        self._remaining[slot] = int(record.remaining)
+        self._gens[slot] = torch.Generator(device=self.device).manual_seed(int(record.seed))
+        if temp > 0.0:
+            restore_generator(self._gens[slot], record.key)
+        with self._stats_lock:
+            self.handoffs_imported += 1
+            self.imported_blocks += scattered
+        self._m_handoff_seconds.observe(max(0.0, now - max(req.arrival_offset_s, 0.0)), exemplar=req.trace_id)
+        self._trace_event(req.rid, "import_seeded", now, blocks=nblk, scattered=scattered, kv_bytes=record.kv_bytes)
+        return True
 
     def _pool_leaves(self) -> list:
         """The pool tensors in the JAX cache tree's flatten order (cached_key,
@@ -938,7 +978,8 @@ class ServingEngine:
         req, result = state.request, state.result
         wl = len(state.window)
         blocks = self._table_state.blocks(req.rid)[: blocks_for_tokens(wl, self.block_size)]
-        with torch.no_grad():  # not inference mode: the record's tensors are its owner's, writable anywhere
+        # not inference mode: the record's tensors are its owner's, writable anywhere
+        with span("serve/handoff_export"), torch.no_grad():
             idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
             payload = [pool.index_select(1, idx).transpose(0, 1).contiguous().cpu() for pool in self._pool_leaves()]
         key = generator_key(self._gens[slot]) if state.temp > 0.0 else greedy_key(req.seed)
@@ -954,6 +995,7 @@ class ServingEngine:
             self.handoff_bytes_shipped += record.kv_bytes
         self._m_handoffs.inc()
         self._m_kv_shipped.inc(record.kv_bytes)
+        self._trace_event(req.rid, "handoff_export", now, blocks=record.num_blocks, kv_bytes=record.kv_bytes)
         return record
 
     def _first_local_token(self, state: _SlotState, now: float) -> None:
@@ -967,17 +1009,70 @@ class ServingEngine:
     def _stopping(self) -> bool:
         return self._stop_fn is not None and bool(self._stop_fn())
 
-    def _note_admit(self, rid: int, now: float) -> None:
-        """Admission closes the request's current queue wait (from arrival, or
-        from its last preemption)."""
-        self._m_queue_wait.observe(max(0.0, now - self._wait_from.get(rid, now)))
+    # ---------------------------------------------------------------- tracing
+    def _open_trace(self, req: ServeRequest) -> None:
+        self._traces[req.rid] = {"events": [], "preemptions": 0, "wait_from": max(req.arrival_offset_s, 0.0),
+                                 "queue_wait_s": 0.0, "trace_id": req.trace_id, "trace_hop": req.trace_hop,
+                                 "tenant": req.tenant}
+
+    def _trace_event(self, rid: int, name: str, t: float, **fields) -> None:
+        trace = self._traces.get(rid)
+        if trace is not None:
+            trace["events"].append({"name": name, "t": round(float(t), 6), **fields})
+
+    def _trace_admit(self, rid: int, now: float) -> None:
+        """Admission closes the request's current queue wait (opened at its
+        arrival or its last requeue) and observes it."""
+        self._trace_event(rid, "admit", now)
+        trace = self._traces.get(rid)
+        if trace is not None:
+            wait = max(0.0, now - trace["wait_from"])
+            trace["queue_wait_s"] += wait
+            self._m_queue_wait.observe(wait)
 
     def _record_first_token(self, result: ServeResult, now: float) -> None:
-        """TTFT is observed once a request: a preempted request's replay
-        makes its first token again, but the client saw the first one."""
-        if result.rid not in self._ttft_observed:
-            self._ttft_observed.add(result.rid)
-            self._m_ttft.observe(max(0.0, now - result.arrival_s))
+        """The first token of an admission. TTFT is observed once a request: a
+        preempted request's replay fires the trace event again (the timeline
+        shows both) but not the histogram sample (the client saw the first)."""
+        self._trace_event(result.rid, "first_token", now)
+        trace = self._traces.get(result.rid)
+        if trace is None or not trace.get("ttft_observed"):
+            if trace is not None:
+                trace["ttft_observed"] = True
+            self._m_ttft.observe(max(0.0, now - result.arrival_s), exemplar=result.trace_id or None)
+
+    def _flush_trace(self, result: ServeResult) -> None:
+        """At the finish: fold the request's stream into ONE serve_request
+        record on the active telemetry's sink (the JAX record's fields; mean
+        TPOT from the first and the last emitted token of the final run)."""
+        trace = self._traces.pop(result.rid, None)
+        if trace is None:
+            return
+        n = len(result.tokens)
+        tpot_mean = (result.last_token_s - result.first_emit_s) / (n - 1) if n >= 2 else None
+        get_active_telemetry().emit_serve_trace({
+            "rid": result.rid,
+            "trace_id": result.trace_id,
+            "hop": result.trace_hop,
+            # a tier's records are tagged with its role, a combined engine's are not
+            **({"role": self.role} if self.role != "combined" else {}),
+            **({"tenant": trace["tenant"]} if trace.get("tenant") else {}),
+            "prompt_len": result.prompt_len,
+            "tokens": n,
+            "finish_reason": result.finish_reason,
+            "truncated": result.truncated,
+            "weights_generation": result.weights_generation,
+            "prefix_hit_tokens": result.prefix_hit_tokens,
+            "spec_proposed": trace.get("spec_proposed", 0),
+            "spec_accepted": trace.get("spec_accepted", 0),
+            "preemptions": trace["preemptions"],
+            "arrival_s": round(result.arrival_s, 6),
+            "queue_wait_s": round(trace["queue_wait_s"], 6),
+            "ttft_s": round(result.ttft_s, 6),
+            "e2e_s": round(result.finish_s - result.arrival_s, 6),
+            "tpot_mean_s": round(tpot_mean, 6) if tpot_mean is not None else None,
+            "events": trace["events"],
+        })
 
     def _emit_token(self, result: ServeResult, tok: int, now: float) -> None:
         """Append and stream a token. `_streamed` survives preemption (the
@@ -985,6 +1080,8 @@ class ServingEngine:
         per final token position."""
         if result.last_token_s is not None:
             self._m_tpot.observe(max(0.0, now - result.last_token_s))
+        else:
+            result.first_emit_s = now
         result.tokens.append(tok)
         result.last_token_s = now
         n = len(result.tokens)
@@ -1010,10 +1107,11 @@ class ServingEngine:
         if self._on_finish is None:  # else the callback takes it: a server keeps no result
             self._results[result.rid] = result
         self._streamed.pop(result.rid, None)
-        self._wait_from.pop(result.rid, None)
-        self._ttft_observed.discard(result.rid)
+        self._trace_event(result.rid, "finish", now, reason=reason, tokens=len(result.tokens),
+                          truncated=result.truncated)
         self._m_finished.inc(reason=reason)
-        self._m_e2e.observe(max(0.0, now - result.arrival_s))
+        self._m_e2e.observe(max(0.0, now - result.arrival_s), exemplar=result.trace_id or None)
+        self._flush_trace(result)
         if self._on_finish is not None:
             self._on_finish(result.rid, result)
 
@@ -1213,6 +1311,7 @@ class ServingEngine:
             if req.tenant:
                 self._m_tenant_shed.inc(tenant=req.tenant)
                 self._tenant_stat(req.tenant, "shed")
+        self._trace_event(req.rid, reason, now, queued=True)
         self._record_result(result, reason, now, req.tenant)
 
     def _sweep_queue(self, t0: float) -> None:
@@ -1270,6 +1369,7 @@ class ServingEngine:
                 with self._stats_lock:
                     self.deadline_expired_requests += 1
                 self._m_deadline_expired.inc()
+                self._trace_event(state.request.rid, "deadline", now, phase=state.phase)
                 if not state.result.tokens:
                     state.result.first_token_s = now  # never streamed: TTFT reads as time to cancellation
                 self._finish(slot, "deadline", now)
@@ -1281,11 +1381,14 @@ class ServingEngine:
         window = req.prompt_tokens[-(self.max_len - 1) :]
         if len(window) < len(req.prompt_tokens):
             result.truncated = True
-            if req.rid not in self._truncated_rids:
+            if req.rid not in self._truncated_rids:  # once, even across preemption
                 self._truncated_rids.add(req.rid)
                 with self._stats_lock:
                     self.truncated_requests += 1
                 self._m_trunc.inc()
+                get_active_telemetry().emit_event(
+                    "serve/prompt_truncated", {"rid": req.rid, "prompt_len": len(req.prompt_tokens),
+                                               "window": len(window)})
         return window
 
     def _new_result(self, req: ServeRequest) -> ServeResult:
@@ -1316,75 +1419,90 @@ class ServingEngine:
             req = self._next_admittable(now)
             if req is None:
                 break  # FIFO: later requests can't jump an unarrived head
-            temp = req.temperature if req.temperature is not None else 0.0
-            result = self._new_result(req)
-            self._note_admit(req.rid, now)
-            window = self._truncate_window(req, result)
-            if req.max_new_tokens <= 0:
-                result.first_token_s = self._now() - t0
-                self._record_result(result, "budget", result.first_token_s, req.tenant)
-                continue
-            self._temps[slot] = temp
-            self._gens[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
-            pos = 0
-            expired = False
-            start = time.perf_counter()
-            with torch.inference_mode():
-                while pos < len(window):
-                    chunk = next(c for c in self.prefill_chunks if c <= len(window) - pos)
-                    toks = torch.tensor([window[pos : pos + chunk]], dtype=torch.long).to(self.device)
-                    logits = self.module.prefill_slot(self.cache, toks, slot, pos)
-                    self._prefill_shapes.add((1, chunk))
-                    with self._stats_lock:
-                        self.prefill_chunk_count += 1
-                        self.prefill_dispatches += 1
-                    self._m_prefill_chunks.inc()
-                    pos += chunk
+            with span("serve/admission"):
+                self._admit_ring(slot, req, now, t0)
+
+    def _admit_ring(self, slot: int, req: ServeRequest, now: float, t0: float) -> None:
+        """Ring admission of `req` into `slot`: its chunked prefill, the
+        deadline checked between chunks (seam 2), the first token taken from
+        the last chunk's logits."""
+        temp = req.temperature if req.temperature is not None else 0.0
+        result = self._new_result(req)
+        self._trace_admit(req.rid, now)
+        window = self._truncate_window(req, result)
+        if req.max_new_tokens <= 0:
+            result.first_token_s = self._now() - t0
+            self._record_result(result, "budget", result.first_token_s, req.tenant)
+            return
+        self._temps[slot] = temp
+        self._gens[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
+        pos = 0
+        expired = False
+        start = time.perf_counter()
+        with span("serve/prefill"), torch.inference_mode():
+            while pos < len(window):
+                chunk = next(c for c in self.prefill_chunks if c <= len(window) - pos)
+                toks = torch.tensor([window[pos : pos + chunk]], dtype=torch.long).to(self.device)
+                logits = self.module.prefill_slot(self.cache, toks, slot, pos)
+                self._prefill_shapes.add((1, chunk))
+                with self._stats_lock:
+                    self.prefill_chunk_count += 1
+                    self.prefill_dispatches += 1
+                self._m_prefill_chunks.inc()
+                last_chunk = (pos, chunk)
+                pos += chunk
+                if pos < len(window):
                     # seam 2 (chunk boundary): a lapsed request stops taking
-                    # prefill chunks; the ring slot holds nothing pooled
-                    if pos < len(window) and self._deadline_expired(req, self._now() - t0):
+                    # prefill chunks; the ring slot holds nothing pooled. One
+                    # clock read serves the chunk's trace event and the check
+                    t_chunk = self._now() - t0
+                    self._trace_event(req.rid, "prefill_chunk", t_chunk, start=last_chunk[0], ntok=chunk)
+                    if self._deadline_expired(req, t_chunk):
                         expired = True
                         break
-                if not expired:
-                    last = logits[:, -1, :]  # [1, V]
-                    first = self._sample(last, [slot])
-                    fetched = torch.stack([first[0], torch.isfinite(last).all().long()]).cpu()
-            self.prefill_seconds += time.perf_counter() - start
-            if expired:
-                self._temps[slot] = 0.0
-                self._gens[slot] = None
-                now2 = self._now() - t0
-                result.first_token_s = now2
-                with self._stats_lock:
-                    self.deadline_expired_requests += 1
-                self._m_deadline_expired.inc()
-                self._record_result(result, "deadline", now2, req.tenant)
-                continue
-            first_tok, ok = int(fetched[0]), bool(fetched[1])  # device sync: the TTFT point
+            if not expired:
+                last = logits[:, -1, :]  # [1, V]
+                first = self._sample(last, [slot])
+                fetched = torch.stack([first[0], torch.isfinite(last).all().long()]).cpu()
+        self.prefill_seconds += time.perf_counter() - start
+        if expired:
+            self._temps[slot] = 0.0
+            self._gens[slot] = None
             now2 = self._now() - t0
             result.first_token_s = now2
-            if not ok:  # non-finite logits: no token to trust
-                self._temps[slot] = 0.0
-                self._gens[slot] = None
-                self._record_result(result, "error", now2, req.tenant)
-                continue
-            self._record_first_token(result, now2)
-            if first_tok == self.eod_token_id or req.max_new_tokens == 1:
-                if first_tok != self.eod_token_id:
-                    self._emit_token(result, first_tok, now2)
-                self._temps[slot] = 0.0
-                self._gens[slot] = None
-                self._record_result(result, "eod" if first_tok == self.eod_token_id else "budget", now2, req.tenant)
-                continue
-            self._emit_token(result, first_tok, now2)
-            # arm the slot: the admitted request joins the next decode step
-            self._slot_states[slot] = _SlotState(request=req, result=result, remaining=req.max_new_tokens - 1,
-                                                 temp=temp, seq=self._admit_seq)
-            self._admit_seq += 1
-            self._tokens[slot] = first_tok
-            self._positions[slot] = len(window)
-            self._eods[slot] = self.eod_token_id
-            self._remaining[slot] = req.max_new_tokens - 1
+            with self._stats_lock:
+                self.deadline_expired_requests += 1
+            self._m_deadline_expired.inc()
+            self._trace_event(req.rid, "deadline", now2, phase="prefill")
+            self._record_result(result, "deadline", now2, req.tenant)
+            return
+        first_tok, ok = int(fetched[0]), bool(fetched[1])  # device sync: the TTFT point
+        now2 = self._now() - t0
+        # the last chunk's event takes the TTFT clock read
+        self._trace_event(req.rid, "prefill_chunk", now2, start=last_chunk[0], ntok=last_chunk[1])
+        result.first_token_s = now2
+        if not ok:  # non-finite logits: no token to trust
+            self._temps[slot] = 0.0
+            self._gens[slot] = None
+            self._record_result(result, "error", now2, req.tenant)
+            return
+        self._record_first_token(result, now2)
+        if first_tok == self.eod_token_id or req.max_new_tokens == 1:
+            if first_tok != self.eod_token_id:
+                self._emit_token(result, first_tok, now2)
+            self._temps[slot] = 0.0
+            self._gens[slot] = None
+            self._record_result(result, "eod" if first_tok == self.eod_token_id else "budget", now2, req.tenant)
+            return
+        self._emit_token(result, first_tok, now2)
+        # arm the slot: the admitted request joins the next decode step
+        self._slot_states[slot] = _SlotState(request=req, result=result, remaining=req.max_new_tokens - 1,
+                                             temp=temp, seq=self._admit_seq)
+        self._admit_seq += 1
+        self._tokens[slot] = first_tok
+        self._positions[slot] = len(window)
+        self._eods[slot] = self.eod_token_id
+        self._remaining[slot] = req.max_new_tokens - 1
 
     def _paged_admission_need(self, req: ServeRequest) -> tuple:
         """(window, matched, full_match, need) for one admission candidate.
@@ -1436,44 +1554,54 @@ class ServingEngine:
                     break  # nothing arrived, under quota and admissible
                 window, matched, full_match, need = self._paged_admission_need(req)
                 self._queue.remove(req)
-            temp = req.temperature if req.temperature is not None else 0.0
-            result = self._new_result(req)
-            self._note_admit(req.rid, now)
-            window = self._truncate_window(req, result)
-            if req.max_new_tokens <= 0:
-                result.first_token_s = self._now() - t0
-                self._record_result(result, "budget", result.first_token_s, req.tenant)
-                continue
-            if matched:
-                ts.fork_prefix(req.rid, matched)
-            if not ts.ensure(req.rid, len(window)):
-                raise AssertionError("paged admission gate let a dry pool through")
-            tail_start = len(matched) * self.block_size
-            if full_match:
-                tail_start = len(window) - 1
-                cow = ts.ensure_writable(req.rid, tail_start)
-                # the matched blocks were just forked, so the write target is
-                # shared by construction and the copy always happens
-                assert isinstance(cow, tuple), "full-match block unexpectedly private"
-                self._cow_copy(*cow)
-            if matched:
-                result.prefix_hit_tokens = tail_start
-                with self._stats_lock:
-                    self.prefix_hit_requests += 1
-                    self.prefix_hit_blocks += len(matched)
-                    self.prefix_hit_tokens += tail_start
-                self._m_prefix_hit_requests.inc()
-                self._m_prefix_hit_blocks.inc(len(matched))
-            self._slot_states[slot] = _SlotState(request=req, result=result, remaining=0, phase="prefill",
-                                                 window=window, prefill_pos=tail_start, temp=temp,
-                                                 seq=self._admit_seq)
-            self._admit_seq += 1
-            self._temps[slot] = temp
-            self._gens[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
+            with span("serve/admission"):
+                self._admit_paged_one(slot, req, matched, full_match, now, t0)
+
+    def _admit_paged_one(self, slot: int, req: ServeRequest, matched: list, full_match: bool, now: float,
+                         t0: float) -> None:
+        """Admit `req` into `slot` on the block pool: fork its matched prefix
+        blocks, copy the last one on a full-window match, and hand the slot to
+        the packed prefill from the first unmatched position."""
+        ts = self._table_state
+        temp = req.temperature if req.temperature is not None else 0.0
+        result = self._new_result(req)
+        self._trace_admit(req.rid, now)
+        window = self._truncate_window(req, result)
+        if req.max_new_tokens <= 0:
+            result.first_token_s = self._now() - t0
+            self._record_result(result, "budget", result.first_token_s, req.tenant)
+            return
+        if matched:
+            ts.fork_prefix(req.rid, matched)
+        if not ts.ensure(req.rid, len(window)):
+            raise AssertionError("paged admission gate let a dry pool through")
+        tail_start = len(matched) * self.block_size
+        if full_match:
+            tail_start = len(window) - 1
+            cow = ts.ensure_writable(req.rid, tail_start)
+            # the matched blocks were just forked, so the write target is
+            # shared by construction and the copy always happens
+            assert isinstance(cow, tuple), "full-match block unexpectedly private"
+            self._cow_copy(*cow)
+        if matched:
+            result.prefix_hit_tokens = tail_start
+            with self._stats_lock:
+                self.prefix_hit_requests += 1
+                self.prefix_hit_blocks += len(matched)
+                self.prefix_hit_tokens += tail_start
+            self._m_prefix_hit_requests.inc()
+            self._m_prefix_hit_blocks.inc(len(matched))
+            self._trace_event(req.rid, "prefix_hit", now, blocks=len(matched), tokens=tail_start)
+        self._slot_states[slot] = _SlotState(request=req, result=result, remaining=0, phase="prefill",
+                                             window=window, prefill_pos=tail_start, temp=temp,
+                                             seq=self._admit_seq)
+        self._admit_seq += 1
+        self._temps[slot] = temp
+        self._gens[slot] = torch.Generator(device=self.device).manual_seed(req.seed)
 
     def _cow_copy(self, src: int, dst: int) -> None:
         """Device row copy backing a copy-on-write: pool block `src` -> `dst`."""
-        with torch.inference_mode():
+        with span("serve/cow"), torch.inference_mode():
             self.cache.copy_block(src, dst)
         with self._stats_lock:
             self.cow_copies += 1
@@ -1496,14 +1624,23 @@ class ServingEngine:
         `_streamed` keeps `on_token` exactly once a token position."""
         state = self._slot_states[slot]
         req = state.request
-        self._table_state.release(req.rid)
+        freed = self._table_state.release(req.rid)
         with self._stats_lock:
             self.preemptions += 1
         self._m_preempt.inc()
         if req.tenant:
             self._m_tenant_preempt.inc(tenant=req.tenant)
             self._tenant_stat(req.tenant, "preemptions")
-        self._wait_from[req.rid] = self._now() - t0  # re-admission closes a new queue wait
+        now = self._now() - t0
+        discarded = len(state.result.tokens)
+        self._trace_event(req.rid, "preempt", now, blocks_freed=freed, tokens_discarded=discarded)
+        self._trace_event(req.rid, "requeue", now)
+        trace = self._traces.get(req.rid)
+        if trace is not None:
+            trace["preemptions"] += 1
+            trace["wait_from"] = now  # re-admission closes a NEW queue-wait interval
+        get_active_telemetry().emit_event("serve/preempt", {"rid": req.rid, "blocks_freed": freed,
+                                                            "tokens_discarded": discarded})
         self._queue.appendleft(req)
         self._clear_slot(slot)
 
@@ -1594,7 +1731,7 @@ class ServingEngine:
             staged["last_idx"][r] = ntok - 1
         samplers = [slot if is_last else None for slot, _, _, is_last in rows]
         start_t = time.perf_counter()
-        with torch.inference_mode():
+        with span("serve/prefill"), torch.inference_mode():
             dev = self._prefill_in.upload()
             logits = self.module.prefill_paged(self.cache, dev["tokens"], dev["positions"], dev["tables"],
                                                dev["wblk"], dev["woff"])
@@ -1612,6 +1749,7 @@ class ServingEngine:
         for r, (slot, start, ntok, is_last) in enumerate(rows):
             state = self._slot_states[slot]
             state.prefill_pos = start + ntok
+            self._trace_event(state.request.rid, "prefill_chunk", now, start=start, ntok=ntok)
             if not is_last:
                 continue
             req, result = state.request, state.result
@@ -1677,7 +1815,7 @@ class ServingEngine:
                 self._spec_verify_dispatch(t0, props)
                 return
         start = time.perf_counter()
-        with torch.inference_mode():
+        with span("serve/decode"), torch.inference_mode():
             if self.kv_cache == "paged":
                 staged = self._decode_in.np
                 for name, value in (("tokens", self._tokens), ("positions", self._positions), ("eods", self._eods),
@@ -1791,7 +1929,7 @@ class ServingEngine:
             for j in range(min(n + 1, state.remaining)):
                 staged["wblk"][slot, j], staged["woff"][slot, j] = ts.write_coords(state.request.rid, p + j)
         start = time.perf_counter()
-        with torch.inference_mode():
+        with span("serve/decode"), torch.inference_mode():
             dev = self._verify_in.upload()
             tokens = dev["tokens"]
             logits = self.module.verify_paged(self.cache, tokens, dev["positions"], dev["tables"], dev["wblk"],
@@ -1826,8 +1964,13 @@ class ServingEngine:
             if drafts:
                 e = min(int(acc[slot]) + 1, state.remaining)  # the emitted run, all valid columns
                 emitted_seq = [int(g[slot, j]) for j in range(e)]
+                used = min(int(acc[slot]), e - 1)  # drafts that advanced the slot
                 proposed_total += len(drafts)
-                accepted_total += min(int(acc[slot]), e - 1)  # drafts that advanced the slot
+                accepted_total += used
+                trace = self._traces.get(state.request.rid)
+                if trace is not None:
+                    trace["spec_proposed"] = trace.get("spec_proposed", 0) + len(drafts)
+                    trace["spec_accepted"] = trace.get("spec_accepted", 0) + used
             else:
                 emitted_seq = [int(toks0[slot])]
             # replay the sequential stopping rule over the accepted run
@@ -1869,8 +2012,17 @@ class ServingEngine:
     def step(self, t0: float) -> bool:
         """One scheduler round: admit, (paged) one packed prefill, then one
         decode-side forward. A weight swap queued by request_swap() is
-        installed first. Returns True if any device work was dispatched."""
+        installed first. Returns True if any device work was dispatched.
+
+        Watchdog: a round with pending work arms the active telemetry's hang
+        watchdog, beats it when the round dispatched and disarms it when idle
+        (waiting is not a hang); a wedged dispatch dumps an artifact."""
+        telemetry = get_active_telemetry()
         self._maybe_apply_swap()
+        armed = bool(self._queue) or self._active_count() > 0
+        if armed:
+            self._dispatch_seq += 1
+            telemetry.arm_watchdog(self._dispatch_seq, first_step=self._dispatch_seq == 1)
         dispatches_before = self.prefill_dispatches
         self._admit(t0)
         did = self.prefill_dispatches != dispatches_before
@@ -1881,6 +2033,11 @@ class ServingEngine:
             self._decode_dispatch(t0)
             did = True
         self._publish_live()
+        if armed:
+            if did:
+                telemetry.beat_watchdog(self._dispatch_seq)
+            else:
+                telemetry.disarm_watchdog()
         return did
 
     def run(self) -> dict[int, ServeResult]:
@@ -1889,20 +2046,23 @@ class ServingEngine:
         requests are left unserved). Returns rid -> ServeResult, every result
         since the engine was built (none where `on_finish` takes them)."""
         t0 = self._now()
-        while True:
-            stopping = self._stopping()
-            if stopping:
-                if self._active_count() == 0:
+        try:
+            while True:
+                stopping = self._stopping()
+                if stopping:
+                    if self._active_count() == 0:
+                        break
+                elif not self._queue and self._active_count() == 0:
                     break
-            elif not self._queue and self._active_count() == 0:
-                break
-            if not self.step(t0):
-                if stopping or not self._queue:
-                    break
-                # nothing running and the head hasn't arrived: wait for it
-                wait = self._queue[0].arrival_offset_s - (self._now() - t0)
-                if wait > 0:
-                    time.sleep(min(wait, 0.05))
+                if not self.step(t0):
+                    if stopping or not self._queue:
+                        break
+                    # nothing running and the head hasn't arrived: wait for it
+                    wait = self._queue[0].arrival_offset_s - (self._now() - t0)
+                    if wait > 0:
+                        time.sleep(min(wait, 0.05))
+        finally:
+            get_active_telemetry().disarm_watchdog()
         return self._results
 
     # ------------------------------------------------------------------- stats

@@ -8,11 +8,13 @@ Its config is configs/config_fleet.yaml: the `inference_component.fleet`
 variant is the `serve` variant's schema plus the knobs below; the time
 windows left null take ``MODALITIES_TPU_FLEET_POLL_S`` /
 ``MODALITIES_TPU_FLEET_PROBATION_S`` / ``MODALITIES_TPU_FLEET_HEALTH_DEADLINE_S``
-(watcher, controller and router modules). The file's `slo` block stays
-refused, as `serve` refuses it (ROADMAP.md Queue 1 item 6): set `slo: null`.
-Every worker gets the component's admission knobs; a `tenants` block gives
-each worker a registry of its own (the JAX fleet builds its workers without
-one).
+(watcher, controller and router modules). The `slo` block arms one SLO
+engine a worker over that worker's own registry: a burning worker's
+/healthz turns "degraded" (the router prefers its peers), its brownout
+sheds on the burn signal, and a canary breaching during probation rolls
+back with ``fleet/rollback stage=slo``. Every worker gets the component's
+admission knobs; a `tenants` block gives each worker a registry of its own
+(the JAX fleet builds its workers without one).
 """
 
 from __future__ import annotations
@@ -78,12 +80,16 @@ class WorkerBoot:
         return functools.partial(load_serving_params, device=self.device, quant_weights=self.quant_weights_setting)
 
     def _boot_worker(self, name: str, role: str = "combined", spec_decode=None, load_fn=None):
+        """Boot one worker; its brownout's SLO hook (None without `slo` or a
+        brownout) waits in `self._slo_hooks[name]` for `_arm_slos`."""
         from modalities_tpu_torch.serving.engine import ServingEngine
         from modalities_tpu_torch.serving.fleet.controller import EngineWorker
-        from modalities_tpu_torch.serving.resilience import BrownoutController, TenantRegistry
+        from modalities_tpu_torch.serving.resilience import TenantRegistry
         from modalities_tpu_torch.serving.server import ServingHTTPServer
         from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
 
+        brownout, hook = self._worker_brownout()
+        self._slo_hooks[name] = hook
         engine = ServingEngine(
             self.model,
             self.params,
@@ -101,8 +107,7 @@ class WorkerBoot:
             quant_weights=self.quant_weights_setting,
             quant_kv=self.quant_kv_setting,
             max_queue_depth=self.max_queue_depth,
-            brownout=(BrownoutController(queue_high=self.brownout_queue_high)
-                      if self.brownout_queue_high is not None else None),
+            brownout=brownout,
             tenants=TenantRegistry.from_config(self.tenants_config) if self.tenants_config else None,
             stop_fn=self.stop_fn,
             metrics=MetricsRegistry(),  # a worker's own: the canary's metrics stay apart
@@ -116,7 +121,31 @@ class WorkerBoot:
         server.start()
         return worker
 
-    def _serve_until_stopped(self, router, workers: list, watcher=None) -> dict:
+    def _arm_slos(self, workers: list, objectives_of=None) -> dict:
+        """One started SLO engine a worker over that worker's own registry
+        (`objectives_of(worker, objectives)` picks a worker's share; a worker
+        with none gets no engine): it feeds the worker's /healthz and binds
+        its brownout's burn signal. Returns {worker name: SLOEngine}."""
+        if not self.slo:
+            return {}
+        from modalities_tpu_torch.telemetry.slo import SLOEngine, load_slo_spec
+
+        objectives, options = load_slo_spec(self.slo)
+        engines = {}
+        for worker in workers:
+            armed = objectives_of(worker, objectives) if objectives_of is not None else objectives
+            if not armed:
+                continue
+            slo_engine = SLOEngine(armed, worker.engine.metrics, scope=worker.name, **options).start()
+            worker.server.slo_status_fn = slo_engine.breaching
+            hook = self._slo_hooks.get(worker.name)
+            if hook is not None:
+                hook["fn"] = slo_engine.breaching  # the worker's brownout follows ITS burn signal
+            engines[worker.name] = slo_engine
+            logger.info("SLOs armed on %s: %s", worker.name, ", ".join(o.name for o in armed))
+        return engines
+
+    def _serve_until_stopped(self, router, workers: list, watcher=None, slo_engines=None) -> dict:
         """Block until the stop flag (SIGTERM/SIGINT) trips, then drain: the
         router first, every worker at once, then each reaped."""
         try:
@@ -125,6 +154,8 @@ class WorkerBoot:
         finally:
             if watcher is not None:
                 watcher.stop()
+            for slo_engine in (slo_engines or {}).values():
+                slo_engine.stop()
             router.stop()
             for worker in workers:
                 worker.server.stop()
@@ -168,6 +199,7 @@ class FleetServingComponent(WorkerBoot, ServingComponent):
         self.health_interval_s = cfg.health_interval_s
         self.heartbeat_deadline_s = cfg.heartbeat_deadline_s
         self._boot_step = -1  # the ring step the initial params came from
+        self._slo_hooks: dict = {}  # worker name -> its brownout's late-bound SLO hook
 
     def resolve_params(self, checkpoint_folder_path) -> None:
         """The initial generation: an explicit checkpoint, else the newest
@@ -201,15 +233,24 @@ class FleetServingComponent(WorkerBoot, ServingComponent):
         self._seed_deadline_env()  # deadline_default_ms applies fleet-wide
         workers = [self._boot_worker(f"worker{i}", spec_decode=self.spec_decode, load_fn=load_fn)
                    for i in range(self.num_workers)]
+        slo_engines = self._arm_slos(workers)
+        slo_verdict_fn = None
+        if slo_engines:
+            def slo_verdict_fn(worker):
+                slo_engine = slo_engines[worker.name]
+                slo_engine.sample_once()  # probation ticks outpace the sampler thread
+                return slo_engine.breaching()
+
         fleet_registry = MetricsRegistry()
         controller = RolloutController(workers, metrics=fleet_registry, probation_s=self.probation_s,
                                        probation_tick_s=self.probation_tick_s, max_error_delta=self.max_error_delta,
-                                       ttft_regression_factor=self.ttft_regression_factor)
+                                       ttft_regression_factor=self.ttft_regression_factor,
+                                       slo_verdict_fn=slo_verdict_fn)
         router = FleetRouter([WorkerHandle(w.name, self.http_host, w.server.port) for w in workers],
                              host=self.http_host, port=self.http_port or 0, metrics=fleet_registry,
                              health_interval_s=self.health_interval_s,
                              heartbeat_deadline_s=self.heartbeat_deadline_s).start()
-        self.router, self.controller, self.workers = router, controller, workers
+        self.router, self.controller, self.workers, self.slo_engines = router, controller, workers, slo_engines
         watcher = None
         if self.watch_ring_path is not None:
             watcher = CheckpointWatcher(
@@ -220,6 +261,6 @@ class FleetServingComponent(WorkerBoot, ServingComponent):
             watcher.start()
         logger.info("fleet serving: %d workers behind router on %s:%d%s", len(workers), self.http_host, router.port,
                     f", watching {self.watch_ring_path}" if watcher else "")
-        out = self._serve_until_stopped(router, workers, watcher)
+        out = self._serve_until_stopped(router, workers, watcher, slo_engines)
         out["generation"] = controller.generation
         return out

@@ -12,11 +12,11 @@ every worker. The verdict is an event (``fleet/rollout`` /
 
 The error delta is checked every tick (a NaN-weights canary whose requests
 finish "error" rolls back mid-window); the TTFT comparison runs once at
-the window's end, when both sides have observations. The window is
-``MODALITIES_TPU_FLEET_PROBATION_S`` (default 30 s); clock and sleep are
-injectable, so tests step probation. The JAX controller also asks an SLO
-engine for the canary's breaching objectives each tick; the port has none
-yet (ROADMAP.md Queue 1 item 6), so `slo_verdict_fn` stays None.
+the window's end, when both sides have observations. Before both, each
+tick asks `slo_verdict_fn` (the fleet component's: the canary's SLO engine
+sampled once) for the canary's breaching objectives; any rolls it back with
+stage "slo". The window is ``MODALITIES_TPU_FLEET_PROBATION_S`` (default 30
+s); clock and sleep are injectable, so tests step probation.
 
 The port's engine installs a generation by copying it into its tensors
 (serving/engine.py, hot swap), so the donor is not a reference the engine
@@ -110,14 +110,17 @@ class RolloutController:
     ):
         if not workers:
             raise ValueError("RolloutController needs at least one worker")
-        if slo_verdict_fn is not None:
-            raise NotImplementedError("slo_verdict_fn: the SLO engine's verdicts wait for ROADMAP.md Queue 1 item 6")
         self.workers = list(workers)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.probation_s = probation_s if probation_s is not None else _default_probation_s()
         self.probation_tick_s = probation_tick_s
         self.max_error_delta = int(max_error_delta)
         self.ttft_regression_factor = float(ttft_regression_factor)
+        # the SLO verdict hook (telemetry/slo.py): worker -> the breaching
+        # objectives' names, checked every probation tick, so a canary burning
+        # its declared objectives rolls back (stage "slo") before the
+        # error-delta and TTFT-against-peers gates
+        self.slo_verdict_fn = slo_verdict_fn
         self._now = time_fn
         self._sleep = sleep_fn
         self.generation = max(w.engine.weights_generation for w in self.workers)
@@ -170,10 +173,15 @@ class RolloutController:
 
     def _probation(self, canary: EngineWorker, baselines: dict) -> Optional[tuple[str, str]]:
         """Watch the canary for the probation window: None promotes, a
-        (stage, reason) pair rolls back."""
+        (stage, reason) pair rolls back: stage "slo" for a declared
+        objective's verdict, "probation" for the error and TTFT gates."""
         deadline = self._now() + self.probation_s
         base = baselines[canary.name]
         while True:
+            if self.slo_verdict_fn is not None:
+                burning = list(self.slo_verdict_fn(canary))
+                if burning:
+                    return ("slo", f"slo breach on canary: {', '.join(burning)}")
             error_delta = canary.snapshot()["request_errors"] - base["request_errors"]
             if error_delta > self.max_error_delta:
                 return ("probation", f"request_errors regressed by {error_delta} during probation "

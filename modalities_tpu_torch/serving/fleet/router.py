@@ -9,8 +9,8 @@ worker's `/healthz` and `/stats` each interval; a worker is healthy while
 its last successful probe is within the heartbeat deadline
 (``MODALITIES_TPU_FLEET_HEALTH_DEADLINE_S``, default 5 s) and it is not
 draining. A worker whose /healthz reports ``degraded`` stays in rotation
-but is deprioritized: clean peers win while any exist (the port's workers
-report it once the SLO engine exists, ROADMAP.md Queue 1 item 6).
+but is deprioritized: clean peers win while any exist (a worker reports it
+while its SLO engine has an objective in breach).
 
 Failover: when a worker dies mid-stream (its connection drops before the
 final SSE `done` event) the router marks it unhealthy, bumps
@@ -441,7 +441,9 @@ class FleetRouter:
                                                     {"Retry-After": RETRY_AFTER_S}))
             return
         state = self._new_state(headers)
+        legs: list[dict] = []
         t_arrival = time.monotonic()
+        outcome = "client_gone"
         tried: set[str] = set()
         self._active_relays += 1
         try:
@@ -450,21 +452,38 @@ class FleetRouter:
                 if worker is None:
                     await self._send_error(client_writer, state,
                                            {"error": "no healthy workers", "trace_id": state["trace_id"]})
+                    outcome = "no_healthy_workers"
                     return
                 tried.add(worker.name)
+                leg = {"worker": worker.name, "hop": state["hop"],
+                       "t_start_s": round(time.monotonic() - t_arrival, 6)}
                 outcome = await self._relay_from_worker(worker, body_bytes, client_writer, state)
+                leg["outcome"] = outcome
+                leg["forwarded_tokens"] = state["forwarded"]
+                legs.append(leg)
                 state["hop"] += 1
                 if outcome == "done":
                     self._record_worker_result(worker, ok=True)
                     return
                 self._fail_worker(worker, state)
                 if not await self._retry_allowed(client_writer, state, worker.name):
+                    outcome = "retry_budget_exhausted"
                     return
         except _ClientGone:
+            outcome = "client_gone"
             return
         finally:
             self._active_relays -= 1
-            self._m_e2e.observe(time.monotonic() - t_arrival, exemplar=state["trace_id"])
+            self._record_request(state, t_arrival, outcome, legs)
+
+    def _record_request(self, state: dict, t_arrival: float, outcome: str, legs: list, **extra) -> None:
+        """The router's half of the request's span tree: the end-to-end
+        histogram's sample and one `fleet/request` record, stitched against
+        the workers' `serve_request` records on the trace id."""
+        e2e_s = time.monotonic() - t_arrival
+        self._m_e2e.observe(e2e_s, exemplar=state["trace_id"])
+        record_event("fleet/request", trace_id=state["trace_id"], outcome=outcome, forwarded_tokens=state["forwarded"],
+                     e2e_s=round(e2e_s, 6), legs=legs, **extra)
 
     # -------------------------------------------------------------- endpoints
     def fleet_table(self) -> dict:

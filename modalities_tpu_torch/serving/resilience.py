@@ -22,10 +22,10 @@ Consumed by the engine's scheduler (serving/engine.py) and the HTTP front end
   at or over ``queue_high`` the engine sheds the lowest-priority queued
   requests down to ``queue_low`` (finish reason ``"shed"``) and the HTTP
   layer rejects new work with 429 + ``Retry-After``. Recovery needs the
-  signal clear AND the queue at or below ``queue_low`` (hysteresis). The JAX
-  controller also trips on the SLO burn signal (``breaching_fn``); the port
-  has no SLO engine yet (ROADMAP.md Queue 1 item 6), so its serving
-  component never passes one.
+  signal clear AND the queue at or below ``queue_low`` (hysteresis). With
+  ``breaching_fn`` (the SLO engine's burn signal, serving/serve.py) it also
+  trips while an objective breaches; without ``queue_high`` the burn signal
+  alone drives it.
 - The fleet routers' primitives (serving/fleet/router.py,
   serving/disagg/router.py): a :class:`CircuitBreaker` per worker, one
   shared :class:`RetryBudget` funded by successful requests

@@ -19,12 +19,20 @@ it), `brownout_queue_high` (the queue-pressure brownout), `max_queue_depth`
 a prefill and a decode tier, behind a router (`serve --fleet`; `http_port`
 is then the router's).
 
-Refused, naming their ROADMAP.md item: `slo` (the SLO engine and its burn
-signal, Queue 1 item 6), `device_mesh` (the engine's mesh shardings, item 3)
-and the JAX serving switches MODALITIES_TPU_SERVE_TELEMETRY_DIR and _WATCHDOG_S
-(item 6) at a value the port would not apply (`_refuse_unported_env`). So
-`configs/config_serve.yaml` does not load unchanged: its `slo` block arms the
-JAX engine's SLO judge, and the port refuses it (set `slo: null`).
+Observability: `slo` ({"objectives": [{"name", "expr", ...}],
+"sample_interval_s"?}) arms an SLO engine (telemetry/slo.py) over the
+engine's registry, plus one shed-ratio objective per declared tenant. Its
+burn signal trips the brownout controller (with `brownout_queue_high: null`
+the brownout is the burn signal alone), turns `/healthz` "degraded", and its
+per-tenant error budgets order the burn-aware victims.
+MODALITIES_TPU_SERVE_TELEMETRY_DIR=<folder> activates process telemetry for
+the run: every request's lifecycle record lands on the per-rank JSONL sink
+there (`data analyze_serve`, `data check_slo` read it), and a wedged
+dispatch dumps a watchdog artifact beside it after
+MODALITIES_TPU_SERVE_WATCHDOG_S seconds (default 300; 0 disables).
+
+Refused, naming its ROADMAP.md item: `device_mesh` (the engine's mesh
+shardings, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -48,7 +56,6 @@ from modalities_tpu_torch.config.config import (
 from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
 from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.serving.resilience import BrownoutController, TenantRegistry, resolve_deadline_ms
-from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
 
 logger = logging.getLogger(__name__)
 
@@ -107,54 +114,15 @@ class ServingComponentConfig:
         check_dict("tenants", self.tenants, optional=True)
 
 
-# The JAX serving environment switches the port does not apply yet, each with
-# the values that leave the port's result unchanged (the JAX defaults) and
-# the ROADMAP.md Queue 1 item that ports its feature. The engine applies
-# MODALITIES_TPU_SERVE_KV_CACHE, _PREFILL_CHUNKS, _SPEC_K, _PREFIX_SHARING and
-# _QUEUE_LIMIT itself, and serving/resilience.py _DEADLINE_DEFAULT_MS and
-# _TENANT_DEFAULT, as the JAX package does.
-_ENV_DEFAULTS = {
-    "MODALITIES_TPU_SERVE_TELEMETRY_DIR": (lambda v: False, 6),
-    "MODALITIES_TPU_SERVE_WATCHDOG_S": (lambda v: float(v) == 300, 6),
-}
-
-
-def _refuse_unported_env() -> None:
-    """Raise on a JAX serving switch set to a value the port would not apply
-    (unset or empty is the default): the port refuses, never ignores."""
-    for name, (is_default, item) in _ENV_DEFAULTS.items():
-        raw = os.environ.get(name, "").strip()
-        if not raw:
-            continue
-        try:
-            default = is_default(raw)
-        except ValueError:
-            default = False
-        if not default:
-            raise NotImplementedError(
-                f"{name}={raw!r}: the port does not have this serving feature yet "
-                f"(ROADMAP.md, Queue 1 item {item}); unset it"
-            )
-
-
 class ServingComponent:
     """Serving as a DI component: holds the engine knobs and builds the
     `ServingEngine` once parameters and the device are resolved."""
 
     def __init__(self, model, tokenizer, **knobs):
         cfg = ServingComponentConfig(model=model, tokenizer=tokenizer, **knobs)  # names and types checked
-        unported = {  # knob -> (set to a non-default value, the ROADMAP.md Queue 1 item that ports it)
-            "device_mesh": (cfg.device_mesh is not None, 3),
-            "slo": (cfg.slo is not None, 6),  # the JAX serve() arms the SLO judge and its brownout signal from it
-        }
-        refused = {k: item for k, (is_set, item) in unported.items() if is_set}
-        if refused:
-            raise NotImplementedError(
-                f"serving_component knobs {sorted(refused)} need engine features the port does not have yet "
-                f"(ROADMAP.md, Queue 1 item{'s' if len(set(refused.values())) > 1 else ''} "
-                f"{' and '.join(str(i) for i in sorted(set(refused.values())))})"
-            )
-        _refuse_unported_env()
+        if cfg.device_mesh is not None:
+            raise NotImplementedError("serving_component knobs ['device_mesh'] need engine features the port does not "
+                                      "have yet (ROADMAP.md, Queue 1 item 3)")
         self.model = model
         self.tokenizer = tokenizer
         self.max_batch_slots = cfg.max_batch_slots
@@ -180,7 +148,8 @@ class ServingComponent:
         # None keeps the engine on its single implicit tenant (plain FIFO); a malformed block fails here
         self.tenants = TenantRegistry.from_config(cfg.tenants) if cfg.tenants else None
         self.tenants_config = cfg.tenants  # a fleet builds each worker's registry (its buckets) from it
-        self.metrics = MetricsRegistry()  # the engine's series; serve() adds the process gauges
+        self.slo = cfg.slo
+        self.slo_engine = None  # serve() arms it from `slo`
         self.stop_fn = None  # graceful drain: serve() wires the SIGTERM flag here
         self.params: Optional[dict] = None
         self.device: Optional[torch.device] = None
@@ -193,6 +162,41 @@ class ServingComponent:
             return self.tokenizer.get_token_id(self.eod_token)
         except (ValueError, KeyError):
             return -1
+
+    def _build_brownout(self):
+        """The brownout controller: the SLO engine's burn signal and/or the
+        queue-pressure trigger; None when neither is configured."""
+        if self.brownout_queue_high is None and self.slo_engine is None:
+            return None
+        breaching_fn = None
+        if self.slo_engine is not None:
+            slo_engine = self.slo_engine
+            breaching_fn = lambda: bool(slo_engine.breaching())  # noqa: E731
+        return BrownoutController(breaching_fn, queue_high=self.brownout_queue_high)
+
+    def _worker_brownout(self):
+        """The brownout of a fleet or tier worker. Its SLO engine is armed
+        once the worker's registry exists, so the burn signal binds late: the
+        caller sets ``hook["fn"]`` to the worker's `SLOEngine.breaching`;
+        until then the signal reads clear. Returns (brownout or None, hook)."""
+        if self.brownout_queue_high is None and not self.slo:
+            return None, None
+        hook: dict = {"fn": None}
+        breaching_fn = None
+        if self.slo:
+            breaching_fn = lambda: bool(hook["fn"]()) if hook["fn"] is not None else False  # noqa: E731
+        return BrownoutController(breaching_fn, queue_high=self.brownout_queue_high), hook
+
+    def _tenant_budget_remaining(self, tenant: str) -> float:
+        """The engine's seam into the SLO engine for burn-aware victims: the
+        tenant objective's slow-window error budget left (1.0 before the SLO
+        engine is armed, or for an undeclared tenant: an unknown tenant is a
+        preferred victim, never a protected one)."""
+        slo_engine = self.slo_engine
+        if slo_engine is None:
+            return 1.0
+        row = slo_engine.status().get(f"tenant_{tenant}_error_rate")
+        return float(row["budget_remaining"]) if row else 1.0
 
     def _seed_deadline_env(self) -> None:
         """env > config, as for every other serving knob: the config default
@@ -224,13 +228,10 @@ class ServingComponent:
                 quant_weights=self.quant_weights_setting,
                 quant_kv=self.quant_kv_setting,
                 max_queue_depth=self.max_queue_depth,
-                # the queue-pressure brownout only: the JAX component also trips it on the SLO burn
-                # signal, and `slo` is refused until ROADMAP.md Queue 1 item 6
-                brownout=(BrownoutController(queue_high=self.brownout_queue_high)
-                          if self.brownout_queue_high is not None else None),
+                brownout=self._build_brownout(),
                 tenants=self.tenants,
+                tenant_budget_fn=self._tenant_budget_remaining if self.tenants is not None else None,
                 stop_fn=self.stop_fn,
-                metrics=self.metrics,
             )
         return self._engine
 
@@ -286,6 +287,8 @@ class ServingComponent:
         server = ServingHTTPServer(self.build_engine(), encode=self._encode, decode=self.tokenizer.decode,
                                    host=self.http_host, port=self.http_port or 0,
                                    default_max_new_tokens=self.max_new_tokens)
+        if self.slo_engine is not None:
+            server.slo_status_fn = self.slo_engine.breaching
         server.start()
         logger.info("serving HTTP on %s:%d (POST /generate, GET /healthz, GET /stats, GET /metrics)",
                     self.http_host, server.port)
@@ -385,56 +388,93 @@ def serve(
     on the CUDA card unless `device="cpu"`. While HTTP or a replay serves,
     SIGTERM/SIGINT drain gracefully (admission stops, in-flight requests
     finish); the interactive loop keeps Ctrl-C, which ends it. Returns the
-    engine's final stats."""
+    engine's final stats.
+
+    Observability: MODALITIES_TPU_SERVE_TELEMETRY_DIR=<folder> activates
+    process telemetry for the run (the per-rank JSONL sink and the watchdog's
+    artifacts there; MODALITIES_TPU_SERVE_WATCHDOG_S sets the watchdog's
+    deadline, default 300 s, 0 off). A single engine's `slo` block arms one
+    SLO engine on a sampler thread over the registry the engine writes (the
+    active telemetry's), with a shed-ratio objective per declared tenant; a
+    fleet arms one a worker inside `run_fleet`."""
     from modalities_tpu_torch import __version__
     from modalities_tpu_torch.resilience.preemption import PreemptionHandler
+    from modalities_tpu_torch.telemetry import Telemetry, get_active_telemetry, set_active_telemetry
     from modalities_tpu_torch.telemetry.metrics import config_hash_of, register_process_metrics
 
-    config_dict = load_app_config_dict(config_file_path)
-    components = build_serving_components(config_dict)
-    component = components.serving_component
-    if fleet and not hasattr(component, "run_fleet"):
-        raise ValueError("--fleet needs the fleet serving component: set the config's "
-                         "serving_component.variant_key to 'fleet' or 'disagg' (configs/config_fleet.yaml, "
-                         "configs/config_disagg.yaml)")
-    component.device = resolve_device(device)
-    register_process_metrics(component.metrics, version=__version__, config_hash=config_hash_of(config_file_path))
-    if hasattr(component, "resolve_params"):  # the fleet may boot from its ring
-        component.resolve_params(components.settings.checkpoint_folder_path)
-    else:
-        resolve_params(component, components.settings.checkpoint_folder_path)
-    if http_port is not None:
-        component.http_port = int(http_port)
-    if hasattr(component, "run_fleet"):
+    telemetry = prior_telemetry = None
+    telemetry_dir = os.environ.get("MODALITIES_TPU_SERVE_TELEMETRY_DIR")
+    if telemetry_dir:
+        watchdog_s = float(os.environ.get("MODALITIES_TPU_SERVE_WATCHDOG_S", "300"))
+        telemetry = Telemetry(output_folder_path=telemetry_dir, watchdog_deadline_s=watchdog_s)
+        prior_telemetry = set_active_telemetry(telemetry)
+        logger.info("serve telemetry: sink and watchdog artifacts in %s", telemetry_dir)
+    slo_engine = None
+    try:
+        config_dict = load_app_config_dict(config_file_path)
+        components = build_serving_components(config_dict)
+        component = components.serving_component
+        if fleet and not hasattr(component, "run_fleet"):
+            raise ValueError("--fleet needs the fleet serving component: set the config's "
+                             "serving_component.variant_key to 'fleet' or 'disagg' (configs/config_fleet.yaml, "
+                             "configs/config_disagg.yaml)")
+        component.device = resolve_device(device)
+        # the scrape identity of every /metrics: the engine's registry is the active telemetry's
+        register_process_metrics(get_active_telemetry().metrics, version=__version__,
+                                 config_hash=config_hash_of(config_file_path))
+        if hasattr(component, "resolve_params"):  # the fleet may boot from its ring
+            component.resolve_params(components.settings.checkpoint_folder_path)
+        else:
+            resolve_params(component, components.settings.checkpoint_folder_path)
+        if component.slo and not hasattr(component, "run_fleet"):
+            from modalities_tpu_torch.telemetry.slo import SLOEngine, load_slo_spec, tenant_objectives
+
+            objectives, options = load_slo_spec(component.slo)
+            if component.tenants_config:
+                # per-tenant shed-ratio objectives ride the same judge; their
+                # budgets feed the engine's burn-aware victims
+                objectives = list(objectives) + tenant_objectives(sorted(component.tenants_config))
+            slo_engine = SLOEngine(objectives, get_active_telemetry().metrics, **options).start()
+            component.slo_engine = slo_engine
+            logger.info("SLO engine armed: %s", ", ".join(f"{o.name} ({o.expr})" for o in objectives))
+        if http_port is not None:
+            component.http_port = int(http_port)
+        if hasattr(component, "run_fleet"):
+            handler = PreemptionHandler().install()
+            component.stop_fn = handler.should_stop
+            try:
+                stats = component.run_fleet()
+            finally:
+                handler.uninstall()
+            logger.info("fleet stats: %s", json.dumps(stats))
+            return stats
+        if component.http_port is None and requests_file_path is None:
+            component.run()
+            return component.build_engine().stats()
         handler = PreemptionHandler().install()
         component.stop_fn = handler.should_stop
         try:
-            stats = component.run_fleet()
-        finally:
-            handler.uninstall()
-        logger.info("fleet stats: %s", json.dumps(stats))
-        return stats
-    if component.http_port is None and requests_file_path is None:
-        component.run()
-        return component.build_engine().stats()
-    handler = PreemptionHandler().install()
-    component.stop_fn = handler.should_stop
-    try:
-        if component.http_port is not None:
-            stats = component.run_http()
+            if component.http_port is not None:
+                stats = component.run_http()
+                logger.info("serve stats: %s", json.dumps(stats))
+                return stats
+            with open(requests_file_path) as f:
+                requests = [json.loads(line) for line in f if line.strip()]
+            rows = component.run_requests(requests)
+            out_lines = [json.dumps(row) for row in rows]
+            if output_file_path is not None:
+                Path(output_file_path).write_text("\n".join(out_lines) + "\n")
+            else:
+                for line in out_lines:
+                    print(line)
+            stats = component.build_engine().stats()
             logger.info("serve stats: %s", json.dumps(stats))
             return stats
-        with open(requests_file_path) as f:
-            requests = [json.loads(line) for line in f if line.strip()]
-        rows = component.run_requests(requests)
-        out_lines = [json.dumps(row) for row in rows]
-        if output_file_path is not None:
-            Path(output_file_path).write_text("\n".join(out_lines) + "\n")
-        else:
-            for line in out_lines:
-                print(line)
-        stats = component.build_engine().stats()
-        logger.info("serve stats: %s", json.dumps(stats))
-        return stats
+        finally:
+            handler.uninstall()
     finally:
-        handler.uninstall()
+        if slo_engine is not None:
+            slo_engine.stop()
+        if telemetry is not None:
+            telemetry.close()
+            set_active_telemetry(prior_telemetry)

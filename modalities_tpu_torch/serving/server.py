@@ -37,8 +37,10 @@ Endpoints:
 - `POST /admin/swap`: body `{"checkpoint_folder": str, "generation": int?}`,
   forwarded to the wired `swap_handler` (the fleet's; it loads the folder
   and swaps through `engine.request_swap`); 503 when none is wired.
-- `GET /healthz`: `{"status": "ok"|"draining", "weights_generation": int}`
-  (the JAX "degraded" status needs the SLO engine, item 6).
+- `GET /healthz`: `{"status": "ok"|"degraded"|"draining", "weights_generation":
+  int}`, plus `"slo_breaching"` (the breaching objectives' names) when an SLO
+  engine is wired (`slo_status_fn`): "degraded" means serving but burning an
+  objective, so a router prefers a clean peer; draining outranks it.
 - `GET /stats`: one engine snapshot (taken under its stats lock) + the HTTP
   counters.
 - `GET /metrics`: Prometheus text exposition of the engine's registry.
@@ -62,6 +64,7 @@ from typing import Callable, Optional
 import torch
 
 from modalities_tpu_torch.serving.resilience import DEADLINE_HEADER, TENANT_HEADER, resolve_deadline_ms
+from modalities_tpu_torch.telemetry import get_active_telemetry, span
 from modalities_tpu_torch.telemetry.metrics import CONTENT_TYPE_LATEST
 
 _MAX_BODY_BYTES = 16 << 20  # refuse an absurd Content-Length before readexactly
@@ -163,6 +166,10 @@ class ServingHTTPServer:
         self.default_max_new_tokens = int(default_max_new_tokens)
         # POST /admin/swap delegate: dict body -> dict result (None: 503)
         self.swap_handler = swap_handler
+        # the SLO verdict hook (telemetry/slo.py): () -> the breaching
+        # objectives' names; any turns /healthz "ok" into "degraded". None
+        # keeps /healthz on its SLO-free shape
+        self.slo_status_fn: Optional[Callable[[], list]] = None
 
         self._pending: queue.Queue = queue.Queue()  # (body dict, stream queue)
         self._streams: dict[int, queue.Queue] = {}  # rid -> stream (engine thread only)
@@ -281,6 +288,7 @@ class ServingHTTPServer:
                 self.http_rejected += 1
                 self._m_http_rejected.inc()
                 stream.put(("error", "server is draining"))
+            get_active_telemetry().disarm_watchdog()  # the loop exited: nothing in flight
 
     # --------------------------------------------------------------- HTTP side
     @property
@@ -335,6 +343,10 @@ class ServingHTTPServer:
 
     async def _handle_generate(self, body_bytes: bytes, writer: asyncio.StreamWriter,
                                headers: Optional[dict] = None) -> None:
+        with span("serve/http"):
+            await self._generate(body_bytes, writer, headers)
+
+    async def _generate(self, body_bytes: bytes, writer: asyncio.StreamWriter, headers: Optional[dict]) -> None:
         self.http_requests += 1
         self._m_http.inc()
         body = self._prompt_body(body_bytes, writer, headers)
@@ -434,6 +446,10 @@ class ServingHTTPServer:
         ONE JSON document: the token ids (0 or 1 of them), the finish reason
         and, on "handoff", the wire form of the sealed record the router ships
         to a decode worker."""
+        with span("serve/http"):
+            await self._disagg_prefill(body_bytes, writer, headers)
+
+    async def _disagg_prefill(self, body_bytes: bytes, writer: asyncio.StreamWriter, headers: Optional[dict]) -> None:
         self.http_requests += 1
         self._m_http.inc()
         if self._wrong_tier("/disagg/prefill", "prefill", writer):
@@ -472,6 +488,10 @@ class ServingHTTPServer:
         """The decode-tier leg: import the posted record and stream the
         continuation as SSE in /generate's framing, so the router's relay
         loop serves both. The deadline rides inside the record."""
+        with span("serve/http"):
+            await self._disagg_import(body_bytes, writer, headers)
+
+    async def _disagg_import(self, body_bytes: bytes, writer: asyncio.StreamWriter, headers: Optional[dict]) -> None:
         self.http_requests += 1
         self._m_http.inc()
         if self._wrong_tier("/disagg/import", "decode", writer):
@@ -518,8 +538,16 @@ class ServingHTTPServer:
                 return
             method, path, headers, body_bytes = req
             if method == "GET" and path == "/healthz":
-                writer.write(json_response_bytes(200, {"status": "draining" if self.draining else "ok",
-                                                       "weights_generation": self.engine.weights_generation}))
+                health = {"status": "draining" if self.draining else "ok",
+                          "weights_generation": self.engine.weights_generation}
+                if self.slo_status_fn is not None:
+                    breaching = list(self.slo_status_fn())
+                    health["slo_breaching"] = breaching
+                    if breaching and health["status"] == "ok":
+                        # degraded is not unhealthy: it still serves, but a
+                        # router prefers clean peers while the breach lasts
+                        health["status"] = "degraded"
+                writer.write(json_response_bytes(200, health))
             elif method == "GET" and path == "/stats":
                 stats = dict(self.engine.stats())
                 stats["http_requests"] = self.http_requests

@@ -20,6 +20,9 @@ registry.
   `histogram_quantile()` does.
 - **Round-trip.** `parse_prometheus_text` parses what `render` emits; it is a
   small parser for this exposition subset, not a general one.
+- **Every read takes the metric's lock** (`value`, `count`, `sum`,
+  `quantile`, `series_snapshot`, `registry.get`): the SLO sampler thread
+  reads while the engine thread writes.
 """
 
 from __future__ import annotations
@@ -112,7 +115,8 @@ class Counter(_Metric):
             self._series[key] = self._series.get(key, 0.0) + amount
 
     def value(self, **labels) -> float:
-        return self._series.get(_label_key(labels), 0.0)
+        with self._lock:
+            return self._series.get(_label_key(labels), 0.0)
 
     def reset(self) -> None:
         with self._lock:
@@ -155,10 +159,10 @@ class Gauge(_Metric):
 
     def value(self, **labels) -> float:
         key = _label_key(labels)
-        fn = self._fns.get(key)
-        if fn is not None:
-            return float(fn())
-        return self._series.get(key, 0.0)
+        with self._lock:
+            fn = self._fns.get(key)
+            value = self._series.get(key, 0.0)
+        return float(fn()) if fn is not None else value  # a scrape-time callback runs outside the lock
 
     def series_snapshot(self) -> dict:
         """Every series value keyed by its label tuple, scrape-time callbacks
@@ -231,15 +235,18 @@ class Histogram(_Metric):
 
     def exemplar(self, **labels) -> Optional[tuple[str, float]]:
         """(trace_id, value) of the last exemplar-tagged observation, or None."""
-        return self._exemplars.get(_label_key(labels))
+        with self._lock:
+            return self._exemplars.get(_label_key(labels))
 
     def count(self, **labels) -> float:
-        row = self._series.get(_label_key(labels))
-        return row[-1] if row else 0.0
+        with self._lock:
+            row = self._series.get(_label_key(labels))
+            return row[-1] if row else 0.0
 
     def sum(self, **labels) -> float:
-        row = self._series.get(_label_key(labels))
-        return row[-2] if row else 0.0
+        with self._lock:
+            row = self._series.get(_label_key(labels))
+            return row[-2] if row else 0.0
 
     def quantile(self, q: float, **labels) -> Optional[float]:
         """Estimate the q-quantile (0..1) by linear interpolation inside the
@@ -335,7 +342,8 @@ class MetricsRegistry:
         return self._get_or_create(Histogram, name, help_text, buckets=buckets)
 
     def get(self, name: str) -> Optional[_Metric]:
-        return self._metrics.get(name)
+        with self._lock:
+            return self._metrics.get(name)
 
     def names(self) -> list[str]:
         with self._lock:

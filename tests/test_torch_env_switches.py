@@ -16,7 +16,11 @@ apply nor refuse (ROADMAP.md Queue 3 item 17), each at a non-default value:
   _HEALTH_DEADLINE_S, _PROBATION_S, _POLL_S and
   MODALITIES_TPU_DISAGG_HANDOFF_TIMEOUT_S are applied where the JAX package
   applies them: the object built with its knob left None takes the env value,
-  as the JAX object does."""
+  as the JAX object does;
+- MODALITIES_TPU_SERVE_TELEMETRY_DIR and _WATCHDOG_S arm serve()'s
+  telemetry (the sink's folder, the watchdog's deadline, 0 = off) as the JAX
+  serve() arms it, and MODALITIES_TPU_SLO_SAMPLE_S sets an SLO engine's
+  interval where its spec sets none, in both packages."""
 
 import logging
 
@@ -180,3 +184,90 @@ def test_fleet_switches_are_applied_as_jax(monkeypatch, tmp_path, name):
     monkeypatch.setenv(name, FLEET_SWITCHES[name])
     assert _fleet_objects("port", tmp_path)[name] == _fleet_objects("jax", tmp_path)[name] == float(FLEET_SWITCHES[name])
     assert defaults[0] == defaults[1] != float(FLEET_SWITCHES[name])
+
+
+class _StopAfterTelemetry(Exception):
+    """Raised where serve() loads its config: the run stops once its telemetry is armed."""
+
+
+def _serve_telemetry(pkg: str, monkeypatch, tmp_path):
+    """What serve() arms from the environment before it reads its config, in
+    each package: (watchdog deadline, watchdog on, sink file name relative
+    to the folder), or None without telemetry. The run stops at the config
+    load. The JAX serve() reads its config before its try block, so its
+    telemetry stays active after that exception: the previous one is
+    restored here, and the armed one closed."""
+    import importlib
+
+    telemetry_mod = importlib.import_module("modalities_tpu.telemetry" if pkg == "jax" else
+                                            "modalities_tpu_torch.telemetry")
+    serve_mod = importlib.import_module("modalities_tpu.serving.serve" if pkg == "jax" else
+                                        "modalities_tpu_torch.serving.serve")
+    armed = []
+    real = telemetry_mod.set_active_telemetry
+
+    def record(telemetry):
+        if telemetry is not None and telemetry is not telemetry_mod.NOOP_TELEMETRY:
+            armed.append(telemetry)
+        return real(telemetry)
+
+    def stop(*args, **kwargs):
+        raise _StopAfterTelemetry
+
+    prior = telemetry_mod.get_active_telemetry()
+    try:
+        with monkeypatch.context() as patch:
+            patch.setattr(telemetry_mod, "set_active_telemetry", record)
+            patch.setattr(serve_mod, "load_app_config_dict", stop)
+            with pytest.raises(_StopAfterTelemetry):
+                serve_mod.serve(tmp_path / "never_read.yaml")
+    finally:
+        real(prior)
+        for telemetry in armed:
+            telemetry.close()
+    if not armed:
+        return None
+    (telemetry,) = armed
+    return (telemetry.watchdog_deadline_s, telemetry.enabled and telemetry.watchdog_deadline_s > 0,
+            telemetry.sink_path.relative_to(tmp_path / pkg).as_posix())
+
+
+@pytest.mark.parametrize("watchdog_s", [None, "45", "0"], ids=["TELEMETRY_DIR", "WATCHDOG_S", "WATCHDOG_S_off"])
+def test_serve_telemetry_switches_are_applied_as_jax(monkeypatch, tmp_path, watchdog_s):
+    """MODALITIES_TPU_SERVE_TELEMETRY_DIR arms process telemetry with its
+    sink in the folder (`telemetry_rank_0.jsonl`), and
+    MODALITIES_TPU_SERVE_WATCHDOG_S sets the watchdog's deadline (300 s
+    unset; 0 turns the watchdog off), in both packages; unset, serve() arms
+    no telemetry."""
+    monkeypatch.delenv("MODALITIES_TPU_SERVE_TELEMETRY_DIR", raising=False)
+    assert _serve_telemetry("port", monkeypatch, tmp_path) is _serve_telemetry("jax", monkeypatch, tmp_path) is None
+    if watchdog_s is not None:
+        monkeypatch.setenv("MODALITIES_TPU_SERVE_WATCHDOG_S", watchdog_s)
+    got = {}
+    for pkg in ("port", "jax"):
+        monkeypatch.setenv("MODALITIES_TPU_SERVE_TELEMETRY_DIR", str(tmp_path / pkg))
+        got[pkg] = _serve_telemetry(pkg, monkeypatch, tmp_path)
+    assert got["port"] == got["jax"] == (float(watchdog_s or 300), watchdog_s != "0", "telemetry_rank_0.jsonl")
+
+
+def test_slo_sample_switch_is_applied_as_jax(monkeypatch):
+    """MODALITIES_TPU_SLO_SAMPLE_S sets an SLO engine's sampling interval
+    when its spec has none (5 s unset); a spec's `sample_interval_s` wins."""
+    from modalities_tpu.telemetry import metrics as jax_metrics
+    from modalities_tpu.telemetry import slo as jax_slo
+    from modalities_tpu_torch.telemetry import metrics as port_metrics
+    from modalities_tpu_torch.telemetry import slo as port_slo
+
+    def intervals(spec):
+        out = []
+        for slo, metrics in ((port_slo, port_metrics), (jax_slo, jax_metrics)):
+            objectives, options = slo.load_slo_spec(spec)
+            out.append(slo.SLOEngine(objectives, metrics.MetricsRegistry(), **options).sample_interval_s)
+        return out
+
+    bare, pinned = {"objectives": [{"name": "a", "expr": "m < 1"}]}, {"sample_interval_s": 2.5,
+                                                                      "objectives": [{"name": "a", "expr": "m < 1"}]}
+    monkeypatch.delenv("MODALITIES_TPU_SLO_SAMPLE_S", raising=False)
+    assert intervals(bare) == [5.0, 5.0]
+    monkeypatch.setenv("MODALITIES_TPU_SLO_SAMPLE_S", "0.75")
+    assert intervals(bare) == [0.75, 0.75] and intervals(pinned) == [2.5, 2.5]

@@ -12,8 +12,9 @@ modules, on the CPU, with no wall-clock race:
   health loop and takes explicit `health_round()`s on a stepped clock (the
   heartbeat deadline); the JAX router's loop is replaced by explicit probes;
 - RolloutController with scripted engines on a stepped clock: promotion,
-  rollback on the error delta, rollback on a TTFT regression, outcomes equal
-  to the JAX controller's;
+  rollback on the error delta, rollback on a TTFT regression, and rollback
+  with stage "slo" on a canary whose SLO engine (sampled by the verdict hook)
+  breaches, outcomes equal to the JAX controller's;
 - CheckpointWatcher over the port's own tiny checkpoint folders (sealed,
   torn, corrupt; `load_serving_params` reads the sealed one), choices and
   seal rejections equal to the JAX watcher's on the same folders;
@@ -34,6 +35,7 @@ from modalities_tpu.serving.fleet import controller as jax_controller
 from modalities_tpu.serving.fleet import router as jax_router
 from modalities_tpu.serving.fleet import watcher as jax_watcher
 from modalities_tpu.telemetry import metrics as jax_metrics
+from modalities_tpu.telemetry import slo as jax_slo
 from modalities_tpu_torch.resilience import events
 from modalities_tpu_torch.resilience.manifest import write_manifest
 from modalities_tpu_torch.serving import resilience
@@ -45,6 +47,7 @@ from modalities_tpu_torch.serving.server import (
     sse_event_bytes,
 )
 from modalities_tpu_torch.telemetry import metrics as port_metrics
+from modalities_tpu_torch.telemetry import slo as port_slo
 from modalities_tpu_torch.telemetry.metrics import parse_prometheus_text
 
 ANSWER = [11, 12, 13, 14, 15]
@@ -487,10 +490,47 @@ def test_rollout_outcomes_equal_jax(traffic, verdict):
         assert got[6] == 1.0 and (got[2] < 1.0) == (traffic == "errors")
 
 
-def test_controller_refuses_an_slo_verdict_naming_item_6():
-    worker = controller.EngineWorker("w0", FakeEngine(port_metrics))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        controller.RolloutController([worker], slo_verdict_fn=lambda w: [])
+def _slo_rollout(package: str):
+    """A rollout whose canary's first probation tick sees 20 TTFTs of 2 s,
+    4x its declared `serve_ttft_seconds p99 < 0.5` (the JAX fleet SLO e2e
+    test's poison), each worker's SLO engine sampled by the verdict hook on
+    the step clock, as the fleet component wires it."""
+    mod, reg, slo = (controller, port_metrics, port_slo) if package == "port" else (jax_controller, jax_metrics,
+                                                                                   jax_slo)
+    workers = [mod.EngineWorker(f"w{i}", FakeEngine(reg, load)) for i, load in enumerate((2, 0))]
+    clock = StepClock()
+    objectives, options = slo.load_slo_spec({"objectives": [{"name": "ttft_p99",
+                                                             "expr": "serve_ttft_seconds p99 < 0.5"}]})
+    engines = {w.name: slo.SLOEngine(objectives, w.engine.metrics, scope=w.name, time_fn=clock.now, **options)
+               for w in workers}
+
+    def verdict(worker):
+        if worker.engine.weights_generation == 1 and worker.engine.ttft.count() == 0:
+            for _ in range(20):
+                worker.engine.ttft.observe(2.0)
+        engines[worker.name].sample_once()
+        return engines[worker.name].breaching()
+
+    registry = reg.MetricsRegistry()
+    ctl = mod.RolloutController(workers, metrics=registry, probation_s=1.0, probation_tick_s=0.25,
+                                slo_verdict_fn=verdict, time_fn=clock.now, sleep_fn=clock.sleep)
+    events_mod = events if package == "port" else jax_events
+    snapshot = events_mod.snapshot_counts()
+    ok = ctl.deploy({"w": torch.tensor([2.0])}, step=3)
+    parsed = parse_prometheus_text(registry.render())
+    return (ok, ctl.generation, clock.t, [w.engine.swaps for w in workers], engines["w1"].breaching(),
+            parse_prometheus_text(workers[1].engine.metrics.render())["slo_breaches_total"],
+            parsed["fleet_rollbacks_total"][()], events_mod.counts_since(snapshot))
+
+
+def test_controller_rolls_back_on_an_slo_verdict_as_jax():
+    """The canary (w1, least loaded) burns its objective on the first tick:
+    it rolls back with stage "slo" at t = 0, before the error-delta and TTFT
+    gates run, and stays in breach (the slow window has not drained)."""
+    got, want = _slo_rollout("port"), _slo_rollout("jax")
+    assert got == want
+    assert got[:5] == (False, 0, 0.0, [[], [(2.0, 1), (1.0, 0)]], ["ttft_p99"])
+    assert got[7] == {"fleet": 2, "slo": 1}  # fleet/canary, fleet/rollback; slo/breach
 
 
 # ------------------------------------------------------------- the watcher

@@ -38,7 +38,7 @@ from modalities_tpu.telemetry.metrics import MetricsRegistry as JaxMetrics
 from modalities_tpu_torch.serving.engine import ServingEngine
 from modalities_tpu_torch.serving.resilience import BrownoutController, TenantRegistry
 from modalities_tpu_torch.serving.server import ServingHTTPServer
-from modalities_tpu_torch.telemetry.metrics import parse_prometheus_text
+from modalities_tpu_torch.telemetry.metrics import MetricsRegistry, parse_prometheus_text
 from tests.test_torch_gpt2 import jax_and_port
 
 KNOBS = dict(max_batch_slots=2, kv_cache="paged", paged_block_size=4, eod_token_id=-1)
@@ -95,7 +95,7 @@ def served(pair):
     _, _, pm, pparams = pair
     clock = {"t": 0.0}
     engine = ServingEngine(pm, pparams, device="cpu", tenants=TenantRegistry.from_config(TENANTS),
-                           time_fn=lambda: clock["t"], **KNOBS)
+                           time_fn=lambda: clock["t"], metrics=MetricsRegistry(), **KNOBS)
     gate = threading.Event()
     gate.set()
     step = engine.step
@@ -148,7 +148,7 @@ def test_sse_tokens_equal_the_engines_and_jax(pair, served):
         streamed.append(tokens)
     # the HTTP seam is invisible in the tokens: the port engine in process, and JAX's greedy tokens
     jm, jparams, pm, pparams = pair
-    for other in (ServingEngine(pm, pparams, device="cpu", **KNOBS),
+    for other in (ServingEngine(pm, pparams, device="cpu", metrics=MetricsRegistry(), **KNOBS),
                   JaxServingEngine(jm, jparams, metrics=JaxMetrics(), **KNOBS)):
         rids = [other.submit(encode(r["prompt"]), r["max_new_tokens"], temperature=r["temperature"], seed=r["seed"])
                 for r in REQS]

@@ -4,10 +4,9 @@
 variants its serve() adds) is registered in the port, and every pair a
 shipped configs/*.yaml names is either built by the port or refused with
 NotImplementedError naming its ROADMAP.md Queue 1 item, never "Unknown
-variant_key". The serving variants are all ported: configs/config_fleet.yaml
-and configs/config_disagg.yaml build with `slo: null` (their tokenizer
-stubbed), and a non-null `slo` is refused naming item 6. No data file is
-needed."""
+variant_key". The serving variants are all ported: configs/config_serve.yaml,
+config_fleet.yaml and config_disagg.yaml build with their `slo` blocks as
+shipped (their tokenizer stubbed). No data file is needed."""
 
 import re
 from pathlib import Path
@@ -92,8 +91,11 @@ def test_no_serving_variant_is_unported():
     assert all(not isinstance(e.component_type, Unported) for e in serving_entities())
 
 
-@pytest.mark.parametrize("name,variant", [("config_fleet", "fleet"), ("config_disagg", "disagg")])
-def test_the_fleet_configs_build_with_slo_null_and_refuse_an_slo(name, variant):
+@pytest.mark.parametrize("name,variant", [("config_serve", "serve"), ("config_fleet", "fleet"),
+                                          ("config_disagg", "disagg")])
+def test_the_serving_configs_build_with_their_slo_blocks(name, variant):
+    """Each shipped serving config builds as it stands, its `slo` block kept
+    for serve() (or the fleet) to arm."""
     from modalities_tpu_torch.config.component_factory import ComponentFactory
     from modalities_tpu_torch.config.instantiation_models import ServeInstantiationModel
     from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
@@ -109,13 +111,13 @@ def test_the_fleet_configs_build_with_slo_null_and_refuse_an_slo(name, variant):
     config = load_app_config_dict(ROOT / "configs" / f"{name}.yaml")
     node = config["serving_component"]["config"]
     node["tokenizer"] = {"component_key": "tokenizer", "variant_key": "stub", "config": {}}
-    with pytest.raises(NotImplementedError, match=r"\['slo'\].*Queue 1 item 6"):
-        factory.build_components(config, ServeInstantiationModel)
-    node["slo"] = None
+    shipped = yaml.safe_load((ROOT / "configs" / f"{name}.yaml").read_text())["serving_component"]["config"]["slo"]
     component = factory.build_components(config, ServeInstantiationModel).serving_component
-    assert type(component).__name__ == {"fleet": "FleetServingComponent", "disagg": "DisaggServingComponent"}[variant]
-    assert hasattr(component, "run_fleet") and component.kv_cache == "paged"
+    assert type(component).__name__ == {"serve": "ServingComponent", "fleet": "FleetServingComponent",
+                                        "disagg": "DisaggServingComponent"}[variant]
+    assert component.slo == shipped and {"ttft_p99", "error_rate"} <= {o["name"] for o in shipped["objectives"]}
+    assert component.slo_engine is None  # armed by serve() (or per worker by the fleet), not at the build
     if variant == "fleet":
         assert (component.num_workers, component.probation_s, component.health_interval_s) == (2, None, 0.5)
-    else:
+    elif variant == "disagg":
         assert (component.prefill_workers, component.decode_workers) == (1, 1)

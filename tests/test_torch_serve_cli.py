@@ -1,6 +1,6 @@
 """The port's `serve` entry end to end on the CPU: the shipped
-configs/config_serve.yaml (its tokenizer path rewritten and its `slo` block,
-which the port refuses, set to null) drives YAML ->
+configs/config_serve.yaml (its tokenizer path rewritten, its `slo` block as
+shipped) drives YAML ->
 the port's component graph -> ServingEngine -> JSONL rows, through
 `python -m modalities_tpu_torch serve ... --device cpu` in process, as the
 file stands (the ring cache) and with `kv_cache: paged`, `spec_decode: {k: 4}`
@@ -13,10 +13,17 @@ _DEADLINE_DEFAULT_MS, _TENANT_DEFAULT) are applied: JSONL rows with
 `deadline_ms` and `tenant` equal the JAX serving component's rows on the same
 weights (f32, each engine on a stepped clock). `http_port` and
 `--http_port` serve HTTP through the CLI. `serve --fleet` serves copies of
-configs/config_fleet.yaml and configs/config_disagg.yaml (`slo: null`) on an
-ephemeral router port: two workers, or a prefill and a decode tier, whose
-answer equals the port's paged engine on the same fresh-init weights. The
-knobs and switches the port lacks are refused, naming their ROADMAP.md item."""
+configs/config_fleet.yaml and configs/config_disagg.yaml (their `slo` blocks
+as shipped) on an ephemeral router port: two workers, or a prefill and a
+decode tier, whose answer equals the port's paged engine on the same
+fresh-init weights, each worker with its SLO engine. With
+MODALITIES_TPU_SERVE_TELEMETRY_DIR set, a replay leaves one `serve_request`
+record a request, which `data analyze_serve` and `data check_slo` read. The
+knobs the port lacks are refused, naming their ROADMAP.md item.
+
+Every SLO engine serve() arms here is built and wired as serve() does it, but
+its sampler thread is not started (`no_sampler_threads`): a test that judges
+calls `sample_once()` itself, so no verdict races the wall clock."""
 
 import json
 from pathlib import Path
@@ -29,6 +36,7 @@ from modalities_tpu_torch.__main__ import main
 from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
 from modalities_tpu_torch.serving.engine import ServingEngine
 from modalities_tpu_torch.serving.serve import build_serving_components
+from modalities_tpu_torch.telemetry.slo import SLOEngine
 
 CFG = "configs/config_serve.yaml"
 REQUESTS = [
@@ -39,11 +47,21 @@ REQUESTS = [
 
 
 PAGED_KNOBS = {"kv_cache": "paged", "spec_decode": {"k": 4}, "quant": {"weights": "int8", "kv": "int8"}}
+ARMED: list = []  # the SLO engines serve() armed, in order
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_sampler_threads():
+    """SLOEngine.start() records the engine and starts no thread."""
+    start = SLOEngine.start
+    SLOEngine.start = lambda self: (ARMED.append(self), self)[1]
+    yield
+    SLOEngine.start = start
 
 
 def _serve_config(tmp_path_factory, name: str, knobs: dict):
     """(config path, rows) of one `serve` run over REQUESTS: the shipped
-    config with its tokenizer path rewritten, `slo: null` and `knobs`."""
+    config with its tokenizer path rewritten and `knobs`."""
     from tests.conftest import make_word_level_tokenizer
 
     workdir = tmp_path_factory.mktemp(name)
@@ -54,7 +72,6 @@ def _serve_config(tmp_path_factory, name: str, knobs: dict):
     cfg["serving_component"]["config"]["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(
         workdir / "tokenizer"
     )
-    cfg["serving_component"]["config"]["slo"] = None  # brownout shedding: not ported, refused
     cfg["serving_component"]["config"].update(knobs)
     cfg_path = workdir / "config_serve.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
@@ -140,14 +157,13 @@ def test_paged_knobs_are_applied(served_paged, knob, value, stat, want):
 
 
 REFUSED_KNOBS = [  # (knob, a value the JAX engine would act on, the ROADMAP Queue 1 item that ports it)
-    ("slo", {"objectives": []}, 6),
     ("device_mesh", {"data_parallel_degree": 1}, 3),
 ]
 
 
 def test_unported_engine_features_are_refused_not_ignored(served):
     cfg_path, _ = served
-    # the JAX engine would judge SLOs (and shed on their burn) and shard over a mesh
+    # the JAX engine would shard over a mesh
     for knob, value, item in REFUSED_KNOBS:
         cfg = load_app_config_dict(cfg_path)
         cfg["serving_component"]["config"][knob] = value
@@ -155,37 +171,42 @@ def test_unported_engine_features_are_refused_not_ignored(served):
             build_serving_components(cfg)
 
 
-UNPORTED_ENV = [  # (switch, a value the JAX CLI would act on, the ROADMAP Queue 1 item that ports it)
-    ("MODALITIES_TPU_SERVE_TELEMETRY_DIR", "telemetry", 6),
-    ("MODALITIES_TPU_SERVE_WATCHDOG_S", "30", 6),
-]
-DEFAULT_ENV = {  # values that leave the JAX CLI's result as the port's: these still serve
-    "MODALITIES_TPU_SERVE_KV_CACHE": "ring",
-    "MODALITIES_TPU_SERVE_PREFILL_CHUNKS": "64,16,4,1",
-    "MODALITIES_TPU_SERVE_QUEUE_LIMIT": "0",
-    "MODALITIES_TPU_SERVE_SPEC_K": "0",
-    "MODALITIES_TPU_SERVE_DEADLINE_DEFAULT_MS": "0",
-    "MODALITIES_TPU_SERVE_TENANT_DEFAULT": "",
-    "MODALITIES_TPU_SERVE_TELEMETRY_DIR": "",
-    "MODALITIES_TPU_SERVE_WATCHDOG_S": "300",
-    "MODALITIES_TPU_SERVE_PREFIX_SHARING": "0",  # ignored on the ring cache, as in the JAX engine
-}
-
-
-@pytest.mark.parametrize("name,value,item", UNPORTED_ENV, ids=[e[0].removeprefix("MODALITIES_TPU_SERVE_") for e in UNPORTED_ENV])
-def test_unported_env_switches_are_refused_not_ignored(served, monkeypatch, tmp_path, name, value, item):
+def test_the_shipped_slo_block_is_armed_and_the_replay_traced(served, monkeypatch, tmp_path, capsys):
+    """The shipped config with MODALITIES_TPU_SERVE_TELEMETRY_DIR: serve()
+    arms one SLO engine with the file's objectives over the registry the
+    engine writes, the sink holds one serve_request record a row (its
+    tokens and finish reason), and `data analyze_serve` / `data check_slo`
+    read it. Sampled once, the file's `error_rate` objective is unjudgeable
+    on the live registry: its denominator `serve_requests_total` is a series
+    only `check_slo`'s replay rebuilds (as in the JAX package)."""
     cfg_path, rows = served
     req_path = tmp_path / "requests.jsonl"
-    req_path.write_text(json.dumps(REQUESTS[0]) + "\n")
-    argv = ["serve", "--config_file_path", str(cfg_path), "--requests_file_path", str(req_path),
-            "--output_file_path", str(tmp_path / "out.jsonl"), "--device", "cpu"]
-    monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=rf"{name}.*Queue 1 item {item}"):
-        main(argv)
-    for default_name, default in DEFAULT_ENV.items():
-        monkeypatch.setenv(default_name, default)
-    assert main(argv) == 0
-    assert json.loads((tmp_path / "out.jsonl").read_text())["tokens"] == rows[0]["tokens"]
+    req_path.write_text("\n".join(json.dumps(r) for r in REQUESTS) + "\n")
+    monkeypatch.setenv("MODALITIES_TPU_SERVE_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    ARMED.clear()
+    assert main(["serve", "--config_file_path", str(cfg_path), "--requests_file_path", str(req_path),
+                 "--output_file_path", str(tmp_path / "out.jsonl"), "--device", "cpu"]) == 0
+    (slo,) = ARMED
+    assert [(o.name, o.expr) for o in slo.objectives] == [
+        ("ttft_p99", "serve_ttft_seconds p99 < 0.5"),
+        ("error_rate", "serve_request_errors_total / serve_requests_total < 0.01")]
+    verdicts = slo.sample_once()
+    assert verdicts["error_rate"] is None and isinstance(verdicts["ttft_p99"], bool)
+    assert slo.registry.get("serve_requests_submitted_total").value() >= len(REQUESTS)
+    sink = tmp_path / "telemetry" / "telemetry_rank_0.jsonl"
+    records = sorted((json.loads(line) for line in sink.read_text().splitlines()
+                      if '"serve_request"' in line), key=lambda r: r["rid"])
+    assert [(r["tokens"], r["finish_reason"]) for r in records] == [(len(row["tokens"]), row["finish_reason"])
+                                                                   for row in rows]
+    capsys.readouterr()
+    assert main(["data", "analyze_serve", "--sink_path", str(sink.parent), "--as_json"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["requests"] == len(REQUESTS) and summary["generated_tokens"] == sum(len(r["tokens"]) for r in rows)
+    spec = tmp_path / "slo.yaml"
+    spec.write_text(yaml.safe_dump(yaml.safe_load(Path(CFG).read_text())["serving_component"]["config"]["slo"]))
+    rc = main(["data", "check_slo", "--slo_path", str(spec), "--sink_path", str(sink.parent), "--as_json"])
+    report = json.loads(capsys.readouterr().out)
+    assert report["ok"][-1:] == ["error_rate"] and rc == (1 if report["breaching"] else 0)
 
 
 # ------------------------------------------------------ admission control
@@ -450,9 +471,11 @@ def test_quant_kv_env_on_the_ring_raises_as_in_jax(served, monkeypatch, tmp_path
 @pytest.mark.parametrize("name", ["config_fleet", "config_disagg"])
 def test_serve_fleet_serves_the_fleet_configs(tmp_path, monkeypatch, name):
     """`serve --fleet --http_port 0` on a copy of the shipped file (its tokenizer
-    path rewritten, `slo: null`): POST /generate on the router answers with the
-    tokens the port's paged engine gives on the same fresh-init weights, the
-    stop flag drains every worker, and the CLI returns 0."""
+    path rewritten, its `slo` block as shipped): POST /generate on the router
+    answers with the tokens the port's paged engine gives on the same
+    fresh-init weights, each worker has an SLO engine with its share of the
+    objectives (a tier its tier's) behind its /healthz, the stop flag drains
+    every worker, and the CLI returns 0."""
     import http.client
     import threading
 
@@ -466,7 +489,6 @@ def test_serve_fleet_serves_the_fleet_configs(tmp_path, monkeypatch, name):
     cfg = yaml.safe_load((Path("configs") / f"{name}.yaml").read_text())
     cfg["serving_component"]["config"]["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(
         tmp_path / "tokenizer")
-    cfg["serving_component"]["config"]["slo"] = None  # the SLO engine: ROADMAP.md Queue 1 item 6
     cfg_path = tmp_path / f"{name}.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
     routers, handlers = [], []
@@ -474,6 +496,7 @@ def test_serve_fleet_serves_the_fleet_configs(tmp_path, monkeypatch, name):
     monkeypatch.setattr(router_module.FleetRouter, "start", lambda self: (start(self), routers.append(self))[0])
     monkeypatch.setattr(preemption.PreemptionHandler, "install", lambda self: (handlers.append(self), install(self))[1])
     result = []
+    ARMED.clear()
     thread = threading.Thread(target=lambda: result.append(main(
         ["serve", "--fleet", "--config_file_path", str(cfg_path), "--device", "cpu", "--http_port", "0"])), daemon=True)
     thread.start()
@@ -489,6 +512,16 @@ def test_serve_fleet_serves_the_fleet_configs(tmp_path, monkeypatch, name):
         conn.close()
         assert len(router.workers) == 2 and {w.tier for w in router.workers} == (
             {"serve"} if name == "config_fleet" else {"prefill", "decode"})
+        armed = {e.scope: [o.name for o in e.objectives] for e in ARMED}
+        assert armed == ({"worker0": ["ttft_p99", "error_rate"], "worker1": ["ttft_p99", "error_rate"]}
+                         if name == "config_fleet" else
+                         {"prefill0": ["ttft_p99", "error_rate"], "decode0": ["tpot_p99", "error_rate"]})
+        for w in router.workers:
+            conn = http.client.HTTPConnection("127.0.0.1", w.port, timeout=60)
+            conn.request("GET", "/healthz")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+            assert (health["status"], health["slo_breaching"]) == ("ok", [])
     finally:
         handlers[0].request_stop()
         thread.join(60)

@@ -70,7 +70,8 @@ def build(pair, *, tenants=None, queue_high=None, budgets=None, clock=tick_clock
                 brownout=JaxBrownout(queue_high=queue_high) if queue_high else None, **kw)
         else:
             engine = ServingEngine(
-                pm, pparams, device="cpu", time_fn=clock(), on_token=on_token, tenant_budget_fn=budget_fn,
+                pm, pparams, device="cpu", metrics=MetricsRegistry(), time_fn=clock(), on_token=on_token,
+                tenant_budget_fn=budget_fn,
                 tenants=TenantRegistry.from_config(tenants) if tenants else None,
                 brownout=BrownoutController(queue_high=queue_high) if queue_high else None, **kw)
         engine.firsts = firsts
@@ -389,7 +390,7 @@ def test_defaults_register_the_families_and_keep_stats_keys(pair):
     """Every knob at its default: the engine's own registry holds the JAX
     families; stats() keeps every PR-15 key and adds the JAX ones."""
     jm, jparams, pm, pparams = pair
-    port = ServingEngine(pm, pparams, device="cpu", **PAGED)
+    port = ServingEngine(pm, pparams, device="cpu", metrics=MetricsRegistry(), **PAGED)
     jax_engine = JaxServingEngine(jm, jparams, metrics=JaxMetrics(), **PAGED)
     assert port.metrics.names() == jax_engine.metrics.names() and isinstance(port.metrics, MetricsRegistry)
     stats = port.stats()

@@ -156,7 +156,7 @@ def _serve_config(tmp: Path, folder, model_config: dict, quant: str, name: str =
     cfg = yaml.safe_load(Path("configs/config_serve.yaml").read_text())
     node = cfg["serving_component"]["config"]
     node["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(tmp / "tokenizer")
-    node["slo"] = None  # brownout shedding: not ported, refused
+    node["slo"] = None  # no SLO engine: these runs judge nothing
     node["model"]["config"] = model_config
     node["quant"] = {"weights": quant}
     cfg["settings"]["checkpoint_folder_path"] = str(folder)
