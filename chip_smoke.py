@@ -46,23 +46,24 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      time) and repeatable; its check must reject a product with one 64-deep k
      tile or one cluster rank's k range left out; timed at M 8 and 64 beside
      torch.matmul + scale, with the 225 calls of a forward summed. The 2.7B
-     witness at 32 x 1024 (phase 4) also runs the plain path in fp32. A small GPT2
+     witness at 8 x 1024 (phase 4) also runs the plain path in fp32. A small GPT2
      then runs prefill + decode on the card and on the CPU with the same
      weights (logits agree), and takes 3 optimizer steps on the card and on
      the CPU from the same parameters (losses and parameters agree); a tiny
      bf16 GPT2 takes 3 steps through the kernels and through the plain path on
      the card (gradients, losses and parameter moves agree).
-  2. serve the 2.7B GPT2 of configs/config_2p7b_dp.yaml (full width and depth,
-     random weights from a seed) with bf16 weights: 9 requests through 8 slots
-     of a 2048-token ring cache. Every request finishes; the RMSNorm kernel ran
-     65 times per forward; one greedy request re-served alone gets bitwise its
+  2. serve the 2.7B GPT2 of configs/config_2p7b_dp.yaml (full width, cut to
+     SERVE_LAYERS = 12 of its 32 layers for the script's time, random weights
+     from a seed) with bf16 weights: 9 requests through 8 slots of a
+     2048-token ring cache. Every request finishes; the RMSNorm kernel ran
+     25 times per forward (PER_FORWARD: two a block and the head's); one greedy request re-served alone gets bitwise its
      batched tokens.
   3. the same weights quantized to int8 and to fp8: every request finishes and
-     the dequant-matmul kernel ran 225 times per forward; the profiled decode
+     the dequant-matmul kernel ran 85 times per forward (7 a block and the head); the profiled decode
      step gives the dequant-matmul's device ms a step.
  3b. the paged engine on the same weights, 8 slots, blocks of 16, max_len
      2048 (a table of 128 blocks), every run's launches counted from 0 and
-     held to 65 RMSNorm and (int8 weights) 225 dequant-matmul launches per
+     held to 25 RMSNorm and (int8 weights) 85 dequant-matmul launches per
      forward, packed prefill, decode and verify alike: (a) phase 2's
      requests from the default pool of 1024 blocks, bf16 and int8 weights,
      every request finishing "budget" or "eod", request 0 alone bitwise its
@@ -82,8 +83,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
  3c. the serving front end on the same weights, int8, the paged cache: one
      engine with two tenants (interactive: weight 3, max_slots 6; bulk:
      weight 1, 16 tokens/s, burst 64) behind the port's ServingHTTPServer on
-     an ephemeral loopback port, its launches counted from 0 and held to 65
-     and 225 a forward: (a) phase 2's 9 requests POSTed at once, each
+     an ephemeral loopback port, its launches counted from 0 and held to 25
+     and 85 a forward: (a) phase 2's 9 requests POSTed at once, each
      request's SSE tokens bitwise its JSONL-replay tokens (run_requests on the
      same engine); /healthz, /stats and /metrics answer and /metrics'
      counters equal stats(); (b) 24 requests of both tenants queued at once
@@ -102,7 +103,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      in-flight requests finish and a new POST gets 503.
  3d. the serving fleet on the same weights (int8, paged): two workers behind
      the port's FleetRouter on loopback, booted by FleetServingComponent's
-     run_fleet, every launch of both counted from 0 and held to 65 and 225
+     run_fleet, every launch of both counted from 0 and held to 25 and 85
      a forward: (a) phase 2's 9 requests POSTed to the router at once,
      tokens bitwise 3c's replay, both workers picked; (d) /fleet and the
      router's /metrics against the workers' stats(); (c) a rollout of the
@@ -118,7 +119,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      requests at bf16 KV and at int8 KV, tokens bitwise the combined
      engine's (3c's replay; 3b (e)'s int8-KV run), 9 handoffs exported and
      imported, no decode shape on the prefill tier and no prefill shape on
-     the decode tier; (b) every record's payload exactly n_blocks x 32 x 16
+     the decode tier; (b) every record's payload exactly n_blocks x 12 x 16
      x 8 x (2 x 80 x 2) bytes at bf16 KV and x (80 + 4) x 2 at int8 KV; (c)
      DisaggServingComponent's tiers behind the DisaggRouter over HTTP: the
      requests whose import body fits the server's 16 MiB body limit bitwise
@@ -130,10 +131,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      generation_mismatch at the decode worker, and a corrupted export
      through the router replayed bitwise with the decode worker kept in
      rotation; (e) the handoff's export, wire and import seconds (p50, max)
-     and each tier's host ms a forward. Launches held to 65 and 225 a
+     and each tier's host ms a forward. Launches held to 25 and 85 a
      forward over every engine of the phase.
  3f. serving under telemetry and SLOs on the same weights (int8), every
-     launch of the phase counted from 0 and held to 65 and 225 a forward,
+     launch of the phase counted from 0 and held to 25 and 85 a forward,
      each config a copy of the shipped file with its model node swapped
      (MODEL_2P7B), a word-level tokenizer, int8 weights and 2048-token caches,
      its `slo` block as shipped: (a) phase 2's 9 requests through `serve()`
@@ -153,8 +154,10 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      and answers a new POST 429, and with the donor back and the clock past
      the slow window it recovers (/healthz "ok", the donor bitwise 3c's
      replay); (c)
-     config_fleet.yaml's two workers, one SLO engine each: a canary fed 8
-     prompts of 2000 tokens during probation burns ttft_p99 and rolls back
+     config_fleet.yaml's two workers, one SLO engine each: a canary fed 16
+     prompts of 2000 tokens (its 8 slots twice over; the SLO-only brownout
+     may shed the queued ones once it breaches) during probation burns
+     ttft_p99 and rolls back
      with stage "slo", /healthz and the router mark it degraded, the donor
      generation answers through the router bitwise 3c's replay, and `data
      analyze_fleet` stitches one trace per routed request; (d) a decode
@@ -162,6 +165,17 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      the thread stacks, the engine's stats and the card's memory under the
      JAX keys; (e) the host ms a decode step with telemetry on and off in
      turns, and the sink's records and bytes a request.
+ 3g. text generation at the 2.7B's full 32 layers, its weights drawn from
+     phase 2's seed (bf16): `TextInferenceComponent`
+     (inference/text/inference_component.py) greedy on three of phase 2's
+     prompts, 64 new tokens each: a second call gives the same first
+     GEN_REPEAT tokens, the
+     RMSNorm forward kernel runs 65 times a forward (each `decode_step`),
+     decode_step's last logits after each prompt's prefill against the full
+     forward's: within GEN_F32_REL in fp32 compute, and in bf16 no farther
+     from the fp32 forward than GEN_BF16_FACTOR x the bf16 forward is; the
+     host ms and device ms a token, and the tokens' agreement with phase 2's
+     ring engine on these weights.
   4. train that 2.7B GPT2 through `modalities_tpu_torch.main.Main` (what
      `python -m modalities_tpu_torch run` calls) from a copy of
      configs/config_2p7b_dp.yaml cut to one card, on a seeded synthetic .pbin
@@ -187,7 +201,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      (dp_shard 1, tp 1) mesh with loss parallelism (the fused-CE head on
      vocab shards): the path's launches, losses and grad norms within
      TP_ONE_TOL.
-  6. checkpointing at full width, the 32k config cut to 12 of its 24 layers
+  6. checkpointing at full width, the 32k config cut to 4 of its 24 layers
      (CKPT_LAYERS; the script's time). Run A: the 32k config through
      Main for 52 steps with its own checkpointing interval (50) and k (2):
      it saves and seals the step-50 folder (DCP files, topology.json,
@@ -203,7 +217,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      `serve` from the step-50 folder (a config derived from
      configs/config_serve.yaml at the 32k model's widths, 4 requests, bf16
      and int8): every request finishes, RMSNorm and dequant-matmul launch
-     their per-forward counts for 12 layers, and the greedy tokens equal
+     their per-forward counts for CKPT_LAYERS layers, and the greedy tokens equal
      those of the step-50 parameters handed over in memory, bitwise (which
      the folder's model tensors equal, bitwise). A copy of the folder with
      one byte flipped is refused by the loader (run B's train step left as
@@ -291,12 +305,34 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      ulp), the gap between the per-slice mean and the global token mean
      printed; (d) phase 8b's 7B block with `bias: true` (biases drawn from
      N(0, 0.02)) at tp 8 within the same row bounds.
- 11. one JSON line naming the kernels (launches summed over the paths, and
+ 11. training resilience and the quick start, each path's launches counted
+     from 0 just before it (phase_quick_start, phase_skip,
+     phase_resilience): (a) the README's quick start, each command a
+     process of its own: `run --test_comm` over
+     configs/config_lorem_ipsum_tpu.yaml cut to world 1 with its
+     `resilience` block, then `generate_text` over
+     configs/config_generate_text.yaml from its last folder, prompts on
+     stdin; (b) the anomaly skip at the 2.7B through Main: phase 4's
+     config and corpus with `skip_step` and `nan_grads@2`, its steps 1-2 and
+     step 3's loss bitwise phase 4's (no component: the raise path), step 3
+     skipped (parameters, both moments and AdamW's step counts bitwise as
+     after step 2), each step's peak memory within SKIP_PEAK_REL of phase
+     4's; (c) at phase 6's widths (4 of the 32k config's 24
+     layers) through the CLI: the stop ballot
+     at world 1 (`stop_consensus: on`, `sigterm_at_step@1`: the forced save
+     at step 3), `sigterm_at_step@2` (the forced save at step 2, exit 75,
+     error_rank_0.json resumable), `warmstart` from it bitwise the unbroken
+     step 3, and `run --resilient` with the rollback policy restarting once
+     from the step-2 folder to step 4. They run after phase 10, one after
+     another, each alone on the card.
+ 12. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, serve_paged, serve_paged_int8kv, serve_spec, serve_http, serve_fleet, serve_disagg,
-     serve_observed, train_2p7b, train_32k, train_32k_resume, ring_cp4,
+     serve_observed, generate_2p7b, train_2p7b, train_32k, train_32k_resume, ring_cp4,
      train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
      pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
-     zero4_in_process, dcn2_in_process, tp8_bias, serve_ckpt; the fused-CE
+     zero4_in_process, dcn2_in_process, tp8_bias, quickstart_train,
+     quickstart_generate, skip_2p7b, consensus_32k, preempt_32k,
+     resume_32k, resilient_32k, serve_ckpt; the fused-CE
      kernels' times at every shape of phase 1 under `shapes`), then the
      card's name and power limit, then the device line (last line).
      `[timing]` lines give the script's wall time after each phase.
@@ -361,6 +397,11 @@ MODEL_2P7B = {  # config_serve.yaml's model node at configs/config_2p7b_dp.yaml'
     "lm_head_norm_config": {"norm_type": "rms_norm", "config": {"ndim": 2560, "bias": False, "epsilon": 1e-5}},
     "use_weight_tying": False,
 }
+# phases 2-3f serve the 2.7B at full width cut to SERVE_LAYERS of its 32 layers: the serving phases are host-bound
+# (a decode step's host time grows with its layers), and at 32 layers the script outran its 1200 s limit on a slow
+# host. 12 is the least depth at which 3e (c) still has a request on each side of the 16 MiB import body limit.
+# Phase 3g generates at the full 32 layers.
+SERVE_LAYERS = 12
 SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 64
 TRAIN_SHAPE = (2, 4096, 32, 8, 80)  # (B, S, Hq, Hkv, D) of one 2.7B training microbatch
 # (1, 2048, 12, 4, 128) is the 32k config's heads (GQA group 3, D 128) at a length whose plain scores fit;
@@ -382,8 +423,9 @@ FLASH_ROW_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 TINY_BF16_TOL = {"grads": 4e-2, "loss": 3e-5, "grad_norm": 1e-3, "params": 0.1}
 # (layers, sequence length) of the lr-1.6e-4 witness runs, kernels vs plain
 # path, and the largest loss difference allowed between them at any step
-# (the H100 showed 0.031 at 32 x 1024)
-LR_WITNESS = [(32, 1024), (4, 4096)]
+# (the H100 showed 0.031-0.042 at 32 x 1024; the 2.7B's witness is cut to 8 of its 32 layers for the script's
+# time: its three arms at 32 layers took 41-72 s, launch-bound)
+LR_WITNESS = [(8, 1024), (4, 4096)]
 LR_WITNESS_TOL = 0.1
 # The tp plan at tp 1 on the card against the unsharded route of the same run: each step's loss (absolute) and
 # grad norm (relative). Both routes give the same sums in another order; a fault of the plan's route (a wrong
@@ -1911,9 +1953,9 @@ def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, voca
         raise AssertionError(f"lr witness: kernels {k} and plain path {p} differ by {diff:g}")
 
 
-def phase_train(torch, smi: str) -> tuple[dict[str, int], dict]:
-    """The 2.7B training path through Main; returns its kernel launch counts
-    and its steps' (loss, grad norm, lr)."""
+def phase_train(torch, smi: str) -> tuple[dict[str, int], dict, float]:
+    """The 2.7B training path through Main; returns its kernel launch counts,
+    its steps' (loss, grad norm, lr) and its peak GB (max_memory_allocated)."""
     from modalities_tpu_torch.main import Main
 
     rng = np.random.default_rng(2027)
@@ -1986,7 +2028,7 @@ def phase_train(torch, smi: str) -> tuple[dict[str, int], dict]:
         for n_layer, wseq in LR_WITNESS:
             lr_witness(torch, tmp, rng, n_layer, wseq, lr=0.00016, vocab=MODEL_2P7B["vocab_size"], keys=TRAIN_KERNELS,
                        phase="phase 4", plain_extra={}, fp32_arm=(n_layer, wseq) == LR_WITNESS[0])
-    return counts, _step_metrics(sharded_results)
+    return counts, _step_metrics(sharded_results), peak_gb
 
 
 def phase_train_long(torch, smi: str) -> dict[str, int]:
@@ -2070,7 +2112,7 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
 
 # ---------------------------------------------------------------- phase 6
 CKPT_STEPS = 52  # run A: the 32k config two steps past its step-50 checkpoint (the file's interval 50 and k 2)
-CKPT_LAYERS = 12  # phase 6's depth: the 32k config cut to 12 of its 24 layers, so the script stays near 600 s
+CKPT_LAYERS = 4  # phase 6's depth: the 32k config cut to 4 of its 24 layers (at 12 the script outran its limit)
 CKPT_SERVE = {"requests": 4, "new_tokens": 32, "slots": 4, "capacity": 1024, "prompt_len": (32, 257)}
 
 
@@ -3601,7 +3643,7 @@ def report_profile(name: str, r: dict) -> None:
         log(f"[{name}]   {ms:.4f} ms/step in {count:.0f} x {key[:90]}")
     if p["qmm_launches"]:
         log(f"[{name}] dequant-matmul: {p['qmm_ms']:.3f} ms of kernels per decode step in {p['qmm_launches']:.0f} "
-            f"launches (its bound: phase 1's sum of 225 calls at M=8)")
+            f"launches (phase 1 sums the bound of the uncut forward's 225 calls at M=8)")
 
 
 def report_serve(name: str, r: dict) -> None:
@@ -3633,7 +3675,12 @@ PAGED_TIGHT_BLOCKS = 128
 SPEC_K = 4
 SHARED_PREFIX = 256  # (c): tokens the sharing requests have in common, 16 full blocks
 SIDE_NEW_TOKENS = 32  # (c), (d): budgets of the sharing and speculation requests
-PER_FORWARD = {"rms": 65, "qmm": 225}  # 32 layers x 2 + lm_head_norm; 32 x 7 dense layers + the head
+# kernel launches a forward of a GPT2 of n layers: two RMSNorms a block + lm_head_norm; 7 dense layers a block + the head
+def per_forward(layers: int) -> dict[str, int]:
+    return {"rms": 2 * layers + 1, "qmm": 7 * layers + 1}
+
+
+PER_FORWARD = per_forward(SERVE_LAYERS)  # phases 2-3f
 
 
 def paged_engine(torch, model, params, quant: str, kv: str = "none", **knobs):
@@ -4238,8 +4285,8 @@ def phase_serve_http(torch, model, params, reqs: list[dict], smi: str) -> tuple[
     log(f"[phase 3c] (f) stop(): the 2 in-flight requests finished {drained}, a new POST got 503; final "
         f"{final['decode_steps']} decode steps, {final['decode_tokens']} decode tokens, host "
         f"{1e3 * final['decode_seconds'] / final['decode_steps']:.2f} ms a decode step")
-    log(f"[phase 3c] launches: rms_norm {counts['rms_fwd']} = 65 x {forwards} forwards, quant_matmul "
-        f"{counts['quant_matmul']} = 225 x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    log(f"[phase 3c] launches: rms_norm {counts['rms_fwd']} = {PER_FORWARD['rms']} x {forwards} forwards, quant_matmul "
+        f"{counts['quant_matmul']} = {PER_FORWARD['qmm']} x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
     del engine, component, server
     torch.cuda.empty_cache()
     return {"serve_http": counts}, replay
@@ -4253,7 +4300,7 @@ FAILOVER_AFTER = 16  # (b): tokens the doomed stream has emitted when its worker
 
 
 def _launches_held(torch, engines: list, phase: str, forwards: int = 0) -> dict[str, int]:
-    """The kernels' launches since their reset, held to 65 and 225 a forward
+    """The kernels' launches since their reset, held to PER_FORWARD a forward
     over every forward of `engines` (each idle first) and `forwards` more
     (those of the phase's engines already gone)."""
     from modalities_tpu_torch.ops.quant_matmul import quant_matmul
@@ -4268,8 +4315,8 @@ def _launches_held(torch, engines: list, phase: str, forwards: int = 0) -> dict[
     want = {"rms_fwd": PER_FORWARD["rms"] * forwards, "quant_matmul": PER_FORWARD["qmm"] * forwards}
     if counts != want:
         raise AssertionError(f"phase {phase}: launches {counts} over {forwards} forwards; expected {want}")
-    log(f"[phase {phase}] launches: rms_norm {counts['rms_fwd']} = 65 x {forwards} forwards, quant_matmul "
-        f"{counts['quant_matmul']} = 225 x {forwards}")
+    log(f"[phase {phase}] launches: rms_norm {counts['rms_fwd']} = {PER_FORWARD['rms']} x {forwards} forwards, quant_matmul "
+        f"{counts['quant_matmul']} = {PER_FORWARD['qmm']} x {forwards}")
     return counts
 
 
@@ -4441,13 +4488,13 @@ def phase_serve_fleet(torch, model, params, reqs: list[dict], replay: list, smi:
 
 
 # ---------------------------------------------------------------- phase 3e
-HEAD_DIM, KV_HEADS, N_LAYERS = 80, 8, 32  # the 2.7B's K/V rows
+HEAD_DIM, KV_HEADS, N_LAYERS = 80, 8, SERVE_LAYERS  # the served model's K/V rows
 BODY_LIMIT = 16 << 20  # serving/server.py _MAX_BODY_BYTES
 WIRE_MARGIN = 64 << 10  # (c): an import body's bytes besides its payload's base64 (the window, the key), at most
 
 
 def _block_bytes(kv: str) -> int:
-    """One KV block's payload bytes: K and V, 32 layers x 16 positions x 8 heads."""
+    """One KV block's payload bytes: K and V, SERVE_LAYERS layers x 16 positions x 8 heads."""
     row = HEAD_DIM * 2 if kv == "none" else HEAD_DIM + 4  # bf16, or int8 + the row's float32 scale
     return N_LAYERS * PAGED_BLOCK * KV_HEADS * row * 2
 
@@ -4631,13 +4678,16 @@ def phase_serve_disagg(torch, model, params, reqs: list[dict], replays: dict, sm
 # ---------------------------------------------------------------- phase 3f
 OBSERVED_WATCHDOG_S = 0.5  # (d): the deadline of a dispatch; the first one gets 4x (the JAX first-step factor)
 WEDGE_S = 3.0  # (d): how long the wedged decode dispatch stalls
-CANARY_PROMPT = 2000  # (c): tokens of each of the canary's 8 long prompts: seconds of packed prefill, TTFT >> 0.5 s
+CANARY_PROMPT = 2000  # (c): tokens of each of the canary's long prompts: packed prefill that takes the first TTFT
+# to ~0.5 s at SERVE_LAYERS (1.2 s at 32 layers)
+CANARY_WAVES = 2  # (c): the canary's slots filled twice over, so the queued wave's TTFT (>= 1 s) breaches ttft_p99;
+# the SLO-only brownout may shed what is still queued once the breach is seen (as in (a) and (b))
 LIVE_ERROR_RATE = ("error_rate_live", "serve_request_errors_total / serve_requests_submitted_total < 0.01")
 COST_RUNS = 2  # (e): runs a side, telemetry on and off in turns
 
 
 def _observed_config(tmp: Path, name: str, changes: dict, out: str = "") -> Path:
-    """configs/<name>.yaml with the model node at MODEL_2P7B, the phase's
+    """configs/<name>.yaml with the model node at MODEL_2P7B cut to SERVE_LAYERS, the phase's
     word-level tokenizer, int8 weights, 2048-token caches and `changes`;
     its `slo` block as shipped. Written to tmp/<out or name>.yaml."""
     import yaml
@@ -4645,7 +4695,7 @@ def _observed_config(tmp: Path, name: str, changes: dict, out: str = "") -> Path
     repo = Path(__file__).resolve().parent
     cfg = yaml.safe_load((repo / "configs" / f"{name}.yaml").read_text())
     node = cfg["serving_component"]["config"]
-    node["model"]["config"] = json.loads(json.dumps(MODEL_2P7B))
+    node["model"]["config"] = dict(json.loads(json.dumps(MODEL_2P7B)), n_layer=SERVE_LAYERS)
     node["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(tmp / "tokenizer")
     node.update({"quant": {"weights": "int8"}, "cache_capacity": CAPACITY, **changes})
     path = tmp / f"{out or name}.yaml"
@@ -4890,7 +4940,7 @@ def phase_serve_observed(torch, model, params, reqs: list[dict], ring_int8: list
         canary = next(w for w in workers if w.engine.weights_generation == 1)
         rng = np.random.default_rng(3)
         long_rows = [{"prompt": _words(rng.integers(0, MODEL_2P7B["vocab_size"], size=CANARY_PROMPT)),
-                      "max_new_tokens": 8} for _ in range(SLOTS)]
+                      "max_new_tokens": 8} for _ in range(CANARY_WAVES * SLOTS)]
         threads, outs = _post_all(canary.server.port, long_rows)
         deploy.join()
         for t in threads:
@@ -4927,7 +4977,7 @@ def phase_serve_observed(torch, model, params, reqs: list[dict], ring_int8: list
     checks = {
         "rolled back": verdict == [False] and controller.generation == 0 and canary.engine.weights_generation == 0,
         "stage slo": [r.get("stage") for r in rollbacks] == ["slo"] and "ttft_p99" in rollbacks[0].get("reason", ""),
-        "canary requests": canary_done == ["budget"] * SLOTS,
+        "canary requests": set(canary_done) <= {"budget", "shed"} and canary_done.count("budget") >= SLOTS,
         "canary degraded": (health["status"], health["slo_breaching"]) == ("degraded", ["ttft_p99"]),
         "donor bitwise": [d["token_ids"] for d in routed] == [replay[0], replay[1]]
                          and all(d["weights_generation"] == 0 for d in routed),
@@ -4936,11 +4986,16 @@ def phase_serve_observed(torch, model, params, reqs: list[dict], ring_int8: list
             and len(traces[tid]["worker_legs"]) == 1 for tid in routed_ids),
     }
     if not all(checks.values()):
-        raise AssertionError(f"phase 3f (c): {checks}; rollbacks {rollbacks}, health {health}")
-    log(f"[phase 3f] (c) config_fleet.yaml, 2 workers with per-worker SLO engines: canary {canary.name} took 8 "
-        f"prompts of {CANARY_PROMPT} tokens during probation, burned ttft_p99 and rolled back with stage slo "
+        raise AssertionError(f"phase 3f (c): {checks}; canary finishes {canary_done}; rollbacks {rollbacks}, "
+                             f"health {health}")
+    ttfts = [d["ttft_s"] for d in canary_rows if d.get("ttft_s") is not None]  # a shed request has none
+    log(f"[phase 3f] (c) config_fleet.yaml, 2 workers with per-worker SLO engines: canary {canary.name} took "
+        f"{len(long_rows)} prompts of {CANARY_PROMPT} tokens during probation ({canary_done.count('budget')} "
+        f"finished \"budget\", {canary_done.count('shed')} queued ones shed by the brownout after the breach), "
+        f"burned ttft_p99 and rolled back with stage slo "
         f"({rollbacks[0].get('reason')}) {rollback_s:.2f} s after the deploy began ({probation_s:.2f} s after the "
-        f"canary's swap, its first TTFT {min(d['ttft_s'] for d in canary_rows) * 1e3:.1f} ms); /healthz degraded, the router "
+        f"canary's swap, its first TTFT {min(ttfts) * 1e3:.1f} ms, its last {max(ttfts) * 1e3:.1f} ms); /healthz "
+        f"degraded, the router "
         f"marked it degraded; 2 requests through the router answered by the donor generation bitwise; "
         f"analyze_fleet stitched each routed request into one trace (router record + 1 worker leg; "
         f"{len(traces)} traces in the sink)")
@@ -5028,8 +5083,8 @@ def phase_serve_observed(torch, model, params, reqs: list[dict], ring_int8: list
     want = {"rms_fwd": PER_FORWARD["rms"] * forwards, "quant_matmul": PER_FORWARD["qmm"] * forwards}
     if counts != want:
         raise AssertionError(f"phase 3f: launches {counts} over {forwards} forwards; expected {want}")
-    log(f"[phase 3f] launches: rms_norm {counts['rms_fwd']} = 65 x {forwards} forwards, quant_matmul "
-        f"{counts['quant_matmul']} = 225 x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    log(f"[phase 3f] launches: rms_norm {counts['rms_fwd']} = {PER_FORWARD['rms']} x {forwards} forwards, quant_matmul "
+        f"{counts['quant_matmul']} = {PER_FORWARD['qmm']} x {forwards}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
     for k, v in saved_env.items():
         if v is not None:
             os.environ[k] = v
@@ -5040,12 +5095,517 @@ def phase_serve_observed(torch, model, params, reqs: list[dict], ring_int8: list
     return {"serve_observed": counts}
 
 
+# ---------------------------------------------------------------- phase 3g
+GEN_PROMPTS = (0, 1, 3)  # phase 2's greedy requests
+# decode_step's last prefill position against the full forward's, ||a - b|| / ||b|| of the logits row: in fp32
+# compute the two paths hold FLASH_ROW_REL["float32"]; in bf16 the decode path's distance from the fp32 forward
+# must stay within GEN_BF16_FACTOR x the bf16 forward's own (the pattern of the 32k witness, Queue 3 item 3: a
+# path against the plain path's own bf16-vs-fp32 gap). Two bf16 paths differ in their GEMM shapes (prefill chunks
+# of 64 / 16 / 4 / 1 rows against one 512-row forward; keys over the cache's 4096 rows), so their roundings differ.
+GEN_F32_REL = FLASH_ROW_REL["float32"]
+GEN_PROFILED = 8  # single-token decode steps profiled for the device ms a step
+GEN_REPEAT = 16  # tokens of the second call, held bitwise to the first call's first ones
+GEN_BF16_FACTOR = 2.0
+
+
+def _ring_greedy(torch, model, params, prompts: list) -> list[list[int]]:
+    """Greedy tokens of phase 2's ring engine (bf16 weights, SLOTS slots of a
+    CAPACITY-token ring) on `prompts`, NEW_TOKENS each."""
+    from modalities_tpu_torch.serving.serve import ServingComponent
+
+    component = ServingComponent(model, _IdTok(), max_batch_slots=SLOTS, cache_capacity=CAPACITY,
+                                 max_new_tokens=NEW_TOKENS, quant={"weights": "none"})
+    component.device, component.params = torch.device(SERVE_DEVICE), params
+    engine = component.build_engine()
+    rids = [engine.submit(p, NEW_TOKENS, temperature=0.0, seed=0) for p in prompts]
+    results = engine.run()
+    tokens = [results[r].tokens for r in rids]
+    del engine, component
+    return tokens
+
+
+def phase_generate(torch, model, params, reqs: list[dict], smi: str) -> dict[str, dict[str, int]]:
+    """Text generation at the 2.7B, all 32 layers (inference/text/inference_component.py):
+    `TextInferenceComponent` greedy on three of phase 2's prompts, 64 new
+    tokens each. Held: a second call gives the first GEN_REPEAT tokens
+    bitwise; the RMSNorm forward
+    kernel runs 65 times a forward (decode_step call); after each prompt's
+    prefill (the (64, 16, 4, 1) ladder) decode_step's last logits against
+    the full forward's at that position: within GEN_F32_REL in fp32
+    compute, and in bf16 no farther from the fp32 forward than
+    GEN_BF16_FACTOR x the bf16 forward is. Reported: the
+    tokens' agreement with phase 2's ring engine on the same weights (run
+    here, before the counts are reset) position by position, the
+    host ms a token (the whole call, prefill included) and the device ms a
+    decode step (GEN_PROFILED single-token steps under torch.profiler)."""
+    from modalities_tpu_torch.inference.text.inference_component import TextInferenceComponent
+    from modalities_tpu_torch.ops.rmsnorm import rms_norm
+
+    t_phase = time.perf_counter()
+    prompts = [reqs[i]["prompt"] for i in GEN_PROMPTS]
+    ring_tokens = _ring_greedy(torch, model, params, prompts)
+    per_fwd = per_forward(model.config_spec.n_layer)["rms"]
+    component = TextInferenceComponent(model, _IdTok(), "{prompt}", MODEL_2P7B["sequence_length"], temperature=0.0,
+                                       eod_token=None)
+    component.device, component.params = torch.device(SERVE_DEVICE), params
+    module = component.module
+    forwards = [0]
+    decode_step = module.decode_step
+
+    def counted(*args, **kwargs):
+        forwards[0] += 1
+        return decode_step(*args, **kwargs)
+
+    module.decode_step = counted
+    component.generate_token_ids(prompts[0], 4)  # the first call's allocations, not counted
+    torch.cuda.synchronize()
+    rms_norm.launches, forwards[0] = 0, 0
+    t0 = time.perf_counter()
+    first = [component.generate_token_ids(p, NEW_TOKENS) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fwd = rms_norm.launches, forwards[0]
+    if launches != per_fwd * fwd:
+        raise AssertionError(f"phase 3g: rms_norm launched {launches} times in {fwd} forwards, expected "
+                             f"{per_fwd} a forward")
+    if [len(t) for t in first] != [NEW_TOKENS] * len(prompts):
+        raise AssertionError(f"phase 3g: {[len(t) for t in first]} tokens, expected {NEW_TOKENS} each")
+    again = [component.generate_token_ids(p, GEN_REPEAT) for p in prompts]
+    if again != [t[:GEN_REPEAT] for t in first]:
+        raise AssertionError("phase 3g: two greedy calls on the same prompts gave different tokens")
+    import copy
+
+    model32 = copy.copy(model).with_spec_updates(compute_dtype="float32")
+    module32 = model32.build_module(params)  # fp32 compute over the same tensors (nothing to cast)
+
+    def prefilled(m, step, ids):
+        cache, pos, n = m.init_decode_cache(1), 0, ids.shape[1]
+        while pos < n:
+            chunk = next(c for c in component._PREFILL_CHUNKS if c <= n - pos)
+            logits, cache = step(cache, ids[:, pos:pos + chunk])
+            pos += chunk
+        return logits[0, -1]
+
+    rels = []  # per prompt: (fp32 decode vs fp32 forward, bf16 decode vs bf16 forward, bf16 decode vs fp32
+    # forward, bf16 forward vs fp32 forward)
+    with torch.no_grad():
+        for p in prompts:
+            ids = torch.tensor([p], device=SERVE_DEVICE)
+            fwd16, fwd32 = module(ids)[0, -1], module32(ids)[0, -1]
+            dec16, dec32 = prefilled(module, decode_step, ids), prefilled(module32, module32.decode_step, ids)
+            rels.append((_rel_norm(torch, dec32, fwd32), _rel_norm(torch, dec16, fwd16),
+                         _rel_norm(torch, dec16, fwd32), _rel_norm(torch, fwd16, fwd32)))
+    del module32, model32
+    if any(r[0] > GEN_F32_REL or r[2] > GEN_BF16_FACTOR * r[3] for r in rels):
+        raise AssertionError(f"phase 3g: decode_step's last logits against the forward's (fp32 vs fp32, bf16 vs "
+                             f"bf16, bf16 vs fp32, the bf16 forward vs fp32): {rels}; bounds {GEN_F32_REL} and "
+                             f"{GEN_BF16_FACTOR} x the last")
+    with torch.no_grad():  # 8 single-token decode steps after the shortest prompt's prefill, under the profiler
+        ids = torch.tensor([min(prompts, key=len)], device=SERVE_DEVICE)
+        cache = module.init_decode_cache(1)
+        _, cache = decode_step(cache, ids)
+        tok = ids[:, -1:]
+        rows, device_ms, profiled_ms = _profiled(torch, lambda: [decode_step(cache, tok) for _ in range(GEN_PROFILED)])
+    agree = [sum(a == b for a, b in zip(mine, ring)) / len(ring) for mine, ring in zip(first, ring_tokens)]
+    log(f"[phase 3g] generation at the 2.7B ({smi}): {len(prompts)} prompts of {[len(p) for p in prompts]} tokens, "
+        f"{NEW_TOKENS} greedy tokens each in {wall:.2f} s: {1e3 * wall / (NEW_TOKENS * len(prompts)):.2f} host ms a "
+        f"token (prefill included, {fwd} forwards); {device_ms / GEN_PROFILED:.3f} device ms a decode step "
+        f"({sum(r[1] for r in rows) / GEN_PROFILED:.0f} launches; {GEN_PROFILED} steps under torch.profiler, "
+        f"{profiled_ms / GEN_PROFILED:.2f} ms a step there); two calls "
+        f"bitwise equal over {GEN_REPEAT} tokens; rms_norm {launches} = {per_fwd} x {fwd}; decode_step vs forward at the last "
+        f"prompt position, relative (fp32 vs fp32 | bf16 vs bf16 | bf16 decode vs fp32 forward | bf16 forward vs "
+        f"fp32 forward): {[' | '.join('%.2e' % x for x in r) for r in rels]} (bounds {GEN_F32_REL}; "
+        f"{GEN_BF16_FACTOR} x the last); agreement with phase 2's ring engine on these weights "
+        f"position by position {['%.3f' % a for a in agree]} (information only); {time.perf_counter() - t_phase:.1f} s")
+    del component, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"generate_2p7b": {"rms_fwd": launches}}
+
+
+# ---------------------------------------------------------------- phase 11
+RESILIENCE_LAYERS = CKPT_LAYERS  # phase 11c: the 32k config at phase 6's depth
+TRAIN_DEVICE = "cuda"  # phases 11a-c (a CPU rehearsal of their logic sets "cpu")
+SKIP_PEAK_REL = 0.05  # phase 11b: a skip_step step's peak memory within 5 % of the run without the skip's
+
+
+def _parse_launches(out: str, what: str) -> dict[str, int]:
+    """The summed `... kernel launches in this process: {...}` lines a subprocess printed."""
+    lines = [json.loads(line.split(": ", 1)[1]) for line in out.splitlines() if "kernel launches in this process" in line]
+    if not lines:
+        raise AssertionError(f"{what}: no kernel launches line in its output")
+    return {k: sum(c[k] for c in lines) for k in lines[0]}
+
+
+def _subprocess(argv: list, cwd: Path, what: str, stdin: str = "", env: dict | None = None,
+                timeout: int = 600) -> subprocess.CompletedProcess:
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "modalities_tpu_torch", *argv], input=stdin, capture_output=True,
+                          text=True, cwd=cwd, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": str(repo), **(env or {})})
+    log(f"[phase 11] {what}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s (a process of its own)")
+    return proc
+
+
+def phase_quick_start(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 11a, the README's quick start: `run --test_comm` over
+    configs/config_lorem_ipsum_tpu.yaml with its mesh cut to world 1 (its
+    token target with it: 8 steps of one rank's 8 x 64 tokens) and its paths
+    pointed at a pbin and folders of this phase, its own `resilience` block in
+    force; then `generate_text` over configs/config_generate_text.yaml from
+    that run's last folder with a word-level tokenizer, prompts on stdin.
+    Each a process of its own that reports its kernel launches."""
+    import yaml
+
+    from modalities_tpu_torch.dataloader.packed_data import write_pbin_file
+
+    repo = Path(__file__).resolve().parent
+    scratch = repo / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        cfg = yaml.safe_load((repo / "configs" / "config_lorem_ipsum_tpu.yaml").read_text())
+        write_pbin_file(tmp / "lorem.pbin", [np.random.default_rng(2033).integers(0, 256, size=64 * 8 * 10)], 2)
+        changes = {"settings.paths.train_dataset_path": str(tmp / "lorem.pbin"),
+                   "settings.paths.checkpoint_saving_path": str(tmp / "checkpoints"),
+                   "settings.paths.experiments_root_path": str(tmp / "experiments"),
+                   "device_mesh.config.data_parallel_shard_degree": 1, "device_mesh.config.world_size": 1,
+                   "settings.training_target.num_target_tokens": 8 * 8 * 64}
+        for dotted, value in changes.items():
+            node = cfg
+            *parents, leaf = dotted.split(".")
+            for key in parents:
+                node = node[key]
+            node[leaf] = value
+            log(f"[phase 11a] config_lorem_ipsum_tpu.yaml: {dotted} = {value}")
+        if cfg["resilience"]["config"]["anomaly_policy"] != "raise":
+            raise AssertionError("phase 11a: the getting-started config's resilience block changed")
+        (tmp / "lorem.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+        trained = _subprocess(["run", "--config_file_path", str(tmp / "lorem.yaml"), "--test_comm", "--device",
+                               TRAIN_DEVICE], tmp,
+                              "phase 11a run --test_comm")
+        if trained.returncode != 0 or "[train] step 8:" not in trained.stdout:
+            raise AssertionError(f"phase 11a: run failed: {trained.stdout[-2000:]} {trained.stderr[-3000:]}")
+        comm = [line for line in trained.stdout.splitlines() if line.startswith("Communication test passed")]
+        if len(comm) != 1 or not comm[0].startswith(f"Communication test passed over 1 rank(s) on {TRAIN_DEVICE}"):
+            raise AssertionError(f"phase 11a: the communication test printed {comm}")
+        train_counts = _parse_launches(trained.stdout, "phase 11a run")
+        if any(train_counts[k] == 0 for k in TRAIN_KERNELS):
+            raise AssertionError(f"phase 11a: a kernel of the quick start's training was never launched: "
+                                 f"{train_counts}")
+        losses = [line for line in trained.stdout.splitlines() if line.startswith("[train] step")]
+        folder = json.loads((tmp / "checkpoints" / "last_checkpoint_info.json").read_text())["checkpoint_folder_path"]
+        _word_tokenizer(tmp / "tokenizer", 256)
+        gen = yaml.safe_load((repo / "configs" / "config_generate_text.yaml").read_text())
+        gen["settings"]["checkpoint_folder_path"] = folder
+        gen["tokenizer"]["config"]["pretrained_model_name_or_path"] = str(tmp / "tokenizer")
+        (tmp / "generate.yaml").write_text(yaml.safe_dump(gen, sort_keys=False))
+        log(f"[phase 11a] config_generate_text.yaml: settings.checkpoint_folder_path = {folder}; "
+            f"tokenizer.config.pretrained_model_name_or_path = the word-level tokenizer of _word_tokenizer")
+        generated = _subprocess(["generate_text", "--config_file_path", str(tmp / "generate.yaml"), "--device",
+                                 TRAIN_DEVICE], tmp,
+                                "phase 11a generate_text", stdin="t1 t2 t3\nt7 t8 t9 t10\n",
+                                env={"HF_HUB_OFFLINE": "1", "TRANSFORMERS_OFFLINE": "1"})
+        completions = [line.split("> ", 1)[1] for line in generated.stdout.splitlines()
+                       if line.startswith("enter prompt> ")]
+        if generated.returncode != 0 or len(completions) != 3 or not all(completions[:2]):
+            raise AssertionError(f"phase 11a: generate_text failed: {generated.stdout[-2000:]} "
+                                 f"{generated.stderr[-3000:]}")
+        gen_counts = _parse_launches(generated.stdout, "phase 11a generate_text")
+        if gen_counts["rms_fwd"] == 0:
+            raise AssertionError(f"phase 11a: generate_text never launched the RMSNorm kernel: {gen_counts}")
+    log(f"[phase 11a] quick start ({smi}): {losses[-1]}; {folder.rsplit('/', 1)[-1]}; completions "
+        f"{[c[:60] for c in completions[:2]]}; launches: run {train_counts}, generate_text {gen_counts}")
+    return {"quickstart_train": train_counts, "quickstart_generate": gen_counts}
+
+
+def _state_by_name(torch, step) -> dict:
+    """{name: [parameter, exp_avg, exp_avg_sq, step count]} of a train step's
+    module and optimizer (this rank's local tensors)."""
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    out = {}
+    for name, p in step.module.named_parameters():
+        st = step.optimizer.state[p]
+        out[name] = [local(p), local(st["exp_avg"]), local(st["exp_avg_sq"]), local(st["step"])]
+    return out
+
+
+def phase_skip(torch, smi: str, phase4: dict) -> dict[str, dict[str, int]]:
+    """Phase 11b, the anomaly skip at full width: phase 4's 2.7B config, corpus
+    and 3 steps through Main with a `resilience` block, `skip_step` and
+    `nan_grads@2` (the step whose count before the update is 2, the third,
+    has NaN gradients). Phase 4 ran the same steps without the component,
+    which is bitwise the `raise` policy (the same fused update, no flag).
+    Held: steps 1-2 (loss, grad norm, lr) and step 3's loss, which reads the
+    parameters after step 2, bitwise phase 4's; step 3 reports skipped_step 1
+    and leaves the parameters, both moments and AdamW's step counts bitwise
+    as after step 2; each step's peak memory within SKIP_PEAK_REL of phase
+    4's run peak."""
+    from modalities_tpu_torch.main import Main
+    from modalities_tpu_torch.resilience import faults
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    seq, steps = 4096, 3
+    corpus = np.random.default_rng(2027).integers(0, MODEL_2P7B["vocab_size"], size=seq + 1 + (4 * steps + 3) * seq)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    call = TrainStep.__call__
+    record: dict = {"metrics": [], "peak_gb": [], "held": None}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        block = {"component_key": "resilience", "variant_key": "default", "config": {"anomaly_policy": "skip_step"}}
+        cfg = _train_config(tmp, "train", corpus, steps, {"resilience": block}, phase="phase 11b")
+        faults.clear_faults()
+        os.environ[faults.ENV_VAR] = "nan_grads@2"
+        host: dict = {}
+
+        def recording(self, batch):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics = call(self, batch)
+            torch.cuda.synchronize()
+            record["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+            record["metrics"].append({k: float(v) for k, v in metrics.items()})
+            state = _state_by_name(torch, self)
+            if len(record["metrics"]) == 2:  # the state after step 2, on the host
+                host.update({k: [t.detach().to("cpu", copy=True) for t in v] for k, v in state.items()})
+            elif len(record["metrics"]) == 3:  # after the skipped step 3, tensor by tensor on the card
+                record["held"] = all(torch.equal(t.detach(), h.to(t.device)) for k, v in state.items()
+                                     for t, h in zip(v, host[k]))
+            return metrics
+
+        TrainStep.__call__ = recording
+        try:
+            main = Main(cfg, experiments_root_path=tmp / "experiments", device=TRAIN_DEVICE)
+            main.components = main.build_components()
+            _reset_counts()
+            t0 = time.perf_counter()
+            main.run(main.components)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+        finally:
+            TrainStep.__call__ = call
+            faults.clear_faults()
+            os.environ.pop(faults.ENV_VAR, None)
+        del main
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = record["metrics"]
+    want = [phase4["steps"][i] for i in (1, 2, 3)]
+    if [m["skipped_step"] for m in got] != [0, 0, 1]:
+        raise AssertionError(f"phase 11b: skipped_step {[m['skipped_step'] for m in got]}")
+    if [(m["loss"], m["grad_norm"], m["lr"]) for m in got[:2]] != want[:2] or got[2]["loss"] != want[2][0]:
+        raise AssertionError(f"phase 11b: steps {got} against phase 4's {want}")
+    if record["held"] is not True or not math.isfinite(got[2]["loss"]) or math.isfinite(got[2]["grad_norm"]):
+        raise AssertionError(f"phase 11b: after the skipped step, state bitwise {record['held']}; step 3 {got[2]}")
+    per_step = {"flash_fwd": 64, "flash_dq": 64, "flash_dkv": 64, "rms_fwd": 130, "rms_bwd": 130}
+    for key, n in per_step.items():
+        if counts[key] != n * steps:
+            raise AssertionError(f"phase 11b: {key} launched {counts[key]} times in {steps} steps")
+    rel = [p / phase4["peak_gb"] - 1.0 for p in record["peak_gb"]]
+    if max(rel) > SKIP_PEAK_REL:
+        raise AssertionError(f"phase 11b: skip_step peaks {record['peak_gb']} GB against phase 4's "
+                             f"{phase4['peak_gb']} GB")
+    log(f"[phase 11b] the anomaly skip at the 2.7B ({smi}): 3 steps in {wall:.1f} s (build included); steps 1-2 "
+        f"(loss, grad norm, lr) and step 3's loss bitwise phase 4's (the same steps without the component); step 3 "
+        f"skipped_step 1 with grad norm {got[2]['grad_norm']}, parameters, both moments and AdamW step counts "
+        f"bitwise as after step 2; lr {[m['lr'] for m in got]}; peak memory a step (max_memory_allocated, reset "
+        f"before each step) {['%.2f' % p for p in record['peak_gb']]} GB against phase 4's run peak "
+        f"{phase4['peak_gb']:.2f} GB: {['%+.4f' % r for r in rel]} (bound {SKIP_PEAK_REL})")
+    return {"skip_2p7b": counts}
+
+
+def _jsonl_steps(experiments: Path) -> dict[int, tuple[float, float, float]]:
+    """step -> (loss, grad norm, lr) of the train rows a run's results subscriber wrote."""
+    rows = [json.loads(line) for p in experiments.rglob("evaluation_results.jsonl") for line in
+            p.read_text().splitlines()]
+    return {r["num_train_steps_done"]: (r["losses"]["train loss last"], r["metrics"]["grad norm last"],
+                                        r["metrics"]["lr mean"]) for r in rows if r["dataloader_tag"] == "train"}
+
+
+def phase_resilience(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 11c, preemption and rollback through the CLI at phase 6's widths
+    (configs/config_long_context_32k.yaml at RESILIENCE_LAYERS of its 24
+    layers, 4 steps):
+    (a) `run` with `stop_consensus: on` at world 1 (the NCCL world-1 group)
+        and `sigterm_at_step@1`: the vote rides step 2's ballot, the trainer
+        reads it after step 3 and saves out of schedule there; exit 75;
+    (b) `run` with `sigterm_at_step@2` (consensus off): the forced save at
+        step 2, exit 75, error_rank_0.json with "resumable": true;
+    (c) `warmstart` from (b)'s pointer: step 3 (loss, grad norm, lr) and the
+        parameters after it bitwise (a)'s, which ran unbroken to step 3;
+    (a)-(c) run in this process through the CLI's `main`; (d) is
+    `phase_resilient_run`."""
+    from modalities_tpu_torch import __main__ as cli
+    from modalities_tpu_torch.resilience import faults
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    rng = np.random.default_rng(2035)
+    seq, vocab, layers, steps = LONG_MODEL["seq"], LONG_MODEL["vocab"], RESILIENCE_LAYERS, 4
+    shape = {"base": LONG_CONFIG, "micro": 1, "acc": 1}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    call = TrainStep.__call__
+    counts: dict = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        corpus = rng.integers(0, vocab, size=seq + 1 + (steps + 2) * seq)
+        relaxed = {"model_raw.config.n_layer": layers,
+                   "settings.consistency_enforcement.enforce_last_step_logged": False,
+                   "settings.consistency_enforcement.enforce_last_step_evaluated": False}
+
+        def cli_run(name: str, argv: list, spec: str, resilience: dict, after=None) -> tuple[int, Path, dict]:
+            """`main(argv)` of a config `name` in its own folder, `spec` armed; (exit code, folder, the
+            parameters after step `after`)."""
+            folder = tmp / name
+            folder.mkdir()
+            block = {"component_key": "resilience", "variant_key": "default", "config": resilience}
+            cfg = _train_config(folder, "run", corpus, steps, {**relaxed, "resilience": block}, seq=seq,
+                                phase="phase 11c", **shape)
+            faults.clear_faults()
+            os.environ.update({faults.ENV_VAR: spec, "MODALITIES_TPU_ERROR_LOG_DIR": str(folder / "errors")})
+            seen: dict = {}
+
+            def recording(self, batch):
+                metrics = call(self, batch)
+                seen["n"] = seen.get("n", 0) + 1
+                if seen["n"] == after:
+                    torch.cuda.synchronize()
+                    seen["params"] = {k: v.detach().to("cpu", copy=True) for k, v in self.state_dict().items()}
+                return metrics
+
+            TrainStep.__call__ = recording
+            _reset_counts()
+            t0 = time.perf_counter()
+            try:
+                code = cli.main([*argv(cfg), "--device", TRAIN_DEVICE])
+            except SystemExit as e:
+                code = e.code
+            finally:
+                TrainStep.__call__ = call
+                faults.clear_faults()
+                os.environ.pop(faults.ENV_VAR, None)
+            torch.cuda.synchronize()
+            counts[f"{name}_32k"] = _launch_counts(LONG_KERNELS)
+            log(f"[phase 11c] ({name}) exit {code} in {time.perf_counter() - t0:.1f} s; launches "
+                f"{counts[f'{name}_32k']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            return code, folder, seen.get("params")
+
+        def run_argv(cfg):
+            return ["run", "--config_file_path", str(cfg)]
+
+        # (a) the ballot at world 1
+        code, folder_a, params_a = cli_run("consensus", run_argv, "sigterm_at_step@1", {"stop_consensus": "on"},
+                                           after=3)
+        steps_a = _jsonl_steps(folder_a / "experiments")
+        info_a = json.loads((folder_a / "checkpoints" / "last_checkpoint_info.json").read_text())
+        if code != 75 or sorted(steps_a) != [1, 2, 3] or "-seen_steps_3-" not in info_a["checkpoint_folder_path"]:
+            raise AssertionError(f"phase 11c (a): exit {code}, steps {sorted(steps_a)}, pointer {info_a}")
+        # (b) the local preemption path, its forced save timed
+        from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_saving import DCPCheckpointSaving
+
+        save_s: list = []
+        with _timed(DCPCheckpointSaving, "_save_checkpoint", save_s):
+            code, folder_b, _ = cli_run("preempt", run_argv, "sigterm_at_step@2", {})
+        info_b = folder_b / "checkpoints" / "last_checkpoint_info.json"
+        forced = Path(json.loads(info_b.read_text())["checkpoint_folder_path"])
+        record = json.loads((folder_b / "errors" / "error_rank_0.json").read_text())
+        files = [p for p in forced.rglob("*") if p.is_file()]
+        if code != 75 or "-seen_steps_2-" not in forced.name or record["resumable"] is not True:
+            raise AssertionError(f"phase 11c (b): exit {code}, folder {forced.name}, error record {record}")
+        log(f"[phase 11c] (b) out-of-schedule save at step 2 ({smi}): {forced.name}, {len(files)} files, "
+            f"{sum(p.stat().st_size for p in files)} bytes in {save_s} s (the save with its manifest and pointer); "
+            f"error_rank_0.json: error {record['error']}, resumable {record['resumable']}")
+        # (c) the warmstart from (b)'s forced save, held to (a)'s unbroken step 3
+        warm = _warmstart_config(folder_b / "run.yaml", folder_b / "warmstart.yaml")
+        code, _, params_c = cli_run(
+            "resume", lambda cfg: ["warmstart", "--config_file_path", str(warm), "--last_checkpoint_info_file_path",
+                                   str(info_b)], "", {}, after=1)
+        steps_c = _jsonl_steps(folder_b / "experiments")
+        if code != 0 or steps_c.get(3) != steps_a[3]:
+            raise AssertionError(f"phase 11c (c): exit {code}; step 3 {steps_c.get(3)} against the unbroken "
+                                 f"{steps_a[3]}")
+        differ = sorted(set(params_a) ^ set(params_c)) or [k for k in params_a if not torch.equal(params_c[k],
+                                                                                                 params_a[k])]
+        if differ:
+            raise AssertionError(f"phase 11c (c): the parameters after the resumed step 3 differ from the unbroken "
+                                 f"run's: {differ[:8]} ({len(differ)} of {len(params_a)})")
+        log(f"[phase 11c] (c) warmstart from the step-2 save: step 3 (loss, grad norm, lr) {steps_c[3]} and the "
+            f"parameters after it bitwise the unbroken run's")
+    if any(c[k] == 0 for c in counts.values() for k in ("flash_fwd", "rms_fwd", "ce_fwd")):
+        raise AssertionError(f"phase 11c: a kernel of the 32k path was never launched: {counts}")
+    return counts
+
+
+def phase_resilient_run(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 11c (d): `run --resilient` (a process of its own, its children
+    too) at phase 11c's config with `anomaly_policy: rollback`,
+    `skip_budget: 1`, saves every 2 steps and logs every 4, `nan_grads@1` and
+    `loss_spike@2:nan` (steps 2 and 3 non-finite): the first child skips both
+    and exits 75 at step 4 before saving; the supervisor restarts once from
+    the step-2 folder, where step 3 is non-finite again (one anomaly, within
+    the budget), and the run reaches step 4. Each child is a process of its
+    own with its own counts."""
+    from modalities_tpu_torch.resilience import faults
+
+    rng = np.random.default_rng(2037)
+    seq, vocab, layers, steps = LONG_MODEL["seq"], LONG_MODEL["vocab"], RESILIENCE_LAYERS, 4
+    shape = {"base": LONG_CONFIG, "micro": 1, "acc": 1}
+    relaxed = {"model_raw.config.n_layer": layers,
+               "settings.consistency_enforcement.enforce_last_step_logged": False,
+               "settings.consistency_enforcement.enforce_last_step_evaluated": False}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    counts: dict = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        corpus = rng.integers(0, vocab, size=seq + 1 + (steps + 2) * seq)
+        folder_d = tmp / "resilient"
+        folder_d.mkdir()
+        block = {"component_key": "resilience", "variant_key": "default",
+                 "config": {"anomaly_policy": "rollback", "skip_budget": 1}}
+        cfg = _train_config(folder_d, "run", corpus, steps, {
+            **relaxed, "resilience": block, "settings.intervals.checkpointing_interval_in_steps": 2,
+            "settings.intervals.training_log_interval_in_steps": 4}, seq=seq, phase="phase 11c", **shape)
+        warm = _warmstart_config(cfg, folder_d / "warmstart.yaml")
+        info_d = folder_d / "checkpoints" / "last_checkpoint_info.json"
+        supervised = _subprocess(
+            ["run", "--config_file_path", str(cfg), "--resilient", "--last_checkpoint_info_file_path", str(info_d),
+             "--warmstart_config_file_path", str(warm), "--backoff_base_s", "0.5", "--max_restarts", "2",
+             "--device", TRAIN_DEVICE],
+            folder_d, "phase 11c (d) run --resilient",
+            env={faults.ENV_VAR: "nan_grads@1,loss_spike@2:nan", "MODALITIES_TPU_ERROR_LOG_DIR": str(folder_d)})
+        restarts = [line for line in supervised.stderr.splitlines() if "supervisor: child exited" in line]
+        final = json.loads(info_d.read_text())["checkpoint_folder_path"] if info_d.is_file() else ""
+        resumed = [line for line in supervised.stderr.splitlines() if "resuming from verified checkpoint" in line]
+        if (supervised.returncode != 0 or len(restarts) != 1 or "restart 1/2 in 0.5s" not in restarts[0]
+                or len(resumed) != 1 or "-seen_steps_2-" not in resumed[0] or "-seen_steps_4-" not in final):
+            raise AssertionError(f"phase 11c (d): exit {supervised.returncode}, restarts {restarts}, resumed "
+                                 f"{resumed}, final {final}: {supervised.stderr[-4000:]}")
+        # the rolled-back child leaves by its exception before the trainer's launches line: the resumed one's
+        counts["resilient_32k"] = _parse_launches(supervised.stdout, "phase 11c (d)")
+        if any(counts["resilient_32k"][k] == 0 for k in LONG_KERNELS):
+            raise AssertionError(f"phase 11c (d): a kernel of the 32k path was never launched: {counts}")
+        log(f"[phase 11c] (d) run --resilient ({smi}): restarts 1 ({restarts[0].split('supervisor: ', 1)[1]}); "
+            f"{resumed[0].split('supervisor: ', 1)[1]}; the run reached {final.rsplit('/', 1)[-1]}; launches of "
+            f"the resumed child {counts['resilient_32k']}")
+    log(f"[phase 11c] (d) {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def training_phases(torch):
-    """Phases 4-9 on the process group; returns each path's launch counts."""
+    """Phases 4-10 on the process group; returns each path's launch counts."""
     # phase 4: the training path. Counts start from 0 inside phase_train.
     smi_now = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    train_counts, train_steps = phase_train(torch, smi_now)
+    train_counts, train_steps, train_peak_gb = phase_train(torch, smi_now)
     mark("phase 4")
     if any(v == 0 for v in train_counts.values()):
         raise AssertionError(f"a kernel of the training path was never launched: {train_counts}")
@@ -5112,7 +5672,7 @@ def training_phases(torch):
     # phase 10: ZeRO-1, dcn and the row-parallel bias (each path counted from 0 inside)
     knob_counts = phase_parallel_knobs(torch, smi_now, train_steps)
     return (train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts,
-            warm_counts, pp_counts, knob_counts)
+            warm_counts, pp_counts, knob_counts, {"steps": train_steps, "peak_gb": train_peak_gb})
 
 
 def main() -> int:
@@ -5142,6 +5702,8 @@ def main() -> int:
     built = _build.build_seconds
     log(f"[phase 0] kernels {'built in %.1f s' % built if built is not None else 'loaded'} "
         f"({time.perf_counter() - t:.1f} s) -> {_build.library_path()}")
+    if _build.unit_seconds:  # each nvcc process's wall time from the build's start, all started together
+        log("[phase 0] nvcc seconds by unit: " + ", ".join(f"{k} {v:.1f}" for k, v in _build.unit_seconds.items()))
     mark("phase 0 build")
     for kernel in REDESIGNED:  # registers and spills of the redesigned kernels, from ptxas -v
         for line in _build.ptxas_usage(kernel):
@@ -5178,12 +5740,13 @@ def main() -> int:
 
     # the serving phases' engines write into one registry of their own, dropped with them after phase 3f
     with own_registry():
-        model = build_model()
+        model = build_model({"n_layer": SERVE_LAYERS})
         t = time.perf_counter()
         params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
-        log(f"[phase 2] 2.7B params ({sum(p.numel() for p in params.values()) / 1e9:.3f} B, fp32) "
-            f"initialized on the card in {time.perf_counter() - t:.1f} s")
+        log(f"[phase 2] the 2.7B at {SERVE_LAYERS} of its 32 layers: params "
+            f"({sum(p.numel() for p in params.values()) / 1e9:.3f} B, fp32) initialized on the card in "
+            f"{time.perf_counter() - t:.1f} s")
         reqs = make_requests()
         log(f"[phase 2] 9 requests, prompt lengths {[len(r['prompt']) for r in reqs]}, {NEW_TOKENS} new tokens each")
         rms_norm.launches = 0
@@ -5193,14 +5756,15 @@ def main() -> int:
             r = serve_phase(torch, model, params, quant, reqs)
             runs[quant] = r
             fwd = r["forward_calls"]
-            if r["rms_launches"] != 65 * fwd:
-                raise AssertionError(f"{quant}: rms_norm launched {r['rms_launches']} times, expected 65 x {fwd}")
-            want_qmm = 0 if quant == "none" else 225 * fwd
+            if r["rms_launches"] != PER_FORWARD["rms"] * fwd:
+                raise AssertionError(f"{quant}: rms_norm launched {r['rms_launches']} times, expected "
+                                     f"{PER_FORWARD['rms']} x {fwd}")
+            want_qmm = 0 if quant == "none" else PER_FORWARD["qmm"] * fwd
             if r["qmm_launches"] != want_qmm:
                 raise AssertionError(f"{quant}: quant_matmul launched {r['qmm_launches']} times, expected {want_qmm}")
             report_serve(f"{phase} {quant if quant != 'none' else 'bf16'}", r)
             report_profile(f"{phase} {quant if quant != 'none' else 'bf16'}", r)
-            log(f"[{phase}] launches: rms_norm {r['rms_launches']} = 65 x {fwd} forwards, "
+            log(f"[{phase}] launches: rms_norm {r['rms_launches']} = {PER_FORWARD['rms']} x {fwd} forwards, "
                 f"quant_matmul {r['qmm_launches']}")
             if quant != "none":
                 log(f"[{phase}] {quant}: greedy tokens agreeing with bf16 position by position: "
@@ -5229,6 +5793,15 @@ def main() -> int:
         paged_counts.update(phase_serve_observed(torch, model, params, reqs, runs["int8"]["tokens"], replays["int8"],
                                                  smi))
         mark("phase 3f")
+        # phase 3g: text generation at the 2.7B's full depth, its weights drawn from the same seed (its counts
+        # from 0 inside)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model()
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        gen_counts = phase_generate(torch, model, params, reqs, smi)
+        mark("phase 3g")
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5240,7 +5813,22 @@ def main() -> int:
     with process_group(torch.device("cuda")):
         paths = training_phases(torch)
     (train_counts, long_counts, ckpt_counts, ring_counts, launcher_counts, seven_b_counts, tp8_counts, warm_counts,
-     pp_counts, knob_counts) = paths
+     pp_counts, knob_counts, phase4) = paths
+
+    # phase 11: training resilience and the quick start, one path after another, each alone on the card and its
+    # counts from 0 inside (Main, the CLI and the subprocesses build their own world-1 groups)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    resilience_counts = phase_quick_start(torch, smi)
+    mark("phase 11a")
+    resilience_counts.update(phase_skip(torch, smi, phase4))
+    mark("phase 11b")
+    resilience_counts.update(phase_resilience(torch, smi))
+    mark("phase 11c (a)-(c)")
+    resilience_counts.update(phase_resilient_run(torch, smi))
+    mark("phase 11c (d)")
+    log(f"[phase 11] phases 11a-c in {time.perf_counter() - t11:.1f} s")
 
     # the kernels line. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
@@ -5248,7 +5836,7 @@ def main() -> int:
                  "train_32k_resume": ckpt_counts["train_32k_resume"], "ring_cp4": ring_counts,
                  "train_32k_torchrun": launcher_counts, "train_7b": seven_b_counts, "tp8": tp8_counts,
                  "train_7b_32k_warmstart": warm_counts,
-                 **{f"pp2_{name}": counts for name, counts in pp_counts.items()}, **knob_counts}
+                 **{f"pp2_{name}": counts for name, counts in pp_counts.items()}, **knob_counts, **resilience_counts}
         return {path: counts[key] for path, counts in paths.items() if key in counts}
 
 
@@ -5267,10 +5855,12 @@ def main() -> int:
     flash_tpu = "modalities_tpu/ops/pallas/flash_attention.py"
     ce_src = "modalities_tpu_torch/csrc/fused_ce.cu"
     ce_tpu = "modalities_tpu/ops/pallas/fused_ce.py"
+    log(f"[timing] the whole run: {time.perf_counter() - _START:.1f} s")
     print(json.dumps({"kernels": [
         entry("fused_rmsnorm_fwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
               "modalities_tpu/ops/pallas/fused_rmsnorm.py:34",
-              {"serve": rms_total, **{k: c["rms_fwd"] for k, c in paged_counts.items()}, **by_path("rms_fwd"),
+              {"serve": rms_total, **{k: c["rms_fwd"] for k, c in paged_counts.items()},
+               "generate_2p7b": gen_counts["generate_2p7b"]["rms_fwd"], **by_path("rms_fwd"),
                "serve_ckpt": ckpt_counts["serve_ckpt"]["rms_fwd"]}, "rmsnorm"),
         entry("fused_rmsnorm_bwd", "modalities_tpu_torch/csrc/fused_rmsnorm.cu",
               "modalities_tpu/ops/pallas/fused_rmsnorm.py:43", by_path("rms_bwd"), "rmsnorm_bwd"),

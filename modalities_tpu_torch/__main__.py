@@ -1,9 +1,12 @@
 """CLI of the port:
 
     python -m modalities_tpu_torch run --config_file_path <yaml>
-        [--experiments_root_path <dir>] [--device cuda|cpu]
+        [--experiments_root_path <dir>] [--test_comm] [--device cuda|cpu]
+        [--resilient --last_checkpoint_info_file_path <json> [--max_restarts N]
+         [--backoff_base_s S] [--warmstart_config_file_path <yaml>]]
     python -m modalities_tpu_torch warmstart --config_file_path <yaml>
         --last_checkpoint_info_file_path <json> [--experiments_root_path <dir>] [--device cuda|cpu]
+    python -m modalities_tpu_torch generate_text --config_file_path <yaml> [--device cuda|cpu]
     python -m modalities_tpu_torch serve --config_file_path <yaml>
         [--requests_file_path <jsonl> [--output_file_path <jsonl>] | --http_port <port>]
         [--fleet] [--device cuda|cpu]
@@ -11,6 +14,24 @@
     python -m modalities_tpu_torch data analyze_fleet --sink_path <file|dir> [--sink_path ...] [--as_json]
     python -m modalities_tpu_torch data check_slo --slo_path <yaml> [--sink_path ...] [--bench_path ...]
         [--trajectory_path <dir>] [--memscope_path ...] [--as_json]
+
+`run --test_comm` first all-gathers rank-stamped tensors over the world
+group and checks every slot. `run --resilient` supervises the run as a child
+process (resilience/supervisor.py): a resumable exit (75: preemption, anomaly
+rollback) restarts it as a `warmstart` from the newest verified checkpoint,
+with exponential backoff and a crash-loop budget. The multi-host resume vote
+and elastic repair (`--host_count` > 1, `--host_id`, `--resume_quorum`,
+`--resume_vote_deadline_s`, `--coordination_dir_path`, `--min_hosts`) raise
+NotImplementedError naming ROADMAP.md Queue 1 item 7. MODALITIES_TPU_FAULTS
+arms fault points (resilience/faults.py) for `run` and `warmstart`.
+
+`run`, `warmstart`, `serve` and `generate_text` write a per-rank error record
+`error_rank_<rank>.json` (rank, hostname, timestamp, error, resumable,
+stacktrace) into $MODALITIES_TPU_ERROR_LOG_DIR (default: the working
+directory) when they fail; a resumable failure exits 75.
+
+`generate_text` reads prompts from stdin, one a line, until EOF, and prints
+each completion (inference/inference.py).
 
 `serve` replays a JSONL file, serves HTTP (`--http_port`, or the config's
 `http_port`; 0 = an ephemeral port) until SIGTERM/SIGINT drains it, or with
@@ -42,12 +63,90 @@ Without a launcher they build a world-1 process group themselves."""
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
+import socket
 import sys
+import traceback
+from datetime import datetime
 from pathlib import Path
 from typing import Optional
+
+from modalities_tpu_torch.resilience.errors import RESUMABLE_EXIT_CODE, ResumableError
+
+logger = logging.getLogger("modalities_tpu_torch")
+
+
+def _exception_handling(func):
+    """A per-rank JSON error record (the JAX CLI's, modalities_tpu/__main__.py:27-60);
+    a `ResumableError` (preemption, anomaly rollback) exits RESUMABLE_EXIT_CODE,
+    so a supervisor can tell "warmstart me" from a crash."""
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        try:
+            return func(*args, **kwargs)
+        except Exception as e:
+            rank = int(os.environ.get("RANK", 0))
+            error_record = {
+                "rank": rank,
+                "hostname": socket.gethostname(),
+                "timestamp": datetime.now().isoformat(),
+                "error": repr(e),
+                "resumable": isinstance(e, ResumableError),
+                "stacktrace": traceback.format_exc(),
+            }
+            error_dir = Path(os.environ.get("MODALITIES_TPU_ERROR_LOG_DIR", "."))
+            error_dir.mkdir(parents=True, exist_ok=True)
+            error_file = error_dir / f"error_rank_{rank}.json"
+            with open(error_file, "w") as f:
+                json.dump(error_record, f, indent=2)
+            if isinstance(e, ResumableError):
+                logger.warning("Run stopped resumably (%s); exiting %d for the supervisor. Error log: %s", e,
+                               RESUMABLE_EXIT_CODE, error_file)
+                raise SystemExit(RESUMABLE_EXIT_CODE) from e
+            logger.error("Run failed; error log written to %s", error_file)
+            raise
+
+    return wrapper
+
+
+_CLUSTER_FLAGS = ("host_count", "host_id", "resume_quorum", "resume_vote_deadline_s", "coordination_dir_path",
+                  "min_hosts")
+_CLUSTER_DEFAULTS = {"host_count": 1, "host_id": 0, "resume_vote_deadline_s": 120.0}
+
+
+@_exception_handling
+def run(args) -> int:
+    """`run`: train, or with `--resilient` supervise the training."""
+    refused = [f"--{name}" for name in _CLUSTER_FLAGS if getattr(args, name) != _CLUSTER_DEFAULTS.get(name)]
+    if refused:
+        raise NotImplementedError(f"{', '.join(refused)}: the multi-host resume vote and elastic repair are cluster "
+                                  "resilience (ROADMAP.md, Queue 1 item 7)")
+    if args.resilient:
+        if args.last_checkpoint_info_file_path is None:
+            raise SystemExit("--resilient requires --last_checkpoint_info_file_path")
+        from modalities_tpu_torch.resilience.supervisor import run_resilient
+
+        extra = ("--device", args.device) + (("--test_comm",) if args.test_comm else ())
+        return run_resilient(
+            config_file_path=args.config_file_path,
+            last_checkpoint_info_file_path=args.last_checkpoint_info_file_path,
+            experiments_root_path=args.experiments_root_path,
+            warmstart_config_file_path=args.warmstart_config_file_path,
+            max_restarts=args.max_restarts,
+            backoff_base_s=args.backoff_base_s,
+            extra_args=extra,
+        )
+    from modalities_tpu_torch.main import Main
+
+    main_obj = Main(args.config_file_path, experiments_root_path=args.experiments_root_path, device=args.device)
+    if args.test_comm:
+        main_obj.test_communication()
+    main_obj.run()
+    return 0
 
 
 def warmstart(config_file_path: Path, last_checkpoint_info_file_path: Path,
@@ -181,11 +280,28 @@ def main(argv=None) -> int:
     run_p.add_argument("--config_file_path", type=Path, required=True)
     run_p.add_argument("--experiments_root_path", type=Path, default=None)
     run_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    run_p.add_argument("--test_comm", action="store_true", help="run a pre-flight collective check first")
+    run_p.add_argument("--resilient", action="store_true",
+                       help="supervise the run: warmstart on resumable exits (preemption, rollback)")
+    run_p.add_argument("--last_checkpoint_info_file_path", type=Path, default=None,
+                       help="where the resume pointer lives or will appear (required with --resilient)")
+    run_p.add_argument("--max_restarts", type=int, default=3, help="crash-loop cap for --resilient")
+    run_p.add_argument("--backoff_base_s", type=float, default=1.0,
+                       help="exponential-backoff base between --resilient restarts")
+    run_p.add_argument("--warmstart_config_file_path", type=Path, default=None,
+                       help="the config --resilient resumes children with")
+    for name, kind in (("host_count", int), ("host_id", int), ("resume_quorum", int),
+                       ("resume_vote_deadline_s", float), ("coordination_dir_path", Path), ("min_hosts", int)):
+        run_p.add_argument(f"--{name}", type=kind, default=_CLUSTER_DEFAULTS.get(name),
+                           help="cluster resilience: not in the port yet (ROADMAP.md, Queue 1 item 7)")
     warm_p = sub.add_parser("warmstart", help="resume training from the last checkpoint")
     warm_p.add_argument("--config_file_path", type=Path, required=True)
     warm_p.add_argument("--last_checkpoint_info_file_path", type=Path, required=True)
     warm_p.add_argument("--experiments_root_path", type=Path, default=None)
     warm_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    gen_p = sub.add_parser("generate_text", help="interactive text generation from a checkpoint (prompts on stdin)")
+    gen_p.add_argument("--config_file_path", type=Path, required=True)
+    gen_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     serve_p = sub.add_parser("serve", help="continuous-batching text serving from the ring or the paged KV cache")
     serve_p.add_argument("--config_file_path", type=Path, required=True)
     serve_p.add_argument("--requests_file_path", type=Path, default=None, help="JSONL of requests to replay")
@@ -210,19 +326,30 @@ def main(argv=None) -> int:
         # and expandable segments let the caching allocator reuse freed memory across them
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
         if args.command == "warmstart":
-            warmstart(args.config_file_path, args.last_checkpoint_info_file_path, args.experiments_root_path,
-                      device=args.device)
+            _exception_handling(warmstart)(args.config_file_path, args.last_checkpoint_info_file_path,
+                                           args.experiments_root_path, device=args.device)
             return 0
-        from modalities_tpu_torch.main import Main
-
-        Main(args.config_file_path, experiments_root_path=args.experiments_root_path, device=args.device).run()
+        return run(args)
+    if args.command == "generate_text":
+        _generate_text(args.config_file_path, device=args.device)
         return 0
+    _serve(args.config_file_path, args.requests_file_path, args.output_file_path, device=args.device,
+           http_port=args.http_port, fleet=args.fleet)
+    return 0
 
+
+@_exception_handling
+def _generate_text(config_file_path: Path, device: str) -> None:
+    from modalities_tpu_torch.inference.inference import generate_text
+
+    generate_text(config_file_path, device=device)
+
+
+@_exception_handling
+def _serve(*args, **kwargs) -> None:
     from modalities_tpu_torch.serving.serve import serve
 
-    serve(args.config_file_path, args.requests_file_path, args.output_file_path, device=args.device,
-          http_port=args.http_port, fleet=args.fleet)
-    return 0
+    serve(*args, **kwargs)
 
 
 if __name__ == "__main__":

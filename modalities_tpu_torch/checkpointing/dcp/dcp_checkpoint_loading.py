@@ -37,6 +37,7 @@ from modalities_tpu_torch.checkpointing.topology import describe_topology, diff_
 from modalities_tpu_torch.config.config import check_bool, check_int
 from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.resilience.manifest import verify_manifest
+from modalities_tpu_torch.resilience.heartbeat import rendezvous
 from modalities_tpu_torch.resilience.retry import retry_io
 from modalities_tpu_torch.running_env import env
 
@@ -114,7 +115,8 @@ class DCPCheckpointLoading(CheckpointLoadingIF):
         self._log_reshard(folder, app_state, target)
         self._reject_shape_mismatch(folder, target)
         logger.info("Restoring checkpoint from %s ...", folder)
-        retry_io(lambda: dcp.load(target, checkpoint_id=folder), what="dcp_load")
+        with rendezvous("checkpoint_restore"):  # a peer's heartbeat deadline bounds the collective load
+            retry_io(lambda: dcp.load(target, checkpoint_id=folder), what="dcp_load")
         app_state.load_state_dict(target)
         app_state.mark_loaded()
         logger.info("Checkpoint restored at step %d.", app_state.step_count)

@@ -37,6 +37,7 @@ from modalities_tpu_torch.checkpointing.checkpoint_saving_execution import Check
 from modalities_tpu_torch.checkpointing.topology import describe_topology, write_topology
 from modalities_tpu_torch.config.config import check_bool, check_int, check_str
 from modalities_tpu_torch.resilience.manifest import atomic_write_json, write_manifest
+from modalities_tpu_torch.resilience.heartbeat import rendezvous
 from modalities_tpu_torch.resilience.retry import retry_io
 from modalities_tpu_torch.running_env import env
 from modalities_tpu_torch.training.training_progress import TrainingProgress
@@ -107,12 +108,13 @@ class DCPCheckpointSaving(CheckpointSavingExecutionABC):
         state = app_state.state_dict()
         topology = describe_topology(app_state.device_mesh, state)
         self.wait_until_finished()  # the previous write commits and is sealed before the next begins
-        if self.use_async:
-            future = retry_io(lambda: dcp.async_save(state, checkpoint_id=folder), what="dcp_async_save")
-            self._pending = _PendingSave(folder, topology, future)
-        else:
-            retry_io(lambda: dcp.save(state, checkpoint_id=folder), what="dcp_save")
-            self._seal_committed(folder, topology)
+        with rendezvous("checkpoint_save"):  # a peer's heartbeat deadline bounds the collective save
+            if self.use_async:
+                future = retry_io(lambda: dcp.async_save(state, checkpoint_id=folder), what="dcp_async_save")
+                self._pending = _PendingSave(folder, topology, future)
+            else:
+                retry_io(lambda: dcp.save(state, checkpoint_id=folder), what="dcp_save")
+                self._seal_committed(folder, topology)
         logger.info("Checkpoint saved.")
 
     def _seal_committed(self, folder: Path, topology: dict) -> None:
@@ -150,5 +152,6 @@ class DCPCheckpointSaving(CheckpointSavingExecutionABC):
         the pointer to it. A failed write raises here."""
         pending, self._pending = self._pending, None
         if pending is not None:
-            pending.future.result()
-            self._seal_committed(pending.folder, pending.topology)
+            with rendezvous("checkpoint_drain"):
+                pending.future.result()
+                self._seal_committed(pending.folder, pending.topology)

@@ -213,6 +213,7 @@ class TrainingComponentsInstantiationModel:
     performance: Any = None
     model_raw: Any = None
     scheduled_pipeline: Any = None  # built for its effect on the model spec (pipeline.scheduled), as in JAX
+    resilience: Any = None
 
     def __post_init__(self):
         if isinstance(self.settings, dict):
@@ -232,5 +233,4 @@ UNPORTED_TRAINING_COMPONENTS = {
     "profiler": "the profiler component (ROADMAP.md, Queue 1 item 7)",
     "device_feeder": "the device feeder (ROADMAP.md, Queue 1 item 7)",
     "telemetry": "telemetry (ROADMAP.md, Queue 1 item 6)",
-    "resilience": "the anomaly policy, preemption and fault injection (ROADMAP.md, Queue 1 item 7)",
 }

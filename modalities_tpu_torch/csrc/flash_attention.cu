@@ -50,6 +50,12 @@
 
 #include "hopper.cuh"
 
+// The file compiles whole, or in parts (MT_FLASH_PART 1-5, one nvcc process
+// each; see `here` below), so no one process holds the build up.
+#if defined(MT_FLASH_PART) && (MT_FLASH_PART < 1 || MT_FLASH_PART > 5)
+#error "MT_FLASH_PART is 1 to 5"
+#endif
+
 struct FlashParams {
   const void* q;
   const void* k;
@@ -875,11 +881,11 @@ cudaError_t bhsd_map(CUtensorMap* map, const void* base, const long long* st, in
   return hopper::make_tensor_map<SWB>(map, base, 4, dims, strides, box);
 }
 
-template <int D>
-int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
+template <int D, int W>
+int launch_dw(const FlashParams& p, int dtype, cudaStream_t s) {
   const int bh_q = p.b * p.hq, bh_kv = p.b * p.hkv;
   if (dtype == 1) {
-    if (which == kFwd) {
+    if constexpr (W == kFwd) {
       using C = FwdCfg<D>;
       const cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
       if (e != cudaSuccess) return static_cast<int>(e);
@@ -889,7 +895,7 @@ int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
       if (me == cudaSuccess) me = bhsd_map<C::SWB>(&vmap, p.v, p.v_s, D, p.sk, p.hkv, p.b, C::BK);
       if (me != cudaSuccess) return static_cast<int>(me);
       flash_fwd_bf16<D><<<((p.sq + C::BQ - 1) / C::BQ) * bh_q, C::THREADS, C::kSmem, s>>>(p, qmap, kmap, vmap);
-    } else if (which == kDq) {
+    } else if constexpr (W == kDq) {
       using C = DqCfg<D>;
       const cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
       if (e != cudaSuccess) return static_cast<int>(e);
@@ -913,9 +919,9 @@ int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
       flash_bwd_dkv_bf16<D><<<dim3((p.sk + C::BKV - 1) / C::BKV, bh_kv), C::THREADS, C::kSmem, s>>>(p, qmap, omap);
     }
   } else if (dtype == 0) {
-    if (which == kFwd) {
+    if constexpr (W == kFwd) {
       flash_fwd_f32<D><<<dim3((p.sq + kRowsF - 1) / kRowsF, bh_q), kRowsF, 0, s>>>(p);
-    } else if (which == kDq) {
+    } else if constexpr (W == kDq) {
       flash_bwd_dq_f32<D><<<dim3((p.sq + kRowsF - 1) / kRowsF, bh_q), kRowsF, 0, s>>>(p);
     } else {
       flash_bwd_dkv_f32<D><<<dim3((p.sk + kRowsF - 1) / kRowsF, bh_kv), kRowsF, 0, s>>>(p);
@@ -926,10 +932,34 @@ int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const FlashParams* p, int d, int which, int dtype, void* stream) {
+// The part that compiles the (head dim, kernel) pair: 1-3 head dim 128's
+// forward, dq and dkv, 4 head dim 80, 5 head dims 16, 32 and 64. Part 1 also
+// holds the entry points and hands the other pairs to mt_flash_launch_part<N>.
+constexpr int part_of(int d, int which) { return d == 128 ? 1 + which : d == 80 ? 4 : 5; }
+
+constexpr bool here(int d, int which) {
+#if defined(MT_FLASH_PART)
+  return part_of(d, which) == MT_FLASH_PART;
+#else
+  return true;
+#endif
+}
+
+template <int D>
+int launch_d(const FlashParams& p, int which, int dtype, cudaStream_t s) {
+  if (which == kFwd) {
+    if constexpr (here(D, kFwd)) return launch_dw<D, kFwd>(p, dtype, s);
+  } else if (which == kDq) {
+    if constexpr (here(D, kDq)) return launch_dw<D, kDq>(p, dtype, s);
+  } else if (which == kDkv) {
+    if constexpr (here(D, kDkv)) return launch_dw<D, kDkv>(p, dtype, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the pairs this unit compiles
+int launch_here(const FlashParams* p, int d, int which, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p->b <= 0 || p->sq <= 0 || p->sk <= 0 || p->hkv <= 0 || p->hq % p->hkv != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return launch_d<16>(*p, which, dtype, s);
     case 32: return launch_d<32>(*p, which, dtype, s);
@@ -938,6 +968,40 @@ int launch(const FlashParams* p, int d, int which, int dtype, void* stream) {
     case 128: return launch_d<128>(*p, which, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+#if defined(MT_FLASH_PART) && MT_FLASH_PART > 1
+#define MT_FLASH_CAT(a, b) a##b
+#define MT_FLASH_ENTRY(n) MT_FLASH_CAT(mt_flash_launch_part, n)
+extern "C" int MT_FLASH_ENTRY(MT_FLASH_PART)(const FlashParams* p, int d, int which, int dtype, void* stream) {
+  return launch_here(p, d, which, dtype, stream);
+}
+#else
+#if defined(MT_FLASH_PART)
+extern "C" int mt_flash_launch_part2(const FlashParams* p, int d, int which, int dtype, void* stream);
+extern "C" int mt_flash_launch_part3(const FlashParams* p, int d, int which, int dtype, void* stream);
+extern "C" int mt_flash_launch_part4(const FlashParams* p, int d, int which, int dtype, void* stream);
+extern "C" int mt_flash_launch_part5(const FlashParams* p, int d, int which, int dtype, void* stream);
+#endif
+
+namespace {
+
+int launch(const FlashParams* p, int d, int which, int dtype, void* stream) {
+  if (p->b <= 0 || p->sq <= 0 || p->sk <= 0 || p->hkv <= 0 || p->hq % p->hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d != 16 && d != 32 && d != 64 && d != 80 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+#if defined(MT_FLASH_PART)
+  switch (part_of(d, which)) {
+    case 2: return mt_flash_launch_part2(p, d, which, dtype, stream);
+    case 3: return mt_flash_launch_part3(p, d, which, dtype, stream);
+    case 4: return mt_flash_launch_part4(p, d, which, dtype, stream);
+    case 5: return mt_flash_launch_part5(p, d, which, dtype, stream);
+    default: break;
+  }
+#endif
+  return launch_here(p, d, which, dtype, stream);
 }
 
 }  // namespace
@@ -956,3 +1020,4 @@ extern "C" int mt_flash_bwd_dq(const FlashParams* p, int d, int dtype, void* str
 extern "C" int mt_flash_bwd_dkv(const FlashParams* p, int d, int dtype, void* stream) {
   return launch(p, d, kDkv, dtype, stream);
 }
+#endif  // the entry points

@@ -18,6 +18,15 @@ on another mesh in the same process starts clean), one that existed before
 is left to its owner. It runs on the CUDA card
 LOCAL_RANK unless `device="cpu"`. `additional_resolver_funs` adds
 `${name:...}` resolvers to the config's (warmstart adds `warmstart_env`).
+
+Resilience (JAX main.py:78, :124-161, :196, :253-285): `run` arms the fault
+points of $MODALITIES_TPU_FAULTS (resilience/faults.py) before the train
+step is built, so `nan_grads` / `loss_spike` are baked into it; with a
+`resilience` component it resolves the stop consensus once for the step and
+the trainer, starts the peer-health heartbeat (and makes it the process's
+active monitor) when its transport resolves on, hands the anomaly policy to
+the train step and the tracker and preemption handler to the trainer, and
+installs the handler's SIGTERM/SIGINT handlers for the training window only.
 """
 
 from __future__ import annotations
@@ -59,10 +68,6 @@ class Main:
     def __init__(self, config_path: Path, experiments_root_path: Optional[Path] = None,
                  experiment_id: Optional[str] = None, device: Optional[str] = None,
                  additional_resolver_funs: Optional[dict[str, Callable]] = None):
-        if os.environ.get("MODALITIES_TPU_FAULTS"):
-            raise NotImplementedError(
-                "fault injection (MODALITIES_TPU_FAULTS) is not ported (ROADMAP.md, Queue 1 item 7)"
-            )
         armed = [name for name in CAPTURE_SWITCHES if os.environ.get(name, "").strip()]
         if armed:
             raise NotImplementedError(
@@ -92,6 +97,18 @@ class Main:
         if self._owns_group:
             env.destroy_process_group()
             self._owns_group = False
+
+    def test_communication(self) -> None:
+        """`run --test_comm`: the pre-flight all-gather over the world group
+        (utils/communication_test.py)."""
+        from modalities_tpu_torch.utils.communication_test import run_communication_test
+
+        self._join_group()
+        try:
+            run_communication_test(self.device)
+        except BaseException:
+            self._leave_group()
+            raise
 
     def build_components(self) -> TrainingComponentsInstantiationModel:
         for key, what in UNPORTED_TRAINING_COMPONENTS.items():
@@ -129,6 +146,7 @@ class Main:
             gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
             grad_clipper=components.gradient_clipper,
             device_mesh=components.device_mesh or DeviceMesh(world_size=env.world_size()),
+            anomaly_policy=components.resilience.anomaly_policy if components.resilience is not None else None,
         )
 
     def load_app_state(self, components: TrainingComponentsInstantiationModel, train_step):
@@ -154,6 +172,9 @@ class Main:
 
     def run(self, components: Optional[TrainingComponentsInstantiationModel] = None) -> list[dict]:
         """Train; returns the interval results (published on rank 0)."""
+        from modalities_tpu_torch.resilience.faults import load_faults_from_env
+
+        load_faults_from_env()  # armed once per process, before the step that bakes them is built
         self._join_group()
         try:
             return self._run(components or self.build_components())
@@ -177,6 +198,8 @@ class Main:
             mesh = train_step.mesh.mesh_axes if train_step.mesh is not None else {}
             print(f"experiment {self.experiment_id}: {train_step.num_parameters:,} trainable parameters on "
                   f"{self.device}, {env.world_size()} rank(s), mesh {mesh}", flush=True)
+        resilience = components.resilience
+        consensus = resilience is not None and resilience.consensus_enabled()
         mfu = components.mfu_calculator.bind(self.device) if components.mfu_calculator is not None else None
         progress = settings.training_progress
         trainer = Trainer(
@@ -188,6 +211,9 @@ class Main:
             mfu_calculator=mfu,
             error_if_nonfinite=bool(getattr(components.gradient_clipper, "error_if_nonfinite", False)),
             global_rank=rank, world_size=env.world_size(),
+            anomaly_tracker=resilience.anomaly if resilience is not None else None,
+            preemption=resilience.preemption if resilience is not None else None,
+            stop_consensus=consensus,
         )
         training_progress = TrainingProgress(
             num_seen_steps_current_run=0,
@@ -203,10 +229,29 @@ class Main:
 
         evaluator = Evaluator(components.evaluation_subscriber, self.device,
                               num_data_parallel_ranks=get_data_loading_info(components.device_mesh)[0], global_rank=rank)
-        return Gym(trainer, evaluator).run(
-            app_state, components.train_dataloader, components.eval_dataloaders,
-            checkpoint_saving=components.checkpoint_saving,
-            training_progress=training_progress,
-            evaluation_interval_in_steps=settings.intervals.evaluation_interval_in_steps,
-            checkpointing_interval_in_steps=settings.intervals.checkpointing_interval_in_steps,
-        )
+        heartbeat = None
+        if resilience is not None:
+            from modalities_tpu_torch.resilience.heartbeat import set_active_monitor
+
+            artifact_dir = (self.experiments_root_path / self.experiment_id / "telemetry"
+                            if self.experiments_root_path is not None else None)
+            heartbeat = resilience.build_heartbeat(artifact_dir=artifact_dir)
+            if heartbeat is not None:
+                heartbeat.start()
+                set_active_monitor(heartbeat)
+            if resilience.preemption is not None:
+                resilience.preemption.install()  # for the training window only
+        try:
+            return Gym(trainer, evaluator).run(
+                app_state, components.train_dataloader, components.eval_dataloaders,
+                checkpoint_saving=components.checkpoint_saving,
+                training_progress=training_progress,
+                evaluation_interval_in_steps=settings.intervals.evaluation_interval_in_steps,
+                checkpointing_interval_in_steps=settings.intervals.checkpointing_interval_in_steps,
+            )
+        finally:
+            if heartbeat is not None:
+                set_active_monitor(None)
+                heartbeat.stop()
+            if resilience is not None and resilience.preemption is not None:
+                resilience.preemption.uninstall()

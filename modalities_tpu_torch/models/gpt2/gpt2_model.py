@@ -506,6 +506,20 @@ class SlotCache:
 
 
 @dataclasses.dataclass
+class DecodeCache:
+    """The interactive batch-first KV cache of `decode_step` (JAX
+    `init_decode_cache`, gpt2_model.py:1272-1279): a ring of one row per batch
+    row and `index`, the positions written so far (the same for every row)."""
+
+    slots: SlotCache
+    index: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.slots.capacity
+
+
+@dataclasses.dataclass
 class PagedCache:
     """The serving engine's paged KV cache (JAX `init_paged_cache`,
     gpt2_model.py:1385-1409): ONE block pool per layer, [layers, num_blocks +
@@ -808,6 +822,29 @@ class GPT2Module(nn.Module):
         step = _Step(mask=mask, cos=cos, sin=sin, positions=positions)
         x = self._embed(tokens, positions[:, None])
         return self._forward(x, cache, step)
+
+    # --------------------------------------------------- interactive decode
+    def init_decode_cache(self, batch_size: int) -> DecodeCache:
+        """Zeroed KV caches of `sequence_length` positions for `batch_size`
+        rows, and the position counter at 0 (JAX `init_decode_cache`)."""
+        return DecodeCache(self.init_slot_cache(batch_size))
+
+    def decode_step(self, cache: DecodeCache, tokens):
+        """One cached autoregressive step (JAX `decode_step`,
+        gpt2_model.py:1281-1292): tokens [B, S_in] are the NEW positions only
+        (S_in > 1 prefills the prompt), written at the cache's counter, which
+        advances by S_in. Returns (logits [B, S_in, V] fp32, the cache)."""
+        b, s = tokens.shape
+        if cache.index + s > cache.capacity:
+            raise ValueError(f"decode_step: {s} new positions at {cache.index} overflow the cache of "
+                             f"{cache.capacity}")
+        if s == 1:
+            positions = torch.full((b,), cache.index, dtype=torch.int64, device=self.device)
+            logits = self.decode_slots(cache.slots, tokens, positions)
+        else:
+            logits = torch.cat([self.prefill_slot(cache.slots, tokens[r:r + 1], r, cache.index) for r in range(b)])
+        cache.index += s
+        return logits, cache
 
     def _embed(self, tokens, pos):
         x = self.wte[tokens].to(self.compute_dtype)

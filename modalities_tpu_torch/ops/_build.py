@@ -4,6 +4,10 @@
 Every `.cu` source under `modalities_tpu_torch/csrc/` is compiled for `sm_90a`
 by its own nvcc process, all started together, and the objects are linked into
 one shared library under `build/modalities_tpu_torch/` at the repository root.
+A source named in `PARTS` is compiled once a part, each with its own macro
+(flash_attention.cu in five: head dim 128's three kernels one a part, head dim
+80, the smaller head dims), so no one process holds the
+build up; `unit_seconds` keeps each process's wall time.
 The sources share `csrc/hopper.cuh` (wgmma, mbarrier, cp.async and cluster
 helpers in raw PTX). The library's file name carries a hash of the sources,
 headers and flags, so an edited source builds anew and an unchanged one loads
@@ -36,6 +40,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# sources compiled in parts, one nvcc process a part: the flags that pick each part's share of the source
+PARTS = {"flash_attention.cu": tuple(f"-DMT_FLASH_PART={i}" for i in range(1, 6))}
+
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 # C signatures of the entry points (see the .cu sources)
@@ -57,6 +64,7 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the nvcc calls in this process (None: loaded)
 build_log = ""  # nvcc's output of that build (ptxas -v)
+unit_seconds: dict[str, float] = {}  # wall time of each nvcc process of that build, by object (the link: "link")
 
 
 def sources() -> list[Path]:
@@ -80,36 +88,53 @@ def library_path() -> Path:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(PARTS.items())).encode())
     return BUILD_DIR / f"libmt_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> str:
+def _run_all(cmds: list[list[str]]) -> tuple[str, list[float]]:
     """Run the commands as concurrent processes; raise with the output of the
-    first that fails, after every one has ended. Returns their outputs."""
+    first that fails, after every one has ended. Returns their outputs and
+    each one's wall time."""
+    start = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-    outputs = [p.communicate()[0] for p in procs]
+    outputs, seconds = [""] * len(procs), [0.0] * len(procs)
+
+    def wait(i: int) -> None:
+        outputs[i] = procs[i].communicate()[0]
+        seconds[i] = time.perf_counter() - start
+
+    waiters = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     for cmd, proc, output in zip(cmds, procs, outputs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{output}")
-    return "".join(outputs)
+    return "".join(outputs), seconds
 
 
 def _build(out: Path) -> None:
-    global build_seconds, build_log
+    global build_seconds, build_log, unit_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
     stem = out.with_suffix(f".{os.getpid()}")
-    objs = [Path(f"{stem}.{src.stem}.o") for src in sources()]
+    units = [(src, flag, f"{src.stem}{i + 1 if flag else ''}")
+             for src in sources() for i, flag in enumerate(PARTS.get(src.name, (None,)))]
+    objs = [Path(f"{stem}.{name}.o") for _, _, name in units]
     tmp = Path(f"{stem}.tmp.so")
     start = time.perf_counter()
     try:
-        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources(), objs)])
-        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        log, seconds = _run_all([[_nvcc(), *NVCC_FLAGS, *([flag] if flag else []), "-c", "-o", str(o), str(src)]
+                                 for (src, flag, _), o in zip(units, objs)])
+        _, link = _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     finally:
         for path in (*objs, tmp):
             path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - start
     build_log = log
+    unit_seconds = {**{name: t for (_, _, name), t in zip(units, seconds)}, "link": link[0]}
 
 
 def ptxas_usage(kernel: str) -> list[str]:

@@ -11,7 +11,15 @@ train step turns it into a torch optimizer over the module's parameters with
 - `adam`: `torch.optim.Adam` with L2 decay into the gradient, which matches
   the JAX chain `add_decayed_weights` -> `adam`.
 
-The moments take each parameter's dtype, as optax's do.
+The moments take each parameter's dtype, as optax's do. Every optimizer is
+torch's fused implementation: one kernel a step over all the parameters, its
+step count a tensor on the parameters' device, a rate that may be a device
+tensor, and a device-side `found_inf` that leaves the parameters, both
+moments and the step count untouched without a host sync (the train step's
+anomaly skip and its rate, training/train_step.py). Every run takes the same
+implementation, so a step with the skip armed and nothing anomalous is
+bitwise a step without it; a config asking for another one (`foreach: true`,
+`fused: false`) is refused.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ class AdamOptimizerConfig:
     eps: float
     weight_decay: float
     weight_decay_groups_excluded: list
-    foreach: Optional[bool] = None  # accepted for config parity; the train step picks torch's default
-    fused: Optional[bool] = None
+    foreach: Optional[bool] = None  # accepted for config parity: None or false
+    fused: Optional[bool] = None  # accepted for config parity: None or true
 
     def __post_init__(self):
         self.lr = check_float("lr", self.lr, ge=0.0)
@@ -47,6 +55,11 @@ class AdamOptimizerConfig:
             raise ValueError("weight_decay_groups_excluded: expected a list")
         check_bool("foreach", self.foreach, optional=True)
         check_bool("fused", self.fused, optional=True)
+        if self.foreach or self.fused is False:
+            # every update is torch's fused one: the anomaly skip's device flag and the device rate ride it
+            raise NotImplementedError(
+                f"foreach: {self.foreach}, fused: {self.fused}: the port always runs torch's fused optimizer "
+                "(the anomaly skip's mechanism, ROADMAP Queue 3 item 21); leave both unset, or set fused: true")
 
 
 def weight_decay_mask(names: list[str], groups: dict[str, list[str]], excluded: list[str]) -> dict[str, bool]:
@@ -83,7 +96,7 @@ class OptimizerSpec:
         param_groups = [g for g in ({"params": decay, "weight_decay": self.weight_decay},
                                     {"params": no_decay, "weight_decay": 0.0}) if g["params"]]
         cls = {"adam_w": torch.optim.AdamW, "adam": torch.optim.Adam}[self.kind]
-        return cls(param_groups, lr=self.lr, betas=tuple(self.betas), eps=self.eps)
+        return cls(param_groups, lr=self.lr, betas=tuple(self.betas), eps=self.eps, fused=True)
 
 
 class OptimizerFactory:

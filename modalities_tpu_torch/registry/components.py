@@ -47,7 +47,6 @@ UNPORTED = {
         ("model_debugging_hook", "print_forward_hook"), ("debugging", "settings"))},
     **{("layer_norm", v): (7, "the layer_norm components") for v in ("layer_norm", "pytorch_rms_norm", "rms_norm")},
     ("device_feeder", "default"): (7, "the device feeder"),
-    ("resilience", "default"): (7, "the anomaly policy and preemption"),
 }
 
 COMPONENTS = [
@@ -99,6 +98,7 @@ def _training_components() -> list[ComponentEntity]:
         WeightInitializedModelConfig,
     )
     from modalities_tpu_torch.parallel import pipeline_components as pl
+    from modalities_tpu_torch.resilience import Resilience, ResilienceConfig
     from modalities_tpu_torch.nn.llama3_initialization import Llama3Initializer
     from modalities_tpu_torch.nn.model_initialization import ComposedModelInitialization
     from modalities_tpu_torch.optimizers.optimizer_factory import AdamOptimizerConfig, OptimizerFactory
@@ -164,6 +164,7 @@ def _training_components() -> list[ComponentEntity]:
         E("results_subscriber", "save_to_disc", EvaluationResultToDiscSubscriber),
         E("results_subscriber", "dummy", DummySubscriber, own_config=False),
         E("mfu_calculator", "gpt2", GPT2MFUCalculator, GPT2MFUCalculatorConfig),
+        E("resilience", "default", Resilience, ResilienceConfig),
         *[E("number_conversion", name, fn, config) for name, fn, config in NUMBER_CONVERSIONS],
     ]
 

@@ -28,6 +28,7 @@ import os
 import re
 from dataclasses import dataclass
 from pathlib import Path
+from typing import AbstractSet
 
 from modalities_tpu_torch.resilience.retry import retry_io
 
@@ -123,12 +124,12 @@ def _seen_steps_of(folder: Path) -> int:
     return int(match.group(1)) if match else -1
 
 
-def resolve_resume_folder(last_checkpoint_info_path: Path) -> Path:
+def resolve_resume_folder(last_checkpoint_info_path: Path, exclude_steps: AbstractSet[int] = frozenset()) -> Path:
     """The verified warmstart target: the folder the resume pointer names if
     it verifies, else the newest sibling (by the seen-steps count in its name)
-    that does. Raises FileNotFoundError when nothing verifies; a stale
-    ``*.tmp`` pointer is refused. (The JAX function's `exclude_steps`, for its
-    supervisor's degradation ladder, waits for ROADMAP.md Queue 1 item 7.)"""
+    that does. `exclude_steps` are steps the supervisor's degradation ladder
+    burned: a folder of such a step is never chosen. Raises FileNotFoundError
+    when nothing verifies; a stale ``*.tmp`` pointer is refused."""
     info_path = Path(last_checkpoint_info_path)
     if info_path.suffix == ".tmp":
         raise ValueError(
@@ -137,15 +138,21 @@ def resolve_resume_folder(last_checkpoint_info_path: Path) -> Path:
         )
     pointed = Path(json.loads(info_path.read_text())["checkpoint_folder_path"])
 
-    verification = verify_manifest(pointed)
-    if verification.ok:
-        return pointed
-    logger.warning("resume pointer names an unverifiable checkpoint (%s): walking the ring for the newest "
-                   "verifiable folder", verification.reason)
+    if _seen_steps_of(pointed) not in exclude_steps:
+        verification = verify_manifest(pointed)
+        if verification.ok:
+            return pointed
+        logger.warning("resume pointer names an unverifiable checkpoint (%s): walking the ring for the newest "
+                       "verifiable folder", verification.reason)
+    else:
+        verification = ManifestVerification(False, "step burned by the degradation ladder")
+        logger.warning("resume pointer target %s is burned by the degradation ladder: walking the ring for the "
+                       "newest usable folder", pointed.name)
 
     ring_parent = pointed.parent if pointed.parent.is_dir() else info_path.parent
     candidates = sorted(
-        (p for p in ring_parent.glob("eid_*-seen_steps_*") if p.is_dir() and p != pointed),
+        (p for p in ring_parent.glob("eid_*-seen_steps_*")
+         if p.is_dir() and p != pointed and _seen_steps_of(p) not in exclude_steps),
         key=_seen_steps_of,
         reverse=True,
     )

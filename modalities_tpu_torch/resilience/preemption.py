@@ -4,9 +4,12 @@ port of modalities_tpu/resilience/preemption.py.
 The signal handler does the minimum legal work (set a flag, remember the
 signal); a loop polls `should_stop()` at its own boundaries. The serving
 engine takes it as its `stop_fn`: admission stops, in-flight requests finish
-and stream out, and the serve process exits 0 with its final stats. (The
-trainer's preemption save and the cross-rank stop ballot come with the
-training resilience, ROADMAP.md Queue 1 item 7.)
+and stream out, and the serve process exits 0 with its final stats. The
+trainer (the `resilience` component's handler, installed by Main for the
+training window) lets the in-flight step finish, saves out of schedule at
+that step and raises `PreemptionShutdown`; with the stop consensus on, the
+flag is this rank's vote in the stop ballot (resilience/coordination.py), so
+every rank stops at the same step.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Transient storage errors (a flaky network mount) cost a retry, not the run:
 `retry_io` runs a function again after an `OSError`, with exponential backoff
 and jitter, a bounded number of times, and then re-raises the last error
-unchanged. Each retry is logged at warning level (the JAX package also records
-a telemetry span and event: the trainer's telemetry, ROADMAP.md Queue 1 item 6).
+unchanged. Each retry is logged at warning level and recorded as a
+``ckpt_retry/attempt`` event (the JAX package also opens a telemetry span per
+retry: the trainer's telemetry, ROADMAP.md Queue 1 item 6). The
+``checkpoint_io_error`` fault point (faults.py) fires inside each attempt.
 
 The defaults are read from the environment, as in the JAX package:
 - ``MODALITIES_TPU_IO_RETRY_ATTEMPTS`` (default 4 attempts in all)
@@ -33,14 +35,20 @@ def retry_io(fn: Callable[[], T], what: str, attempts: Optional[int] = None,
     attempts = attempts if attempts is not None else int(os.environ.get("MODALITIES_TPU_IO_RETRY_ATTEMPTS", "4"))
     if base_delay_s is None:
         base_delay_s = float(os.environ.get("MODALITIES_TPU_IO_RETRY_BASE_S", "0.5"))
+    from modalities_tpu_torch.resilience.events import record_event
+    from modalities_tpu_torch.resilience.faults import fire_io_error_if_armed
+
     attempts = max(attempts, 1)
     for attempt in range(attempts):
         try:
+            fire_io_error_if_armed()
             return fn()
         except OSError as e:
             if attempt + 1 >= attempts:
                 raise
             delay = min(base_delay_s * (2**attempt), MAX_DELAY_S) * (1.0 + random.uniform(0.0, 0.25))
+            record_event("ckpt_retry/attempt", what=what, attempt=attempt + 1, error=repr(e),
+                         next_delay_s=round(delay, 3))
             logger.warning("%s failed (attempt %d/%d): %r; retrying in %.2f s", what, attempt + 1, attempts, e, delay)
             time.sleep(delay)
     raise AssertionError("unreachable")

@@ -92,6 +92,30 @@ process (`Zero1` over `InProcessReplicas`): the one accumulator already
 sums every replica's rows, each replica's chunks take the update, and the
 chunks are gathered back into the parameters.
 
+The rate (JAX: optax's schedule count in the optimizer state): the update
+applies the schedule at the optimizer's own step count, the updates applied
+so far, while `lr` reports the schedule at the step count, every step taken,
+as JAX reports `lr_fn(state.step)`. The two part only after a skipped step.
+The applied rate is a device tensor gathered from a table of the schedule's
+rates at the optimizer's step count (clamped to the steps taken), so reading
+the count needs no host sync. Every step takes this rate, so a run with and
+one without the component update alike.
+
+The anomaly skip (`anomaly_policy` skip_step or rollback, JAX
+train_step.py:401-411, :631-679): a step whose loss or global gradient norm
+is not finite keeps the parameters, both moments and AdamW's step count
+bitwise, while the LR schedule's step still advances, and reports
+`skipped_step`. As in JAX, the rate applied after a skip is then the one of
+the updates applied so far (above). The norm is the reduced one, so every
+rank takes the same branch. The flag stays on the device: it is the fused
+optimizer's `found_inf` (optimizers/optimizer_factory.py), so there is no
+host sync in the step and no copy of the parameters or moments. The fault points `nan_grads@N` and
+`loss_spike@N[:magnitude]` (resilience/faults.py) armed when the step is
+built poison the gradients, or raise the reported loss, at the step whose
+count before the update is N; with none armed the step is unchanged. With
+`BALLOT_KEY` in the batch (resilience/coordination.py, the stop consensus)
+the step MAX-reduces the rank's vote over the world group and reports it.
+
 `eval_step` is the forward alone on one batch ([mb, S]): the global token
 mean of the loss, every head route, under pp the F ops of the tables; over
 dcn, the mean of the slices' token means.
@@ -114,6 +138,8 @@ from modalities_tpu_torch.parallel.pipeline_scheduled import InProcess, P2PTrans
 from modalities_tpu_torch.parallel.pipeline_schedules import build_schedule_tables
 from modalities_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel, sum_replicated_grads
 from modalities_tpu_torch.parallel.zero import Zero1
+from modalities_tpu_torch.resilience.coordination import BALLOT_KEY, reduce_ballot
+from modalities_tpu_torch.resilience.faults import get_fault
 from modalities_tpu_torch.running_env import env
 from modalities_tpu_torch.training.activation_checkpointing import checkpointed
 from modalities_tpu_torch.training.gradient_clipping import GradientClippingMode, clip_, global_norm
@@ -131,13 +157,20 @@ class TrainStep:
     in-process transport), without a mesh or on a 1-rank one (each stage
     then a root of FSDP2 of its own). `dcn_in_process`: run that many dcn
     slices in this process, likewise. `zero_in_process`: ZeRO-1 over that
-    many dp_replicate replicas in this process, likewise."""
+    many dp_replicate replicas in this process, likewise.
+    `anomaly_policy`: the resilience component's (None: no component; skip_step
+    and rollback arm the anomaly skip)."""
 
     def __init__(self, model, loss_fn, optimizer_spec, scheduler_spec=None, *, device,
                  gradient_acc_steps: int = 1, grad_clipper=None, params: Optional[dict] = None,
                  seed: Optional[int] = None, device_mesh=None, pp_in_process: Optional[int] = None,
-                 dcn_in_process: Optional[int] = None, zero_in_process: Optional[int] = None):
+                 dcn_in_process: Optional[int] = None, zero_in_process: Optional[int] = None,
+                 anomaly_policy: Optional[str] = None):
         spec = model.config_spec
+        self.skip_on_anomaly = anomaly_policy in ("skip_step", "rollback")
+        # fault baking: armed faults are resolved once, here (JAX train_step.py:401-411)
+        self.nan_grads_fault = get_fault("nan_grads")
+        self.loss_spike_fault = get_fault("loss_spike")
         self.head_chunk = spec.lm_head_chunk_size
         if self.head_chunk is not None and not hasattr(loss_fn, "sum_and_count"):
             # silently materializing the [B, S, V] logits would be the memory blowup the chunking exists to prevent
@@ -239,6 +272,7 @@ class TrainStep:
         self.optimizer = self.zero.optimizer if self.zero is not None else optimizer_spec.build(named)
         fn = scheduler_spec.schedule() if scheduler_spec is not None else (lambda step: 1.0)
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, fn)
+        self._rates: Optional[torch.Tensor] = None  # [groups, steps]: the schedule's rates, filled ahead
         self._acc: Optional[list[torch.Tensor]] = None
         self._slice_acc: list[list[torch.Tensor]] = []  # the other in-process slices' accumulators
 
@@ -457,9 +491,15 @@ class TrainStep:
         if self.dcn > 1:
             loss_sum = loss_sum / self.dcn
         lr = torch.tensor(self.optimizer.param_groups[0]["lr"], dtype=torch.float32)
+        done = self.scheduler.last_epoch  # the step count before this update, skipped steps included (JAX state.step)
+        loss = loss_sum / self.acc_steps
+        if self._fault_fires(self.loss_spike_fault, done):
+            loss = loss + float(self.loss_spike_fault.arg or 1e3)
         with torch.no_grad():
             owners = self.zero.owners if self.zero is not None else self.params  # each accumulator's parameter
             local = [((a / self.dcn if self.dcn > 1 else a) / self.acc_steps).to(p.dtype) for p, a in zip(owners, acc)]
+            if self._fault_fires(self.nan_grads_fault, done):
+                local = [g * float("nan") for g in local]
             if self.zero is not None:
                 grads = self.zero.set_grads(local)
             else:
@@ -472,14 +512,58 @@ class TrainStep:
         grad_norm = global_norm(counted, mode, across=self.pp_group)
         if self.clipper is not None and self.clipper.max_norm is not None:
             clip_(grads, grad_norm, self.clipper.max_norm, mode)
-        if self.zero is not None:
-            self.zero.step()
-        else:
-            self.optimizer.step()
+        metrics = {"loss": loss, "grad_norm": grad_norm, "lr": lr}
+        if self.skip_on_anomaly:
+            # the branch-free skip: the fused update reads the flag on the device
+            skipped = ~(torch.isfinite(loss) & torch.isfinite(grad_norm))
+            self.optimizer.found_inf = skipped.to(device=self.device, dtype=torch.float32)
+            metrics["skipped_step"] = skipped.to(torch.int32)
+        groups = self.optimizer.param_groups
+        reported = [g["lr"] for g in groups]
+        for g, rate in zip(groups, self._applied_rates(done)):
+            g["lr"] = rate
+        try:
+            if self.zero is not None:
+                self.zero.step()
+            else:
+                self.optimizer.step()
+        finally:
+            for g, rate in zip(groups, reported):
+                g["lr"] = rate
         self.scheduler.step()
         for p in self.params:
             p.grad = None
-        return {"loss": loss_sum / self.acc_steps, "grad_norm": grad_norm, "lr": lr}
+        if BALLOT_KEY in batch:  # the one consensus collective (resilience/coordination.py)
+            metrics[BALLOT_KEY] = reduce_ballot(batch[BALLOT_KEY])
+        return metrics
+
+    def _applied_rates(self, done: int) -> list[torch.Tensor]:
+        """Each param group's rate for this update, a 0-d float32 tensor on the
+        step's device: the schedule at the optimizer's step count (clamped to
+        `done`, the steps taken), gathered from `_rates` without a host sync.
+        The table holds LambdaLR's own rates (base rate x lambda, in double)
+        and is extended by doubling, on the CPU and copied once a doubling."""
+        filled = 0 if self._rates is None else self._rates.shape[1]
+        if done >= filled:
+            size = max(64, 2 * filled, done + 1)
+            rows = torch.tensor([[base * lam(i) for i in range(filled, size)] for base, lam in
+                                 zip(self.scheduler.base_lrs, self.scheduler.lr_lambdas)], dtype=torch.float32)
+            if self.device.type == "cuda":
+                rows = rows.pin_memory().to(self.device, non_blocking=True)
+            self._rates = rows if self._rates is None else torch.cat([self._rates, rows.to(self.device)], dim=1)
+        first = self.optimizer.param_groups[0]["params"][0]
+        count = self.optimizer.state.get(first, {}).get("step")
+        if count is None:  # no update has run: the optimizer's count is 0
+            index = torch.zeros(1, dtype=torch.int64, device=self.device)
+        else:
+            index = _local(count).detach().to(self.device).reshape(1).clamp(max=done).to(torch.int64)
+        return list(self._rates.index_select(1, index).reshape(-1).unbind())
+
+    @staticmethod
+    def _fault_fires(fault, step: int) -> bool:
+        """Whether a baked fault targets the step whose count before the update
+        is `step` (every step when the fault names none)."""
+        return fault is not None and (fault.step is None or fault.step == step)
 
     def eval_step(self, batch: dict) -> dict[str, Any]:
         """batch: {"samples": {key: [mb, S]}, "targets": {key: [mb, S]}} (this

@@ -10,7 +10,12 @@ test_torch_parallel_train.py, test_torch_checkpointing.py).
 Its own tests: the ring's exchange on three ranks, and `run` then
 `warmstart` of a tiny config on two ranks (dp_shard 2) through the CLI: the
 resumed steps give bitwise the unbroken run's losses, and only rank 0 prints
-and publishes."""
+and publishes. The same world then runs the stop ballot
+(resilience/coordination.py): a third `run` with `stop_consensus: on` and
+the skip policy, `nan_grads@1` on both ranks and `sigterm_one_rank@2:1`, so
+only rank 1 votes to stop; both ranks skip step 2 alike (the reduced norm),
+and both leave at step 4 (the vote rides step 3, the trainer reads it one
+step late) with the forced save and exit 75."""
 
 from __future__ import annotations
 
@@ -274,13 +279,51 @@ def resume_worker(rank: int, world: int, spec: dict, folder: str) -> list:
     return metrics
 
 
-def cli_worker(rank: int, world: int, run_cfg: str, warm_cfg: str, info: str, ports: tuple) -> dict:
+def cli_worker(rank: int, world: int, run_cfg: str, warm_cfg: str, info: str, ports: tuple,
+               ballot_cfg: str = None) -> dict:
     """`run` and then `warmstart` through the CLI (in process), each with its
     own rendezvous port; every train step's metrics and batch (numpy), and
-    what each printed."""
-    return _cli_commands([(ports[0], ["run", "--config_file_path", run_cfg, "--device", "cpu"]),
-                          (ports[1], ["warmstart", "--config_file_path", warm_cfg, "--last_checkpoint_info_file_path",
-                                      info, "--device", "cpu"])])
+    what each printed. With `ballot_cfg`, then the stop-ballot run on a third
+    port (`ballot_worker`)."""
+    out = _cli_commands([(ports[0], ["run", "--config_file_path", run_cfg, "--device", "cpu"]),
+                         (ports[1], ["warmstart", "--config_file_path", warm_cfg, "--last_checkpoint_info_file_path",
+                                     info, "--device", "cpu"])])
+    if ballot_cfg is not None:  # the recording keeps appending: the two commands' own lists are copies
+        out = {**out, "steps": list(out["steps"]), "batches": list(out["batches"])}
+        out["ballot"] = ballot_worker(ports[2], ballot_cfg)
+    return out
+
+
+def ballot_worker(port: int, cfg: str) -> dict:
+    """`run` of `cfg` with `nan_grads@1,sigterm_one_rank@2:1` armed: its exit
+    code, each step's `skipped_step`, and the resilience events (name, step)."""
+    import modalities_tpu_torch.resilience.anomaly as anomaly
+    import modalities_tpu_torch.resilience.faults as faults
+    import modalities_tpu_torch.trainer as trainer
+    from modalities_tpu_torch.__main__ import main
+    from modalities_tpu_torch.training.train_step import TrainStep
+
+    events, skipped = [], []
+    for module in (trainer, faults, anomaly):
+        original = module.record_event
+        module.record_event = lambda name, _original=original, **payload: (
+            events.append((name, payload.get("step"))), _original(name, **payload))
+    call = TrainStep.__call__
+
+    def recording(self, batch):
+        metrics = call(self, batch)
+        skipped.append(int(metrics["skipped_step"]))
+        return metrics
+
+    TrainStep.__call__ = recording
+    faults.clear_faults()
+    os.environ.update(MASTER_PORT=str(port), MODALITIES_TPU_FAULTS="nan_grads@1,sigterm_one_rank@2:1",
+                      MODALITIES_TPU_ERROR_LOG_DIR=str(Path(cfg).parent / "errors"))
+    try:
+        code = main(["run", "--config_file_path", cfg, "--device", "cpu"])
+    except SystemExit as e:
+        code = e.code
+    return {"code": code, "skipped": skipped, "events": events}
 
 
 def cli_command_worker(rank: int, world: int, argv: list) -> dict:
@@ -297,7 +340,8 @@ def _cli_commands(commands: list) -> dict:
     call = TrainStep.__call__
 
     def recording(self, batch):
-        batches.append({part: {k: v.numpy().copy() for k, v in d.items()} for part, d in batch.items()})
+        batches.append({part: {k: v.numpy().copy() for k, v in d.items()} for part, d in batch.items()
+                        if isinstance(d, dict)})  # not the stop ballot's vote
         metrics = call(self, batch)
         seen.append([metrics[k].detach().clone().item() for k in ("loss", "grad_norm", "lr")])
         return metrics
@@ -354,7 +398,15 @@ def test_run_and_warmstart_train_on_two_ranks_through_the_cli(tmp_path):
                                    "settings.consistency_enforcement.enforce_last_step_evaluated": False})
     warm = warmstart_config(cfg, tmp_path / "warmstart.yaml")
     info = tmp_path / "checkpoints" / "last_checkpoint_info.json"
-    ranks = run_world(2, cli_worker, str(cfg), str(warm), str(info), (free_port(), free_port()))
+    (tmp_path / "ballot").mkdir()
+    ballot = tiny_config(tmp_path / "ballot", acc=1, **{
+        "device_mesh.config.data_parallel_shard_degree": 2, "device_mesh.config.world_size": 2,
+        "settings.training_target.num_target_steps": 6, "settings.training_target.num_target_tokens": 6 * per_step,
+        "settings.intervals.evaluation_interval_in_steps": 6,
+        "resilience": {"component_key": "resilience", "variant_key": "default",
+                       "config": {"anomaly_policy": "skip_step", "stop_consensus": "on"}}})
+    ranks = run_world(2, cli_worker, str(cfg), str(warm), str(info), (free_port(), free_port(), free_port()),
+                      str(ballot))
     for r in ranks:
         assert len(r["steps"]) == steps + steps - save_at
         assert r["steps"][steps:] == r["steps"][save_at:steps]
@@ -367,3 +419,14 @@ def test_run_and_warmstart_train_on_two_ranks_through_the_cli(tmp_path):
     topology = json.loads((folder / "topology.json").read_text())
     assert topology["mesh_axes"] == {"dp_shard": 2} and topology["process_count"] == 2
     assert topology["leaf_specs"]["model.wte"] == "('dp_shard', None)"
+    # the stop ballot: both ranks skip step 2 and leave at step 4, saved out of schedule, exit 75
+    votes = [r["ballot"] for r in ranks]
+    assert [v["code"] for v in votes] == [75, 75] and [v["skipped"] for v in votes] == [[0, 1, 0, 0]] * 2
+    leaving = [("consensus/shutdown_agreed", 4), ("preempt/shutdown_requested", 4), ("preempt/checkpoint_saved", 4)]
+    assert votes[0]["events"] == [("anomaly/skipped", 2), *leaving]
+    assert votes[1]["events"] == [("anomaly/skipped", 2), ("fault/sigterm_one_rank", 2),
+                                  ("consensus/stop_vote_cast", 2), *leaving]
+    forced = json.loads((tmp_path / "ballot" / "checkpoints" / "last_checkpoint_info.json").read_text())
+    assert "-seen_steps_4-" in forced["checkpoint_folder_path"]
+    assert all(json.loads((tmp_path / "ballot" / "errors" / f"error_rank_{r}.json").read_text())["resumable"]
+               for r in range(2))

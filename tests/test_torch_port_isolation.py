@@ -51,3 +51,11 @@ def test_the_walk_covers_the_parallel_modules():
     assert {"running_env/env.py", "running_env/device_mesh.py", "parallel/fsdp.py",
             "parallel/ring_attention.py", "parallel/tensor_parallel.py", "parallel/vocab_parallel_ce.py",
             "nn/llama3_initialization.py", "registry/registry.py", "registry/components.py"} <= walked
+
+
+def test_the_walk_covers_the_resilience_and_generation_modules():
+    walked = {str(p.relative_to(ROOT / "modalities_tpu_torch")) for p in FILES if "modalities_tpu_torch" in p.parts}
+    assert {"resilience/__init__.py", "resilience/errors.py", "resilience/anomaly.py", "resilience/faults.py",
+            "resilience/coordination.py", "resilience/heartbeat.py", "resilience/supervisor.py",
+            "utils/communication_test.py", "inference/inference.py",
+            "inference/text/inference_component.py"} <= walked

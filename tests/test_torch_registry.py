@@ -45,7 +45,7 @@ def test_the_port_registers_exactly_the_jax_catalogs_pairs():
 
 
 def test_each_unported_pair_names_a_queue_1_item():
-    assert len(UNPORTED) == 47
+    assert len(UNPORTED) == 46
     for (key, variant), (item, _) in UNPORTED.items():
         assert item in (5, 6, 7)
         with pytest.raises(NotImplementedError, match=rf"{key}\.{variant} .* Queue 1 item {item}\)"):
@@ -121,3 +121,29 @@ def test_the_serving_configs_build_with_their_slo_blocks(name, variant):
         assert (component.num_workers, component.probation_s, component.health_interval_s) == (2, None, 0.5)
     elif variant == "disagg":
         assert (component.prefill_workers, component.decode_workers) == (1, 1)
+
+
+def test_the_resilience_component_is_built_with_the_jax_schema():
+    """("resilience", "default") builds the port's `Resilience` from the
+    JAX `ResilienceConfig`'s fields and defaults; the getting-started
+    config's block (configs/config_lorem_ipsum_tpu.yaml) builds as shipped;
+    the cluster knobs raise naming ROADMAP.md Queue 1 item 7."""
+    import dataclasses
+
+    from modalities_tpu.config.config import ResilienceConfig as JaxResilienceConfig
+    from modalities_tpu_torch.config.component_factory import ComponentFactory
+    from modalities_tpu_torch.resilience import Resilience, ResilienceConfig
+
+    assert ("resilience", "default") not in UNPORTED
+    ours = {f.name: f.default for f in dataclasses.fields(ResilienceConfig)}
+    assert ours == {name: field.default for name, field in JaxResilienceConfig.model_fields.items()}
+    factory = ComponentFactory(PORT)
+    shipped = yaml.safe_load((ROOT / "configs" / "config_lorem_ipsum_tpu.yaml").read_text())["resilience"]
+    built = factory._instantiate("resilience", "default", shipped["config"])
+    assert isinstance(built, Resilience) and built.anomaly_policy == "raise" and built.preemption is not None
+    assert not built.consensus_enabled() and built.build_heartbeat() is None  # one process: both off
+    for knob, value in (("min_hosts", 2), ("resume_quorum", 2), ("resume_vote_deadline_s", 5.0)):
+        with pytest.raises(NotImplementedError, match=r"cluster resilience \(ROADMAP\.md, Queue 1 item 7\)"):
+            factory._instantiate("resilience", "default", {knob: value})
+    with pytest.raises(ValueError, match="anomaly_policy"):
+        factory._instantiate("resilience", "default", {"anomaly_policy": "ignore"})

@@ -134,8 +134,8 @@ def test_the_default_device_raises_without_a_card(tmp_path, monkeypatch):
                            "save_list": ["attention"]}},
          NotImplementedError, "save_list"),
         ({"resilience": {"component_key": "resilience", "variant_key": "default",
-                         "config": {"preemption": {"enabled": True}}}}, NotImplementedError,
-         "preemption and fault injection"),
+                         "config": {"install_signal_handlers": True, "min_hosts": 2}}}, NotImplementedError,
+         r"min_hosts: elastic repair is cluster resilience \(ROADMAP\.md, Queue 1 item 7\)"),
     ],
     ids=["mesh-degree", "zero", "dropout-dao-flash", "lm-head-chunk", "selective-op-remat", "remat-other-layers",
          "remat-save-list", "preemption"],
