@@ -182,7 +182,16 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      corpus: 3 optimizer steps of 2 x 2 sequences of 4096 tokens. Losses and
      grad norms finite, step 0's loss within 0.5 of ln(50304) + 2560 * 0.02^2 / 2
      (the expected loss of the initial random logits), every kernel of the path
-     launched the expected number of times per step; a profiled step. Then 5
+     launched the expected number of times per step; a profiled step. The run
+     has the default telemetry (no `telemetry` node) with the profiler window
+     armed at step 2 and the allocator snapshot at step 3: every interval
+     carries the JAX trainer's throughput keys, the step-2 Chrome trace holds
+     each kernel of the path at one step's launch count, the snapshot exists,
+     `data analyze_telemetry` prints the sink's tables, and the static report
+     the fits check held is printed beside max_memory_allocated; its unsharded
+     witness runs with `telemetry: {enabled: false}` and is bitwise the run.
+     The fits check refuses the built step at the YAML's 4 x 4096 (no remat)
+     in the trainer's preflight, before any dispatch, naming its levers. Then 5
      steps on one repeated batch at lr 1.6e-5 with no warmup: the loss falls at
      every step. Then the config's lr 1.6e-4 on one repeated batch, at full
      width and cut depth or length, through the kernels and through the plain
@@ -193,7 +202,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      .pbin: 3 steps with finite losses, step 0's loss within 0.5 of
      ln(50304) + 1536 * 0.02^2 / 2, exact launch counts per step (the
      remat's second forwards included), peak memory within the written
-     reckoning (LONG_PEAK_GB), a profiled step; 5 steps on one repeated
+     reckoning (LONG_PEAK_GB) and the static report's predicted peak beside
+     it, a profiled step; 5 steps on one repeated
      batch at lr 2e-5 (the loss falls at every step); the config's lr 2e-4
      at full width and 4 layers x 4096 through the kernels and through the
      plain path (chunked-scan head): the loss curves agree at every step.
@@ -322,8 +332,9 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      at world 1 (`stop_consensus: on`, `sigterm_at_step@1`: the forced save
      at step 3), `sigterm_at_step@2` (the forced save at step 2, exit 75,
      error_rank_0.json resumable), `warmstart` from it bitwise the unbroken
-     step 3, and `run --resilient` with the rollback policy restarting once
-     from the step-2 folder to step 4. They run after phase 10, one after
+     step 3, `oom@2` (memscope's OOM dump, exit 75 with the resumable
+     OutOfMemory), and `run --resilient` with the rollback policy restarting
+     once from the step-2 folder to step 4. They run after phase 10, one after
      another, each alone on the card.
  12. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, serve_paged, serve_paged_int8kv, serve_spec, serve_http, serve_fleet, serve_disagg,
@@ -332,7 +343,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
      zero4_in_process, dcn2_in_process, tp8_bias, quickstart_train,
      quickstart_generate, skip_2p7b, consensus_32k, preempt_32k,
-     resume_32k, resilient_32k, serve_ckpt; the fused-CE
+     resume_32k, oom_32k, resilient_32k, serve_ckpt; the fused-CE
      kernels' times at every shape of phase 1 under `shapes`), then the
      card's name and power limit, then the device line (last line).
      `[timing]` lines give the script's wall time after each phase.
@@ -1751,16 +1762,23 @@ def _reset_counts() -> None:
     fce.fused_ce_forward.launches = fce.fused_ce_backward_dh.launches = fce.fused_ce_backward_dw.launches = 0
 
 
-def fsdp_witness(torch, cfg: Path, tmp: Path, sharded: list[dict], want_step0: str, phase: str) -> None:
+def fsdp_witness(torch, cfg: Path, tmp: Path, sharded: list[dict], want_step0: str, phase: str,
+                 telemetry_off: bool = False) -> None:
     """The same config and data through Main with its train step built without
     a mesh (no fully_shard, no collective: the port's world-1 step before
     FSDP2): every step's loss, grad norm and lr must equal the sharded run's
     (`sharded`, run on the world-1 NCCL group) bitwise, and step 0's loss
-    must print as `want_step0` (the value the unsharded kernels' path gives)."""
+    must print as `want_step0` (the value the unsharded kernels' path gives).
+    With `telemetry_off` the witness runs with `telemetry: {enabled: false}`
+    (the sharded run had the default telemetry and its capture windows): the
+    same bits then also show that telemetry changes no step."""
     from modalities_tpu_torch.main import Main
     from modalities_tpu_torch.training.train_step import TrainStep
 
     main = Main(cfg, experiments_root_path=tmp / "experiments", device="cuda")
+    if telemetry_off:
+        main.config_dict["telemetry"] = {"component_key": "telemetry", "variant_key": "default",
+                                         "config": {"enabled": False}}
 
     def unsharded(components):
         app_state = components.app_state
@@ -1772,6 +1790,8 @@ def fsdp_witness(torch, cfg: Path, tmp: Path, sharded: list[dict], want_step0: s
     main.build_train_step = unsharded
     plain = _step_metrics(main.run())
     got = _step_metrics(sharded)
+    if telemetry_off and (main.telemetry.enabled or main.telemetry.sink_path is not None):
+        raise AssertionError(f"{phase}: the witness's telemetry is on")
     del main
     gc.collect()
     torch.cuda.empty_cache()
@@ -1781,7 +1801,9 @@ def fsdp_witness(torch, cfg: Path, tmp: Path, sharded: list[dict], want_step0: s
                              f"loss {step0} != {want_step0}")
     log(f"[{phase}] fully_shard on a world-1 NCCL group: steps 1-{len(got)} (loss, grad norm, lr) "
         f"{[got[k] for k in sorted(got)]} bitwise those of the same run without fully_shard; step 0's loss "
-        f"{step0} as the unsharded path gives it")
+        f"{step0} as the unsharded path gives it"
+        + ("; the witness ran with telemetry off, the sharded run with the default telemetry, its profiler "
+           "window and its snapshot: telemetry changed no bit" if telemetry_off else ""))
 
 
 def _tp_one_mesh():
@@ -1953,6 +1975,136 @@ def lr_witness(torch, tmp: Path, rng, n_layer: int, seq: int, *, lr: float, voca
         raise AssertionError(f"lr witness: kernels {k} and plain path {p} differ by {diff:g}")
 
 
+# phase 4's capture switches: the profiler window at step 2, the allocator snapshot after step 3
+CAPTURE_ENV = {"MODALITIES_TPU_PROFILE_AT_STEP": "2", "MODALITIES_TPU_MEMSCOPE_AT_STEP": "3"}
+# the JAX trainer's interval keys (modalities_tpu/trainer.py:585-623); the goodput buckets' are added below
+INTERVAL_KEYS = ("train steps/s", "tokens/s", "tokens/s (wall)", "tokens/s (device)", "host stall [s]",
+                 "boundary stall [s]", "MFU", "MFU (wall)", "MFU (device)", "peak memory [MB]", "HBM headroom [MB]",
+                 "goodput [%]")
+# a TRAIN_KERNELS counter -> the name its kernel carries in a torch profiler trace (one kernel a launch)
+TRACE_NAMES = {"flash_fwd": "flash_fwd_", "flash_dq": "flash_bwd_dq_", "flash_dkv": "flash_bwd_dkv_",
+               "rms_fwd": "rms_norm_fwd_", "rms_bwd": "rms_norm_bwd_ring"}
+FITS_REFUSED = (4, 4096)  # (microbatch, sequence): the 2.7B without remat at the YAML's own microbatch
+
+
+@contextlib.contextmanager
+def _env(values: dict):
+    """Set environment variables for the block, then restore them."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_telemetry(torch, main, results: list[dict], per_step: dict, smi: str, phase: str = "phase 4") -> None:
+    """The sharded run's telemetry (the default one, no `telemetry` node):
+    every interval carries the JAX trainer's keys; the profiler window's
+    Chrome trace exists and holds each kernel of the path at one step's
+    launch count; the allocator snapshot exists; `data analyze_telemetry`
+    prints the sink's goodput table and waterfall."""
+    import io
+
+    from modalities_tpu_torch.__main__ import main as cli
+    from modalities_tpu_torch.telemetry.goodput import BUCKETS
+
+    keys = set(INTERVAL_KEYS) | {f"goodput/{bucket} [s]" for bucket in BUCKETS}
+    missing = [sorted(keys - set(r["throughput_metrics"])) for r in results]
+    if any(missing):
+        raise AssertionError(f"{phase}: interval keys missing: {missing}")
+    folder = main.telemetry.sink_path.parent
+    window = main.trainer.profile_window
+    if window is None or window.trace_path is None or not window.trace_path.is_file():
+        raise AssertionError(f"{phase}: the profiler window at step 2 left no trace in {sorted(folder.iterdir())}")
+    events = json.loads(window.trace_path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    in_trace = {key: sum(mark in name for name in kernels) for key, mark in TRACE_NAMES.items()}
+    if in_trace != per_step:
+        raise AssertionError(f"{phase}: the step-2 trace names the kernels {in_trace} times, one step launches "
+                             f"{per_step}")
+    snapshot = folder / "memscope_live_arrays_step_3.json"
+    blocks = json.loads(snapshot.read_text()) if snapshot.is_file() else {}
+    if not blocks.get("count"):
+        raise AssertionError(f"{phase}: no allocator snapshot after step 3 ({snapshot}: {blocks})")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli(["data", "analyze_telemetry", "--sink_path", str(folder)])
+    table = out.getvalue()
+    if code != 0 or "combined goodput" not in table or "MFU waterfall" not in table:
+        raise AssertionError(f"{phase}: data analyze_telemetry exit {code}: {table}")
+    last = results[-1]["throughput_metrics"]
+    log(f"[{phase}] telemetry on (the default): step-2 trace {window.trace_path.name} "
+        f"({window.trace_path.stat().st_size} bytes, {len(kernels)} kernels) names the path's kernels {in_trace} "
+        f"times, one step's launches; allocator snapshot after step 3: {blocks['count']} blocks, "
+        f"{blocks['total_bytes'] / 1e9:.2f} GB; step {results[-1]['num_train_steps_done']}: tokens/s wall "
+        f"{last['tokens/s (wall)']:.1f} device {last['tokens/s (device)']:.1f}, host stall {last['host stall [s]']:.4f} s, "
+        f"boundary stall {last['boundary stall [s]']:.4f} s, peak memory {last['peak memory [MB]']:.1f} MB, HBM "
+        f"headroom {last['HBM headroom [MB]']:.1f} MB, goodput {last['goodput [%]']:.2f} % ({smi}; informational)")
+    for line in table.splitlines():
+        log(f"[{phase}] analyze_telemetry | {line}")
+
+
+def memscope_line(torch, main, phase: str) -> None:
+    """The static report the trainer's fits check held before the first
+    dispatch, its predicted peak beside the run's max_memory_allocated."""
+    report = main.trainer.memscope_report
+    if report is None:
+        raise AssertionError(f"{phase}: no static memory report: the fits check did not run on the card")
+    gb = {k: round(v / 1e9, 2) for k, v in report["buckets"].items() if v}
+    limit = torch.cuda.mem_get_info()[1]
+    log(f"[{phase}] memscope: predicted peak {report['predicted_peak_bytes'] / 1e9:.2f} GB ({gb}) against "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; budget {limit / 1e9:.2f} GB "
+        f"(mem_get_info total): fits")
+
+
+def fits_refusal(torch, main, smi: str) -> None:
+    """Phase 4's built step through the trainer's own preflight with the
+    microbatch set to FITS_REFUSED (the YAML's 4 x 4096, no remat): the fits
+    check must raise before any dispatch, naming its levers."""
+    from modalities_tpu_torch.dataloader.dataloader import DatasetBatch
+    from modalities_tpu_torch.logging_broker.subscribers import DummySubscriber
+    from modalities_tpu_torch.telemetry import Telemetry
+    from modalities_tpu_torch.telemetry.memscope import FitsCheckFailure
+    from modalities_tpu_torch.trainer import Trainer
+    from modalities_tpu_torch.training.training_progress import TrainingProgress
+
+    step = main.train_step
+    dispatched: list = []
+
+    class Counted:
+        memscope_report = staticmethod(step.memscope_report)
+
+        def __call__(self, batch):
+            dispatched.append(batch)
+            return step(batch)
+
+    class Loader(list):
+        dataloader_tag = "train"
+
+    micro, seq = FITS_REFUSED
+    rows = np.zeros((micro, seq), np.int64)
+    loader = Loader([DatasetBatch({"input_ids": rows}, {"target_ids": rows})] * step.acc_steps)
+    trainer = Trainer(DummySubscriber(), DummySubscriber(), torch.device(TRAIN_DEVICE),
+                      gradient_acc_steps=step.acc_steps, global_num_tokens_per_train_step=micro * seq * step.acc_steps,
+                      telemetry=Telemetry(enabled=False))
+    try:
+        trainer.train(Counted(), loader, TrainingProgress(0, 0, 1, micro * seq * step.acc_steps), lambda s: None,
+                      lambda p, force=False: None)
+    except FitsCheckFailure as e:
+        message = str(e)
+    else:
+        raise AssertionError(f"phase 4: the fits check let {micro} x {seq} without remat through")
+    if dispatched or "- remat:" not in message or "- gradient_accumulation_steps:" not in message:
+        raise AssertionError(f"phase 4: the fits check at {micro} x {seq}: {len(dispatched)} dispatches, {message}")
+    log(f"[phase 4] fits check at {micro} x {seq} without remat, phase 4's built step through the trainer's "
+        f"preflight ({smi}): refused before any dispatch: " + " | ".join(message.splitlines()))
+
+
 def phase_train(torch, smi: str) -> tuple[dict[str, int], dict, float]:
     """The 2.7B training path through Main; returns its kernel launch counts,
     its steps' (loss, grad norm, lr) and its peak GB (max_memory_allocated)."""
@@ -1972,7 +2124,8 @@ def phase_train(torch, smi: str) -> tuple[dict[str, int], dict, float]:
         main.components = main.build_components()
         _reset_counts()
         t0 = time.perf_counter()
-        results = main.run(main.components)
+        with _env(CAPTURE_ENV):  # the default telemetry (no `telemetry` node) and both capture windows
+            results = main.run(main.components)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _launch_counts()
@@ -1993,6 +2146,9 @@ def phase_train(torch, smi: str) -> tuple[dict[str, int], dict, float]:
             if counts[key] != want * steps:
                 raise AssertionError(f"training: {key} launched {counts[key]} times in {steps} steps, expected "
                                      f"{want} per step")
+        check_telemetry(torch, main, results, per_step, smi)
+        memscope_line(torch, main, "phase 4")
+        fits_refusal(torch, main, smi)
         log(f"[phase 4] step 0 loss {losses[0]:.5f}: expected {expected:.5f} = ln(50304) + 2560 * 0.02^2 / 2 "
             f"(ln(50304) = {math.log(MODEL_2P7B['vocab_size']):.5f}), within 0.5")
         sharded_results = results
@@ -2008,7 +2164,7 @@ def phase_train(torch, smi: str) -> tuple[dict[str, int], dict, float]:
         del main, results
         gc.collect()
         torch.cuda.empty_cache()
-        fsdp_witness(torch, cfg, tmp, sharded_results, "11.34302", "phase 4")
+        fsdp_witness(torch, cfg, tmp, sharded_results, "11.34302", "phase 4", telemetry_off=True)
 
         # one batch repeated: no warmup (fn(0) = initial_lr, not 0), and an lr of 1.6e-5. At the config's
         # 1.6e-4 the loss does not fall at every step; lr_witness shows the plain path doing the same
@@ -2073,6 +2229,7 @@ def phase_train_long(torch, smi: str) -> dict[str, int]:
                                      f"{want} per step")
         if peak_gb > LONG_PEAK_GB:
             raise AssertionError(f"32k training: peak memory {peak_gb:.2f} GB above the reckoning's {LONG_PEAK_GB} GB")
+        memscope_line(torch, main, "phase 5")
         log(f"[phase 5] step 0 loss {losses[0]:.5f}: expected {expected:.5f} = ln({vocab}) + {width} * 0.02^2 / 2, "
             f"within 0.5")
         log(f"[phase 5] 32k training through Main ({main.train_step.num_parameters / 1e9:.3f} B parameters, full "
@@ -5438,7 +5595,10 @@ def phase_resilience(torch, smi: str) -> dict[str, dict[str, int]]:
         step 2, exit 75, error_rank_0.json with "resumable": true;
     (c) `warmstart` from (b)'s pointer: step 3 (loss, grad norm, lr) and the
         parameters after it bitwise (a)'s, which ran unbroken to step 3;
-    (a)-(c) run in this process through the CLI's `main`; (d) is
+    (e) `run` with `oom@2`: step 2's dispatch fails as an allocation
+        failure: memscope's dump (levers, the static report, the allocator's
+        blocks) and exit 75 with the resumable OutOfMemory in the record;
+    (a)-(c) and (e) run in this process through the CLI's `main`; (d) is
     `phase_resilient_run`."""
     from modalities_tpu_torch import __main__ as cli
     from modalities_tpu_torch.resilience import faults
@@ -5538,6 +5698,19 @@ def phase_resilience(torch, smi: str) -> dict[str, dict[str, int]]:
                                  f"run's: {differ[:8]} ({len(differ)} of {len(params_a)})")
         log(f"[phase 11c] (c) warmstart from the step-2 save: step 3 (loss, grad norm, lr) {steps_c[3]} and the "
             f"parameters after it bitwise the unbroken run's")
+        # (e) an allocation failure at step 2's dispatch: memscope's dump, then the resumable OutOfMemory
+        code, folder_e, _ = cli_run("oom", run_argv, "oom@2", {})
+        dumps = list((folder_e / "experiments").rglob("oom_dump_rank_0_step_2.json"))
+        record = json.loads((folder_e / "errors" / "error_rank_0.json").read_text())
+        dump = json.loads(dumps[0].read_text()) if dumps else {}
+        levers = [lever["lever"] for lever in dump.get("suggested_levers", [])]
+        if (code != 75 or not dumps or "OutOfMemory" not in record["error"] or not record["resumable"]
+                or not levers or not (dump.get("static_report") or {}).get("predicted_peak_bytes")):
+            raise AssertionError(f"phase 11c (e): exit {code}, dumps {dumps}, error record {record}, levers {levers}")
+        log(f"[phase 11c] (e) oom@2: exit {code}, {dumps[0].name} (levers {levers}; the static report's predicted "
+            f"peak {dump['static_report']['predicted_peak_bytes'] / 1e9:.2f} GB; {dump['live_arrays']['count']} "
+            f"allocator blocks, {dump['live_arrays']['total_bytes'] / 1e9:.2f} GB; {len(dump['timeline_tail'])} "
+            f"timeline samples); error_rank_0.json: {record['error'][:160]}")
     if any(c[k] == 0 for c in counts.values() for k in ("flash_fwd", "rms_fwd", "ce_fwd")):
         raise AssertionError(f"phase 11c: a kernel of the 32k path was never launched: {counts}")
     return counts

@@ -10,6 +10,7 @@
     python -m modalities_tpu_torch serve --config_file_path <yaml>
         [--requests_file_path <jsonl> [--output_file_path <jsonl>] | --http_port <port>]
         [--fleet] [--device cuda|cpu]
+    python -m modalities_tpu_torch data analyze_telemetry --sink_path <file|dir> [--as_json]
     python -m modalities_tpu_torch data analyze_serve --sink_path <file|dir> [--as_json]
     python -m modalities_tpu_torch data analyze_fleet --sink_path <file|dir> [--sink_path ...] [--as_json]
     python -m modalities_tpu_torch data check_slo --slo_path <yaml> [--sink_path ...] [--bench_path ...]
@@ -39,13 +40,16 @@ neither reads prompts from stdin. A `fleet` or `disagg` config
 (configs/config_fleet.yaml, configs/config_disagg.yaml; `--fleet` refuses
 any other) serves its workers behind a router on `--http_port`.
 
-`data` reads what a serve run records with MODALITIES_TPU_SERVE_TELEMETRY_DIR
-set (the JAX CLI's commands, options and exit codes): `analyze_serve` the
-latency tables of the `serve_request` records, `analyze_fleet` one span tree
+`data` reads what runs record (the JAX CLI's commands, options and exit
+codes): `analyze_telemetry` a training run's sink (`<experiment>/telemetry`,
+written by default): the goodput table a rank, the stragglers across ranks
+and the last MFU waterfall; on what a serve run records with
+MODALITIES_TPU_SERVE_TELEMETRY_DIR set, `analyze_serve` the latency tables of the `serve_request` records, `analyze_fleet` one span tree
 per request stitched from the routers' and the workers' sinks, `check_slo`
 a verdict per objective of an SLO spec over recorded runs (exit 1 when one
 breaches). The JAX CLI's other `data` commands raise NotImplementedError
-naming ROADMAP.md Queue 1 item 6.
+naming ROADMAP.md Queue 1 item 6. `analyze_telemetry` writes the error record
+when it fails, as `run` does.
 
 All run on the CUDA card unless `--device cpu`. MODALITIES_TPU_LOG_LEVEL sets
 the level of the package's logger (default INFO), as in the JAX CLI. `run` and `warmstart` set
@@ -177,13 +181,18 @@ def warmstart(config_file_path: Path, last_checkpoint_info_file_path: Path,
 # the JAX CLI's `data` commands the port does not have yet
 _UNPORTED_DATA = ("create_raw_index", "pack_encoded_data", "merge_packed_data", "shuffle_tokenized_data",
                   "shuffle_jsonl_data", "create_shuffled_dataset_chunk", "create_shuffled_jsonl_chunk",
-                  "prepare_instruction_tuning_data", "analyze_debug_logs", "analyze_telemetry", "analyze_perfscope",
+                  "prepare_instruction_tuning_data", "analyze_debug_logs", "analyze_perfscope",
                   "analyze_memscope", "analyze_bench", "tune_kernels")
 
 
 def _add_data_commands(sub) -> None:
-    data_p = sub.add_parser("data", help="analyze what serve runs recorded; check them against SLOs")
+    data_p = sub.add_parser("data", help="analyze what training and serve runs recorded; check them against SLOs")
     data_sub = data_p.add_subparsers(dest="data_command", required=True)
+    telemetry_p = data_sub.add_parser("analyze_telemetry",
+                                      help="goodput buckets a rank, stragglers and the MFU waterfall of a run's sink")
+    telemetry_p.add_argument("--sink_path", type=Path, required=True,
+                             help="a telemetry_rank_N.jsonl file, or the telemetry folder holding them")
+    telemetry_p.add_argument("--as_json", action="store_true", help="emit the summary dict as JSON")
     serve_p = data_sub.add_parser("analyze_serve", help="latency tables of a serve run's request records")
     serve_p.add_argument("--sink_path", type=Path, required=True,
                          help="a telemetry_rank_N.jsonl file, or the telemetry folder holding them")
@@ -208,17 +217,48 @@ def _add_data_commands(sub) -> None:
             "rest", nargs=argparse.REMAINDER)
 
 
+@_exception_handling
+def analyze_telemetry(sink_path: Path, as_json: bool) -> None:
+    """`data analyze_telemetry`: every wall second of each rank in its goodput
+    bucket, the slowest rank a bucket (two ranks or more) and the run's last
+    MFU waterfall (the JAX CLI's tables and JSON)."""
+    from modalities_tpu_torch.telemetry.goodput import (
+        format_goodput_table,
+        format_straggler_table,
+        straggler_summary,
+        summarize_sink,
+    )
+    from modalities_tpu_torch.telemetry.waterfall import format_waterfall_table, last_waterfall_from_sink
+
+    summary = summarize_sink(sink_path)
+    stragglers = straggler_summary(summary)
+    waterfall = last_waterfall_from_sink(sink_path)
+    if as_json:
+        print(json.dumps({**summary, "stragglers": stragglers, "mfu_waterfall": waterfall}))
+        return
+    print(format_goodput_table(summary))
+    if len(summary.get("ranks", {})) > 1:
+        print("\nstragglers (slowest rank per bucket):")
+        print(format_straggler_table(stragglers))
+    if waterfall is not None:
+        print("\nMFU waterfall (peak -> achieved, deductions close the gap exactly):")
+        print(format_waterfall_table(waterfall))
+
+
 def data_command(args, parser) -> int:
-    """`data analyze_serve | analyze_fleet | check_slo` (the JAX CLI's)."""
+    """`data analyze_telemetry | analyze_serve | analyze_fleet | check_slo` (the JAX CLI's)."""
     if args.data_command in _UNPORTED_DATA:
         raise NotImplementedError(f"data {args.data_command}: not in the port yet (ROADMAP.md, Queue 1 item 6)")
-    paths = [args.sink_path] if args.data_command == "analyze_serve" else list(args.sink_paths)
+    paths = [args.sink_path] if args.data_command in ("analyze_serve", "analyze_telemetry") else list(args.sink_paths)
     if args.data_command == "check_slo":
         paths += [args.slo_path, *args.bench_paths, *args.memscope_paths]
         paths += [args.trajectory_path] if args.trajectory_path is not None else []
     missing = [str(p) for p in paths if not p.exists()]
     if missing:
         parser.error(f"path(s) do not exist: {', '.join(missing)}")
+    if args.data_command == "analyze_telemetry":
+        analyze_telemetry(args.sink_path, args.as_json)
+        return 0
     if args.data_command == "analyze_serve":
         from modalities_tpu_torch.serving.analyze import format_serve_table, load_serve_records, summarize_serve
 

@@ -214,6 +214,7 @@ class TrainingComponentsInstantiationModel:
     model_raw: Any = None
     scheduled_pipeline: Any = None  # built for its effect on the model spec (pipeline.scheduled), as in JAX
     resilience: Any = None
+    telemetry: Any = None
 
     def __post_init__(self):
         if isinstance(self.settings, dict):
@@ -232,5 +233,4 @@ class TrainingComponentsInstantiationModel:
 UNPORTED_TRAINING_COMPONENTS = {
     "profiler": "the profiler component (ROADMAP.md, Queue 1 item 7)",
     "device_feeder": "the device feeder (ROADMAP.md, Queue 1 item 7)",
-    "telemetry": "telemetry (ROADMAP.md, Queue 1 item 6)",
 }

@@ -7,7 +7,8 @@ subscriber, as the JAX `EvaluationResultBatch`: `losses["loss avg"]` (the
 mean over the loader's batches) and `throughput_metrics["eval samples/s"]`
 (the global samples over the wall time, read after the losses are fetched,
 so the clock covers the device's work). Only rank 0 publishes; every rank
-returns the results.
+returns the results. Each loader's pass runs under an `eval/<tag>` telemetry
+span (goodput bucket: eval).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import time
 
 import numpy as np
 import torch
+
+from modalities_tpu_torch.telemetry import span
 
 
 class Evaluator:
@@ -36,14 +39,16 @@ class Evaluator:
     def evaluate(self, train_step, data_loaders: list, num_train_steps_done: int) -> dict[str, dict]:
         results: dict[str, dict] = {}
         for loader in data_loaders:
-            start = time.perf_counter()
-            losses, num_samples = [], 0
-            for batch in loader:
-                device_batch = self._batch(batch)
-                losses.append(train_step.eval_step(device_batch)["loss"])
-                num_samples += len(batch) * self.num_data_parallel_ranks
-            values = torch.stack([loss.detach().float().cpu() for loss in losses]).numpy() if losses else np.array([])
-            elapsed = max(time.perf_counter() - start, 1e-9)
+            with span(f"eval/{loader.dataloader_tag}"):
+                start = time.perf_counter()
+                losses, num_samples = [], 0
+                for batch in loader:
+                    device_batch = self._batch(batch)
+                    losses.append(train_step.eval_step(device_batch)["loss"])
+                    num_samples += len(batch) * self.num_data_parallel_ranks
+                values = (torch.stack([loss.detach().float().cpu() for loss in losses]).numpy() if losses
+                          else np.array([]))
+                elapsed = max(time.perf_counter() - start, 1e-9)
             result = {
                 "dataloader_tag": loader.dataloader_tag,
                 "num_train_steps_done": num_train_steps_done,

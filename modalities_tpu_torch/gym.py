@@ -5,10 +5,10 @@ gym.py:36-46). A checkpoint falls due every
 `checkpointing_interval_in_steps` seen steps. The trainer's preemption stop
 calls the checkpoint callback with `force=True`: a save at that step whatever
 the interval, unless the step was just saved on schedule (JAX gym.py:48-72).
-However the run ends, the pending (async) save is drained on the way out,
-which seals its folder and moves the resume pointer to it; a drain that fails
-after a run that ended well raises, one that fails while an error
-propagates is logged."""
+However the run ends, the pending (async) save is drained on the way out
+(under a `checkpoint_drain` telemetry span), which seals its folder and moves
+the resume pointer to it; a drain that fails after a run that ended well
+raises, one that fails while an error propagates is logged."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Optional
 
 from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
 from modalities_tpu_torch.evaluator import Evaluator
+from modalities_tpu_torch.telemetry import span
 from modalities_tpu_torch.trainer import Trainer
 from modalities_tpu_torch.training.training_progress import TrainingProgress
 
@@ -64,7 +65,8 @@ class Gym:
         finally:
             if checkpoint_saving is not None:
                 try:
-                    checkpoint_saving.wait_until_finished()
+                    with span("checkpoint_drain"):
+                        checkpoint_saving.wait_until_finished()
                 except Exception:
                     logger.exception("draining the pending checkpoint save failed during shutdown")
                     if succeeded:

@@ -27,13 +27,23 @@ the trainer, starts the peer-health heartbeat (and makes it the process's
 active monitor) when its transport resolves on, hands the anomaly policy to
 the train step and the tracker and preemption handler to the trainer, and
 installs the handler's SIGTERM/SIGINT handlers for the training window only.
+
+Telemetry (JAX main.py:71-106, :185, :202) is on by default: the config's
+`telemetry` component, or a default `Telemetry()` when it has none, writes
+its sink to `<experiments root>/<experiment id>/telemetry` (the root passed
+to `Main`, else the config's `settings.paths.experiments_root_path`), is the
+process's active telemetry for the run (deep call sites reach it through
+`telemetry.span`), times the train step's build in an `init` span (a
+checkpoint's load in `checkpoint_restore` inside it) and is closed, its sink
+sealed with the run's summary, however the run ends. The trainer applies the
+capture switches MODALITIES_TPU_PROFILE_AT_STEP / _PROFILE_DIR /
+_MEMSCOPE_AT_STEP / _MEMSCOPE_DIR / _MEMSCOPE_FITS_CHECK (trainer.py).
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
-import os
 import shutil
 import time
 from pathlib import Path
@@ -49,14 +59,9 @@ from modalities_tpu_torch.device import resolve_device
 from modalities_tpu_torch.registry.components import TRAINING_COMPONENTS
 from modalities_tpu_torch.registry.registry import Registry
 from modalities_tpu_torch.running_env import env
+from modalities_tpu_torch.telemetry import Telemetry, set_active_telemetry, span
 
 logger = logging.getLogger(__name__)
-
-# the JAX trainer's env-armed captures (modalities_tpu/trainer.py:215-225):
-# perfscope's profiler window and memscope's snapshots and fits check
-CAPTURE_SWITCHES = ("MODALITIES_TPU_PROFILE_AT_STEP", "MODALITIES_TPU_PROFILE_DIR", "MODALITIES_TPU_MEMSCOPE_AT_STEP",
-                    "MODALITIES_TPU_MEMSCOPE_DIR", "MODALITIES_TPU_MEMSCOPE_FITS_CHECK")
-
 
 def experiment_id_of_run(config_path: Path) -> str:
     """<UTC time>_<first 8 hex digits of the config's sha256>."""
@@ -68,13 +73,6 @@ class Main:
     def __init__(self, config_path: Path, experiments_root_path: Optional[Path] = None,
                  experiment_id: Optional[str] = None, device: Optional[str] = None,
                  additional_resolver_funs: Optional[dict[str, Callable]] = None):
-        armed = [name for name in CAPTURE_SWITCHES if os.environ.get(name, "").strip()]
-        if armed:
-            raise NotImplementedError(
-                f"{', '.join(armed)}: the JAX trainer arms a profiler or memory capture from "
-                f"{'these switches' if len(armed) > 1 else 'this switch'}; the port has neither yet "
-                "(ROADMAP.md, Queue 1 item 6); unset them"
-            )
         self.config_path = Path(config_path)
         self.device = resolve_device(device)
         self.registry = Registry(TRAINING_COMPONENTS)
@@ -151,8 +149,9 @@ class Main:
 
     def load_app_state(self, components: TrainingComponentsInstantiationModel, train_step):
         """The AppState over the built step; a checkpoint the app state names
-        is loaded into it, and must hold as many optimizer steps as the
-        settings' training progress says were seen."""
+        is loaded into it (in a `checkpoint_restore` span), and must hold as
+        many optimizer steps as the settings' training progress says were
+        seen."""
         from modalities_tpu_torch.checkpointing.stateful.app_state import AppState
 
         spec = components.app_state
@@ -163,7 +162,8 @@ class Main:
                 from modalities_tpu_torch.checkpointing.dcp.dcp_checkpoint_loading import DCPCheckpointLoading
 
                 loader = DCPCheckpointLoading()
-            loader.load_app_state(app_state, spec.checkpoint_dir_path)
+            with span("checkpoint_restore"):
+                loader.load_app_state(app_state, spec.checkpoint_dir_path)
             seen = components.settings.training_progress.num_seen_steps
             if app_state.step_count != seen:
                 raise ValueError(f"checkpoint {spec.checkpoint_dir_path} holds {app_state.step_count} optimizer steps, "
@@ -177,11 +177,28 @@ class Main:
         load_faults_from_env()  # armed once per process, before the step that bakes them is built
         self._join_group()
         try:
-            return self._run(components or self.build_components())
+            components = components or self.build_components()
+            telemetry = components.telemetry or Telemetry()
+            root = self.experiments_root_path
+            if root is None:
+                configured = ((self.config_dict.get("settings") or {}).get("paths") or {}).get("experiments_root_path")
+                root = Path(configured) if configured else None
+            if root is not None:
+                telemetry.set_output_folder(root / self.experiment_id / "telemetry")
+            self.telemetry = telemetry
+            previous = set_active_telemetry(telemetry)
+            try:
+                return self._run(components, telemetry)
+            finally:
+                # sealed on the crash path too; the previous telemetry is restored for the next run in process
+                try:
+                    telemetry.close()
+                finally:
+                    set_active_telemetry(previous)
         finally:
             self._leave_group()
 
-    def _run(self, components: TrainingComponentsInstantiationModel) -> list[dict]:
+    def _run(self, components: TrainingComponentsInstantiationModel, telemetry: Telemetry) -> list[dict]:
         from modalities_tpu_torch.gym import Gym
         from modalities_tpu_torch.trainer import Trainer
         from modalities_tpu_torch.training.training_progress import TrainingProgress
@@ -192,8 +209,9 @@ class Main:
             folder = self.experiments_root_path / self.experiment_id
             folder.mkdir(parents=True, exist_ok=True)
             shutil.copy(self.config_path, folder / self.config_path.name)
-        train_step = self.build_train_step(components)
-        app_state = self.load_app_state(components, train_step)
+        with telemetry.span("init"):
+            train_step = self.build_train_step(components)
+            app_state = self.load_app_state(components, train_step)
         if rank == 0:
             mesh = train_step.mesh.mesh_axes if train_step.mesh is not None else {}
             print(f"experiment {self.experiment_id}: {train_step.num_parameters:,} trainable parameters on "
@@ -214,6 +232,7 @@ class Main:
             anomaly_tracker=resilience.anomaly if resilience is not None else None,
             preemption=resilience.preemption if resilience is not None else None,
             stop_consensus=consensus,
+            telemetry=telemetry,
         )
         training_progress = TrainingProgress(
             num_seen_steps_current_run=0,
@@ -224,6 +243,7 @@ class Main:
             num_seen_tokens_previous_run=progress.global_num_seen_tokens,
         )
         self.train_step = train_step
+        self.trainer = trainer
         from modalities_tpu_torch.evaluator import Evaluator
         from modalities_tpu_torch.running_env.device_mesh import get_data_loading_info
 
@@ -231,7 +251,7 @@ class Main:
                               num_data_parallel_ranks=get_data_loading_info(components.device_mesh)[0], global_rank=rank)
         heartbeat = None
         if resilience is not None:
-            from modalities_tpu_torch.resilience.heartbeat import set_active_monitor
+            from modalities_tpu_torch.resilience.heartbeat import cluster_context, set_active_monitor
 
             artifact_dir = (self.experiments_root_path / self.experiment_id / "telemetry"
                             if self.experiments_root_path is not None else None)
@@ -239,6 +259,8 @@ class Main:
             if heartbeat is not None:
                 heartbeat.start()
                 set_active_monitor(heartbeat)
+            # the cluster view rides every watchdog dump, whether or not the heartbeat runs
+            telemetry.register_watchdog_state_provider(lambda: {"cluster": cluster_context()})
             if resilience.preemption is not None:
                 resilience.preemption.install()  # for the training window only
         try:

@@ -13,7 +13,6 @@ from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
 from modalities_tpu_torch.tokenization.tokenizer_wrapper import PreTrainedHFTokenizer
 
 _MODELS = "the other models and their data"
-_RESULTS = "the results subscribers"
 _FSDP1 = "the FSDP1 names, to be mapped onto FSDP2"
 _DATA = "the other data variants"
 _PROFILING = "the profiler components"
@@ -24,9 +23,6 @@ UNPORTED = {
         ("model", "coca"), ("collate_fn", "coca_collator"), ("dataset", "dummy_dataset"), ("loss", "nce_loss"),
         ("model", "vision_transformer"), ("model", "huggingface_pretrained_model"),
         ("tokenizer", "pretrained_sp_tokenizer"))},
-    **{pair: (6, _RESULTS) for pair in (
-        ("results_subscriber", "rich"), ("results_subscriber", "to_disc"), ("results_subscriber", "wandb"))},
-    ("telemetry", "default"): (6, "telemetry"),
     **{pair: (7, _FSDP1) for pair in (
         ("model", "fsdp1_wrapped"), ("model", "fsdp1_checkpointed"), ("model", "activation_checkpointed_fsdp1"),
         ("optimizer", "fsdp1_checkpointed"), ("gradient_clipper", "fsdp1"),
@@ -87,6 +83,9 @@ def _training_components() -> list[ComponentEntity]:
         DummySubscriber,
         EvaluationResultToDiscSubscriber,
         PrintProgressSubscriber,
+        RichResultSubscriber,
+        WandBEvaluationResultSubscriberConfig,
+        get_wandb_result_subscriber,
     )
     from modalities_tpu_torch.loss_functions import CLMCrossEntropyLoss
     from modalities_tpu_torch.models.model_factory import (
@@ -105,6 +104,7 @@ def _training_components() -> list[ComponentEntity]:
     from modalities_tpu_torch.optimizers.scheduler_factory import SCHEDULERS
     from modalities_tpu_torch.running_env.device_mesh import DeviceMesh
     from modalities_tpu_torch.running_env.xla_flags import XlaPerformanceFlags
+    from modalities_tpu_torch.telemetry import TelemetryConfig, build_telemetry
     from modalities_tpu_torch.training.gradient_clipping import (
         DummyGradientClipper,
         GradientClipper,
@@ -161,10 +161,14 @@ def _training_components() -> list[ComponentEntity]:
         E("gradient_clipper", "dummy", DummyGradientClipper, own_config=False),
         E("progress_subscriber", "rich", PrintProgressSubscriber),
         E("progress_subscriber", "dummy", DummySubscriber, own_config=False),
-        E("results_subscriber", "save_to_disc", EvaluationResultToDiscSubscriber),
+        # the JAX package registers one class under both names
+        *[E("results_subscriber", name, EvaluationResultToDiscSubscriber) for name in ("save_to_disc", "to_disc")],
+        E("results_subscriber", "rich", RichResultSubscriber),
+        E("results_subscriber", "wandb", get_wandb_result_subscriber, WandBEvaluationResultSubscriberConfig),
         E("results_subscriber", "dummy", DummySubscriber, own_config=False),
         E("mfu_calculator", "gpt2", GPT2MFUCalculator, GPT2MFUCalculatorConfig),
         E("resilience", "default", Resilience, ResilienceConfig),
+        E("telemetry", "default", build_telemetry, TelemetryConfig),
         *[E("number_conversion", name, fn, config) for name, fn, config in NUMBER_CONVERSIONS],
     ]
 

@@ -13,9 +13,9 @@ spikes, the port of modalities_tpu/resilience/anomaly.py (`AnomalyTracker`).
   newest verified checkpoint.
 
 Loss-spike detection (a z-score of the loss over recent finite losses) feeds
-the same policy; it is off unless `loss_spike_zscore` is set. (The JAX
-tracker's `observe_slo`, which counts a training SLO breach against the
-budget, comes with the trainer's telemetry, ROADMAP.md Queue 1 item 6.)
+the same policy; it is off unless `loss_spike_zscore` is set. `observe_slo`
+counts an interval in breach of a training SLO (the telemetry component's
+`slo` block) against the same budget.
 """
 
 from __future__ import annotations
@@ -115,6 +115,21 @@ class AnomalyTracker:
                            "steps]", step, kind, self.anomalies_in_window(step_id), self.skip_budget,
                            self.window_steps)
         self._escalate_if_exhausted(step_id, f"first at step {first_bad_step}")
+
+    def observe_slo(self, breaching: list, step_id: int) -> None:
+        """An interval spent in breach of a training SLO (a goodput or
+        MFU-floor objective, telemetry/slo.py) counts one anomalous step
+        against the same skip budget, so sustained infra degradation
+        escalates through the policy path bad math takes."""
+        if not breaching:
+            return
+        self._anomalous_steps.append(step_id)
+        used = self.anomalies_in_window(step_id)
+        record_event("anomaly/slo_breach", step=step_id, objectives=list(breaching), policy=self.policy,
+                     in_window=used, budget=self.skip_budget)
+        logger.warning("SLO breach at step %d (%s) counted against anomaly budget [%d/%d used in trailing %d steps]",
+                       step_id, ", ".join(breaching), used, self.skip_budget, self.window_steps)
+        self._escalate_if_exhausted(step_id, f"last breaching {', '.join(breaching)}")
 
     def _escalate_if_exhausted(self, step_id: int, cause: str) -> None:
         used = self.anomalies_in_window(step_id)

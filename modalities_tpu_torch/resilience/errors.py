@@ -28,6 +28,5 @@ class PeerFailure(ResumableError):
 
 
 class OutOfMemory(ResumableError):
-    """Device allocation failed. Exit resumable so the supervisor can warmstart.
-    (Raised by the JAX package's memscope forensics; the port has no memscope
-    yet, ROADMAP.md Queue 1 item 6.)"""
+    """Device allocation failed. Exit resumable so the supervisor can warmstart
+    (raised by memscope's OOM forensics, telemetry/memscope.py)."""

@@ -21,6 +21,9 @@ specs raise the JAX errors. The points wired in the port:
 - ``peer_hang@step[:seconds]``: the step loop sleeps `seconds` (default 30)
   after completing `step`.
 - ``peer_death@step``: `os._exit(1)` after completing `step`.
+- ``oom@step``: the trainer's dispatch of `step` (1-based, as the JAX
+  trainer counts it) raises an allocation failure, so memscope's OOM
+  forensics write their dump and the run exits resumable.
 
 Arming one of the others raises NotImplementedError naming where it waits
 (`UNPORTED`).
@@ -63,7 +66,6 @@ FAULT_POINTS = (
 _SERVING = "the serving fault points (ROADMAP.md, Queue 1 item 7)"
 # the points whose fire sites the port does not have yet: name -> where they wait
 UNPORTED = {
-    "oom": "the OOM forensics of memscope (ROADMAP.md, Queue 1 item 6)",
     "feeder_wedge": "the device feeder (ROADMAP.md, Queue 1 item 7)",
     "host_loss": "elastic repair (ROADMAP.md, Queue 1 item 7)",
     **{name: _SERVING for name in ("serve_worker_hang", "serve_slow_decode", "handoff_corrupt", "sse_torn",
@@ -170,6 +172,22 @@ def fire_sigterm_if_armed(step: int) -> bool:
     logger.warning("FAULT FIRING: sigterm_at_step at step %d", step)
     os.kill(os.getpid(), signal.SIGTERM)
     return True
+
+
+def fire_oom_if_armed(step: int) -> bool:
+    """Raise an injected allocation failure when `oom` is armed for `step`:
+    placed at the trainer's dispatch, so memscope's OOM forensics (the dump,
+    the resumable exit) run on the CPU as on the card. It is a
+    `torch.OutOfMemoryError` carrying the JAX fault's message."""
+    fault = _consume("oom", step=step)
+    if fault is None:
+        return False
+    import torch
+
+    record_event("fault/oom", step=step)
+    logger.warning("FAULT FIRING: oom at step %d", step)
+    raise torch.OutOfMemoryError(f"RESOURCE_EXHAUSTED: injected fault: oom at step {step} "
+                                 "(fault-injection stand-in for a device allocation failure)")
 
 
 def fire_sigterm_one_rank_if_armed(step: int) -> bool:

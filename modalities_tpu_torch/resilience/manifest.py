@@ -14,9 +14,10 @@ the folder's name is the metadata store (seen steps and tokens, and from them
 the sampler's skip, are parsed from it).
 
 Digests read every byte of a checkpoint; ``MODALITIES_TPU_VERIFY_DIGESTS=0``
-limits verification to sizes and existence. Where the JAX package records a
-telemetry event, the port logs at warning level (the trainer's telemetry is
-ROADMAP.md Queue 1 item 6).
+limits verification to sizes and existence. Each fallback step is logged at
+warning level and recorded as the JAX event (`rollback/pointer_target_corrupt`,
+`rollback/pointer_target_burned`, `rollback/fallback_folder`,
+`rollback/candidate_corrupt`) on the active telemetry sink.
 """
 
 from __future__ import annotations
@@ -136,6 +137,8 @@ def resolve_resume_folder(last_checkpoint_info_path: Path, exclude_steps: Abstra
             f"{info_path} is a stale temp file from an interrupted pointer write; "
             "pass the committed last_checkpoint_info.json instead"
         )
+    from modalities_tpu_torch.resilience.events import record_event
+
     pointed = Path(json.loads(info_path.read_text())["checkpoint_folder_path"])
 
     if _seen_steps_of(pointed) not in exclude_steps:
@@ -144,10 +147,12 @@ def resolve_resume_folder(last_checkpoint_info_path: Path, exclude_steps: Abstra
             return pointed
         logger.warning("resume pointer names an unverifiable checkpoint (%s): walking the ring for the newest "
                        "verifiable folder", verification.reason)
+        record_event("rollback/pointer_target_corrupt", folder=str(pointed), reason=verification.reason)
     else:
         verification = ManifestVerification(False, "step burned by the degradation ladder")
         logger.warning("resume pointer target %s is burned by the degradation ladder: walking the ring for the "
                        "newest usable folder", pointed.name)
+        record_event("rollback/pointer_target_burned", folder=str(pointed))
 
     ring_parent = pointed.parent if pointed.parent.is_dir() else info_path.parent
     candidates = sorted(
@@ -160,8 +165,10 @@ def resolve_resume_folder(last_checkpoint_info_path: Path, exclude_steps: Abstra
         candidate_check = verify_manifest(candidate)
         if candidate_check.ok:
             logger.warning("falling back to verified checkpoint %s", candidate)
+            record_event("rollback/fallback_folder", folder=str(candidate))
             return candidate
         logger.warning("skipping unverifiable checkpoint %s: %s", candidate, candidate_check.reason)
+        record_event("rollback/candidate_corrupt", folder=str(candidate), reason=candidate_check.reason)
     raise FileNotFoundError(
         f"no verifiable checkpoint found: pointer target {pointed} failed "
         f"({verification.reason}) and no sibling under {ring_parent} verified"

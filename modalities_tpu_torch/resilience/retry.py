@@ -4,8 +4,8 @@ Transient storage errors (a flaky network mount) cost a retry, not the run:
 `retry_io` runs a function again after an `OSError`, with exponential backoff
 and jitter, a bounded number of times, and then re-raises the last error
 unchanged. Each retry is logged at warning level and recorded as a
-``ckpt_retry/attempt`` event (the JAX package also opens a telemetry span per
-retry: the trainer's telemetry, ROADMAP.md Queue 1 item 6). The
+``ckpt_retry/attempt`` event, and every attempt after the first runs under a
+``ckpt_retry/<what>`` telemetry span (goodput bucket: recovery). The
 ``checkpoint_io_error`` fault point (faults.py) fires inside each attempt.
 
 The defaults are read from the environment, as in the JAX package:
@@ -37,12 +37,15 @@ def retry_io(fn: Callable[[], T], what: str, attempts: Optional[int] = None,
         base_delay_s = float(os.environ.get("MODALITIES_TPU_IO_RETRY_BASE_S", "0.5"))
     from modalities_tpu_torch.resilience.events import record_event
     from modalities_tpu_torch.resilience.faults import fire_io_error_if_armed
+    from modalities_tpu_torch.telemetry import span
+    from modalities_tpu_torch.telemetry.spans import NULL_CONTEXT
 
     attempts = max(attempts, 1)
     for attempt in range(attempts):
         try:
-            fire_io_error_if_armed()
-            return fn()
+            with span(f"ckpt_retry/{what}") if attempt else NULL_CONTEXT:
+                fire_io_error_if_armed()
+                return fn()
         except OSError as e:
             if attempt + 1 >= attempts:
                 raise

@@ -1,6 +1,6 @@
 """Goodput ledger: attribute every wall-clock second of a run to one bucket.
-The port of modalities_tpu/telemetry/goodput.py (the ledger and the sink
-replay; the `analyze_telemetry` tables wait for ROADMAP.md Queue 1 item 6).
+The port of modalities_tpu/telemetry/goodput.py: the ledger, the sink
+replay and the `data analyze_telemetry` tables.
 
 Buckets: ``init``, ``compile_first_step``, ``train_step`` (the goodput
 numerator), ``data_stall``, ``eval``, ``checkpoint``, ``publish``,
@@ -190,3 +190,76 @@ def summarize_sink(path: Union[str, Path]) -> dict:
         },
     }
     return {"ranks": ranks, "combined": combined}
+
+
+def straggler_summary(summary: dict) -> dict:
+    """Cross-rank straggler attribution over a `summarize_sink` result:
+    per goodput bucket, name the slowest rank and how far it sits above the
+    cross-rank median — a data_stall bucket where rank 3 spends 4x the median
+    IS the straggler the ROADMAP's multi-host rounds need named.
+
+    Returns {bucket: {"slowest_rank", "seconds", "median_s", "ratio_vs_median"}}
+    for buckets where any rank recorded time. With fewer than two ranks there
+    is no peer to lag behind, so the answer is empty — not a table of every
+    bucket "straggling" behind itself at ratio 1.0."""
+    ranks = summary.get("ranks") or {}
+    if len(ranks) < 2:
+        return {}
+    out: dict[str, dict] = {}
+    for bucket in BUCKETS:
+        per_rank = {
+            rank: float(s["buckets"].get(bucket, 0.0)) for rank, s in ranks.items()
+        }
+        worst_rank = max(per_rank, key=per_rank.get)
+        worst = per_rank[worst_rank]
+        if worst <= 0.0:
+            continue
+        values = sorted(per_rank.values())
+        n = len(values)
+        median = (
+            values[n // 2] if n % 2 else 0.5 * (values[n // 2 - 1] + values[n // 2])
+        )
+        out[bucket] = {
+            "slowest_rank": worst_rank,
+            "seconds": round(worst, 6),
+            "median_s": round(median, 6),
+            "ratio_vs_median": round(worst / median, 3) if median > 0 else None,
+        }
+    return out
+
+
+def format_straggler_table(stragglers: dict) -> str:
+    if not stragglers:
+        return "no per-rank bucket time recorded"
+    lines = [f"{'bucket':<20} {'slowest':>8} {'seconds':>11} {'median':>11} {'x median':>9}"]
+    for bucket, row in stragglers.items():
+        ratio = f"{row['ratio_vs_median']:.2f}" if row["ratio_vs_median"] is not None else "-"
+        lines.append(
+            f"{bucket:<20} {('rank ' + str(row['slowest_rank'])):>8} "
+            f"{row['seconds']:>10.3f}s {row['median_s']:>10.3f}s {ratio:>9}"
+        )
+    return "\n".join(lines)
+
+
+def format_goodput_table(summary: dict) -> str:
+    """Render a summarize_sink() result as an aligned text table."""
+    if not summary.get("ranks"):
+        return "no telemetry span records found"
+    lines = []
+    header = f"{'bucket':<20}" + "".join(f"rank {r:>2}      " for r in sorted(summary["ranks"]))
+    lines.append(header.rstrip())
+    for bucket in BUCKETS:
+        row = f"{bucket:<20}"
+        for rank in sorted(summary["ranks"]):
+            row += f"{summary['ranks'][rank]['buckets'][bucket]:>10.3f} s "
+        lines.append(row.rstrip())
+    row = f"{'wall':<20}"
+    for rank in sorted(summary["ranks"]):
+        row += f"{summary['ranks'][rank]['wall_s']:>10.3f} s "
+    lines.append(row.rstrip())
+    row = f"{'goodput':<20}"
+    for rank in sorted(summary["ranks"]):
+        row += f"{summary['ranks'][rank]['goodput_pct']:>10.2f} % "
+    lines.append(row.rstrip())
+    lines.append(f"combined goodput: {summary['combined']['goodput_pct']:.2f} %")
+    return "\n".join(lines)

@@ -77,7 +77,7 @@ class _Span:
             stack = recorder._tls.stack = []
         stack.append(self)
         self._children_s = 0.0
-        self._annotation = _profiler_range(self.name)
+        self._annotation = _profiler_range(self.name) if recorder._profiler_annotations else None
         if self._annotation is not None:
             self._annotation.__enter__()
         self._ts = time.time()
@@ -110,10 +110,12 @@ class _Span:
 
 class SpanRecorder:
     """Thread-safe span source. `on_record(SpanRecord)` fires at every span
-    exit, on the exiting span's own thread (consumers must be thread-safe)."""
+    exit, on the exiting span's own thread (consumers must be thread-safe).
+    `profiler_annotations=False` keeps spans out of torch profiles."""
 
-    def __init__(self, on_record: Optional[Callable[[SpanRecord], None]] = None):
+    def __init__(self, on_record: Optional[Callable[[SpanRecord], None]] = None, profiler_annotations: bool = True):
         self._on_record = on_record
+        self._profiler_annotations = profiler_annotations
         self._tls = threading.local()
         self._timeline_ident = threading.get_ident()
 

@@ -565,6 +565,39 @@ class TrainStep:
         is `step` (every step when the fault names none)."""
         return fault is not None and (fault.step is None or fault.step == step)
 
+    def memscope_report(self, batch: dict) -> dict:
+        """The static memory report of this step at `batch`'s shapes, before
+        any dispatch (JAX `StepFunctions.memscope_report`, trainer.py:138-160,
+        which reads a compiled executable's memory_analysis(); see
+        telemetry/memscope.py): argument bytes are this rank's parameters and
+        optimizer state, temp bytes its gradients (the float32 accumulators
+        and the parameter-dtype gradients) plus the activation estimate at the
+        batch's microbatch and the model's remat variant, output and alias
+        bytes 0."""
+        from types import SimpleNamespace
+
+        from modalities_tpu_torch.telemetry.memscope import memscope_from_categories, train_step_known_bytes
+        from modalities_tpu_torch.utils.recipe_validation import _estimate_activation_bytes
+
+        known = train_step_known_bytes(self)
+        _, micro, seq = batch["samples"][self.model.sample_key].shape
+        mesh = self.mesh if self.mesh is not None else SimpleNamespace(degrees={}, enable_loss_parallel=False)
+        profile = SimpleNamespace(local_train_micro_batch_size=int(micro), sequence_length=int(seq))
+        activations = _estimate_activation_bytes(self.model, mesh, profile)
+        categories = {"argument_bytes": known["params"] + known["optimizer_moments"],
+                      "temp_bytes": known["gradients_accumulators"] + activations["total"],
+                      "output_bytes": 0, "alias_bytes": 0}
+        context = {
+            "kind": "train",
+            "zero_stage": 1 if self.zero is not None else 0,
+            "gradient_accumulation_steps": self.acc_steps,
+            "dp_replicate": int(mesh.degrees.get("dp_replicate", 1) or 1),
+            "remat_variant": getattr(self.model.config_spec, "remat_variant", None),
+        }
+        report = memscope_from_categories(categories, known, context)
+        report["activation_estimate"] = activations
+        return report
+
     def eval_step(self, batch: dict) -> dict[str, Any]:
         """batch: {"samples": {key: [mb, S]}, "targets": {key: [mb, S]}} (this
         rank's rows) -> {"loss": the global token mean of the loss} (JAX

@@ -9,8 +9,11 @@ apply nor refuse (ROADMAP.md Queue 3 item 17), each at a non-default value:
   what the port runs is accepted, one that would run the plain version on
   the card is refused naming Queue 3 item 17, a malformed one raises;
 - MODALITIES_TPU_PROFILE_AT_STEP, _PROFILE_DIR, _MEMSCOPE_AT_STEP,
-  _MEMSCOPE_DIR and _MEMSCOPE_FITS_CHECK are refused at `run`, naming
-  Queue 1 item 6;
+  _MEMSCOPE_DIR and _MEMSCOPE_FITS_CHECK, refused at `run` until the
+  trainer's telemetry was ported, are applied by the trainer: the profile
+  window's trace and the allocator snapshots land at their steps and in
+  their folders, and `warn` lets an over-budget step run where the default
+  fails it;
 - MODALITIES_TPU_LOG_LEVEL sets the port's logger level, as the JAX one's;
 - the fleet's MODALITIES_TPU_FLEET_RETRY_BUDGET_RATIO, _PROBE_BACKOFF_MAX_S,
   _HEALTH_DEADLINE_S, _PROBATION_S, _POLL_S and
@@ -22,6 +25,7 @@ apply nor refuse (ROADMAP.md Queue 3 item 17), each at a non-default value:
   serve() arms it, and MODALITIES_TPU_SLO_SAMPLE_S sets an SLO engine's
   interval where its spec sets none, in both packages."""
 
+import json
 import logging
 
 import jax
@@ -119,12 +123,85 @@ CAPTURE = ["MODALITIES_TPU_PROFILE_AT_STEP", "MODALITIES_TPU_PROFILE_DIR", "MODA
            "MODALITIES_TPU_MEMSCOPE_DIR", "MODALITIES_TPU_MEMSCOPE_FITS_CHECK"]
 
 
+class _OverBudgetStep:
+    """A fake train step whose static report exceeds the budget the test
+    gives the trainer."""
+
+    def __call__(self, batch):
+        return {"loss": torch.tensor(1.0), "grad_norm": torch.tensor(0.5), "lr": torch.tensor(1e-3)}
+
+    def memscope_report(self, batch):
+        from modalities_tpu_torch.telemetry.memscope import memscope_from_categories
+
+        return memscope_from_categories({"argument_bytes": 2**30, "temp_bytes": 2**31}, {"params": 2**30},
+                                        {"kind": "train"})
+
+
+def _trainer_run(tmp_path, monkeypatch, budget=None):
+    """4 steps of a fake step through the port's Trainer with a telemetry
+    sink in tmp_path/telemetry; `budget` stands in for the card's memory."""
+    from modalities_tpu_torch import trainer as trainer_module
+    from modalities_tpu_torch.dataloader.dataloader import DatasetBatch
+    from modalities_tpu_torch.telemetry import Telemetry
+    from modalities_tpu_torch.training.training_progress import TrainingProgress
+
+    if budget is not None:
+        monkeypatch.setattr(trainer_module, "min_bytes_limit", lambda devices=None: budget)
+
+    class Loader(list):
+        dataloader_tag = "train"
+
+    class Sink:
+        def consume(self, message):
+            pass
+
+    telemetry = Telemetry(output_folder_path=tmp_path / "telemetry", watchdog_deadline_s=0)
+    trainer = trainer_module.Trainer(Sink(), Sink(), torch.device("cpu"), global_num_tokens_per_train_step=4,
+                                     telemetry=telemetry)
+    batch = DatasetBatch({"input_ids": np.zeros((1, 4), np.int64)}, {"target_ids": np.zeros((1, 4), np.int64)})
+    try:
+        trainer.train(_OverBudgetStep(), Loader([batch] * 4), TrainingProgress(0, 0, 4, 16), lambda s: None,
+                      lambda p: None)
+    finally:
+        telemetry.close()
+    return trainer
+
+
 @pytest.mark.parametrize("name,value", list(zip(CAPTURE, ["3", "profiles", "2:2", "snapshots", "warn"])),
                          ids=[c.removeprefix("MODALITIES_TPU_") for c in CAPTURE])
 def test_capture_switches_are_refused_at_run(monkeypatch, tmp_path, name, value):
+    """(The name is the refusal's, kept; since the trainer's telemetry was
+    ported each switch is applied.) `run` no longer refuses the switch, and
+    the trainer does what the JAX trainer does with it."""
+    for other in CAPTURE:
+        monkeypatch.delenv(other, raising=False)
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=rf"{name}.*Queue 1 item 6"):
+    monkeypatch.setenv("MODALITIES_TPU_ERROR_LOG_DIR", str(tmp_path / "errors"))
+    with pytest.raises(FileNotFoundError):  # past the switches, to the missing config
         main(["run", "--config_file_path", str(tmp_path / "never_read.yaml"), "--device", "cpu"])
+    monkeypatch.chdir(tmp_path)  # a relative folder switch lands here
+    if name.endswith("_DIR"):  # a folder switch needs its window armed
+        monkeypatch.setenv(name.replace("_DIR", "_AT_STEP"), "1")
+    telemetry = tmp_path / "telemetry"
+    if name == "MODALITIES_TPU_MEMSCOPE_FITS_CHECK":
+        from modalities_tpu_torch.telemetry.memscope import FitsCheckFailure
+
+        assert _trainer_run(tmp_path, monkeypatch, budget=2**31).memscope_report["predicted_peak_bytes"] == 3 * 2**30
+        monkeypatch.delenv(name)
+        with pytest.raises(FitsCheckFailure, match="predicted per-device peak 3.00 GiB exceeds"):
+            _trainer_run(tmp_path, monkeypatch, budget=2**31)
+        return
+    trainer = _trainer_run(tmp_path, monkeypatch)
+    if name == "MODALITIES_TPU_PROFILE_AT_STEP":
+        assert trainer.profile_window.trace_path == telemetry / "profile_rank_0_steps_3-3.json"
+    elif name == "MODALITIES_TPU_PROFILE_DIR":
+        assert trainer.profile_window.trace_path.resolve() == tmp_path / "profiles" / "profile_rank_0_steps_1-1.json"
+    elif name == "MODALITIES_TPU_MEMSCOPE_AT_STEP":
+        assert sorted(p.name for p in telemetry.glob("memscope_*.json")) == [
+            "memscope_live_arrays_step_2.json", "memscope_live_arrays_step_3.json"]
+    else:
+        [snapshot] = list((tmp_path / "snapshots").iterdir())
+        assert snapshot.name == "memscope_live_arrays_step_1.json" and json.loads(snapshot.read_text())["step"] == 1
 
 
 def test_log_level_switch_sets_the_ports_logger(monkeypatch, tmp_path):
@@ -132,10 +209,10 @@ def test_log_level_switch_sets_the_ports_logger(monkeypatch, tmp_path):
     package's INFO records; a level logging does not know raises."""
     package = logging.getLogger("modalities_tpu_torch")
     before = package.level
+    monkeypatch.setenv("MODALITIES_TPU_ERROR_LOG_DIR", str(tmp_path / "errors"))
     try:
         monkeypatch.setenv("MODALITIES_TPU_LOG_LEVEL", "warning")
-        monkeypatch.setenv("MODALITIES_TPU_PROFILE_AT_STEP", "1")  # stops `run` right after the CLI's setup
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(FileNotFoundError):  # `run` stops right after the CLI's setup: no config
             main(["run", "--config_file_path", str(tmp_path / "x.yaml"), "--device", "cpu"])
         assert package.level == logging.WARNING
         assert not logging.getLogger("modalities_tpu_torch.serving.serve").isEnabledFor(logging.INFO)

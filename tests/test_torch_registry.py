@@ -45,7 +45,7 @@ def test_the_port_registers_exactly_the_jax_catalogs_pairs():
 
 
 def test_each_unported_pair_names_a_queue_1_item():
-    assert len(UNPORTED) == 46
+    assert len(UNPORTED) == 42
     for (key, variant), (item, _) in UNPORTED.items():
         assert item in (5, 6, 7)
         with pytest.raises(NotImplementedError, match=rf"{key}\.{variant} .* Queue 1 item {item}\)"):
@@ -147,3 +147,60 @@ def test_the_resilience_component_is_built_with_the_jax_schema():
             factory._instantiate("resilience", "default", {knob: value})
     with pytest.raises(ValueError, match="anomaly_policy"):
         factory._instantiate("resilience", "default", {"anomaly_policy": "ignore"})
+
+
+def test_the_telemetry_component_and_the_results_subscribers_are_built_with_the_jax_schemas(tmp_path):
+    """("telemetry", "default") builds the port's `Telemetry` from the JAX
+    `TelemetryConfig`'s fields and defaults (`use_jax_annotations` sets the
+    port's `profiler_annotations`); the results subscribers `to_disc`,
+    `rich` and `wandb` are registered; `to_disc` writes JAX's JSONL keys,
+    `wandb` raises naming its package where it is missing, and DISABLED gives
+    the no-op subscriber, as in JAX."""
+    import dataclasses
+    import importlib.util
+    import json
+
+    from modalities_tpu.config.config import TelemetryConfig as JaxTelemetryConfig
+    from modalities_tpu.config.config import WandBEvaluationResultSubscriberConfig as JaxWandBConfig
+    from modalities_tpu_torch.config.component_factory import ComponentFactory
+    from modalities_tpu_torch.logging_broker.subscribers import (
+        DummySubscriber,
+        EvaluationResultToDiscSubscriber,
+        RichResultSubscriber,
+        WandBEvaluationResultSubscriberConfig,
+    )
+    from modalities_tpu_torch.telemetry import Telemetry, TelemetryConfig
+
+    pairs = {("telemetry", "default"), ("results_subscriber", "rich"), ("results_subscriber", "to_disc"),
+             ("results_subscriber", "wandb")}
+    assert not pairs & set(UNPORTED)
+    ours = {f.name: f.default for f in dataclasses.fields(TelemetryConfig)}
+    assert ours == {name: field.default for name, field in JaxTelemetryConfig.model_fields.items()}
+    assert {f.name for f in dataclasses.fields(WandBEvaluationResultSubscriberConfig)} == set(JaxWandBConfig.model_fields)
+    factory = ComponentFactory(PORT)
+    node = {"component_key": "telemetry", "variant_key": "default",
+            "config": {"use_jax_annotations": False, "watchdog_deadline_s": 0, "anomaly_window": 8,
+                       "slo": {"objectives": [{"name": "g", "expr": "training_goodput_ratio > 0.5"}]}}}
+    telemetry = factory._instantiate("telemetry", "default", node["config"])
+    assert isinstance(telemetry, Telemetry) and telemetry.enabled and telemetry.anomaly_window == 8
+    assert telemetry._recorder._profiler_annotations is False and telemetry.slo_engine is not None
+    for bad in ({"anomaly_window": 1}, {"watchdog_first_step_factor": 0.5}, {"anomaly_zscore": 0}):
+        with pytest.raises(ValueError):
+            factory._instantiate("telemetry", "default", bad)
+    assert factory._instantiate("results_subscriber", "rich", {}).__class__ is RichResultSubscriber
+    disc = factory._instantiate("results_subscriber", "to_disc", {"output_folder_path": str(tmp_path)})
+    assert isinstance(disc, EvaluationResultToDiscSubscriber)
+    disc.consume({"dataloader_tag": "train", "num_train_steps_done": 1, "losses": {"train loss avg": 1.0},
+                  "metrics": {}, "throughput_metrics": {"tokens/s (device)": 2.0}})
+    row = json.loads((tmp_path / "evaluation_results.jsonl").read_text())
+    assert {"dataloader_tag", "num_train_steps_done", "losses", "metrics", "throughput_metrics"} <= set(row)
+    wandb = {"project": "p", "experiment_id": "e"}
+    assert isinstance(factory._instantiate("results_subscriber", "wandb", {**wandb, "mode": "DISABLED"}),
+                      DummySubscriber)
+    assert isinstance(factory._instantiate("results_subscriber", "wandb", {**wandb, "global_rank": 1}),
+                      DummySubscriber)
+    with pytest.raises(ValueError, match="unknown wandb mode"):
+        factory._instantiate("results_subscriber", "wandb", {**wandb, "mode": "sometimes"})
+    if importlib.util.find_spec("wandb") is None:
+        with pytest.raises(ImportError, match="results_subscriber.wandb needs the `wandb` package"):
+            factory._instantiate("results_subscriber", "wandb", wandb)

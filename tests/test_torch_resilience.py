@@ -139,7 +139,7 @@ def test_the_fault_points_are_jaxs_and_each_is_wired_or_refused():
     fire_sites = {"checkpoint_io_error": "fire_io_error_if_armed", "nan_grads": 'get_fault("nan_grads")',
                   "loss_spike": 'get_fault("loss_spike")', "sigterm_at_step": "fire_sigterm_if_armed",
                   "sigterm_one_rank": "fire_sigterm_one_rank_if_armed", "peer_hang": "peer_hang_if_armed",
-                  "peer_death": "peer_death_if_armed"}
+                  "peer_death": "peer_death_if_armed", "oom": "fire_oom_if_armed"}
     assert set(fire_sites) | set(faults.UNPORTED) == set(faults.FAULT_POINTS)
     assert not set(fire_sites) & set(faults.UNPORTED)
     for name, site in fire_sites.items():
@@ -150,6 +150,31 @@ def test_the_fault_points_are_jaxs_and_each_is_wired_or_refused():
             faults.arm_faults(f"nan_grads@1,{name}@2")
         assert faults.get_fault("nan_grads") is None  # nothing armed when one point is refused
     faults.clear_faults()
+
+
+def test_the_oom_point_fires_as_the_jax_point():
+    """`oom@2` raises at the dispatch of step 2 only, once, an allocation
+    failure both packages' memscope recognizes (the port's a
+    torch.OutOfMemoryError carrying the JAX message)."""
+    import torch
+
+    from modalities_tpu.telemetry.memscope import is_oom_error as jax_is_oom
+    from modalities_tpu_torch.telemetry.memscope import is_oom_error
+
+    raised = {}
+    for name, module in (("port", faults), ("jax", jax_faults)):
+        module.clear_faults()
+        module.arm_faults("oom@2")
+        assert module.fire_oom_if_armed(1) is False
+        with pytest.raises(RuntimeError) as info:
+            module.fire_oom_if_armed(2)
+        assert module.fire_oom_if_armed(2) is False  # one shot
+        module.clear_faults()
+        raised[name] = info.value
+    assert isinstance(raised["port"], torch.OutOfMemoryError)
+    assert str(raised["port"]).split(" (")[0] == str(raised["jax"]).split(" (")[0] == (
+        "RESOURCE_EXHAUSTED: injected fault: oom at step 2")
+    assert all(is_oom_error(e) and jax_is_oom(e) for e in raised.values())
 
 
 def test_env_faults_arm_once_and_shots_are_consumed(monkeypatch):
