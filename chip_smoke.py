@@ -165,8 +165,8 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      the thread stacks, the engine's stats and the card's memory under the
      JAX keys; (e) the host ms a decode step with telemetry on and off in
      turns, and the sink's records and bytes a request.
- 3g. text generation at the 2.7B's full 32 layers, its weights drawn from
-     phase 2's seed (bf16): `TextInferenceComponent`
+ 3g. text generation on phase 2's weights (the 2.7B at SERVE_LAYERS of its
+     32 layers, bf16): `TextInferenceComponent`
      (inference/text/inference_component.py) greedy on three of phase 2's
      prompts, 64 new tokens each: a second call gives the same first
      GEN_REPEAT tokens, the
@@ -336,14 +336,29 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      OutOfMemory), and `run --resilient` with the rollback policy restarting
      once from the step-2 folder to step 4. They run after phase 10, one after
      another, each alone on the card.
- 12. one JSON line naming the kernels (launches summed over the paths, and
+ 12. the profiling harness (phase_profile, its launches counted from 0 just
+     before it): `profile distributed` on configs/config_profile_gpt2.yaml as
+     the file stands (12 layers of 768, head dim 64, 4 x 2048, the full fp32
+     head), through the CLI's `main` in a temporary working directory, so
+     `./profiler_out` lands outside the checkout: each flash kernel launched
+     n_layer times a step and each RMSNorm kernel 2 n_layer + 1 times, over
+     its 6 steps; the Chrome trace of steps 4-6 names those kernels at 3
+     steps' launches (its device ms a step and each kernel's total printed);
+     memory_stats.jsonl holds 6 lines with non-zero peaks; the allocator's
+     snapshot exists; the static walk of the same config (`data
+     analyze_perfscope`'s engine, in this process on fake CPU tensors) names
+     the same kernels at one step's launches. Phase 3's fp8 engine also runs the
+     serving OOM drill: `oom@N` at its next dispatch round leaves the dump
+     (levers, the card's memory) and raises the resumable OutOfMemory (its
+     launches are not counted).
+ 13. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, serve_paged, serve_paged_int8kv, serve_spec, serve_http, serve_fleet, serve_disagg,
      serve_observed, generate_2p7b, train_2p7b, train_32k, train_32k_resume, ring_cp4,
      train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
      pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
      zero4_in_process, dcn2_in_process, tp8_bias, quickstart_train,
      quickstart_generate, skip_2p7b, consensus_32k, preempt_32k,
-     resume_32k, oom_32k, resilient_32k, serve_ckpt; the fused-CE
+     resume_32k, oom_32k, resilient_32k, profile_gpt2, serve_ckpt; the fused-CE
      kernels' times at every shape of phase 1 under `shapes`), then the
      card's name and power limit, then the device line (last line).
      `[timing]` lines give the script's wall time after each phase.
@@ -411,14 +426,15 @@ MODEL_2P7B = {  # config_serve.yaml's model node at configs/config_2p7b_dp.yaml'
 # phases 2-3f serve the 2.7B at full width cut to SERVE_LAYERS of its 32 layers: the serving phases are host-bound
 # (a decode step's host time grows with its layers), and at 32 layers the script outran its 1200 s limit on a slow
 # host. 12 is the least depth at which 3e (c) still has a request on each side of the 16 MiB import body limit.
-# Phase 3g generates at the full 32 layers.
+# Phase 3g generates on the same weights (at 32 layers until the script neared 1100 s of its 1200 s limit).
 SERVE_LAYERS = 12
 SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 64
 TRAIN_SHAPE = (2, 4096, 32, 8, 80)  # (B, S, Hq, Hkv, D) of one 2.7B training microbatch
 # (1, 2048, 12, 4, 128) is the 32k config's heads (GQA group 3, D 128) at a length whose plain scores fit;
 # (1, 4096, 4, 1, 128) one tp-8 rank's heads of the 7B (phase 8b)
+FLASH_PROFILE = (4, 2048, 12, 12, 64)  # phase 12's attention (configs/config_profile_gpt2.yaml): no GQA, D 64
 FLASH_SHAPES = [TRAIN_SHAPE, (1, 1000, 8, 2, 64), (2, 256, 4, 4, 128), (1, 1, 4, 1, 80), (1, 2048, 12, 4, 128),
-                (1, 4096, 4, 1, 128)]
+                (1, 4096, 4, 1, 128), FLASH_PROFILE]
 FLASH_LONG = (1, 32768, 12, 4, 128)  # (B, S, Hq, Hkv, D) of the 32k config's attention, checked head by head
 FLASH_7B = (4, 4096, 32, 8, 128)  # the 7B's attention on one card (phase 8a), checked head by head
 # Flash attention against the plain version, per output row relative to the
@@ -445,6 +461,7 @@ TP_ONE_TOL = 1e-3
 RMS_ROWS = (1, 4, 8, 16, 64, 1000, 8192)  # 8192 = 2 x 4096 rows of a training microbatch
 RMS_LONG = (32768, 1536)  # (rows, width) of the 32k config's norms: one sequence of 32768 at width 1536
 RMS_7B = ((16384, 4096), (512, 4096))  # the 7B's norms: 8a's 4 x 4096 rows; one tp-8 rank's 512 rows under SP (8b)
+RMS_PROFILE = (8192, 768)  # phase 12's norms (configs/config_profile_gpt2.yaml): 4 x 2048 rows at width 768
 QMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 7680), (7680, 2560), (2560, 50304)]  # (K, N) per decode step
 CE_SHAPE = (32768, 50304, 1536)  # (N, V, E) of one 32k training microbatch: rows, vocab, width
 # (N, V, E) of the 7B 32k warmstart recipe's head (config_7b_warmstart_32k.yaml): one rank of its dp_shard 2 x cp 4
@@ -572,8 +589,8 @@ def phase_kernels(torch) -> dict:
     # torch's mean: a few f32 ulps); bf16 two bf16 ulps (rtol 2^-6) on the
     # output rounded from those fp32 values.
     e, eps, err_max, cases = 2560, 1e-5, 0.0, 0
-    # decode 8, prefill ladder 64/16/4/1 and many rows at the 2.7B width; the 32k and 7B training shapes
-    shapes = [(n, e) for n in (1, 4, 8, 16, 64, 1000)] + [RMS_LONG, *RMS_7B]
+    # decode 8, prefill ladder 64/16/4/1 and many rows at the 2.7B width; the 32k, 7B and profiling shapes
+    shapes = [(n, e) for n in (1, 4, 8, 16, 64, 1000)] + [RMS_LONG, *RMS_7B, RMS_PROFILE]
     for dtype, tol in ((torch.float32, (1e-5, 1e-5)), (torch.bfloat16, (1e-6, 2**-6))):
         for n, e in shapes:
             x = torch.randn(n, e, generator=g, device=dev).to(dtype)
@@ -932,7 +949,7 @@ def phase_train_kernels(torch) -> dict:
     # sums (1e-5), 2^-7 when returned in a bf16 parameter's dtype.
     eps, err_max, cases = 1e-5, 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
-        for n, e in [(n, 2560) for n in RMS_ROWS] + [RMS_LONG, *RMS_7B]:
+        for n, e in [(n, 2560) for n in RMS_ROWS] + [RMS_LONG, *RMS_7B, RMS_PROFILE]:
             x = torch.randn(n, e, generator=g, device=dev).to(dtype)
             dy = torch.randn(n, e, generator=g, device=dev).to(dtype)
             for pdtype in (None, torch.float32, torch.bfloat16):
@@ -959,7 +976,7 @@ def phase_train_kernels(torch) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(first, second)):
                 raise AssertionError(f"rms_norm backward N={n} E={e} {dtype}: two calls differ")
     log(f"[phase 1] rms_norm backward: {cases} cases (E 2560 at N {RMS_ROWS}; N {RMS_LONG[0]} at E {RMS_LONG[1]}; "
-        f"the 7B's (N, E) {list(RMS_7B)}) agree with autograd of the plain version (f32 rel 1e-5; "
+        f"the 7B's (N, E) {list(RMS_7B)}; phase 12's {RMS_PROFILE}) agree with autograd of the plain version (f32 rel 1e-5; "
         f"bf16 dx rel 2^-6, bf16 dscale/dbias rel 2^-7; + atol 1e-5), max abs err {err_max:g}; "
         f"a second call is bitwise identical")
     n, e = 8192, 2560
@@ -3764,11 +3781,52 @@ def serve_phase(torch, model, params, quant: str, reqs: list[dict], device: str 
     out["forward_calls"] = engine.stats()["forward_calls"]
     out["rms_launches"] = rms_norm.launches - rms0
     out["qmm_launches"] = quant_matmul.launches - qmm0
+    if quant == "fp8" and device == "cuda":  # the last engine of phases 2-3: its OOM forensics, not counted
+        counted = rms_norm.launches, quant_matmul.launches
+        serving_oom_drill(torch, engine, reqs[0]["prompt"])
+        rms_norm.launches, quant_matmul.launches = counted
     if device == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del engine, component
         torch.cuda.empty_cache()
     return out
+
+
+def serving_oom_drill(torch, engine, prompt: list) -> None:
+    """The serving engine's OOM forensics on the card (JAX
+    serving/engine.py:2553-2566): `oom@N` armed at the engine's next
+    dispatch round; the run raises the resumable OutOfMemory and leaves
+    `oom_dump_rank_0_step_N.json` (no telemetry sink: in the working
+    directory, here a temporary one) with the levers and the card's memory."""
+    from modalities_tpu_torch.resilience import faults
+    from modalities_tpu_torch.resilience.errors import OutOfMemory
+
+    step = engine._dispatch_seq + 1
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        faults.clear_faults()
+        faults.arm_faults(f"oom@{step}")
+        os.chdir(tmp)
+        try:
+            engine.submit(prompt, NEW_TOKENS, temperature=0.0, seed=0)
+            try:
+                engine.run()
+            except OutOfMemory as e:
+                error = str(e)
+            else:
+                raise AssertionError(f"phase 3: oom@{step} did not fire in the serving engine")
+        finally:
+            os.chdir(cwd)
+            faults.clear_faults()
+        dump = json.loads((Path(tmp) / f"oom_dump_rank_0_step_{step}.json").read_text())
+    card = dump["device_memory"].get("cuda:0", {})
+    if dump["event"] != "oom" or dump["step"] != step or not dump["suggested_levers"] or not card.get("bytes_limit"):
+        raise AssertionError(f"phase 3: the serving OOM dump is incomplete: {sorted(dump)}, {card}")
+    log(f"[phase 3] serving OOM drill: oom@{step} raised OutOfMemory ({error[:80]}...) and dumped the levers "
+        f"{dump['suggested_levers'][:3]}, the card at {card['bytes_in_use'] / 1e9:.2f} GB in use of "
+        f"{card['bytes_limit'] / 1e9:.2f} GB")
 
 
 def profile_decode(torch, engine, reqs: list[dict], steps: int = 8) -> dict:
@@ -5282,7 +5340,7 @@ def _ring_greedy(torch, model, params, prompts: list) -> list[list[int]]:
 
 
 def phase_generate(torch, model, params, reqs: list[dict], smi: str) -> dict[str, dict[str, int]]:
-    """Text generation at the 2.7B, all 32 layers (inference/text/inference_component.py):
+    """Text generation at the 2.7B's width (inference/text/inference_component.py):
     `TextInferenceComponent` greedy on three of phase 2's prompts, 64 new
     tokens each. Held: a second call gives the first GEN_REPEAT tokens
     bitwise; the RMSNorm forward
@@ -5773,6 +5831,87 @@ def phase_resilient_run(torch, smi: str) -> dict[str, dict[str, int]]:
     return counts
 
 
+PROFILE_CONFIG = "configs/config_profile_gpt2.yaml"
+
+
+def phase_profile(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 12: `profile distributed` on the profiling config as it stands,
+    in process through the CLI, from a temporary working directory (the
+    config writes ./profiler_out), then its trace, memory lines and snapshot
+    checked, and the static walk of the same config held to its launches."""
+    import yaml
+
+    from modalities_tpu_torch.__main__ import main as cli
+    from modalities_tpu_torch.telemetry.perfscope import kernel_counts, perfscope_for_config
+
+    config = Path(__file__).resolve().parent / PROFILE_CONFIG
+    raw = yaml.safe_load(config.read_text())
+    model = raw["model"]["config"]
+    layers = model["n_layer"]
+    batch = raw["steppable_component"]["config"]["batch_generator"]["config"]
+    rows, heads = batch["micro_batch_size"] * model["sequence_length"], model["n_head_q"]
+    shapes = {"rms": (rows, model["n_embd"]), "flash": (batch["micro_batch_size"], model["sequence_length"], heads,
+                                                        model["n_head_kv"], model["n_embd"] // heads)}
+    if shapes != {"rms": RMS_PROFILE, "flash": FLASH_PROFILE}:  # phase 1 holds the kernels at these shapes
+        raise AssertionError(f"phase 12: the config's kernel shapes {shapes} are not phase 1's {RMS_PROFILE}, "
+                             f"{FLASH_PROFILE}")
+    # a step: n_layer flash calls of each kind; two norms a block and the head's, forward and backward
+    per_step = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers, "rms_fwd": 2 * layers + 1,
+                "rms_bwd": 2 * layers + 1}
+    memory = next(p for p in raw["profiler"]["config"]["profilers"] if p["variant_key"] == "memory_profiler")
+    steps = memory["config"]["max_steps"]
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        os.chdir(tmp)
+        try:
+            torch.cuda.reset_peak_memory_stats()  # the memory lines' peaks are this phase's
+            _reset_counts()
+            t = time.perf_counter()
+            code = cli(["profile", "distributed", "--config_file_path", str(config)])
+            wall = time.perf_counter() - t
+            counts = _launch_counts()
+        finally:
+            os.chdir(cwd)
+        want = {k: v * steps for k, v in per_step.items()}
+        if code != 0 or counts != want:
+            raise AssertionError(f"phase 12: profile distributed exit {code}, launches {counts}, {steps} steps of "
+                                 f"{per_step} launch {want}")
+        out = Path(tmp) / "profiler_out"
+        traces = sorted(out.glob("kernel_trace_rank_0_steps_*.json"))
+        if [p.name for p in traces] != ["kernel_trace_rank_0_steps_4-6.json"]:
+            raise AssertionError(f"phase 12: one trace of steps 4-6 expected, found {sorted(out.iterdir())}")
+        events = [e for e in json.loads(traces[0].read_text())["traceEvents"] if e.get("cat") == "kernel"]
+        in_trace = {key: sum(mark in e["name"] for e in events) for key, mark in TRACE_NAMES.items()}
+        if in_trace != {k: 3 * v for k, v in per_step.items()}:
+            raise AssertionError(f"phase 12: the trace of steps 4-6 names the kernels {in_trace} times, 3 steps "
+                                 f"launch {per_step} each")
+        lines = [json.loads(line) for line in (out / "memory_stats.jsonl").read_text().splitlines()]
+        if len(lines) != steps or not all(line.get("peak_bytes_in_use", 0) > 0 for line in lines):
+            raise AssertionError(f"phase 12: memory_stats.jsonl holds {lines}")
+        snapshot = out / "memory_snapshot.pickle"
+        if not snapshot.is_file() or snapshot.stat().st_size == 0:
+            raise AssertionError(f"phase 12: no allocator snapshot in {sorted(out.iterdir())}")
+        snapshot_mb = snapshot.stat().st_size / 1e6
+    device_ms = sum(e["dur"] for e in events) / 1e3 / 3
+    by_kernel = {key: sum(e["dur"] for e in events if mark in e["name"]) / 1e3 / 3 for key, mark in TRACE_NAMES.items()}
+    log(f"[phase 12] profile distributed {PROFILE_CONFIG} ({smi}): {steps} steps in {wall:.1f} s, launches {counts} "
+        f"= {steps} x {per_step}; trace {traces[0].name}: {len(events)} kernels, {device_ms:.3f} device ms a step; "
+        "each kernel's device ms a step: " + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()))
+    log(f"[phase 12] memory_stats.jsonl: {steps} lines, peaks "
+        f"{[round(line['peak_bytes_in_use'] / 1e9, 3) for line in lines]} GB; allocator snapshot {snapshot_mb:.1f} MB")
+    t = time.perf_counter()
+    static = perfscope_for_config(config)["executables"]["train_step"]  # no process group is held here
+    walked = kernel_counts(static)
+    if walked != per_step:
+        raise AssertionError(f"phase 12: the static walk names the kernels {walked} times a step, a step launches "
+                             f"{per_step}")
+    log(f"[phase 12] the static walk (in process, fake CPU tensors, {time.perf_counter() - t:.1f} s) names {walked} a "
+        "step; its buckets: " + ", ".join(f"{name} {b['est_time_s'] * 1e3:.3f} est ms" for name, b in static["buckets"].items()))
+    return {"profile_gpt2": counts}
+
+
 def training_phases(torch):
     """Phases 4-10 on the process group; returns each path's launch counts."""
     # phase 4: the training path. Counts start from 0 inside phase_train.
@@ -5966,13 +6105,7 @@ def main() -> int:
         paged_counts.update(phase_serve_observed(torch, model, params, reqs, runs["int8"]["tokens"], replays["int8"],
                                                  smi))
         mark("phase 3f")
-        # phase 3g: text generation at the 2.7B's full depth, its weights drawn from the same seed (its counts
-        # from 0 inside)
-        del model, params
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = build_model()
-        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        # phase 3g: text generation on the same weights (its counts from 0 inside)
         gen_counts = phase_generate(torch, model, params, reqs, smi)
         mark("phase 3g")
     del model, params
@@ -6002,6 +6135,12 @@ def main() -> int:
     resilience_counts.update(phase_resilient_run(torch, smi))
     mark("phase 11c (d)")
     log(f"[phase 11] phases 11a-c in {time.perf_counter() - t11:.1f} s")
+
+    # phase 12: the profiling harness, alone on the card, its counts from 0 inside (it builds its own world-1 group)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilience_counts.update(phase_profile(torch, smi))
+    mark("phase 12")
 
     # the kernels line. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):

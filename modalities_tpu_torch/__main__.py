@@ -15,6 +15,14 @@
     python -m modalities_tpu_torch data analyze_fleet --sink_path <file|dir> [--sink_path ...] [--as_json]
     python -m modalities_tpu_torch data check_slo --slo_path <yaml> [--sink_path ...] [--bench_path ...]
         [--trajectory_path <dir>] [--memscope_path ...] [--as_json]
+    python -m modalities_tpu_torch data analyze_perfscope | analyze_memscope --config_file_path <yaml>
+        [--report_path <json>] [--as_json]
+    python -m modalities_tpu_torch profile distributed --config_file_path <yaml> [--device cuda|cpu]
+    python -m modalities_tpu_torch benchmark validate_recipe --config_file_path <yaml> [--hbm_budget_gib G]
+        [--warmstart_checkpoint_folder <dir>] [--compile_memory_check]
+    python -m modalities_tpu_torch benchmark prepare_sweep_configs --sweep_config_path <yaml> --output_dir <dir>
+    python -m modalities_tpu_torch benchmark list_remaining_runs --sweep_dir <dir> [--skip_oom_configs]
+    python -m modalities_tpu_torch benchmark summarize_results --sweep_dir <dir>
 
 `run --test_comm` first all-gathers rank-stamped tensors over the world
 group and checks every slot. `run --resilient` supervises the run as a child
@@ -47,9 +55,22 @@ and the last MFU waterfall; on what a serve run records with
 MODALITIES_TPU_SERVE_TELEMETRY_DIR set, `analyze_serve` the latency tables of the `serve_request` records, `analyze_fleet` one span tree
 per request stitched from the routers' and the workers' sinks, `check_slo`
 a verdict per objective of an SLO spec over recorded runs (exit 1 when one
-breaches). The JAX CLI's other `data` commands raise NotImplementedError
-naming ROADMAP.md Queue 1 item 6. `analyze_telemetry` writes the error record
-when it fails, as `run` does.
+breaches); `analyze_perfscope` and `analyze_memscope` the static cost and
+memory reports of a training config's step, walked on a fake world of its
+size on the CPU (telemetry/perfscope.py, telemetry/memscope.py; no card is
+touched). The JAX CLI's other `data` commands and `convert_checkpoint_to_hf`
+raise NotImplementedError naming ROADMAP.md Queue 1 item 6.
+
+`profile distributed` runs the profiler harness (utils/profilers/): a
+config's steppable component stepped inside its profilers (a Chrome trace a
+kernel-profiler cycle, memory_stats.jsonl and the allocator's snapshot).
+`benchmark validate_recipe` builds a recipe's step on a fake world of its
+size and holds this rank's memory against the card's (default: the card's
+total, else 79.18 GiB, the total of an NVIDIA H100 80GB HBM3, 700.00 W; exit
+1 when it does not fit or the step does not walk); `prepare_sweep_configs`,
+`list_remaining_runs` and `summarize_results` are the JAX sweep tools
+(utils/benchmarking/). Every command writes the error record when it fails,
+as `run` does.
 
 All run on the CUDA card unless `--device cpu`. MODALITIES_TPU_LOG_LEVEL sets
 the level of the package's logger (default INFO), as in the JAX CLI. `run` and `warmstart` set
@@ -181,8 +202,7 @@ def warmstart(config_file_path: Path, last_checkpoint_info_file_path: Path,
 # the JAX CLI's `data` commands the port does not have yet
 _UNPORTED_DATA = ("create_raw_index", "pack_encoded_data", "merge_packed_data", "shuffle_tokenized_data",
                   "shuffle_jsonl_data", "create_shuffled_dataset_chunk", "create_shuffled_jsonl_chunk",
-                  "prepare_instruction_tuning_data", "analyze_debug_logs", "analyze_perfscope",
-                  "analyze_memscope", "analyze_bench", "tune_kernels")
+                  "prepare_instruction_tuning_data", "analyze_debug_logs", "analyze_bench", "tune_kernels")
 
 
 def _add_data_commands(sub) -> None:
@@ -212,6 +232,13 @@ def _add_data_commands(sub) -> None:
     slo_p.add_argument("--memscope_path", dest="memscope_paths", type=Path, action="append", default=[],
                        help="memscope.json static report; repeatable")
     slo_p.add_argument("--as_json", action="store_true", help="emit the verdict dict as JSON")
+    for name, what in (("analyze_perfscope", "FLOPs, bytes and estimated time a bucket"),
+                       ("analyze_memscope", "memory a bucket")):
+        scope_p = data_sub.add_parser(name, help=f"static {what} of a training config's step, on the CPU")
+        scope_p.add_argument("--config_file_path", type=Path, required=True,
+                             help="training config; its step is built and walked on a fake world of its size")
+        scope_p.add_argument("--report_path", type=Path, default=None, help="also write the report JSON here")
+        scope_p.add_argument("--as_json", action="store_true", help="emit the report dict as JSON")
     for name in _UNPORTED_DATA:
         data_sub.add_parser(name, help="not in the port yet (ROADMAP.md, Queue 1 item 6)").add_argument(
             "rest", nargs=argparse.REMAINDER)
@@ -245,10 +272,35 @@ def analyze_telemetry(sink_path: Path, as_json: bool) -> None:
         print(format_waterfall_table(waterfall))
 
 
+@_exception_handling
+def analyze_scope(command: str, config_file_path: Path, report_path: Optional[Path], as_json: bool) -> None:
+    """`data analyze_perfscope | analyze_memscope`: the config's step built
+    and walked on a fake world in a child process (no card touched), its
+    report printed as JAX's table or JSON."""
+    if command == "analyze_perfscope":
+        from modalities_tpu_torch.telemetry.perfscope import format_perfscope_table as format_table
+        from modalities_tpu_torch.telemetry.perfscope import run_perfscope_subprocess as run_report
+    else:
+        from modalities_tpu_torch.telemetry.memscope import format_memscope_table as format_table
+        from modalities_tpu_torch.telemetry.memscope import run_memscope_subprocess as run_report
+    from modalities_tpu_torch.telemetry.perfscope import write_report
+
+    report = run_report(config_file_path)
+    if report_path is not None:
+        write_report(report, report_path)
+    print(json.dumps(report) if as_json else format_table(report))
+
+
 def data_command(args, parser) -> int:
-    """`data analyze_telemetry | analyze_serve | analyze_fleet | check_slo` (the JAX CLI's)."""
+    """`data analyze_telemetry | analyze_serve | analyze_fleet | check_slo |
+    analyze_perfscope | analyze_memscope` (the JAX CLI's)."""
     if args.data_command in _UNPORTED_DATA:
-        raise NotImplementedError(f"data {args.data_command}: not in the port yet (ROADMAP.md, Queue 1 item 6)")
+        _refuse(f"data {args.data_command}")
+    if args.data_command in ("analyze_perfscope", "analyze_memscope"):
+        if not args.config_file_path.exists():
+            parser.error(f"path(s) do not exist: {args.config_file_path}")
+        analyze_scope(args.data_command, args.config_file_path, args.report_path, args.as_json)
+        return 0
     paths = [args.sink_path] if args.data_command in ("analyze_serve", "analyze_telemetry") else list(args.sink_paths)
     if args.data_command == "check_slo":
         paths += [args.slo_path, *args.bench_paths, *args.memscope_paths]
@@ -313,7 +365,91 @@ def data_command(args, parser) -> int:
     return 1 if report["breaching"] else 0
 
 
-def main(argv=None) -> int:
+@_exception_handling
+def _refuse(command: str) -> None:
+    """A JAX command the port lacks (with the error record)."""
+    raise NotImplementedError(f"{command}: not in the port yet (ROADMAP.md, Queue 1 item 6)")
+
+
+def _add_profile_benchmark_convert(sub) -> None:
+    """The JAX CLI's `profile` and `benchmark` groups and `convert_checkpoint_to_hf`."""
+    profile_p = sub.add_parser("profile", help="profiling harness")
+    profile_sub = profile_p.add_subparsers(dest="profile_command", required=True)
+    dist_p = profile_sub.add_parser("distributed", help="step a config's steppable component inside its profilers")
+    dist_p.add_argument("--config_file_path", type=Path, required=True)
+    dist_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    bench_p = sub.add_parser("benchmark", help="benchmark sweep tools")
+    bench_sub = bench_p.add_subparsers(dest="benchmark_command", required=True)
+    prep_p = bench_sub.add_parser("prepare_sweep_configs", help="expand a sweep config into one config a combination")
+    prep_p.add_argument("--sweep_config_path", type=Path, required=True)
+    prep_p.add_argument("--output_dir", type=Path, required=True)
+    remaining_p = bench_sub.add_parser("list_remaining_runs", help="done / failed / remaining runs of a sweep")
+    remaining_p.add_argument("--sweep_dir", type=Path, required=True)
+    remaining_p.add_argument("--skip_oom_configs", action="store_true")
+    recipe_p = bench_sub.add_parser("validate_recipe",
+                                    help="build a recipe's step on a fake world of its size and hold this rank's "
+                                         "memory against the card's (no card touched)")
+    recipe_p.add_argument("--config_file_path", type=Path, required=True)
+    recipe_p.add_argument("--hbm_budget_gib", type=float, default=None,
+                          help="per-card memory budget (default: the card's total memory, else 79.18, the total "
+                               "of an NVIDIA H100 80GB HBM3, 700.00 W)")
+    recipe_p.add_argument("--warmstart_checkpoint_folder", default=None,
+                          help="real checkpoint folder for warmstart recipes (default: a synthetic name)")
+    recipe_p.add_argument("--compile_memory_check", action="store_true",
+                          help="also report FSDPMemTracker's peak of the faked step beside the formula (slower)")
+    summary_p = bench_sub.add_parser("summarize_results",
+                                     help="peak/last tokens per second, MFU, final loss of each run of a sweep")
+    summary_p.add_argument("--sweep_dir", type=Path, required=True)
+    convert_p = sub.add_parser("convert_checkpoint_to_hf", help="not in the port yet (ROADMAP.md, Queue 1 item 6)")
+    convert_p.add_argument("--config_file_path", type=Path, required=True)
+    convert_p.add_argument("--output_hf_checkpoint_dir", type=Path, required=True)
+
+
+@_exception_handling
+def profile_distributed(config_file_path: Path, device: str) -> None:
+    """`profile distributed`: the harness in the port's process group."""
+    from modalities_tpu_torch.utils.profilers.modalities_profiler import ModalitiesProfilerStarter
+
+    ModalitiesProfilerStarter.run_distributed(config_file_path, device=device)
+
+
+@_exception_handling
+def benchmark_command(args) -> int:
+    """`benchmark prepare_sweep_configs | list_remaining_runs | validate_recipe | summarize_results`."""
+    command = args.benchmark_command
+    if command == "prepare_sweep_configs":
+        from modalities_tpu_torch.utils.benchmarking.sweep_utils import SweepGenerator
+
+        SweepGenerator.generate_sweep_configs(args.sweep_config_path, args.output_dir)
+        return 0
+    if command == "list_remaining_runs":
+        from modalities_tpu_torch.utils.benchmarking.benchmarking_utils import get_updated_sweep_status
+
+        print(json.dumps(get_updated_sweep_status(args.sweep_dir, skip_oom_configs=args.skip_oom_configs), indent=2,
+                         default=str))
+        return 0
+    if command == "summarize_results":
+        from modalities_tpu_torch.utils.benchmarking.benchmarking_utils import summarize_sweep_results
+
+        print(json.dumps(summarize_sweep_results(args.sweep_dir), indent=2, default=str))
+        return 0
+    from modalities_tpu_torch.utils.recipe_validation import run_validation_subprocess
+
+    budget = None if args.hbm_budget_gib is None else int(args.hbm_budget_gib * 1024**3)
+    report = run_validation_subprocess(args.config_file_path, hbm_budget_bytes=budget,
+                                       warmstart_checkpoint_folder=args.warmstart_checkpoint_folder,
+                                       compile_memory_check=args.compile_memory_check)
+    print(json.dumps(report, indent=2))
+    return 0 if report["lowering"] == "ok" and report["fits_budget"] else 1
+
+
+_EXISTING = {"profile": ("config_file_path",), "prepare_sweep_configs": ("sweep_config_path",),
+             "list_remaining_runs": ("sweep_dir",), "validate_recipe": ("config_file_path",),
+             "summarize_results": ("sweep_dir",), "convert_checkpoint_to_hf": ("config_file_path",)}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The command tree: the JAX CLI's commands and groups."""
     parser = argparse.ArgumentParser(prog="python -m modalities_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     run_p = sub.add_parser("run", help="train from a YAML config")
@@ -354,6 +490,12 @@ def main(argv=None) -> int:
                               "ROUTER port")
     serve_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     _add_data_commands(sub)
+    _add_profile_benchmark_convert(sub)
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     # the JAX package's logger level switch (a name logging does not know raises)
@@ -361,6 +503,18 @@ def main(argv=None) -> int:
 
     if args.command == "data":
         return data_command(args, parser)
+    # the JAX CLI's click paths that must exist
+    must_exist = _EXISTING.get(getattr(args, "benchmark_command", None) or args.command, ())
+    missing = [str(getattr(args, name)) for name in must_exist if not getattr(args, name).exists()]
+    if missing:
+        parser.error(f"path(s) do not exist: {', '.join(missing)}")
+    if args.command == "profile":
+        profile_distributed(args.config_file_path, args.device)
+        return 0
+    if args.command == "benchmark":
+        return benchmark_command(args)
+    if args.command == "convert_checkpoint_to_hf":
+        _refuse("convert_checkpoint_to_hf")
     if args.command in ("run", "warmstart"):
         # before the first allocation on the card: a training step's activations come and go in many sizes,
         # and expandable segments let the caching allocator reuse freed memory across them

@@ -215,6 +215,7 @@ class TrainingComponentsInstantiationModel:
     scheduled_pipeline: Any = None  # built for its effect on the model spec (pipeline.scheduled), as in JAX
     resilience: Any = None
     telemetry: Any = None
+    profiler: Any = None  # stepped by the trainer (utils/profilers/profilers.py)
 
     def __post_init__(self):
         if isinstance(self.settings, dict):
@@ -228,9 +229,26 @@ class TrainingComponentsInstantiationModel:
             logger.warning(msg)
 
 
+@dataclasses.dataclass
+class RecipeValidationInstantiationModel:
+    """What a train step's build needs and nothing that touches disk (no
+    dataloaders, no checkpoint IO): the static reports and `validate_recipe`
+    build a recipe with no corpus present (JAX
+    config/instantiation_models.py:224-243)."""
+
+    settings: Any
+    app_state: Any
+    loss_fn: Any
+    gradient_clipper: Any
+    device_mesh: Any
+
+    def __post_init__(self):
+        if isinstance(self.settings, dict):
+            self.settings = validate_config(TrainingSettings, self.settings)
+
+
 # top-level components of the JAX training configs the port does not have
 # yet: a config that sets one is refused, naming where it waits
 UNPORTED_TRAINING_COMPONENTS = {
-    "profiler": "the profiler component (ROADMAP.md, Queue 1 item 7)",
     "device_feeder": "the device feeder (ROADMAP.md, Queue 1 item 7)",
 }

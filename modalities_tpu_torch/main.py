@@ -37,7 +37,8 @@ process's active telemetry for the run (deep call sites reach it through
 checkpoint's load in `checkpoint_restore` inside it) and is closed, its sink
 sealed with the run's summary, however the run ends. The trainer applies the
 capture switches MODALITIES_TPU_PROFILE_AT_STEP / _PROFILE_DIR /
-_MEMSCOPE_AT_STEP / _MEMSCOPE_DIR / _MEMSCOPE_FITS_CHECK (trainer.py).
+_MEMSCOPE_AT_STEP / _MEMSCOPE_DIR / _MEMSCOPE_FITS_CHECK (trainer.py) and
+steps the config's `profiler` node (JAX main.py:249), beside them.
 """
 
 from __future__ import annotations
@@ -108,14 +109,15 @@ class Main:
             self._leave_group()
             raise
 
-    def build_components(self) -> TrainingComponentsInstantiationModel:
+    def build_components(self, components_model_type: type = TrainingComponentsInstantiationModel):
+        """The config's components as `components_model_type` names them
+        (config/instantiation_models.py), checked against this process's rank."""
         for key, what in UNPORTED_TRAINING_COMPONENTS.items():
             if self.config_dict.get(key) is not None:
                 raise NotImplementedError(f"config node {key!r}: {what} is not ported yet")
         self._join_group()
         try:
-            components = ComponentFactory(self.registry).build_components(self.config_dict,
-                                                                         TrainingComponentsInstantiationModel)
+            components = ComponentFactory(self.registry).build_components(self.config_dict, components_model_type)
             self._check_ranks(components)
         except BaseException:
             self._leave_group()
@@ -138,13 +140,14 @@ class Main:
         from modalities_tpu_torch.training.train_step import TrainStep
 
         app_state = components.app_state
+        resilience = getattr(components, "resilience", None)
         return TrainStep(
             app_state.model, components.loss_fn, app_state.optimizer, app_state.lr_scheduler,
             device=self.device,
             gradient_acc_steps=components.settings.step_profile.gradient_accumulation_steps,
             grad_clipper=components.gradient_clipper,
             device_mesh=components.device_mesh or DeviceMesh(world_size=env.world_size()),
-            anomaly_policy=components.resilience.anomaly_policy if components.resilience is not None else None,
+            anomaly_policy=resilience.anomaly_policy if resilience is not None else None,
         )
 
     def load_app_state(self, components: TrainingComponentsInstantiationModel, train_step):
@@ -233,6 +236,7 @@ class Main:
             preemption=resilience.preemption if resilience is not None else None,
             stop_consensus=consensus,
             telemetry=telemetry,
+            profiler=components.profiler,
         )
         training_progress = TrainingProgress(
             num_seen_steps_current_run=0,

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from modalities_tpu_torch.ops import _build
+from modalities_tpu_torch.ops import _build, static_walk
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -153,7 +153,7 @@ def reference_flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, sm_
 # ------------------------------------------------------------------- kernels
 
 
-def _check(q, k, v):
+def _check_shapes(q, k, v):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash attention: q [B, Hq, Sq, D] and k/v [B, Hkv, Sk, D], got {q.shape}, {k.shape}")
     b, hq, sq, d = q.shape
@@ -166,6 +166,10 @@ def _check(q, k, v):
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("flash attention kernels: q, k and v must lie on one device")
+
+
+def _check(q, k, v):
+    _check_shapes(q, k, v)
     _build.require_hopper(q)
 
 
@@ -242,6 +246,15 @@ def _on_card(fn_name, *tensors) -> bool:
     return True
 
 
+def _walked(q, k, v) -> bool:
+    """Whether a CPU call belongs to the static walk (ops/static_walk.py),
+    which takes the kernels' stand-ins after the kernels' shape checks."""
+    if static_walk.recorder() is None:
+        return False
+    _check_shapes(q, k, v)
+    return True
+
+
 # ------------------------------------------------------------ public entries
 
 
@@ -250,6 +263,9 @@ def flash_fwd_out_lse(q, k, v, *, causal: bool = True, sm_scale=None):
     dtype, lse [B, Hq, Sq, 1] fp32). No autograd: the caller owns
     differentiation (ring attention merges per-hop (out, lse) pairs)."""
     if not _on_card("flash_fwd_out_lse", q):
+        if _walked(q, k, v):
+            static_walk.flash("flash_fwd", q, k, causal)
+            return torch.empty_like(q, memory_format=torch.contiguous_format), torch.empty(*q.shape[:3], 1)
         return reference_flash_fwd_out_lse(q, k, v, causal=causal, sm_scale=sm_scale)
     _check(q, k, v)
     q, k, v = _rows(q), _rows(k), _rows(v)
@@ -262,6 +278,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, sm_scale=None)
     """dq [B, Hq, Sq, D] for one (q, k, v) pairing given the GLOBAL lse and
     delta ([B, Hq, Sq, 1] or [B, Hq, Sq], fp32)."""
     if not _on_card("flash_bwd_dq", q):
+        if _walked(q, k, v):
+            static_walk.flash("flash_dq", q, k, causal)
+            return torch.empty_like(q, memory_format=torch.contiguous_format)
         return reference_flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale)
     _check(q, k, v)
     q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do.to(q.dtype))
@@ -275,6 +294,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, sm_scale=None
     and delta, summed over each kv head's group of q heads (inside the kernel,
     in fp32) and returned in k's dtype."""
     if not _on_card("flash_bwd_dkv", q):
+        if _walked(q, k, v):
+            static_walk.flash("flash_dkv", q, k, causal)
+            return (torch.empty_like(k, memory_format=torch.contiguous_format),
+                    torch.empty_like(v, memory_format=torch.contiguous_format))
         return reference_flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale)
     _check(q, k, v)
     q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do.to(q.dtype))
@@ -287,6 +310,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True, sm_scale=None
 flash_fwd_out_lse.launches = 0  # kernel launches since the last reset (the CPU path never counts)
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+
+
+def backward_operands(dout, out):
+    """What the backward kernels read besides the forward's tensors, made by
+    torch: dO in out's dtype, contiguous, and delta = rowsum(dO * out), fp32
+    [B, Hq, Sq] (both [B, S, H, D] in)."""
+    dout = dout.to(out.dtype).contiguous()
+    return dout, (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -307,8 +338,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qt, kt, vt, out, lse = ctx.saved_tensors
-        dout = dout.to(out.dtype).contiguous()
-        delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [B, Hq, Sq]
+        dout, delta = backward_operands(dout, out)
         dq = torch.empty(out.shape, dtype=out.dtype, device=out.device)
         dk = torch.empty(kt.shape[0], kt.shape[2], kt.shape[1], kt.shape[3], dtype=kt.dtype, device=kt.device)
         dv = torch.empty_like(dk)
@@ -323,6 +353,8 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale=None):
     [B, Sq, Hq, D]. CUDA tensors go through `FlashAttentionFn` (the kernels);
     CPU tensors through `reference_attention`."""
     if not _on_card("flash_attention", q):
+        if _walked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)):
+            return static_walk.FlashAttention.apply(q, k, v, bool(causal))
         return reference_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     _check(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     return FlashAttentionFn.apply(q, k, v, bool(causal), _scale(q, sm_scale))

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from modalities_tpu_torch.ops import _build
+from modalities_tpu_torch.ops import _build, static_walk
 
 # E the bf16 kernels are compiled for: the 32k config's 1536 and the 7B's 4096 (dh and dW on a cluster of 16
 # CTAs there, 8 below), and two for the tests
@@ -130,10 +130,18 @@ def _on_card(fn_name, t) -> bool:
     return True
 
 
-def _kernel_inputs(h, w, labels):
-    """Checked, contiguous kernel operands and the dtype code: bf16 when h and
-    w are both bf16 (E must be one of BF16_WIDTHS), else both widened to fp32
-    (exactly what the TPU kernel computes from mixed dtypes)."""
+def _walked(h, w, labels) -> bool:
+    """Whether a CPU call belongs to the static walk (ops/static_walk.py),
+    which takes the kernels' stand-ins after the kernels' shape checks."""
+    if static_walk.recorder() is None:
+        return False
+    _check_shapes(h, w, labels)
+    return True
+
+
+def _check_shapes(h, w, labels) -> bool:
+    """Whether the bf16 kernels take h and w (else both are widened to fp32);
+    raises on what no kernel takes."""
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
         raise ValueError(f"fused CE kernels: h [N, E] and w [V, E], got {tuple(h.shape)}, {tuple(w.shape)}")
     if labels.numel() != h.shape[0]:
@@ -147,6 +155,14 @@ def _kernel_inputs(h, w, labels):
     bf16 = h.dtype == w.dtype == torch.bfloat16
     if bf16:
         check_bf16_width(h.shape[1])
+    return bf16
+
+
+def _kernel_inputs(h, w, labels):
+    """Checked, contiguous kernel operands and the dtype code: bf16 when h and
+    w are both bf16 (E must be one of BF16_WIDTHS), else both widened to fp32
+    (exactly what the TPU kernel computes from mixed dtypes)."""
+    bf16 = _check_shapes(h, w, labels)
     _build.require_hopper(h)
     if bf16:
         h, w = h.contiguous(), w.contiguous()
@@ -202,6 +218,8 @@ def _stat(t):
 def fused_ce_forward(h, w, labels):
     """h [N, E], w [V, E], labels [N] -> (lse, corr), fp32 [N]."""
     if not _on_card("fused_ce_forward", h):
+        if _walked(h, w, labels):
+            return static_walk.fused_ce("ce_fwd", h, w)
         return reference_fused_ce_forward(h, w, labels)
     hk, wk, lab, code = _kernel_inputs(h, w, labels)
     lse = torch.empty(hk.shape[0], dtype=torch.float32, device=h.device)
@@ -219,6 +237,8 @@ def fused_ce_forward(h, w, labels):
 def fused_ce_backward_dh(h, w, labels, lse, gm):
     """dh [N, E] in h's dtype for the per-row weights gm (fp32 [N])."""
     if not _on_card("fused_ce_backward_dh", h):
+        if _walked(h, w, labels):
+            return static_walk.fused_ce("ce_dh", h, w)
         return reference_fused_ce_backward(h, w, labels, lse, gm)[0]
     hk, wk, lab, code = _kernel_inputs(h, w, labels)
     lse, gm = _stat(lse), _stat(gm)
@@ -233,6 +253,8 @@ def fused_ce_backward_dh(h, w, labels, lse, gm):
 def fused_ce_backward_dw(h, w, labels, lse, gm):
     """dw [V, E] in w's dtype for the per-row weights gm (fp32 [N])."""
     if not _on_card("fused_ce_backward_dw", h):
+        if _walked(h, w, labels):
+            return static_walk.fused_ce("ce_dw", h, w)
         return reference_fused_ce_backward(h, w, labels, lse, gm)[1]
     hk, wk, lab, code = _kernel_inputs(h, w, labels)
     lse, gm = _stat(lse), _stat(gm)
@@ -282,6 +304,6 @@ def fused_ce_sum_and_count(hidden, head_weight, labels, *, ignore_index: int = -
     h2, lab = hidden.reshape(-1, e), labels.reshape(-1)
     if lab.shape[0] != h2.shape[0]:
         raise ValueError(f"fused CE: {lab.shape[0]} labels for {h2.shape[0]} rows of hidden {tuple(hidden.shape)}")
-    if not _on_card("fused_ce_sum_and_count", hidden):
+    if not _on_card("fused_ce_sum_and_count", hidden) and static_walk.recorder() is None:
         return plain_sum_and_count(h2, head_weight, lab, ignore_index=ignore_index)
     return FusedCEFn.apply(h2, head_weight, lab, int(ignore_index))

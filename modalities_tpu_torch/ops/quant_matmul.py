@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from modalities_tpu_torch.ops import _build
+from modalities_tpu_torch.ops import _build, static_walk
 
 _X_F32 = {torch.float32: 1, torch.bfloat16: 0}
 _W_FP8 = {torch.int8: 0, torch.float8_e4m3fn: 1}
@@ -175,6 +175,8 @@ def quant_matmul(x, wq, scale, prepared: PreparedWeight | None = None):
     if scale.shape != (wq.shape[1],):
         raise ValueError(f"quant_matmul: scale shape {tuple(scale.shape)} != ({wq.shape[1]},)")
     if x.device.type == "cpu":
+        if static_walk.recorder() is not None:
+            return static_walk.quant_matmul(x, wq)
         return reference_quant_matmul(x, wq, scale)
     if x.device.type != "cuda":
         raise RuntimeError(f"quant_matmul: no kernel for device {x.device}")

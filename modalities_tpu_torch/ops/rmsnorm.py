@@ -5,7 +5,8 @@
 `rms_norm` (forward) and `rms_norm_backward` dispatch on the tensor's device
 and nothing else: a CPU tensor takes the plain PyTorch version (same math), a
 CUDA tensor launches the hand-written kernels in `csrc/fused_rmsnorm.cu` or
-raises. There is no fallback from a kernel to the plain version on the card,
+raises (a CPU tensor of the static walk takes the kernels' stand-ins,
+ops/static_walk.py). There is no fallback from a kernel to the plain version on the card,
 and no switch that selects one. `fused_rms_norm` is the differentiable entry:
 `FusedRMSNormFn` (both kernels) on the card, autograd through
 `reference_rms_norm` on the CPU.
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from modalities_tpu_torch.ops import _build
+from modalities_tpu_torch.ops import _build, static_walk
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -38,6 +39,9 @@ def rms_norm(x, scale=None, bias=None, *, eps: float = 1e-6, residual: bool = Fa
     `residual=True` also the fp32 row statistic r = rsqrt(mean(x^2) + eps)
     shaped [..., 1] (what the backward reads)."""
     if x.device.type == "cpu":
+        if static_walk.recorder() is not None:
+            y, r = static_walk.rms_norm(x, scale, bias)
+            return (y, r) if residual else y
         if residual:
             x32 = x.float()
             r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
@@ -133,6 +137,8 @@ def rms_norm_backward(dy, x, scale, r, *, want_dscale: bool = True, want_dbias: 
     (dx in x's dtype, dscale fp32 [E] or None, dbias fp32 [E] or None).
     `scale` is the fp32 [E] scale the forward used, or None."""
     if x.device.type == "cpu":
+        if static_walk.recorder() is not None:
+            return static_walk.rms_norm_backward(x, scale, want_dscale, want_dbias)
         dx, dscale, dbias = reference_rms_norm_backward(dy, x, scale, r)
         return dx, dscale if want_dscale else None, dbias if want_dbias else None
     if x.device.type != "cuda":
@@ -226,7 +232,7 @@ def fused_rms_norm(x, scale=None, bias=None, *, eps: float = 1e-6):
     tensor, autograd through `reference_rms_norm` on a CPU tensor. With no
     graph to record (serving, inference mode) a CUDA tensor takes the forward
     kernel alone, without the Function's bookkeeping."""
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and static_walk.recorder() is None:
         return reference_rms_norm(x, scale, bias, eps=eps)
     params = (scale, bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, *params)):

@@ -85,8 +85,9 @@ class VocabParallelCrossEntropy(torch.autograd.Function):
     def backward(ctx, g_total, _g_count):
         logits, lab, hit, lse, mask = ctx.saved_tensors
         ds = torch.exp(logits - lse[:, None])
-        rows = torch.arange(logits.shape[0], device=logits.device)[hit]
-        ds[rows, lab[hit]] -= 1.0
+        # minus one at each row's label column on this shard (a row's label elsewhere adds -0.0): no
+        # data-dependent shape, so no host sync
+        ds.scatter_add_(1, lab.clamp(0, logits.shape[1] - 1)[:, None], -hit.to(ds.dtype)[:, None])
         return ds * (g_total * mask)[:, None], None, None, None
 
 

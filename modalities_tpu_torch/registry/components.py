@@ -15,7 +15,6 @@ from modalities_tpu_torch.tokenization.tokenizer_wrapper import PreTrainedHFToke
 _MODELS = "the other models and their data"
 _FSDP1 = "the FSDP1 names, to be mapped onto FSDP2"
 _DATA = "the other data variants"
-_PROFILING = "the profiler components"
 _DEBUGGING = "the debugging transforms"
 # the JAX catalog's pairs the port does not have yet: (component_key, variant_key) -> (Queue 1 item, what)
 UNPORTED = {
@@ -32,12 +31,6 @@ UNPORTED = {
         ("dataset", "mem_map_dataset"), ("dataset", "packed_mem_map_dataset_megatron"),
         ("sampler", "distributed_sampler"), ("sampler", "random_sampler"), ("sampler", "resumable_distributed_sampler"),
         ("sampler", "sequential_sampler"))},
-    **{pair: (7, _PROFILING) for pair in (
-        ("profiler", "no_profiler"), ("profiler", "kernel_profiler"), ("profiler", "memory_profiler"),
-        ("profiler", "combined_profiler"), ("steppable_profiler", "no_profiler"), ("steppable_profiler", "combined"),
-        ("steppable_profiler", "kernel_tracing"), ("steppable_profiler", "memory_tracing"),
-        ("steppable_component", "forward_pass"), ("batch_generator", "random_dataset_batch_generator"),
-        ("dataset_batch_generator", "random"))},
     **{pair: (7, _DEBUGGING) for pair in (
         ("model", "compiled"), ("model", "debugging_enriched"), ("model_debugging_hook", "nan_hook"),
         ("model_debugging_hook", "print_forward_hook"), ("debugging", "settings"))},
@@ -112,6 +105,8 @@ def _training_components() -> list[ComponentEntity]:
     )
     from modalities_tpu_torch.utils.mfu import GPT2MFUCalculator, GPT2MFUCalculatorConfig
     from modalities_tpu_torch.utils.number_conversion import NUMBER_CONVERSIONS
+    from modalities_tpu_torch.utils.profilers import profilers as prof
+    from modalities_tpu_torch.utils.profilers import steppable_components as steppable
 
     def E(key, variant, component, config=None, own_config=True):  # noqa: N802
         """A dataclass component is its own config unless another is given."""
@@ -170,6 +165,21 @@ def _training_components() -> list[ComponentEntity]:
         E("resilience", "default", Resilience, ResilienceConfig),
         E("telemetry", "default", build_telemetry, TelemetryConfig),
         *[E("number_conversion", name, fn, config) for name, fn, config in NUMBER_CONVERSIONS],
+        # the profiler harness (`profile distributed`) and the trainer's `profiler` node, under JAX's names
+        # and the reference's
+        *[E(key, "random_dataset_batch_generator" if key == "batch_generator" else "random",
+            steppable.RandomDatasetBatchGenerator, steppable.RandomDatasetBatchGeneratorConfig)
+          for key in ("batch_generator", "dataset_batch_generator")],
+        E("steppable_component", "forward_pass", steppable.steppable_forward_pass,
+          steppable.SteppableForwardPassConfig),
+        *[E(key, variant, component, config, own_config=False) for key, names in (
+            ("profiler", ("no_profiler", "kernel_profiler", "memory_profiler", "combined_profiler")),
+            ("steppable_profiler", ("no_profiler", "kernel_tracing", "memory_tracing", "combined")))
+          for variant, (component, config) in zip(names, (
+              (prof.SteppableNoProfiler, None),
+              (prof.steppable_kernel_profiler, prof.SteppableKernelProfilerConfig),
+              (prof.SteppableMemoryProfiler, prof.SteppableMemoryProfilerConfig),
+              (prof.SteppableCombinedProfiler, prof.SteppableCombinedProfilerConfig)))],
     ]
 
 

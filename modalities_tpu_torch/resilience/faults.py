@@ -176,7 +176,7 @@ def fire_sigterm_if_armed(step: int) -> bool:
 
 def fire_oom_if_armed(step: int) -> bool:
     """Raise an injected allocation failure when `oom` is armed for `step`:
-    placed at the trainer's dispatch, so memscope's OOM forensics (the dump,
+    placed at the trainer's and the serving engine's dispatch, so memscope's OOM forensics (the dump,
     the resumable exit) run on the CPU as on the card. It is a
     `torch.OutOfMemoryError` carrying the JAX fault's message."""
     fault = _consume("oom", step=step)

@@ -120,6 +120,7 @@ import time
 import uuid
 from collections import deque
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -139,7 +140,9 @@ from modalities_tpu_torch.quant.weights import (
 from modalities_tpu_torch.serving.paged_cache import BlockTableState, blocks_for_tokens
 from modalities_tpu_torch.serving.resilience import TenantRegistry, deadline_expired, resolve_tenant
 from modalities_tpu_torch.serving.spec_decode import propose_ngram, resolve_spec_config
+from modalities_tpu_torch.resilience.faults import fire_oom_if_armed
 from modalities_tpu_torch.telemetry import get_active_telemetry, span
+from modalities_tpu_torch.telemetry.memscope import is_oom_error, oom_forensics
 from modalities_tpu_torch.telemetry.metrics import MetricsRegistry
 
 _DEFAULT_PREFILL_CHUNKS = (64, 16, 4, 1)  # descending, ending in 1: every prompt length fits
@@ -2016,7 +2019,14 @@ class ServingEngine:
 
         Watchdog: a round with pending work arms the active telemetry's hang
         watchdog, beats it when the round dispatched and disarms it when idle
-        (waiting is not a hang); a wedged dispatch dumps an artifact."""
+        (waiting is not a hang); a wedged dispatch dumps an artifact.
+
+        OOM forensics (JAX engine.py:2553-2566): an allocation failure in the
+        (paged) prefill or the decode dispatch (or the `oom@N` fault point,
+        N the dispatch round) writes `oom_dump_rank_<r>_step_<N>.json` under
+        the telemetry sink's folder (else the working directory) with the
+        engine's metrics and the levers, and raises the resumable
+        `OutOfMemory` in its place."""
         telemetry = get_active_telemetry()
         self._maybe_apply_swap()
         armed = bool(self._queue) or self._active_count() > 0
@@ -2026,12 +2036,21 @@ class ServingEngine:
         dispatches_before = self.prefill_dispatches
         self._admit(t0)
         did = self.prefill_dispatches != dispatches_before
-        if self.kv_cache == "paged" and self._prefilling_slots():
-            self._prefill_dispatch(t0)
-            did = True
-        if self._decoding_count():
-            self._decode_dispatch(t0)
-            did = True
+        try:
+            fire_oom_if_armed(self._dispatch_seq)
+            if self.kv_cache == "paged" and self._prefilling_slots():
+                self._prefill_dispatch(t0)
+                did = True
+            if self._decoding_count():
+                self._decode_dispatch(t0)
+                did = True
+        except Exception as e:
+            if is_oom_error(e):  # the dump (the stats, the levers) first, then the resumable OutOfMemory
+                raise oom_forensics(
+                    telemetry.sink_path.parent if telemetry.sink_path is not None else Path("."),
+                    rank=telemetry.global_rank, step=self._dispatch_seq, exc=e, static_report=None,
+                    metrics_snapshot=self.metrics.snapshot()) from e
+            raise
         self._publish_live()
         if armed:
             if did:

@@ -27,6 +27,10 @@ forensics. The port of modalities_tpu/telemetry/memscope.py:56-570.
    ``oom_dump_rank_*_step_*.json`` (static report, timeline tail, top blocks,
    metrics, levers) and is re-raised as the resumable `OutOfMemory`. The
    ``oom@step`` fault point drives the whole path on the CPU.
+4. **The config's report.** `memscope_for_config` builds a config's train
+   step on a fake world of its size (utils/recipe_validation.py) and gives
+   the static report above; `python -m modalities_tpu_torch.telemetry.memscope
+   <config.yaml>` prints it (`data analyze_memscope`).
 """
 
 from __future__ import annotations
@@ -496,3 +500,82 @@ def oom_forensics(
         f"forensics dump: {where}; exiting resumable so the supervisor can "
         "warmstart (possibly degraded: see suggested_levers) to resume"
     )
+
+
+# --------------------------------------------------- train-step report (config)
+
+
+def memscope_for_config(config_file_path, warmstart_checkpoint_folder: Optional[str] = None) -> dict:
+    """The static report of the config's train step, built on its fake world
+    (utils/recipe_validation.py:build_train_step; nothing materializes), so
+    any world size reports on a CPU host."""
+    from modalities_tpu_torch.utils.recipe_validation import build_train_step
+
+    with build_train_step(Path(config_file_path), warmstart_checkpoint_folder) as built:
+        report = built.train_step.memscope_report(built.batch)
+    return {"config": str(config_file_path), "world_size": built.world_size, "executables": {"train_step": report}}
+
+
+def run_memscope_subprocess(config_file_path, warmstart_checkpoint_folder: Optional[str] = None) -> dict:
+    """`python -m modalities_tpu_torch.telemetry.memscope` in a child process
+    with no card visible, as `run_perfscope_subprocess`."""
+    from modalities_tpu_torch.utils.recipe_validation import run_module_subprocess
+
+    args = ["--warmstart_checkpoint_folder", warmstart_checkpoint_folder] if warmstart_checkpoint_folder else []
+    return run_module_subprocess("modalities_tpu_torch.telemetry.memscope", Path(config_file_path), *args)
+
+
+# ------------------------------------------------------------------- rendering
+
+
+def format_memscope_table(report: dict) -> str:
+    """Aligned text table: per-executable static buckets (MiB + share) with the
+    runtime-peak/headroom line beside the static estimate when the device
+    reports memory stats (JAX's text)."""
+    executables = report.get("executables") or {"executable": report}
+    runtime = device_memory_stats()
+    peak = max(
+        (s.get("peak_bytes_in_use", 0) for s in runtime.values() if "error" not in s),
+        default=0,
+    )
+    limit = min_bytes_limit()
+    lines = []
+    for name, mod in executables.items():
+        analysis = mod.get("memory_analysis") or {}
+        total = int(analysis.get("total_bytes") or mod.get("predicted_peak_bytes") or 0)
+        lines.append(f"{name}: predicted per-device peak {total / (1024 ** 2):.1f} MiB")
+        lines.append(f"  {'bucket':<24} {'MiB':>10} {'share':>7}")
+        for bucket, nbytes in sorted(
+            (mod.get("buckets") or {}).items(), key=lambda kv: -kv[1]
+        ):
+            share = nbytes / total if total else 0.0
+            lines.append(f"  {bucket:<24} {nbytes / (1024 ** 2):>10.1f} {share:>6.1%}")
+        if limit:
+            headroom = limit - total
+            lines.append(
+                f"  vs device budget: limit {limit / (1024 ** 2):.1f} MiB, "
+                f"runtime peak {peak / (1024 ** 2):.1f} MiB, "
+                f"static headroom {headroom / (1024 ** 2):.1f} MiB"
+            )
+        else:
+            lines.append("  (no bytes_limit on this backend: headroom n/a)")
+        lines.append("")
+    return "\n".join(lines).rstrip()
+
+
+# ---------------------------------------------------------- subprocess entry
+
+
+def _main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("config_file_path", type=Path)
+    parser.add_argument("--warmstart_checkpoint_folder", default=None)
+    args = parser.parse_args()
+    print(json.dumps(memscope_for_config(args.config_file_path,
+                                         warmstart_checkpoint_folder=args.warmstart_checkpoint_folder)))
+
+
+if __name__ == "__main__":
+    _main()

@@ -1,8 +1,26 @@
-"""Performance-attribution scope, runtime part: the port of
-modalities_tpu/telemetry/perfscope.py's profiler capture windows and
-step-time anomaly detection.
+"""Performance-attribution scope: the port of
+modalities_tpu/telemetry/perfscope.py.
 
-1. **Profiler capture windows.** `ProfileWindow.from_env()` parses
+1. **The static cost walk.** JAX buckets the instructions of a compiled
+   step's optimized HLO. torch compiles nothing to read, so `StaticWalk`
+   runs one train step of the config's card path on fake tensors (no
+   storage, no device: utils/recipe_validation.py builds the step on a fake
+   process group of the config's world size) and buckets every op a
+   `TorchDispatchMode` sees, with its FLOPs, bytes and roofline time, into
+   JAX's classes: `matmul` (aten mm / addmm / bmm / baddbmm / _scaled_mm),
+   `custom_call` (the hand-written kernels, each one op with the work of the
+   kernel table's bound formulas: ops/static_walk.py), `collective:<axis>`
+   (each c10d op by the mesh dim of its process group), `host_transfer`
+   (copies across host and device, a host read of a device value),
+   `elementwise` (pointwise and reduction ops) and `other`. Views and
+   metadata ops are skipped, as JAX skips its bookkeeping instructions.
+   Eager torch fuses nothing, so each op carries its operands' and results'
+   bytes (JAX: a fusion carries the traffic, its inner ops the flops). The
+   total is the sum of the buckets by construction, in integers.
+   `torch.utils.flop_counter.FlopCounterMode`'s total of the same step rides
+   beside it (`flop_counter`) where JAX puts XLA's cost analysis. `HwSpec`
+   holds the datasheet figures of an NVIDIA H100 80GB HBM3, 700.00 W.
+2. **Profiler capture windows.** `ProfileWindow.from_env()` parses
    `MODALITIES_TPU_PROFILE_AT_STEP=N[:K]` and records steps [N, N+K) with
    `torch.profiler.profile` (CPU activity, plus CUDA on a card), then writes
    a Chrome trace (`profile_rank_<r>_steps_<N>-<N+K-1>.json`) into
@@ -11,14 +29,16 @@ step-time anomaly detection.
    unconditionally; both are no-ops outside the window. Capture never
    changes a step's result: only host-side trace collection toggles. A
    profiler failure is logged, never raised, as in the JAX package.
-2. **Anomaly detection.** `AnomalyDetector` keeps a rolling window and scores
+3. **Anomaly detection.** `AnomalyDetector` keeps a rolling window and scores
    each observation with a robust z (median/MAD, 0.6745 normalization) plus an
    EWMA; the `Telemetry` facade feeds per-step wall time and per-goodput-bucket
    deltas through detectors into the metrics registry
    (`training_step_time_anomaly_total`, `training_goodput_bucket_zscore`).
 
-The JAX module's static HLO cost walk (`analyze_hlo_text`,
-`perfscope_for_config`) is ROADMAP.md Queue 1 item 6's next part.
+The module doubles as a subprocess entry point: `python -m
+modalities_tpu_torch.telemetry.perfscope <config.yaml>` walks the config's
+train step on its fake world and prints the report JSON (`data
+analyze_perfscope`).
 """
 
 from __future__ import annotations
@@ -32,6 +52,8 @@ from collections import deque
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Union
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +81,302 @@ def parse_window(raw: str, env_name: str, what: str) -> tuple[int, int]:
         return int(raw), 1
     except ValueError as e:
         raise ValueError(f"{env_name}={raw!r}: expected N or N:K ({what} K steps starting at step N)") from e
+
+
+# ------------------------------------------------------------ the static walk
+
+
+@dataclass
+class HwSpec:
+    """Roofline constants of the time estimate: the datasheet figures of an
+    NVIDIA H100 80GB HBM3, 700.00 W (dense tensor-core peaks in bf16/fp16
+    and fp8, fp32 outside the tensor cores, HBM3 rate, NVLink's rate a
+    direction), the bounds of PERF.md's kernel table. An op is priced at the
+    peak of the units it runs on: a matmul by its operands' dtype (the port
+    runs fp32 matmuls without TF32), an elementwise op on the CUDA cores.
+    The collective figures are not measured: one card has no peer. Bucket
+    shares are what the report is for, not absolute seconds."""
+
+    peak_flops: float = 989.4e12  # bf16 / fp16 tensor-core FLOP/s
+    peak_flops_fp8: float = 1979e12  # fp8 tensor-core FLOP/s
+    peak_flops_fp32: float = 67e12  # fp32 FLOP/s outside the tensor cores
+    hbm_bw: float = 3.35e12  # bytes/s
+    collective_bw: float = 450e9  # bytes/s over NVLink, one direction
+    collective_latency_s: float = 0.0  # per-op cost: not measured
+
+    def peak(self, dtype) -> float:
+        """FLOP/s of a matmul whose operands are `dtype`."""
+        import torch
+
+        if dtype in (torch.float32, torch.float64):
+            return self.peak_flops_fp32
+        if dtype.is_floating_point and dtype.itemsize == 1:
+            return self.peak_flops_fp8
+        return self.peak_flops
+
+    def as_dict(self) -> dict:
+        return {
+            "peak_flops": self.peak_flops,
+            "peak_flops_fp8": self.peak_flops_fp8,
+            "peak_flops_fp32": self.peak_flops_fp32,
+            "hbm_bw": self.hbm_bw,
+            "collective_bw": self.collective_bw,
+            "collective_latency_s": self.collective_latency_s,
+        }
+
+
+_MATMUL_OPS = frozenset(("mm", "addmm", "bmm", "baddbmm", "_scaled_mm"))
+# no data moved and no flops: allocations, shape queries, aliases (views are skipped by their schema)
+_SKIP_OPS = frozenset(("empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided", "_unsafe_view",
+                       "lift_fresh", "set_", "resize_", "sym_size", "sym_stride", "sym_numel", "sym_storage_offset",
+                       "record_stream", "is_same_size"))
+_COPY_OPS = frozenset(("_to_copy", "copy_", "clone"))
+_COLLECTIVE_NAMESPACES = frozenset(("c10d", "_c10d_functional", "c10d_functional"))
+_WAIT_OPS = frozenset(("wait_tensor", "wait"))
+_IN_PLACE_UPDATES = frozenset(("_fused_adamw_", "_fused_adam_"))
+
+
+def _tensors(tree) -> list:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensors(item)]
+    if isinstance(tree, dict):
+        return [t for item in tree.values() for t in _tensors(item)]
+    return []
+
+
+def _nbytes(t) -> int:
+    return int(t.numel()) * t.element_size()
+
+
+def _group_of(args) -> tuple[Optional[str], int]:
+    """(name, size) of the process group a c10d op runs over: its
+    ProcessGroup argument, or the group a functional collective names."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                group = dist.ProcessGroup.unbox(a)
+            except RuntimeError:  # another script object (a ReduceOp, a Work)
+                continue
+            return group.group_name, group.size()
+        if isinstance(a, str):
+            return a, _resolve_process_group(a).size()
+    return None, 0
+
+
+def _group_axes(device_mesh) -> dict[str, str]:
+    """group name -> the mesh dim it serves (the first dim in mesh order, so
+    a dim of the whole world is named, not the world)."""
+    if device_mesh is None or getattr(device_mesh, "_torch_mesh", None) is None:
+        return {}
+    mesh, axes = device_mesh._torch_mesh, {}
+    for name in (*device_mesh.mesh_axes, "dp_shard_cp", "batch"):
+        try:
+            group = mesh[name].get_group()
+        except (KeyError, RuntimeError, ValueError):
+            continue
+        axes.setdefault(group.group_name, name)
+    return axes
+
+
+class StaticWalk(TorchDispatchMode):
+    """Buckets every op of the block (one train step on fake tensors, built
+    by utils/recipe_validation.py) and every kernel the stand-ins of
+    ops/static_walk.py record while the block runs; `report()` gives JAX's report schema. An op
+    on a DTensor is counted where its local ops run, once."""
+
+    def __init__(self, device_mesh=None, hw: Optional[HwSpec] = None, top_ops: int = 5):
+        super().__init__()
+        self.hw = hw or HwSpec()
+        self.top_ops = top_ops
+        self.mesh_axes = dict(device_mesh.mesh_axes) if device_mesh is not None else {}
+        self._axes = _group_axes(device_mesh)
+        self.buckets: dict[str, dict] = {}
+
+    def __enter__(self):
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from modalities_tpu_torch.ops.static_walk import walking
+
+        self._stand_ins = walking(self)
+        self._stand_ins.__enter__()
+        out = super().__enter__()
+        self.flop_counter = FlopCounterMode(display=False)  # above this mode: it sees each op once too
+        self.flop_counter.__enter__()
+        return out
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        try:
+            self.flop_counter.__exit__(exc_type, exc_val, exc_tb)
+            return super().__exit__(exc_type, exc_val, exc_tb)
+        finally:
+            self._stand_ins.__exit__(exc_type, exc_val, exc_tb)
+
+    def _add(self, bucket: str, label: str, flops: int, nbytes: int, est: float) -> None:
+        b = self.buckets.get(bucket)
+        if b is None:
+            b = self.buckets[bucket] = {"ops": 0, "flops": 0, "bytes": 0, "est_time_s": 0.0, "top_ops": {}}
+        b["ops"] += 1
+        b["flops"] += int(flops)
+        b["bytes"] += int(nbytes)
+        b["est_time_s"] += est
+        top = b["top_ops"].setdefault(label, {"op": label, "calls": 0, "flops": 0, "bytes": 0, "est_time_s": 0.0})
+        top["calls"] += 1
+        top["flops"] += int(flops)
+        top["bytes"] += int(nbytes)
+        top["est_time_s"] += est
+
+    def _roofline(self, flops: int, nbytes: int, peak: float) -> float:
+        return max(flops / peak, nbytes / self.hw.hbm_bw)
+
+    def custom_call(self, name: str, flops: int, nbytes: int, what: str = "", tensor_cores: bool = True) -> None:
+        """One hand-written kernel, as its stand-in records it."""
+        peak = self.hw.peak_flops if tensor_cores else self.hw.peak_flops_fp32
+        self._add("custom_call", name, flops, nbytes, self._roofline(flops, nbytes, peak))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        namespace, name = func.namespace, func._schema.name.split("::")[-1]
+        # the fused Adam updates write their operands in place and return nothing; torch has no fake kernel for
+        # the tensor-rate overload the train step runs (the fake mode would run the CPU kernel on real copies)
+        out = None if name in _IN_PLACE_UPDATES else func(*args, **kwargs)
+        if func.is_view or namespace in ("profiler", "prim") or name in _SKIP_OPS or name in _WAIT_OPS:
+            return out
+        inputs = _tensors((args, kwargs))
+        if any(isinstance(t, DTensor) for t in inputs):
+            return out  # its local ops come through here on their own
+        outputs = _tensors(out)
+        seen, read = set(), 0
+        for t in inputs:
+            if id(t) not in seen:
+                seen.add(id(t))
+                read += _nbytes(t)
+        nbytes = read + sum(_nbytes(t) for t in outputs)
+        label = str(func)
+        if namespace in _COLLECTIVE_NAMESPACES:
+            group, size = _group_of(args)
+            axis = self._axes.get(group) or (f"size{size}" if size > 1 else "all")  # JAX's tags for the unnamed
+            self._add(f"collective:{axis}", label, 0, nbytes,
+                      nbytes / self.hw.collective_bw + self.hw.collective_latency_s)
+        elif name == "_local_scalar_dense" or name in _COPY_OPS and len({t.device.type for t in inputs + outputs}) > 1:
+            self._add("host_transfer", label, 0, nbytes, nbytes / self.hw.hbm_bw)
+        elif name in _MATMUL_OPS:
+            a, b = (args[1], args[2]) if name in ("addmm", "baddbmm") else (args[0], args[1])
+            flops = 2 * int(a.numel()) * int(b.shape[-1])
+            self._add("matmul", label, flops, nbytes, self._roofline(flops, nbytes, self.hw.peak(a.dtype)))
+        elif name not in _COPY_OPS and (_elementwise(func) or name.startswith("_foreach_")
+                                         or name in _IN_PLACE_UPDATES):
+            flops = max((int(t.numel()) for t in inputs + outputs), default=0)
+            self._add("elementwise", label, flops, nbytes, self._roofline(flops, nbytes, self.hw.peak_flops_fp32))
+        else:
+            self._add("other", label, 0, nbytes, nbytes / self.hw.hbm_bw)
+        return out
+
+    def report(self, module: str = "train_step") -> dict:
+        """JAX's report schema over what the block recorded; the total is the
+        sum of the buckets."""
+        buckets = {}
+        for name in sorted(self.buckets):
+            b = self.buckets[name]
+            top = sorted(b["top_ops"].values(), key=lambda o: -o["est_time_s"])
+            top = top if name == "custom_call" else top[:self.top_ops]  # every kernel: at most nine
+            buckets[name] = {**{k: b[k] for k in ("ops", "flops", "bytes")},
+                             "est_time_s": round(b["est_time_s"], 12),
+                             "top_ops": [{**o, "est_time_s": round(o["est_time_s"], 12)} for o in top]}
+        total = {
+            "ops": sum(b["ops"] for b in buckets.values()),
+            "flops": sum(b["flops"] for b in buckets.values()),
+            "bytes": sum(b["bytes"] for b in buckets.values()),
+            "est_time_s": round(sum(b["est_time_s"] for b in buckets.values()), 12),
+        }
+        return {"module": module, "mesh_axes": dict(self.mesh_axes), "hw": self.hw.as_dict(), "buckets": buckets,
+                "total": total, "flop_counter": {"flops": int(self.flop_counter.get_total_flops())}}
+
+
+def _elementwise(func) -> bool:
+    """Pointwise and reduction ops, by their schema's tags (a torch without
+    the reduction tag names none)."""
+    import torch
+
+    tags = set(func.tags)
+    return torch.Tag.pointwise in tags or getattr(torch.Tag, "reduction", None) in tags
+
+
+def format_perfscope_table(report: dict) -> str:
+    """Aligned text table for one or many module reports ({"executables": ...}
+    or a single report): JAX's text, with the FlopCounterMode cross-check
+    line where the report has one."""
+    modules = report.get("executables") or {report.get("module") or "module": report}
+    lines = []
+    for name, mod in modules.items():
+        total = mod["total"]
+        lines.append(
+            f"{name}: {total['ops']} ops, {total['flops'] / 1e9:.3f} GFLOP, "
+            f"{total['bytes'] / 1e6:.3f} MB, est {total['est_time_s'] * 1e3:.4f} ms"
+        )
+        lines.append(f"  {'bucket':<24} {'ops':>6} {'GFLOP':>10} {'MB':>10} {'est ms':>10} {'share':>7}")
+        for bucket, b in sorted(
+            mod["buckets"].items(), key=lambda kv: -kv[1]["est_time_s"]
+        ):
+            share = b["est_time_s"] / total["est_time_s"] if total["est_time_s"] else 0.0
+            lines.append(
+                f"  {bucket:<24} {b['ops']:>6} {b['flops'] / 1e9:>10.3f} "
+                f"{b['bytes'] / 1e6:>10.3f} {b['est_time_s'] * 1e3:>10.4f} {share:>6.1%}"
+            )
+        xla = mod.get("xla_cost_analysis") or {}
+        if "flops" in xla:
+            lines.append(
+                f"  xla cost_analysis cross-check: {xla['flops'] / 1e9:.3f} GFLOP, "
+                f"{xla.get('bytes accessed', 0.0) / 1e6:.3f} MB"
+            )
+        counted = mod.get("flop_counter") or {}
+        if "flops" in counted:
+            lines.append(f"  torch FlopCounterMode cross-check: {counted['flops'] / 1e9:.3f} GFLOP")
+        lines.append("")
+    return "\n".join(lines).rstrip()
+
+
+def kernel_counts(report: dict) -> dict[str, int]:
+    """Kernel name -> the walk's calls of it in one step (the custom_call
+    bucket lists every kernel)."""
+    bucket = report.get("buckets", {}).get("custom_call") or {}
+    return {o["op"]: o["calls"] for o in bucket.get("top_ops", [])}
+
+
+def perfscope_for_config(config_file_path: Union[str, Path], warmstart_checkpoint_folder: Optional[str] = None,
+                         hw: Optional[HwSpec] = None) -> dict:
+    """One train step of the config walked on its fake world
+    (utils/recipe_validation.py:build_train_step; for a profiler-harness
+    config its forward pass's step): the report, under JAX's {config,
+    world_size, executables: {train_step: ...}}."""
+    from modalities_tpu_torch.utils.recipe_validation import build_train_step
+
+    with build_train_step(Path(config_file_path), warmstart_checkpoint_folder) as built:
+        walk = StaticWalk(built.device_mesh, hw)
+        with walk:
+            built.run()
+        report = walk.report()
+    return {"config": str(config_file_path), "world_size": built.world_size, "executables": {"train_step": report}}
+
+
+def run_perfscope_subprocess(config_file_path: Union[str, Path],
+                             warmstart_checkpoint_folder: Optional[str] = None) -> dict:
+    """`python -m modalities_tpu_torch.telemetry.perfscope` in a child
+    process with no card visible: works from any process (one that holds a
+    process group or a card)."""
+    from modalities_tpu_torch.utils.recipe_validation import run_module_subprocess
+
+    args = ["--warmstart_checkpoint_folder", warmstart_checkpoint_folder] if warmstart_checkpoint_folder else []
+    return run_module_subprocess("modalities_tpu_torch.telemetry.perfscope", Path(config_file_path), *args)
 
 
 # ------------------------------------------------------------- profiler windows
@@ -202,3 +520,21 @@ class AnomalyDetector:
             self.anomalies += 1
         self.window.append(value)
         return Anomaly(value=value, zscore=z, ewma=self.ewma, is_anomaly=is_anomaly)
+
+
+# ---------------------------------------------------------- subprocess entry
+
+
+def _main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("config_file_path", type=Path)
+    parser.add_argument("--warmstart_checkpoint_folder", default=None)
+    args = parser.parse_args()
+    print(json.dumps(perfscope_for_config(args.config_file_path,
+                                          warmstart_checkpoint_folder=args.warmstart_checkpoint_folder)))
+
+
+if __name__ == "__main__":
+    _main()

@@ -36,7 +36,10 @@ the only one):
   second step on;
 - MODALITIES_TPU_PROFILE_AT_STEP arms a `torch.profiler` window
   (telemetry/perfscope.py), MODALITIES_TPU_MEMSCOPE_AT_STEP allocator
-  snapshots; a memory timeline sample is taken after every step;
+  snapshots; a memory timeline sample is taken after every step; the
+  config's `profiler` is entered before the loop, stepped after each step's
+  callbacks and exited however the loop ends (JAX trainer.py:228-230,
+  :382-383, :463-464);
 - before the first dispatch memscope's static report is held against the
   card's memory (`FitsCheckFailure` names the levers); an allocation failure
   at the dispatch leaves an OOM dump and raises the resumable `OutOfMemory`;
@@ -114,7 +117,7 @@ class Trainer:
                  global_num_tokens_per_train_step: int = 0, num_seen_train_steps: int = 0,
                  training_log_interval_in_steps: int = 1, mfu_calculator=None, error_if_nonfinite: bool = False,
                  global_rank: int = 0, world_size: int = 1, anomaly_tracker=None, preemption=None,
-                 stop_consensus: bool = False, telemetry: Optional[Telemetry] = None):
+                 stop_consensus: bool = False, telemetry: Optional[Telemetry] = None, profiler=None):
         self.progress_subscriber = progress_subscriber
         self.evaluation_subscriber = evaluation_subscriber
         self.device = device
@@ -131,6 +134,7 @@ class Trainer:
         self.stop_consensus = stop_consensus
         # None: the process-global telemetry at train() time (the no-op unless Main activated one)
         self.telemetry = telemetry
+        self.profiler = profiler  # a steppable profiler (utils/profilers/profilers.py) or None
         self.memscope_report: Optional[dict] = None  # the static report the fits check held (None on the CPU)
         self.profile_window: Optional[ProfileWindow] = None  # the capture window of the last train()
         self._host_stall_s = 0.0
@@ -189,6 +193,8 @@ class Trainer:
         memscope_window = MemscopeWindow.from_env(fallback_dir=artifact_dir)
         fits_checked = False
         feed = self._feed(train_loader)
+        if self.profiler is not None:
+            self.profiler.__enter__()
         try:
             while True:
                 with telemetry.span("data_wait"):
@@ -259,6 +265,8 @@ class Trainer:
                 evaluation_callback(step_id)
                 checkpointing_callback(training_progress)
                 self._boundary_stall_s += time.perf_counter() - boundary_t0
+                if self.profiler is not None:
+                    self.profiler.step()
                 if profile_window is not None:
                     profile_window.maybe_stop(step_id)
                 mem_timeline.sample(step_id)
@@ -286,6 +294,8 @@ class Trainer:
             if profile_window is not None and profile_window.active:
                 # the loop left mid-window (a crash, a preemption, the loader's end): close the trace readable
                 profile_window.maybe_stop(profile_window.start_step + profile_window.num_steps)
+            if self.profiler is not None:
+                self.profiler.__exit__(None, None, None)
         if pending:  # a trailing partial interval is published, not observed (as in JAX)
             results.append(self._publish(pending, step_id, train_loader.dataloader_tag, interval_start,
                                          training_progress)[0])

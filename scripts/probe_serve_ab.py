@@ -36,6 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 RUN = """
 import json, sys, torch
 import chip_smoke as cs
+cs.PER_FORWARD = cs.per_forward(32)  # the launches a forward at the 2.7B's full depth, not the phases' cut
 model = cs.build_model()
 params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
 reqs = cs.make_requests()

@@ -8,6 +8,7 @@ variant_key". The serving variants are all ported: configs/config_serve.yaml,
 config_fleet.yaml and config_disagg.yaml build with their `slo` blocks as
 shipped (their tokenizer stubbed). No data file is needed."""
 
+import json
 import re
 from pathlib import Path
 
@@ -45,7 +46,8 @@ def test_the_port_registers_exactly_the_jax_catalogs_pairs():
 
 
 def test_each_unported_pair_names_a_queue_1_item():
-    assert len(UNPORTED) == 42
+    assert len(UNPORTED) == 31
+    assert sorted(item for item, _ in UNPORTED.values()) == [6] * 7 + [7] * 24
     for (key, variant), (item, _) in UNPORTED.items():
         assert item in (5, 6, 7)
         with pytest.raises(NotImplementedError, match=rf"{key}\.{variant} .* Queue 1 item {item}\)"):
@@ -204,3 +206,118 @@ def test_the_telemetry_component_and_the_results_subscribers_are_built_with_the_
     if importlib.util.find_spec("wandb") is None:
         with pytest.raises(ImportError, match="results_subscriber.wandb needs the `wandb` package"):
             factory._instantiate("results_subscriber", "wandb", wandb)
+
+
+PROFILING_PAIRS = {
+    *[("profiler", v) for v in ("no_profiler", "kernel_profiler", "memory_profiler", "combined_profiler")],
+    *[("steppable_profiler", v) for v in ("no_profiler", "kernel_tracing", "memory_tracing", "combined")],
+    ("steppable_component", "forward_pass"), ("batch_generator", "random_dataset_batch_generator"),
+    ("dataset_batch_generator", "random")}
+
+
+def test_the_profiling_pairs_are_built_under_jaxs_names_and_the_references(tmp_path):
+    """The 11 pairs of the profiler harness (utils/profilers/), JAX's field
+    names and the reference names they accept (num_*_steps, with_stack,
+    dataset_batch_generator, the dims-style generator); the torch.profiler
+    knobs are applied, not dropped."""
+    from modalities_tpu_torch.config.component_factory import ComponentFactory
+    from modalities_tpu_torch.utils.profilers.modalities_profiler import ProfilerInstantiationModel, _registry_with
+    from modalities_tpu_torch.utils.profilers.profilers import SteppableCombinedProfiler, SteppableNoProfiler
+
+    assert len(PROFILING_PAIRS) == 11 and not PROFILING_PAIRS & set(UNPORTED)
+    model = {"component_key": "model", "variant_key": "gpt2", "config": yaml.safe_load(
+        (ROOT / "configs" / "config_profile_gpt2.yaml").read_text())["model"]["config"]}
+    built = []
+    for kind, (generator, forward, profilers) in {
+        "jax": (("batch_generator", "random_dataset_batch_generator",
+                 {"micro_batch_size": 2, "sequence_length": 32, "vocab_size": 64}), "batch_generator",
+                ("profiler", ("kernel_profiler", "memory_profiler", "combined_profiler", "no_profiler"),
+                 {"wait_steps": 2, "warmup_steps": 1, "active_steps": 2, "profile_memory": True,
+                  "tracked_ranks": [0]})),
+        "reference": (("dataset_batch_generator", "random", {"dims": {"batch": 2, "seq": 32}, "max_val": 64}),
+                      "dataset_batch_generator",
+                      ("steppable_profiler", ("kernel_tracing", "memory_tracing", "combined", "no_profiler"),
+                       {"num_wait_steps": 2, "num_warmup_steps": 1, "num_active_steps": 2, "with_stack": True,
+                        "profile_memory": True, "tracked_ranks": [0]})),
+    }.items():
+        key, (kernel, memory, combined, none), knobs = profilers
+        out = str(tmp_path / kind)
+        config = {
+            "model": model,
+            "steppable_component": {"component_key": "steppable_component", "variant_key": "forward_pass", "config": {
+                "model": {"instance_key": "model", "pass_type": "BY_REFERENCE"},
+                forward: {"component_key": generator[0], "variant_key": generator[1], "config": generator[2]}}},
+            "profiler": {"component_key": key, "variant_key": combined, "config": {"profilers": [
+                {"component_key": key, "variant_key": kernel, "config": {"output_folder_path": out, **knobs}},
+                {"component_key": key, "variant_key": memory, "config": {"output_folder_path": out, "max_steps": 9}},
+                {"component_key": key, "variant_key": none}]}},
+        }
+        # the harness's catalog: the training catalog, its forward pass bound to a device (here the CPU)
+        built.append(ComponentFactory(_registry_with(None, "cpu")).build_components(config, ProfilerInstantiationModel))
+    for components in built:
+        component, profiler = components.steppable_component, components.profiler
+        assert isinstance(profiler, SteppableCombinedProfiler) and len(profiler) == 9
+        kernel, memory, none = profiler.profilers
+        assert (kernel.wait_steps, kernel.warmup_steps, kernel.active_steps, len(kernel)) == (2, 1, 2, 5)
+        assert kernel.knobs["profile_memory"] and kernel.tracked_ranks == [0] and isinstance(none, SteppableNoProfiler)
+        assert component.include_backward is False  # no optimizer: forward only, as in JAX
+        assert component.batch_generator.get_batch(1)["samples"]["input_ids"].shape == (1, 2, 32)
+    assert built[1].profiler.profilers[0].with_python_stack
+    with pytest.raises(ValueError, match="needs either the reference dims-style schema"):
+        ComponentFactory(PORT)._instantiate("batch_generator", "random_dataset_batch_generator",
+                                            {"micro_batch_size": 2, "sequence_length": 32})
+
+
+def _jax_tree(group) -> set:
+    import click
+
+    out = set()
+    for name, command in group.commands.items():
+        out.add(name)
+        if isinstance(command, click.Group):
+            out |= {f"{name} {sub}" for sub in _jax_tree(command)}
+    return out
+
+
+def _port_tree(parser) -> set:
+    import argparse
+
+    out = set()
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            for name, sub in action.choices.items():
+                out.add(name)
+                out |= {f"{name} {deeper}" for deeper in _port_tree(sub)}
+    return out
+
+
+def test_the_cli_has_the_jax_command_tree_and_each_command_runs_or_names_its_item(tmp_path, monkeypatch):
+    """Every command and group of the JAX CLI is the port's (ROADMAP.md
+    Queue 3 item 23); the ones the port lacks raise NotImplementedError
+    naming their Queue 1 item, with the error record written."""
+    from modalities_tpu.__main__ import main as jax_cli
+    from modalities_tpu_torch.__main__ import _UNPORTED_DATA, build_parser, main
+
+    assert _port_tree(build_parser()) == _jax_tree(jax_cli)
+    monkeypatch.setenv("MODALITIES_TPU_ERROR_LOG_DIR", str(tmp_path))
+    config = str(ROOT / "configs" / "config_2p7b_dp.yaml")
+    for argv in (["convert_checkpoint_to_hf", "--config_file_path", config, "--output_hf_checkpoint_dir", "out"],
+                 *[["data", name] for name in _UNPORTED_DATA]):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 6"):
+            main(argv)
+        assert json.loads((tmp_path / "error_rank_0.json").read_text())["error"].startswith("NotImplementedError")
+    with pytest.raises(SystemExit) as usage:  # a path that does not exist: a usage error, as click's exists=True
+        main(["profile", "distributed", "--config_file_path", str(tmp_path / "missing.yaml")])
+    assert usage.value.code == 2
+    sweep = tmp_path / "sweep"
+    for argv in (["benchmark", "list_remaining_runs", "--sweep_dir", str(tmp_path)],
+                 ["benchmark", "summarize_results", "--sweep_dir", str(tmp_path)]):
+        assert main(argv) == 0
+    spec = tmp_path / "sweep.yaml"
+    spec.write_text(yaml.safe_dump({"sweep": {"world_size": [1, 2], "lr": [0.1]},
+                                    "settings": {"lr": "${sweep.lr}"}}))
+    assert main(["benchmark", "prepare_sweep_configs", "--sweep_config_path", str(spec), "--output_dir",
+                 str(sweep)]) == 0
+    written = sorted(p.relative_to(sweep).as_posix() for p in sweep.rglob("config.yaml"))
+    assert written == ["world_size_1/lr_0.1__world_size_1/config.yaml", "world_size_2/lr_0.1__world_size_2/config.yaml"]
+    assert yaml.safe_load((sweep / written[0]).read_text())["settings"]["lr"] == 0.1

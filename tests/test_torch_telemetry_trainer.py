@@ -187,11 +187,22 @@ def _snapshot(main: Main, results: list[dict]) -> tuple:
     return steps, {k: v.to("cpu", copy=True) for k, v in main.train_step.state_dict().items()}
 
 
+def _profiler(folder: Path) -> dict:
+    """A `profiler` node (JAX trainer.py:228-230, :382-383, :463-464): its
+    kernel cycle clear of the env window at step 2."""
+    return {"component_key": "profiler", "variant_key": "combined_profiler", "config": {"profilers": [
+        {"component_key": "profiler", "variant_key": "kernel_profiler",
+         "config": {"output_folder_path": str(folder), "wait_steps": 3, "warmup_steps": 0, "active_steps": 2}},
+        {"component_key": "profiler", "variant_key": "memory_profiler",
+         "config": {"output_folder_path": str(folder), "max_steps": STEPS}}]}}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The same config twice: with the default telemetry (no `telemetry`
-    node) and both capture windows armed, and with `telemetry: {enabled:
-    false}`."""
+    node), both capture windows armed and a `profiler` node (a kernel
+    profiler over steps 4-5, the memory profiler over every step), and with
+    `telemetry: {enabled: false}`."""
     mp = pytest.MonkeyPatch()
     for name in CAPTURE:
         mp.delenv(name, raising=False)
@@ -202,7 +213,7 @@ def runs(tmp_path_factory):
             if arm == "on":
                 mp.setenv("MODALITIES_TPU_PROFILE_AT_STEP", "2")
                 mp.setenv("MODALITIES_TPU_MEMSCOPE_AT_STEP", "3")
-                cfg = _config(tmp)
+                cfg = _config(tmp, profiler=_profiler(tmp / "prof"))
             else:
                 mp.delenv("MODALITIES_TPU_PROFILE_AT_STEP")
                 mp.delenv("MODALITIES_TPU_MEMSCOPE_AT_STEP")
@@ -246,6 +257,16 @@ def test_the_capture_windows_write_their_files(runs):
     snapshot = json.loads((folder / "memscope_live_arrays_step_3.json").read_text())
     assert snapshot["step"] == 3 and {"total_bytes", "count", "arrays"} <= set(snapshot)
     assert main.trainer.memscope_report is None  # the CPU has no budget: the fits check is inert
+
+
+def test_the_configs_profiler_is_stepped_by_the_trainer(runs):
+    tmp, *_ = runs["on"]
+    trace = json.loads((tmp / "prof" / "kernel_trace_rank_0_steps_4-5.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"train_step#4", "train_step#5"} <= names and not {"train_step#2", "train_step#3"} & names
+    assert [p.name for p in (tmp / "prof").glob("kernel_trace_*.json")] == ["kernel_trace_rank_0_steps_4-5.json"]
+    lines = [json.loads(line) for line in (tmp / "prof" / "memory_stats.jsonl").read_text().splitlines()]
+    assert [line["step"] for line in lines] == list(range(STEPS))
 
 
 def test_telemetry_and_the_capture_windows_change_no_bit(runs):

@@ -122,7 +122,10 @@ def test_the_warmstart_settings_come_from_the_folder_name(resumed):
     folder = next(p for p in (tmp / "checkpoints").iterdir() if p.is_dir())
     main_obj = Main(warm, device="cpu",
                     additional_resolver_funs={"warmstart_env": lambda key: str(folder)})
-    components = main_obj.build_components()
+    try:
+        components = main_obj.build_components()
+    finally:
+        main_obj._leave_group()  # built without a run: the world-1 group it joined ends here
     progress = components.settings.training_progress
     assert (progress.num_seen_steps, progress.global_num_seen_tokens, progress.num_seen_samples,
             progress.last_step) == (SAVE_AT, SAVE_AT * PER_STEP, SAVE_AT * MBS * ACC, SAVE_AT - 1)
