@@ -168,7 +168,7 @@ Phases (each raises on failure, so any failed phase exits non-zero):
  3g. text generation on phase 2's weights (the 2.7B at SERVE_LAYERS of its
      32 layers, bf16): `TextInferenceComponent`
      (inference/text/inference_component.py) greedy on three of phase 2's
-     prompts, 64 new tokens each: a second call gives the same first
+     prompts, NEW_TOKENS new tokens each: a second call gives the same first
      GEN_REPEAT tokens, the
      RMSNorm forward kernel runs 65 times a forward (each `decode_step`),
      decode_step's last logits after each prompt's prefill against the full
@@ -351,16 +351,35 @@ Phases (each raises on failure, so any failed phase exits non-zero):
      serving OOM drill: `oom@N` at its next dispatch round leaves the dump
      (levers, the card's memory) and raises the resumable OutOfMemory (its
      launches are not counted).
- 13. one JSON line naming the kernels (launches summed over the paths, and
+ 13. the multimodal models, each path alone on the card, its launches
+     counted from 0 just before it: (a) `run` over
+     configs/config_example_coca_tpu.yaml with its mesh cut to world 1 (its
+     token target with it: 8 steps of one rank's 4 x 16 tokens) and its
+     paths into a folder of the phase, a process of its own: step 8, every
+     logged train loss within 0.05 of ln 512 (the JAX e2e test's oracle), a
+     step-8 checkpoint folder, the eval's rows, and each flash kernel (fp32:
+     the config trains in float32) launched 9 times a training step (the ViT
+     2, the pooling 1, the text decoder 2, the multimodal decoder 2 x 2),
+     the forward 9 times each eval batch besides; (b) the ViT at the JAX
+     defaults (224^2 images in patches of 16, 768 over 8 heads: head dim 96,
+     12 layers, 1000 classes) in bf16 on 64 seeded images, a cross entropy's
+     forward and backward through the flash kernels and through the plain
+     attention from the same parameters: loss and gradients within
+     VIT_BF16_TOL, 12 launches of each kernel, none on the plain arm. Their
+     flash calls are held to the plain versions in phase 1 at their shapes
+     (the ViT's q [64,8,197,96] and CoCa's, Sq != Sk among them, f32 and
+     bf16) and timed there beside SDPA and their bound.
+ 14. one JSON line naming the kernels (launches summed over the paths, and
      per path: serve, serve_paged, serve_paged_int8kv, serve_spec, serve_http, serve_fleet, serve_disagg,
      serve_observed, generate_2p7b, train_2p7b, train_32k, train_32k_resume, ring_cp4,
      train_32k_torchrun, train_7b, tp8, train_7b_32k_warmstart, pp2_gpipe,
      pp2_1f1b, pp2_interleaved_1f1b, pp2_zbv, train_2p7b_zero1,
      zero4_in_process, dcn2_in_process, tp8_bias, quickstart_train,
      quickstart_generate, skip_2p7b, consensus_32k, preempt_32k,
-     resume_32k, oom_32k, resilient_32k, profile_gpt2, serve_ckpt; the fused-CE
-     kernels' times at every shape of phase 1 under `shapes`), then the
-     card's name and power limit, then the device line (last line).
+     resume_32k, oom_32k, resilient_32k, profile_gpt2, train_coca, train_vit,
+     serve_ckpt; the fused-CE and flash kernels' times at every shape of
+     phase 1 under `shapes`), then the card's name and power limit, then the
+     device line (last line).
      `[timing]` lines give the script's wall time after each phase.
 
 Phases 4-10 run on the world-1 NCCL process group that `run` builds without
@@ -382,6 +401,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -428,7 +448,10 @@ MODEL_2P7B = {  # config_serve.yaml's model node at configs/config_2p7b_dp.yaml'
 # host. 12 is the least depth at which 3e (c) still has a request on each side of the 16 MiB import body limit.
 # Phase 3g generates on the same weights (at 32 layers until the script neared 1100 s of its 1200 s limit).
 SERVE_LAYERS = 12
-SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 64
+# NEW_TOKENS: each serving request's budget; 48 (64 before phase 13 was added), to pay for phase 13 inside the limit:
+# every serving check's threshold sits below it (3c (e) swaps after 20 decode steps, 3d (c) deploys after 10, 3d (b)
+# fails over after FAILOVER_AFTER tokens; 3b (b)'s 128 blocks still preempt: the 9 requests need 196)
+SLOTS, CAPACITY, NEW_TOKENS = 8, 2048, 48
 TRAIN_SHAPE = (2, 4096, 32, 8, 80)  # (B, S, Hq, Hkv, D) of one 2.7B training microbatch
 # (1, 2048, 12, 4, 128) is the 32k config's heads (GQA group 3, D 128) at a length whose plain scores fit;
 # (1, 4096, 4, 1, 128) one tp-8 rank's heads of the 7B (phase 8b)
@@ -924,6 +947,77 @@ def _flash_work(b, s, hq, hkv, d) -> dict:
             "dkv": (4 * mm, 2 * qb + 4 * kvb + 2 * st)}
 
 
+def _flash_case(torch, q, k, v, w, causal: bool, shape: str, seen: dict, errs: dict) -> None:
+    """One flash case on q/w [B, Sq, Hq, D] and k/v [B, Sk, Hkv, D] (the
+    model layout), every output row held to its own norm (_row_check) at
+    FLASH_ROW_REL: FlashAttentionFn against autograd of the fp32 plain
+    attention, dq and dk taken at the delta the kernels read
+    (_with_kernel_delta); the [B, H, S, D] entries against their plain
+    versions given the same global (lse, delta), lse 1e-4 absolute (fp32 in
+    both), two backward calls bitwise equal. Records the worst row of each
+    (dtype, check, output) in `seen` and the max abs errors in `errs`."""
+    from modalities_tpu_torch.ops import flash_attention as fa
+
+    dname = str(q.dtype)[6:]
+    rel = FLASH_ROW_REL[dname]
+    what = f"flash {dname} causal={causal} {shape}"
+
+    def held(got, want, check, name):
+        row_rel, used, abs_err = _row_check(torch, got, want, rel, f"{what} {check} {name}")
+        slot = seen.setdefault((dname, check, name), [0.0, 0.0])
+        slot[0], slot[1] = max(slot[0], row_rel), max(slot[1], used)
+        key = {"out": "fwd", "dq": "dq"}.get(name, "dkv")
+        errs[key] = max(errs[key], abs_err)
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.FlashAttentionFn.apply(*leaves, causal, 1.0 / math.sqrt(q.shape[-1]))
+    o.backward(w)
+    plain = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.reference_attention(*plain, causal=causal)
+    ref.backward(w.float())
+    torch.cuda.synchronize()
+    bhsd = lambda t: t.detach().transpose(1, 2)  # noqa: E731
+    want_dq, want_dk = _with_kernel_delta(torch, bhsd(q), bhsd(k), bhsd(w), bhsd(ref), bhsd(o),
+                                          bhsd(plain[0].grad), bhsd(plain[1].grad), causal)
+    held(o, ref, "autograd", "out")
+    held(bhsd(leaves[0].grad), want_dq, "autograd", "dq")
+    held(bhsd(leaves[1].grad), want_dk, "autograd", "dk")
+    held(leaves[2].grad, plain[2].grad, "autograd", "dv")
+    del o, ref, leaves, plain, want_dq, want_dk
+    # the [B, H, S, D] entries with an explicit global (lse, delta); two calls bitwise equal
+    qt, kt, vt, wt = (t.transpose(1, 2) for t in (q, k, v, w))
+    o1, lse = fa.flash_fwd_out_lse(qt, kt, vt, causal=causal)
+    o_ref, lse_ref = fa.reference_flash_fwd_out_lse(qt, kt, vt, causal=causal)
+    held(o1, o_ref, "given", "out")
+    lse_err = _rel_check(torch, lse, lse_ref, 0.0, 1e-4, f"{what} lse")
+    slot = seen.setdefault((dname, "given", "lse"), [0.0, 0.0])
+    slot[0], slot[1] = max(slot[0], lse_err), max(slot[1], lse_err / 1e-4)
+    delta = (wt.float() * o1.float()).sum(-1, keepdim=True)
+    grads = [fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
+             *fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
+    again = [fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
+             *fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
+    if not all(torch.equal(a, b2) for a, b2 in zip(grads, again)):
+        raise AssertionError(f"{what}: two backward calls differ")
+    want = [fa.reference_flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
+            *fa.reference_flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
+    for got, ref_g, name in zip(grads, want, ("dq", "dk", "dv")):
+        held(got, ref_g, "given", name)
+
+
+def _log_flash_held(seen: dict, phase: str) -> None:
+    checks = {"autograd": "FlashAttentionFn vs autograd of the fp32 plain attention",
+              "given": "flash_fwd_out_lse / flash_bwd_dq / flash_bwd_dkv vs their plain versions, same (lse, delta)"}
+    for dname in ("float32", "bfloat16"):
+        for check, text in checks.items():
+            parts = [f"{name} {seen[(dname, check, name)][0]:.3g} ({seen[(dname, check, name)][1]:.2f})"
+                     for name in ("out", "dq", "dk", "dv", "lse") if (dname, check, name) in seen]
+            if parts:
+                log(f"[{phase}] flash {dname}, {text}: worst row rel err (share of allowance used) "
+                    f"{', '.join(parts)}; bound rel {FLASH_ROW_REL[dname]:g} of the row's own norm"
+                    f"{'; lse: max abs err, bound 1e-4' if check == 'given' else ''}")
+
+
 def phase_train_kernels(torch) -> dict:
     """RMSNorm backward and the three flash kernels against autograd of their
     plain versions (fp32, on the same inputs), twice-called backward kernels
@@ -1043,70 +1137,17 @@ def phase_train_kernels(torch) -> dict:
     cases = 0
     for b, s, hq, hkv, d in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype)[6:]
-            rel = FLASH_ROW_REL[dname]
             q, k, v, w = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype) for h in (hq, hkv, hkv, hq))
             for causal in (True, False):
-                what = f"flash {dname} causal={causal} (B,S,Hq,Hkv,D)=({b},{s},{hq},{hkv},{d})"
-
-                def held(got, want, check, name):
-                    row_rel, used, abs_err = _row_check(torch, got, want, rel, f"{what} {check} {name}")
-                    slot = seen.setdefault((dname, check, name), [0.0, 0.0])
-                    slot[0], slot[1] = max(slot[0], row_rel), max(slot[1], used)
-                    key = {"out": "fwd", "dq": "dq"}.get(name, "dkv")
-                    errs[key] = max(errs[key], abs_err)
-
-                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-                o = fa.FlashAttentionFn.apply(*leaves, causal, 1.0 / math.sqrt(d))
-                o.backward(w)
-                plain = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
-                ref = fa.reference_attention(*plain, causal=causal)
-                ref.backward(w.float())
-                torch.cuda.synchronize()
-                bhsd = lambda t: t.detach().transpose(1, 2)  # noqa: E731
-                want_dq, want_dk = _with_kernel_delta(torch, bhsd(q), bhsd(k), bhsd(w), bhsd(ref), bhsd(o),
-                                                      bhsd(plain[0].grad), bhsd(plain[1].grad), causal)
-                held(o, ref, "autograd", "out")
-                held(bhsd(leaves[0].grad), want_dq, "autograd", "dq")
-                held(bhsd(leaves[1].grad), want_dk, "autograd", "dk")
-                held(leaves[2].grad, plain[2].grad, "autograd", "dv")
-                del o, ref, leaves, plain, want_dq, want_dk
-                # the [B, H, S, D] entries with an explicit global (lse, delta); two calls bitwise equal
-                qt, kt, vt, wt = (t.transpose(1, 2) for t in (q, k, v, w))
-                o1, lse = fa.flash_fwd_out_lse(qt, kt, vt, causal=causal)
-                o_ref, lse_ref = fa.reference_flash_fwd_out_lse(qt, kt, vt, causal=causal)
-                held(o1, o_ref, "given", "out")
-                lse_err = _rel_check(torch, lse, lse_ref, 0.0, 1e-4, f"{what} lse")
-                slot = seen.setdefault((dname, "given", "lse"), [0.0, 0.0])
-                slot[0], slot[1] = max(slot[0], lse_err), max(slot[1], lse_err / 1e-4)
-                delta = (wt.float() * o1.float()).sum(-1, keepdim=True)
-                grads = [fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
-                         *fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
-                again = [fa.flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
-                         *fa.flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
-                if not all(torch.equal(a, b2) for a, b2 in zip(grads, again)):
-                    raise AssertionError(f"{what}: two backward calls differ")
-                want = [fa.reference_flash_bwd_dq(qt, kt, vt, wt, lse, delta, causal=causal),
-                        *fa.reference_flash_bwd_dkv(qt, kt, vt, wt, lse, delta, causal=causal)]
-                for got, ref_g, name in zip(grads, want, ("dq", "dk", "dv")):
-                    held(got, ref_g, "given", name)
+                _flash_case(torch, q, k, v, w, causal, f"(B,S,Hq,Hkv,D)=({b},{s},{hq},{hkv},{d})", seen, errs)
                 cases += 1
-                del grads, again, want, o1, o_ref, lse, lse_ref, delta
             del q, k, v, w
             torch.cuda.empty_cache()
     log(f"[phase 1] flash attention: {cases} cases (shapes {FLASH_SHAPES}, causal and not, f32 and bf16) agree "
         f"with autograd of the plain attention and, for the backward kernels, with their plain versions given a "
         f"global (lse, delta); two backward calls bitwise identical; max abs err out {errs['fwd']:g}, "
         f"dq {errs['dq']:g}, dk/dv {errs['dkv']:g}")
-    checks = {"autograd": "FlashAttentionFn vs autograd of the fp32 plain attention",
-              "given": "flash_fwd_out_lse / flash_bwd_dq / flash_bwd_dkv vs their plain versions, same (lse, delta)"}
-    for dname in ("float32", "bfloat16"):
-        for check, text in checks.items():
-            parts = [f"{name} {seen[(dname, check, name)][0]:.3g} ({seen[(dname, check, name)][1]:.2f})"
-                     for name in ("out", "dq", "dk", "dv", "lse") if (dname, check, name) in seen]
-            log(f"[phase 1] flash {dname}, {text}: worst row rel err (share of allowance used) "
-                f"{', '.join(parts)}; bound rel {FLASH_ROW_REL[dname]:g} of the row's own norm"
-                f"{'; lse: max abs err, bound 1e-4' if check == 'given' else ''}")
+    _log_flash_held(seen, "phase 1")
 
     b, s, hq, hkv, d = TRAIN_SHAPE
     q, k, v, w = (torch.randn(b, hh, s, d, generator=g, device=dev).to(torch.bfloat16) for hh in (hq, hkv, hkv, hq))
@@ -5453,13 +5494,19 @@ def _parse_launches(out: str, what: str) -> dict[str, int]:
 
 
 def _subprocess(argv: list, cwd: Path, what: str, stdin: str = "", env: dict | None = None,
-                timeout: int = 600) -> subprocess.CompletedProcess:
+                timeout: int = 600, numpy_seed: int | None = None) -> subprocess.CompletedProcess:
+    """`python -m modalities_tpu_torch *argv`; with `numpy_seed`, numpy's
+    global generator is seeded with it before the module runs."""
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "modalities_tpu_torch", *argv], input=stdin, capture_output=True,
+    entry = ["-m", "modalities_tpu_torch"] if numpy_seed is None else [
+        "-c", f"import numpy, runpy; numpy.random.seed({numpy_seed}); "
+              "runpy.run_module('modalities_tpu_torch', run_name='__main__', alter_sys=True)"]
+    proc = subprocess.run([sys.executable, *entry, *argv], input=stdin, capture_output=True,
                           text=True, cwd=cwd, timeout=timeout,
                           env={**os.environ, "PYTHONPATH": str(repo), **(env or {})})
-    log(f"[phase 11] {what}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s (a process of its own)")
+    phase = " ".join(what.split()[:2])
+    log(f"[{phase}] {what}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s (a process of its own)")
     return proc
 
 
@@ -5912,6 +5959,243 @@ def phase_profile(torch, smi: str) -> dict[str, dict[str, int]]:
     return {"profile_gpt2": counts}
 
 
+# ---------------------------------------------------------------- phases 1 and 13: the multimodal models
+# The ViT at the JAX defaults (224 x 224 images in patches of 16 and the cls token: 197 positions; n_embd 768 over 8
+# heads: head dim 96; 12 layers; 1000 classes), phase 13b's 64 images: its attention q/k/v [64, 197, 8, 96]
+VIT_IMAGES = 64
+VIT_FLASH = (VIT_IMAGES, 197, 197, 8, 8, 96)  # (B, Sq, Sk, Hq, Hkv, D), not causal
+# configs/config_example_coca_tpu.yaml's attention at its microbatch of 4 (2 heads of 32): (Sq, Sk, causal) of the
+# ViT (16 patches), the pooling (5 queries over 16), the text decoder (16 tokens and its cls), the multimodal
+# decoder's self-attention and its cross-attention (16 over the 4 pooled vision tokens)
+COCA_FLASH = [(16, 16, False), (5, 16, False), (17, 17, True), (16, 16, True), (16, 4, False)]
+COCA_CONFIG = "configs/config_example_coca_tpu.yaml"
+COCA_STEPS, COCA_MICRO, COCA_SEQ = 8, 4, 16  # phase 13a: 8 steps of one rank's 4 x 16 tokens
+COCA_ATTENTION = 2 + 1 + 2 + 2 * 2  # attention calls in a CoCa forward: ViT, pooling, text, multimodal self + cross
+COCA_LOSS_BAND = 0.05  # every train loss within this of ln 512 (the targets are uniform over the 512 tokens)
+# the dummy dataset draws from numpy's global generator, which the JAX e2e test seeds with 0 before its run. Unseeded,
+# at world 1 (4 sequences a step, an eighth of that test's batch) a loss left the band on 2 of 20 seeds in the port's
+# exact fp32 on the CPU, once at the first logged loss (0.056 off, before training moves anything)
+COCA_NUMPY_SEED = 0
+# Phase 13b, the ViT at its defaults in bf16 through the kernels against the same module through the plain
+# attention on the card: ||g_k - g_p|| / ||g_p|| per parameter tensor and the loss's relative difference. The
+# attention's k biases are left out of the ratio: their exact gradient is 0 (a softmax row does not move when a
+# constant is added to all its scores), so both arms give rounding noise (run 22.1: 15.6 apart, relative); their
+# norms are logged beside the q biases'
+VIT_BF16_TOL = {"grads": 5e-2, "loss": 1e-3}
+ZERO_GRADIENT = "attention.k_attn.bias"
+FLASH_KEYS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def _flash_timings(torch, shape, causal: bool, dtype) -> dict[str, dict]:
+    """fwd, dq and dkv at (B, Sq, Sk, Hq, Hkv, D): kernel, plain version and
+    SDPA ms (its backward, dq, dk and dv in one call, beside dq and dkv) and
+    the bound from static_walk.kernel_work (bf16 on the tensor cores, fp32
+    on the CUDA cores)."""
+    import torch.nn.functional as F
+
+    from modalities_tpu_torch.ops import flash_attention as fa
+    from modalities_tpu_torch.ops.static_walk import kernel_work
+
+    b, sq, sk, hq, hkv, d = shape
+    g = torch.Generator(device="cuda").manual_seed(sq * 1000 + sk)
+    q, w = (torch.randn(b, hq, sq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, hkv, sk, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    o, lse = fa.flash_fwd_out_lse(q, k, v, causal=causal)
+    delta = (w.float() * o.float()).sum(-1, keepdim=True)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    y_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(y_lib, (ql, kl, vl), w, retain_graph=True), reps=10)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
+                      reps=10)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    calls = {"fwd": (lambda: fa.flash_fwd_out_lse(q, k, v, causal=causal),
+                     lambda: fa.reference_flash_fwd_out_lse(q, k, v, causal=causal), lib_fwd),
+             "dq": (lambda: fa.flash_bwd_dq(q, k, v, w, lse, delta, causal=causal),
+                    lambda: fa.reference_flash_bwd_dq(q, k, v, w, lse, delta, causal=causal), lib_bwd),
+             "dkv": (lambda: fa.flash_bwd_dkv(q, k, v, w, lse, delta, causal=causal),
+                     lambda: fa.reference_flash_bwd_dkv(q, k, v, w, lse, delta, causal=causal), lib_bwd)}
+    out = {}
+    label = f"q[{b},{hq},{sq},{d}] k/v[{b},{hkv},{sk},{d}] {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    for name, (kernel, plain, lib) in calls.items():
+        flops, nbytes = kernel_work(f"flash_{name}", b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, el=q.element_size(),
+                                    causal=causal)
+        out[name] = {"shape": f"{label}{' causal' if causal else ''}",
+                     "ms": time_ms(torch, kernel, reps=10), "plain_ms": time_ms(torch, plain, reps=3),
+                     "library_ms": lib, "bound_ms": 1e3 * max(flops / peak, nbytes / PEAK_BYTES_S),
+                     "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES_S else "bytes"}
+    return out
+
+
+def phase_flash_multimodal(torch) -> tuple[dict[str, list[dict]], dict[str, float]]:
+    """Phase 1 at the multimodal models' shapes: the flash kernels against
+    their plain versions (_flash_case) at the ViT's (VIT_FLASH, head dim 96,
+    not causal) and at CoCa's (COCA_FLASH: Sq != Sk, ragged 17, causal and
+    not), f32 and bf16, then timed at the ViT's in bf16 (phase 13b's path)
+    and at CoCa's in f32 (phase 13a's: the config trains in fp32)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    errs, seen, cases = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}, {}, []
+    shapes = [(VIT_FLASH, False)] + [((4, sq, sk, 2, 2, 32), causal) for sq, sk, causal in COCA_FLASH]
+    for (b, sq, sk, hq, hkv, d), causal in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, w = (torch.randn(b, sq, hq, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+            _flash_case(torch, q, k, v, w, causal, f"(B,Sq,Sk,Hq,Hkv,D)=({b},{sq},{sk},{hq},{hkv},{d})", seen, errs)
+            cases.append((sq, sk, d, causal))
+            del q, k, v, w
+    torch.cuda.empty_cache()
+    log(f"[phase 1] flash attention at the multimodal shapes: {len(cases)} cases (the ViT's {VIT_FLASH}, CoCa's "
+        f"(Sq, Sk, causal) {COCA_FLASH} at B 4, 2 heads of 32; f32 and bf16) agree with autograd of the plain "
+        f"attention and with their plain versions given (lse, delta); max abs err out {errs['fwd']:g}, dq "
+        f"{errs['dq']:g}, dk/dv {errs['dkv']:g}")
+    _log_flash_held(seen, "phase 1")
+    timings: dict[str, list[dict]] = {"fwd": [], "dq": [], "dkv": []}
+    for shape, causal, dtype in [(VIT_FLASH, False, torch.bfloat16)] + [
+            ((4, sq, sk, 2, 2, 32), causal, torch.float32) for sq, sk, causal in COCA_FLASH]:
+        for name, t in _flash_timings(torch, shape, causal, dtype).items():
+            timings[name].append(t)
+            log(f"[phase 1] flash {name} {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"SDPA{' forward' if name == 'fwd' else ' backward'} {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}), {t['bound_ms'] / t['ms']:.3f} of it")
+    torch.cuda.empty_cache()
+    return timings, errs
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The multimodal models' attention (nn/attention.py) takes autograd of
+    the plain `reference_attention` on the card while the context lasts: the
+    plain path the kernels are held to in phase 13b, for comparisons only
+    (the port itself has no such switch)."""
+    from modalities_tpu_torch.nn import attention
+    from modalities_tpu_torch.ops.flash_attention import reference_attention
+
+    saved, attention.flash_attention = attention.flash_attention, reference_attention
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+def phase_coca_run(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 13a: `run` over configs/config_example_coca_tpu.yaml with its
+    mesh cut to world 1 (its token target with it: 8 steps of one rank's 4 x
+    16 tokens) and its paths pointed at folders of this phase, a process of
+    its own: it reaches step 8 with every logged train loss within 0.05 of
+    ln 512 (the JAX e2e test's oracle; numpy's global generator seeded with
+    0 first, as that test seeds it: COCA_NUMPY_SEED), saves its step-8
+    checkpoint, runs its eval, and launched each flash kernel COCA_ATTENTION
+    times a training forward and backward (fp32: the config trains in
+    float32)."""
+    import yaml
+
+    repo = Path(__file__).resolve().parent
+    scratch = repo / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        cfg = yaml.safe_load((repo / COCA_CONFIG).read_text())
+        changes = {"settings.paths.checkpoint_saving_path": str(tmp / "checkpoints"),
+                   "settings.paths.experiments_root_path": str(tmp / "experiments"),
+                   "device_mesh.config.data_parallel_shard_degree": 1, "device_mesh.config.world_size": 1,
+                   "settings.training_target.num_target_tokens": COCA_STEPS * COCA_MICRO * COCA_SEQ}
+        for dotted, value in changes.items():
+            node = cfg
+            *parents, leaf = dotted.split(".")
+            for key in parents:
+                node = node[key]
+            node[leaf] = value
+            log(f"[phase 13a] {Path(COCA_CONFIG).name}: {dotted} = {value}")
+        (tmp / "coca.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+        trained = _subprocess(["run", "--config_file_path", str(tmp / "coca.yaml"), "--device", TRAIN_DEVICE], tmp,
+                              "phase 13a run", numpy_seed=COCA_NUMPY_SEED)
+        if trained.returncode != 0 or f"[train] step {COCA_STEPS}:" not in trained.stdout:
+            raise AssertionError(f"phase 13a: run failed: {trained.stdout[-2000:]} {trained.stderr[-3000:]}")
+        lines = [line for line in trained.stdout.splitlines() if line.startswith("[train] step") and ": loss " in line]
+        losses = [float(re.search(r"loss (\S+)", line).group(1)) for line in lines]
+        if not losses or not all(abs(x - math.log(512)) < COCA_LOSS_BAND for x in losses):
+            raise AssertionError(f"phase 13a: train losses {losses} not all within {COCA_LOSS_BAND} of ln 512")
+        info = json.loads((tmp / "checkpoints" / "last_checkpoint_info.json").read_text())
+        folder = Path(info["checkpoint_folder_path"])
+        if f"-seen_steps_{COCA_STEPS}-" not in folder.name or not folder.is_dir():
+            raise AssertionError(f"phase 13a: no step-{COCA_STEPS} checkpoint folder: {info}")
+        rows = [json.loads(line) for path in (tmp / "experiments").rglob("evaluation_results.jsonl")
+                for line in path.read_text().splitlines()]
+        val = [r["losses"]["loss avg"] for r in rows if r["dataloader_tag"] == "val"]
+        if not val or not all(math.isfinite(x) for x in val):
+            raise AssertionError(f"phase 13a: the eval wrote {val}")
+        counts = {k: v for k, v in _parse_launches(trained.stdout, "phase 13a run").items() if k in FLASH_KEYS}
+        train_calls = COCA_ATTENTION * COCA_STEPS
+        eval_calls = COCA_ATTENTION * (cfg["settings"]["coca_example_settings"]["val_num_samples"] // COCA_MICRO)
+        if (counts["flash_dq"] != train_calls or counts["flash_dkv"] != train_calls
+                or counts["flash_fwd"] <= train_calls or (counts["flash_fwd"] - train_calls) % eval_calls):
+            raise AssertionError(f"phase 13a: launches {counts}: want dq = dk/dv = {train_calls} ({COCA_ATTENTION} a "
+                                 f"step) and forwards {train_calls} + a multiple of {eval_calls} (an eval)")
+    log(f"[phase 13a] config_example_coca_tpu.yaml on one rank ({smi}): {lines[-1]}; train losses "
+        f"{[round(x, 5) for x in losses]} (ln 512 = {math.log(512):.5f}, band {COCA_LOSS_BAND}); val losses "
+        f"{[round(x, 5) for x in val]}; {folder.name}; launches {counts}")
+    return {"train_coca": counts}
+
+
+def phase_vit(torch, smi: str) -> dict[str, dict[str, int]]:
+    """Phase 13b: the ViT at the JAX defaults (VIT_FLASH's widths, head dim
+    96) in bf16 (its parameters cast as FSDP2's bf16 policy casts them), a
+    cross entropy over its 1000 classes on VIT_IMAGES seeded images, forward
+    and backward, through the flash kernels and through the plain attention
+    (plain_attention) from the same parameters: the loss and every gradient
+    agree within VIT_BF16_TOL, the kernels arm launched each flash kernel once
+    a layer and the plain arm none."""
+    import torch.nn.functional as F
+
+    from modalities_tpu_torch.models.vision_transformer.vision_transformer_model import VisionTransformer
+
+    model = VisionTransformer(sample_key="images", prediction_key="logits")  # the JAX defaults
+    params = {k: v.to(torch.bfloat16) for k, v in
+              model.init_params(torch.Generator(device="cuda").manual_seed(0)).items()}
+    rng = np.random.default_rng(13)
+    images = torch.as_tensor(rng.standard_normal((VIT_IMAGES, *model.img_size, 3)), dtype=torch.float32,
+                             device="cuda")
+    labels = torch.as_tensor(rng.integers(0, 1000, VIT_IMAGES), device="cuda")
+    runs = {}
+    for arm in ("kernels", "plain"):
+        with plain_attention() if arm == "plain" else contextlib.nullcontext():
+            module = model.build_train_module({k: v.clone() for k, v in params.items()})
+            times = []
+            for _ in range(2):  # the second call timed alone: the first pays the allocator's and cuBLAS's start
+                for p in module.parameters():
+                    p.grad = None
+                _reset_counts()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss = F.cross_entropy(module({"images": images})["logits"].float(), labels)
+                loss.backward()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            runs[arm] = (float(loss.detach()), {n: p.grad.float() for n, p in module.named_parameters()},
+                         _launch_counts(FLASH_KEYS), times[-1])
+            del module, loss
+    (l_k, g_k, n_k, ms_k), (l_p, g_p, n_p, ms_p) = runs["kernels"], runs["plain"]
+    layers = model.spec["n_layer"]
+    if n_k != {k: layers for k in FLASH_KEYS} or any(n_p.values()):
+        raise AssertionError(f"phase 13b: launches with the kernels {n_k} (want {layers} each), plain {n_p}")
+    held = [n for n in g_p if not n.endswith(ZERO_GRADIENT)]
+    seen = {"grads": max(_rel_norm(torch, g_k[n], g_p[n]) for n in held), "loss": abs(l_k / l_p - 1)}
+    worst = max(held, key=lambda n: _rel_norm(torch, g_k[n], g_p[n]))
+    k_bias = max(float(g[n].norm() / g[n.replace("k_attn", "q_attn")].norm()) for g in (g_k, g_p) for n in g_p
+                 if n.endswith(ZERO_GRADIENT))
+    log(f"[phase 13b] the ViT at its defaults (224^2, patch 16, 768 / 8 heads: D 96, 12 layers, 1000 classes; "
+        f"{model.num_parameters() / 1e6:.1f} M parameters, bf16) on {VIT_IMAGES} images ({smi}): loss kernels "
+        f"{l_k:.6f} vs plain {l_p:.6f} (ln 1000 = {math.log(1000):.4f}), rel diff {seen['loss']:.3g}; worst "
+        f"per-tensor ||g_k - g_p|| / ||g_p|| {seen['grads']:.3g} ({worst}; {len(held)} tensors; the k biases, "
+        f"exactly 0 in exact arithmetic, at most {k_bias:.3g} of their q bias's gradient norm in either arm); "
+        f"bounds {VIT_BF16_TOL}; a forward and backward {ms_k:.2f} ms through the kernels, {ms_p:.2f} ms plain "
+        f"(the second call of each, information only); launches {n_k}")
+    for key, bound in VIT_BF16_TOL.items():
+        if not seen[key] <= bound:
+            raise AssertionError(f"phase 13b: {key} differ by {seen[key]:g}, bound {bound:g}")
+    return {"train_vit": n_k}
+
+
 def training_phases(torch):
     """Phases 4-10 on the process group; returns each path's launch counts."""
     # phase 4: the training path. Counts start from 0 inside phase_train.
@@ -6036,6 +6320,10 @@ def main() -> int:
     kernels["rmsnorm"]["timings"] += [kernels.pop("rmsnorm_fwd_train"), kernels.pop("rmsnorm_fwd_long")]
     for name, t in phase_flash_long(torch).items():  # the 32k shape, after the 2.7B one
         kernels[name]["timings"].append(t)
+    multimodal, multimodal_errs = phase_flash_multimodal(torch)  # the ViT's and CoCa's shapes (phase 13)
+    for name, ts in multimodal.items():
+        kernels[f"flash_{name}"]["timings"] += ts
+        kernels[f"flash_{name}"]["max_abs_err"] = max(kernels[f"flash_{name}"]["max_abs_err"], multimodal_errs[name])
     flash_by_head(torch, FLASH_7B, seed=6)  # the 7B's shape on one card (phase 8a)
     torch.cuda.empty_cache()
     mark("phase 1 flash at 32k and 7B")
@@ -6142,6 +6430,15 @@ def main() -> int:
     resilience_counts.update(phase_profile(torch, smi))
     mark("phase 12")
 
+    # phase 13: the multimodal models, each path alone on the card, its counts from 0 inside (13a a process of its
+    # own)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilience_counts.update(phase_coca_run(torch, smi))
+    mark("phase 13a")
+    resilience_counts.update(phase_vit(torch, smi))
+    mark("phase 13b")
+
     # the kernels line. `launches` sums the paths; `launches_by_path` gives each path's own run (each counted from 0)
     def by_path(key):
         paths = {"train_2p7b": train_counts, "train_32k": long_counts,
@@ -6159,7 +6456,7 @@ def main() -> int:
                "max_abs_err": kernels[k]["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"), "library_ms": t["library_ms"],
                "shape": t["shape"]}
-        if k.startswith("fused_ce"):  # the 32k shape above; every shape (the 7B's too) here
+        if k.startswith(("fused_ce", "flash")):  # the first shape above; every shape (the 7B's, the ViT's...) here
             out["shapes"] = kernels[k]["timings"]
         return out
 

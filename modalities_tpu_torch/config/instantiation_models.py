@@ -45,6 +45,22 @@ def _section(cls, data, name):
     return data if isinstance(data, cls) else validate_config(cls, check_dict(name, data))
 
 
+def without_reference_only_settings(config_dict: dict, references: set[str]) -> dict:
+    """`config_dict` less the `settings` keys that TrainingSettings does not
+    declare and that the config's own `${settings.<key>...}` references read
+    (`references`, the dot-paths from load_app_config_dict): blocks of values
+    for the config's other nodes, such as config_example_coca_tpu.yaml's
+    `coca_example_settings`. The JAX schema ignores every undeclared key; the
+    port still refuses any other one, so a misspelled key fails at load."""
+    settings = config_dict.get("settings")
+    if not isinstance(settings, dict):
+        return config_dict
+    declared = {f.name for f in dataclasses.fields(TrainingSettings)}
+    read = {path.split(".")[1] for path in references if path.startswith("settings.")}
+    kept = {k: v for k, v in settings.items() if k in declared or k not in read}
+    return config_dict if len(kept) == len(settings) else dict(config_dict, settings=kept)
+
+
 @dataclasses.dataclass
 class DistEnvSettings:
     local_rank: int = 0

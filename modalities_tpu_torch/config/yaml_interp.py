@@ -93,6 +93,7 @@ class _DocumentResolver:
         # memo: each absolute dot-path resolves exactly once, so multiple references to
         # the same node see one value even if a resolver is impure
         self._memo: dict[str, Any] = {}
+        self.references: set[str] = set()  # every dot-path a node reference read
 
     def resolve(self) -> Any:
         return self._resolve_node(self._root, path="")
@@ -142,6 +143,7 @@ class _DocumentResolver:
         return _parse_scalar(arg)
 
     def _lookup(self, dot_path: str, from_path: str) -> Any:
+        self.references.add(dot_path)
         if dot_path in self._memo:
             return self._memo[dot_path]
         if dot_path in self._in_progress:
@@ -192,9 +194,15 @@ class _DocumentResolver:
         return node
 
 
-def resolve_config_dict(config: Any, resolvers: Optional[dict[str, Resolver]] = None) -> Any:
-    """Resolve every ``${...}`` interpolation in a config structure."""
-    return _DocumentResolver(config, resolvers or {}).resolve()
+def resolve_config_dict(config: Any, resolvers: Optional[dict[str, Resolver]] = None,
+                        references: Optional[set[str]] = None) -> Any:
+    """Resolve every ``${...}`` interpolation in a config structure. The
+    dot-paths that node references read are added to `references` if given."""
+    resolver = _DocumentResolver(config, resolvers or {})
+    resolved = resolver.resolve()
+    if references is not None:
+        references.update(resolver.references)
+    return resolved
 
 
 def default_resolvers(
@@ -250,6 +258,7 @@ def load_app_config_dict(
     experiments_root_path: Optional[Path] = None,
     experiment_id: Optional[str] = None,
     additional_resolver_funs: Optional[dict[str, Resolver]] = None,
+    references: Optional[set[str]] = None,
 ) -> dict:
     """Load a YAML config file and resolve all interpolations.
 
@@ -268,4 +277,4 @@ def load_app_config_dict(
     )
     if additional_resolver_funs:
         resolvers.update(additional_resolver_funs)
-    return resolve_config_dict(raw, resolvers)
+    return resolve_config_dict(raw, resolvers, references)

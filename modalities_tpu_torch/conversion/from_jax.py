@@ -1,5 +1,5 @@
-"""JAX GPT2 parameters -> the port's state dict: the one bridge between the
-two packages.
+"""JAX parameters -> the port's state dict: the one bridge between the two
+packages.
 
 Input: the flax params tree (`{"params": {...}}` or the inner dict) as nested
 dicts of numpy arrays, so the port never sees a JAX type (a caller converts
@@ -12,6 +12,12 @@ The walk is convert_gpt2.py's (modalities_tpu/conversion/gpt2/convert_gpt2.py
 becomes the layer index; DenseGeneral kernels [E, H, D] (q/k/v) and
 [H, D, E] (attention c_proj) flatten to the port's 2-D [in, out] kernels, and
 their scales [H, D] / [E] flatten to [out].
+
+The dict-in models (the ViT, CoCa; models/model.py) name their parameters
+after the flax tree: each state-dict key's flax path (`jax_param_path`)
+picks its leaf, reshaped to the port's shape (DenseGeneral kernels [E, H, D]
+and [H, D, E] flattened to 2-D, biases [H, D] to [H x D]; the patch
+embedding's HWIO conv kernel and the tied `wte` as they are).
 
 `paged_cache_from_jax` carries a JAX paged KV cache tree (its pools, and the
 scale pools of an int8 cache) into the port's `PagedCache`, so the contents of
@@ -67,9 +73,37 @@ def _layer(tree: Mapping, layer: int) -> Mapping:
     return np.asarray(tree)[layer]
 
 
+def _flax_leaves(node, prefix: str = "") -> dict[str, np.ndarray]:
+    """{flax path: leaf} of a nested params tree."""
+    if not isinstance(node, Mapping):
+        return {prefix: np.asarray(node)}
+    out = {}
+    for key, child in node.items():
+        out.update(_flax_leaves(child, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def params_by_path(tree: Mapping, shapes: Mapping, path_of) -> dict[str, torch.Tensor]:
+    """{name: tensor of shapes[name]} from the JAX params tree, each name's
+    leaf at the flax path `path_of(name)`: every leaf used once, every
+    parameter found (a dict-in model, or one of its layers in a test)."""
+    leaves = _flax_leaves(tree if "params" in tree else {"params": tree})
+    out = {}
+    for name, shape in shapes.items():
+        path = path_of(name)
+        if path not in leaves:
+            raise KeyError(f"{name}: no JAX leaf {path!r}")
+        out[name] = to_torch(leaves.pop(path).reshape(tuple(shape)))
+    if leaves:
+        raise KeyError(f"JAX leaves with no port parameter: {sorted(leaves)}")
+    return out
+
+
 def params_from_jax(tree: Mapping, config) -> dict[str, torch.Tensor]:
-    """The port's state dict for a GPT2 with spec `config` (GPT2LLM or its
-    GPT2ModelSpec) from the JAX params tree."""
+    """The port's state dict from the JAX params tree: for a GPT2 with spec
+    `config` (GPT2LLM or its GPT2ModelSpec), or for a dict-in model."""
+    if hasattr(config, "jax_param_path"):
+        return params_by_path(tree, config.param_shapes(), config.jax_param_path)
     spec = getattr(config, "config_spec", config)
     p = tree["params"] if "params" in tree else tree
     flat: dict[str, np.ndarray] = {"wte": np.asarray(p["wte"])}

@@ -40,7 +40,7 @@
 // - fp32: the same loops on the CUDA cores, one query row (or key row) per
 //   thread, plain FMA, no TF32: the version the plain PyTorch code is held to
 //   in f32.
-// Head dims 16, 32, 64, 80 and 128 are compiled; the wrapper refuses others.
+// Head dims 16, 32, 64, 80, 96 and 128 are compiled; the wrapper refuses others.
 // Every tensor is addressed through (batch, head, row) strides with a unit
 // stride along D, so the model's [B, S, H, D] layout needs no transpose.
 
@@ -50,10 +50,10 @@
 
 #include "hopper.cuh"
 
-// The file compiles whole, or in parts (MT_FLASH_PART 1-5, one nvcc process
+// The file compiles whole, or in parts (MT_FLASH_PART 1-6, one nvcc process
 // each; see `here` below), so no one process holds the build up.
-#if defined(MT_FLASH_PART) && (MT_FLASH_PART < 1 || MT_FLASH_PART > 5)
-#error "MT_FLASH_PART is 1 to 5"
+#if defined(MT_FLASH_PART) && (MT_FLASH_PART < 1 || MT_FLASH_PART > 6)
+#error "MT_FLASH_PART is 1 to 6"
 #endif
 
 struct FlashParams {
@@ -123,7 +123,7 @@ struct FwdCfg {
   static constexpr int BQ = 128, BK = 128, STAGES = 3;
   static constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;  // two consumer warpgroups, one producer
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;        // 128 x 40 + 256 x 232 <= 65536
-  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32)
+  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32; 96: 64)
   static constexpr int SWB = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;
   static constexpr int AW = SWB / 2;  // columns of a swizzle atom
   static constexpr int Q = BQ * D;    // elements of the Q tile
@@ -340,7 +340,7 @@ struct DqCfg {
   static constexpr int BQ = 128, BK = 64, STAGES = 4;
   static constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;  // two consumer warpgroups, one producer
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;        // 128 x 40 + 256 x 232 <= 65536
-  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32)
+  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32; 96: 64)
   static constexpr int SWB = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;
   static constexpr int AW = SWB / 2;  // columns of a swizzle atom
   static constexpr int Q = BQ * D;    // elements of the Q (or dO) tile
@@ -535,7 +535,7 @@ __global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
 template <int D>
 struct DkvCfg {
   static constexpr int BKV = 128, BQ = 64, STAGES = 3, THREADS = 256;
-  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32)
+  // swizzle (row) bytes of the tiles: the widest of 128, 64, 32 that divides a row of D (80: 32; 96: 64)
   static constexpr int SWB = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;
   static constexpr int AW = SWB / 2;  // columns of a swizzle atom
   static constexpr int KV = BKV * D;  // elements of the K (or V) tile
@@ -933,9 +933,10 @@ int launch_dw(const FlashParams& p, int dtype, cudaStream_t s) {
 }
 
 // The part that compiles the (head dim, kernel) pair: 1-3 head dim 128's
-// forward, dq and dkv, 4 head dim 80, 5 head dims 16, 32 and 64. Part 1 also
-// holds the entry points and hands the other pairs to mt_flash_launch_part<N>.
-constexpr int part_of(int d, int which) { return d == 128 ? 1 + which : d == 80 ? 4 : 5; }
+// forward, dq and dkv, 4 head dim 80, 5 head dims 16, 32 and 64, 6 head dim
+// 96 (the ViT's 768 / 8). Part 1 also holds the entry points and hands the
+// other pairs to mt_flash_launch_part<N>.
+constexpr int part_of(int d, int which) { return d == 128 ? 1 + which : d == 80 ? 4 : d == 96 ? 6 : 5; }
 
 constexpr bool here(int d, int which) {
 #if defined(MT_FLASH_PART)
@@ -965,6 +966,7 @@ int launch_here(const FlashParams* p, int d, int which, int dtype, void* stream)
     case 32: return launch_d<32>(*p, which, dtype, s);
     case 64: return launch_d<64>(*p, which, dtype, s);
     case 80: return launch_d<80>(*p, which, dtype, s);
+    case 96: return launch_d<96>(*p, which, dtype, s);
     case 128: return launch_d<128>(*p, which, dtype, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -984,6 +986,7 @@ extern "C" int mt_flash_launch_part2(const FlashParams* p, int d, int which, int
 extern "C" int mt_flash_launch_part3(const FlashParams* p, int d, int which, int dtype, void* stream);
 extern "C" int mt_flash_launch_part4(const FlashParams* p, int d, int which, int dtype, void* stream);
 extern "C" int mt_flash_launch_part5(const FlashParams* p, int d, int which, int dtype, void* stream);
+extern "C" int mt_flash_launch_part6(const FlashParams* p, int d, int which, int dtype, void* stream);
 #endif
 
 namespace {
@@ -991,13 +994,14 @@ namespace {
 int launch(const FlashParams* p, int d, int which, int dtype, void* stream) {
   if (p->b <= 0 || p->sq <= 0 || p->sk <= 0 || p->hkv <= 0 || p->hq % p->hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d != 16 && d != 32 && d != 64 && d != 80 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d != 16 && d != 32 && d != 64 && d != 80 && d != 96 && d != 128) return static_cast<int>(cudaErrorInvalidValue);
 #if defined(MT_FLASH_PART)
   switch (part_of(d, which)) {
     case 2: return mt_flash_launch_part2(p, d, which, dtype, stream);
     case 3: return mt_flash_launch_part3(p, d, which, dtype, stream);
     case 4: return mt_flash_launch_part4(p, d, which, dtype, stream);
     case 5: return mt_flash_launch_part5(p, d, which, dtype, stream);
+    case 6: return mt_flash_launch_part6(p, d, which, dtype, stream);
     default: break;
   }
 #endif
@@ -1007,7 +1011,7 @@ int launch(const FlashParams* p, int d, int which, int dtype, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor but lse/delta). d: head dim,
-// one of 16, 32, 64, 80, 128. Pointers and strides must give 16-byte aligned
+// one of 16, 32, 64, 80, 96, 128. Pointers and strides must give 16-byte aligned
 // rows (the wrapper checks). Each returns cudaGetLastError() after its launch.
 extern "C" int mt_flash_fwd(const FlashParams* p, int d, int dtype, void* stream) {
   return launch(p, d, kFwd, dtype, stream);

@@ -1,7 +1,7 @@
 """The batch container, the GPT2 collator and the data loader: the port's copy
 of modalities_tpu/batch.py:DatasetBatch, models/gpt2/collator.py and
 dataloader/dataloader.py. Batches stay host-side numpy until the trainer
-moves a step's microbatches to the device.
+moves a step's microbatches to the device (`device_tensor`).
 """
 
 from __future__ import annotations
@@ -12,8 +12,18 @@ import threading
 from typing import Any, Iterator, Optional
 
 import numpy as np
+import torch
 
 from modalities_tpu_torch.config.config import check_int, check_str
+
+
+def device_tensor(array, device) -> torch.Tensor:
+    """A host batch array on `device`: integers (token ids) as int64, floats
+    (a dict-in model's images) as float32, the dtype the JAX package's device
+    put gives a float64 array."""
+    array = np.asarray(array)
+    dtype = np.float32 if np.issubdtype(array.dtype, np.floating) else np.int64
+    return torch.from_numpy(array.astype(dtype)).to(device, non_blocking=True)
 
 
 @dataclasses.dataclass

@@ -1,17 +1,18 @@
-"""Datasets over packed `.pbin` token streams: the port's copy of
-`PackedMemMapDatasetBase` and `PackedMemMapDatasetContinuous` from
-modalities_tpu/dataloader/dataset.py. Samples are dicts of numpy arrays keyed
-by `sample_key`; tensors are made per batch by the trainer.
+"""Datasets: the port's copy of `PackedMemMapDatasetBase` and
+`PackedMemMapDatasetContinuous` (packed `.pbin` token streams) and
+`DummyDataset` from modalities_tpu/dataloader/dataset.py. Samples are dicts
+of numpy arrays; tensors are made per batch by the trainer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from enum import Enum
 from pathlib import Path
 
 import numpy as np
 
-from modalities_tpu_torch.config.config import check_bool, check_int, check_str
+from modalities_tpu_torch.config.config import check_bool, check_choice, check_int, check_str, validate_config
 from modalities_tpu_torch.dataloader.packed_data import EmbeddedStreamData, np_dtype_for_token_size
 
 
@@ -111,3 +112,59 @@ def get_packed_mem_map_dataset_continuous(raw_data_path: Path, sequence_length: 
     block_size = sequence_length + 1 if reuse_last_target else sequence_length
     return PackedMemMapDatasetContinuous(Path(raw_data_path), sample_key, block_size=block_size,
                                          reuse_last_target=reuse_last_target)
+
+
+class DummySampleDataType(str, Enum):
+    FLOAT = "float"
+    INT = "int"
+
+
+@dataclasses.dataclass
+class DummySampleConfig:
+    sample_key: str
+    sample_shape: tuple
+    sample_type: str
+
+    def __post_init__(self):
+        check_str("sample_key", self.sample_key)
+        self.sample_shape = tuple(check_int("sample_shape", n, ge=0) for n in self.sample_shape)
+        self.sample_type = check_choice("sample_type", self.sample_type, DummySampleDataType)
+
+
+@dataclasses.dataclass
+class DummyDatasetConfig:
+    num_samples: int
+    sample_definition: list
+
+    def __post_init__(self):
+        check_int("num_samples", self.num_samples, ge=0)
+        self.sample_definition = [s if isinstance(s, DummySampleConfig) else validate_config(DummySampleConfig, s)
+                                  for s in self.sample_definition]
+
+
+class DummyDataset:
+    """Random samples of the declared shapes and types (JAX dataset.py:
+    59-73): each `__getitem__` draws from numpy's global generator, floats
+    from `randn` and ints uniform in [0, 512), so `np.random.seed(s)` gives
+    the JAX package's samples element for element."""
+
+    def __init__(self, num_samples: int, sample_definition: list):
+        self.num_samples = num_samples
+        self.sample_definition = sample_definition
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def __getitem__(self, idx: int) -> dict:
+        sample = {}
+        for s in self.sample_definition:
+            if s.sample_type == DummySampleDataType.FLOAT.value:
+                sample[s.sample_key] = np.random.randn(*s.sample_shape)
+            else:
+                sample[s.sample_key] = np.random.randint(low=0, high=512, size=s.sample_shape)
+        return sample
+
+
+def get_dummy_dataset(num_samples: int, sample_definition: list) -> DummyDataset:
+    """The `dummy_dataset` component (JAX dataset_factory.py:27-28)."""
+    return DummyDataset(num_samples, sample_definition)

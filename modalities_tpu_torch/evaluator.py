@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from modalities_tpu_torch.dataloader.dataloader import device_tensor
 from modalities_tpu_torch.telemetry import span
 
 
@@ -31,8 +32,7 @@ class Evaluator:
 
     def _batch(self, batch) -> dict:
         def tensors(part: dict) -> dict:
-            return {k: torch.from_numpy(np.asarray(v).astype(np.int64)).to(self.device, non_blocking=True)
-                    for k, v in part.items()}
+            return {k: device_tensor(v, self.device) for k, v in part.items()}
 
         return {"samples": tensors(batch.samples), "targets": tensors(batch.targets)}
 

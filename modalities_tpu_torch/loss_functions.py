@@ -1,5 +1,5 @@
 """Loss functions: the port of modalities_tpu/loss_functions.py
-(`CLMCrossEntropyLoss`).
+(`CLMCrossEntropyLoss`, `NCELoss`).
 
 `sum_and_count` and `__call__` are plain PyTorch over the full fp32 logits, as
 the JAX package computes them outside any Pallas kernel. `fused_sum_and_count`
@@ -16,7 +16,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from modalities_tpu_torch.config.config import check_int, check_str
+from modalities_tpu_torch.config.config import check_bool, check_float, check_int, check_str
 from modalities_tpu_torch.ops.fused_ce import fused_ce_sum_and_count
 from modalities_tpu_torch.parallel.vocab_parallel_ce import (
     vocab_parallel_fused_sum_and_count,
@@ -64,3 +64,36 @@ class CLMCrossEntropyLoss:
     def __call__(self, predictions: dict, targets: dict):
         total, count = self.sum_and_count(predictions[self.prediction_key], targets[self.target_key])
         return total / torch.clamp(count, min=1.0)
+
+
+@dataclasses.dataclass
+class NCELoss:
+    """InfoNCE contrastive loss of two embedding predictions, CoCa's (JAX
+    loss_functions.py:70-99): both L2-normalized in fp32 (norms clamped at
+    1e-8), similarities e1 e2^T / temperature, the cross entropy of each row
+    against its own column; the mean of both directions unless
+    `is_asymmetric`. Row i of each prediction is one pair, so the loss is a
+    mean over this process's rows (no sum_and_count form)."""
+
+    prediction_key1: str
+    prediction_key2: str
+    is_asymmetric: bool = True
+    temperature: float = 1.0
+    tag: str = "NCELoss"
+
+    def __post_init__(self):
+        check_str("prediction_key1", self.prediction_key1)
+        check_str("prediction_key2", self.prediction_key2)
+        check_bool("is_asymmetric", self.is_asymmetric)
+        self.temperature = check_float("temperature", self.temperature)
+        check_str("tag", self.tag)
+
+    def __call__(self, predictions: dict, targets: dict):
+        e1, e2 = (F.normalize(predictions[k].float(), dim=-1, eps=1e-8)
+                  for k in (self.prediction_key1, self.prediction_key2))
+        sim = e1 @ e2.t() / self.temperature
+        labels = torch.arange(sim.shape[0], device=sim.device)
+        loss_12 = F.cross_entropy(sim, labels)
+        if self.is_asymmetric:
+            return loss_12
+        return 0.5 * (loss_12 + F.cross_entropy(sim.t(), labels))

@@ -54,6 +54,7 @@ from modalities_tpu_torch.config.component_factory import ComponentFactory
 from modalities_tpu_torch.config.instantiation_models import (
     UNPORTED_TRAINING_COMPONENTS,
     TrainingComponentsInstantiationModel,
+    without_reference_only_settings,
 )
 from modalities_tpu_torch.config.yaml_interp import load_app_config_dict
 from modalities_tpu_torch.device import resolve_device
@@ -82,9 +83,11 @@ class Main:
         try:  # every rank names the run as rank 0 does: its checkpoint folders are one folder
             self.experiment_id = experiment_id or env.broadcast_object(experiment_id_of_run(self.config_path))
             self.experiments_root_path = Path(experiments_root_path) if experiments_root_path else None
+            self.references: set[str] = set()
             self.config_dict = load_app_config_dict(self.config_path, experiments_root_path=self.experiments_root_path,
                                                     experiment_id=self.experiment_id,
-                                                    additional_resolver_funs=additional_resolver_funs)
+                                                    additional_resolver_funs=additional_resolver_funs,
+                                                    references=self.references)
         except BaseException:
             self._leave_group()
             raise
@@ -117,7 +120,8 @@ class Main:
                 raise NotImplementedError(f"config node {key!r}: {what} is not ported yet")
         self._join_group()
         try:
-            components = ComponentFactory(self.registry).build_components(self.config_dict, components_model_type)
+            config_dict = without_reference_only_settings(self.config_dict, self.references)
+            components = ComponentFactory(self.registry).build_components(config_dict, components_model_type)
             self._check_ranks(components)
         except BaseException:
             self._leave_group()

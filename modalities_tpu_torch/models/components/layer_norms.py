@@ -157,6 +157,14 @@ class LayerNorm(_Norm):
         return y.to(self.dtype if self.dtype is not None else torch.float32)
 
 
+class InputDtypeLayerNorm(LayerNorm):
+    """flax `nn.LayerNorm(dtype=x.dtype)` (the ViT's and CoCa's norms): the
+    same fp32 statistics, the output in x's dtype."""
+
+    def forward(self, x):
+        return super().forward(x).to(x.dtype)
+
+
 def build_norm(spec: NormSpec, dtype: Optional[torch.dtype] = None, device=None) -> nn.Module:
     """The norm module for a NormSpec; `dtype` is the output dtype (None: see
     the module docstring)."""

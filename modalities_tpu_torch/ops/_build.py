@@ -5,8 +5,8 @@ Every `.cu` source under `modalities_tpu_torch/csrc/` is compiled for `sm_90a`
 by its own nvcc process, all started together, and the objects are linked into
 one shared library under `build/modalities_tpu_torch/` at the repository root.
 A source named in `PARTS` is compiled once a part, each with its own macro
-(flash_attention.cu in five: head dim 128's three kernels one a part, head dim
-80, the smaller head dims), so no one process holds the
+(flash_attention.cu in six: head dim 128's three kernels one a part, head dim
+80, the smaller head dims, head dim 96), so no one process holds the
 build up; `unit_seconds` keeps each process's wall time.
 The sources share `csrc/hopper.cuh` (wgmma, mbarrier, cp.async and cluster
 helpers in raw PTX). The library's file name carries a hash of the sources,
@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 )
 
 # sources compiled in parts, one nvcc process a part: the flags that pick each part's share of the source
-PARTS = {"flash_attention.cu": tuple(f"-DMT_FLASH_PART={i}" for i in range(1, 6))}
+PARTS = {"flash_attention.cu": tuple(f"-DMT_FLASH_PART={i}" for i in range(1, 7))}
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int

@@ -34,7 +34,7 @@ import torch
 from modalities_tpu_torch.ops import _build, static_walk
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LL3 = ctypes.c_longlong * 3
 

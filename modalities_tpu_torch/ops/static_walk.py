@@ -54,12 +54,13 @@ def walking(walk) -> Iterator[None]:
 
 
 def _pairs(sq: int, sk: int, causal: bool) -> int:
-    """Query-key pairs a flash call computes: all, or under the causal mask
-    (query i sees keys up to i + sk - sq, the last query every key)."""
+    """Query-key pairs a flash call computes: all, or under the kernels'
+    causal mask, queries and keys aligned at position 0 (query i sees keys
+    0..i, at most sk of them)."""
     if not causal:
         return sq * sk
-    first = max(sk - sq + 1, 1)  # keys the first query sees
-    return sk * (sk + 1) // 2 - (first - 1) * first // 2
+    diagonal = min(sq, sk)  # queries 0..diagonal-1 see i + 1 keys; the rest see all sk
+    return diagonal * (diagonal + 1) // 2 + (sq - diagonal) * sk
 
 
 def kernel_work(name: str, **s) -> tuple[int, int]:

@@ -4,7 +4,11 @@
 train step turns it into a torch optimizer over the module's parameters with
 `build`. The weight-decay mask comes from the model's regex
 `weight_decay_groups` exactly as `build_weight_decay_mask` resolves it (the
-`norm`/`layernorm` alias included) and becomes two parameter groups:
+`norm`/`layernorm` alias included), matched against the parameters' names
+(GPT2's regexes match the port's state-dict names as they match the flax
+paths) or, for a model that gives `jax_param_path` (the ViT, CoCa), against
+the flax paths of the names, so the JAX regexes pick the same parameters;
+the mask becomes two parameter groups:
 
 - `adam_w`: `torch.optim.AdamW`, which matches `optax.adamw`: bias-corrected
   moments, eps outside the square root, decoupled decay lr * wd * p;
@@ -90,9 +94,10 @@ class OptimizerSpec:
         decayed and not decayed."""
         named = list(named_parameters)
         groups = self.model.weight_decay_groups if self.model is not None else {}
-        mask = weight_decay_mask([n for n, _ in named], groups, self.weight_decay_groups_excluded)
-        decay = [p for n, p in named if mask[n]]
-        no_decay = [p for n, p in named if not mask[n]]
+        path = getattr(self.model, "jax_param_path", lambda name: name)
+        mask = weight_decay_mask([path(n) for n, _ in named], groups, self.weight_decay_groups_excluded)
+        decay = [p for n, p in named if mask[path(n)]]
+        no_decay = [p for n, p in named if not mask[path(n)]]
         param_groups = [g for g in ({"params": decay, "weight_decay": self.weight_decay},
                                     {"params": no_decay, "weight_decay": 0.0}) if g["params"]]
         cls = {"adam_w": torch.optim.AdamW, "adam": torch.optim.Adam}[self.kind]

@@ -6,7 +6,10 @@ cp, so that gradients sum over both, `fully_shard` here shards every
 parameter over one group made of the dp_shard and cp dims (flattened), and
 with dp_replicate > 1 replicates it over dp_replicate (HSDP, a 2-D mesh).
 Units: each group of `layers_per_fsdp_unit` transformer blocks, then the
-root (embeddings, head).
+root (embeddings, head). The blocks are the module's `blocks`: GPT2's, the
+ViT's, or CoCa's three stacks in order (vision, text, multimodal), whose
+root holds the patch embedding, the queries, the pooling, the text
+embeddings and the final norm.
 
 Under tensor parallelism the parameters are already DTensors over the tp
 dim of the same mesh, and FSDP2 shards each over the dp dims besides (2-D).
@@ -70,8 +73,8 @@ def _minority_dtype_modules(unit: list[nn.Module]) -> list[nn.Module]:
 
 def shard_model(module: nn.Module, mesh, *, layers_per_fsdp_unit: Optional[int] = None,
                 reshard_after_forward: bool = True, reduce_dtype: torch.dtype = torch.float32) -> nn.Module:
-    """`fully_shard` the GPT2 module in place (blocks by units, then the
-    root) over `mesh` (running_env.device_mesh.DeviceMesh.fsdp_mesh); returns it."""
+    """`fully_shard` the module in place (blocks by units, then the root)
+    over `mesh` (running_env.device_mesh.DeviceMesh.fsdp_mesh); returns it."""
     from torch.distributed.fsdp import FSDPModule, MixedPrecisionPolicy, fully_shard, register_fsdp_forward_method
 
     policy = MixedPrecisionPolicy(param_dtype=None, reduce_dtype=reduce_dtype)
@@ -88,12 +91,14 @@ def shard_model(module: nn.Module, mesh, *, layers_per_fsdp_unit: Optional[int] 
         unit = blocks[start:start + per_unit]
         shard(unit, reshard_after_forward)
         for block in unit:
-            register_fsdp_forward_method(block, "train_forward")
+            if hasattr(block, "train_forward"):  # GPT2's
+                register_fsdp_forward_method(block, "train_forward")
     # the root keeps its parameters gathered from its forward to its backward (FSDP2's own choice for a root):
     # the train step reads the head weight after `forward_hidden` returns
     shard([module], False)
-    register_fsdp_forward_method(module, "forward_hidden")
-    register_fsdp_forward_method(module, "stage_forward")
+    for method in ("forward_hidden", "stage_forward"):  # GPT2's
+        if hasattr(module, method):
+            register_fsdp_forward_method(module, method)
     for sub in module.modules():
         if isinstance(sub, FSDPModule):
             sub.set_gradient_divide_factor(1.0)

@@ -8,7 +8,12 @@ entities (`UNPORTED`), whose lookup raises NotImplementedError naming their
 ROADMAP.md Queue 1 item."""
 
 from modalities_tpu_torch.config.config import PreTrainedHFTokenizerConfig
+from modalities_tpu_torch.models.coca.coca_model import CoCa, CoCaConfig
 from modalities_tpu_torch.models.gpt2.gpt2_model import GPT2LLM, GPT2LLMConfig
+from modalities_tpu_torch.models.vision_transformer.vision_transformer_model import (
+    VisionTransformer,
+    VisionTransformerConfig,
+)
 from modalities_tpu_torch.registry.registry import ComponentEntity, Unported
 from modalities_tpu_torch.tokenization.tokenizer_wrapper import PreTrainedHFTokenizer
 
@@ -18,10 +23,8 @@ _DATA = "the other data variants"
 _DEBUGGING = "the debugging transforms"
 # the JAX catalog's pairs the port does not have yet: (component_key, variant_key) -> (Queue 1 item, what)
 UNPORTED = {
-    **{pair: (6, _MODELS) for pair in (
-        ("model", "coca"), ("collate_fn", "coca_collator"), ("dataset", "dummy_dataset"), ("loss", "nce_loss"),
-        ("model", "vision_transformer"), ("model", "huggingface_pretrained_model"),
-        ("tokenizer", "pretrained_sp_tokenizer"))},
+    **{pair: (6, _MODELS) for pair in (("model", "huggingface_pretrained_model"),
+                                       ("tokenizer", "pretrained_sp_tokenizer"))},
     **{pair: (7, _FSDP1) for pair in (
         ("model", "fsdp1_wrapped"), ("model", "fsdp1_checkpointed"), ("model", "activation_checkpointed_fsdp1"),
         ("optimizer", "fsdp1_checkpointed"), ("gradient_clipper", "fsdp1"),
@@ -40,6 +43,8 @@ UNPORTED = {
 
 COMPONENTS = [
     ComponentEntity("model", "gpt2", GPT2LLM, GPT2LLMConfig),
+    ComponentEntity("model", "coca", CoCa, CoCaConfig),
+    ComponentEntity("model", "vision_transformer", VisionTransformer, VisionTransformerConfig),
     ComponentEntity("tokenizer", "pretrained_hf_tokenizer", PreTrainedHFTokenizer, PreTrainedHFTokenizerConfig),
     *[ComponentEntity(key, variant, Unported(item, what)) for (key, variant), (item, what) in UNPORTED.items()],
 ]
@@ -69,7 +74,9 @@ def _training_components() -> list[ComponentEntity]:
     from modalities_tpu_torch.dataloader import samplers
     from modalities_tpu_torch.dataloader.dataloader import GPT2LLMCollateFn, LLMDataLoader
     from modalities_tpu_torch.dataloader.dataset import (
+        DummyDatasetConfig,
         PackedMemMapDatasetContinuousConfig,
+        get_dummy_dataset,
         get_packed_mem_map_dataset_continuous,
     )
     from modalities_tpu_torch.logging_broker.subscribers import (
@@ -80,7 +87,8 @@ def _training_components() -> list[ComponentEntity]:
         WandBEvaluationResultSubscriberConfig,
         get_wandb_result_subscriber,
     )
-    from modalities_tpu_torch.loss_functions import CLMCrossEntropyLoss
+    from modalities_tpu_torch.loss_functions import CLMCrossEntropyLoss, NCELoss
+    from modalities_tpu_torch.models.coca.coca_model import CoCaCollateFn, CoCaCollatorConfig
     from modalities_tpu_torch.models.model_factory import (
         ActivationCheckpointedModelConfig,
         FSDP2WrappedModelConfig,
@@ -129,6 +137,7 @@ def _training_components() -> list[ComponentEntity]:
         E("model_initialization", "composed", ComposedModelInitialization),
         E("model_initialization", "gpt2_llama3_like", Llama3Initializer),
         E("loss", "clm_cross_entropy_loss", CLMCrossEntropyLoss),
+        E("loss", "nce_loss", NCELoss),
         E("optimizer", "adam", OptimizerFactory.get_adam, AdamOptimizerConfig),
         E("optimizer", "adam_w", OptimizerFactory.get_adam_w, AdamOptimizerConfig),
         *[E("scheduler", name, cls) for name, cls in SCHEDULERS.items()],
@@ -136,10 +145,12 @@ def _training_components() -> list[ComponentEntity]:
         E("app_state", "dcp", AppStateFactory.get_dcp_checkpointed_app_state_, DCPAppStateConfig),
         E("dataset", "packed_mem_map_dataset_continuous", get_packed_mem_map_dataset_continuous,
           PackedMemMapDatasetContinuousConfig),
+        E("dataset", "dummy_dataset", get_dummy_dataset, DummyDatasetConfig),
         E("sampler", "resumable_distributed_multi_dim_sampler",
           samplers.create_resumable_distributed_multi_dim_sampler, samplers.ResumableDistributedMultiDimSamplerConfig),
         E("batch_sampler", "default", samplers.create_batch_sampler, samplers.BatchSamplerConfig),
         E("collate_fn", "gpt_2_llm_collator", GPT2LLMCollateFn),
+        E("collate_fn", "coca_collator", CoCaCollateFn, CoCaCollatorConfig),
         E("data_loader", "default", LLMDataLoader),
         E("checkpoint_saving", "default", CheckpointSaving),
         E("checkpoint_saving_strategy", "save_k_most_recent_checkpoints_strategy", SaveKMostRecentCheckpointsStrategy),

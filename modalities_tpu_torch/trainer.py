@@ -65,6 +65,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from modalities_tpu_torch.dataloader.dataloader import device_tensor
 from modalities_tpu_torch.resilience.coordination import (
     BALLOT_KEY,
     VOTE_CONTINUE,
@@ -98,16 +99,13 @@ logger = logging.getLogger(__name__)
 
 
 def stack_microbatches(batches: list, device: torch.device) -> dict:
-    """[acc] DatasetBatches of [mb, S] numpy arrays -> {"samples": {k: [acc, mb, S]},
-    "targets": {...}} int64 tensors on `device`."""
+    """[acc] DatasetBatches of [mb, ...] numpy arrays -> {"samples": {k: [acc, mb, ...]},
+    "targets": {...}} tensors on `device` (token ids int64, floats float32:
+    `device_tensor`)."""
 
     def stack(attr):
         keys = getattr(batches[0], attr).keys()
-        return {
-            k: torch.from_numpy(np.stack([np.asarray(getattr(b, attr)[k]) for b in batches]).astype(np.int64))
-            .to(device, non_blocking=True)
-            for k in keys
-        }
+        return {k: device_tensor(np.stack([np.asarray(getattr(b, attr)[k]) for b in batches]), device) for k in keys}
 
     return {"samples": stack("samples"), "targets": stack("targets")}
 

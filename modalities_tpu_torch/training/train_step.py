@@ -120,6 +120,14 @@ the step MAX-reduces the rank's vote over the world group and reports it.
 mean of the loss, every head route, under pp the F ops of the tables; over
 dcn, the mean of the slices' token means.
 
+A dict-in / dict-out model (`model.takes_samples`: the ViT, CoCa;
+models/model.py) has no head routes: its module takes the microbatch's
+whole samples dict (every key sliced per microbatch, floats as well as
+token ids) and returns the predictions dict, and the loss reads the
+predictions (its `sum_and_count` of `prediction_key`, or its mean). Its
+blocks are FSDP2's units; pp, tp and cp shard GPT2 alone and are refused
+for it, as the JAX package stages, splits and rings GPT2 alone.
+
 Knobs of the JAX builder that this branch does not handle raise
 NotImplementedError naming their ROADMAP.md item.
 """
@@ -166,12 +174,13 @@ class TrainStep:
                  seed: Optional[int] = None, device_mesh=None, pp_in_process: Optional[int] = None,
                  dcn_in_process: Optional[int] = None, zero_in_process: Optional[int] = None,
                  anomaly_policy: Optional[str] = None):
-        spec = model.config_spec
+        spec = getattr(model, "config_spec", None)  # GPT2's static spec; a dict-in model has none
+        self.takes_samples = getattr(model, "takes_samples", False)
         self.skip_on_anomaly = anomaly_policy in ("skip_step", "rollback")
         # fault baking: armed faults are resolved once, here (JAX train_step.py:401-411)
         self.nan_grads_fault = get_fault("nan_grads")
         self.loss_spike_fault = get_fault("loss_spike")
-        self.head_chunk = spec.lm_head_chunk_size
+        self.head_chunk = spec.lm_head_chunk_size if spec is not None else None
         if self.head_chunk is not None and not hasattr(loss_fn, "sum_and_count"):
             # silently materializing the [B, S, V] logits would be the memory blowup the chunking exists to prevent
             raise ValueError(
@@ -213,6 +222,9 @@ class TrainStep:
                 raise ValueError("pp_in_process runs every stage in this process: without a device mesh or on a "
                                  f"1-rank one (the world has {dist.get_world_size()} ranks)")
             pp = int(pp_in_process)
+        if self.takes_samples and (pp > 1 or device_mesh is not None and {"tp", "cp"} & set(device_mesh.mesh_axes)):
+            raise NotImplementedError(f"{type(model).__name__}: pipeline, tensor and context parallelism shard the "
+                                      "GPT2 model only (as in the JAX package); use a data-parallel mesh")
         self.stages: list[PipelineStage] = []
         self.pp_degree = pp
         self._tables_by_count: dict = {}
@@ -250,7 +262,8 @@ class TrainStep:
             for module in modules:  # under pp_in_process every stage is a root of its own
                 shard_model(module, device_mesh.fsdp_mesh(self.device), layers_per_fsdp_unit=fsdp.layers_per_fsdp_unit,
                             reshard_after_forward=fsdp.reshard_after_forward, reduce_dtype=self.reduce_dtype)
-                module.set_context_parallel(self.cp_group)
+                if not self.takes_samples:
+                    module.set_context_parallel(self.cp_group)
             self.dcn_group = device_mesh.dcn_group(self.device)
             self.pp_group = device_mesh.pp_group(self.device)
             if self.pp_group is not None:  # NCCL: a group's first call must include all its ranks; the
@@ -340,7 +353,14 @@ class TrainStep:
 
     def _sum_count(self, inputs, targets: dict):
         """This rank's (loss sum, token count) of a microbatch; a loss without
-        the sum_and_count form gives (its mean, 1)."""
+        the sum_and_count form gives (its mean, 1). `inputs`: the token ids,
+        or a dict-in model's samples dict."""
+        if self.takes_samples:
+            predictions = self.module(inputs)
+            if hasattr(self.loss_fn, "sum_and_count"):
+                return self._logits_sum_count(predictions[self.loss_fn.prediction_key],
+                                              targets[self.loss_fn.target_key])
+            return self.loss_fn(predictions, targets), torch.ones((), device=self.device)
         if self.head_chunk is not None:
             return self._chunked_ce(self.module, self.module.forward_hidden(inputs), targets[self.loss_fn.target_key])
         if hasattr(self.loss_fn, "sum_and_count"):
@@ -451,9 +471,21 @@ class TrainStep:
         chunk = seq // cp
         return t[..., self.cp_group.rank() * chunk:(self.cp_group.rank() + 1) * chunk]
 
+    def _microbatch(self, samples: dict, k: int, i: Optional[int] = None):
+        """In-process slice k's rows of microbatch i (of the [mb, ...] batch
+        when i is None): the token ids (this rank's cp chunk), or every
+        sample key for a dict-in model."""
+        def rows(t):
+            return self._slice_rows(t if i is None else t[i], k)
+
+        if self.takes_samples:
+            return {key: rows(v) for key, v in samples.items()}
+        return self._local_rows(rows(samples[self.model.sample_key]))
+
     def __call__(self, batch: dict) -> dict[str, Any]:
-        """batch: {"samples": {key: [acc, mb, S]}, "targets": {key: [acc, mb, S]}}
-        (integer tensors on the step's device) -> metrics."""
+        """batch: {"samples": {key: [acc, mb, ...]}, "targets": {key: [acc, mb, S]}}
+        (tensors on the step's device: token ids, and a dict-in model's float
+        samples) -> metrics."""
         samples, targets = batch["samples"], batch["targets"]
         sample_key = self.model.sample_key
         if samples[sample_key].shape[0] != self.acc_steps:
@@ -462,7 +494,7 @@ class TrainStep:
         loss_sums = [torch.zeros((), dtype=torch.float32, device=self.device) for _ in slice_accs]
         for i in range(self.acc_steps):
             for k, acc in enumerate(slice_accs):
-                inputs = self._local_rows(self._slice_rows(samples[sample_key][i], k))
+                inputs = self._microbatch(samples, k, i)
                 mb_targets = {key: self._local_rows(self._slice_rows(v[i], k)) for key, v in targets.items()}
                 if self.stages:
                     loss, _ = self._pp_run(inputs, mb_targets[self.loss_fn.target_key])
@@ -592,7 +624,7 @@ class TrainStep:
             "zero_stage": 1 if self.zero is not None else 0,
             "gradient_accumulation_steps": self.acc_steps,
             "dp_replicate": int(mesh.degrees.get("dp_replicate", 1) or 1),
-            "remat_variant": getattr(self.model.config_spec, "remat_variant", None),
+            "remat_variant": getattr(getattr(self.model, "config_spec", None), "remat_variant", None),
         }
         report = memscope_from_categories(categories, known, context)
         report["activation_estimate"] = activations
@@ -605,7 +637,7 @@ class TrainStep:
         losses = []
         with torch.no_grad():
             for k in range(self.slices):
-                inputs = self._local_rows(self._slice_rows(batch["samples"][self.model.sample_key], k))
+                inputs = self._microbatch(batch["samples"], k)
                 targets = {key: self._local_rows(self._slice_rows(v, k)) for key, v in batch["targets"].items()}
                 if self.stages:
                     total, count = self._pp_run(inputs, targets[self.loss_fn.target_key], forward_only=True)

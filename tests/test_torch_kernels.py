@@ -388,7 +388,7 @@ def test_flash_attention_kernels_match_autograd_of_the_plain_attention(shape, ca
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
 @pytest.mark.parametrize("group", [1, 3, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_fwd_kernel_over_ragged_lengths(d, group, causal):
@@ -409,7 +409,7 @@ def test_flash_fwd_kernel_over_ragged_lengths(d, group, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
 @pytest.mark.parametrize("group", [1, 3, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_dq_kernel_over_ragged_lengths(d, group, causal):
@@ -432,7 +432,7 @@ def test_flash_dq_kernel_over_ragged_lengths(d, group, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("d", [80, 96, 128])
 @pytest.mark.parametrize("group", [1, 3, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_dkv_kernel_over_ragged_lengths(d, group, causal):

@@ -1,11 +1,18 @@
 """The port stands alone: no module of modalities_tpu_torch, not the chip
 smoke script and not the port's scripts import JAX, its libraries, or anything
-of the JAX package (statically, by walking every import statement)."""
+of the JAX package (statically, by walking every import statement).
+
+Besides, a regression guard for the train step's dict-in path (the ViT and
+CoCa): a tiny GPT2 step fed through the trainer's device copy, with a float
+sample key beside its token ids, is bitwise the step fed the int64 token
+tensors alone, as every GPT2 step was fed before that path existed."""
 
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = (
@@ -59,3 +66,55 @@ def test_the_walk_covers_the_resilience_and_generation_modules():
             "resilience/coordination.py", "resilience/heartbeat.py", "resilience/supervisor.py",
             "utils/communication_test.py", "inference/inference.py",
             "inference/text/inference_component.py"} <= walked
+
+
+def test_the_walk_covers_the_multimodal_modules():
+    walked = {str(p.relative_to(ROOT / "modalities_tpu_torch")) for p in FILES if "modalities_tpu_torch" in p.parts}
+    assert {"nn/attention.py", "nn/mlp.py", "models/model.py", "models/vision_transformer/vision_transformer_model.py",
+            "models/coca/coca_model.py", "loss_functions.py", "dataloader/dataset.py",
+            "conversion/from_jax.py"} <= walked
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one intra-op thread: a tiny model's small ops on one thread a
+    core spin against a `-n 6` run's other xdist workers (as in
+    tests/test_torch_coca.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_a_gpt2_step_is_bitwise_the_same_through_the_device_copy_with_float_samples_beside_it(one_torch_thread):
+    from modalities_tpu_torch.dataloader.dataloader import DatasetBatch
+    from modalities_tpu_torch.trainer import stack_microbatches
+    from tests.test_torch_gloo import _tiny_step
+    from tests.test_torch_gpt2 import port_config
+
+    spec = {"degrees": None, "seed": 3, "acc": 2, "clip": 1.0, "model": port_config(),
+            "opt": dict(lr=1e-3, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                        weight_decay_groups_excluded=["embedding", "norm"]),
+            "sched": dict(warmup_steps=2, total_steps=10, initial_lr=0.0, final_lr=1e-4, max_lr=1e-3)}
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 128, size=(2, 2, 2, 33)).astype(np.int32)  # [steps, acc, mb, S + 1]
+    images = rng.standard_normal((2, 2, 2, 8, 8, 3))
+    runs = []
+    for through_the_trainer in (False, True):
+        step, _ = _tiny_step(spec, 1)
+        metrics = []
+        for t, im in zip(tokens, images):
+            if through_the_trainer:  # the trainer's copy; an extra float key the GPT2 step must leave alone
+                batch = stack_microbatches([DatasetBatch(samples={"input_ids": a[:, :-1], "images": i},
+                                                         targets={"target_ids": a[:, 1:]}) for a, i in zip(t, im)],
+                                           torch.device("cpu"))
+                assert batch["samples"]["input_ids"].dtype == torch.int64
+                assert batch["samples"]["images"].dtype == torch.float32
+            else:  # the token tensors as the trainer made them before the dict-in path: int64, nothing else
+                batch = {"samples": {"input_ids": torch.from_numpy(t[..., :-1].astype(np.int64))},
+                         "targets": {"target_ids": torch.from_numpy(t[..., 1:].astype(np.int64))}}
+            metrics.append([step(batch)[k].clone() for k in ("loss", "grad_norm", "lr")])
+        runs.append((metrics, step.state_dict()))
+    (m0, p0), (m1, p1) = runs
+    assert all(torch.equal(a, b) for x, y in zip(m0, m1) for a, b in zip(x, y))
+    assert p0.keys() == p1.keys() and all(torch.equal(p0[k], p1[k]) for k in p0)

@@ -46,8 +46,8 @@ def test_the_port_registers_exactly_the_jax_catalogs_pairs():
 
 
 def test_each_unported_pair_names_a_queue_1_item():
-    assert len(UNPORTED) == 31
-    assert sorted(item for item, _ in UNPORTED.values()) == [6] * 7 + [7] * 24
+    assert len(UNPORTED) == 26
+    assert sorted(item for item, _ in UNPORTED.values()) == [6] * 2 + [7] * 24
     for (key, variant), (item, _) in UNPORTED.items():
         assert item in (5, 6, 7)
         with pytest.raises(NotImplementedError, match=rf"{key}\.{variant} .* Queue 1 item {item}\)"):
@@ -65,6 +65,57 @@ def test_each_pair_a_shipped_config_names_is_built_or_names_its_item(config):
             assert re.search(r"ROADMAP\.md, Queue 1 item \d+", str(e)), (key, variant, str(e))
         else:
             assert not isinstance(component, Unported) and callable(component), (key, variant)
+
+
+MULTIMODAL_PAIRS = {("model", "coca"), ("model", "vision_transformer"), ("loss", "nce_loss"),
+                    ("dataset", "dummy_dataset"), ("collate_fn", "coca_collator")}
+
+
+def _resolved(node, root: dict):
+    """`node` with its `${settings...}` references (no resolver) read from `root`."""
+    if isinstance(node, dict):
+        return {k: _resolved(v, root) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_resolved(v, root) for v in node]
+    if isinstance(node, str) and node.startswith("${") and ":" not in node:
+        value = root
+        for key in node[2:-1].split("."):
+            value = value[key]
+        return _resolved(value, root)
+    return node
+
+
+def test_the_multimodal_pairs_are_built_from_the_coca_configs_nodes():
+    """config_example_coca_tpu.yaml names no refused pair; its model, dataset
+    and collator nodes build the port's components, and the ViT and NCE loss
+    build from nodes of the same shape; the HF model and the sp tokenizer
+    still name item 6."""
+    from modalities_tpu_torch.config.component_factory import ComponentFactory
+    from modalities_tpu_torch.dataloader.dataset import DummyDataset
+    from modalities_tpu_torch.loss_functions import NCELoss
+    from modalities_tpu_torch.models.coca.coca_model import CoCa, CoCaCollateFn
+    from modalities_tpu_torch.models.vision_transformer.vision_transformer_model import VisionTransformer
+
+    assert not MULTIMODAL_PAIRS & set(UNPORTED)
+    assert set(UNPORTED) & {("model", "huggingface_pretrained_model"), ("tokenizer", "pretrained_sp_tokenizer")}
+    cfg = yaml.safe_load((ROOT / "configs" / "config_example_coca_tpu.yaml").read_text())
+    pairs = _pairs(cfg, set())
+    assert MULTIMODAL_PAIRS - {("model", "vision_transformer"), ("loss", "nce_loss")} <= pairs
+    assert not pairs & set(UNPORTED)
+    factory = ComponentFactory(PORT)
+    nodes = {key: _resolved(cfg[key]["config"], cfg) for key in ("model_raw", "train_dataset", "collate_fn")}
+    coca = factory._instantiate("model", "coca", nodes["model_raw"])
+    assert isinstance(coca, CoCa) and coca.vision_spec["block_size"] == 16 and coca.num_parameters() > 0
+    dataset = factory._instantiate("dataset", "dummy_dataset", nodes["train_dataset"])
+    assert isinstance(dataset, DummyDataset) and len(dataset) == 384
+    assert dataset[0]["images"].shape == (32, 32, 3) and dataset[0]["input_ids"].shape == (17,)
+    collator = factory._instantiate("collate_fn", "coca_collator", nodes["collate_fn"])
+    assert isinstance(collator, CoCaCollateFn) and collator.text_target_key == "target_ids"
+    vit = factory._instantiate("model", "vision_transformer",
+                               dict(nodes["model_raw"]["vision_encoder_config"], n_classes=10))
+    assert isinstance(vit, VisionTransformer) and vit.spec["n_classes"] == 10
+    loss = factory._instantiate("loss", "nce_loss", {"prediction_key1": "vision_cls", "prediction_key2": "text_cls"})
+    assert isinstance(loss, NCELoss) and loss.is_asymmetric and loss.temperature == 1.0
 
 
 def test_the_7b_tp_configs_variants_are_ported():
